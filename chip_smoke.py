@@ -1,0 +1,410 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, each of which raises (and so exits non-zero) when a check fails:
+
+1. device: the card's name and power limit (nvidia-smi), torch and CUDA
+   versions, and the float32 precision flags (TF32 off everywhere);
+2. build: the four front-end kernels from quatro_tpu_torch/csrc, one nvcc
+   per source, all started together; build time and ptxas register and
+   spill summary;
+3. pipeline: ``register_features`` on the seed-11 HDL-64E synthetic pair
+   (the pair of tests/test_pipeline.py) at full width, 8192 voxels and
+   1024 correspondences, on the card. The pose must be within 0.05 rad /
+   0.5 m of the ground truth, and each kernel's launch count over the run
+   must be 1 (moments), 1 (SPFH), 1 (FPFH) and 2 (top-2 NN). Per-stage
+   times from CUDA events after one warm-up run; the pair latency over ten
+   more runs; then one run under torch.profiler for the card's busy time,
+   its idle share of the median pair and the top kernels;
+4. kernels: each kernel on the pipeline's own tensors against its plain
+   PyTorch version on the card, with its time, the plain version's time,
+   the least time the card could take for the same work, and (top-2 NN
+   only) one library call computing the same function.
+
+The last two lines of standard output are the card's kernel table as one
+JSON object and ``{"ok": true, "device": {...}}``. Without a CUDA device,
+or without the quatro_tpu_torch package beside it, it fails before
+printing any result.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# Published peaks of one H100 SXM (NVIDIA data sheet, dense): f32 outside
+# the tensor cores, and HBM3 bandwidth.
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_S = 3.35e12
+
+# f32 operations per pair, counted from the kernels' sources: the radius
+# test (3 sub, 3 mul, 2 add, 1 compare) on every pair of valid points, and
+# the work on each pair inside the radius.
+OPS_PAIR_TEST = 9
+OPS_MOMENTS = 16          # 10 accumulations, 6 products
+OPS_SPFH = 80             # Darboux frame, atan2 and three bins (approx.)
+OPS_FPFH = 2 + 2 * 33     # weight (max, divide) and 33 FMAs
+OPS_NN = 2 * 33 + 4       # 33 FMAs, the expansion, the top-2 compares
+
+PAIR_REPEATS = 10         # timed pipeline runs for the latency spread
+PIPELINE_PAIR = dict(seed=11, yaw_deg=20.0, translation=(2.5, 1.0, 0.05))
+
+REPLACES = {
+    "moment_sums": "quatro_tpu/ops/pallas_frontend.py:293",
+    "spfh": "quatro_tpu/ops/pallas_frontend.py:366",
+    "fpfh": "quatro_tpu/ops/pallas_frontend.py:391",
+    "nearest_neighbors2": "quatro_tpu/ops/pallas_frontend.py:550",
+}
+SOURCES = {
+    "moment_sums": "quatro_tpu_torch/csrc/moment_sums.cu",
+    "spfh": "quatro_tpu_torch/csrc/spfh.cu",
+    "fpfh": "quatro_tpu_torch/csrc/fpfh.cu",
+    "nearest_neighbors2": "quatro_tpu_torch/csrc/nn2.cu",
+}
+EXPECTED_LAUNCHES = {"moment_sums": 1, "spfh": 1, "fpfh": 1,
+                     "nearest_neighbors2": 2}
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def check(cond, what):
+    if not cond:
+        raise AssertionError(what)
+
+
+def nonground(xyz, sensor_height=1.723, margin=0.3):
+    """The crude ground strip of tests/test_pipeline.py (Patchwork is a
+    later slice of the port)."""
+    return xyz[xyz[:, 2] > -sensor_height + margin]
+
+
+def pose_errors(sol, gt):
+    from quatro_tpu_torch.utils.se3 import rotation_geodesic_error
+    rot = sol.rotation.detach().cpu()
+    rerr = float(rotation_geodesic_error(
+        torch.from_numpy(gt[:3, :3]).float(), rot))
+    terr = float(np.linalg.norm(sol.translation.detach().cpu().numpy()
+                                - gt[:3, 3]))
+    return rerr, terr
+
+
+def cuda_ms(fn, reps=20):
+    """Mean ms of one call over `reps` calls after a warm-up, CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+class StageTimer:
+    """The pipeline's ``timer`` callback: a CUDA event at each stage end."""
+
+    def __init__(self):
+        self.marks = []
+        self.mark("start")
+
+    def mark(self, name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.marks.append((name, ev))
+
+    __call__ = mark
+
+    def split_ms(self):
+        torch.cuda.synchronize()
+        return {name: prev.elapsed_time(ev) for (_, prev), (name, ev)
+                in zip(self.marks, self.marks[1:])}
+
+
+def bound(ops, nbytes):
+    t_ops = ops / PEAK_F32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_device():
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    log(smi.stdout.strip().splitlines()[0])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    check(torch.get_float32_matmul_precision() == "highest",
+          "float32 matmul precision must be 'highest'")
+    log(f"torch {torch.__version__}  cuda {torch.version.cuda}  "
+        f"python {sys.version.split()[0]}  device "
+        f"{torch.cuda.get_device_name(0)}  count {torch.cuda.device_count()}")
+    log("precision: matmul.allow_tf32="
+        f"{torch.backends.cuda.matmul.allow_tf32} cudnn.allow_tf32="
+        f"{torch.backends.cudnn.allow_tf32} float32_matmul_precision="
+        f"{torch.get_float32_matmul_precision()}")
+
+
+def phase_build():
+    from quatro_tpu_torch import _build
+    t0 = time.perf_counter()
+    built = _build.build(force=True)
+    log(f"build: {len(built)} kernels in {time.perf_counter() - t0:.1f} s")
+    for name, info in built.items():
+        log(f"  {name}: nvcc {info['seconds']:.1f} s")
+        for line in info["ptxas"].splitlines():
+            log(f"    {line.strip()}")
+
+
+def full_width_case():
+    """The seed-11 HDL-64E pair of tests/test_pipeline.py at 8192 voxels,
+    65536 points per cloud after the crude ground strip."""
+    from quatro_tpu_torch.config import PipelineConfig, SolverConfig
+    from quatro_tpu_torch.io.synthetic import make_scan_pair
+    from quatro_tpu_torch.types import PointBatch
+
+    src_xyz, tgt_xyz, gt = make_scan_pair(**PIPELINE_PAIR)
+    cfg = PipelineConfig(max_voxels=8192,
+                         solver=SolverConfig(use_pallas_graph=False))
+    src = PointBatch.from_numpy(nonground(src_xyz), capacity=65536)
+    tgt = PointBatch.from_numpy(nonground(tgt_xyz), capacity=65536)
+    log(f"pipeline: HDL-64E pair seed 11, {int(src.mask.sum())} / "
+        f"{int(tgt.mask.sum())} non-ground points, max_voxels "
+        f"{cfg.max_voxels}, max_correspondences "
+        f"{cfg.fpfh.max_correspondences}")
+    return src, tgt, gt, cfg
+
+
+def phase_pipeline(case):
+    from quatro_tpu_torch.ops import frontend
+    from quatro_tpu_torch.pipeline import register_features
+
+    src, tgt, gt, cfg = case
+    register_features(src, tgt, cfg)                 # warm-up
+    torch.cuda.synchronize()
+    frontend.reset_launches()
+    timer = StageTimer()
+    t0 = time.perf_counter()
+    res = register_features(src, tgt, cfg, timer=timer)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(frontend.LAUNCHES)
+    stages = timer.split_ms()
+
+    sol = res.solution
+    n_corr = int(res.correspondences.mask.sum())
+    rerr, terr = pose_errors(sol, gt)
+    occupied = [int(v.mask.sum()) for v in (res.src_voxels, res.tgt_voxels)]
+    log(f"pipeline: valid {bool(sol.valid)}  voxels {occupied[0]} / "
+        f"{occupied[1]}  correspondences {n_corr}  rotation error "
+        f"{rerr:.6f} rad  translation error {terr:.6f} m")
+    log("pipeline stages (ms, CUDA events): " + json.dumps(
+        {k: round(v, 3) for k, v in stages.items()})
+        + f"  host wall {wall_ms:.3f} ms")
+    log(f"pipeline launches: {json.dumps(launches)}")
+    check(bool(sol.valid), "solution not valid")
+    check(n_corr >= 10, f"too few correspondences: {n_corr}")
+    check(rerr < 0.05, f"rotation error {rerr} rad")
+    check(terr < 0.5, f"translation error {terr} m")
+    check(torch.isfinite(sol.transform()).all(), "non-finite transform")
+    check(launches == EXPECTED_LAUNCHES,
+          f"launch counts {launches} != {EXPECTED_LAUNCHES}")
+
+    walls = []
+    for _ in range(PAIR_REPEATS):
+        t0 = time.perf_counter()
+        register_features(src, tgt, cfg)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    walls.sort()
+    wall_ms = walls[len(walls) // 2]
+    log(f"pipeline pair latency over {PAIR_REPEATS} runs (ms, host wall): "
+        f"min {walls[0]:.3f}  median {wall_ms:.3f}  max {walls[-1]:.3f}")
+    return res, cfg, launches, wall_ms
+
+
+def phase_profile(case, wall_ms, top=10):
+    """One more pipeline run under torch.profiler: the card's busy time
+    (sum of device times on the one stream), the idle share against the
+    unprofiled run's host wall time ``wall_ms`` (the profiler slows the
+    host, not the card), and the kernels that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from quatro_tpu_torch.pipeline import register_features
+
+    src, tgt, _, cfg = case
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        register_features(src, tgt, cfg)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side events only (kernels, copies, fills): the CPU operators
+    # that launched them carry the same time again
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.is_user_annotation and e.self_device_time_total > 0]
+    busy_ms = sum(ms for _, ms, _ in rows)
+    if not rows:
+        log("profile: the profiler saw no device time; idle share not "
+            "measured")
+        return
+    log(f"profile: device busy {busy_ms:.3f} ms in "
+        f"{sum(c for *_, c in rows)} device operations; idle share "
+        f"{1.0 - busy_ms / wall_ms:.4f} of the {wall_ms:.3f} ms pair "
+        f"(host wall under the profiler {prof_wall_ms:.3f} ms)")
+    for name, ms, count in sorted(rows, key=lambda r: -r[1])[:top]:
+        log(f"  {ms:9.3f} ms  {count:6d}x  {name[:90]}")
+
+
+def phase_kernels(res, cfg, launches):
+    from quatro_tpu_torch.ops import frontend as fe
+    from quatro_tpu_torch.ops.fpfh import normalize_blocks
+
+    pts = torch.stack([res.src_voxels.points,
+                       res.tgt_voxels.points]).contiguous()
+    mask = torch.stack([res.src_voxels.mask, res.tgt_voxels.mask])
+    maskf = mask.float().contiguous()
+    rn, rf = cfg.fpfh.normal_radius, cfg.fpfh.fpfh_radius
+    bsz, v = mask.shape
+    nv = mask.sum(1).double()
+    rows = []
+
+    def in_radius(radius, m):
+        """In-radius pairs (self excluded) per cloud, valid pairs only."""
+        n = 0
+        for b in range(bsz):
+            p = pts[b][m[b]]
+            for s in range(0, p.shape[0], 2048):
+                d2 = torch.cdist(p[s:s + 2048], p, compute_mode=
+                                 "donot_use_mm_for_euclid_dist").square()
+                n += int(((d2 <= radius * radius) & (d2 > 1e-12)).sum())
+        return n
+
+    def row(name, err, k_ms, p_ms, ops, nbytes, lib_ms=None):
+        b_ms, by = bound(ops, nbytes)
+        r = {"name": name, "route": "cuda", "source": SOURCES[name],
+             "replaces": REPLACES[name], "launches": launches[name],
+             "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+             "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms}
+        log(json.dumps(r))
+        rows.append(r)
+
+    # B3 moment sums
+    got = fe.moment_sums(pts, maskf, rn)
+    ref = fe.moment_sums_plain(pts, maskf, rn)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-4)
+    pairs_all = float((nv * nv).sum())
+    n_rn = in_radius(rn, mask)
+    row("moment_sums", float((got - ref).abs().max()),
+        cuda_ms(lambda: fe.moment_sums(pts, maskf, rn)),
+        cuda_ms(lambda: fe.moment_sums_plain(pts, maskf, rn), 5),
+        pairs_all * OPS_PAIR_TEST + (n_rn + float(nv.sum())) * OPS_MOMENTS,
+        bsz * v * (3 + 1 + 10) * 4)
+
+    # B4 SPFH, on the pipeline's own normals
+    normals = fe.frontend_normals(pts, mask, rn)
+    nrm = normals.normals.contiguous()
+    pmask = mask & normals.valid
+    pmf = pmask.float().contiguous()
+    hist, cnt = fe.spfh(pts, nrm, pmf, rf)
+    rhist, rcnt = fe.spfh_plain(pts, nrm, pmf, rf)
+    check(torch.equal(cnt, rcnt), "SPFH pair counts differ")
+    flipped = float((hist != rhist).any(-1).float().mean())
+    log(f"spfh: bin-edge flips on {flipped:.4%} of rows")
+    check(flipped < 0.005, f"SPFH bins differ on {flipped:.2%} of rows")
+    npv = pmask.sum(1).double()
+    n_rf = in_radius(rf, pmask)
+    row("spfh", float((hist - rhist).abs().max()),
+        cuda_ms(lambda: fe.spfh(pts, nrm, pmf, rf)),
+        cuda_ms(lambda: fe.spfh_plain(pts, nrm, pmf, rf), 5),
+        float((npv * npv).sum()) * OPS_PAIR_TEST + n_rf * OPS_SPFH,
+        bsz * v * (3 + 3 + 1 + 33 + 1) * 4)
+
+    # B5 FPFH weighted sums, compared after the per-block normalisation
+    srows = (hist * (100.0 / torch.clamp(cnt, min=1.0))[..., None]).contiguous()
+    got = fe.fpfh_sums(pts, srows, pmf, rf)
+    ref = fe.fpfh_sums_plain(pts, srows, pmf, rf)
+    diff = (normalize_blocks(got) - normalize_blocks(ref)).abs()
+    check(float(diff.mean()) < 0.02, f"FPFH mean diff {float(diff.mean())}")
+    affected = float((diff.amax(-1) > 1.0).float().mean())
+    check(affected < 0.02, f"FPFH rows off by > 1: {affected:.2%}")
+    row("fpfh", float(diff.max()),
+        cuda_ms(lambda: fe.fpfh_sums(pts, srows, pmf, rf)),
+        cuda_ms(lambda: fe.fpfh_sums_plain(pts, srows, pmf, rf), 5),
+        float((npv * npv).sum()) * OPS_PAIR_TEST + n_rf * OPS_FPFH,
+        bsz * v * (3 + 33 + 1 + 33) * 4)
+
+    # B7 top-2 NN, source descriptors against target descriptors
+    desc = fe.frontend_fpfh(pts, nrm, normals.valid, mask, rf).contiguous()
+    dmask = pmask.contiguous()
+    da, db = desc[0:1], desc[1:2]
+    ma, mb = dmask[0:1], dmask[1:2]
+    i1, d1, i2, d2 = fe.nearest_neighbors2(da, db, ma, mb)
+    sq_a, sq_b = (da * da).sum(-1), (db * db).sum(-1)
+    ri1, rd1, ri2, rd2 = fe._fill_empty(*fe.nearest_neighbors2_plain(
+        da, db, ma.float(), mb.float(), sq_a, sq_b), ma)
+    # distances within rtol 1e-5 plus 1e-6 of the largest |a|^2 + |b|^2
+    # (the expansion's rounding, all there is of a distance between equal
+    # descriptors); the first index equal wherever the top-2 gap is clear
+    scale = float(sq_a.max() + sq_b.max())
+    for got_d, ref_d in ((d1, rd1), (d2, rd2)):
+        ok = ~ma | ((got_d - ref_d).abs() <= 1e-5 * ref_d.abs() + 1e-6 * scale)
+        check(bool(ok.all()), "top-2 distances differ")
+    clear = ma & (rd2 - rd1 > 1e-4 * rd1)
+    check(torch.equal(i1[clear], ri1[clear]), "top-2 first indices differ")
+    log(f"nearest_neighbors2: {int(clear.sum())} of {int(ma.sum())} valid "
+        f"rows with a clear gap, i1 equal on all of them")
+
+    def library_top2():
+        d = torch.cdist(da[0], db[0]).square()
+        d = torch.where(ma[0][:, None] & mb[0][None, :], d, fe.FLT_MAX)
+        return torch.topk(d, 2, dim=1, largest=False)
+
+    nva, nvb = float(ma.sum()), float(mb.sum())
+    row("nearest_neighbors2",
+        float((d1 - rd1)[ma].abs().max()),
+        cuda_ms(lambda: fe.nearest_neighbors2(da, db, ma, mb)),
+        cuda_ms(lambda: fe.nearest_neighbors2_plain(
+            da, db, ma.float(), mb.float(), sq_a, sq_b), 5),
+        nva * nvb * OPS_NN,
+        (2 * v * (33 + 1)) * 4 + v * 4 * 4,
+        cuda_ms(library_top2))
+    return rows
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    import quatro_tpu_torch  # noqa: F401  (fails outside the repository)
+
+    phase_device()
+    phase_build()
+    case = full_width_case()
+    res, cfg, launches, wall_ms = phase_pipeline(case)
+    phase_profile(case, wall_ms)
+    rows = phase_kernels(res, cfg, launches)
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,21 @@
+"""PyTorch / CUDA port of quatro-tpu for NVIDIA Hopper (H100).
+
+A second package beside the JAX reference ``quatro_tpu``; it imports
+neither jax nor anything of ``quatro_tpu``. The front-end path
+(``pipeline.register_features``) runs end to end; its four pair kernels
+are hand-written CUDA in ``csrc/``.
+"""
+
+from quatro_tpu_torch.config import (FPFHConfig, LidarConfig, PipelineConfig,
+                                     SolverConfig, config_from_dict,
+                                     config_to_dict)
+from quatro_tpu_torch.pipeline import extract_features, register_features
+from quatro_tpu_torch.solver.quatro import register_correspondences
+from quatro_tpu_torch.types import PointBatch, RegistrationSolution
+
+__all__ = [
+    "FPFHConfig", "LidarConfig", "PipelineConfig", "SolverConfig",
+    "config_from_dict", "config_to_dict", "extract_features",
+    "register_features", "register_correspondences", "PointBatch",
+    "RegistrationSolution",
+]

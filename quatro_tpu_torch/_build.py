@@ -1,0 +1,109 @@
+"""Build and load the hand-written CUDA kernels (csrc/*.cu).
+
+Each source is compiled by its own ``nvcc`` process, all started together,
+into a shared library with a plain C interface, and loaded with ctypes:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -Xptxas -v -o build/kernels/lib<name>.so csrc/<name>.cu
+
+The build happens at first use, never at import, into ``build/kernels/``
+beside the package (git-ignored); a library newer than its sources is
+reused. A failed build raises: nothing falls back to the plain versions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signature of each kernel's launcher: every pointer and the stream as
+# c_void_p (a bare Python int would be passed as a 32-bit int).
+SIGNATURES = {
+    "moment_sums": ("quatro_moment_sums", [_P, _P, _I, _I, _F, _P, _P]),
+    "spfh": ("quatro_spfh", [_P, _P, _P, _I, _I, _F, _P, _P, _P]),
+    "fpfh": ("quatro_fpfh", [_P, _P, _P, _I, _I, _F, _P, _P]),
+    "nn2": ("quatro_nn2", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _P, _P, _P, _P, _P]),
+}
+
+_loaded: dict = {}
+build_log: dict = {}    # name -> {"seconds": s, "ptxas": text}; last build
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                           "machine with the CUDA toolkit")
+    return path
+
+
+def _stale(lib: Path, src: Path) -> bool:
+    if not lib.exists():
+        return True
+    newest = max(p.stat().st_mtime for p in (src, CSRC / "common.cuh"))
+    return lib.stat().st_mtime < newest
+
+
+def build(names=None, force: bool = False) -> dict:
+    """Compile the named kernels (default: all) in parallel; return
+    ``build_log``. Raises RuntimeError with nvcc's output on failure."""
+    names = list(SIGNATURES) if names is None else list(names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    t0 = time.perf_counter()
+    for name in names:
+        src = CSRC / f"{name}.cu"
+        lib = BUILD_DIR / f"lib{name}.so"
+        if not force and not _stale(lib, src):
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc, *ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler",
+               "-fPIC", "-Xptxas", "-v", "-o", tmp, str(src)]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, lib)
+    failed = []
+    for name, (proc, tmp, lib) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"--- {name} (exit {proc.returncode})\n{out}")
+            continue
+        os.replace(tmp, lib)
+        ptxas = "\n".join(line for line in out.splitlines()
+                          if "registers" in line or "spill" in line
+                          or "Compiling entry" in line)
+        build_log[name] = {"seconds": time.perf_counter() - t0,
+                           "ptxas": ptxas}
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return build_log
+
+
+def load(name: str):
+    """The ctypes function of kernel ``name``, building it if needed."""
+    fn = _loaded.get(name)
+    if fn is None:
+        build([name])
+        symbol, argtypes = SIGNATURES[name]
+        lib = ctypes.CDLL(str(BUILD_DIR / f"lib{name}.so"))
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _loaded[name] = fn
+    return fn

@@ -1,0 +1,139 @@
+"""The front-end registration path: voxel -> normals -> FPFH -> matching ->
+Quatro solve, on clouds whose ground is already removed.
+
+PyTorch counterpart of ``register_features`` / ``extract_features`` in
+``quatro_tpu/pipeline.py`` (the minimum end-to-end path; the reference's
+application flow, examples/run_global_registration.cpp:127-251, without
+its preprocessing). The source and target clouds go through feature
+extraction as one batch of two, as the JAX package stacks them.
+
+Entry points take ``device=None`` (the card; see device.py) and an
+optional ``timer``: a callable given the name of each stage as it ends
+("voxel", "normals", "fpfh", "matching", "solver"), for per-stage timing.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from quatro_tpu_torch.config import PipelineConfig
+from quatro_tpu_torch.device import resolve_device, to_tensor
+from quatro_tpu_torch.ops.matching import Correspondences, match_features
+from quatro_tpu_torch.ops.voxel import voxel_downsample
+from quatro_tpu_torch.solver.quatro import register_correspondences
+from quatro_tpu_torch.types import PointBatch, RegistrationSolution
+
+
+class PipelineResult(NamedTuple):
+    solution: RegistrationSolution
+    correspondences: Correspondences
+    src_voxels: PointBatch
+    tgt_voxels: PointBatch
+    icp: None = None           # ICP refinement is not ported yet
+
+
+def _noop(stage: str) -> None:
+    pass
+
+
+def extract_features(points, mask, config: PipelineConfig, device=None,
+                     timer: Optional[Callable[[str], None]] = None):
+    """Voxel downsample -> normals -> FPFH for one cloud (N, 3) or a batch
+    of clouds (B, N, 3) of one capacity.
+
+    Returns (voxel PointBatch, descriptors (.., V, 33), descriptor mask,
+    Normals), with the batch axis when the input had one. On the card the
+    kernel front end (ops/frontend.py) always runs, whatever V is, and
+    ``use_pallas_frontend=False`` raises ValueError. On the CPU the JAX
+    package's dispatch holds: the kernel path's plain versions when
+    ``config.fpfh.use_pallas_frontend`` is True and V is a multiple of 512,
+    else the dense path.
+    """
+    from quatro_tpu_torch.ops.dense_features import dense_fpfh, dense_normals
+    from quatro_tpu_torch.ops.frontend import frontend_fpfh, frontend_normals
+    from quatro_tpu_torch.ops.normals import Normals
+
+    timer = timer or _noop
+    dev = resolve_device(device)
+    pts = to_tensor(points, torch.float32, dev)
+    msk = to_tensor(mask, torch.bool, dev)
+    batched = pts.dim() == 3
+    if not batched:
+        pts, msk = pts[None], msk[None]
+    if dev.type == "cuda" and config.fpfh.use_pallas_frontend is False:
+        raise ValueError("use_pallas_frontend=False selects the dense plain "
+                         "front end, which runs on the CPU only; on the "
+                         "card the front end is the kernels")
+
+    vox = [voxel_downsample(p, m, config.voxel_size, config.max_voxels,
+                            active_cap=config.max_segment_points)
+           for p, m in zip(pts, msk)]
+    vox_pts = torch.stack([v[0] for v in vox]).contiguous()
+    vox_mask = torch.stack([v[1] for v in vox]).contiguous()
+    timer("voxel")
+    if dev.type == "cuda" or (config.fpfh.use_pallas_frontend
+                              and vox_pts.shape[1] % 512 == 0):
+        normals = frontend_normals(vox_pts, vox_mask,
+                                   config.fpfh.normal_radius)
+        timer("normals")
+        desc = frontend_fpfh(vox_pts, normals.normals, normals.valid,
+                             vox_mask, config.fpfh.fpfh_radius)
+    else:
+        normals = dense_normals(vox_pts, vox_mask, config.fpfh.normal_radius)
+        timer("normals")
+        desc = dense_fpfh(vox_pts, normals.normals, normals.valid, vox_mask,
+                          config.fpfh.fpfh_radius)
+    timer("fpfh")
+    desc_mask = vox_mask & normals.valid
+    if not batched:
+        return (PointBatch(vox_pts[0], vox_mask[0]), desc[0], desc_mask[0],
+                Normals(*(t[0] for t in normals)))
+    return PointBatch(vox_pts, vox_mask), desc, desc_mask, normals
+
+
+def register_features(src: PointBatch, tgt: PointBatch,
+                      config: PipelineConfig = PipelineConfig(),
+                      device=None,
+                      timer: Optional[Callable[[str], None]] = None
+                      ) -> PipelineResult:
+    """Feature extraction + matching + solve on already-preprocessed
+    clouds (the single-hypothesis branch of the JAX package's
+    register_features)."""
+    if config.solver.total_hypotheses > 1:
+        raise NotImplementedError("multi-hypothesis registration "
+                                  "(register_hypotheses) is ported in slice 2")
+    if config.icp.enabled:
+        raise NotImplementedError("ICP refinement is not ported yet")
+    timer = timer or _noop
+    dev = resolve_device(device)
+    src, tgt = src.to(dev), tgt.to(dev)
+    if src.points.shape == tgt.points.shape:
+        vox, desc, dmask, _ = extract_features(
+            torch.stack([src.points, tgt.points]),
+            torch.stack([src.mask, tgt.mask]), config, dev, timer)
+        src_vox = PointBatch(vox.points[0], vox.mask[0])
+        tgt_vox = PointBatch(vox.points[1], vox.mask[1])
+        src_desc, tgt_desc = desc[0], desc[1]
+        src_dmask, tgt_dmask = dmask[0], dmask[1]
+    else:
+        src_vox, src_desc, src_dmask, _ = extract_features(
+            src.points, src.mask, config, dev, timer)
+        tgt_vox, tgt_desc, tgt_dmask, _ = extract_features(
+            tgt.points, tgt.mask, config, dev, timer)
+
+    f = config.fpfh
+    corr = match_features(
+        src_vox.points, tgt_vox.points, src_desc, tgt_desc,
+        src_dmask, tgt_dmask, capacity=f.max_correspondences,
+        use_crosscheck=f.use_crosscheck,
+        crosscheck_min_matches=f.crosscheck_min_matches,
+        use_tuple_test=f.use_tuple_test, tuple_scale=f.tuple_scale,
+        trials_per_corr=f.tuple_trials_per_corr,
+        tuple_min_keep=f.tuple_min_keep, seed=f.tuple_seed, device=dev)
+    timer("matching")
+    sol = register_correspondences(corr.src_xyz, corr.tgt_xyz, corr.mask,
+                                   config.solver, device=dev)
+    timer("solver")
+    return PipelineResult(sol, corr, src_vox, tgt_vox)

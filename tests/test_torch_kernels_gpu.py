@@ -1,0 +1,160 @@
+"""The four CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here is marked ``gpu`` and skips without a CUDA device. The
+machine with the card has no JAX, so this file imports only the port, and
+runs without the suite's conftest (which imports JAX):
+
+    python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
+
+The plain versions are themselves held against the JAX package's Pallas
+kernels on the CPU (tests/test_torch_frontend.py); the tolerances are
+those of chip_smoke.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from quatro_tpu_torch.config import LidarConfig, PipelineConfig, replace
+from quatro_tpu_torch.io.synthetic import make_scan_pair
+from quatro_tpu_torch.ops import frontend as tf
+from quatro_tpu_torch.ops.voxel import voxel_downsample
+from quatro_tpu_torch.pipeline import extract_features
+
+pytestmark = pytest.mark.gpu
+
+V = 2048
+CFG = PipelineConfig.for_lidar("VLP-16", max_voxels=V)
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the H100)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def scans():
+    """The level_a VLP-16 pair after the crude ground strip, as (2, 32768,
+    3) points and (2, 32768) masks on the CPU."""
+    pair = make_scan_pair(seed=101, yaw_deg=38.0,
+                          translation=(2.5, -1.2, 0.04),
+                          lidar=LidarConfig.preset("VLP-16"))
+    pts = torch.zeros(2, 32768, 3)
+    masks = torch.zeros(2, 32768, dtype=torch.bool)
+    for b, xyz in enumerate(pair[:2]):
+        xyz = xyz[xyz[:, 2] > -1.723 + 0.3]
+        pts[b, :len(xyz)], masks[b, :len(xyz)] = torch.from_numpy(xyz), True
+    return pts, masks
+
+
+@pytest.fixture(scope="module")
+def cloud(dev, scans):
+    """A batch of two voxelised VLP-16 scans (the level_a pair), (2, V, 3)
+    and (2, V), on the card."""
+    vox = [voxel_downsample(p.to(dev), m.to(dev), CFG.voxel_size, V,
+                            active_cap=CFG.max_segment_points)
+           for p, m in zip(*scans)]
+    return (torch.stack([v[0] for v in vox]).contiguous(),
+            torch.stack([v[1] for v in vox]).contiguous())
+
+
+def test_extract_features_any_width_runs_the_kernels(dev, scans):
+    """At V = 2000, not a multiple of 512, the card still runs the three
+    front-end kernels once each (the CPU's dispatch would take the dense
+    path there). The moment sums and, on the card's own normals (an ulp
+    turns the normal of an ill-conditioned row freely), the descriptors
+    agree with the plain versions on the CPU within the bounds of
+    chip_smoke.py."""
+    cfg = PipelineConfig.for_lidar("VLP-16", max_voxels=2000)
+    tf.reset_launches()
+    vox, desc, dmask, normals = extract_features(*scans, cfg, device=dev)
+    assert {k: tf.LAUNCHES[k] for k in ("moment_sums", "spfh", "fpfh")} == \
+        {"moment_sums": 1, "spfh": 1, "fpfh": 1}
+    assert desc.shape == (2, 2000, 33) and bool(torch.isfinite(desc).all())
+    pts, mask = vox.points, vox.mask
+    maskf = mask.float().contiguous()
+    r = cfg.fpfh.normal_radius
+    torch.testing.assert_close(tf.moment_sums(pts, maskf, r).cpu(),
+                               tf.moment_sums_plain(pts.cpu(), maskf.cpu(), r),
+                               rtol=1e-5, atol=1e-4)
+    assert torch.equal(dmask, mask & normals.valid)
+    ref = tf.frontend_fpfh(pts.cpu(), normals.normals.cpu(),
+                           normals.valid.cpu(), mask.cpu(),
+                           cfg.fpfh.fpfh_radius)
+    diff = (desc.cpu() - ref).abs()
+    assert float(diff.mean()) < 0.02
+    assert float((diff.amax(-1) > 1.0).float().mean()) < 0.02
+
+
+def test_dense_front_end_refused_on_the_card(dev, scans):
+    cfg = PipelineConfig.for_lidar("VLP-16", max_voxels=2048)
+    cfg = replace(cfg, fpfh=replace(cfg.fpfh, use_pallas_frontend=False))
+    with pytest.raises(ValueError, match="CPU only"):
+        extract_features(*scans, cfg, device=dev)
+
+
+def test_moment_sums_kernel(cloud):
+    pts, mask = cloud
+    maskf = mask.float().contiguous()
+    r = CFG.fpfh.normal_radius
+    before = tf.LAUNCHES["moment_sums"]
+    got = tf.moment_sums(pts, maskf, r)
+    assert tf.LAUNCHES["moment_sums"] == before + 1
+    torch.testing.assert_close(got, tf.moment_sums_plain(pts, maskf, r),
+                               rtol=1e-5, atol=1e-4)
+
+
+def test_spfh_and_fpfh_kernels(cloud):
+    pts, mask = cloud
+    normals = tf.frontend_normals(pts, mask, CFG.fpfh.normal_radius)
+    nrm = normals.normals.contiguous()
+    pmf = (mask & normals.valid).float().contiguous()
+    r = CFG.fpfh.fpfh_radius
+    hist, cnt = tf.spfh(pts, nrm, pmf, r)
+    rhist, rcnt = tf.spfh_plain(pts, nrm, pmf, r)
+    assert torch.equal(cnt, rcnt)
+    flipped = float((hist != rhist).any(-1).float().mean())
+    assert flipped < 0.005, f"bin-edge flips on {flipped:.2%} of rows"
+    rows = (rhist * (100.0 / torch.clamp(rcnt, min=1.0))[..., None])
+    rows = rows.contiguous()
+    torch.testing.assert_close(tf.fpfh_sums(pts, rows, pmf, r),
+                               tf.fpfh_sums_plain(pts, rows, pmf, r),
+                               rtol=1e-4, atol=1e-3)
+
+
+# Nb = 4096: two column chunks, and the strict-less merge hands the second
+# slot to the later chunk's tied copy (3000); Nb = 3072: one chunk, ties go
+# to the lower index (101).
+@pytest.mark.parametrize("nb,second", [(4096, 3000), (3072, 101)])
+def test_nearest_neighbors2_kernel(dev, nb, second):
+    """Random descriptors at Na = 512 with exact duplicates across and
+    inside a chunk: both slots' indices equal the plain version's on the
+    duplicated rows, i1 wherever the top-2 gap is clear, distances within
+    rtol 1e-5 plus 1e-6 of the norm scale."""
+    rng = np.random.default_rng(5)
+    da = rng.uniform(0, 100, (512, 33)).astype(np.float32)
+    db = rng.uniform(0, 100, (nb, 33)).astype(np.float32)
+    db[3000] = db[100]
+    db[101] = db[100]
+    da[:20] = db[100]
+    ma = rng.uniform(size=512) > 0.1
+    mb = rng.uniform(size=nb) > 0.1
+    ma[:20] = True
+    mb[[100, 101, 3000]] = True
+    a, b = (torch.from_numpy(x)[None].to(dev) for x in (da, db))
+    ma_t, mb_t = (torch.from_numpy(x)[None].to(dev) for x in (ma, mb))
+    i1, d1, i2, d2 = (x[0] for x in tf.nearest_neighbors2(a, b, ma_t, mb_t))
+    sq_a, sq_b = (a * a).sum(-1), (b * b).sum(-1)
+    ri1, rd1, ri2, rd2 = (x[0] for x in tf._fill_empty(
+        *tf.nearest_neighbors2_plain(a, b, ma_t.float(), mb_t.float(), sq_a,
+                                     sq_b), ma_t))
+    scale = float(sq_a.max() + sq_b.max())
+    for got, ref in ((d1, rd1), (d2, rd2)):
+        assert bool(((got - ref).abs() <= 1e-5 * ref + 1e-6 * scale).all())
+    clear = (rd2 - rd1 > 1e-4 * rd1)
+    assert torch.equal(i1[clear], ri1[clear])
+    assert (i1[:20] == 100).all() and (i2[:20] == second).all()
+    assert torch.equal(i2[:20], ri2[:20])
