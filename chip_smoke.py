@@ -7,21 +7,31 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions, and the float32 precision flags (TF32 off everywhere);
-2. build: the four front-end kernels from quatro_tpu_torch/csrc, one nvcc
-   per source, all started together; build time and ptxas register and
-   spill summary;
-3. pipeline: ``register_features`` on the seed-11 HDL-64E synthetic pair
-   (the pair of tests/test_pipeline.py) at full width, 8192 voxels and
-   1024 correspondences, on the card. The pose must be within 0.05 rad /
-   0.5 m of the ground truth, and each kernel's launch count over the run
-   must be 1 (moments), 1 (SPFH), 1 (FPFH) and 2 (top-2 NN). Per-stage
-   times from CUDA events after one warm-up run; the pair latency over ten
-   more runs; then one run under torch.profiler for the card's busy time,
-   its idle share of the median pair and the top kernels;
-4. kernels: each kernel on the pipeline's own tensors against its plain
+2. build: the six kernels from quatro_tpu_torch/csrc, one nvcc per
+   source, all started together; build time and ptxas register and spill
+   summary;
+3. pipeline, main path: ``register_features`` on the seed-11 HDL-64E
+   synthetic pair (the pair of tests/test_pipeline.py) at full width, 8192
+   voxels and 1024 correspondences, on the card, under the shipping
+   ``PipelineConfig.recommended()`` (4 clique + 2 vote hypotheses,
+   arbitrated by overlap). The pose must be valid and within 0.05 rad /
+   0.5 m of the ground truth, and the launch counts over the run must be
+   1 (moments), 1 (SPFH), 1 (FPFH), 2 (top-2 NN), 1 (consistency graph)
+   and 1 (segment sums). Per-stage times from CUDA events after one
+   warm-up run; each hypothesis's size, validity and overlap and the
+   winner; the pair latency over ten more runs;
+4. pipeline, earlier path: the single-hypothesis ``PipelineConfig`` on the
+   same pair, with the same pose bands, launches 1/1/1/2/1/0, its stage
+   split and its latency over three runs;
+5. profile: one more run of the main path under torch.profiler (after
+   the timed runs, since the profiler slows the host for the runs after
+   it): the card's busy time, its idle share of the median pair, the top
+   kernels and the device time per launch of each of the port's kernels;
+6. kernels: each kernel on the main path's own tensors against its plain
    PyTorch version on the card, with its time, the plain version's time,
-   the least time the card could take for the same work, and (top-2 NN
-   only) one library call computing the same function.
+   the least time the card could take for the same work, and one library
+   call computing the same function where there is one (top-2 NN, segment
+   sums).
 
 The last two lines of standard output are the card's kernel table as one
 JSON object and ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -52,8 +62,11 @@ OPS_MOMENTS = 16          # 10 accumulations, 6 products
 OPS_SPFH = 80             # Darboux frame, atan2 and three bins (approx.)
 OPS_FPFH = 2 + 2 * 33     # weight (max, divide) and 33 FMAs
 OPS_NN = 2 * 33 + 4       # 33 FMAs, the expansion, the top-2 compares
+OPS_GRAPH = 21            # per pair: 2 x (3 sub, 3 mul, 2 add, sqrt),
+                          # sub, abs, compare
 
-PAIR_REPEATS = 10         # timed pipeline runs for the latency spread
+PAIR_REPEATS = 10         # timed runs of the main path
+EARLIER_REPEATS = 3       # timed runs of the single-hypothesis path
 PIPELINE_PAIR = dict(seed=11, yaw_deg=20.0, translation=(2.5, 1.0, 0.05))
 
 REPLACES = {
@@ -61,15 +74,21 @@ REPLACES = {
     "spfh": "quatro_tpu/ops/pallas_frontend.py:366",
     "fpfh": "quatro_tpu/ops/pallas_frontend.py:391",
     "nearest_neighbors2": "quatro_tpu/ops/pallas_frontend.py:550",
+    "consistency_graph": "quatro_tpu/ops/pallas_kernels.py:47",
+    "segment_sums": "quatro_tpu/ops/segment_matmul.py:158",
 }
 SOURCES = {
     "moment_sums": "quatro_tpu_torch/csrc/moment_sums.cu",
     "spfh": "quatro_tpu_torch/csrc/spfh.cu",
     "fpfh": "quatro_tpu_torch/csrc/fpfh.cu",
     "nearest_neighbors2": "quatro_tpu_torch/csrc/nn2.cu",
+    "consistency_graph": "quatro_tpu_torch/csrc/consistency_graph.cu",
+    "segment_sums": "quatro_tpu_torch/csrc/segment_sums.cu",
 }
-EXPECTED_LAUNCHES = {"moment_sums": 1, "spfh": 1, "fpfh": 1,
-                     "nearest_neighbors2": 2}
+MAIN_LAUNCHES = {"moment_sums": 1, "spfh": 1, "fpfh": 1,
+                 "nearest_neighbors2": 2, "consistency_graph": 1,
+                 "segment_sums": 1}
+EARLIER_LAUNCHES = dict(MAIN_LAUNCHES, segment_sums=0)
 
 
 def log(*args):
@@ -169,73 +188,87 @@ def phase_build():
 
 
 def full_width_case():
-    """The seed-11 HDL-64E pair of tests/test_pipeline.py at 8192 voxels,
-    65536 points per cloud after the crude ground strip."""
-    from quatro_tpu_torch.config import PipelineConfig, SolverConfig
+    """The seed-11 HDL-64E pair of tests/test_pipeline.py, 65536 points
+    per cloud after the crude ground strip, and the two configurations at
+    8192 voxels: the shipping multi-hypothesis one (main path) and the
+    single-hypothesis default (earlier path)."""
+    from quatro_tpu_torch.config import PipelineConfig
     from quatro_tpu_torch.io.synthetic import make_scan_pair
     from quatro_tpu_torch.types import PointBatch
 
     src_xyz, tgt_xyz, gt = make_scan_pair(**PIPELINE_PAIR)
-    cfg = PipelineConfig(max_voxels=8192,
-                         solver=SolverConfig(use_pallas_graph=False))
+    main = PipelineConfig.recommended(max_voxels=8192)
+    earlier = PipelineConfig(max_voxels=8192)
     src = PointBatch.from_numpy(nonground(src_xyz), capacity=65536)
     tgt = PointBatch.from_numpy(nonground(tgt_xyz), capacity=65536)
     log(f"pipeline: HDL-64E pair seed 11, {int(src.mask.sum())} / "
         f"{int(tgt.mask.sum())} non-ground points, max_voxels "
-        f"{cfg.max_voxels}, max_correspondences "
-        f"{cfg.fpfh.max_correspondences}")
-    return src, tgt, gt, cfg
+        f"{main.max_voxels}, max_correspondences "
+        f"{main.fpfh.max_correspondences}, hypotheses "
+        f"{main.solver.num_hypotheses} clique + "
+        f"{main.solver.num_vote_hypotheses} vote (main path) / 1 (earlier)")
+    return src, tgt, gt, main, earlier
 
 
-def phase_pipeline(case):
-    from quatro_tpu_torch.ops import frontend
+def phase_pipeline(src, tgt, gt, cfg, name, expected, repeats):
+    """One path: warm-up, a run with the stage split and the launch
+    counts (set to 0 just before it, read just after), then ``repeats``
+    timed runs. Returns (result, launches, median host wall ms)."""
+    from quatro_tpu_torch.ops import launch
     from quatro_tpu_torch.pipeline import register_features
 
-    src, tgt, gt, cfg = case
     register_features(src, tgt, cfg)                 # warm-up
     torch.cuda.synchronize()
-    frontend.reset_launches()
+    launch.reset_launches()
     timer = StageTimer()
     t0 = time.perf_counter()
     res = register_features(src, tgt, cfg, timer=timer)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    launches = dict(frontend.LAUNCHES)
+    launches = dict(launch.LAUNCHES)
     stages = timer.split_ms()
 
     sol = res.solution
     n_corr = int(res.correspondences.mask.sum())
     rerr, terr = pose_errors(sol, gt)
     occupied = [int(v.mask.sum()) for v in (res.src_voxels, res.tgt_voxels)]
-    log(f"pipeline: valid {bool(sol.valid)}  voxels {occupied[0]} / "
+    log(f"{name}: valid {bool(sol.valid)}  voxels {occupied[0]} / "
         f"{occupied[1]}  correspondences {n_corr}  rotation error "
         f"{rerr:.6f} rad  translation error {terr:.6f} m")
-    log("pipeline stages (ms, CUDA events): " + json.dumps(
+    log(f"{name} stages (ms, CUDA events): " + json.dumps(
         {k: round(v, 3) for k, v in stages.items()})
         + f"  host wall {wall_ms:.3f} ms")
-    log(f"pipeline launches: {json.dumps(launches)}")
-    check(bool(sol.valid), "solution not valid")
-    check(n_corr >= 10, f"too few correspondences: {n_corr}")
-    check(rerr < 0.05, f"rotation error {rerr} rad")
-    check(terr < 0.5, f"translation error {terr} m")
-    check(torch.isfinite(sol.transform()).all(), "non-finite transform")
-    check(launches == EXPECTED_LAUNCHES,
-          f"launch counts {launches} != {EXPECTED_LAUNCHES}")
+    log(f"{name} launches: {json.dumps(launches)}")
+    if res.hypotheses is not None:
+        hyps = res.hypotheses
+        score = torch.where(hyps.valid, res.overlaps, -1.0)
+        log(f"{name} hypotheses: " + json.dumps({
+            "sizes": hyps.max_clique_mask.sum(1).tolist(),
+            "valid": hyps.valid.tolist(),
+            "overlaps": [round(x, 4) for x in res.overlaps.tolist()],
+            "winner": int(torch.argmax(score))}))
+    check(bool(sol.valid), f"{name}: solution not valid")
+    check(n_corr >= 10, f"{name}: too few correspondences: {n_corr}")
+    check(rerr < 0.05, f"{name}: rotation error {rerr} rad")
+    check(terr < 0.5, f"{name}: translation error {terr} m")
+    check(torch.isfinite(sol.transform()).all(), f"{name}: non-finite pose")
+    check(launches == expected,
+          f"{name}: launch counts {launches} != {expected}")
 
     walls = []
-    for _ in range(PAIR_REPEATS):
+    for _ in range(repeats):
         t0 = time.perf_counter()
         register_features(src, tgt, cfg)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     walls.sort()
     wall_ms = walls[len(walls) // 2]
-    log(f"pipeline pair latency over {PAIR_REPEATS} runs (ms, host wall): "
+    log(f"{name} pair latency over {repeats} runs (ms, host wall): "
         f"min {walls[0]:.3f}  median {wall_ms:.3f}  max {walls[-1]:.3f}")
-    return res, cfg, launches, wall_ms
+    return res, launches, wall_ms
 
 
-def phase_profile(case, wall_ms, top=10):
+def phase_profile(src, tgt, cfg, wall_ms, top=10):
     """One more pipeline run under torch.profiler: the card's busy time
     (sum of device times on the one stream), the idle share against the
     unprofiled run's host wall time ``wall_ms`` (the profiler slows the
@@ -244,7 +277,6 @@ def phase_profile(case, wall_ms, top=10):
 
     from quatro_tpu_torch.pipeline import register_features
 
-    src, tgt, _, cfg = case
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -269,6 +301,13 @@ def phase_profile(case, wall_ms, top=10):
         f"(host wall under the profiler {prof_wall_ms:.3f} ms)")
     for name, ms, count in sorted(rows, key=lambda r: -r[1])[:top]:
         log(f"  {ms:9.3f} ms  {count:6d}x  {name[:90]}")
+    # the port's own kernels, by device time per launch (the kernel
+    # phase's CUDA-event times of the small kernels include the wrappers'
+    # host time per call)
+    own = {name.split("(")[0]: round(ms / count, 6)
+           for name, ms, count in rows if name.startswith("quatro::")}
+    log("profile: device ms per launch of the port's kernels: "
+        + json.dumps(own))
 
 
 def phase_kernels(res, cfg, launches):
@@ -384,6 +423,54 @@ def phase_kernels(res, cfg, launches):
         nva * nvb * OPS_NN,
         (2 * v * (33 + 1)) * 4 + v * 4 * 4,
         cuda_ms(library_top2))
+
+    # B1 consistency graph, on the pair's correspondences
+    from quatro_tpu_torch.ops import kernels, segment
+    from quatro_tpu_torch.solver import vote
+    from quatro_tpu_torch.solver.scale import tim_consistency_graph
+
+    sc = cfg.solver
+    corr = res.correspondences
+    cs, ct = corr.src_xyz, corr.tgt_xyz
+    beta = 2.0 * sc.noise_bound * sc.cbar2 ** 0.5
+    got = kernels.consistency_graph(cs, ct, beta)
+    ref = kernels.consistency_graph_plain(cs, ct, beta)
+    check(torch.equal(got, ref), "consistency graph differs from plain")
+    n = cs.shape[0]
+    log(f"consistency_graph: N {n}, {int(got.sum())} consistent pairs, "
+        "equal to the plain version")
+    row("consistency_graph", float((got != ref).sum()),
+        cuda_ms(lambda: kernels.consistency_graph(cs, ct, beta)),
+        cuda_ms(lambda: kernels.consistency_graph_plain(cs, ct, beta), 5),
+        float(n * n) * OPS_GRAPH, 2 * n * 3 * 4 + n * n)
+
+    # B2 segment sums, on the vote's own histogram entries
+    adj = tim_consistency_graph(cs, ct, corr.mask, sc.noise_bound, sc.cbar2)
+    ids, vals = vote.yaw_vote_entries(cs, ct, corr.mask, adj,
+                                      num_anchors=sc.vote_yaw_anchors,
+                                      num_bins=sc.vote_yaw_bins)
+    p_pad = sc.vote_yaw_bins
+    kv, nv_ids = vals.shape
+    got = segment.segment_sums(ids, vals, p_pad)
+    again = segment.segment_sums(ids, vals, p_pad)
+    check(torch.equal(got, again), "segment sums differ between launches")
+    ref = segment.segment_sums_plain(ids, vals, p_pad)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-4)
+    in_range = int(((ids >= 0) & (ids < p_pad)).sum())
+    log(f"segment_sums: N {nv_ids}, K {kv}, p_pad {p_pad}, {in_range} "
+        "entries in range, bit-equal across two launches")
+    dest = torch.where((ids >= 0) & (ids < p_pad), ids, p_pad).long()
+    src_rows = vals.T.contiguous()
+
+    def library_segment():
+        return torch.zeros((p_pad + 1, kv), device=vals.device).index_add_(
+            0, dest, src_rows)
+
+    row("segment_sums", float((got - ref).abs().max()),
+        cuda_ms(lambda: segment.segment_sums(ids, vals, p_pad)),
+        cuda_ms(lambda: segment.segment_sums_plain(ids, vals, p_pad), 5),
+        float(in_range * kv), nv_ids * 4 * (1 + kv) + p_pad * kv * 4,
+        cuda_ms(library_segment))
     return rows
 
 
@@ -395,10 +482,13 @@ def main() -> int:
 
     phase_device()
     phase_build()
-    case = full_width_case()
-    res, cfg, launches, wall_ms = phase_pipeline(case)
-    phase_profile(case, wall_ms)
-    rows = phase_kernels(res, cfg, launches)
+    src, tgt, gt, main_cfg, earlier_cfg = full_width_case()
+    res, launches, wall_ms = phase_pipeline(
+        src, tgt, gt, main_cfg, "main path", MAIN_LAUNCHES, PAIR_REPEATS)
+    phase_pipeline(src, tgt, gt, earlier_cfg, "earlier path",
+                   EARLIER_LAUNCHES, EARLIER_REPEATS)
+    phase_profile(src, tgt, main_cfg, wall_ms)
+    rows = phase_kernels(res, main_cfg, launches)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

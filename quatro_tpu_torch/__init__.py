@@ -1,8 +1,9 @@
 """PyTorch / CUDA port of quatro-tpu for NVIDIA Hopper (H100).
 
 A second package beside the JAX reference ``quatro_tpu``; it imports
-neither jax nor anything of ``quatro_tpu``. The front-end path
-(``pipeline.register_features``) runs end to end; its four pair kernels
+neither jax nor anything of ``quatro_tpu``. ``pipeline.register_features``
+runs end to end, with the single-hypothesis solver and with the shipping
+multi-hypothesis solver of ``PipelineConfig.recommended()``; its kernels
 are hand-written CUDA in ``csrc/``.
 """
 
@@ -10,12 +11,13 @@ from quatro_tpu_torch.config import (FPFHConfig, LidarConfig, PipelineConfig,
                                      SolverConfig, config_from_dict,
                                      config_to_dict)
 from quatro_tpu_torch.pipeline import extract_features, register_features
-from quatro_tpu_torch.solver.quatro import register_correspondences
+from quatro_tpu_torch.solver.quatro import (register_correspondences,
+                                            register_hypotheses)
 from quatro_tpu_torch.types import PointBatch, RegistrationSolution
 
 __all__ = [
     "FPFHConfig", "LidarConfig", "PipelineConfig", "SolverConfig",
     "config_from_dict", "config_to_dict", "extract_features",
-    "register_features", "register_correspondences", "PointBatch",
-    "RegistrationSolution",
+    "register_features", "register_correspondences", "register_hypotheses",
+    "PointBatch", "RegistrationSolution",
 ]

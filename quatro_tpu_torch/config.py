@@ -292,9 +292,10 @@ class SolverConfig:
     # the residual regret vs exact branch-and-bound (PMC_EXACT analog,
     # reference src/graph.cc:106-127) for a couple of O(N^2) steps; 0 = off.
     clique_swap_rounds: int = 2
-    # Fused Pallas kernel for the consistency graph (requires
-    # max_correspondences % 256 == 0). None = auto: on for TPU backends,
-    # off elsewhere (interpret mode would be slower than XLA on CPU).
+    # The consistency-graph kernel (B1, ops/kernels.py). None = auto: the
+    # kernel on the card at any N, the plain graph on the CPU; True: the
+    # kernel (its plain version on the CPU); False: the plain graph, which
+    # runs on the CPU only and raises ValueError on the card.
     use_pallas_graph: Optional[bool] = None
     # Static cap on clique size (bounds the greedy-growth loop).
     max_clique_size: int = 512

@@ -24,48 +24,13 @@ import torch
 
 from quatro_tpu_torch.ops.fpfh import (FPFH_DIM, NUM_BINS, _bin_index,
                                       normalize_blocks)
+from quatro_tpu_torch.ops.launch import (LAUNCHES, check, launch,  # noqa: F401
+                                         reset_launches, same_device)
 from quatro_tpu_torch.ops.normals import Normals, normals_from_moments
 
 FLT_MAX = torch.finfo(torch.float32).max
 NN_CHUNK = 2048          # column chunk of the top-2 tie rule
 _ROW_TILE = 512          # rows per step of the plain versions (memory)
-
-# Kernel launches by name, counted by the wrappers on CUDA tensors only.
-LAUNCHES = {"moment_sums": 0, "spfh": 0, "fpfh": 0, "nearest_neighbors2": 0}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def _check(name, t, shape, dtype=torch.float32):
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-
-
-def _same_device(*ts):
-    dev = ts[0].device
-    for t in ts[1:]:
-        if t.device != dev:
-            raise ValueError(f"tensors on {dev} and {t.device}")
-    return dev
-
-
-def _launch(name: str, *args) -> None:
-    """Launch kernel ``name`` on the current stream; tensors are passed as
-    their device pointers."""
-    from quatro_tpu_torch import _build
-    args = [a.data_ptr() if torch.is_tensor(a) else a for a in args]
-    stream = torch.cuda.current_stream().cuda_stream
-    rc = _build.load(name)(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
 def _r2(radius: float, like: torch.Tensor) -> torch.Tensor:
@@ -112,13 +77,13 @@ def moment_sums(points: torch.Tensor, maskf: torch.Tensor,
     points (B, V, 3) f32, maskf (B, V) f32 0/1. Replaces
     pallas_frontend.py::moment_sums_pallas (csrc/moment_sums.cu)."""
     bsz, v = points.shape[:2]
-    _check("points", points, (bsz, v, 3))
-    _check("maskf", maskf, (bsz, v))
-    if _same_device(points, maskf).type != "cuda":
+    check("points", points, (bsz, v, 3))
+    check("maskf", maskf, (bsz, v))
+    if same_device(points, maskf).type != "cuda":
         return moment_sums_plain(points, maskf, radius)
     out = torch.empty((bsz, v, 10), dtype=torch.float32, device=points.device)
-    _launch("moment_sums", points, maskf, bsz, v,
-            float(radius * radius), out)
+    launch("moment_sums", points, maskf, bsz, v,
+           float(radius * radius), out)
     LAUNCHES["moment_sums"] += 1
     return out
 
@@ -213,16 +178,16 @@ def spfh(points: torch.Tensor, normals: torch.Tensor,
     """Raw SPFH bin counts (B, V, 33) f32 and pair counts (B, V) f32.
     Replaces pallas_frontend.py::spfh_pallas (csrc/spfh.cu)."""
     bsz, v = points.shape[:2]
-    _check("points", points, (bsz, v, 3))
-    _check("normals", normals, (bsz, v, 3))
-    _check("pair_maskf", pair_maskf, (bsz, v))
-    if _same_device(points, normals, pair_maskf).type != "cuda":
+    check("points", points, (bsz, v, 3))
+    check("normals", normals, (bsz, v, 3))
+    check("pair_maskf", pair_maskf, (bsz, v))
+    if same_device(points, normals, pair_maskf).type != "cuda":
         return spfh_plain(points, normals, pair_maskf, radius)
     hist = torch.empty((bsz, v, FPFH_DIM), dtype=torch.float32,
                        device=points.device)
     cnt = torch.empty((bsz, v), dtype=torch.float32, device=points.device)
-    _launch("spfh", points, normals, pair_maskf, bsz, v,
-            float(radius * radius), hist, cnt)
+    launch("spfh", points, normals, pair_maskf, bsz, v,
+           float(radius * radius), hist, cnt)
     LAUNCHES["spfh"] += 1
     return hist, cnt
 
@@ -251,15 +216,15 @@ def fpfh_sums(points: torch.Tensor, spfh_rows: torch.Tensor,
     """Unnormalised FPFH weighted sums (B, V, 33) f32. Replaces the pair
     pass of pallas_frontend.py::frontend_fpfh (csrc/fpfh.cu)."""
     bsz, v = points.shape[:2]
-    _check("points", points, (bsz, v, 3))
-    _check("spfh_rows", spfh_rows, (bsz, v, FPFH_DIM))
-    _check("pair_maskf", pair_maskf, (bsz, v))
-    if _same_device(points, spfh_rows, pair_maskf).type != "cuda":
+    check("points", points, (bsz, v, 3))
+    check("spfh_rows", spfh_rows, (bsz, v, FPFH_DIM))
+    check("pair_maskf", pair_maskf, (bsz, v))
+    if same_device(points, spfh_rows, pair_maskf).type != "cuda":
         return fpfh_sums_plain(points, spfh_rows, pair_maskf, radius)
     out = torch.empty((bsz, v, FPFH_DIM), dtype=torch.float32,
                       device=points.device)
-    _launch("fpfh", points, spfh_rows, pair_maskf, bsz, v,
-            float(radius * radius), out)
+    launch("fpfh", points, spfh_rows, pair_maskf, bsz, v,
+           float(radius * radius), out)
     LAUNCHES["fpfh"] += 1
     return out
 
@@ -347,12 +312,12 @@ def nearest_neighbors2(desc_a: torch.Tensor, desc_b: torch.Tensor,
     pallas_frontend.py::nearest_neighbors2_pallas (csrc/nn2.cu)."""
     bsz, na, dim = desc_a.shape
     nb = desc_b.shape[1]
-    _check("desc_a", desc_a, (bsz, na, dim))
-    _check("desc_b", desc_b, (bsz, nb, dim))
-    _check("mask_a", mask_a, (bsz, na), torch.bool)
-    _check("mask_b", mask_b, (bsz, nb), torch.bool)
+    check("desc_a", desc_a, (bsz, na, dim))
+    check("desc_b", desc_b, (bsz, nb, dim))
+    check("mask_a", mask_a, (bsz, na), torch.bool)
+    check("mask_b", mask_b, (bsz, nb), torch.bool)
     chunk = _nn_chunk(nb)
-    dev = _same_device(desc_a, desc_b, mask_a, mask_b)
+    dev = same_device(desc_a, desc_b, mask_a, mask_b)
     maskf_a = mask_a.to(torch.float32)
     maskf_b = mask_b.to(torch.float32)
     sq_a = (desc_a * desc_a).sum(-1)
@@ -367,8 +332,8 @@ def nearest_neighbors2(desc_a: torch.Tensor, desc_b: torch.Tensor,
         i2 = torch.empty_like(i1)
         d1 = torch.empty((bsz, na), dtype=torch.float32, device=dev)
         d2 = torch.empty_like(d1)
-        _launch("nn2", desc_a, desc_b, sq_a, sq_b, maskf_a, maskf_b, bsz, na,
-                nb, chunk, i1, d1, i2, d2)
+        launch("nn2", desc_a, desc_b, sq_a, sq_b, maskf_a, maskf_b, bsz, na,
+               nb, chunk, i1, d1, i2, d2)
         LAUNCHES["nearest_neighbors2"] += 1
     return _fill_empty(i1, d1, i2, d2, mask_a)
 

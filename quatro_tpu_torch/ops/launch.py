@@ -1,0 +1,49 @@
+"""What every kernel wrapper shares: input checks, the launch through
+``_build``, and one dict of launch counts for all the port's kernels.
+
+A wrapper adds one to its kernel's count in ``LAUNCHES`` where it launches
+the kernel (CUDA tensors only), and nowhere else, so a run can show that
+the main path went through the kernels; ``reset_launches`` sets every
+count to 0.
+"""
+
+from __future__ import annotations
+
+import torch
+
+LAUNCHES = {"moment_sums": 0, "spfh": 0, "fpfh": 0, "nearest_neighbors2": 0,
+            "consistency_graph": 0, "segment_sums": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def check(name, t, shape, dtype=torch.float32):
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def same_device(*ts):
+    dev = ts[0].device
+    for t in ts[1:]:
+        if t.device != dev:
+            raise ValueError(f"tensors on {dev} and {t.device}")
+    return dev
+
+
+def launch(name: str, *args) -> None:
+    """Launch kernel ``name`` on the current stream; tensors are passed as
+    their device pointers."""
+    from quatro_tpu_torch import _build
+    args = [a.data_ptr() if torch.is_tensor(a) else a for a in args]
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = _build.load(name)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")

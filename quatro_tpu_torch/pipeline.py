@@ -8,8 +8,10 @@ its preprocessing). The source and target clouds go through feature
 extraction as one batch of two, as the JAX package stacks them.
 
 Entry points take ``device=None`` (the card; see device.py) and an
-optional ``timer``: a callable given the name of each stage as it ends
-("voxel", "normals", "fpfh", "matching", "solver"), for per-stage timing.
+optional ``timer``: a callable given the name of each stage as it ends,
+for per-stage timing: "voxel", "normals", "fpfh", "matching", then the
+solver's "graph", "cliques" and "polish", with "vote" before "polish" and
+"arbitration" after it on the multi-hypothesis path.
 """
 
 from __future__ import annotations
@@ -22,7 +24,9 @@ from quatro_tpu_torch.config import PipelineConfig
 from quatro_tpu_torch.device import resolve_device, to_tensor
 from quatro_tpu_torch.ops.matching import Correspondences, match_features
 from quatro_tpu_torch.ops.voxel import voxel_downsample
-from quatro_tpu_torch.solver.quatro import register_correspondences
+from quatro_tpu_torch.solver.quatro import (register_correspondences,
+                                            register_hypotheses)
+from quatro_tpu_torch.solver.verify import arbitrate_hypotheses
 from quatro_tpu_torch.types import PointBatch, RegistrationSolution
 
 
@@ -32,6 +36,9 @@ class PipelineResult(NamedTuple):
     src_voxels: PointBatch
     tgt_voxels: PointBatch
     icp: None = None           # ICP refinement is not ported yet
+    # the multi-hypothesis path's K solutions and their overlaps (K,)
+    hypotheses: Optional[RegistrationSolution] = None
+    overlaps: Optional[torch.Tensor] = None
 
 
 def _noop(stage: str) -> None:
@@ -99,11 +106,10 @@ def register_features(src: PointBatch, tgt: PointBatch,
                       timer: Optional[Callable[[str], None]] = None
                       ) -> PipelineResult:
     """Feature extraction + matching + solve on already-preprocessed
-    clouds (the single-hypothesis branch of the JAX package's
-    register_features)."""
-    if config.solver.total_hypotheses > 1:
-        raise NotImplementedError("multi-hypothesis registration "
-                                  "(register_hypotheses) is ported in slice 2")
+    clouds. With ``config.solver.total_hypotheses > 1`` (as in
+    ``PipelineConfig.recommended()``) the solver returns clique and vote
+    hypotheses and the one whose pose best overlaps the voxel clouds
+    within 2 * voxel_size wins (solver/verify.py)."""
     if config.icp.enabled:
         raise NotImplementedError("ICP refinement is not ported yet")
     timer = timer or _noop
@@ -133,7 +139,16 @@ def register_features(src: PointBatch, tgt: PointBatch,
         trials_per_corr=f.tuple_trials_per_corr,
         tuple_min_keep=f.tuple_min_keep, seed=f.tuple_seed, device=dev)
     timer("matching")
-    sol = register_correspondences(corr.src_xyz, corr.tgt_xyz, corr.mask,
-                                   config.solver, device=dev)
-    timer("solver")
-    return PipelineResult(sol, corr, src_vox, tgt_vox)
+    if config.solver.total_hypotheses <= 1:
+        sol = register_correspondences(corr.src_xyz, corr.tgt_xyz, corr.mask,
+                                       config.solver, device=dev, timer=timer)
+        return PipelineResult(sol, corr, src_vox, tgt_vox)
+    sols = register_hypotheses(corr.src_xyz, corr.tgt_xyz, corr.mask,
+                               config.solver, k=config.solver.num_hypotheses,
+                               device=dev, timer=timer)
+    sol, overlaps = arbitrate_hypotheses(
+        sols, src_vox.points, src_vox.mask, tgt_vox.points, tgt_vox.mask,
+        radius=2.0 * config.voxel_size)
+    timer("arbitration")
+    return PipelineResult(sol, corr, src_vox, tgt_vox, hypotheses=sols,
+                          overlaps=overlaps)

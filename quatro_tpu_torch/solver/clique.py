@@ -1,9 +1,10 @@
 """Inlier selection on the consistency graph: the max-clique replacement.
 
-PyTorch counterpart of the parts of ``quatro_tpu/solver/clique.py`` that
-``select_inliers`` reaches in modes "clique", "kcore" and "none": k-core
-peeling (PMC's bound and KCORE_HEU mode, reference src/graph.cc:59-82) and
-lock-step greedy clique growth with (1,2)-swap improvement.
+PyTorch counterpart of ``quatro_tpu/solver/clique.py`` in modes "clique",
+"kcore" and "none" ("exact" is not ported yet): k-core peeling (PMC's
+bound and KCORE_HEU mode, reference src/graph.cc:59-82), lock-step greedy
+clique growth with (1,2)-swap improvement, and the K largest distinct
+cliques of the multi-hypothesis solver.
 
 The JAX package's ``lax.while_loop``s are bounded Python loops here with
 the same bounds and exit tests; each exit test reads one value back from
@@ -13,6 +14,7 @@ lower index (stable sorts here), argmax / argmin take the first extreme.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -170,22 +172,84 @@ def improve_top_cliques(adj: torch.Tensor, cliques: torch.Tensor,
     return cliques
 
 
-def greedy_cliques(adj: torch.Tensor, seed_scores: torch.Tensor,
-                   mask: torch.Tensor, num_seeds: int = 16,
-                   max_size: int = 512, swap_rounds: int = 0) -> torch.Tensor:
-    """Best single clique mask from the lock-step greedy growth (+ 1-swap
-    improvement of the top candidates)."""
-    cliques = grow_greedy_cliques(adj, seed_scores, mask,
-                                  num_seeds=num_seeds, max_size=max_size)
-    cliques = improve_top_cliques(adj, cliques, mask, rounds=swap_rounds)
-    return cliques[torch.argmax(cliques.sum(1))]
-
-
 def clique_seed_scores(adj: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Seed attractiveness: max-core membership dominates, degree breaks
     ties."""
     _, kcore_mask = max_kcore(adj, mask)
     return kcore_mask.to(torch.float32) * 1e6 + _count_mm(adj, mask)
+
+
+def top_distinct_cliques(cliques: torch.Tensor, k: int,
+                         min_distinct_frac: float = 0.5,
+                         force_first: bool = False):
+    """The K largest pairwise-distinct cliques of (S, N) masks: ((K, N)
+    bool masks, (K,) f32 sizes). Two cliques are the same hypothesis when
+    their intersection covers >= min_distinct_frac of the smaller one;
+    singletons are never taken; with force_first, row 0 is taken first
+    whatever its size. Unfilled slots hold the first untaken rows with
+    size 0. k is clamped to S.
+
+    The JAX package's greedy ``fori_loop`` over the S rows runs on the
+    host here: the (S, S) intersection counts and the sizes come back in
+    one copy, the O(S^2) greedy runs in numpy, and the picked rows are
+    gathered on the device.
+    """
+    s = cliques.shape[0]
+    k = min(k, s)
+    cf = cliques.to(torch.float32)
+    sizes = cf.sum(1)
+    sort_key = sizes
+    if force_first:
+        bump = torch.zeros_like(sizes)
+        bump[0] = 1e9
+        sort_key = sizes + bump
+    order = torch.sort(-sort_key, stable=True).indices
+    cf = cf[order]
+    sizes = sizes[order]
+    inter = _count_mm(cf, cf.T)                          # (S, S)
+    host = torch.cat([inter, sizes[None]]).cpu().numpy()
+    inter_h, sizes_h = host[:s], host[s]
+    min_sz = np.minimum(sizes_h[:, None], sizes_h[None, :])
+    frac = np.float32(min_distinct_frac)
+    taken = np.zeros(s, bool)
+    count = 0
+    for i in range(s):
+        conflict = taken & (inter_h[i] >= frac * np.maximum(min_sz[i],
+                                                            np.float32(1.0)))
+        # singletons (isolated seeds) carry no hypothesis: the reference
+        # aborts on cliques <= 1 (include/quatro.hpp:809-813)
+        ok = count < k and not conflict.any() and sizes_h[i] > 1
+        taken[i] = ok
+        count += int(ok)
+    iota = np.arange(s)
+    pick = np.argsort(np.where(taken, iota, s + iota), kind="stable")[:k]
+    pick_order = torch.from_numpy(pick).to(cf.device)
+    picked_sizes = torch.where(
+        torch.arange(k, device=cf.device) < count, sizes[pick_order], 0.0)
+    return cf[pick_order] > 0, picked_sizes
+
+
+def select_inliers_with_candidates(adj: torch.Tensor, mask: torch.Tensor,
+                                   kcore_threshold: float = 0.5,
+                                   num_seeds: int = 16, max_size: int = 512,
+                                   swap_rounds: int = 0, top: int = 8):
+    """select_inliers(mode="clique") and the improved grown candidates,
+    with the k-core, seed scores, growth and swaps computed once. Returns
+    (sel (N,), valid (), grown (S, N)); the selection equals
+    select_inliers' for top == 8."""
+    max_core, kcore_mask = max_kcore(adj, mask)
+    scores = kcore_mask.to(torch.float32) * 1e6 + _count_mm(adj, mask)
+    grown = grow_greedy_cliques(adj, scores, mask, num_seeds=num_seeds,
+                                max_size=max_size)
+    grown = improve_top_cliques(adj, grown, mask, top=top,
+                                rounds=swap_rounds)
+    clique_sel = grown[torch.argmax(grown.sum(1))] & mask
+    # an edgeless graph's largest core is the 0-core: select nothing
+    kcore_sel = kcore_mask & mask & (max_core >= 1)
+    n_valid = float(mask.sum())
+    use_kcore = max_core >= 1 and max_core >= kcore_threshold * n_valid
+    sel = kcore_sel if use_kcore else clique_sel
+    return sel, sel.sum() > 1, grown
 
 
 def select_inliers(adj: torch.Tensor, mask: torch.Tensor, mode: str = "clique",
@@ -198,22 +262,16 @@ def select_inliers(adj: torch.Tensor, mask: torch.Tensor, mode: str = "clique",
     reference aborts there, include/quatro.hpp:809-813)."""
     if mode == "exact":
         raise NotImplementedError(
-            "inlier_selection_mode='exact' (branch-and-bound) is ported in "
-            "slice 2")
+            "inlier_selection_mode='exact' (branch-and-bound) is not "
+            "ported yet")
+    if mode == "clique":
+        sel, valid, _ = select_inliers_with_candidates(
+            adj, mask, kcore_threshold=kcore_threshold, num_seeds=num_seeds,
+            max_size=max_size, swap_rounds=swap_rounds)
+        return sel, valid
     if mode == "none":
         sel = mask
     else:
         max_core, kcore_mask = max_kcore(adj, mask)
-        # an edgeless graph's largest core is the 0-core: select nothing
-        kcore_sel = kcore_mask & mask & (max_core >= 1)
-        if mode == "kcore":
-            sel = kcore_sel
-        else:
-            clique_sel = greedy_cliques(adj, clique_seed_scores(adj, mask),
-                                        mask, num_seeds=num_seeds,
-                                        max_size=max_size,
-                                        swap_rounds=swap_rounds) & mask
-            n_valid = float(mask.sum())
-            use_kcore = max_core >= 1 and max_core >= kcore_threshold * n_valid
-            sel = kcore_sel if use_kcore else clique_sel
+        sel = kcore_mask & mask & (max_core >= 1)
     return sel, sel.sum() > 1

@@ -7,11 +7,15 @@ reference's stage order:
     consistency graph -> inlier selection (max-clique replacement) ->
     chain TIMs over the clique -> GNC-TLS yaw -> rotation-inlier
     chaining -> COTE translation -> compose [R|t].
+
+Both entry points take an optional ``timer``: a callable given the name
+of each solver stage as it ends ("graph", "cliques", then "vote" on the
+multi-hypothesis path, and "polish"), for per-stage timing.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -23,6 +27,10 @@ from quatro_tpu_torch.solver import translation as trans_mod
 from quatro_tpu_torch.solver.scale import tim_consistency_graph
 from quatro_tpu_torch.types import RegistrationSolution
 from quatro_tpu_torch.utils.se3 import rotate_points
+
+
+def _noop(stage: str) -> None:
+    pass
 
 
 def _consistency_inputs(src, tgt, mask, config: SolverConfig):
@@ -118,10 +126,23 @@ def _solve_from_inliers(src, tgt, clique_mask, valid, scale,
     )
 
 
+def _solver_inputs(src, tgt, mask, prior_ryrx, device):
+    """The inputs as contiguous f32 / bool tensors on the device, and the
+    prior (identity when none is given)."""
+    dev = resolve_device(device)
+    src = to_tensor(src, torch.float32, dev)
+    tgt = to_tensor(tgt, torch.float32, dev)
+    mask = to_tensor(mask, torch.bool, dev)
+    prior = (torch.eye(3, dtype=src.dtype, device=dev) if prior_ryrx is None
+             else to_tensor(prior_ryrx, torch.float32, dev))
+    return src, tgt, mask, prior
+
+
 def register_correspondences(
         src, tgt, mask, config: SolverConfig = SolverConfig(),
-        prior_ryrx: Optional[torch.Tensor] = None,
-        device=None) -> RegistrationSolution:
+        prior_ryrx: Optional[torch.Tensor] = None, device=None,
+        timer: Optional[Callable[[str], None]] = None
+        ) -> RegistrationSolution:
     """Solve the robust registration problem on matched correspondences.
 
     src, tgt: (N, 3) matched keypoints (padded; numpy or tensors); mask:
@@ -130,15 +151,10 @@ def register_correspondences(
     (reference: include/quatro.hpp:276-279,419-426,892). device: None
     means "cuda" (RuntimeError without a card); tests pass "cpu".
     """
-    dev = resolve_device(device)
-    src = to_tensor(src, torch.float32, dev)
-    tgt = to_tensor(tgt, torch.float32, dev)
-    mask = to_tensor(mask, torch.bool, dev)
-    has_prior = prior_ryrx is not None
-    prior = (torch.eye(3, dtype=src.dtype, device=dev) if prior_ryrx is None
-             else to_tensor(prior_ryrx, torch.float32, dev))
-
+    timer = timer or _noop
+    src, tgt, mask, prior = _solver_inputs(src, tgt, mask, prior_ryrx, device)
     scale, adj = _consistency_inputs(src, tgt, mask, config)
+    timer("graph")
     clique_mask, valid = clique_mod.select_inliers(
         adj, mask, mode=config.inlier_selection_mode,
         kcore_threshold=config.kcore_heuristic_threshold,
@@ -147,5 +163,78 @@ def register_correspondences(
         swap_rounds=config.clique_swap_rounds,
         exact_cap=config.exact_clique_cap,
         exact_max_steps=config.exact_clique_max_steps)
-    return _solve_from_inliers(src, tgt, clique_mask, valid, scale, config,
-                               prior, has_prior)
+    timer("cliques")
+    sol = _solve_from_inliers(src, tgt, clique_mask, valid, scale, config,
+                              prior, prior_ryrx is not None)
+    timer("polish")
+    return sol
+
+
+def register_hypotheses(
+        src, tgt, mask, config: SolverConfig = SolverConfig(), k: int = 4,
+        prior_ryrx: Optional[torch.Tensor] = None, device=None,
+        timer: Optional[Callable[[str], None]] = None
+        ) -> RegistrationSolution:
+    """Multi-hypothesis solve: the K largest mutually distinct cliques of
+    the consistency graph, then ``config.num_vote_hypotheses`` vote
+    hypotheses (solver/vote.py), each solved on its own. Returns a
+    RegistrationSolution with a leading axis of K + num_vote_hypotheses,
+    clique hypotheses first; the caller arbitrates (solver/verify.py).
+
+    Hypothesis 0 is exactly register_correspondences' selection, so more
+    hypotheses only add candidates. A clique hypothesis is valid when it
+    has more than one vertex, a vote hypothesis from two supporters on
+    (the cyclic chain TIM is estimable from two). The JAX package vmaps
+    the polish over the hypotheses; here it is a loop, and each
+    hypothesis's GNC stops on its own test as under vmap.
+    """
+    timer = timer or _noop
+    src, tgt, mask, prior = _solver_inputs(src, tgt, mask, prior_ryrx, device)
+    scale, adj = _consistency_inputs(src, tgt, mask, config)
+    timer("graph")
+    top = max(8, k)
+    if config.inlier_selection_mode == "clique":
+        # one growth pass serves hypothesis 0 and the candidate set
+        sel0, _, grown = clique_mod.select_inliers_with_candidates(
+            adj, mask, kcore_threshold=config.kcore_heuristic_threshold,
+            num_seeds=config.clique_num_seeds,
+            max_size=config.max_clique_size,
+            swap_rounds=config.clique_swap_rounds, top=top)
+    else:
+        sel0, _ = clique_mod.select_inliers(
+            adj, mask, mode=config.inlier_selection_mode,
+            kcore_threshold=config.kcore_heuristic_threshold,
+            num_seeds=config.clique_num_seeds,
+            max_size=config.max_clique_size,
+            swap_rounds=config.clique_swap_rounds,
+            exact_cap=config.exact_clique_cap,
+            exact_max_steps=config.exact_clique_max_steps)
+        grown = clique_mod.grow_greedy_cliques(
+            adj, clique_mod.clique_seed_scores(adj, mask), mask,
+            num_seeds=config.clique_num_seeds,
+            max_size=config.max_clique_size)
+        grown = clique_mod.improve_top_cliques(
+            adj, grown, mask, top=top, rounds=config.clique_swap_rounds)
+    cliques, sizes = clique_mod.top_distinct_cliques(
+        torch.cat([sel0[None], grown]), k, force_first=True)
+    valid_k = sizes > 1
+    timer("cliques")
+
+    if config.num_vote_hypotheses > 0:
+        from quatro_tpu_torch.solver.vote import vote_hypotheses
+        vmasks, vsizes = vote_hypotheses(
+            src, tgt, mask, adj, scale, config.num_vote_hypotheses,
+            bin_m=config.vote_trans_bin_scale * abs(config.noise_bound),
+            num_anchors=config.vote_yaw_anchors,
+            num_bins=config.vote_yaw_bins,
+            num_yaw_modes=config.vote_yaw_modes)
+        cliques = torch.cat([cliques, vmasks])
+        valid_k = torch.cat([valid_k, vsizes >= 2])
+        timer("vote")
+
+    sols = RegistrationSolution.stack([
+        _solve_from_inliers(src, tgt, sel, ok, scale, config, prior,
+                            prior_ryrx is not None)
+        for sel, ok in zip(cliques, valid_k)])
+    timer("polish")
+    return sols

@@ -99,5 +99,6 @@ def gnc_rotation_2d(src_xy: torch.Tensor, dst_xy: torch.Tensor,
         src_xy, dst_xy, mask, noise_bound, gnc_factor, max_iterations,
         cost_threshold)
     return GncResult(rot2d(theta), weights, inliers,
-                     torch.tensor(iters, dtype=torch.int32), cost)
+                     torch.tensor(iters, dtype=torch.int32,
+                                  device=src_xy.device), cost)
 

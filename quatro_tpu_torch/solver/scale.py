@@ -11,17 +11,9 @@ so the graph is one dense (N, N) boolean adjacency.
 
 from __future__ import annotations
 
-import math
-
 import torch
 
-
-def pairwise_distances(points: torch.Tensor) -> torch.Tensor:
-    """Dense Euclidean distance matrix for (N, 3) points, in the exact
-    broadcast-difference form (the Gram identity loses ~1e-3 to
-    cancellation, which would blur the +-beta test)."""
-    d = [points[:, None, k] - points[None, :, k] for k in range(3)]
-    return torch.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
+from quatro_tpu_torch.ops.kernels import consistency_graph
 
 
 def tim_consistency_graph(src: torch.Tensor, tgt: torch.Tensor,
@@ -32,18 +24,18 @@ def tim_consistency_graph(src: torch.Tensor, tgt: torch.Tensor,
     (the reference's scale_inliers_mask_ + Graph::addEdge,
     include/quatro.hpp:361-385,784-789, specialised to scale = 1).
 
-    use_pallas: the consistency-graph kernel (B1) arrives with slice 2 of
-    the port; None and False run the plain form here.
+    use_pallas (SolverConfig.use_pallas_graph): on the card, None and True
+    run the B1 kernel at any N and False raises ValueError (the plain graph
+    runs on the CPU only). On the CPU every value computes the plain form,
+    which is the kernel's plain version (ops/kernels.py).
     """
-    if use_pallas:
-        raise NotImplementedError(
-            "the consistency-graph kernel (B1) is ported in slice 2; "
-            "use SolverConfig(use_pallas_graph=False)")
+    if use_pallas is False and src.device.type == "cuda":
+        raise ValueError("use_pallas_graph=False selects the plain "
+                         "consistency graph, which runs on the CPU only; on "
+                         "the card the graph is the kernel")
     n = src.shape[0]
-    beta = 2.0 * noise_bound * math.sqrt(cbar2)
-    beta = torch.tensor(beta, dtype=src.dtype, device=src.device)
-    consistent = torch.abs(pairwise_distances(tgt)
-                           - pairwise_distances(src)) <= beta
+    beta = 2.0 * float(noise_bound) * float(cbar2) ** 0.5
+    consistent = consistency_graph(src, tgt, beta)
     pair_valid = mask[:, None] & mask[None, :]
     off_diag = ~torch.eye(n, dtype=torch.bool, device=src.device)
     return consistent & pair_valid & off_diag

@@ -8,7 +8,7 @@ two can be compared index by index.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 from typing import Optional
 
 import numpy as np
@@ -77,6 +77,22 @@ class RegistrationSolution:
     num_rotation_inliers: torch.Tensor  # () int32
     gnc_iterations: torch.Tensor        # () int32 — GNC-TLS iterations used
     gnc_cost: torch.Tensor              # () f32 — final GNC cost
+
+    @staticmethod
+    def stack(sols) -> "RegistrationSolution":
+        """Solutions stacked along a new leading (hypothesis) axis."""
+        return RegistrationSolution(*(
+            torch.stack([getattr(s, f.name) for s in sols])
+            for f in fields(RegistrationSolution)))
+
+    def take(self, index) -> "RegistrationSolution":
+        """Row ``index`` (an int or a 0-d integer tensor, read on the
+        device) of every field of a stacked solution."""
+        index = torch.as_tensor(index).reshape(1)
+        return RegistrationSolution(*(
+            getattr(self, f.name).index_select(
+                0, index.to(getattr(self, f.name).device))[0]
+            for f in fields(self)))
 
     def transform(self) -> torch.Tensor:
         """The 4x4 homogeneous transform [R|t; 0 1]; batch-safe (leading

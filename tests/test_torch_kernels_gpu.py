@@ -1,4 +1,4 @@
-"""The four CUDA kernels against their plain PyTorch versions, on the card.
+"""The six CUDA kernels against their plain PyTorch versions, on the card.
 
 Every test here is marked ``gpu`` and skips without a CUDA device. The
 machine with the card has no JAX, so this file imports only the port, and
@@ -15,11 +15,16 @@ import numpy as np
 import pytest
 import torch
 
-from quatro_tpu_torch.config import LidarConfig, PipelineConfig, replace
+from quatro_tpu_torch.config import (LidarConfig, PipelineConfig,
+                                     SolverConfig, replace)
 from quatro_tpu_torch.io.synthetic import make_scan_pair
 from quatro_tpu_torch.ops import frontend as tf
+from quatro_tpu_torch.ops import kernels, segment
 from quatro_tpu_torch.ops.voxel import voxel_downsample
-from quatro_tpu_torch.pipeline import extract_features
+from quatro_tpu_torch.pipeline import extract_features, register_features
+from quatro_tpu_torch.solver import vote
+from quatro_tpu_torch.solver.scale import tim_consistency_graph
+from quatro_tpu_torch.types import PointBatch
 
 pytestmark = pytest.mark.gpu
 
@@ -158,3 +163,76 @@ def test_nearest_neighbors2_kernel(dev, nb, second):
     assert torch.equal(i1[clear], ri1[clear])
     assert (i1[:20] == 100).all() and (i2[:20] == second).all()
     assert torch.equal(i2[:20], ri2[:20])
+
+
+@pytest.fixture(scope="module")
+def recommended(dev, scans):
+    """One register_features run of the shipping multi-hypothesis solver
+    on the level_a pair at V = 2048, with its launch counts."""
+    cfg = replace(CFG, solver=SolverConfig(num_hypotheses=4,
+                                           num_vote_hypotheses=2))
+    pts, masks = scans
+    src, tgt = (PointBatch(pts[b], masks[b]) for b in (0, 1))
+    register_features(src, tgt, cfg, device=dev)         # builds the kernels
+    tf.reset_launches()
+    res = register_features(src, tgt, cfg, device=dev)
+    torch.cuda.synchronize()
+    return res, dict(tf.LAUNCHES), cfg
+
+
+def test_recommended_runs_all_six_kernels(recommended):
+    res, launches, _ = recommended
+    assert launches == {"moment_sums": 1, "spfh": 1, "fpfh": 1,
+                        "nearest_neighbors2": 2, "consistency_graph": 1,
+                        "segment_sums": 1}
+    assert bool(res.solution.valid)
+    assert res.hypotheses.rotation.shape[0] == 6
+    for name in ("valid", "rotation", "translation", "max_clique_mask",
+                 "final_inlier_mask", "num_rotation_inliers",
+                 "gnc_iterations", "gnc_cost", "scale"):
+        assert getattr(res.solution, name).device.type == "cuda", name
+        assert getattr(res.hypotheses, name).device.type == "cuda", name
+
+
+def test_consistency_graph_kernel(recommended):
+    """B1 equals its plain version bit for bit on the pair's own
+    correspondences."""
+    corr = recommended[0].correspondences
+    before = tf.LAUNCHES["consistency_graph"]
+    got = kernels.consistency_graph(corr.src_xyz, corr.tgt_xyz, 0.6)
+    assert tf.LAUNCHES["consistency_graph"] == before + 1
+    ref = kernels.consistency_graph_plain(corr.src_xyz, corr.tgt_xyz, 0.6)
+    assert torch.equal(got, ref)
+    odd = kernels.consistency_graph(corr.src_xyz[:1000].contiguous(),
+                                    corr.tgt_xyz[:1000].contiguous(), 0.6)
+    assert torch.equal(odd, ref[:1000, :1000])
+
+
+def test_segment_sums_kernel(recommended):
+    """B2 on the vote's own entries: within rtol 1e-5 / atol 1e-4 of its
+    plain version, and the same bits on a second launch; and on
+    Patchwork's shape class (640 bins, 10 channels, ids out of range)."""
+    res, _, cfg = recommended
+    corr = res.correspondences
+    adj = tim_consistency_graph(corr.src_xyz, corr.tgt_xyz, corr.mask,
+                                cfg.solver.noise_bound, cfg.solver.cbar2)
+    ids, vals = vote.yaw_vote_entries(corr.src_xyz, corr.tgt_xyz, corr.mask,
+                                      adj)
+    rng = np.random.default_rng(3)
+    big_ids = torch.from_numpy(rng.integers(-5, 645, 131072).astype(
+        np.int32)).to(ids.device)
+    big_vals = torch.from_numpy(rng.uniform(0, 1, (10, 131072)).astype(
+        np.float32)).to(ids.device)
+    for i, v, p in ((ids, vals, 256), (big_ids, big_vals, 640)):
+        got = segment.segment_sums(i, v, p)
+        again = segment.segment_sums(i, v, p)
+        assert torch.equal(got, again)
+        torch.testing.assert_close(got, segment.segment_sums_plain(i, v, p),
+                                   rtol=1e-5, atol=1e-4)
+
+
+def test_plain_graph_refused_on_the_card(dev, recommended):
+    corr = recommended[0].correspondences
+    with pytest.raises(ValueError, match="CPU only"):
+        tim_consistency_graph(corr.src_xyz, corr.tgt_xyz, corr.mask, 0.3,
+                              use_pallas=False)

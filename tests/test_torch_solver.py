@@ -131,9 +131,11 @@ def test_unported_options_raise():
     adj = torch.zeros((N, N), dtype=torch.bool)
     with pytest.raises(NotImplementedError):
         select_inliers(adj, torch.from_numpy(mask), mode="exact")
-    with pytest.raises(NotImplementedError):
-        tim_consistency_graph(torch.from_numpy(src), torch.from_numpy(tgt),
-                              torch.from_numpy(mask), 0.3, use_pallas=True)
+    for kw in (dict(estimate_scaling=True), dict(reg_name="TEASER"),
+               dict(rotation_estimation_algorithm="FGR")):
+        with pytest.raises(NotImplementedError):
+            register_correspondences(src, tgt, mask, _configs(**kw)[1],
+                                     device="cpu")
     with pytest.raises(RuntimeError):      # no card here: device=None fails
         if torch.cuda.is_available():
             raise RuntimeError("a card is present")
