@@ -7,22 +7,29 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions, and the float32 precision flags (TF32 off everywhere);
-2. build: the six kernels from quatro_tpu_torch/csrc, one nvcc per
+2. build: the ten kernels from quatro_tpu_torch/csrc, one nvcc per
    source, all started together; build time and ptxas register and spill
    summary;
-3. pipeline, main path: ``register_features`` on the seed-11 HDL-64E
-   synthetic pair (the pair of tests/test_pipeline.py) at full width, 8192
-   voxels and 1024 correspondences, on the card, under the shipping
-   ``PipelineConfig.recommended()`` (4 clique + 2 vote hypotheses,
-   arbitrated by overlap). The pose must be valid and within 0.05 rad /
-   0.5 m of the ground truth, and the launch counts over the run must be
-   1 (moments), 1 (SPFH), 1 (FPFH), 2 (top-2 NN), 1 (consistency graph)
-   and 1 (segment sums). Per-stage times from CUDA events after one
-   warm-up run; each hypothesis's size, validity and overlap and the
-   winner; the pair latency over ten more runs;
-4. pipeline, earlier path: the single-hypothesis ``PipelineConfig`` on the
-   same pair, with the same pose bands, launches 1/1/1/2/1/0, its stage
-   split and its latency over three runs;
+3. pipeline, main path: ``register_scan_pair`` on the raw seed-11 HDL-64E
+   synthetic pair (the pair of tests/test_pipeline.py, capacity 131072)
+   under the shipping ``PipelineConfig.recommended(max_voxels=8192)``:
+   Patchwork ground removal, range-image sub-clustering, then 8192
+   voxels, 1024 correspondences and 4 clique + 2 vote hypotheses
+   arbitrated by overlap, on the card. The pose must be valid and within
+   0.05 rad / 0.6 m of the ground truth, and the launch counts over the run
+   must be 1 (moments), 1 (SPFH), 1 (FPFH), 2 (top-2 NN), 1 (consistency
+   graph), 1 (segment sums), 1 (cross histogram), 3 (plane-fit moments),
+   1 (classification) and 1 (image lookup). Per-stage times from CUDA
+   events after one warm-up run; ground, non-ground and segment points per
+   cloud; each hypothesis's size, validity and overlap and the winner; the
+   pair latency over ten more runs;
+4. pipeline, earlier paths: ``register_features`` on the same pair after a
+   crude ground strip (65536 points per cloud), under the same
+   recommended configuration (launches as above but 0 for the four
+   preprocessing kernels) and under the single-hypothesis
+   ``PipelineConfig(max_voxels=8192)`` (also 0 segment sums), with the
+   pose bands 0.05 rad / 0.5 m, their stage split and their latency over
+   three runs each;
 5. profile: one more run of the main path under torch.profiler (after
    the timed runs, since the profiler slows the host for the runs after
    it): the card's busy time, its idle share of the median pair, the top
@@ -31,7 +38,7 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    PyTorch version on the card, with its time, the plain version's time,
    the least time the card could take for the same work, and one library
    call computing the same function where there is one (top-2 NN, segment
-   sums).
+   sums, cross histogram, image lookup).
 
 The last two lines of standard output are the card's kernel table as one
 JSON object and ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -64,10 +71,14 @@ OPS_FPFH = 2 + 2 * 33     # weight (max, divide) and 33 FMAs
 OPS_NN = 2 * 33 + 4       # 33 FMAs, the expansion, the top-2 compares
 OPS_GRAPH = 21            # per pair: 2 x (3 sub, 3 mul, 2 add, sqrt),
                           # sub, abs, compare
+OPS_PLANE = 6             # per point: projection (3 mul, 2 add), compare
+OPS_MOMENTS_PT = 16       # per member point: 6 products, 10 additions
+OPS_CLASSIFY = 8          # projection, compare, flag arithmetic
 
 PAIR_REPEATS = 10         # timed runs of the main path
-EARLIER_REPEATS = 3       # timed runs of the single-hypothesis path
+EARLIER_REPEATS = 3       # timed runs of each earlier path
 PIPELINE_PAIR = dict(seed=11, yaw_deg=20.0, translation=(2.5, 1.0, 0.05))
+RAW_CAPACITY = 131072
 
 REPLACES = {
     "moment_sums": "quatro_tpu/ops/pallas_frontend.py:293",
@@ -76,6 +87,10 @@ REPLACES = {
     "nearest_neighbors2": "quatro_tpu/ops/pallas_frontend.py:550",
     "consistency_graph": "quatro_tpu/ops/pallas_kernels.py:47",
     "segment_sums": "quatro_tpu/ops/segment_matmul.py:158",
+    "cross_histogram": "quatro_tpu/ops/segment_matmul.py:225",
+    "fit_iteration_moments": "quatro_tpu/ops/segment_matmul.py:309",
+    "classify_points": "quatro_tpu/ops/segment_matmul.py:385",
+    "image_lookup": "quatro_tpu/ops/segment_matmul.py:482",
 }
 SOURCES = {
     "moment_sums": "quatro_tpu_torch/csrc/moment_sums.cu",
@@ -84,11 +99,20 @@ SOURCES = {
     "nearest_neighbors2": "quatro_tpu_torch/csrc/nn2.cu",
     "consistency_graph": "quatro_tpu_torch/csrc/consistency_graph.cu",
     "segment_sums": "quatro_tpu_torch/csrc/segment_sums.cu",
+    "cross_histogram": "quatro_tpu_torch/csrc/cross_histogram.cu",
+    "fit_iteration_moments": "quatro_tpu_torch/csrc/fit_iteration_moments.cu",
+    "classify_points": "quatro_tpu_torch/csrc/classify_points.cu",
+    "image_lookup": "quatro_tpu_torch/csrc/image_lookup.cu",
 }
 MAIN_LAUNCHES = {"moment_sums": 1, "spfh": 1, "fpfh": 1,
                  "nearest_neighbors2": 2, "consistency_graph": 1,
-                 "segment_sums": 1}
-EARLIER_LAUNCHES = dict(MAIN_LAUNCHES, segment_sums=0)
+                 "segment_sums": 1, "cross_histogram": 1,
+                 "fit_iteration_moments": 3, "classify_points": 1,
+                 "image_lookup": 1}
+FEATURES_LAUNCHES = dict(MAIN_LAUNCHES, cross_histogram=0,
+                         fit_iteration_moments=0, classify_points=0,
+                         image_lookup=0)
+SINGLE_LAUNCHES = dict(FEATURES_LAUNCHES, segment_sums=0)
 
 
 def log(*args):
@@ -101,8 +125,8 @@ def check(cond, what):
 
 
 def nonground(xyz, sensor_height=1.723, margin=0.3):
-    """The crude ground strip of tests/test_pipeline.py (Patchwork is a
-    later slice of the port)."""
+    """The crude ground strip of tests/test_pipeline.py, for the earlier
+    paths that take clouds without ground."""
     return xyz[xyz[:, 2] > -sensor_height + margin]
 
 
@@ -188,41 +212,49 @@ def phase_build():
 
 
 def full_width_case():
-    """The seed-11 HDL-64E pair of tests/test_pipeline.py, 65536 points
-    per cloud after the crude ground strip, and the two configurations at
-    8192 voxels: the shipping multi-hypothesis one (main path) and the
-    single-hypothesis default (earlier path)."""
+    """The seed-11 HDL-64E pair of tests/test_pipeline.py: raw scans at
+    capacity 131072 for the main path, and 65536 points per cloud after
+    the crude ground strip for the earlier paths; the shipping
+    multi-hypothesis configuration and the single-hypothesis default at
+    8192 voxels."""
     from quatro_tpu_torch.config import PipelineConfig
     from quatro_tpu_torch.io.synthetic import make_scan_pair
     from quatro_tpu_torch.types import PointBatch
 
     src_xyz, tgt_xyz, gt = make_scan_pair(**PIPELINE_PAIR)
     main = PipelineConfig.recommended(max_voxels=8192)
-    earlier = PipelineConfig(max_voxels=8192)
-    src = PointBatch.from_numpy(nonground(src_xyz), capacity=65536)
-    tgt = PointBatch.from_numpy(nonground(tgt_xyz), capacity=65536)
-    log(f"pipeline: HDL-64E pair seed 11, {int(src.mask.sum())} / "
-        f"{int(tgt.mask.sum())} non-ground points, max_voxels "
+    single = PipelineConfig(max_voxels=8192)
+    raw = (PointBatch.from_numpy(src_xyz, capacity=RAW_CAPACITY),
+           PointBatch.from_numpy(tgt_xyz, capacity=RAW_CAPACITY))
+    stripped = (PointBatch.from_numpy(nonground(src_xyz), capacity=65536),
+                PointBatch.from_numpy(nonground(tgt_xyz), capacity=65536))
+    log(f"pipeline: HDL-64E pair seed 11, {int(raw[0].mask.sum())} / "
+        f"{int(raw[1].mask.sum())} raw points (capacity {RAW_CAPACITY}), "
+        f"Patchwork {main.patchwork.num_patches} patches, range image "
+        f"{main.lidar.n_scan} x {main.lidar.horizon_scan}, max_voxels "
         f"{main.max_voxels}, max_correspondences "
         f"{main.fpfh.max_correspondences}, hypotheses "
         f"{main.solver.num_hypotheses} clique + "
-        f"{main.solver.num_vote_hypotheses} vote (main path) / 1 (earlier)")
-    return src, tgt, gt, main, earlier
+        f"{main.solver.num_vote_hypotheses} vote; earlier paths "
+        f"{int(stripped[0].mask.sum())} / {int(stripped[1].mask.sum())} "
+        "points after the crude ground strip")
+    return raw, stripped, gt, main, single
 
 
-def phase_pipeline(src, tgt, gt, cfg, name, expected, repeats):
-    """One path: warm-up, a run with the stage split and the launch
+def phase_pipeline(entry, pair, gt, cfg, name, expected, repeats,
+                   max_terr=0.5):
+    """One path through ``entry`` (register_scan_pair or
+    register_features): warm-up, a run with the stage split and the launch
     counts (set to 0 just before it, read just after), then ``repeats``
     timed runs. Returns (result, launches, median host wall ms)."""
     from quatro_tpu_torch.ops import launch
-    from quatro_tpu_torch.pipeline import register_features
 
-    register_features(src, tgt, cfg)                 # warm-up
+    entry(*pair, cfg)                                # warm-up
     torch.cuda.synchronize()
     launch.reset_launches()
     timer = StageTimer()
     t0 = time.perf_counter()
-    res = register_features(src, tgt, cfg, timer=timer)
+    res = entry(*pair, cfg, timer=timer)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     launches = dict(launch.LAUNCHES)
@@ -250,7 +282,7 @@ def phase_pipeline(src, tgt, gt, cfg, name, expected, repeats):
     check(bool(sol.valid), f"{name}: solution not valid")
     check(n_corr >= 10, f"{name}: too few correspondences: {n_corr}")
     check(rerr < 0.05, f"{name}: rotation error {rerr} rad")
-    check(terr < 0.5, f"{name}: translation error {terr} m")
+    check(terr < max_terr, f"{name}: translation error {terr} m")
     check(torch.isfinite(sol.transform()).all(), f"{name}: non-finite pose")
     check(launches == expected,
           f"{name}: launch counts {launches} != {expected}")
@@ -258,7 +290,7 @@ def phase_pipeline(src, tgt, gt, cfg, name, expected, repeats):
     walls = []
     for _ in range(repeats):
         t0 = time.perf_counter()
-        register_features(src, tgt, cfg)
+        entry(*pair, cfg)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     walls.sort()
@@ -268,20 +300,65 @@ def phase_pipeline(src, tgt, gt, cfg, name, expected, repeats):
     return res, launches, wall_ms
 
 
-def phase_profile(src, tgt, cfg, wall_ms, top=10):
+def capture_preprocessing(raw, cfg):
+    """The arguments the main path hands each preprocessing kernel: one
+    more preprocessing run of the pair (after the counted run) with the
+    four wrappers wrapped to record their arguments. Logs the ground,
+    non-ground and segment points per cloud."""
+    from quatro_tpu_torch.device import resolve_device
+    from quatro_tpu_torch.preprocessing import patchwork, projection
+
+    calls = {}
+    wrapped = [(patchwork, "cross_histogram"),
+               (patchwork, "fit_iteration_moments"),
+               (patchwork, "classify_points"), (projection, "image_lookup")]
+    saved = [getattr(mod, fn) for mod, fn in wrapped]
+
+    def recorder(name, fn):
+        def call(*args, **kwargs):
+            calls.setdefault(name, []).append((args, kwargs))
+            return fn(*args, **kwargs)
+        return call
+
+    dev = resolve_device()
+    pts = torch.stack([raw[0].points, raw[1].points]).to(dev)
+    msk = torch.stack([raw[0].mask, raw[1].mask]).to(dev)
+    try:
+        for (mod, fn), orig in zip(wrapped, saved):
+            setattr(mod, fn, recorder(fn, orig))
+        # pipeline.preprocess, with the Patchwork result kept
+        pw = patchwork.estimate_ground(pts, msk, cfg.patchwork)
+        seg = projection.segment_cloud(
+            pts, pw.nonground, cfg.lidar, cfg.projection,
+            max_points=cfg.max_nonground_points).valid_segments
+    finally:
+        for (mod, fn), orig in zip(wrapped, saved):
+            setattr(mod, fn, orig)
+    torch.cuda.synchronize()
+    log("main path preprocessing (source / target): " + json.dumps({
+        "ground": pw.ground.sum(1).tolist(),
+        "nonground": pw.nonground.sum(1).tolist(),
+        "dropped": pw.dropped.sum(1).tolist(),
+        "segments": seg.sum(1).tolist()}))
+    check(bool((pw.ground.sum(1) > 0).all() and (seg.sum(1) > 0).all()),
+          "preprocessing left no ground or no segments")
+    return calls
+
+
+def phase_profile(pair, cfg, wall_ms, top=10):
     """One more pipeline run under torch.profiler: the card's busy time
     (sum of device times on the one stream), the idle share against the
     unprofiled run's host wall time ``wall_ms`` (the profiler slows the
     host, not the card), and the kernels that take the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    from quatro_tpu_torch.pipeline import register_features
+    from quatro_tpu_torch.pipeline import register_scan_pair
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        register_features(src, tgt, cfg)
+        register_scan_pair(*pair, cfg)
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events only (kernels, copies, fills): the CPU operators
@@ -310,7 +387,7 @@ def phase_profile(src, tgt, cfg, wall_ms, top=10):
         + json.dumps(own))
 
 
-def phase_kernels(res, cfg, launches):
+def phase_kernels(res, cfg, launches, calls):
     from quatro_tpu_torch.ops import frontend as fe
     from quatro_tpu_torch.ops.fpfh import normalize_blocks
 
@@ -471,7 +548,106 @@ def phase_kernels(res, cfg, launches):
         cuda_ms(lambda: segment.segment_sums_plain(ids, vals, p_pad), 5),
         float(in_range * kv), nv_ids * 4 * (1 + kv) + p_pad * kv * 4,
         cuda_ms(library_segment))
+    preprocessing_kernel_rows(calls, row)
     return rows
+
+
+def preprocessing_kernel_rows(calls, row):
+    """B8-B11 on the arguments the main path handed them: each against its
+    plain version (B8 and B9 bit-equal across two launches and within
+    rtol 1e-5 / atol 1e-4 of the plain sums, the f32 summation-order bound
+    of B2; B9's membership counts equal; B10 and B11 bit-equal)."""
+    from quatro_tpu_torch.ops import segment
+
+    # B8 cross histogram: the Patchwork seed stage
+    (ids_a, ids_b, w, a_pad, b_pad), _ = calls["cross_histogram"][0]
+    got = segment.cross_histogram(ids_a, ids_b, w, a_pad, b_pad)
+    again = segment.cross_histogram(ids_a, ids_b, w, a_pad, b_pad)
+    check(torch.equal(got, again), "cross histogram differs between launches")
+    ref = segment.cross_histogram_plain(ids_a, ids_b, w, a_pad, b_pad)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-4)
+    check(torch.equal(got[:, 0], ref[:, 0]), "cross histogram counts differ")
+    bsz, k, n = w.shape
+    inr = ((ids_a >= 0) & (ids_a < a_pad) & (ids_b >= 0) & (ids_b < b_pad))
+    bins = a_pad * b_pad
+    key = torch.where(inr, ids_a.long() * b_pad + ids_b.long(), bins)
+    offs = (torch.arange(bsz * k, device=w.device) * (bins + 1)).reshape(
+        bsz, k, 1)
+    flat_key = (key[:, None, :] + offs).reshape(-1)
+    flat_w = w.reshape(-1)
+    log(f"cross_histogram: B {bsz}, N {n}, K {k}, {a_pad} x {b_pad} bins, "
+        f"{int(inr.sum())} points in range, bit-equal across two launches")
+    row("cross_histogram", float((got - ref).abs().max()),
+        cuda_ms(lambda: segment.cross_histogram(ids_a, ids_b, w, a_pad,
+                                                b_pad)),
+        cuda_ms(lambda: segment.cross_histogram_plain(ids_a, ids_b, w,
+                                                      a_pad, b_pad), 5),
+        float(inr.sum()) * k, bsz * n * 4 * (2 + k) + bsz * k * bins * 4,
+        cuda_ms(lambda: torch.bincount(flat_key, weights=flat_w,
+                                       minlength=bsz * k * (bins + 1))))
+
+    # B9 plane-fit moments: iterations 1-2 in bf16, the last exact
+    errs = []
+    for (ids, chan, tab, p_pad, p_cnt), kw in calls["fit_iteration_moments"]:
+        got = segment.fit_iteration_moments(ids, chan, tab, p_pad, p_cnt, **kw)
+        again = segment.fit_iteration_moments(ids, chan, tab, p_pad, p_cnt,
+                                              **kw)
+        check(torch.equal(got, again), "plane-fit moments differ between "
+              "launches")
+        ref = segment.fit_iteration_moments_plain(ids, chan, tab, p_pad,
+                                                  p_cnt, **kw)
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-4)
+        check(torch.equal(got[..., 0], ref[..., 0]),
+              "plane-fit membership counts differ")
+        errs.append(float((got - ref).abs().max()))
+        log(f"fit_iteration_moments (exact={kw['exact']}): "
+            f"{int(got[..., 0].sum())} member points, counts equal, "
+            "bit-equal across two launches")
+    bsz, _, n = chan.shape
+    members = float(got[..., 0].sum())
+    row("fit_iteration_moments", max(errs),
+        cuda_ms(lambda: segment.fit_iteration_moments(ids, chan, tab, p_pad,
+                                                      p_cnt, **kw)),
+        cuda_ms(lambda: segment.fit_iteration_moments_plain(
+            ids, chan, tab, p_pad, p_cnt, **kw), 5),
+        bsz * n * OPS_PLANE + members * OPS_MOMENTS_PT,
+        bsz * n * 4 * 6 + bsz * p_pad * (5 + 10) * 4)
+
+    # B10 final classification
+    (ids, chan, tab, p_pad, p_cnt), _ = calls["classify_points"][0]
+    got = segment.classify_points(ids, chan, tab, p_pad, p_cnt)
+    ref = segment.classify_points_plain(ids, chan, tab, p_pad, p_cnt)
+    check(torch.equal(got, ref), "classification differs from plain")
+    log(f"classify_points: {int(((got & 1) > 0).sum())} ground, "
+        f"{int(((got & 2) > 0).sum())} nonground, equal to the plain version")
+    row("classify_points", float((got != ref).sum()),
+        cuda_ms(lambda: segment.classify_points(ids, chan, tab, p_pad,
+                                                p_cnt)),
+        cuda_ms(lambda: segment.classify_points_plain(ids, chan, tab, p_pad,
+                                                      p_cnt), 5),
+        bsz * n * OPS_CLASSIFY, bsz * n * 4 * (1 + 3 + 1)
+        + bsz * p_pad * 5 * 4)
+
+    # B11 image lookup: the projection's packed pixel words
+    (flat, img, rows_n, cols_n), _ = calls["image_lookup"][0]
+    got = segment.image_lookup(flat, img, rows_n, cols_n)
+    ref = segment.image_lookup_plain(flat, img, rows_n, cols_n)
+    check(torch.equal(got, ref), "image lookup differs from plain")
+    npix = rows_n * cols_n
+    bsz, n = flat.shape
+    inr = (flat >= 0) & (flat < npix)
+    padded = torch.cat([img.reshape(bsz, npix),
+                        torch.zeros_like(img.reshape(bsz, npix)[:, :1])], 1)
+    idx = (torch.where(inr, flat.long(), npix)
+           + torch.arange(bsz, device=flat.device)[:, None] * (npix + 1))
+    log(f"image_lookup: B {bsz}, N {n}, {rows_n} x {cols_n} pixels, "
+        f"{int(inr.sum())} points in the image, equal to the plain version")
+    row("image_lookup", float((got != ref).sum()),
+        cuda_ms(lambda: segment.image_lookup(flat, img, rows_n, cols_n)),
+        cuda_ms(lambda: segment.image_lookup_plain(flat, img, rows_n,
+                                                   cols_n), 5),
+        0.0, bsz * n * 4 * 2 + bsz * npix * 4,
+        cuda_ms(lambda: torch.take(padded, idx)))
 
 
 def main() -> int:
@@ -482,13 +658,20 @@ def main() -> int:
 
     phase_device()
     phase_build()
-    src, tgt, gt, main_cfg, earlier_cfg = full_width_case()
+    from quatro_tpu_torch.pipeline import register_features, register_scan_pair
+    raw, stripped, gt, main_cfg, single_cfg = full_width_case()
     res, launches, wall_ms = phase_pipeline(
-        src, tgt, gt, main_cfg, "main path", MAIN_LAUNCHES, PAIR_REPEATS)
-    phase_pipeline(src, tgt, gt, earlier_cfg, "earlier path",
-                   EARLIER_LAUNCHES, EARLIER_REPEATS)
-    phase_profile(src, tgt, main_cfg, wall_ms)
-    rows = phase_kernels(res, main_cfg, launches)
+        register_scan_pair, raw, gt, main_cfg, "main path", MAIN_LAUNCHES,
+        PAIR_REPEATS, max_terr=0.6)
+    calls = capture_preprocessing(raw, main_cfg)
+    phase_pipeline(register_features, stripped, gt, main_cfg,
+                   "earlier path (features, recommended)", FEATURES_LAUNCHES,
+                   EARLIER_REPEATS)
+    phase_pipeline(register_features, stripped, gt, single_cfg,
+                   "earlier path (features, single hypothesis)",
+                   SINGLE_LAUNCHES, EARLIER_REPEATS)
+    phase_profile(raw, main_cfg, wall_ms)
+    rows = phase_kernels(res, main_cfg, launches, calls)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -40,6 +40,14 @@ SIGNATURES = {
                           [_P, _P, _I, _F, _P, _P]),
     "segment_sums": ("quatro_segment_sums",
                      [_P, _P, _I, _I, _I, _I, _P, _P, _P]),
+    "cross_histogram": ("quatro_cross_histogram",
+                        [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P]),
+    "fit_iteration_moments": ("quatro_fit_iteration_moments",
+                              [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
+                               _P]),
+    "classify_points": ("quatro_classify_points",
+                        [_P, _P, _P, _I, _I, _I, _I, _P, _P]),
+    "image_lookup": ("quatro_image_lookup", [_P, _P, _I, _I, _I, _P, _P]),
 }
 
 _loaded: dict = {}
@@ -57,7 +65,7 @@ def _nvcc() -> str:
 def _stale(lib: Path, src: Path) -> bool:
     if not lib.exists():
         return True
-    newest = max(p.stat().st_mtime for p in (src, CSRC / "common.cuh"))
+    newest = max(p.stat().st_mtime for p in (src, *CSRC.glob("*.cuh")))
     return lib.stat().st_mtime < newest
 
 

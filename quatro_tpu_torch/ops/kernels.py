@@ -13,15 +13,17 @@ from __future__ import annotations
 import torch
 
 from quatro_tpu_torch.ops.launch import LAUNCHES, check, launch, same_device
+from quatro_tpu_torch.utils import fused
 
 
 def pairwise_distances(points: torch.Tensor) -> torch.Tensor:
     """Dense Euclidean distance matrix for (N, 3) points, in the exact
     broadcast-difference form sqrt((dx*dx + dy*dy) + dz*dz) (the Gram
     identity loses ~1e-3 to cancellation, which would blur the +-beta
-    test)."""
+    test), the square root correctly rounded as the kernel's (torch's CPU
+    sqrt rounds by the host's instruction set, utils/fused.py)."""
     d = [points[:, None, k] - points[None, :, k] for k in range(3)]
-    return torch.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
+    return fused.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
 
 
 def consistency_graph_plain(src: torch.Tensor, tgt: torch.Tensor,

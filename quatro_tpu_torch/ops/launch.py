@@ -12,7 +12,9 @@ from __future__ import annotations
 import torch
 
 LAUNCHES = {"moment_sums": 0, "spfh": 0, "fpfh": 0, "nearest_neighbors2": 0,
-            "consistency_graph": 0, "segment_sums": 0}
+            "consistency_graph": 0, "segment_sums": 0, "cross_histogram": 0,
+            "fit_iteration_moments": 0, "classify_points": 0,
+            "image_lookup": 0}
 
 
 def reset_launches() -> None:

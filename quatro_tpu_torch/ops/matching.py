@@ -17,6 +17,7 @@ import torch
 
 from quatro_tpu_torch.device import resolve_device, to_tensor
 from quatro_tpu_torch.ops.frontend import nearest_neighbors2
+from quatro_tpu_torch.utils import fused
 
 _IDX_BITS = 15                    # candidate packing: (src << 15) | tgt
 _INT32_MAX = (1 << 31) - 1
@@ -73,7 +74,7 @@ def tuple_test_keep(cs: tuple, ct: tuple, cand_pos: torch.Tensor,
 
     def lengths(p, q):
         d = [p[c] - q[c] for c in range(3)]
-        return torch.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
+        return fused.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
 
     cs0 = tuple(c[None, :] for c in cs)
     ct0 = tuple(c[None, :] for c in ct)

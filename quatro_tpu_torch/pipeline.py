@@ -1,17 +1,18 @@
-"""The front-end registration path: voxel -> normals -> FPFH -> matching ->
-Quatro solve, on clouds whose ground is already removed.
+"""The registration pipeline: [Patchwork ground removal -> range-image
+sub-clustering ->] voxel -> normals -> FPFH -> matching -> Quatro solve.
 
-PyTorch counterpart of ``register_features`` / ``extract_features`` in
-``quatro_tpu/pipeline.py`` (the minimum end-to-end path; the reference's
-application flow, examples/run_global_registration.cpp:127-251, without
-its preprocessing). The source and target clouds go through feature
-extraction as one batch of two, as the JAX package stacks them.
+PyTorch counterpart of ``quatro_tpu/pipeline.py`` (the reference's
+application flow, examples/run_global_registration.cpp:127-251):
+``register_scan_pair`` takes raw scans, ``register_features`` clouds whose
+ground is already removed. The source and target clouds go through
+preprocessing and feature extraction as one batch of two.
 
 Entry points take ``device=None`` (the card; see device.py) and an
 optional ``timer``: a callable given the name of each stage as it ends,
-for per-stage timing: "voxel", "normals", "fpfh", "matching", then the
-solver's "graph", "cliques" and "polish", with "vote" before "polish" and
-"arbitration" after it on the multi-hypothesis path.
+for per-stage timing: "patchwork" and "projection" (raw scans only), then
+"voxel", "normals", "fpfh", "matching", then the solver's "graph",
+"cliques" and "polish", with "vote" before "polish" and "arbitration"
+after it on the multi-hypothesis path.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ from quatro_tpu_torch.config import PipelineConfig
 from quatro_tpu_torch.device import resolve_device, to_tensor
 from quatro_tpu_torch.ops.matching import Correspondences, match_features
 from quatro_tpu_torch.ops.voxel import voxel_downsample
+from quatro_tpu_torch.preprocessing.patchwork import estimate_ground
+from quatro_tpu_torch.preprocessing.projection import segment_cloud
 from quatro_tpu_torch.solver.quatro import (register_correspondences,
                                             register_hypotheses)
 from quatro_tpu_torch.solver.verify import arbitrate_hypotheses
@@ -152,3 +155,63 @@ def register_features(src: PointBatch, tgt: PointBatch,
     timer("arbitration")
     return PipelineResult(sol, corr, src_vox, tgt_vox, hypotheses=sols,
                           overlaps=overlaps)
+
+
+def preprocess(points, mask, config: PipelineConfig, device=None,
+               timer: Optional[Callable[[str], None]] = None):
+    """Ground segmentation and sub-cluster rejection of raw scans (N, 3)
+    or a batch (B, N, 3) (the reference's STEP 2-3,
+    examples/run_global_registration.cpp:128-162): in Patchwork mode the
+    ground goes first and the non-ground cloud is clustered; in LeGO-LOAM
+    mode the raw cloud is clustered with its own vertical-angle ground
+    test. Returns (valid_segment_mask, ground_mask), shaped as mask."""
+    timer = timer or _noop
+    dev = resolve_device(device)
+    pts = to_tensor(points, torch.float32, dev)
+    msk = to_tensor(mask, torch.bool, dev)
+    if config.ground_segmentation_mode == "Patchwork":
+        pw = estimate_ground(pts, msk, config.patchwork)
+        timer("patchwork")
+        if not config.use_subclustering:
+            return pw.nonground, pw.ground
+        proj = segment_cloud(pts, pw.nonground, config.lidar,
+                             config.projection, ground_mode="Patchwork",
+                             max_points=config.max_nonground_points)
+        timer("projection")
+        return proj.valid_segments, pw.ground
+    # LeGO-LOAM clusters the raw cloud: no non-ground bound applies
+    proj = segment_cloud(pts, msk, config.lidar, config.projection,
+                         ground_mode="LeGO-LOAM")
+    timer("projection")
+    return proj.valid_segments, proj.ground
+
+
+def register_scan_pair(src: PointBatch, tgt: PointBatch,
+                       config: PipelineConfig = PipelineConfig(),
+                       device=None,
+                       timer: Optional[Callable[[str], None]] = None
+                       ) -> PipelineResult:
+    """The full pipeline on raw scans: Patchwork ground removal ->
+    range-image sub-cluster rejection -> ``register_features`` on the
+    segment masks. Both scans are preprocessed as one batch of two
+    whatever ``stack_preprocess`` says (that knob chose between two XLA
+    programs on the TPU; per cloud the results are the same); scans of
+    different capacities go one at a time. Ground alignment and ICP are
+    not ported yet and raise NotImplementedError."""
+    if config.ground_alignment.enabled:
+        raise NotImplementedError("ground alignment is not ported yet")
+    if config.icp.enabled:
+        raise NotImplementedError("ICP refinement is not ported yet")
+    dev = resolve_device(device)
+    src, tgt = src.to(dev), tgt.to(dev)
+    if src.points.shape == tgt.points.shape:
+        seg, _ = preprocess(torch.stack([src.points, tgt.points]),
+                            torch.stack([src.mask, tgt.mask]), config, dev,
+                            timer)
+        src_seg, tgt_seg = seg[0], seg[1]
+    else:
+        src_seg, _ = preprocess(src.points, src.mask, config, dev, timer)
+        tgt_seg, _ = preprocess(tgt.points, tgt.mask, config, dev, timer)
+    return register_features(PointBatch(src.points, src_seg),
+                             PointBatch(tgt.points, tgt_seg), config, dev,
+                             timer)

@@ -28,6 +28,7 @@ import torch
 
 from quatro_tpu_torch.ops.segment import segment_sums
 from quatro_tpu_torch.solver.clique import _top_k_indices, top_distinct_cliques
+from quatro_tpu_torch.utils import fused
 from quatro_tpu_torch.utils.scan import prefix_sum
 from quatro_tpu_torch.utils.se3 import rotate_points, yaw_to_rotation
 
@@ -59,7 +60,7 @@ def yaw_vote_entries(src, tgt, mask, adj, num_anchors: int = 64,
     cross = v0 * w1 - v1 * w0
     dot = v0 * w0 + v1 * w1
     ang = torch.atan2(cross, dot)                   # (M, N) in [-pi, pi]
-    blen = torch.sqrt(v0 * v0 + v1 * v1)
+    blen = fused.sqrt(v0 * v0 + v1 * v1)
     wgt = torch.where(adj_rows & (blen > min_baseline),
                       torch.clamp(blen, max=max_weight_baseline), 0.0)
 
@@ -67,7 +68,7 @@ def yaw_vote_entries(src, tgt, mask, adj, num_anchors: int = 64,
                        num_bins - 1).to(torch.int32)
     ids = torch.where(wgt > 0, bins, num_bins).reshape(-1)
     # sin/cos from the cross/dot already computed: no extra trig
-    norm = torch.clamp(torch.sqrt(cross * cross + dot * dot), min=1e-12)
+    norm = torch.clamp(fused.sqrt(cross * cross + dot * dot), min=1e-12)
     vals = torch.stack([wgt, wgt * cross / norm, wgt * dot / norm]
                        ).reshape(3, -1)
     return ids.to(torch.int32).contiguous(), vals.contiguous()

@@ -1,4 +1,4 @@
-"""The six CUDA kernels against their plain PyTorch versions, on the card.
+"""The ten CUDA kernels against their plain PyTorch versions, on the card.
 
 Every test here is marked ``gpu`` and skips without a CUDA device. The
 machine with the card has no JAX, so this file imports only the port, and
@@ -184,7 +184,9 @@ def test_recommended_runs_all_six_kernels(recommended):
     res, launches, _ = recommended
     assert launches == {"moment_sums": 1, "spfh": 1, "fpfh": 1,
                         "nearest_neighbors2": 2, "consistency_graph": 1,
-                        "segment_sums": 1}
+                        "segment_sums": 1, "cross_histogram": 0,
+                        "fit_iteration_moments": 0, "classify_points": 0,
+                        "image_lookup": 0}
     assert bool(res.solution.valid)
     assert res.hypotheses.rotation.shape[0] == 6
     for name in ("valid", "rotation", "translation", "max_clique_mask",
@@ -210,8 +212,9 @@ def test_consistency_graph_kernel(recommended):
 
 def test_segment_sums_kernel(recommended):
     """B2 on the vote's own entries: within rtol 1e-5 / atol 1e-4 of its
-    plain version, and the same bits on a second launch; and on
-    Patchwork's shape class (640 bins, 10 channels, ids out of range)."""
+    plain version, and the same bits on a second launch; and at 131072
+    entries, 10 channels and an arbitrary 640 bins with ids out of
+    range."""
     res, _, cfg = recommended
     corr = res.correspondences
     adj = tim_consistency_graph(corr.src_xyz, corr.tgt_xyz, corr.mask,
@@ -236,3 +239,97 @@ def test_plain_graph_refused_on_the_card(dev, recommended):
     with pytest.raises(ValueError, match="CPU only"):
         tim_consistency_graph(corr.src_xyz, corr.tgt_xyz, corr.mask, 0.3,
                               use_pallas=False)
+
+
+# ------------------------------------------------- preprocessing, B8-B11 --
+
+# the main path's shapes (B = 2 clouds of 131072 points, 504 patches padded
+# to 512, 128 z-bins, a 64 x 1800 image) and an odd N, not a multiple of
+# 1024 (nor of the kernels' chunks)
+@pytest.fixture(scope="module", params=[131072, 100001], ids=["main", "odd"])
+def prep_inputs(dev, request):
+    """Random kernel inputs on the card: ids with some out of range on
+    both sides, patch-table rows with real normals and flags."""
+    n = request.param
+    rng = np.random.default_rng(n)
+    p_pad, p_cnt = 512, 504
+    ids = rng.integers(-3, p_pad + 3, (2, n)).astype(np.int32)
+    zb = rng.integers(-2, 130, (2, n)).astype(np.int32)
+    w = np.stack([rng.uniform(size=(2, n)) > 0.2,
+                  rng.normal(-1.7, 0.5, (2, n))], 1).astype(np.float32)
+    chan = rng.normal(0, 5, (2, 5, n)).astype(np.float32)
+    nrm = rng.normal(0, 0.1, (2, p_pad, 3)) + [0, 0, 1]
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    tab = np.concatenate([nrm, rng.normal(0, 2, (2, p_pad, 1)),
+                          rng.integers(0, 16, (2, p_pad, 1))], -1)
+    tab[:, p_cnt:] = 0.0
+    flat = rng.integers(-5, 64 * 1800 + 5, (2, n)).astype(np.int32)
+    img = rng.integers(-1, 1 << 19, (2, 64, 1800)).astype(np.int32)
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in
+         dict(ids=ids, zb=zb, w=w, chan=chan, tab=tab.astype(np.float32),
+              flat=flat, img=img).items()}
+    return t, p_pad, p_cnt
+
+
+def test_cross_histogram_kernel(prep_inputs):
+    """B8: the same bits on a second launch, counts equal to the plain
+    version's, sums within rtol 1e-5 / atol 1e-4."""
+    t, p_pad, _ = prep_inputs
+    before = tf.LAUNCHES["cross_histogram"]
+    got = segment.cross_histogram(t["ids"], t["zb"], t["w"], p_pad, 128)
+    assert tf.LAUNCHES["cross_histogram"] == before + 1
+    assert torch.equal(got, segment.cross_histogram(t["ids"], t["zb"],
+                                                    t["w"], p_pad, 128))
+    ref = segment.cross_histogram_plain(t["ids"], t["zb"], t["w"], p_pad, 128)
+    assert torch.equal(got[:, 0], ref[:, 0])
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("exact", [False, True])
+def test_fit_iteration_moments_kernel(prep_inputs, exact):
+    """B9: the same bits on a second launch, membership counts equal to
+    the plain version's, moment sums within rtol 1e-5 / atol 1e-4 (bf16
+    channels when not exact)."""
+    t, p_pad, p_cnt = prep_inputs
+    args = (t["ids"], t["chan"], t["tab"], p_pad, p_cnt)
+    got = segment.fit_iteration_moments(*args, exact=exact)
+    assert torch.equal(got, segment.fit_iteration_moments(*args, exact=exact))
+    ref = segment.fit_iteration_moments_plain(*args, exact=exact)
+    assert torch.equal(got[..., 0], ref[..., 0])
+    assert float(got[..., 0].sum()) > 0
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-4)
+
+
+def test_classify_points_and_image_lookup_kernels(prep_inputs):
+    """B10 and B11 equal their plain versions bit for bit."""
+    t, p_pad, p_cnt = prep_inputs
+    args = (t["ids"], t["chan"], t["tab"], p_pad, p_cnt)
+    code = segment.classify_points(*args)
+    assert torch.equal(code, segment.classify_points_plain(*args))
+    assert len(torch.unique(code)) > 3
+    got = segment.image_lookup(t["flat"], t["img"], 64, 1800)
+    assert torch.equal(got, segment.image_lookup_plain(t["flat"], t["img"],
+                                                       64, 1800))
+
+
+def test_register_scan_pair_runs_all_ten_kernels(dev):
+    """register_scan_pair on the raw level_a VLP-16 pair under the shipping
+    solver: every kernel launched, the preprocessing ones once per batch
+    of two (three plane fits)."""
+    from quatro_tpu_torch.pipeline import register_scan_pair
+    cfg = replace(CFG, max_raw_points=32768,
+                  solver=SolverConfig(num_hypotheses=4,
+                                      num_vote_hypotheses=2))
+    pair = make_scan_pair(seed=101, yaw_deg=38.0,
+                          translation=(2.5, -1.2, 0.04),
+                          lidar=LidarConfig.preset("VLP-16"))
+    src, tgt = (PointBatch.from_numpy(xyz, 32768) for xyz in pair[:2])
+    register_scan_pair(src, tgt, cfg, device=dev)
+    tf.reset_launches()
+    res = register_scan_pair(src, tgt, cfg, device=dev)
+    torch.cuda.synchronize()
+    assert dict(tf.LAUNCHES) == {
+        "moment_sums": 1, "spfh": 1, "fpfh": 1, "nearest_neighbors2": 2,
+        "consistency_graph": 1, "segment_sums": 1, "cross_histogram": 1,
+        "fit_iteration_moments": 3, "classify_points": 1, "image_lookup": 1}
+    assert bool(res.solution.valid)
