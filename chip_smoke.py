@@ -7,38 +7,53 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions, and the float32 precision flags (TF32 off everywhere);
-2. build: the ten kernels from quatro_tpu_torch/csrc, one nvcc per
+2. build: the eleven kernels from quatro_tpu_torch/csrc, one nvcc per
    source, all started together; build time and ptxas register and spill
    summary;
-3. pipeline, main path: ``register_scan_pair`` on the raw seed-11 HDL-64E
-   synthetic pair (the pair of tests/test_pipeline.py, capacity 131072)
-   under the shipping ``PipelineConfig.recommended(max_voxels=8192)``:
-   Patchwork ground removal, range-image sub-clustering, then 8192
-   voxels, 1024 correspondences and 4 clique + 2 vote hypotheses
-   arbitrated by overlap, on the card. The pose must be valid and within
-   0.05 rad / 0.6 m of the ground truth, and the launch counts over the run
-   must be 1 (moments), 1 (SPFH), 1 (FPFH), 2 (top-2 NN), 1 (consistency
-   graph), 1 (segment sums), 1 (cross histogram), 3 (plane-fit moments),
-   1 (classification) and 1 (image lookup). Per-stage times from CUDA
-   events after one warm-up run; ground, non-ground and segment points per
-   cloud; each hypothesis's size, validity and overlap and the winner; the
-   pair latency over ten more runs;
-4. pipeline, earlier paths: ``register_features`` on the same pair after a
-   crude ground strip (65536 points per cloud), under the same
-   recommended configuration (launches as above but 0 for the four
-   preprocessing kernels) and under the single-hypothesis
-   ``PipelineConfig(max_voxels=8192)`` (also 0 segment sums), with the
-   pose bands 0.05 rad / 0.5 m, their stage split and their latency over
-   three runs each;
-5. profile: one more run of the main path under torch.profiler (after
-   the timed runs, since the profiler slows the host for the runs after
-   it): the card's busy time, its idle share of the median pair, the top
-   kernels and the device time per launch of each of the port's kernels;
-6. kernels: each kernel on the main path's own tensors against its plain
-   PyTorch version on the card, with its time, the plain version's time,
-   the least time the card could take for the same work, and one library
-   call computing the same function where there is one (top-2 NN, segment
-   sums, cross histogram, image lookup).
+3. path A, the main path (Quatro++ coarse to fine): ``register_scan_pair``
+   on the raw seed-11 HDL-64E synthetic pair (the pair of
+   tests/test_pipeline.py, capacity 131072) tilted as tests/test_ground.py
+   tilts it, under ``PipelineConfig.recommended(max_voxels=8192)`` with
+   ground alignment and ICP on: Patchwork ground removal, range-image
+   sub-clustering, ground-plane leveling of both scans, 8192 voxels, 1024
+   correspondences, 4 clique + 2 vote hypotheses arbitrated by overlap on
+   the leveled clouds, the pose composed back with the ground-height z,
+   then point-to-plane ICP on the raw voxel clouds. The pose must be valid,
+   within 0.01 rad / 0.05 m of the tilted ground truth, ICP converged, and
+   the launch counts over the run 1 (moments), 1 (SPFH), 1 (FPFH), 0
+   (1-NN), 2 (top-2 NN), 1 (consistency graph), 1 (segment sums), 1 (cross
+   histogram), 3 (plane-fit moments), 1 (classification), 1 (image
+   lookup). Per-stage times from CUDA events after one warm-up run
+   ("leveling" and "icp" among them); ground, non-ground and segment points
+   per cloud; the hypotheses and the winner; the pair latency over five
+   more runs;
+4. path B, the reference matcher: ``register_scan_pair`` on the untilted
+   raw pair under ``PipelineConfig(max_voxels=8192)`` with
+   ``crosscheck_min_matches=0`` (crosscheck and tuple test with no
+   starvation fallback, the single-clique solver): valid, within 0.05 rad
+   / 0.6 m, launches 2 (1-NN), 0 (top-2 NN), 0 (segment sums); three timed
+   runs. Then ``register_correspondences`` on its correspondences under
+   each solver mode off the shipping path (TEASER full SO(3), FGR, the TLS
+   scale, exact clique): each valid and within 0.01 rad / 0.1 m of path
+   B's own pose, the scale within 0.02 of 1; each mode's time and GNC
+   iterations, and the exact search's completion, restriction and steps;
+5. earlier paths: ``register_scan_pair`` on the untilted raw pair under
+   the recommended configuration (the main path before ground alignment
+   and ICP), and
+   ``register_features`` on the pair after a crude ground strip (65536
+   points per cloud), recommended (preprocessing launches 0) and single
+   hypothesis (also 0 segment sums), with their bands (0.05 rad / 0.6 m
+   raw, 0.05 rad / 0.5 m stripped), stage split and latency;
+6. profile: one more run of path A under torch.profiler (after the timed
+   runs, since the profiler slows the host for the runs after it): the
+   card's busy time, its idle share of the median pair, the top kernels
+   and the device time per launch of each of the port's kernels;
+7. kernels: each kernel on the main path's own tensors (B6 on path B's
+   descriptors) against its plain PyTorch version on the card, with its
+   time, the plain version's time, the least time the card could take for
+   the same work, and one library call computing the same function where
+   there is one (1-NN, top-2 NN, segment sums, cross histogram, image
+   lookup).
 
 The last two lines of standard output are the card's kernel table as one
 JSON object and ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -69,21 +84,31 @@ OPS_MOMENTS = 16          # 10 accumulations, 6 products
 OPS_SPFH = 80             # Darboux frame, atan2 and three bins (approx.)
 OPS_FPFH = 2 + 2 * 33     # weight (max, divide) and 33 FMAs
 OPS_NN = 2 * 33 + 4       # 33 FMAs, the expansion, the top-2 compares
+OPS_NN1 = 2 * 33 + 4      # 33 FMAs, the expansion (3), the compare
 OPS_GRAPH = 21            # per pair: 2 x (3 sub, 3 mul, 2 add, sqrt),
                           # sub, abs, compare
 OPS_PLANE = 6             # per point: projection (3 mul, 2 add), compare
 OPS_MOMENTS_PT = 16       # per member point: 6 products, 10 additions
 OPS_CLASSIFY = 8          # projection, compare, flag arithmetic
 
-PAIR_REPEATS = 10         # timed runs of the main path
+PAIR_REPEATS = 5          # timed runs of path A
+PATH_B_REPEATS = 3
 EARLIER_REPEATS = 3       # timed runs of each earlier path
 PIPELINE_PAIR = dict(seed=11, yaw_deg=20.0, translation=(2.5, 1.0, 0.05))
 RAW_CAPACITY = 131072
+# path A's platform tilts (tests/test_ground.py:142-151), roll/pitch/yaw
+TILT_SRC = (0.07, -0.05, 0.0)
+TILT_TGT = (-0.04, 0.06, 0.0)
+SOLVER_MODES = {"TEASER": dict(reg_name="TEASER"),
+                "FGR": dict(rotation_estimation_algorithm="FGR"),
+                "TLS scale": dict(estimate_scaling=True),
+                "exact": dict(inlier_selection_mode="exact")}
 
 REPLACES = {
     "moment_sums": "quatro_tpu/ops/pallas_frontend.py:293",
     "spfh": "quatro_tpu/ops/pallas_frontend.py:366",
     "fpfh": "quatro_tpu/ops/pallas_frontend.py:391",
+    "nearest_neighbors": "quatro_tpu/ops/pallas_frontend.py:622",
     "nearest_neighbors2": "quatro_tpu/ops/pallas_frontend.py:550",
     "consistency_graph": "quatro_tpu/ops/pallas_kernels.py:47",
     "segment_sums": "quatro_tpu/ops/segment_matmul.py:158",
@@ -96,6 +121,7 @@ SOURCES = {
     "moment_sums": "quatro_tpu_torch/csrc/moment_sums.cu",
     "spfh": "quatro_tpu_torch/csrc/spfh.cu",
     "fpfh": "quatro_tpu_torch/csrc/fpfh.cu",
+    "nearest_neighbors": "quatro_tpu_torch/csrc/nn1.cu",
     "nearest_neighbors2": "quatro_tpu_torch/csrc/nn2.cu",
     "consistency_graph": "quatro_tpu_torch/csrc/consistency_graph.cu",
     "segment_sums": "quatro_tpu_torch/csrc/segment_sums.cu",
@@ -105,10 +131,12 @@ SOURCES = {
     "image_lookup": "quatro_tpu_torch/csrc/image_lookup.cu",
 }
 MAIN_LAUNCHES = {"moment_sums": 1, "spfh": 1, "fpfh": 1,
-                 "nearest_neighbors2": 2, "consistency_graph": 1,
-                 "segment_sums": 1, "cross_histogram": 1,
-                 "fit_iteration_moments": 3, "classify_points": 1,
-                 "image_lookup": 1}
+                 "nearest_neighbors": 0, "nearest_neighbors2": 2,
+                 "consistency_graph": 1, "segment_sums": 1,
+                 "cross_histogram": 1, "fit_iteration_moments": 3,
+                 "classify_points": 1, "image_lookup": 1}
+PATH_B_LAUNCHES = dict(MAIN_LAUNCHES, nearest_neighbors=2,
+                       nearest_neighbors2=0, segment_sums=0)
 FEATURES_LAUNCHES = dict(MAIN_LAUNCHES, cross_histogram=0,
                          fit_iteration_moments=0, classify_points=0,
                          image_lookup=0)
@@ -131,10 +159,12 @@ def nonground(xyz, sensor_height=1.723, margin=0.3):
 
 
 def pose_errors(sol, gt):
+    """(rotation error rad, translation error m) of a solution against a
+    4x4 ground truth (numpy)."""
     from quatro_tpu_torch.utils.se3 import rotation_geodesic_error
     rot = sol.rotation.detach().cpu()
     rerr = float(rotation_geodesic_error(
-        torch.from_numpy(gt[:3, :3]).float(), rot))
+        torch.from_numpy(np.asarray(gt[:3, :3], np.float32)), rot))
     terr = float(np.linalg.norm(sol.translation.detach().cpu().numpy()
                                 - gt[:3, 3]))
     return rerr, terr
@@ -213,36 +243,59 @@ def phase_build():
 
 def full_width_case():
     """The seed-11 HDL-64E pair of tests/test_pipeline.py: raw scans at
-    capacity 131072 for the main path, and 65536 points per cloud after
-    the crude ground strip for the earlier paths; the shipping
-    multi-hypothesis configuration and the single-hypothesis default at
-    8192 voxels."""
-    from quatro_tpu_torch.config import PipelineConfig
+    capacity 131072, tilted for path A as tests/test_ground.py tilts them
+    (ground truth composed as there), untilted for path B and the earlier
+    raw path, and 65536 points per cloud after the crude ground strip for
+    the earlier feature paths. Returns (pairs, ground truths, configs)."""
+    from quatro_tpu_torch.config import (FPFHConfig, GroundAlignmentConfig,
+                                         IcpConfig, PipelineConfig)
     from quatro_tpu_torch.io.synthetic import make_scan_pair
     from quatro_tpu_torch.types import PointBatch
+    from quatro_tpu_torch.utils.se3 import rotation_from_rpy
 
     src_xyz, tgt_xyz, gt = make_scan_pair(**PIPELINE_PAIR)
-    main = PipelineConfig.recommended(max_voxels=8192)
-    single = PipelineConfig(max_voxels=8192)
-    raw = (PointBatch.from_numpy(src_xyz, capacity=RAW_CAPACITY),
-           PointBatch.from_numpy(tgt_xyz, capacity=RAW_CAPACITY))
-    stripped = (PointBatch.from_numpy(nonground(src_xyz), capacity=65536),
-                PointBatch.from_numpy(nonground(tgt_xyz), capacity=65536))
-    log(f"pipeline: HDL-64E pair seed 11, {int(raw[0].mask.sum())} / "
-        f"{int(raw[1].mask.sum())} raw points (capacity {RAW_CAPACITY}), "
-        f"Patchwork {main.patchwork.num_patches} patches, range image "
-        f"{main.lidar.n_scan} x {main.lidar.horizon_scan}, max_voxels "
-        f"{main.max_voxels}, max_correspondences "
-        f"{main.fpfh.max_correspondences}, hypotheses "
-        f"{main.solver.num_hypotheses} clique + "
-        f"{main.solver.num_vote_hypotheses} vote; earlier paths "
-        f"{int(stripped[0].mask.sum())} / {int(stripped[1].mask.sum())} "
-        "points after the crude ground strip")
-    return raw, stripped, gt, main, single
+    a = rotation_from_rpy(*TILT_SRC).numpy()
+    b = rotation_from_rpy(*TILT_TGT).numpy()
+    gt_tilt = np.eye(4)
+    gt_tilt[:3, :3] = b @ gt[:3, :3] @ a.T          # tgt2 = B R A^T src2 + B t
+    gt_tilt[:3, 3] = b @ gt[:3, 3]
+    cfgs = {
+        "A": PipelineConfig.recommended(
+            max_voxels=8192,
+            ground_alignment=GroundAlignmentConfig(enabled=True),
+            icp=IcpConfig(enabled=True)),
+        "B": PipelineConfig(max_voxels=8192,
+                            fpfh=FPFHConfig(crosscheck_min_matches=0)),
+        "recommended": PipelineConfig.recommended(max_voxels=8192),
+        "single": PipelineConfig(max_voxels=8192)}
+    pairs = {
+        "tilted": (PointBatch.from_numpy(src_xyz @ a.T, RAW_CAPACITY),
+                   PointBatch.from_numpy(tgt_xyz @ b.T, RAW_CAPACITY)),
+        "raw": (PointBatch.from_numpy(src_xyz, capacity=RAW_CAPACITY),
+                PointBatch.from_numpy(tgt_xyz, capacity=RAW_CAPACITY)),
+        "stripped": (PointBatch.from_numpy(nonground(src_xyz), capacity=65536),
+                     PointBatch.from_numpy(nonground(tgt_xyz),
+                                           capacity=65536))}
+    main = cfgs["A"]
+    log(f"pipeline: HDL-64E pair seed 11, {int(pairs['raw'][0].mask.sum())} /"
+        f" {int(pairs['raw'][1].mask.sum())} raw points (capacity "
+        f"{RAW_CAPACITY}), Patchwork {main.patchwork.num_patches} patches, "
+        f"range image {main.lidar.n_scan} x {main.lidar.horizon_scan}, "
+        f"max_voxels {main.max_voxels}, max_correspondences "
+        f"{main.fpfh.max_correspondences}; path A tilts {TILT_SRC} / "
+        f"{TILT_TGT} (rad), {main.solver.num_hypotheses} clique + "
+        f"{main.solver.num_vote_hypotheses} vote hypotheses, ICP "
+        f"{main.icp.max_source_points} source points x {main.max_voxels} "
+        f"target voxels, {main.icp.iterations} iterations, "
+        f"{main.fpfh.max_neighbors_normal}-neighbour normals; earlier "
+        f"feature paths {int(pairs['stripped'][0].mask.sum())} / "
+        f"{int(pairs['stripped'][1].mask.sum())} points after the crude "
+        "ground strip")
+    return pairs, {"tilted": gt_tilt, "raw": gt}, cfgs
 
 
 def phase_pipeline(entry, pair, gt, cfg, name, expected, repeats,
-                   max_terr=0.5):
+                   max_terr=0.5, max_rerr=0.05):
     """One path through ``entry`` (register_scan_pair or
     register_features): warm-up, a run with the stage split and the launch
     counts (set to 0 just before it, read just after), then ``repeats``
@@ -271,6 +324,9 @@ def phase_pipeline(entry, pair, gt, cfg, name, expected, repeats,
         {k: round(v, 3) for k, v in stages.items()})
         + f"  host wall {wall_ms:.3f} ms")
     log(f"{name} launches: {json.dumps(launches)}")
+    if res.icp is not None:
+        log(f"{name} icp: converged {bool(res.icp.converged)}  inliers "
+            f"{int(res.icp.num_inliers)}  rmse {float(res.icp.rmse):.6f} m")
     if res.hypotheses is not None:
         hyps = res.hypotheses
         score = torch.where(hyps.valid, res.overlaps, -1.0)
@@ -281,7 +337,7 @@ def phase_pipeline(entry, pair, gt, cfg, name, expected, repeats,
             "winner": int(torch.argmax(score))}))
     check(bool(sol.valid), f"{name}: solution not valid")
     check(n_corr >= 10, f"{name}: too few correspondences: {n_corr}")
-    check(rerr < 0.05, f"{name}: rotation error {rerr} rad")
+    check(rerr < max_rerr, f"{name}: rotation error {rerr} rad")
     check(terr < max_terr, f"{name}: translation error {terr} m")
     check(torch.isfinite(sol.transform()).all(), f"{name}: non-finite pose")
     check(launches == expected,
@@ -297,7 +353,65 @@ def phase_pipeline(entry, pair, gt, cfg, name, expected, repeats,
     wall_ms = walls[len(walls) // 2]
     log(f"{name} pair latency over {repeats} runs (ms, host wall): "
         f"min {walls[0]:.3f}  median {wall_ms:.3f}  max {walls[-1]:.3f}")
-    return res, launches, wall_ms
+    return res, launches, wall_ms, stages
+
+
+def phase_solver_modes(res, cfg):
+    """``register_correspondences`` on path B's correspondences under each
+    solver mode off the shipping path: each valid and within 0.01 rad /
+    0.1 m of path B's own pose (the JAX package: within 0.0012 rad / 0.007
+    m on the CPU), the TLS scale within 0.02 of 1. Logs each mode's time
+    (host wall, after a warm-up) and GNC iterations, and for "exact" the
+    search's completion, restriction and steps."""
+    import dataclasses
+
+    from quatro_tpu_torch.solver import clique
+    from quatro_tpu_torch.solver.quatro import register_correspondences
+    from quatro_tpu_torch.solver.scale import tim_consistency_graph
+
+    corr = res.correspondences
+    ref = res.solution.transform().cpu().numpy().astype(np.float64)
+    out = {}
+    for name, kw in SOLVER_MODES.items():
+        sc = dataclasses.replace(cfg.solver, **kw)
+        args = (corr.src_xyz, corr.tgt_xyz, corr.mask, sc)
+        register_correspondences(*args)                  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sol = register_correspondences(*args)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        rerr, terr = pose_errors(sol, ref)
+        info = {"ms": round(ms, 3), "valid": bool(sol.valid),
+                "gnc_iterations": int(sol.gnc_iterations),
+                "scale": float(sol.scale),
+                "clique": int(sol.max_clique_mask.sum()),
+                "rotation_vs_path_b_rad": rerr,
+                "translation_vs_path_b_m": terr}
+        if name == "exact":
+            adj = tim_consistency_graph(corr.src_xyz, corr.tgt_xyz, corr.mask,
+                                        sc.noise_bound, sc.cbar2)
+            greedy = clique.greedy_cliques(
+                adj, clique.clique_seed_scores(adj, corr.mask), corr.mask,
+                num_seeds=sc.clique_num_seeds, max_size=sc.max_clique_size,
+                swap_rounds=sc.clique_swap_rounds) & corr.mask
+            _, completed, restricted, steps = clique.exact_max_clique_bb(
+                adj, corr.mask, incumbent=greedy, cap=sc.exact_clique_cap,
+                max_steps=sc.exact_clique_max_steps)
+            info.update(completed=bool(completed),
+                        restricted=bool(restricted), steps=steps,
+                        greedy=int(greedy.sum()))
+        log(f"solver mode {name}: {json.dumps(info)}")
+        check(bool(sol.valid), f"solver mode {name}: not valid")
+        check(rerr < 0.01 and terr < 0.1,
+              f"solver mode {name}: {rerr} rad / {terr} m from path B")
+        check(bool(torch.isfinite(sol.transform()).all()),
+              f"solver mode {name}: non-finite pose")
+        if name == "TLS scale":
+            check(abs(float(sol.scale) - 1.0) < 0.02,
+                  f"TLS scale {float(sol.scale)}")
+        out[name] = info
+    return out
 
 
 def capture_preprocessing(raw, cfg):
@@ -387,7 +501,97 @@ def phase_profile(pair, cfg, wall_ms, top=10):
         + json.dumps(own))
 
 
-def phase_kernels(res, cfg, launches, calls):
+def nn1_kernel_row(res_b, cfg, launches_b, row):
+    """B6 on path B's own descriptors (source against target): the same
+    bits as the first slot of the top-2 kernel (the same per-pair
+    arithmetic); against the plain version (cuBLAS sums the dot products
+    in another order) distances within rtol 1e-5 plus 1e-6 of the largest
+    |a|^2 + |b|^2 and the index equal wherever the gap to the second
+    neighbour is clear; and on the descriptors rounded to a 1/8 grid
+    (exact distances in any order) index and d2 equal to the plain
+    version's bit for bit."""
+    from quatro_tpu_torch.ops import frontend as fe
+
+    pts = torch.stack([res_b.src_voxels.points,
+                       res_b.tgt_voxels.points]).contiguous()
+    mask = torch.stack([res_b.src_voxels.mask, res_b.tgt_voxels.mask])
+    normals = fe.frontend_normals(pts, mask, cfg.fpfh.normal_radius)
+    desc = fe.frontend_fpfh(pts, normals.normals.contiguous(), normals.valid,
+                            mask, cfg.fpfh.fpfh_radius).contiguous()
+    dmask = (mask & normals.valid).contiguous()
+    da, db = desc[0:1], desc[1:2]
+    ma, mb = dmask[0:1], dmask[1:2]
+    v = desc.shape[1]
+
+    def plain(a, b):
+        idx, d2 = fe.nearest_neighbors_plain(a, b, ma.float(), mb.float(),
+                                             (a * a).sum(-1), (b * b).sum(-1))
+        empty = ~ma | (d2 >= fe.FLT_MAX)
+        return torch.where(empty, 0, idx), torch.where(empty, fe.FLT_MAX, d2)
+
+    idx, d2 = fe.nearest_neighbors(da, db, ma, mb)
+    i1, d1, _, _ = fe.nearest_neighbors2(da, db, ma, mb)
+    check(torch.equal(idx, i1) and torch.equal(d2, d1),
+          "1-NN kernel differs from the top-2 kernel's first slot")
+    ridx, rd2 = plain(da, db)
+    _, _, _, rsecond = fe._fill_empty(*fe.nearest_neighbors2_plain(
+        da, db, ma.float(), mb.float(), (da * da).sum(-1),
+        (db * db).sum(-1)), ma)
+    scale = float((da * da).sum(-1).max() + (db * db).sum(-1).max())
+    check(bool((~ma | ((d2 - rd2).abs() <= 1e-5 * rd2.abs()
+                       + 1e-6 * scale)).all()), "1-NN distances differ")
+    clear = ma & (rsecond - rd2 > 1e-4 * rd2)
+    check(torch.equal(idx[clear], ridx[clear]), "1-NN indices differ")
+    ga, gb = (torch.round(x * 8.0) / 8.0 for x in (da, db))
+    gidx, gd2 = fe.nearest_neighbors(ga, gb, ma, mb)
+    rgidx, rgd2 = plain(ga, gb)
+    check(torch.equal(gidx, rgidx) and torch.equal(gd2, rgd2),
+          "1-NN differs from its plain version on grid descriptors")
+    same = int((idx == ridx)[ma].sum())
+    log(f"nearest_neighbors: {int(ma.sum())} valid source rows, "
+        f"{int(mb.sum())} valid target columns; equal to the top-2 "
+        f"kernel's first slot bit for bit; index equal to the plain "
+        f"version's on {same} rows ({int(clear.sum())} with a clear gap, all "
+        f"equal); on 1/8-grid descriptors index and d2 equal on every row")
+
+    def library_nn():
+        d = torch.cdist(da[0], db[0]).square()
+        d = torch.where(ma[0][:, None] & mb[0][None, :], d, fe.FLT_MAX)
+        return torch.min(d, dim=1)
+
+    dev_ms = device_ms_per_launch(
+        lambda: fe.nearest_neighbors(da, db, ma, mb), "quatro::nn1_kernel")
+    log(f"profile: device ms per launch of nn1_kernel: {dev_ms:.6f}")
+    nva, nvb = float(ma.sum()), float(mb.sum())
+    row("nearest_neighbors", float((d2 - rd2)[ma].abs().max()),
+        cuda_ms(lambda: fe.nearest_neighbors(da, db, ma, mb)),
+        cuda_ms(lambda: plain(da, db), 5), nva * nvb * OPS_NN1,
+        (2 * v * (33 + 1)) * 4 + v * 2 * 4, cuda_ms(library_nn),
+        launches=launches_b["nearest_neighbors"])
+
+
+def device_ms_per_launch(fn, kernel, reps=10):
+    """Mean device time of ``kernel`` per launch over ``reps`` calls of
+    ``fn``, from torch.profiler (the CUDA-event time of a call also holds
+    the wrapper's own small launches and host time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if e.key.startswith(kernel)]
+    check(bool(hits), f"the profiler saw no {kernel}")
+    return sum(e.self_device_time_total for e in hits) / 1e3 / sum(
+        e.count for e in hits)
+
+
+def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b):
+    """Every kernel against its plain version: B1-B5 and B7-B11 on the
+    main path's tensors, with the main path's launch counts; B6 on path
+    B's, with path B's."""
     from quatro_tpu_torch.ops import frontend as fe
     from quatro_tpu_torch.ops.fpfh import normalize_blocks
 
@@ -411,10 +615,12 @@ def phase_kernels(res, cfg, launches, calls):
                 n += int(((d2 <= radius * radius) & (d2 > 1e-12)).sum())
         return n
 
-    def row(name, err, k_ms, p_ms, ops, nbytes, lib_ms=None):
+    def row(name, err, k_ms, p_ms, ops, nbytes, lib_ms=None, launches=None):
         b_ms, by = bound(ops, nbytes)
         r = {"name": name, "route": "cuda", "source": SOURCES[name],
-             "replaces": REPLACES[name], "launches": launches[name],
+             "replaces": REPLACES[name],
+             "launches": main_launches[name] if launches is None
+             else launches,
              "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
              "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms}
         log(json.dumps(r))
@@ -548,6 +754,7 @@ def phase_kernels(res, cfg, launches, calls):
         cuda_ms(lambda: segment.segment_sums_plain(ids, vals, p_pad), 5),
         float(in_range * kv), nv_ids * 4 * (1 + kv) + p_pad * kv * 4,
         cuda_ms(library_segment))
+    nn1_kernel_row(res_b, cfg_b, launches_b, row)
     preprocessing_kernel_rows(calls, row)
     return rows
 
@@ -659,19 +866,33 @@ def main() -> int:
     phase_device()
     phase_build()
     from quatro_tpu_torch.pipeline import register_features, register_scan_pair
-    raw, stripped, gt, main_cfg, single_cfg = full_width_case()
-    res, launches, wall_ms = phase_pipeline(
-        register_scan_pair, raw, gt, main_cfg, "main path", MAIN_LAUNCHES,
-        PAIR_REPEATS, max_terr=0.6)
-    calls = capture_preprocessing(raw, main_cfg)
-    phase_pipeline(register_features, stripped, gt, main_cfg,
-                   "earlier path (features, recommended)", FEATURES_LAUNCHES,
-                   EARLIER_REPEATS)
-    phase_pipeline(register_features, stripped, gt, single_cfg,
-                   "earlier path (features, single hypothesis)",
-                   SINGLE_LAUNCHES, EARLIER_REPEATS)
-    phase_profile(raw, main_cfg, wall_ms)
-    rows = phase_kernels(res, main_cfg, launches, calls)
+    pairs, gts, cfgs = full_width_case()
+    res_a, launches_a, wall_a, stages_a = phase_pipeline(
+        register_scan_pair, pairs["tilted"], gts["tilted"], cfgs["A"],
+        "path A (main: ground alignment + ICP)", MAIN_LAUNCHES, PAIR_REPEATS,
+        max_terr=0.05, max_rerr=0.01)
+    check(bool(res_a.icp.converged), "path A: ICP did not converge")
+    check({"leveling", "icp"} <= set(stages_a),
+          f"path A: stages {sorted(stages_a)}")
+    calls = capture_preprocessing(pairs["tilted"], cfgs["A"])
+    res_b, launches_b, _, _ = phase_pipeline(
+        register_scan_pair, pairs["raw"], gts["raw"], cfgs["B"],
+        "path B (reference matcher, crosscheck_min_matches=0)",
+        PATH_B_LAUNCHES, PATH_B_REPEATS, max_terr=0.6)
+    phase_solver_modes(res_b, cfgs["B"])
+    for entry, pair, cfg, name, expected, max_terr in (
+            (register_scan_pair, "raw", "recommended",
+             "earlier path (raw scans, recommended)", MAIN_LAUNCHES, 0.6),
+            (register_features, "stripped", "recommended",
+             "earlier path (features, recommended)", FEATURES_LAUNCHES, 0.5),
+            (register_features, "stripped", "single",
+             "earlier path (features, single hypothesis)", SINGLE_LAUNCHES,
+             0.5)):
+        phase_pipeline(entry, pairs[pair], gts["raw"], cfgs[cfg], name,
+                       expected, EARLIER_REPEATS, max_terr=max_terr)
+    phase_profile(pairs["tilted"], cfgs["A"], wall_a)
+    rows = phase_kernels(res_a, cfgs["A"], launches_a, calls, res_b,
+                         cfgs["B"], launches_b)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

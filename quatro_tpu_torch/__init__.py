@@ -1,15 +1,17 @@
 """PyTorch / CUDA port of quatro-tpu for NVIDIA Hopper (H100).
 
 A second package beside the JAX reference ``quatro_tpu``; it imports
-neither jax nor anything of ``quatro_tpu``. ``pipeline.register_scan_pair``
-runs end to end on raw scans (Patchwork ground removal, range-image
-sub-clustering, then ``register_features``), with the single-hypothesis
-solver and with the shipping multi-hypothesis solver of
-``PipelineConfig.recommended()``; its kernels are hand-written CUDA in
-``csrc/``.
+neither jax nor anything of ``quatro_tpu``. The pair entry points run in
+every configuration the JAX package's accept: ``register_scan_pair`` on
+raw scans (Patchwork ground removal, range-image sub-clustering, optional
+ground-plane leveling, ``register_features``, optional point-to-plane
+ICP), ``register_features``, ``register_correspondences`` and
+``register_hypotheses`` with every solver mode. Their kernels are
+hand-written CUDA in ``csrc/``.
 """
 
-from quatro_tpu_torch.config import (FPFHConfig, LidarConfig, PipelineConfig,
+from quatro_tpu_torch.config import (FPFHConfig, GroundAlignmentConfig,
+                                     IcpConfig, LidarConfig, PipelineConfig,
                                      SolverConfig, config_from_dict,
                                      config_to_dict)
 from quatro_tpu_torch.pipeline import (extract_features, register_features,
@@ -19,9 +21,9 @@ from quatro_tpu_torch.solver.quatro import (register_correspondences,
 from quatro_tpu_torch.types import PointBatch, RegistrationSolution
 
 __all__ = [
-    "FPFHConfig", "LidarConfig", "PipelineConfig", "SolverConfig",
-    "config_from_dict", "config_to_dict", "extract_features",
-    "register_features", "register_scan_pair", "register_correspondences",
-    "register_hypotheses",
+    "FPFHConfig", "GroundAlignmentConfig", "IcpConfig", "LidarConfig",
+    "PipelineConfig", "SolverConfig", "config_from_dict", "config_to_dict",
+    "extract_features", "register_features", "register_scan_pair",
+    "register_correspondences", "register_hypotheses",
     "PointBatch", "RegistrationSolution",
 ]

@@ -1,9 +1,11 @@
-"""The front end's four kernels: moment sums, SPFH, FPFH and top-2 NN.
+"""The front end's five kernels: moment sums, SPFH, FPFH, 1-NN and top-2
+NN.
 
 Counterpart of ``quatro_tpu/ops/pallas_frontend.py``. Each kernel has
 
 * a wrapper (``moment_sums``, ``spfh``, ``fpfh_sums``,
-  ``nearest_neighbors2``) that checks its inputs, allocates the outputs
+  ``nearest_neighbors``, ``nearest_neighbors2``) that checks its inputs,
+  allocates the outputs
   and, for CUDA tensors, launches the hand-written kernel from
   ``quatro_tpu_torch/csrc`` on the current stream and adds one to its
   count in ``LAUNCHES``. For CPU tensors it runs the plain version; there
@@ -242,7 +244,7 @@ def frontend_fpfh(points: torch.Tensor, normals: torch.Tensor,
                                       pair_maskf, radius))
 
 
-# ----------------------------------------------------------------- B7 ----
+# ------------------------------------------------------------ B7, B6 ----
 
 def _merge_top2(run, cand):
     """Merge a chunk's (d1, i1, d2, i2) into the running pair by the
@@ -271,6 +273,18 @@ def _nn_chunk(nb: int) -> int:
     return NN_CHUNK if nb % NN_CHUNK == 0 else nb
 
 
+def _chunk_d2(desc_a, desc_b, maskf_a, maskf_b, sq_a, sq_b, b, c0, chunk):
+    """(Na, C) distances of batch entry b's A rows to its B columns
+    c0:c0+C, max((|a|^2 - 2 a.b) + |b|^2, 0), masked pairs f32 max. Both
+    NN plain versions take their distances from here, so they agree bit
+    for bit."""
+    cols = desc_b[b, c0:c0 + chunk]
+    d2 = torch.clamp(sq_a[b][:, None] - 2.0 * (desc_a[b] @ cols.T)
+                     + sq_b[b, c0:c0 + chunk][None, :], min=0.0)
+    ok = (maskf_a[b][:, None] > 0) & (maskf_b[b, c0:c0 + chunk] > 0)
+    return torch.where(ok, d2, FLT_MAX)
+
+
 def nearest_neighbors2_plain(desc_a, desc_b, maskf_a, maskf_b, sq_a, sq_b):
     """Raw top-2 per A row, before the wrapper's invalid-row fill:
     (i1, d1, i2, d2), each (B, Na). Columns in chunks (``_nn_chunk``); in
@@ -279,7 +293,6 @@ def nearest_neighbors2_plain(desc_a, desc_b, maskf_a, maskf_b, sq_a, sq_b):
     nb = desc_b.shape[1]
     chunk = _nn_chunk(nb)
     dev = desc_a.device
-    big = torch.tensor(FLT_MAX, dtype=torch.float32, device=dev)
     outs = []
     for b in range(bsz):
         run = (torch.full((na,), FLT_MAX, device=dev),
@@ -287,11 +300,8 @@ def nearest_neighbors2_plain(desc_a, desc_b, maskf_a, maskf_b, sq_a, sq_b):
                torch.full((na,), FLT_MAX, device=dev),
                torch.zeros(na, dtype=torch.int64, device=dev))
         for c0 in range(0, nb, chunk):
-            cols = desc_b[b, c0:c0 + chunk]
-            d2 = torch.clamp(sq_a[b][:, None] - 2.0 * (desc_a[b] @ cols.T)
-                             + sq_b[b, c0:c0 + chunk][None, :], min=0.0)
-            ok = (maskf_a[b][:, None] > 0) & (maskf_b[b, c0:c0 + chunk] > 0)
-            d2 = torch.where(ok, d2, big)
+            d2 = _chunk_d2(desc_a, desc_b, maskf_a, maskf_b, sq_a, sq_b, b,
+                           c0, chunk)
             loc1 = torch.argmin(d2, dim=1)       # first minimum
             cd1 = d2.gather(1, loc1[:, None])[:, 0]
             d2x = d2.scatter(1, loc1[:, None], FLT_MAX)  # drop the 1st
@@ -303,6 +313,73 @@ def nearest_neighbors2_plain(desc_a, desc_b, maskf_a, maskf_b, sq_a, sq_b):
     return i1.to(torch.int32), d1, i2.to(torch.int32), d2
 
 
+def nearest_neighbors_plain(desc_a, desc_b, maskf_a, maskf_b, sq_a, sq_b):
+    """Raw 1-NN per A row, before the wrapper's fill: (idx, d2), each
+    (B, Na): the first minimum of each chunk, replaced across chunks only
+    on strictly less (pallas_frontend.py:443-445), which is argmin's
+    first minimum over all columns. Equals the first slot of
+    ``nearest_neighbors2_plain`` bit for bit (the same distances)."""
+    bsz, na = desc_a.shape[:2]
+    nb = desc_b.shape[1]
+    chunk = _nn_chunk(nb)
+    dev = desc_a.device
+    outs = []
+    for b in range(bsz):
+        rd = torch.full((na,), FLT_MAX, device=dev)
+        ri = torch.zeros(na, dtype=torch.int64, device=dev)
+        for c0 in range(0, nb, chunk):
+            d2 = _chunk_d2(desc_a, desc_b, maskf_a, maskf_b, sq_a, sq_b, b,
+                           c0, chunk)
+            loc = torch.argmin(d2, dim=1)        # first minimum
+            cd = d2.gather(1, loc[:, None])[:, 0]
+            better = cd < rd
+            rd = torch.where(better, cd, rd)
+            ri = torch.where(better, loc + c0, ri)
+        outs.append((ri, rd))
+    idx, d2 = (torch.stack(t) for t in zip(*outs))
+    return idx.to(torch.int32), d2
+
+
+def _nn_inputs(desc_a, desc_b, mask_a, mask_b):
+    """Checks shared by the NN wrappers; returns (device, maskf_a, maskf_b,
+    sq_a, sq_b)."""
+    bsz, na, dim = desc_a.shape
+    nb = desc_b.shape[1]
+    check("desc_a", desc_a, (bsz, na, dim))
+    check("desc_b", desc_b, (bsz, nb, dim))
+    check("mask_a", mask_a, (bsz, na), torch.bool)
+    check("mask_b", mask_b, (bsz, nb), torch.bool)
+    dev = same_device(desc_a, desc_b, mask_a, mask_b)
+    if dev.type == "cuda" and dim != FPFH_DIM:
+        raise ValueError(f"the kernel takes {FPFH_DIM}-D descriptors")
+    return (dev, mask_a.to(torch.float32), mask_b.to(torch.float32),
+            (desc_a * desc_a).sum(-1), (desc_b * desc_b).sum(-1))
+
+
+def nearest_neighbors(desc_a: torch.Tensor, desc_b: torch.Tensor,
+                      mask_a: torch.Tensor, mask_b: torch.Tensor):
+    """Nearest neighbour of each A row in B: (idx, d2), each (B, Na)
+    (int32 index, f32 squared distance), the first minimum on ties. desc
+    (B, N, 33) f32, masks (B, N) bool. Invalid rows, and rows with no
+    valid column, get index 0 / f32 max. Replaces
+    pallas_frontend.py::nearest_neighbors_pallas (csrc/nn1.cu); equals
+    the first slot of ``nearest_neighbors2``."""
+    bsz, na = desc_a.shape[:2]
+    dev, maskf_a, maskf_b, sq_a, sq_b = _nn_inputs(desc_a, desc_b, mask_a,
+                                                   mask_b)
+    if dev.type != "cuda":
+        idx, d2 = nearest_neighbors_plain(desc_a, desc_b, maskf_a, maskf_b,
+                                          sq_a, sq_b)
+    else:
+        idx = torch.empty((bsz, na), dtype=torch.int32, device=dev)
+        d2 = torch.empty((bsz, na), dtype=torch.float32, device=dev)
+        launch("nn1", desc_a, desc_b, sq_a, sq_b, maskf_a, maskf_b, bsz, na,
+               desc_b.shape[1], idx, d2)
+        LAUNCHES["nearest_neighbors"] += 1
+    empty = ~mask_a | (d2 >= FLT_MAX)
+    return torch.where(empty, 0, idx), torch.where(empty, FLT_MAX, d2)
+
+
 def nearest_neighbors2(desc_a: torch.Tensor, desc_b: torch.Tensor,
                        mask_a: torch.Tensor, mask_b: torch.Tensor):
     """Top-2 neighbours of each A row in B: (i1, d1, i2, d2), each (B, Na)
@@ -310,24 +387,15 @@ def nearest_neighbors2(desc_a: torch.Tensor, desc_b: torch.Tensor,
     (B, N) bool. Invalid rows, and slots with no valid column, get index
     0 / f32 max. Replaces
     pallas_frontend.py::nearest_neighbors2_pallas (csrc/nn2.cu)."""
-    bsz, na, dim = desc_a.shape
+    bsz, na = desc_a.shape[:2]
     nb = desc_b.shape[1]
-    check("desc_a", desc_a, (bsz, na, dim))
-    check("desc_b", desc_b, (bsz, nb, dim))
-    check("mask_a", mask_a, (bsz, na), torch.bool)
-    check("mask_b", mask_b, (bsz, nb), torch.bool)
     chunk = _nn_chunk(nb)
-    dev = same_device(desc_a, desc_b, mask_a, mask_b)
-    maskf_a = mask_a.to(torch.float32)
-    maskf_b = mask_b.to(torch.float32)
-    sq_a = (desc_a * desc_a).sum(-1)
-    sq_b = (desc_b * desc_b).sum(-1)
+    dev, maskf_a, maskf_b, sq_a, sq_b = _nn_inputs(desc_a, desc_b, mask_a,
+                                                   mask_b)
     if dev.type != "cuda":
         i1, d1, i2, d2 = nearest_neighbors2_plain(desc_a, desc_b, maskf_a,
                                                   maskf_b, sq_a, sq_b)
     else:
-        if dim != FPFH_DIM:
-            raise ValueError(f"the kernel takes {FPFH_DIM}-D descriptors")
         i1 = torch.empty((bsz, na), dtype=torch.int32, device=dev)
         i2 = torch.empty_like(i1)
         d1 = torch.empty((bsz, na), dtype=torch.float32, device=dev)

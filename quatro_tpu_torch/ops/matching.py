@@ -5,7 +5,9 @@ PyTorch counterpart of ``quatro_tpu/ops/matching.py`` (the reference's
 candidate sets, the same quality sort, the same host-drawn tuple-test
 shifts and the same compaction, so the correspondence set equals the JAX
 package's slot for slot on the same descriptors. Nearest neighbours come
-from the top-2 kernel (ops/frontend.py::nearest_neighbors2).
+from the top-2 kernel (ops/frontend.py::nearest_neighbors2) where the
+starvation fallback needs second neighbours, else from the 1-NN kernel
+(ops/frontend.py::nearest_neighbors), as the JAX package dispatches.
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ import numpy as np
 import torch
 
 from quatro_tpu_torch.device import resolve_device, to_tensor
-from quatro_tpu_torch.ops.frontend import nearest_neighbors2
+from quatro_tpu_torch.ops.frontend import (nearest_neighbors,
+                                           nearest_neighbors2)
 from quatro_tpu_torch.utils import fused
 
 _IDX_BITS = 15                    # candidate packing: (src << 15) | tgt
@@ -29,6 +32,16 @@ class Correspondences(NamedTuple):
     mask: torch.Tensor      # (C,) bool
     src_xyz: torch.Tensor   # (C, 3) gathered source keypoints
     tgt_xyz: torch.Tensor   # (C, 3) gathered target keypoints
+
+
+def _nearest_neighbors(desc_a, desc_b, mask_a, mask_b):
+    """Nearest neighbour of A in B: (idx, d2), each (Na,), the index int64
+    for indexing."""
+    idx, d2 = nearest_neighbors(desc_a[None].contiguous(),
+                                desc_b[None].contiguous(),
+                                mask_a[None].contiguous(),
+                                mask_b[None].contiguous())
+    return idx[0].long(), d2[0]
 
 
 def _nearest_neighbors_2(desc_a, desc_b, mask_a, mask_b):
@@ -110,10 +123,10 @@ def match_features(src_xyz: torch.Tensor, tgt_xyz: torch.Tensor,
     fewer than ``crosscheck_min_matches`` survive, the one-directional
     union extended with each side's second neighbours. Without crosscheck,
     the one-directional union. The best ``capacity`` by descriptor
-    distance are kept. The 1-NN searches of the branches without the
-    starvation fallback use the first slot of the top-2 kernel, which
-    follows the 1-NN kernel's tie rule. Inputs are numpy arrays or
-    tensors; device: None means "cuda" (RuntimeError without a card).
+    distance are kept. The branch with the starvation fallback searches
+    with the top-2 kernel (B7), the others with the 1-NN kernel (B6), as
+    the JAX package does. Inputs are numpy arrays or tensors; device:
+    None means "cuda" (RuntimeError without a card).
     """
     dev = resolve_device(device)
     src_xyz, tgt_xyz, src_desc, tgt_desc = (
@@ -129,16 +142,23 @@ def match_features(src_xyz: torch.Tensor, tgt_xyz: torch.Tensor,
     ia = torch.arange(na, device=dev)
     ib = torch.arange(nb, device=dev)
 
-    nn_ab, d2_ab, nn_ab2, d2_ab2 = _nearest_neighbors_2(
-        src_desc, tgt_desc, src_mask, tgt_mask)
-    nn_ba, d2_ba, nn_ba2, d2_ba2 = _nearest_neighbors_2(
-        tgt_desc, src_desc, tgt_mask, src_mask)
+    fallback = use_crosscheck and crosscheck_min_matches > 0
+    if fallback:
+        nn_ab, d2_ab, nn_ab2, d2_ab2 = _nearest_neighbors_2(
+            src_desc, tgt_desc, src_mask, tgt_mask)
+        nn_ba, d2_ba, nn_ba2, d2_ba2 = _nearest_neighbors_2(
+            tgt_desc, src_desc, tgt_mask, src_mask)
+    else:
+        nn_ab, d2_ab = _nearest_neighbors(src_desc, tgt_desc, src_mask,
+                                          tgt_mask)
+        nn_ba, d2_ba = _nearest_neighbors(tgt_desc, src_desc, tgt_mask,
+                                          src_mask)
     mutual_a = (nn_ba[nn_ab] == ia) & src_mask & tgt_mask[nn_ab]
     mutual_b = (nn_ab[nn_ba] == ib) & tgt_mask & src_mask[nn_ba]
     flag_a_union = src_mask & tgt_mask[nn_ab]
     flag_b_union = tgt_mask & src_mask[nn_ba] & ~mutual_b  # dedup mutuals
 
-    if use_crosscheck and crosscheck_min_matches > 0:
+    if fallback:
         # starvation fallback (see the JAX package): too few mutual pairs
         # -> the one-directional union plus both sides' second neighbours
         use_union = mutual_a.sum() < crosscheck_min_matches

@@ -5,7 +5,8 @@ PyTorch counterpart of ``quatro_tpu/ops/normals.py`` (the reference's
 eigenvector of the smallest eigenvalue of its neighbourhood covariance,
 oriented toward the viewpoint. The 3x3 problem is solved in closed form
 (trigonometric eigenvalues + cross-product eigenvector), elementwise over
-all points.
+all points, from moment sums (the front end) or from K-capped neighbour
+lists (``estimate_normals``, the ICP target's normals).
 """
 
 from __future__ import annotations
@@ -95,3 +96,44 @@ def normals_from_moments(points: torch.Tensor, mask: torch.Tensor,
                          dim=-1)
     curvature = torch.where(valid, curvature, torch.zeros_like(curvature))
     return Normals(normal, curvature, valid)
+
+
+def smallest_eigenvector_3x3(a: torch.Tensor):
+    """Matrix-shaped wrapper of ``smallest_eigenpair_sym3``: a (..., 3, 3)
+    symmetric -> (eigenvector (..., 3), eigenvalue (...,))."""
+    (v1, v2, v3), eig = smallest_eigenpair_sym3(
+        a[..., 0, 0], a[..., 0, 1], a[..., 0, 2],
+        a[..., 1, 1], a[..., 1, 2], a[..., 2, 2])
+    return torch.stack([v1, v2, v3], dim=-1), eig
+
+
+def estimate_normals(points: torch.Tensor, nbrs,
+                     viewpoint=(0.0, 0.0, 0.0)) -> Normals:
+    """PCA normals over neighbour lists (ops/neighbors.radius_neighbors,
+    self included): points (N, 3). The covariance is centred on the
+    neighbourhood mean, as the JAX package's estimate_normals."""
+    x, y, z = points[:, 0], points[:, 1], points[:, 2]
+    w = nbrs.valid.to(points.dtype)                 # (N, K)
+    cnt = torch.clamp(w.sum(1), min=1.0)
+    idx = nbrs.idx.long()
+    xs, ys, zs = x[idx], y[idx], z[idx]
+    mx, my, mz = ((w * c).sum(1) / cnt for c in (xs, ys, zs))
+
+    def moment(ca, ma, cb, mb):
+        return (w * (ca - ma[:, None]) * (cb - mb[:, None])).sum(1) / cnt
+
+    cxx, cxy, cxz = moment(xs, mx, xs, mx), moment(xs, mx, ys, my), \
+        moment(xs, mx, zs, mz)
+    cyy, cyz, czz = moment(ys, my, ys, my), moment(ys, my, zs, mz), \
+        moment(zs, mz, zs, mz)
+    (n1, n2, n3), lam_min = smallest_eigenpair_sym3(cxx, cxy, cxz, cyy, cyz,
+                                                    czz)
+    curvature = lam_min / torch.clamp(cxx + cyy + czz, min=1e-30)
+    flip = (n1 * (viewpoint[0] - x) + n2 * (viewpoint[1] - y)
+            + n3 * (viewpoint[2] - z)) < 0
+    sign = torch.where(flip, -1.0, 1.0).to(points.dtype)
+    valid = nbrs.valid.sum(1) >= 3
+    ok = valid.to(points.dtype)
+    normal = torch.stack([n1 * sign * ok, n2 * sign * ok, n3 * sign * ok],
+                         dim=-1)
+    return Normals(normal, torch.where(valid, curvature, 0.0), valid)

@@ -1,5 +1,6 @@
 """The registration pipeline: [Patchwork ground removal -> range-image
-sub-clustering ->] voxel -> normals -> FPFH -> matching -> Quatro solve.
+sub-clustering -> ground-plane leveling ->] voxel -> normals -> FPFH ->
+matching -> Quatro solve [-> compose the leveling back -> ICP polish].
 
 PyTorch counterpart of ``quatro_tpu/pipeline.py`` (the reference's
 application flow, examples/run_global_registration.cpp:127-251):
@@ -9,14 +10,16 @@ preprocessing and feature extraction as one batch of two.
 
 Entry points take ``device=None`` (the card; see device.py) and an
 optional ``timer``: a callable given the name of each stage as it ends,
-for per-stage timing: "patchwork" and "projection" (raw scans only), then
-"voxel", "normals", "fpfh", "matching", then the solver's "graph",
-"cliques" and "polish", with "vote" before "polish" and "arbitration"
-after it on the multi-hypothesis path.
+for per-stage timing: "patchwork" and "projection" (raw scans only),
+"leveling" (ground alignment), then "voxel", "normals", "fpfh",
+"matching", then the solver's "graph", "cliques" and "polish", with
+"vote" before "polish" and "arbitration" after it on the
+multi-hypothesis path, and "icp" last when ICP is on.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -24,13 +27,19 @@ import torch
 from quatro_tpu_torch.config import PipelineConfig
 from quatro_tpu_torch.device import resolve_device, to_tensor
 from quatro_tpu_torch.ops.matching import Correspondences, match_features
+from quatro_tpu_torch.ops.neighbors import radius_neighbors
+from quatro_tpu_torch.ops.normals import estimate_normals
 from quatro_tpu_torch.ops.voxel import voxel_downsample
 from quatro_tpu_torch.preprocessing.patchwork import estimate_ground
 from quatro_tpu_torch.preprocessing.projection import segment_cloud
+from quatro_tpu_torch.solver.ground import (align_ground,
+                                            compose_leveled_solution)
+from quatro_tpu_torch.solver.icp import IcpResult, refine_icp
 from quatro_tpu_torch.solver.quatro import (register_correspondences,
                                             register_hypotheses)
 from quatro_tpu_torch.solver.verify import arbitrate_hypotheses
 from quatro_tpu_torch.types import PointBatch, RegistrationSolution
+from quatro_tpu_torch.utils.se3 import rotate_points
 
 
 class PipelineResult(NamedTuple):
@@ -38,7 +47,8 @@ class PipelineResult(NamedTuple):
     correspondences: Correspondences
     src_voxels: PointBatch
     tgt_voxels: PointBatch
-    icp: None = None           # ICP refinement is not ported yet
+    # the point-to-plane refinement's details when config.icp.enabled
+    icp: Optional[IcpResult] = None
     # the multi-hypothesis path's K solutions and their overlaps (K,)
     hypotheses: Optional[RegistrationSolution] = None
     overlaps: Optional[torch.Tensor] = None
@@ -112,9 +122,9 @@ def register_features(src: PointBatch, tgt: PointBatch,
     clouds. With ``config.solver.total_hypotheses > 1`` (as in
     ``PipelineConfig.recommended()``) the solver returns clique and vote
     hypotheses and the one whose pose best overlaps the voxel clouds
-    within 2 * voxel_size wins (solver/verify.py)."""
-    if config.icp.enabled:
-        raise NotImplementedError("ICP refinement is not ported yet")
+    within 2 * voxel_size wins (solver/verify.py). With
+    ``config.icp.enabled`` the pose is then polished by point-to-plane
+    ICP on these clouds (``refine_solution``)."""
     timer = timer or _noop
     dev = resolve_device(device)
     src, tgt = src.to(dev), tgt.to(dev)
@@ -142,19 +152,48 @@ def register_features(src: PointBatch, tgt: PointBatch,
         trials_per_corr=f.tuple_trials_per_corr,
         tuple_min_keep=f.tuple_min_keep, seed=f.tuple_seed, device=dev)
     timer("matching")
+    sols = overlaps = icp_res = None
     if config.solver.total_hypotheses <= 1:
         sol = register_correspondences(corr.src_xyz, corr.tgt_xyz, corr.mask,
                                        config.solver, device=dev, timer=timer)
-        return PipelineResult(sol, corr, src_vox, tgt_vox)
-    sols = register_hypotheses(corr.src_xyz, corr.tgt_xyz, corr.mask,
-                               config.solver, k=config.solver.num_hypotheses,
-                               device=dev, timer=timer)
-    sol, overlaps = arbitrate_hypotheses(
-        sols, src_vox.points, src_vox.mask, tgt_vox.points, tgt_vox.mask,
-        radius=2.0 * config.voxel_size)
-    timer("arbitration")
-    return PipelineResult(sol, corr, src_vox, tgt_vox, hypotheses=sols,
-                          overlaps=overlaps)
+    else:
+        sols = register_hypotheses(corr.src_xyz, corr.tgt_xyz, corr.mask,
+                                   config.solver,
+                                   k=config.solver.num_hypotheses,
+                                   device=dev, timer=timer)
+        sol, overlaps = arbitrate_hypotheses(
+            sols, src_vox.points, src_vox.mask, tgt_vox.points, tgt_vox.mask,
+            radius=2.0 * config.voxel_size)
+        timer("arbitration")
+    if config.icp.enabled:
+        sol, icp_res = refine_solution(src.points, src.mask, tgt.points,
+                                       tgt.mask, sol, config)
+        timer("icp")
+    return PipelineResult(sol, corr, src_vox, tgt_vox, icp_res,
+                          hypotheses=sols, overlaps=overlaps)
+
+
+def refine_solution(src_points, src_mask, tgt_points, tgt_mask,
+                    sol: RegistrationSolution, config: PipelineConfig):
+    """Point-to-plane ICP polish of a coarse solution on the given clouds
+    (the JAX package's refine_solution): both clouds voxelised with no
+    ``active_cap`` (a raw scan keeps all its points), target normals from
+    K-capped radius neighbours, then ``refine_icp`` gated on
+    ``sol.valid``. Pass clouds that still hold the ground: without it z
+    is unconstrained wherever the remaining structure is vertical.
+    Returns (solution with the refined pose, IcpResult)."""
+    vox_s, m_s = voxel_downsample(src_points, src_mask, config.voxel_size,
+                                  config.max_voxels)
+    vox_t, m_t = voxel_downsample(tgt_points, tgt_mask, config.voxel_size,
+                                  config.max_voxels)
+    normals = estimate_normals(vox_t, radius_neighbors(
+        vox_t, m_t, config.fpfh.normal_radius,
+        config.fpfh.max_neighbors_normal))
+    icp_res = refine_icp(vox_s, m_s, vox_t, m_t, normals.normals,
+                         normals.valid, sol.rotation, sol.translation,
+                         config.icp, valid=sol.valid)
+    return dataclasses.replace(sol, rotation=icp_res.rotation,
+                               translation=icp_res.translation), icp_res
 
 
 def preprocess(points, mask, config: PipelineConfig, device=None,
@@ -191,27 +230,61 @@ def register_scan_pair(src: PointBatch, tgt: PointBatch,
                        device=None,
                        timer: Optional[Callable[[str], None]] = None
                        ) -> PipelineResult:
-    """The full pipeline on raw scans: Patchwork ground removal ->
-    range-image sub-cluster rejection -> ``register_features`` on the
-    segment masks. Both scans are preprocessed as one batch of two
-    whatever ``stack_preprocess`` says (that knob chose between two XLA
-    programs on the TPU; per cloud the results are the same); scans of
-    different capacities go one at a time. Ground alignment and ICP are
-    not ported yet and raise NotImplementedError."""
-    if config.ground_alignment.enabled:
-        raise NotImplementedError("ground alignment is not ported yet")
-    if config.icp.enabled:
-        raise NotImplementedError("ICP refinement is not ported yet")
+    """The full pipeline on raw scans (examples/run_global_registration.cpp:
+    127-251): Patchwork ground removal -> range-image sub-cluster
+    rejection -> [ground-plane leveling] -> ``register_features`` on the
+    segment masks -> [compose the leveling back] -> [ICP polish].
+
+    Both scans are preprocessed as one batch of two whatever
+    ``stack_preprocess`` says (that knob chose between two XLA programs on
+    the TPU; per cloud the results are the same); scans of different
+    capacities go one at a time. With ``config.ground_alignment.enabled``
+    both scans are leveled by their fitted ground planes before the
+    yaw-only solve and the pose is composed back (full 6-DoF, the Quatro++
+    extension, solver/ground.py); the correspondences, voxel clouds and
+    hypotheses are then in the leveled frames, the solution always in the
+    raw ones. With ``config.icp.enabled`` the coarse solve runs with ICP
+    off and the pose is polished on the raw clouds, ground included.
+    """
+    timer = timer or _noop
     dev = resolve_device(device)
     src, tgt = src.to(dev), tgt.to(dev)
     if src.points.shape == tgt.points.shape:
-        seg, _ = preprocess(torch.stack([src.points, tgt.points]),
-                            torch.stack([src.mask, tgt.mask]), config, dev,
-                            timer)
-        src_seg, tgt_seg = seg[0], seg[1]
+        seg, ground = preprocess(torch.stack([src.points, tgt.points]),
+                                 torch.stack([src.mask, tgt.mask]), config,
+                                 dev, timer)
+        (src_seg, tgt_seg), (src_ground, tgt_ground) = seg, ground
     else:
-        src_seg, _ = preprocess(src.points, src.mask, config, dev, timer)
-        tgt_seg, _ = preprocess(tgt.points, tgt.mask, config, dev, timer)
-    return register_features(PointBatch(src.points, src_seg),
-                             PointBatch(tgt.points, tgt_seg), config, dev,
-                             timer)
+        src_seg, src_ground = preprocess(src.points, src.mask, config, dev,
+                                         timer)
+        tgt_seg, tgt_ground = preprocess(tgt.points, tgt.mask, config, dev,
+                                         timer)
+
+    coarse_cfg = config
+    if config.icp.enabled:
+        coarse_cfg = dataclasses.replace(
+            config, icp=dataclasses.replace(config.icp, enabled=False))
+    ga = None
+    src_pts, tgt_pts = src.points, tgt.points
+    if config.ground_alignment.enabled:
+        ga = align_ground(src.points, src_ground & src.mask, tgt.points,
+                          tgt_ground & tgt.mask, config.ground_alignment)
+        src_pts = rotate_points(src.points, ga.src_level)     # points @ L.T
+        tgt_pts = rotate_points(tgt.points, ga.tgt_level)
+        timer("leveling")
+
+    res = register_features(PointBatch(src_pts, src_seg),
+                            PointBatch(tgt_pts, tgt_seg), coarse_cfg, dev,
+                            timer)
+    sol = res.solution
+    if ga is not None:
+        rot, t = compose_leveled_solution(
+            sol.rotation, sol.translation, ga,
+            use_ground_z=config.ground_alignment.use_ground_z)
+        sol = dataclasses.replace(sol, rotation=rot, translation=t)
+    icp_res = res.icp
+    if config.icp.enabled:
+        sol, icp_res = refine_solution(src.points, src.mask, tgt.points,
+                                       tgt.mask, sol, config)
+        timer("icp")
+    return res._replace(solution=sol, icp=icp_res)

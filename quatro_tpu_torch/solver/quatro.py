@@ -4,9 +4,10 @@ PyTorch counterpart of ``quatro_tpu/solver/quatro.py`` (reference:
 ``Quatro<S,T>::computeTransformation``, include/quatro.hpp:769-936), in the
 reference's stage order:
 
-    consistency graph -> inlier selection (max-clique replacement) ->
-    chain TIMs over the clique -> GNC-TLS yaw -> rotation-inlier
-    chaining -> COTE translation -> compose [R|t].
+    consistency graph (or the TLS scale's adjacency) -> inlier selection
+    (max-clique replacement) -> chain TIMs over the clique -> GNC rotation
+    (yaw, or full SO(3) in TEASER mode) -> rotation-inlier chaining ->
+    COTE translation -> compose [R|t].
 
 Both entry points take an optional ``timer``: a callable given the name
 of each solver stage as it ends ("graph", "cliques", then "vote" on the
@@ -24,7 +25,8 @@ from quatro_tpu_torch.device import resolve_device, to_tensor
 from quatro_tpu_torch.solver import clique as clique_mod
 from quatro_tpu_torch.solver import rotation as rot_mod
 from quatro_tpu_torch.solver import translation as trans_mod
-from quatro_tpu_torch.solver.scale import tim_consistency_graph
+from quatro_tpu_torch.solver.scale import (solve_scale_tls,
+                                           tim_consistency_graph)
 from quatro_tpu_torch.types import RegistrationSolution
 from quatro_tpu_torch.utils.se3 import rotate_points
 
@@ -34,10 +36,13 @@ def _noop(stage: str) -> None:
 
 
 def _consistency_inputs(src, tgt, mask, config: SolverConfig):
-    """(scale, adjacency): the solver preamble."""
+    """(scale, adjacency): the solver preamble. With ``estimate_scaling``
+    the TLS scale and its own pair-inlier adjacency (the reference's flag
+    is inert; see solve_scale_tls), else scale 1 and the consistency
+    graph."""
     if config.estimate_scaling:
-        raise NotImplementedError("estimate_scaling (TLS scale) is not "
-                                  "ported yet")
+        return solve_scale_tls(src, tgt, mask, config.noise_bound,
+                               config.cbar2)
     scale = torch.ones((), dtype=src.dtype, device=src.device)
     adj = tim_consistency_graph(src, tgt, mask, config.noise_bound,
                                 config.cbar2,
@@ -73,20 +78,25 @@ def _solve_from_inliers(src, tgt, clique_mask, valid, scale,
         # level the source with the IMU roll/pitch before the yaw solve
         src_tims = rotate_points(src_tims, prior_ryrx)
 
-    if config.reg_name != "Quatro":
-        raise NotImplementedError("reg_name='TEASER' (full SO(3)) is not "
-                                  "ported yet")
     # the reference rescales the rotation noise bound by 2/scale
-    # (include/quatro.hpp:846-852): rotation_noise_bound_scale
-    rot_noise_bound = (config.noise_bound * config.rotation_noise_bound_scale
-                       / float(scale))
-    gnc = rot_mod.gnc_rotation_2d(
-        src_tims[:, :2], dst_tims[:, :2], chain_mask, rot_noise_bound,
-        config.rotation_gnc_factor, config.rotation_max_iterations,
-        config.rotation_cost_threshold,
-        algorithm=config.rotation_estimation_algorithm)
-    rotation = torch.eye(3, dtype=dtype, device=dev)
-    rotation[:2, :2] = gnc.rotation
+    # (include/quatro.hpp:846-852): rotation_noise_bound_scale; one f32
+    # division on the device, as the JAX package's
+    rot_noise_bound = torch.full_like(
+        scale, config.noise_bound * config.rotation_noise_bound_scale) / scale
+    gnc_args = (rot_noise_bound, config.rotation_gnc_factor,
+                config.rotation_max_iterations,
+                config.rotation_cost_threshold)
+    if config.reg_name == "Quatro":
+        gnc = rot_mod.gnc_rotation_2d(
+            src_tims[:, :2], dst_tims[:, :2], chain_mask, *gnc_args,
+            algorithm=config.rotation_estimation_algorithm)
+        rotation = torch.eye(3, dtype=dtype, device=dev)
+        rotation[:2, :2] = gnc.rotation
+    else:                                 # full SO(3) (TEASER mode)
+        gnc = rot_mod.gnc_rotation_3d(
+            src_tims, dst_tims, chain_mask, *gnc_args,
+            algorithm=config.rotation_estimation_algorithm)
+        rotation = gnc.rotation
     rotation = rotate_points(rotation, prior_ryrx.T)     # R @ RyRx
 
     # rotation-inlier chaining (include/quatro.hpp:860-874)

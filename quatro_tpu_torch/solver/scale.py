@@ -1,4 +1,5 @@
-"""Translation-invariant-measurement (TIM) consistency graph.
+"""Translation-invariant-measurement (TIM) consistency graph and the TLS
+scale.
 
 PyTorch counterpart of ``quatro_tpu/solver/scale.py``. With the pipeline's
 fixed scale = 1 the reference's two-sided length-ratio test
@@ -6,14 +7,17 @@ fixed scale = 1 the reference's two-sided length-ratio test
 
     | d_tgt(i,j) - d_src(i,j) | <= beta,      beta = 2*noise_bound*sqrt(cbar2)
 
-so the graph is one dense (N, N) boolean adjacency.
+so the graph is one dense (N, N) boolean adjacency. ``solve_scale_tls``
+(``estimate_scaling``) estimates the scale instead and tests each pair's
+length ratio against it.
 """
 
 from __future__ import annotations
 
 import torch
 
-from quatro_tpu_torch.ops.kernels import consistency_graph
+from quatro_tpu_torch.ops.kernels import consistency_graph, pairwise_distances
+from quatro_tpu_torch.solver.translation import _estimate_axis_ranges
 
 
 def tim_consistency_graph(src: torch.Tensor, tgt: torch.Tensor,
@@ -39,3 +43,34 @@ def tim_consistency_graph(src: torch.Tensor, tgt: torch.Tensor,
     pair_valid = mask[:, None] & mask[None, :]
     off_diag = ~torch.eye(n, dtype=torch.bool, device=src.device)
     return consistent & pair_valid & off_diag
+
+
+def solve_scale_tls(src: torch.Tensor, tgt: torch.Tensor, mask: torch.Tensor,
+                    noise_bound: float, cbar2: float = 1.0):
+    """TLS consensus scale over the pairwise length ratios (the
+    TEASER++-style scale stage; the reference's ``estimate_scaling`` is
+    inert, include/quatro.hpp:361). Each pair i < j of valid, distinct
+    points measures s_ij = d_tgt / d_src with the bound beta / d_src, and
+    COTE's sorted-endpoint sweep takes the consensus over the N^2
+    flattened pairs. Returns (scale (), inlier adjacency (N, N) bool: pairs
+    whose ratio lies within their bound of the scale)."""
+    dtype, dev = src.dtype, src.device
+    n = src.shape[0]
+    beta = (torch.full((), 2.0 * noise_bound, dtype=dtype, device=dev)
+            * torch.sqrt(torch.full((), cbar2, dtype=dtype, device=dev)))
+    d_src = pairwise_distances(src)
+    d_tgt = pairwise_distances(tgt)
+    pair_valid = (mask[:, None] & mask[None, :]
+                  & torch.ones((n, n), dtype=torch.bool, device=dev).triu(1)
+                  & (d_src > 1e-6))
+    d_src_c = torch.clamp(d_src, min=1e-6)
+    ratios = d_tgt / d_src_c
+    alphas = beta / d_src_c
+    flat_valid = pair_valid.reshape(-1)
+    scale = _estimate_axis_ranges(
+        torch.where(flat_valid, ratios.reshape(-1), 0.0),
+        torch.where(flat_valid, alphas.reshape(-1), 1.0), flat_valid)
+    off_diag = ~torch.eye(n, dtype=torch.bool, device=dev)
+    inliers = ((torch.abs(ratios - scale) <= alphas)
+               & mask[:, None] & mask[None, :] & off_diag)
+    return scale, inliers

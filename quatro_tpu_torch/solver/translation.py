@@ -81,6 +81,38 @@ def _estimate_axis(x: torch.Tensor, beta: torch.Tensor, mask: torch.Tensor,
     return estimate, inliers
 
 
+def _estimate_axis_ranges(x: torch.Tensor, ranges: torch.Tensor,
+                          mask: torch.Tensor):
+    """Quatro::estimate (include/quatro.hpp:618-747) with a noise bound
+    of its own for every value (the JAX package's general branch, which
+    the TLS scale takes), without the median mode: x, ranges, mask (N,).
+    Returns the estimate ()."""
+    dtype, dev = x.dtype, x.device
+    n = x.shape[0]
+    maskf = mask.to(dtype)
+    big = torch.finfo(dtype).max
+    values = torch.cat([x - ranges, x + ranges])
+    eps = torch.cat([maskf, -maskf])
+    values = torch.where(eps != 0, values, big)            # masked last
+    order = torch.sort(values, stable=True).indices
+    eps_s = eps[order]
+    idx_s = torch.cat([torch.arange(n, device=dev)] * 2)[order]
+    x_s = x[idx_s] * torch.abs(eps_s)
+    rng_s = ranges[idx_s] * torch.abs(eps_s)
+    w_s = torch.where(mask, 1.0 / torch.clamp(ranges * ranges, min=1e-30),
+                      0.0)[idx_s]
+    card, dot_w, dot_xw, sum_x, sum_x2, rng_c = prefix_sum(torch.stack(
+        [eps_s, eps_s * w_s, eps_s * w_s * x_s, eps_s * x_s,
+         eps_s * x_s * x_s, eps_s * rng_s]))
+    # `ranges_inverse_sum` (sic) starts at sum(ranges) and drops by each
+    # event's range (quatro.hpp:652,696)
+    range_rem = torch.where(mask, ranges, 0.0).sum() - rng_c
+    x_hat = dot_xw / torch.where(dot_w == 0, 1.0, dot_w)
+    cost = card * x_hat * x_hat + sum_x2 - 2.0 * sum_x * x_hat + range_rem
+    cost = torch.where((card > 0.5) & (eps_s != 0), cost, big)
+    return x_hat[torch.argmin(cost)]
+
+
 def solve_translation(src: torch.Tensor, dst: torch.Tensor,
                       mask: torch.Tensor, noise_bound: float,
                       cbar2: float = 1.0, use_median: bool = True) -> CoteResult:

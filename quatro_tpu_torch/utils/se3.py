@@ -43,3 +43,60 @@ def rotation_geodesic_error(r1: torch.Tensor, r2: torch.Tensor) -> torch.Tensor:
     sin = torch.linalg.vector_norm(skew) / 2.0
     cos = (torch.trace(rel) - 1.0) / 2.0
     return torch.atan2(sin, cos)
+
+
+def make_transform(rotation: torch.Tensor,
+                   translation: torch.Tensor) -> torch.Tensor:
+    """Compose a 4x4 homogeneous transform."""
+    out = torch.eye(4, dtype=rotation.dtype, device=rotation.device)
+    out[:3, :3] = rotation
+    out[:3, 3] = translation.to(rotation.dtype)
+    return out
+
+
+def apply_transform(transform: torch.Tensor,
+                    points: torch.Tensor) -> torch.Tensor:
+    """Apply a (4, 4) transform to (..., 3) points."""
+    return rotate_points(points, transform[:3, :3]) + transform[:3, 3]
+
+
+def _hat(w: torch.Tensor) -> torch.Tensor:
+    """The skew matrix [w]x of a (3,) vector."""
+    z = torch.zeros_like(w[0])
+    return torch.stack([torch.stack([z, -w[2], w[1]]),
+                        torch.stack([w[2], z, -w[0]]),
+                        torch.stack([-w[1], w[0], z])])
+
+
+def exp_so3(w: torch.Tensor) -> torch.Tensor:
+    """Rodrigues' formula: (3,) axis-angle vector -> (3, 3) rotation, with
+    the sinc / versine series below 1e-4 rad so an ICP update stays exact
+    in f32 near convergence."""
+    theta_sq = (w * w).sum()
+    theta = torch.sqrt(theta_sq)
+    k = _hat(w)
+    small = theta < 1e-4
+    one = torch.ones_like(theta)
+    a = torch.where(small, 1.0 - theta_sq / 6.0,
+                    torch.sin(theta) / torch.where(small, one, theta))
+    b = torch.where(small, 0.5 - theta_sq / 24.0,
+                    (1.0 - torch.cos(theta)) / torch.where(small, one,
+                                                           theta_sq))
+    eye = torch.eye(3, dtype=w.dtype, device=w.device)
+    return eye + a * k + b * rotate_points(k, k.T)          # k @ k
+
+
+def rotation_from_rpy(roll, pitch, yaw) -> torch.Tensor:
+    """Rz(yaw) @ Ry(pitch) @ Rx(roll), in f32 (as the JAX package computes
+    it from Python floats)."""
+    cr, sr, cp, sp, cy, sy = (
+        f(torch.tensor(v, dtype=torch.float32))
+        for v in (roll, pitch, yaw) for f in (torch.cos, torch.sin))
+    o, z = torch.ones(()), torch.zeros(())
+    rx = torch.stack([torch.stack([o, z, z]), torch.stack([z, cr, -sr]),
+                      torch.stack([z, sr, cr])])
+    ry = torch.stack([torch.stack([cp, z, sp]), torch.stack([z, o, z]),
+                      torch.stack([-sp, z, cp])])
+    rz = torch.stack([torch.stack([cy, -sy, z]), torch.stack([sy, cy, z]),
+                      torch.stack([z, z, o])])
+    return rotate_points(rotate_points(rz, ry.T), rx.T)     # rz @ ry @ rx

@@ -1,4 +1,4 @@
-"""The ten CUDA kernels against their plain PyTorch versions, on the card.
+"""The eleven CUDA kernels against their plain PyTorch versions, on the card.
 
 Every test here is marked ``gpu`` and skips without a CUDA device. The
 machine with the card has no JAX, so this file imports only the port, and
@@ -165,6 +165,96 @@ def test_nearest_neighbors2_kernel(dev, nb, second):
     assert torch.equal(i2[:20], ri2[:20])
 
 
+@pytest.mark.parametrize("v", [2000, 8192])
+def test_nearest_neighbors_kernel(dev, v):
+    """B6 at V = 2000 and 8192 (D = 33): one launch per call; the same
+    bits as the first slot of the top-2 kernel (the same per-pair
+    arithmetic); against the plain version distances within rtol 1e-5
+    plus 1e-6 of the norm scale and the index equal wherever the gap to
+    the second neighbour is clear; on descriptors rounded to a 1/8 grid
+    (exact distances) index and d2 equal bit for bit. Ties go to the first
+    minimum; invalid rows and an all-invalid B give index 0 / f32 max."""
+    rng = np.random.default_rng(v)
+    da = rng.uniform(0, 12, (v, 33)).astype(np.float32)
+    db = rng.uniform(0, 12, (v, 33)).astype(np.float32)
+    db[v - 1] = db[100]
+    db[101] = db[100]
+    da[:20] = db[100]
+    ma = rng.uniform(size=v) > 0.1
+    mb = rng.uniform(size=v) > 0.1
+    ma[:20] = True
+    mb[[100, 101, v - 1]] = True
+    a, b = (torch.from_numpy(x)[None].to(dev) for x in (da, db))
+    ma_t, mb_t = (torch.from_numpy(x)[None].to(dev) for x in (ma, mb))
+    before = tf.LAUNCHES["nearest_neighbors"]
+    idx, d2 = tf.nearest_neighbors(a, b, ma_t, mb_t)
+    assert tf.LAUNCHES["nearest_neighbors"] == before + 1
+    i1, d1, _, _ = tf.nearest_neighbors2(a, b, ma_t, mb_t)
+    assert torch.equal(idx, i1) and torch.equal(d2, d1)
+
+    def plain(x, y, mask_y):
+        ri, rd = tf.nearest_neighbors_plain(x, y, ma_t.float(),
+                                            mask_y.float(), (x * x).sum(-1),
+                                            (y * y).sum(-1))
+        empty = ~ma_t | (rd >= tf.FLT_MAX)
+        return torch.where(empty, 0, ri), torch.where(empty, tf.FLT_MAX, rd)
+
+    ridx, rd2 = plain(a, b, mb_t)
+    _, _, _, second = tf._fill_empty(*tf.nearest_neighbors2_plain(
+        a, b, ma_t.float(), mb_t.float(), (a * a).sum(-1), (b * b).sum(-1)),
+        ma_t)
+    scale = float((a * a).sum(-1).max() + (b * b).sum(-1).max())
+    assert bool(((d2 - rd2).abs() <= 1e-5 * rd2 + 1e-6 * scale).all())
+    clear = ma_t & (second - rd2 > 1e-4 * rd2)
+    assert torch.equal(idx[clear], ridx[clear])
+    assert (idx[0, :20] == 100).all()
+    assert (idx[~ma_t] == 0).all() and (d2[~ma_t] == tf.FLT_MAX).all()
+    ga, gb = (torch.round(x * 8.0) / 8.0 for x in (a, b))
+    assert all(torch.equal(g, r) for g, r in zip(
+        tf.nearest_neighbors(ga, gb, ma_t, mb_t), plain(ga, gb, mb_t)))
+    none = torch.zeros_like(mb_t)
+    idx0, d0 = tf.nearest_neighbors(a, b, ma_t, none)
+    assert (idx0 == 0).all() and (d0 == tf.FLT_MAX).all()
+
+
+@pytest.mark.parametrize("path",
+                         ["ground_alignment_icp", "reference_matcher"])
+def test_register_scan_pair_paths(dev, path):
+    """The level_a VLP-16 pair through two more configurations: ground
+    alignment and ICP under the shipping solver
+    (top-2 NN twice, 1-NN never), and the reference matcher
+    (crosscheck_min_matches=0: 1-NN twice, top-2 never, no vote)."""
+    from quatro_tpu_torch.config import GroundAlignmentConfig, IcpConfig
+    from quatro_tpu_torch.pipeline import register_scan_pair
+    base = replace(CFG, max_raw_points=32768)
+    if path == "ground_alignment_icp":
+        cfg = replace(base, solver=SolverConfig(num_hypotheses=4,
+                                                num_vote_hypotheses=2),
+                      ground_alignment=GroundAlignmentConfig(enabled=True),
+                      icp=IcpConfig(enabled=True))
+        nn1, nn2, seg = 0, 2, 1
+    else:
+        cfg = replace(base, fpfh=replace(base.fpfh,
+                                         crosscheck_min_matches=0))
+        nn1, nn2, seg = 2, 0, 0
+    pair = make_scan_pair(seed=101, yaw_deg=38.0,
+                          translation=(2.5, -1.2, 0.04),
+                          lidar=LidarConfig.preset("VLP-16"))
+    src, tgt = (PointBatch.from_numpy(xyz, 32768) for xyz in pair[:2])
+    register_scan_pair(src, tgt, cfg, device=dev)
+    tf.reset_launches()
+    res = register_scan_pair(src, tgt, cfg, device=dev)
+    torch.cuda.synchronize()
+    assert (tf.LAUNCHES["nearest_neighbors"],
+            tf.LAUNCHES["nearest_neighbors2"],
+            tf.LAUNCHES["segment_sums"]) == (nn1, nn2, seg)
+    assert tf.LAUNCHES["consistency_graph"] == 1
+    assert bool(res.solution.valid)
+    assert res.solution.rotation.device.type == "cuda"
+    if cfg.icp.enabled:
+        assert bool(res.icp.converged)
+
+
 @pytest.fixture(scope="module")
 def recommended(dev, scans):
     """One register_features run of the shipping multi-hypothesis solver
@@ -183,6 +273,7 @@ def recommended(dev, scans):
 def test_recommended_runs_all_six_kernels(recommended):
     res, launches, _ = recommended
     assert launches == {"moment_sums": 1, "spfh": 1, "fpfh": 1,
+                        "nearest_neighbors": 0,
                         "nearest_neighbors2": 2, "consistency_graph": 1,
                         "segment_sums": 1, "cross_histogram": 0,
                         "fit_iteration_moments": 0, "classify_points": 0,
@@ -329,7 +420,8 @@ def test_register_scan_pair_runs_all_ten_kernels(dev):
     res = register_scan_pair(src, tgt, cfg, device=dev)
     torch.cuda.synchronize()
     assert dict(tf.LAUNCHES) == {
-        "moment_sums": 1, "spfh": 1, "fpfh": 1, "nearest_neighbors2": 2,
+        "moment_sums": 1, "spfh": 1, "fpfh": 1, "nearest_neighbors": 0,
+        "nearest_neighbors2": 2,
         "consistency_graph": 1, "segment_sums": 1, "cross_histogram": 1,
         "fit_iteration_moments": 3, "classify_points": 1, "image_lookup": 1}
     assert bool(res.solution.valid)

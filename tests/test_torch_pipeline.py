@@ -156,8 +156,11 @@ def test_recommended_within_drift_band_of_jax(results_recommended):
 
 
 def test_unported_branches_raise():
-    """What is not ported yet raises NotImplementedError: ICP, the FGR and
-    TEASER rotation solvers, the TLS scale, exact clique selection."""
+    """What raised NotImplementedError before it was ported (ICP, the FGR
+    and TEASER rotation solvers, the TLS scale, exact clique selection)
+    now runs: on a junk pair (eight points at the origin) every such
+    configuration returns an invalid solution with a finite pose. What
+    still raises: device=None without a card."""
     pb = qt.PointBatch.from_numpy(np.zeros((8, 3), np.float32), 512)
     solver = qt.SolverConfig()
     for cfg in (qt.config_from_dict({"icp": {"enabled": True}}),
@@ -172,8 +175,10 @@ def test_unported_branches_raise():
                 qt.PipelineConfig.recommended(solver=dataclasses.replace(
                     solver, num_hypotheses=4, num_vote_hypotheses=2,
                     inlier_selection_mode="exact"))):
-        with pytest.raises(NotImplementedError):
-            qt.register_features(pb, pb, cfg, device="cpu")
+        res = qt.register_features(pb, pb, cfg, device="cpu")
+        assert not bool(res.solution.valid)
+        assert bool(torch.isfinite(res.solution.transform()).all())
+        assert (res.icp is not None) == cfg.icp.enabled
     if not torch.cuda.is_available():        # device=None means the card
         with pytest.raises(RuntimeError):
             qt.register_features(pb, pb, qt.PipelineConfig())

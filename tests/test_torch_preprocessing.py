@@ -429,14 +429,18 @@ def test_register_scan_pair_within_bands(name, recommended):
 
 
 def test_register_scan_pair_refusals():
-    """Ground alignment and ICP are not ported (NotImplementedError);
-    oversized captures and images raise ValueError; device=None means the
-    card and raises without one."""
+    """Ground alignment and ICP, which raised NotImplementedError before
+    they were ported, run on a junk pair (eight equal points): an invalid
+    solution with a finite pose, the ground fits gated to identity
+    leveling. Oversized captures and images raise ValueError; device=None
+    means the card and raises without one."""
     pb = qt.PointBatch.from_numpy(np.ones((8, 3), np.float32), 512)
     for cfg in (qt.config_from_dict({"ground_alignment": {"enabled": True}}),
                 qt.config_from_dict({"icp": {"enabled": True}})):
-        with pytest.raises(NotImplementedError):
-            qt.register_scan_pair(pb, pb, cfg, device="cpu")
+        res = qt.register_scan_pair(pb, pb, cfg, device="cpu")
+        assert not bool(res.solution.valid)
+        assert bool(torch.isfinite(res.solution.transform()).all())
+        assert (res.icp is not None) == cfg.icp.enabled
     big = torch.zeros((1, (1 << 17) + 1, 3))
     with pytest.raises(ValueError, match="owner packing"):
         tpr.project_to_range_image(big, torch.ones(big.shape[:2], dtype=bool),
