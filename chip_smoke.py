@@ -7,7 +7,7 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions, and the float32 precision flags (TF32 off everywhere);
-2. build: the eleven kernels from quatro_tpu_torch/csrc, one nvcc per
+2. build: the twelve kernels from quatro_tpu_torch/csrc, one nvcc per
    source, all started together; build time and ptxas register and spill
    summary;
 3. path A, the main path (Quatro++ coarse to fine): ``register_scan_pair``
@@ -23,7 +23,8 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    the launch counts over the run 1 (moments), 1 (SPFH), 1 (FPFH), 0
    (1-NN), 2 (top-2 NN), 1 (consistency graph), 1 (segment sums), 1 (cross
    histogram), 3 (plane-fit moments), 1 (classification), 1 (image
-   lookup). Per-stage times from CUDA events after one warm-up run
+   lookup), 0 (table lookup). Per-stage times from CUDA events after one
+   warm-up run
    ("leveling" and "icp" among them); ground, non-ground and segment points
    per cloud; the hypotheses and the winner; the pair latency over five
    more runs;
@@ -44,16 +45,32 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    points per cloud), recommended (preprocessing launches 0) and single
    hypothesis (also 0 segment sums), with their bands (0.05 rad / 0.6 m
    raw, 0.05 rad / 0.5 m stripped), stage split and latency;
-6. profile: one more run of path A under torch.profiler (after the timed
+6. path S, loop closing: ``run_sequence`` over the 12 scans of
+   ``make_synthetic_sequence(num_poses=12, seed=1, radius=6.0)`` (HDL-64E,
+   capacity 131072) under path A's configuration, with Scan Context
+   supplying the loop candidates (ground truth only for the ATE). Gates,
+   the JAX package's own for this run (tests/test_scancontext.py:87-98):
+   a loop found (more than 11 edges), >= 60 % of the edges valid, ATE
+   after the closure < 1 m and <= ATE before + 0.15 m, every pose finite;
+   the launch counts per frame (B3-B5, B8, B10, B11 once, B9 three
+   times), per registered edge (B7 twice, B1 and B2 once, the last batch
+   padded to 16 edges) and per pose-graph solve (B2 once per J^T apply,
+   10 x 41); a second ``optimize_pose_graph`` on the run's edges equal to
+   it bit for bit; ``run_odometry_windowed(window=4)`` equal to
+   ``OdometryRunner.step`` within 1e-5 rad / 1e-4 m. Times: per-frame
+   extraction and per-edge registration (median and spread), Scan
+   Context, the pose graph, the whole sequence, and the device idle share
+   of one ``OdometryRunner.step``;
+7. profile: one more run of path A under torch.profiler (after the timed
    runs, since the profiler slows the host for the runs after it): the
    card's busy time, its idle share of the median pair, the top kernels
    and the device time per launch of each of the port's kernels;
-7. kernels: each kernel on the main path's own tensors (B6 on path B's
-   descriptors) against its plain PyTorch version on the card, with its
-   time, the plain version's time, the least time the card could take for
-   the same work, and one library call computing the same function where
-   there is one (1-NN, top-2 NN, segment sums, cross histogram, image
-   lookup).
+8. kernels: each kernel on the main path's own tensors (B6 on path B's
+   descriptors, B12 on the rows B10 was handed) against its plain PyTorch
+   version on the card, with its time, the plain version's time, the
+   least time the card could take for the same work, and one library
+   call computing the same function where there is one (1-NN, top-2 NN,
+   segment sums, cross histogram, image lookup, table lookup).
 
 The last two lines of standard output are the card's kernel table as one
 JSON object and ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -116,6 +133,7 @@ REPLACES = {
     "fit_iteration_moments": "quatro_tpu/ops/segment_matmul.py:309",
     "classify_points": "quatro_tpu/ops/segment_matmul.py:385",
     "image_lookup": "quatro_tpu/ops/segment_matmul.py:482",
+    "table_lookup": "quatro_tpu/ops/segment_matmul.py:420",
 }
 SOURCES = {
     "moment_sums": "quatro_tpu_torch/csrc/moment_sums.cu",
@@ -129,18 +147,25 @@ SOURCES = {
     "fit_iteration_moments": "quatro_tpu_torch/csrc/fit_iteration_moments.cu",
     "classify_points": "quatro_tpu_torch/csrc/classify_points.cu",
     "image_lookup": "quatro_tpu_torch/csrc/image_lookup.cu",
+    "table_lookup": "quatro_tpu_torch/csrc/table_lookup.cu",
 }
 MAIN_LAUNCHES = {"moment_sums": 1, "spfh": 1, "fpfh": 1,
                  "nearest_neighbors": 0, "nearest_neighbors2": 2,
                  "consistency_graph": 1, "segment_sums": 1,
                  "cross_histogram": 1, "fit_iteration_moments": 3,
-                 "classify_points": 1, "image_lookup": 1}
+                 "classify_points": 1, "image_lookup": 1, "table_lookup": 0}
 PATH_B_LAUNCHES = dict(MAIN_LAUNCHES, nearest_neighbors=2,
                        nearest_neighbors2=0, segment_sums=0)
 FEATURES_LAUNCHES = dict(MAIN_LAUNCHES, cross_histogram=0,
                          fit_iteration_moments=0, classify_points=0,
                          image_lookup=0)
 SINGLE_LAUNCHES = dict(FEATURES_LAUNCHES, segment_sums=0)
+# path S: make_synthetic_sequence's arguments, run_sequence's edge batch
+# and pose-graph trip counts, and the windowed runner's window
+SEQUENCE = dict(num_poses=12, seed=1, radius=6.0)
+SEQ_BATCH = 16
+PG_ITERS = (10, 40)
+SEQ_WINDOW = 4
 
 
 def log(*args):
@@ -216,7 +241,8 @@ def phase_device():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
-    log(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     check(torch.get_float32_matmul_precision() == "highest",
@@ -228,6 +254,7 @@ def phase_device():
         f"{torch.backends.cuda.matmul.allow_tf32} cudnn.allow_tf32="
         f"{torch.backends.cudnn.allow_tf32} float32_matmul_precision="
         f"{torch.get_float32_matmul_precision()}")
+    return card
 
 
 def phase_build():
@@ -459,6 +486,169 @@ def capture_preprocessing(raw, cfg):
     return calls
 
 
+def sequence_launches(frames, registered):
+    """Path S's expected launch counts: per frame the preprocessing and
+    front-end kernels, per registered edge the matcher's top-2 NN twice,
+    the graph and the vote's segment sums, and per pose-graph solve one
+    segment sum per J^T apply (gn x (cg + 1))."""
+    gn, cg = PG_ITERS
+    return dict(MAIN_LAUNCHES, moment_sums=frames, spfh=frames, fpfh=frames,
+                nearest_neighbors2=2 * registered,
+                consistency_graph=registered,
+                segment_sums=registered + gn * (cg + 1),
+                cross_histogram=frames, fit_iteration_moments=3 * frames,
+                classify_points=frames, image_lookup=frames)
+
+
+def _spread(ms):
+    ms = sorted(ms)
+    return {"median": round(ms[len(ms) // 2], 3), "min": round(ms[0], 3),
+            "max": round(ms[-1], 3), "n": len(ms)}
+
+
+def _synced_ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_sequence(cfg, card):
+    """Path S: ``run_sequence`` with Scan Context loop candidates over the
+    synthetic 12-scan loop under path A's configuration, with its gates,
+    launch counts, the pose graph's repeatability, the windowed runner
+    against ``step``, and its times. Returns the run's launch counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from quatro_tpu_torch import sequence
+    from quatro_tpu_torch.odometry import (FrameFeatures, OdometryRunner,
+                                           run_odometry_windowed)
+    from quatro_tpu_torch.ops import launch
+    from quatro_tpu_torch.ops.scancontext import (detect_loop_candidates,
+                                                  scan_context)
+    from quatro_tpu_torch.parallel.posegraph import optimize_pose_graph
+
+    t0 = time.perf_counter()
+    scans, gt = sequence.make_synthetic_sequence(
+        config=cfg, raw_capacity=RAW_CAPACITY, **SEQUENCE)
+    log(f"path S: {len(scans)} scans ({cfg.lidar.n_scan} rings, "
+        f"{[int(s.mask.sum()) for s in scans]} points, capacity "
+        f"{RAW_CAPACITY}) ray-cast on the host in "
+        f"{time.perf_counter() - t0:.1f} s")
+    graphs = []
+    solve = sequence.optimize_pose_graph
+
+    def recorder(*args, **kwargs):
+        graphs.append((args, kwargs))
+        return solve(*args, **kwargs)
+
+    gn, cg = PG_ITERS
+    torch.cuda.synchronize()
+    launch.reset_launches()
+    sequence.optimize_pose_graph = recorder
+    try:
+        res, wall_ms = _synced_ms(lambda: sequence.run_sequence(
+            scans, cfg, gt_poses=gt, use_place_recognition=True,
+            batch_size=SEQ_BATCH, gn_iters=gn, cg_iters=cg))
+    finally:
+        sequence.optimize_pose_graph = solve
+    launches = dict(launch.LAUNCHES)
+    m = len(scans)
+    edges = list(zip(res.edges_i.tolist(), res.edges_j.tolist()))
+    registered = -(-len(edges) // SEQ_BATCH) * SEQ_BATCH
+    expected = sequence_launches(m, registered)
+    log("path S run: " + json.dumps({
+        "edges_total": res.edges_total, "edges_valid": res.edges_valid,
+        "loop_edges": edges[m - 1:],
+        "rejected": [e for e, ok in zip(edges, res.edge_mask) if not ok],
+        "ate_before_m": res.ate_before, "ate_after_m": res.ate_after,
+        "wall_ms": round(wall_ms, 3), "registered_edges": registered}))
+    log(f"path S launches: {json.dumps(launches)}")
+    check(res.edges_total > m - 1,
+          "path S: place recognition found no loop candidate")
+    check(res.edges_valid >= 0.6 * res.edges_total,
+          f"path S: {res.edges_valid} of {res.edges_total} edges valid")
+    check(bool(np.isfinite(res.poses).all()), "path S: non-finite pose")
+    check(res.ate_after < 1.0, f"path S: ATE after {res.ate_after} m")
+    check(res.ate_after <= res.ate_before + 0.15,
+          f"path S: closing made it worse: {res.ate_before} -> "
+          f"{res.ate_after} m")
+    check(launches == expected,
+          f"path S: launch counts {launches} != {expected}")
+
+    # the pose graph again on the run's own edges: the same bits
+    (args, kwargs), = graphs
+    again, pg_ms = _synced_ms(lambda: optimize_pose_graph(*args, **kwargs))
+    check(np.array_equal(again.cpu().numpy(), res.poses),
+          "path S: a second pose-graph solve differs")
+
+    # times: extraction per frame, registration per edge, Scan Context
+    runner = OdometryRunner(cfg)
+    extract_ms, feats = [], []
+    for sc in scans:
+        f, ms = _synced_ms(lambda: runner.extract(sc))
+        feats.append(f)
+        extract_ms.append(ms)
+    register_ms = [_synced_ms(lambda: runner.register_pairs(
+        FrameFeatures.stack([feats[j]]), FrameFeatures.stack([feats[i]])))[1]
+        for i, j in edges]
+    descs, sc_ms = _synced_ms(lambda: torch.stack([
+        scan_context(sc.points.to(runner.device), sc.mask.to(runner.device))
+        for sc in scans]))
+    cands, detect_ms = _synced_ms(lambda: detect_loop_candidates(descs))
+    check(cands == edges[m - 1:], f"path S: candidates {cands} != "
+          f"{edges[m - 1:]}")
+
+    # the windowed runner against the frame-by-frame one
+    runner.reset()
+    stepped = [runner.step(sc) for sc in scans]
+    windowed = {i: sol for i, sol, _ in run_odometry_windowed(
+        ((sc.points, sc.mask) for sc in scans), cfg, window=SEQ_WINDOW)}
+    worst_r = worst_t = 0.0
+    for k in range(1, m):
+        a, b = stepped[k], windowed[k]
+        check(bool(a.valid) == bool(b.valid), f"path S: frame {k} validity")
+        worst_r = max(worst_r, float((a.rotation.cpu() - b.rotation).abs()
+                                     .max()))
+        worst_t = max(worst_t, float((a.translation.cpu() - b.translation)
+                                     .abs().max()))
+    log(f"path S windowed (window {SEQ_WINDOW}) against step: rotation "
+        f"within {worst_r:.3g}, translation within {worst_t:.3g} m")
+    check(worst_r <= 1e-5 and worst_t <= 1e-4,
+          "path S: windowed odometry differs from step")
+
+    # the device idle share of one OdometryRunner.step
+    walls = []
+    for k in range(1, 4):
+        runner.reset()
+        runner.step(scans[k - 1])
+        walls.append(_synced_ms(lambda: runner.step(scans[k]))[1])
+    step_ms = sorted(walls)[1]
+    runner.reset()
+    runner.step(scans[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        runner.step(scans[1])
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation) / 1e3
+    idle = (f"{1.0 - busy / step_ms:.4f}" if busy > 0 else "not measured "
+            "(the profiler saw no device time)")
+    log("path S times (ms; " + card + "): " + json.dumps({
+        "extract_per_frame": _spread(extract_ms),
+        "register_per_edge": _spread(register_ms),
+        "scan_context_12_scans": round(sc_ms, 3),
+        "loop_detection": round(detect_ms, 3),
+        "pose_graph": round(pg_ms, 3),
+        "sequence_wall": round(wall_ms, 3),
+        "step_median_of_3": round(step_ms, 3),
+        "step_device_busy": round(busy, 3)}) + f"; step idle share {idle}")
+    return launches
+
+
 def phase_profile(pair, cfg, wall_ms, top=10):
     """One more pipeline run under torch.profiler: the card's busy time
     (sum of device times on the one stream), the idle share against the
@@ -589,9 +779,9 @@ def device_ms_per_launch(fn, kernel, reps=10):
 
 
 def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b):
-    """Every kernel against its plain version: B1-B5 and B7-B11 on the
-    main path's tensors, with the main path's launch counts; B6 on path
-    B's, with path B's."""
+    """Every kernel against its plain version: B1-B5 and B7-B12 on the
+    main path's tensors, with the main path's launch counts (B12's 0: no
+    path launches it); B6 on path B's, with path B's."""
     from quatro_tpu_torch.ops import frontend as fe
     from quatro_tpu_torch.ops.fpfh import normalize_blocks
 
@@ -760,10 +950,11 @@ def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b):
 
 
 def preprocessing_kernel_rows(calls, row):
-    """B8-B11 on the arguments the main path handed them: each against its
-    plain version (B8 and B9 bit-equal across two launches and within
+    """B8-B12 on the arguments the main path handed B8-B11: each against
+    its plain version (B8 and B9 bit-equal across two launches and within
     rtol 1e-5 / atol 1e-4 of the plain sums, the f32 summation-order bound
-    of B2; B9's membership counts equal; B10 and B11 bit-equal)."""
+    of B2; B9's membership counts equal; B10, B11 and B12 bit-equal, B12
+    on B10's ids and patch table)."""
     from quatro_tpu_torch.ops import segment
 
     # B8 cross histogram: the Patchwork seed stage
@@ -835,6 +1026,29 @@ def preprocessing_kernel_rows(calls, row):
         bsz * n * OPS_CLASSIFY, bsz * n * 4 * (1 + 3 + 1)
         + bsz * p_pad * 5 * 4)
 
+    # B12 table lookup: the rows B10 was handed, delivered by the kernel;
+    # the codes recomputed from them equal B10's on every point
+    rows_b12 = segment.table_lookup(ids, tab)
+    check(torch.equal(rows_b12, segment.table_lookup_plain(ids, tab)),
+          "table lookup differs from plain")
+    check(torch.equal(segment.codes_from_rows(ids, chan, rows_b12, p_cnt),
+                      got), "codes from B12's rows differ from B10's")
+    bsz, n = ids.shape
+    k = tab.shape[-1]
+    gather_idx = ids.clamp(0, p_pad - 1).long()[..., None].expand(-1, -1, k)
+    dev_ms = device_ms_per_launch(lambda: segment.table_lookup(ids, tab),
+                                  "quatro::table_lookup_kernel")
+    log(f"table_lookup: B {bsz}, N {n}, {p_pad} x {k} table, "
+        f"{int(((ids >= 0) & (ids < p_pad)).sum())} ids in range, equal to "
+        f"the plain version bit for bit, codes from its rows equal to B10's "
+        f"on every point; device ms per launch {dev_ms:.6f}")
+    row("table_lookup", float((rows_b12 - segment.table_lookup_plain(
+        ids, tab)).abs().max()),
+        cuda_ms(lambda: segment.table_lookup(ids, tab)),
+        cuda_ms(lambda: segment.table_lookup_plain(ids, tab), 5),
+        0.0, bsz * n * 4 + bsz * p_pad * k * 4 + bsz * k * n * 4,
+        cuda_ms(lambda: torch.gather(tab, 1, gather_idx)))
+
     # B11 image lookup: the projection's packed pixel words
     (flat, img, rows_n, cols_n), _ = calls["image_lookup"][0]
     got = segment.image_lookup(flat, img, rows_n, cols_n)
@@ -863,7 +1077,7 @@ def main() -> int:
         return 2
     import quatro_tpu_torch  # noqa: F401  (fails outside the repository)
 
-    phase_device()
+    card = phase_device()
     phase_build()
     from quatro_tpu_torch.pipeline import register_features, register_scan_pair
     pairs, gts, cfgs = full_width_case()
@@ -890,6 +1104,7 @@ def main() -> int:
              0.5)):
         phase_pipeline(entry, pairs[pair], gts["raw"], cfgs[cfg], name,
                        expected, EARLIER_REPEATS, max_terr=max_terr)
+    phase_sequence(cfgs["A"], card)
     phase_profile(pairs["tilted"], cfgs["A"], wall_a)
     rows = phase_kernels(res_a, cfgs["A"], launches_a, calls, res_b,
                          cfgs["B"], launches_b)

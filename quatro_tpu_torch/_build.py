@@ -49,6 +49,7 @@ SIGNATURES = {
     "classify_points": ("quatro_classify_points",
                         [_P, _P, _P, _I, _I, _I, _I, _P, _P]),
     "image_lookup": ("quatro_image_lookup", [_P, _P, _I, _I, _I, _P, _P]),
+    "table_lookup": ("quatro_table_lookup", [_P, _P, _I, _I, _I, _I, _P, _P]),
 }
 
 _loaded: dict = {}

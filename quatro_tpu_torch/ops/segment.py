@@ -1,4 +1,4 @@
-"""Segment sums and lookups over a small group axis: B2 and B8-B11.
+"""Segment sums and lookups over a small group axis: B2 and B8-B12.
 
 Counterpart of ``quatro_tpu/ops/segment_matmul.py``. The TPU kernels
 contract one-hot tiles on the MXU because the TPU has no cheap scatter or
@@ -15,9 +15,14 @@ nothing of (points x groups) size is ever built.
 * ``fit_iteration_moments`` (B9): one Patchwork plane-fit iteration, table
   delivery, membership and the ten moment sums fused;
 * ``classify_points`` (B10): the final Patchwork code of every point;
-* ``image_lookup`` (B11): out[i] = img[flat_ids[i]], a plain gather.
+* ``image_lookup`` (B11): out[i] = img[flat_ids[i]], a plain gather;
+* ``table_lookup`` (B12): out[k, i] = tab[ids[i], k], a per-point row
+  gather. No path of either package reaches the TPU kernel: its only
+  callers are B9's and B10's fallbacks, taken off the TPU or where N is no
+  multiple of 8192, and there it takes its einsum too. Here it is a public
+  op of its own.
 
-B8-B11 take a leading batch axis (the pipeline runs source and target as
+B8-B12 take a leading batch axis (the pipeline runs source and target as
 one batch of two); B2 takes one segment problem.
 """
 
@@ -128,14 +133,38 @@ def cross_histogram(ids_a: torch.Tensor, ids_b: torch.Tensor,
 
 def table_lookup_plain(ids: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:
     """out[b, k, i] = tab[b, ids[b, i], k], zeros for ids outside [0,
-    p_pad): the function of segment_matmul.py::table_lookup (B12, whose
-    kernel is not ported), as a gather. ids (B, N), tab (B, p_pad, K);
-    returns (B, K, N)."""
+    p_pad), as one ``torch.gather``: B12's plain version, which B9's and
+    B10's plain versions also use to deliver their rows. ids (B, N), tab
+    (B, p_pad, K); returns (B, K, N)."""
     p_pad, k = tab.shape[1:]
     inr = (ids >= 0) & (ids < p_pad)
     idx = ids.clamp(0, p_pad - 1).long()[..., None].expand(-1, -1, k)
     rows = torch.gather(tab, 1, idx)
     return torch.where(inr[..., None], rows, 0.0).transpose(1, 2)
+
+
+def table_lookup(ids: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:
+    """out[b, k, i] = tab[b, ids[b, i], k], zeros for ids outside [0,
+    p_pad); ids (B, N) int32, tab (B, p_pad, K) f32, any N and K. Returns
+    (B, K, N) f32, equal to ``table_lookup_plain`` bit for bit (the kernel
+    only copies). Replaces segment_matmul.py::table_lookup
+    (csrc/table_lookup.cu), which stages the table in shared memory and
+    raises ValueError where it does not fit."""
+    bsz, n = ids.shape
+    p_pad, k = tab.shape[1:]
+    check("ids", ids, (bsz, n), torch.int32)
+    check("tab", tab, (bsz, p_pad, k))
+    if same_device(ids, tab).type != "cuda":
+        return table_lookup_plain(ids, tab)
+    if p_pad * k * 4 > _SMEM_BYTES:
+        raise ValueError(f"table_lookup kernel: a {p_pad} x {k} table exceeds "
+                         "its shared memory")
+    out = torch.empty((bsz, k, n), dtype=torch.float32, device=tab.device)
+    if n == 0 or bsz == 0:
+        return out
+    launch("table_lookup", ids, tab, bsz, n, p_pad, k, out)
+    LAUNCHES["table_lookup"] += 1
+    return out
 
 
 def _plane_proj(vals: torch.Tensor, chan: torch.Tensor) -> torch.Tensor:
@@ -209,7 +238,12 @@ def classify_points_plain(ids, chan, tab, p_pad: int,
     """(B, N) int32 codes: bit 0 ground, 1 nonground, 2 reverted, 3
     rejected, from the delivered [n1, n2, n3, th, flags] row
     (segment_matmul.py:357-367)."""
-    vals = table_lookup_plain(ids, tab)
+    return codes_from_rows(ids, chan, table_lookup_plain(ids, tab), p_cnt)
+
+
+def codes_from_rows(ids, chan, vals, p_cnt: int) -> torch.Tensor:
+    """``classify_points``' codes from rows already delivered to the
+    points, vals (B, 5, N) as ``table_lookup`` gives them."""
     fl = (vals[:, 4] + 0.5).to(torch.int32)
     live = (ids < p_cnt) & ((fl & 8) > 0)
     isg = _plane_proj(vals, chan) < vals[:, 3]

@@ -32,7 +32,11 @@ def _sources():
 
 def test_import_loads_no_jax():
     code = ("import sys, quatro_tpu_torch, quatro_tpu_torch.pipeline, "
-            "quatro_tpu_torch.ops.frontend, quatro_tpu_torch.io.synthetic; "
+            "quatro_tpu_torch.ops.frontend, quatro_tpu_torch.io.synthetic, "
+            "quatro_tpu_torch.odometry, quatro_tpu_torch.sequence, "
+            "quatro_tpu_torch.registration, quatro_tpu_torch.ops.scancontext, "
+            "quatro_tpu_torch.parallel.posegraph, quatro_tpu_torch.io.kitti, "
+            "quatro_tpu_torch.preprocessing.metadata; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT))

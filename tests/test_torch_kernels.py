@@ -265,3 +265,41 @@ def test_preprocessing_wrappers_check_inputs():
         segment.cross_histogram(i, i[:, :50], c[:, :2], p_pad, 128)
     with pytest.raises(TypeError):
         segment.image_lookup(i, c[:, :1, :64].float(), 1, 64)
+
+
+# Pallas interpret mode at N = 8192 (the TPU kernel's tile: its body runs,
+# one tile), and N = 5000, no multiple of 8192 (its einsum).
+@pytest.mark.parametrize("n,k,p_pad", [(8192, 5, 512), (5000, 4, 640)],
+                         ids=["pallas", "einsum"])
+def test_table_lookup_plain_equals_pallas(n, k, p_pad):
+    """B12's plain version against segment_matmul.table_lookup with ids
+    out of range on both sides, on two clouds: equal bit for bit (the
+    TPU kernel's three-way bf16 split and the einsum's exact one-hot both
+    reproduce every f32 row), zeros for the out-of-range ids."""
+    rng = np.random.default_rng(n)
+    ids = rng.integers(-4, p_pad + 4, (2, n)).astype(np.int32)
+    tab = rng.normal(0, 3, (2, p_pad, k)).astype(np.float32)
+    ref = np.stack([np.asarray(jsm.table_lookup(
+        jnp.asarray(ids[b]), jnp.asarray(tab[b]), interpret=True))
+        for b in range(2)])
+    ids_t, tab_t = torch.from_numpy(ids), torch.from_numpy(tab)
+    before = dict(LAUNCHES)
+    got = segment.table_lookup(ids_t, tab_t).numpy()
+    assert LAUNCHES == before
+    assert got.shape == (2, k, n) and got.dtype == np.float32
+    np.testing.assert_array_equal(got, ref)
+    oor = (ids < 0) | (ids >= p_pad)
+    assert oor.any() and (got.transpose(0, 2, 1)[oor] == 0).all()
+    np.testing.assert_array_equal(
+        got, segment.table_lookup_plain(ids_t, tab_t).numpy())
+
+
+def test_table_lookup_checks_inputs():
+    ids = torch.zeros((2, 64), dtype=torch.int32)
+    tab = torch.zeros((2, 16, 5))
+    with pytest.raises(TypeError):
+        segment.table_lookup(ids.long(), tab)
+    with pytest.raises(ValueError):
+        segment.table_lookup(ids[:1], tab)
+    with pytest.raises(ValueError):
+        segment.table_lookup(ids.reshape(64, 2).T, tab)   # not contiguous

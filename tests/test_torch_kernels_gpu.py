@@ -1,4 +1,5 @@
-"""The eleven CUDA kernels against their plain PyTorch versions, on the card.
+"""The twelve CUDA kernels against their plain PyTorch versions, on the card,
+and the loop-closing path's device code (pose graph, Scan Context).
 
 Every test here is marked ``gpu`` and skips without a CUDA device. The
 machine with the card has no JAX, so this file imports only the port, and
@@ -277,7 +278,7 @@ def test_recommended_runs_all_six_kernels(recommended):
                         "nearest_neighbors2": 2, "consistency_graph": 1,
                         "segment_sums": 1, "cross_histogram": 0,
                         "fit_iteration_moments": 0, "classify_points": 0,
-                        "image_lookup": 0}
+                        "image_lookup": 0, "table_lookup": 0}
     assert bool(res.solution.valid)
     assert res.hypotheses.rotation.shape[0] == 6
     for name in ("valid", "rotation", "translation", "max_clique_mask",
@@ -423,5 +424,118 @@ def test_register_scan_pair_runs_all_ten_kernels(dev):
         "moment_sums": 1, "spfh": 1, "fpfh": 1, "nearest_neighbors": 0,
         "nearest_neighbors2": 2,
         "consistency_graph": 1, "segment_sums": 1, "cross_histogram": 1,
-        "fit_iteration_moments": 3, "classify_points": 1, "image_lookup": 1}
+        "fit_iteration_moments": 3, "classify_points": 1, "image_lookup": 1,
+        "table_lookup": 0}
     assert bool(res.solution.valid)
+
+
+def test_table_lookup_kernel(prep_inputs):
+    """B12 equals its plain version bit for bit (it only copies), zeros
+    for the out-of-range ids included, at the main path's N and the odd
+    N, with the Patchwork table (K = 5) and a wider one (K = 10)."""
+    t, p_pad, _ = prep_inputs
+    wide = torch.cat([t["tab"], t["tab"] * 2.0], -1).contiguous()
+    for tab in (t["tab"], wide):
+        before = tf.LAUNCHES["table_lookup"]
+        got = segment.table_lookup(t["ids"], tab)
+        assert tf.LAUNCHES["table_lookup"] == before + 1
+        assert torch.equal(got, segment.table_lookup_plain(t["ids"], tab))
+        oor = (t["ids"] < 0) | (t["ids"] >= p_pad)
+        assert bool(oor.any()) and bool((got.transpose(1, 2)[oor] == 0).all())
+    with pytest.raises(ValueError, match="shared memory"):
+        segment.table_lookup(t["ids"], torch.zeros(
+            (2, 65536, 1), device=t["ids"].device))
+
+
+def _pose_graph(dev, m=12):
+    """A 12-pose loop with four closures and noisy measurements, the two
+    edges at pose 4 masked (a component of its own), as in
+    tests/test_torch_sequence.py."""
+    from quatro_tpu_torch.parallel.posegraph import PoseGraphEdges
+    rng = np.random.default_rng(7)
+    ang = 2 * np.pi * np.arange(m) / m
+    gt = np.stack([6 * np.cos(ang) - 6, 6 * np.sin(ang), 0.1 * np.arange(m),
+                   np.arctan2(np.cos(ang), -np.sin(ang))], 1)
+    ei = np.int32(list(range(m - 1)) + [0, 2, 7, 8])
+    ej = np.int32(list(range(1, m)) + [11, 9, 10, 11])
+    c, s = np.cos(gt[ei, 3]), np.sin(gt[ei, 3])
+    d = gt[ej, :3] - gt[ei, :3]
+    t = np.stack([c * d[:, 0] + s * d[:, 1], -s * d[:, 0] + c * d[:, 1],
+                  d[:, 2]], 1) + rng.normal(0, 0.05, (len(ei), 3))
+    dy = gt[ej, 3] - gt[ei, 3]
+    y = np.arctan2(np.sin(dy), np.cos(dy)) + rng.normal(0, 0.01, len(ei))
+    mask = np.ones(len(ei), bool)
+    mask[[3, 4]] = False
+    edges = PoseGraphEdges(*(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                             for a in (ei, ej, t.astype(np.float32),
+                                       y.astype(np.float32),
+                                       rng.uniform(5, 100, len(ei)).astype(
+                                           np.float32), mask)))
+    p0 = (gt + rng.normal(0, 0.3, gt.shape)).astype(np.float32)
+    p0[0] = gt[0]
+    return torch.from_numpy(p0).to(dev), edges
+
+
+def test_optimize_pose_graph_repeats_on_the_card(dev):
+    """Two solves of one graph on the card give the same bits (the J^T
+    scatter goes through B2, one launch per apply); the result is finite,
+    the disconnected pose stays put, and it lies within 1e-3 of the CPU
+    solve (f32 CG at 10 x 40 is not converged on this graph)."""
+    from quatro_tpu_torch.parallel.posegraph import optimize_pose_graph
+    p0, edges = _pose_graph(dev)
+    before = tf.LAUNCHES["segment_sums"]
+    a = optimize_pose_graph(p0, edges, 12, gn_iters=10, cg_iters=40)
+    assert tf.LAUNCHES["segment_sums"] == before + 10 * 41
+    b = optimize_pose_graph(p0, edges, 12, gn_iters=10, cg_iters=40)
+    assert a.device.type == "cuda" and torch.equal(a, b)
+    assert bool(torch.isfinite(a).all())
+    assert torch.equal(a[4], p0[4])
+    cpu = optimize_pose_graph(p0.cpu(), type(edges)(*(x.cpu() for x in edges)),
+                              12, gn_iters=10, cg_iters=40)
+    torch.testing.assert_close(a.cpu(), cpu, rtol=0, atol=1e-3)
+
+
+def test_scan_context_on_the_card(dev):
+    """scan_context of the level_a scans on the card against the CPU.
+    CUDA's f32 arctangent may differ by an ulp from the CPU's, which moves
+    a point on a sector edge (every 15th column of the synthetic lidar)
+    into the neighbouring sector. So: the cells of the points differ only
+    by one sector and only where the point lies within 1e-5 rad of a
+    sector edge; the card's descriptor equals the CPU's built from the
+    card's cells bit for bit; at most 10 % of the occupied cells differ
+    (measured on the H100: 14 of 565 and 30 of 573); and the pair's
+    distance agrees within 1e-3."""
+    from quatro_tpu_torch.ops.scancontext import (scan_context,
+                                                  scan_context_cells,
+                                                  scan_context_from_cells,
+                                                  sc_distance)
+    pair = make_scan_pair(seed=101, yaw_deg=38.0,
+                          translation=(2.5, -1.2, 0.04),
+                          lidar=LidarConfig.preset("VLP-16"))
+    descs = []
+    for xyz in pair[:2]:
+        pb = PointBatch.from_numpy(xyz, 32768)
+        got = scan_context(pb.points.to(dev), pb.mask.to(dev)).cpu()
+        ref = scan_context(pb.points, pb.mask)
+        cell = scan_context_cells(pb.points.to(dev), pb.mask.to(dev)).cpu()
+        cell_ref = scan_context_cells(pb.points, pb.mask)
+        moved = cell != cell_ref
+        assert bool(((cell < 2400) == (cell_ref < 2400)).all())
+        assert bool((cell // 120 == cell_ref // 120).all())
+        step = (cell - cell_ref)[moved].abs()
+        assert bool(((step == 1) | (step == 119)).all())
+        theta = torch.atan2(pb.points[:, 1].double(),
+                            pb.points[:, 0].double()) + np.pi
+        width = 2 * np.pi / 120
+        edge = (theta - torch.round(theta / width) * width).abs()
+        assert bool((edge[moved] < 1e-5).all())
+        assert torch.equal(got, scan_context_from_cells(pb.points, cell))
+        differ = int((got != ref).sum())
+        print(f"scan_context: {int(moved.sum())} points moved a sector, "
+              f"{differ} of {int((ref > 0).sum())} occupied cells differ "
+              "between the card and the CPU")
+        assert differ <= 0.10 * int((ref > 0).sum())
+        descs.append((got, ref))
+    d_card = float(sc_distance(descs[0][0], descs[1][0]))
+    d_cpu = float(sc_distance(descs[0][1], descs[1][1]))
+    assert abs(d_card - d_cpu) < 1e-3
