@@ -10,9 +10,11 @@
 //   no chunk bookkeeping.
 // The wrapper (ops/frontend.py) supplies |a|^2 and |b|^2 and sets the
 // outputs of invalid rows and of rows with no valid column to index 0 /
-// FLT_MAX. The per-pair arithmetic is nn2.cu's (33 FMAs in component order,
-// then the expansion with round-to-nearest intrinsics), so this kernel's
-// (index, d2) equal the first slot of the top-2 kernel bit for bit.
+// FLT_MAX. The per-pair arithmetic is nn2.cu's (the dot product from 0,
+// one round-to-nearest multiply and one add per component in component
+// order, then the expansion), so this kernel's (index, d2) equal the first
+// slot of the top-2 kernel bit for bit, and the plain version's
+// (ops/frontend.py::_ordered_dot) given the same |a|^2 and |b|^2.
 //
 // Bound on the card: operations. 2 x 33 f32 operations per (a, b) pair,
 // 4.4 GFLOP at 8192 x 8192 (0.066 ms at 67 TFLOP/s), against 2.2 MB of
@@ -79,7 +81,7 @@ nn1_kernel(const float* __restrict__ a, const float* __restrict__ bdesc,
           const float* col = sb + t * kDim;
           float dot = 0.f;
 #pragma unroll
-          for (int k = 0; k < kDim; ++k) dot = fmaf(row[k], col[k], dot);
+          for (int k = 0; k < kDim; ++k) dot = add(dot, mul(row[k], col[k]));
           const float d = fmaxf(add(sub(sa, mul(2.f, dot)), ssq[t]), 0.f);
           if (d < best) {
             best = d;

@@ -199,17 +199,40 @@ def spfh(points: torch.Tensor, normals: torch.Tensor,
 def fpfh_sums_plain(points: torch.Tensor, spfh_rows: torch.Tensor,
                     pair_maskf: torch.Tensor, radius: float) -> torch.Tensor:
     """(B, V, 33): sum_j SPFH_j / max(d2_ij, 1e-12) over valid pairs with
-    1e-12 < d2 <= r^2 (an f32 matrix product, never TF32)."""
+    1e-12 < d2 <= r^2, each row's terms added in column order as the
+    kernel adds them, one multiply and one add per term (the kernel fuses
+    them): slot k of a row holds its k-th in-radius column, and the slots
+    are added one after the other. A matrix product would sum in the
+    library's order, which follows the thread count."""
     r2 = _r2(radius, points)
     out = torch.zeros_like(spfh_rows)
+    v = points.shape[1]
     for b in range(points.shape[0]):
         p, m = points[b], pair_maskf[b] > 0
-        for s in range(0, p.shape[0], _ROW_TILE):
+        for s in range(0, v, _ROW_TILE):
             _, d2 = _pair_geometry(p[s:s + _ROW_TILE], p)
             ok = (m[s:s + _ROW_TILE, None] & m[None, :] & (d2 <= r2)
                   & (d2 > 1e-12))
+            kmax = int(ok.sum(1).max())
+            if kmax == 0:
+                continue
             w = torch.where(ok, 1.0 / torch.clamp(d2, min=1e-12), 0.0)
-            out[b, s:s + _ROW_TILE] = w @ spfh_rows[b]
+            # cols[i, k]: the k-th in-radius column of row i, v past the
+            # last; the other columns go to a dump slot, dropped
+            slot = torch.where(ok, ok.cumsum(1) - 1, kmax)
+            cols = torch.full((ok.shape[0], kmax + 1), v, dtype=torch.int64,
+                              device=p.device)
+            cols.scatter_(1, slot, torch.arange(v, device=p.device).expand(
+                ok.shape[0], v))
+            cols = cols[:, :kmax]
+            live = cols < v
+            cols = cols.clamp(max=v - 1)
+            terms = (torch.where(live, w.gather(1, cols), 0.0)[..., None]
+                     * spfh_rows[b][cols])
+            acc = out[b, s:s + _ROW_TILE]
+            for k in range(kmax):
+                acc = acc + terms[:, k]
+            out[b, s:s + _ROW_TILE] = acc
     return out
 
 
@@ -273,16 +296,42 @@ def _nn_chunk(nb: int) -> int:
     return NN_CHUNK if nb % NN_CHUNK == 0 else nb
 
 
-def _chunk_d2(desc_a, desc_b, maskf_a, maskf_b, sq_a, sq_b, b, c0, chunk):
+def _ordered_dot(rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """(Na, C) dot products rows @ cols.T as the NN kernels take them:
+    from 0, one round-to-nearest multiply and one add per component, in
+    component order. No matrix product, ``addcmul`` or ``baddbmm``: their
+    summation order follows the library's blocking and thread count, and
+    may fuse a multiply into an add."""
+    dot = rows.new_zeros((rows.shape[0], cols.shape[0]))
+    term = torch.empty_like(dot)
+    rows_t, cols_t = rows.T.contiguous(), cols.T.contiguous()
+    for k in range(rows.shape[1]):
+        torch.mul(rows_t[k, :, None], cols_t[k, None, :], out=term)
+        dot.add_(term)
+    return dot
+
+
+def _chunk_d2(desc_a, desc_b, maskf_a, maskf_b, sq_a, sq_b, b, c0, chunk,
+              lim):
     """(Na, C) distances of batch entry b's A rows to its B columns
-    c0:c0+C, max((|a|^2 - 2 a.b) + |b|^2, 0), masked pairs f32 max. Both
-    NN plain versions take their distances from here, so they agree bit
-    for bit."""
-    cols = desc_b[b, c0:c0 + chunk]
-    d2 = torch.clamp(sq_a[b][:, None] - 2.0 * (desc_a[b] @ cols.T)
-                     + sq_b[b, c0:c0 + chunk][None, :], min=0.0)
-    ok = (maskf_a[b][:, None] > 0) & (maskf_b[b, c0:c0 + chunk] > 0)
-    return torch.where(ok, d2, FLT_MAX)
+    c0:c0+C, max((|a|^2 - 2 a.b) + |b|^2, 0), masked pairs f32 max, with
+    the kernels' arithmetic (``_ordered_dot``): given the same sq_a and
+    sq_b, bit-equal to csrc/nn1.cu and csrc/nn2.cu on any host and at any
+    thread count. Only rows and columns before the active limits ``lim``
+    (one past the last valid row and column, as the kernels skip) are
+    computed: past them every pair is masked. Both NN plain versions take
+    their distances from here, so they agree bit for bit."""
+    la, lb = lim
+    d2 = desc_a.new_full((desc_a.shape[1], chunk), FLT_MAX)
+    ce = min(c0 + chunk, lb)
+    if la > 0 and ce > c0:
+        part = torch.clamp(sq_a[b, :la, None]
+                           - 2.0 * _ordered_dot(desc_a[b, :la],
+                                                desc_b[b, c0:ce])
+                           + sq_b[b, None, c0:ce], min=0.0)
+        ok = (maskf_a[b, :la, None] > 0) & (maskf_b[b, None, c0:ce] > 0)
+        d2[:la, :ce - c0] = torch.where(ok, part, FLT_MAX)
+    return d2
 
 
 def nearest_neighbors2_plain(desc_a, desc_b, maskf_a, maskf_b, sq_a, sq_b):
@@ -293,6 +342,7 @@ def nearest_neighbors2_plain(desc_a, desc_b, maskf_a, maskf_b, sq_a, sq_b):
     nb = desc_b.shape[1]
     chunk = _nn_chunk(nb)
     dev = desc_a.device
+    lims = nn_active_limits(maskf_a > 0, maskf_b > 0).tolist()
     outs = []
     for b in range(bsz):
         run = (torch.full((na,), FLT_MAX, device=dev),
@@ -301,7 +351,7 @@ def nearest_neighbors2_plain(desc_a, desc_b, maskf_a, maskf_b, sq_a, sq_b):
                torch.zeros(na, dtype=torch.int64, device=dev))
         for c0 in range(0, nb, chunk):
             d2 = _chunk_d2(desc_a, desc_b, maskf_a, maskf_b, sq_a, sq_b, b,
-                           c0, chunk)
+                           c0, chunk, lims[b])
             loc1 = torch.argmin(d2, dim=1)       # first minimum
             cd1 = d2.gather(1, loc1[:, None])[:, 0]
             d2x = d2.scatter(1, loc1[:, None], FLT_MAX)  # drop the 1st
@@ -323,13 +373,14 @@ def nearest_neighbors_plain(desc_a, desc_b, maskf_a, maskf_b, sq_a, sq_b):
     nb = desc_b.shape[1]
     chunk = _nn_chunk(nb)
     dev = desc_a.device
+    lims = nn_active_limits(maskf_a > 0, maskf_b > 0).tolist()
     outs = []
     for b in range(bsz):
         rd = torch.full((na,), FLT_MAX, device=dev)
         ri = torch.zeros(na, dtype=torch.int64, device=dev)
         for c0 in range(0, nb, chunk):
             d2 = _chunk_d2(desc_a, desc_b, maskf_a, maskf_b, sq_a, sq_b, b,
-                           c0, chunk)
+                           c0, chunk, lims[b])
             loc = torch.argmin(d2, dim=1)        # first minimum
             cd = d2.gather(1, loc[:, None])[:, 0]
             better = cd < rd
@@ -386,7 +437,9 @@ def nearest_neighbors2(desc_a: torch.Tensor, desc_b: torch.Tensor,
     (int32 indices, f32 squared distances). desc (B, N, 33) f32, masks
     (B, N) bool. Invalid rows, and slots with no valid column, get index
     0 / f32 max. Replaces
-    pallas_frontend.py::nearest_neighbors2_pallas (csrc/nn2.cu)."""
+    pallas_frontend.py::nearest_neighbors2_pallas (csrc/nn2.cu), which
+    skips rows and columns past ``nn_active_limits`` and equals the plain
+    version bit for bit given the same |a|^2 and |b|^2."""
     bsz, na = desc_a.shape[:2]
     nb = desc_b.shape[1]
     chunk = _nn_chunk(nb)
@@ -400,10 +453,26 @@ def nearest_neighbors2(desc_a: torch.Tensor, desc_b: torch.Tensor,
         i2 = torch.empty_like(i1)
         d1 = torch.empty((bsz, na), dtype=torch.float32, device=dev)
         d2 = torch.empty_like(d1)
-        launch("nn2", desc_a, desc_b, sq_a, sq_b, maskf_a, maskf_b, bsz, na,
-               nb, chunk, i1, d1, i2, d2)
+        launch("nn2", desc_a, desc_b, sq_a, sq_b, maskf_a, maskf_b,
+               nn_active_limits(mask_a, mask_b), bsz, na, nb, chunk, i1, d1,
+               i2, d2)
         LAUNCHES["nearest_neighbors2"] += 1
     return _fill_empty(i1, d1, i2, d2, mask_a)
+
+
+def nn_active_limits(mask_a: torch.Tensor,
+                     mask_b: torch.Tensor) -> torch.Tensor:
+    """(B, 2) int32 on the masks' device: one past the last valid row of
+    A and one past the last valid column of B per batch entry (0 where
+    there is none), the top-2 kernel's active limits
+    (pallas_frontend.py::_nn_active_limits). A reduction on the device,
+    with nothing read back."""
+    def last(mask):
+        iota = torch.arange(1, mask.shape[1] + 1, dtype=torch.int32,
+                            device=mask.device)
+        return torch.where(mask, iota, 0).amax(1)
+    return torch.stack([last(mask_a), last(mask_b)], 1).to(
+        torch.int32).contiguous()
 
 
 def _fill_empty(i1, d1, i2, d2, mask_a):

@@ -38,6 +38,7 @@ FIT_CHUNK = 1024        # points per partial moment table of B9
 HIST_ROWS = 32          # histogram rows per block of B8 (shared memory)
 _HIST_MAX_K = 4         # weight channels B8 stages
 _SMEM_BYTES = 200 * 1024
+_HIST_SMEM_BYTES = 176 * 1024   # B8's histogram rows; its lists take 42 KB
 _PLAIN_ROWS = 8192      # entries per one-hot block of the plain versions
 _MOMENTS = 10
 
@@ -107,14 +108,16 @@ def cross_histogram(ids_a: torch.Tensor, ids_b: torch.Tensor,
     int32, weights (B, K, N) f32 (K <= 4), any N; ids out of range are
     dropped. Replaces segment_matmul.py::cross_histogram
     (csrc/cross_histogram.cu). The TPU kernel rounds the weights to bf16 on
-    the MXU; this one adds in f32, and repeats bit for bit."""
+    the MXU; this one adds in f32, in ``cross_histogram_plain``'s order, so
+    it repeats bit for bit and equals the plain version on CPU copies bit
+    for bit."""
     bsz, k, n = weights.shape
     check("ids_a", ids_a, (bsz, n), torch.int32)
     check("ids_b", ids_b, (bsz, n), torch.int32)
     check("weights", weights, (bsz, k, n))
     if same_device(ids_a, ids_b, weights).type != "cuda":
         return cross_histogram_plain(ids_a, ids_b, weights, a_pad, b_pad)
-    if k > _HIST_MAX_K or HIST_ROWS * k * b_pad * 4 > _SMEM_BYTES:
+    if k > _HIST_MAX_K or HIST_ROWS * k * b_pad * 4 > _HIST_SMEM_BYTES:
         raise ValueError(f"cross_histogram kernel: K = {k} (at most "
                          f"{_HIST_MAX_K}) and b_pad = {b_pad} exceed its "
                          "shared memory")

@@ -31,7 +31,8 @@ Tolerances, and what was measured on these inputs:
 - ``run_sequence``: the JAX test's bands on its own 12-frame loop
   (tests/test_sequence.py:10-24; on the 8-frame seed-5 loop, whose 45 deg
   steps leave pairs with 2-8 final inliers of ~300 correspondences, the
-  JAX package keeps 7 of 8 edges and the port 5 or 6: ROADMAP C); checkpoint,
+  JAX package keeps 7 of 8 edges and the port 5 at any thread count:
+  tests/torch_threads_loop.py, ROADMAP C); checkpoint,
   kill and resume on the 8-frame loop as tests/test_sequence.py:28-84;
   the windowed runner equal to ``step`` within 1e-5 rad / 1e-4 m
   (tests/test_sequence.py:154-191).
