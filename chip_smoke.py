@@ -67,16 +67,19 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
 7. profile: one more run of path A under torch.profiler (after the timed
    runs, since the profiler slows the host for the runs after it): the
    card's busy time, its idle share of the median pair, the top kernels
-   and the device time per launch of each of the port's kernels;
+   and the device time per launch of each of the port's kernels, and of
+   B3's and B9's wrappers with all their kernels;
 8. kernels: each kernel on the main path's own tensors (B6 on path B's
    descriptors, B12 on the rows B10 was handed) against its plain PyTorch
    version, with its time, the plain version's time, the least time the
    card could take for the same work, and one library call computing the
    same function where there is one (1-NN, top-2 NN, segment sums, cross
-   histogram, image lookup, table lookup). B6, B7 (both directions, with
-   the active limits it found) and B8 are held bit for bit against their
-   plain versions run on CPU copies of the same inputs. Each row also has
-   the device time per call of the kernel and of the library call
+   histogram, image lookup, table lookup). B2, B3 (with its active limits
+   and the tile pairs it tested and skipped), B6, B7 (both directions,
+   with the active limits it found), B8 and B9 (both flags, with its
+   active limits) are held bit for bit against their plain versions run
+   on CPU copies of the same inputs and across two launches. Each row also
+   has the device time per call of the kernel and of the library call
    (torch.profiler), so that the two compare like with like.
 
 The last two lines of standard output are the card's kernel table as one
@@ -732,6 +735,12 @@ def phase_profile(pair, cfg, wall_ms, top=10):
            for name, ms, count in rows if "quatro::" in name}
     log("profile: device ms per launch of the port's kernels: "
         + json.dumps(own))
+    per_wrapper = {w: round(sum(ms for name, ms, _ in rows
+                                if name.replace("void ", "").startswith(names))
+                            / MAIN_LAUNCHES[w], 6)
+                   for w, names in WRAPPER_KERNELS.items()}
+    log("profile: device ms per wrapper launch (all its kernels): "
+        + json.dumps(per_wrapper))
 
 
 def nn1_kernel_row(res_b, cfg, launches_b, row):
@@ -836,11 +845,22 @@ def device_ms_per_call(fn, prefix="", reps=10):
     return sum(e.self_device_time_total for e in hits) / 1e3 / reps
 
 
-# device ms per launch of the former top-2 and histogram kernels (one
-# thread per row each) on NVIDIA H100 80GB HBM3, 700.00 W, printed beside
-# this run's
+# device ms per call of the former designs on NVIDIA H100 80GB HBM3,
+# 700.00 W, printed beside this run's: the top-2 and histogram kernels with
+# one thread per row each, the moment sums with one thread per row over
+# every column, the plane-fit moments with an all-pairs compare
 FORMER_DEVICE_MS = {"nearest_neighbors2": 1.757077,
-                    "cross_histogram": 1.572931}
+                    "cross_histogram": 1.572931,
+                    "moment_sums": 0.218100,
+                    "fit_iteration_moments": 0.074700}
+# the kernels of each redesigned wrapper, by the profiler's names, for its
+# device time per launch in path A's profile (chunk_sum_kernel<9> is B9's
+# second pass, <8> B8's)
+WRAPPER_KERNELS = {"moment_sums": ("quatro::tile_bounds_kernel",
+                                   "quatro::moment_sums_kernel"),
+                   "fit_iteration_moments": ("quatro::fit_limit_kernel",
+                                             "quatro::fit_partials_kernel",
+                                             "quatro::chunk_sum_kernel<9>")}
 
 
 def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b):
@@ -888,21 +908,40 @@ def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b):
                                    else None)}
         log(json.dumps(r))
         if name in FORMER_DEVICE_MS:
+            lib = (f"against the library call's {r['library_ms']:.6f} ms "
+                   "(CUDA events, 20 calls); library device "
+                   f"{r['library_device_ms']} ms" if lib_fn else
+                   "(CUDA events, 20 calls; no library call)")
             log(f"{name}: device {r['device_ms']} ms per call against "
                 f"{FORMER_DEVICE_MS[name]} ms for the former design; call "
-                f"{r['ms']:.6f} ms "
-                f"against the library call's {r['library_ms']:.6f} ms (CUDA "
-                f"events, 20 calls); library device "
-                f"{r['library_device_ms']} ms")
+                f"{r['ms']:.6f} ms {lib}")
         rows.append(r)
 
-    # B3 moment sums
-    got = fe.moment_sums(pts, maskf, rn)
-    ref = fe.moment_sums_plain(pts, maskf, rn)
-    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-4)
+    # B3 moment sums, bit for bit against the plain version on CPU copies
+    # and across two launches; its pre-pass's limits and tile AABBs equal
+    # to their torch mirrors, and the tile pairs its warps tested
+    got, bounds, lim = fe.moment_sums_launch(pts, maskf, rn)
+    check(torch.equal(got, fe.moment_sums(pts, maskf, rn)),
+          "moment sums differ between launches")
+    pc, mc = pts.cpu(), maskf.cpu()
+    ref = fe.moment_sums_plain(pc, mc, rn)
+    check(torch.equal(got.cpu(), ref),
+          "moment sums differ from the plain version on CPU copies")
+    rbb = fe.tile_bounds(pc, mc)
+    check(torch.equal(bounds.cpu(), rbb)
+          and torch.equal(lim.cpu(), fe.active_limit(mc > 0)),
+          "moment sums' tile AABBs or active limits differ from torch's")
+    passing = fe.tiles_in_radius(rbb, rbb, rn)
+    nct = [-(-n // fe.PAIR_TILE) for n in lim.tolist()]
+    tested = [n * n for n in nct]
+    skipped = [n * n - int(passing[b, :n, :n].sum())
+               for b, n in enumerate(nct)]
+    log(f"moment_sums: active limits {lim.tolist()} of {v}; tile pairs "
+        f"tested {tested}, skipped {skipped} per cloud; equal to the plain "
+        "version on CPU copies and across two launches, bit for bit")
     pairs_all = float((nv * nv).sum())
     n_rn = in_radius(rn, mask)
-    row("moment_sums", float((got - ref).abs().max()),
+    row("moment_sums", float((got.cpu() - ref).abs().max()),
         lambda: fe.moment_sums(pts, maskf, rn),
         lambda: fe.moment_sums_plain(pts, maskf, rn),
         pairs_all * OPS_PAIR_TEST + (n_rn + float(nv.sum())) * OPS_MOMENTS,
@@ -1008,11 +1047,14 @@ def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b):
     got = segment.segment_sums(ids, vals, p_pad)
     again = segment.segment_sums(ids, vals, p_pad)
     check(torch.equal(got, again), "segment sums differ between launches")
-    ref = segment.segment_sums_plain(ids, vals, p_pad)
-    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-4)
+    ref = segment.segment_sums_plain(ids.cpu(), vals.cpu(), p_pad,
+                                     segment.SEG_CHUNK)
+    check(torch.equal(got.cpu(), ref),
+          "segment sums differ from the plain version on CPU copies")
     in_range = int(((ids >= 0) & (ids < p_pad)).sum())
     log(f"segment_sums: N {nv_ids}, K {kv}, p_pad {p_pad}, {in_range} "
-        "entries in range, bit-equal across two launches")
+        "entries in range; equal to the plain version on CPU copies and "
+        "across two launches, bit for bit")
     dest = torch.where((ids >= 0) & (ids < p_pad), ids, p_pad).long()
     src_rows = vals.T.contiguous()
 
@@ -1020,9 +1062,10 @@ def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b):
         return torch.zeros((p_pad + 1, kv), device=vals.device).index_add_(
             0, dest, src_rows)
 
-    row("segment_sums", float((got - ref).abs().max()),
+    row("segment_sums", float((got.cpu() - ref).abs().max()),
         lambda: segment.segment_sums(ids, vals, p_pad),
-        lambda: segment.segment_sums_plain(ids, vals, p_pad),
+        lambda: segment.segment_sums_plain(ids, vals, p_pad,
+                                           segment.SEG_CHUNK),
         float(in_range * kv), nv_ids * 4 * (1 + kv) + p_pad * kv * 4,
         library_segment)
     nn1_kernel_row(res_b, cfg_b, launches_b, row)
@@ -1031,12 +1074,10 @@ def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b):
 
 
 def preprocessing_kernel_rows(calls, row):
-    """B8-B12 on the arguments the main path handed B8-B11: B8 bit-equal
-    to its plain version on CPU copies and across two launches; B9
-    bit-equal across two launches, within rtol 1e-5 / atol 1e-4 of the
-    plain sums (the f32 summation-order bound of B2) and its membership
-    counts equal; B10, B11 and B12 bit-equal, B12 on B10's ids and patch
-    table."""
+    """B8-B12 on the arguments the main path handed B8-B11: B8 and B9
+    (with its active limits) bit-equal to their plain versions on CPU
+    copies and across two launches; B10, B11 and B12 bit-equal, B12 on
+    B10's ids and patch table."""
     from quatro_tpu_torch.ops import segment
 
     # B8 cross histogram: the Patchwork seed stage
@@ -1073,20 +1114,25 @@ def preprocessing_kernel_rows(calls, row):
     # B9 plane-fit moments: iterations 1-2 in bf16, the last exact
     errs = []
     for (ids, chan, tab, p_pad, p_cnt), kw in calls["fit_iteration_moments"]:
-        got = segment.fit_iteration_moments(ids, chan, tab, p_pad, p_cnt, **kw)
+        got, lim = segment.fit_iteration_moments_launch(ids, chan, tab, p_pad,
+                                                        p_cnt, **kw)
         again = segment.fit_iteration_moments(ids, chan, tab, p_pad, p_cnt,
                                               **kw)
         check(torch.equal(got, again), "plane-fit moments differ between "
               "launches")
-        ref = segment.fit_iteration_moments_plain(ids, chan, tab, p_pad,
-                                                  p_cnt, **kw)
-        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-4)
-        check(torch.equal(got[..., 0], ref[..., 0]),
-              "plane-fit membership counts differ")
-        errs.append(float((got - ref).abs().max()))
+        ref = segment.fit_iteration_moments_plain(ids.cpu(), chan.cpu(),
+                                                  tab.cpu(), p_pad, p_cnt,
+                                                  **kw)
+        check(torch.equal(got.cpu(), ref), "plane-fit moments differ from "
+              "the plain version on CPU copies")
+        check(torch.equal(lim.cpu(), segment.fit_active_limit(
+            ids.cpu(), p_pad, p_cnt)), "plane-fit active limits differ")
+        errs.append(float((got.cpu() - ref).abs().max()))
         log(f"fit_iteration_moments (exact={kw['exact']}): "
-            f"{int(got[..., 0].sum())} member points, counts equal, "
-            "bit-equal across two launches")
+            f"{int(got[..., 0].sum())} member points, active limits "
+            f"{lim.tolist()} of {ids.shape[1]} ({segment.FIT_CHUNK}-point "
+            "chunks); equal to the plain version on CPU copies and across "
+            "two launches, bit for bit")
     bsz, _, n = chan.shape
     members = float(got[..., 0].sum())
     row("fit_iteration_moments", max(errs),

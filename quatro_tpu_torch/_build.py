@@ -3,8 +3,9 @@
 Each source is compiled by its own ``nvcc`` process, all started together,
 into a shared library with a plain C interface, and loaded with ctypes:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o build/kernels/lib<name>.so csrc/<name>.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -lineinfo
+         -shared -Xcompiler -fPIC -Xptxas -v -o build/kernels/lib<name>.so
+         csrc/<name>.cu
 
 The build happens at first use, never at import, into ``build/kernels/``
 beside the package (git-ignored); a library newer than its sources is
@@ -31,7 +32,8 @@ _F = ctypes.c_float
 # C signature of each kernel's launcher: every pointer and the stream as
 # c_void_p (a bare Python int would be passed as a 32-bit int).
 SIGNATURES = {
-    "moment_sums": ("quatro_moment_sums", [_P, _P, _I, _I, _F, _P, _P]),
+    "moment_sums": ("quatro_moment_sums",
+                    [_P, _P, _I, _I, _F, _P, _P, _P, _P]),
     "spfh": ("quatro_spfh", [_P, _P, _P, _I, _I, _F, _P, _P, _P]),
     "fpfh": ("quatro_fpfh", [_P, _P, _P, _I, _I, _F, _P, _P]),
     "nn2": ("quatro_nn2", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -45,7 +47,7 @@ SIGNATURES = {
                         [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P]),
     "fit_iteration_moments": ("quatro_fit_iteration_moments",
                               [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
-                               _P]),
+                               _P, _P]),
     "classify_points": ("quatro_classify_points",
                         [_P, _P, _P, _I, _I, _I, _I, _P, _P]),
     "image_lookup": ("quatro_image_lookup", [_P, _P, _I, _I, _I, _P, _P]),
@@ -86,8 +88,8 @@ def build(names=None, force: bool = False) -> dict:
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc, *ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler",
-               "-fPIC", "-Xptxas", "-v", "-o", tmp, str(src)]
+        cmd = [nvcc, *ARCH, "-std=c++17", "-O3", "-lineinfo", "-shared",
+               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, str(src)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, lib)

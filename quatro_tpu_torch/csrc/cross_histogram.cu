@@ -329,5 +329,6 @@ extern "C" int quatro_cross_histogram(const int* ids_a, const int* ids_b, const 
                                          partial, grid, smem, stream);
   }
   if (rc != 0) return rc;
-  return quatro::launch_chunk_sum(partial, bsz, chunks, k * a_pad * b_pad, out, stream);
+  return quatro::launch_chunk_sum<8>(partial, bsz, chunks, k * a_pad * b_pad, out,
+                                     stream);
 }

@@ -26,12 +26,14 @@ import torch
 
 from quatro_tpu_torch.ops.fpfh import (FPFH_DIM, NUM_BINS, _bin_index,
                                       normalize_blocks)
-from quatro_tpu_torch.ops.launch import (LAUNCHES, check, launch,  # noqa: F401
-                                         reset_launches, same_device)
+from quatro_tpu_torch.ops.launch import (LAUNCHES, active_limit,  # noqa: F401
+                                         check, launch, reset_launches,
+                                         same_device)
 from quatro_tpu_torch.ops.normals import Normals, normals_from_moments
 
 FLT_MAX = torch.finfo(torch.float32).max
 NN_CHUNK = 2048          # column chunk of the top-2 tie rule
+PAIR_TILE = 32           # points per AABB tile of the radius-pair kernels
 _ROW_TILE = 512          # rows per step of the plain versions (memory)
 
 
@@ -51,25 +53,87 @@ def _pair_geometry(pr: torch.Tensor, pc: torch.Tensor):
 
 # ----------------------------------------------------------------- B3 ----
 
+def tile_bounds(points: torch.Tensor, maskf: torch.Tensor) -> torch.Tensor:
+    """(B, ceil(V / PAIR_TILE), 8) per-tile AABBs of the valid points
+    (maskf > 0): [min x, y, z, 0, max x, y, z, 0]; an empty tile gets
+    [+inf, -inf]. NaN coordinates are left out per coordinate, as fminf /
+    fmaxf leave them. The radius-pair kernels' pre-pass (csrc/tiles.cuh)
+    writes the same table: min and max are exact, so any order gives
+    these bits. Replaces pallas_frontend.py::_tile_bounds."""
+    bsz, v = points.shape[:2]
+    tiles = -(-v // PAIR_TILE)
+    pad = tiles * PAIR_TILE - v
+    ok = (maskf > 0)[..., None] & ~torch.isnan(points)
+    lo = torch.where(ok, points, math.inf)
+    hi = torch.where(ok, points, -math.inf)
+    lo = torch.nn.functional.pad(lo, (0, 0, 0, pad), value=math.inf)
+    hi = torch.nn.functional.pad(hi, (0, 0, 0, pad), value=-math.inf)
+    lo = lo.reshape(bsz, tiles, PAIR_TILE, 3).amin(2)
+    hi = hi.reshape(bsz, tiles, PAIR_TILE, 3).amax(2)
+    zero = lo.new_zeros((bsz, tiles, 1))
+    return torch.cat([lo, zero, hi, zero], -1)
+
+
+def tiles_in_radius(row_bounds: torch.Tensor, col_bounds: torch.Tensor,
+                    radius: float) -> torch.Tensor:
+    """(B, R, C) bool: False only where no pair of the two tiles lies
+    within ``radius``. The gap per dimension is max(0, lo_r - hi_c, lo_c -
+    hi_r), summed in squares as ``_pair_geometry`` sums d2, so that gap2
+    <= d2 of every valid pair of the two tiles (the argument in
+    csrc/tiles.cuh) and a skip is exact. Replaces
+    pallas_frontend.py::_bbox_in_radius."""
+    rb, cb = row_bounds[:, :, None], col_bounds[:, None, :]
+    g = [torch.fmax(torch.fmax(rb[..., d] - cb[..., 4 + d],
+                               cb[..., d] - rb[..., 4 + d]),
+                    torch.zeros((), dtype=rb.dtype)) for d in range(3)]
+    return g[0] * g[0] + g[1] * g[1] + g[2] * g[2] <= _r2(radius, rb)
+
+
+def _in_radius_columns(ok: torch.Tensor):
+    """(T, kmax) int64 columns of each row's True entries of ``ok`` in
+    ascending order (slot k holds the k-th) and their (T, kmax) liveness;
+    dead slots hold column V - 1."""
+    v = ok.shape[1]
+    kmax = int(ok.sum(1).max()) if ok.numel() else 0
+    # the other columns go to a dump slot, dropped
+    slot = torch.where(ok, ok.cumsum(1) - 1, kmax)
+    cols = torch.full((ok.shape[0], kmax + 1), v, dtype=torch.int64,
+                      device=ok.device)
+    cols.scatter_(1, slot, torch.arange(v, device=ok.device).expand(
+        ok.shape[0], v))
+    cols = cols[:, :kmax]
+    return cols.clamp(max=v - 1), cols < v
+
+
 def moment_sums_plain(points: torch.Tensor, maskf: torch.Tensor,
                       radius: float) -> torch.Tensor:
     """(B, V, 10): [count, s_dx, s_dy, s_dz, s_dxdx, s_dxdy, s_dxdz,
     s_dydy, s_dydz, s_dzdz] over valid in-radius pairs, self included,
-    dx = x_i - x_j. Masked rows are zero."""
+    dx = x_i - x_j. Masked rows are zero. Each row adds its terms in
+    ascending column order from 0, every product and sum rounded once, as
+    the kernel adds them (slot k of a row holds its k-th in-radius
+    column, and the slots are added one after the other): a row sum of
+    torch's would take the order of its vectorised tree."""
     r2 = _r2(radius, points)
     out = points.new_zeros((*points.shape[:2], 10))
     for b in range(points.shape[0]):
         p, m = points[b], maskf[b] > 0
         for s in range(0, p.shape[0], _ROW_TILE):
             pr = p[s:s + _ROW_TILE]
-            (dx, dy, dz), d2 = _pair_geometry(pr, p)
-            a = ((d2 <= r2) & m[None, :]
-                 & m[s:s + _ROW_TILE, None]).to(p.dtype)
-            ax, ay, az = a * dx, a * dy, a * dz
-            out[b, s:s + _ROW_TILE] = torch.stack(
-                [a.sum(1), ax.sum(1), ay.sum(1), az.sum(1),
-                 (ax * dx).sum(1), (ax * dy).sum(1), (ax * dz).sum(1),
-                 (ay * dy).sum(1), (ay * dz).sum(1), (az * dz).sum(1)], -1)
+            _, d2 = _pair_geometry(pr, p)
+            cols, live = _in_radius_columns(
+                (d2 <= r2) & m[None, :] & m[s:s + _ROW_TILE, None])
+            if cols.shape[1] == 0:
+                continue
+            dx, dy, dz = (pr[:, k:k + 1] - p[cols, k] for k in range(3))
+            terms = torch.stack([torch.ones_like(dx), dx, dy, dz, dx * dx,
+                                 dx * dy, dx * dz, dy * dy, dy * dz,
+                                 dz * dz], -1)
+            terms = torch.where(live[..., None], terms, 0.0)
+            acc = out[b, s:s + _ROW_TILE]
+            for k in range(cols.shape[1]):
+                acc = acc + terms[:, k]
+            out[b, s:s + _ROW_TILE] = acc
     return out
 
 
@@ -77,17 +141,33 @@ def moment_sums(points: torch.Tensor, maskf: torch.Tensor,
                 radius: float) -> torch.Tensor:
     """Ten centred neighbourhood moment sums per point, (B, V, 10) f32.
     points (B, V, 3) f32, maskf (B, V) f32 0/1. Replaces
-    pallas_frontend.py::moment_sums_pallas (csrc/moment_sums.cu)."""
+    pallas_frontend.py::moment_sums_pallas (csrc/moment_sums.cu), which
+    skips the points past ``active_limit`` and the tile pairs
+    ``tiles_in_radius`` rejects, and equals the plain version bit for
+    bit."""
     bsz, v = points.shape[:2]
     check("points", points, (bsz, v, 3))
     check("maskf", maskf, (bsz, v))
     if same_device(points, maskf).type != "cuda":
         return moment_sums_plain(points, maskf, radius)
-    out = torch.empty((bsz, v, 10), dtype=torch.float32, device=points.device)
-    launch("moment_sums", points, maskf, bsz, v,
-           float(radius * radius), out)
+    return moment_sums_launch(points, maskf, radius)[0]
+
+
+def moment_sums_launch(points: torch.Tensor, maskf: torch.Tensor,
+                       radius: float):
+    """The kernel's launch on CUDA tensors checked by ``moment_sums``:
+    (out, bounds, lim), the last two the pre-pass's scratch, equal to
+    ``tile_bounds`` and ``active_limit`` (for the checks on the card)."""
+    bsz, v = points.shape[:2]
+    dev = points.device
+    out = torch.empty((bsz, v, 10), dtype=torch.float32, device=dev)
+    bounds = torch.empty((bsz, -(-v // PAIR_TILE), 8), dtype=torch.float32,
+                         device=dev)
+    lim = torch.empty((bsz,), dtype=torch.int32, device=dev)
+    launch("moment_sums", points, maskf, bsz, v, float(radius * radius),
+           bounds, lim, out)
     LAUNCHES["moment_sums"] += 1
-    return out
+    return out, bounds, lim
 
 
 def frontend_normals(points: torch.Tensor, mask: torch.Tensor,
@@ -213,24 +293,14 @@ def fpfh_sums_plain(points: torch.Tensor, spfh_rows: torch.Tensor,
             _, d2 = _pair_geometry(p[s:s + _ROW_TILE], p)
             ok = (m[s:s + _ROW_TILE, None] & m[None, :] & (d2 <= r2)
                   & (d2 > 1e-12))
-            kmax = int(ok.sum(1).max())
-            if kmax == 0:
+            cols, live = _in_radius_columns(ok)
+            if cols.shape[1] == 0:
                 continue
             w = torch.where(ok, 1.0 / torch.clamp(d2, min=1e-12), 0.0)
-            # cols[i, k]: the k-th in-radius column of row i, v past the
-            # last; the other columns go to a dump slot, dropped
-            slot = torch.where(ok, ok.cumsum(1) - 1, kmax)
-            cols = torch.full((ok.shape[0], kmax + 1), v, dtype=torch.int64,
-                              device=p.device)
-            cols.scatter_(1, slot, torch.arange(v, device=p.device).expand(
-                ok.shape[0], v))
-            cols = cols[:, :kmax]
-            live = cols < v
-            cols = cols.clamp(max=v - 1)
             terms = (torch.where(live, w.gather(1, cols), 0.0)[..., None]
                      * spfh_rows[b][cols])
             acc = out[b, s:s + _ROW_TILE]
-            for k in range(kmax):
+            for k in range(cols.shape[1]):
                 acc = acc + terms[:, k]
             out[b, s:s + _ROW_TILE] = acc
     return out
@@ -467,11 +537,7 @@ def nn_active_limits(mask_a: torch.Tensor,
     there is none), the top-2 kernel's active limits
     (pallas_frontend.py::_nn_active_limits). A reduction on the device,
     with nothing read back."""
-    def last(mask):
-        iota = torch.arange(1, mask.shape[1] + 1, dtype=torch.int32,
-                            device=mask.device)
-        return torch.where(mask, iota, 0).amax(1)
-    return torch.stack([last(mask_a), last(mask_b)], 1).to(
+    return torch.stack([active_limit(mask_a), active_limit(mask_b)], 1).to(
         torch.int32).contiguous()
 
 

@@ -50,3 +50,15 @@ def launch(name: str, *args) -> None:
     rc = _build.load(name)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+def active_limit(mask: torch.Tensor) -> torch.Tensor:
+    """(B,) int32: one past the last True entry of each row of ``mask``
+    (0 where there is none), as a reduction on the mask's device with
+    nothing read back. The active limits of B3, B7 and B9
+    (pallas_frontend.py::_active_limits, segment_matmul.py::_tile_limit,
+    at point granularity); B3's and B9's kernels compute theirs in a
+    pre-pass."""
+    iota = torch.arange(1, mask.shape[1] + 1, dtype=torch.int32,
+                        device=mask.device)
+    return torch.where(mask, iota, 0).amax(1)

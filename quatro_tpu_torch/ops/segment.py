@@ -6,8 +6,10 @@ gather; the CUDA kernels (``csrc/``) sum in shared memory in a fixed order
 and gather directly. Each kernel has a wrapper that launches it for CUDA
 tensors and counts the launch in ``LAUNCHES``, and a ``*_plain`` version
 that the wrapper runs for CPU tensors; there is no fallback between the
-two. The plain versions compute in full f32 (never TF32), in blocks so that
-nothing of (points x groups) size is ever built.
+two. The plain versions add in f32 in the kernels' order, through
+``index_add_`` (never a matrix product, whose order follows the BLAS
+blocking and thread count), so the sums equal the kernels' bit for bit on
+CPU copies and nothing of (points x groups) size is ever built.
 
 * ``segment_sums`` (B2): out[p, k] = sum over ids[i] == p of vals[k, i];
 * ``cross_histogram`` (B8): the Patchwork seed stage's weighted 2-D
@@ -30,7 +32,8 @@ from __future__ import annotations
 
 import torch
 
-from quatro_tpu_torch.ops.launch import LAUNCHES, check, launch, same_device
+from quatro_tpu_torch.ops.launch import (LAUNCHES, active_limit, check,
+                                         launch, same_device)
 
 SEG_CHUNK = 1024        # entries per block of B2's first pass
 HIST_CHUNK = 8192       # points per partial histogram of B8
@@ -39,22 +42,31 @@ HIST_ROWS = 32          # histogram rows per block of B8 (shared memory)
 _HIST_MAX_K = 4         # weight channels B8 stages
 _SMEM_BYTES = 200 * 1024
 _HIST_SMEM_BYTES = 176 * 1024   # B8's histogram rows; its lists take 42 KB
-_PLAIN_ROWS = 8192      # entries per one-hot block of the plain versions
 _MOMENTS = 10
 
 
-def segment_sums_plain(ids: torch.Tensor, vals: torch.Tensor,
-                       p_pad: int) -> torch.Tensor:
-    """(p_pad, K) f32: the JAX package's off-TPU form, a one-hot
-    contraction in full f32 (no TF32), in blocks of 8192 entries so the
-    one-hot stays small."""
+def segment_sums_plain(ids: torch.Tensor, vals: torch.Tensor, p_pad: int,
+                       chunk: int) -> torch.Tensor:
+    """(p_pad, K) f32 in the kernels' order: per chunk of ``chunk``
+    consecutive entries, each bin adds its entries' values in index order
+    starting from 0; then the chunks' sums are added in chunk order. The
+    chunk sums come from one 1-D ``index_add_`` into zeroed rows, one row
+    per (chunk, channel) with a dump bin for ids outside [0, p_pad): on
+    the CPU ``index_add_`` adds in index order, so the result does not
+    depend on torch's thread count, where a matrix product's order
+    follows the BLAS blocking."""
     k, n = vals.shape
-    bins = torch.arange(p_pad, dtype=ids.dtype, device=ids.device)
-    out = vals.new_zeros((p_pad, k))
-    for s in range(0, n, _PLAIN_ROWS):
-        oh = (ids[s:s + _PLAIN_ROWS, None] == bins[None, :]).to(vals.dtype)
-        out += oh.T @ vals[:, s:s + _PLAIN_ROWS].T
-    return out
+    nch = -(-n // chunk)
+    key = torch.where((ids >= 0) & (ids < p_pad), ids, p_pad).long()
+    row = (torch.arange(n, device=ids.device) // chunk)[None, :] * k \
+        + torch.arange(k, device=ids.device)[:, None]
+    part = vals.new_zeros(nch * k * (p_pad + 1)).index_add_(
+        0, (row * (p_pad + 1) + key[None, :]).reshape(-1),
+        vals.reshape(-1)).reshape(nch, k, p_pad + 1)
+    out = vals.new_zeros((k, p_pad + 1))
+    for c in range(nch):
+        out = out + part[c]
+    return out[:, :p_pad].T.contiguous()
 
 
 def segment_sums(ids: torch.Tensor, vals: torch.Tensor,
@@ -68,7 +80,7 @@ def segment_sums(ids: torch.Tensor, vals: torch.Tensor,
     check("ids", ids, (n,), torch.int32)
     check("vals", vals, (k, n))
     if same_device(ids, vals).type != "cuda":
-        return segment_sums_plain(ids, vals, p_pad)
+        return segment_sums_plain(ids, vals, p_pad, SEG_CHUNK)
     chunks = -(-n // SEG_CHUNK)
     partial = torch.empty((chunks, p_pad, k), dtype=torch.float32,
                           device=vals.device)
@@ -198,9 +210,10 @@ def fit_moment_channels(ids: torch.Tensor, chan: torch.Tensor,
 
 def fit_iteration_moments_plain(ids, chan, tab, p_pad: int, p_cnt: int,
                                 exact: bool = True) -> torch.Tensor:
-    """(B, p_pad, 10): the moment channels summed by patch id."""
+    """(B, p_pad, 10): the moment channels summed by patch id, in the
+    kernel's order (``segment_sums_plain`` at FIT_CHUNK)."""
     mom = fit_moment_channels(ids, chan, tab, p_cnt, exact)
-    return torch.stack([segment_sums_plain(ids[b], mom[b], p_pad)
+    return torch.stack([segment_sums_plain(ids[b], mom[b], p_pad, FIT_CHUNK)
                         for b in range(ids.shape[0])])
 
 
@@ -213,8 +226,8 @@ def fit_iteration_moments(ids: torch.Tensor, chan: torch.Tensor,
     [x, y, z, px, py], tab (B, p_pad, 5) f32 with zero rows past p_cnt.
     Returns (B, p_pad, 10) f32. Replaces
     segment_matmul.py::fit_iteration_moments
-    (csrc/fit_iteration_moments.cu); on the card the sums repeat bit for
-    bit from run to run."""
+    (csrc/fit_iteration_moments.cu), which skips the points past
+    ``fit_active_limit`` and equals the plain version bit for bit."""
     bsz, _, n = chan.shape
     check("ids", ids, (bsz, n), torch.int32)
     check("chan", chan, (bsz, 5, n))
@@ -222,18 +235,34 @@ def fit_iteration_moments(ids: torch.Tensor, chan: torch.Tensor,
     if same_device(ids, chan, tab).type != "cuda":
         return fit_iteration_moments_plain(ids, chan, tab, p_pad, p_cnt,
                                            exact)
-    if p_pad * 5 * 4 > _SMEM_BYTES:
-        raise ValueError(f"fit_iteration_moments kernel: p_pad {p_pad} "
-                         "exceeds its shared memory")
-    chunks = -(-n // FIT_CHUNK)
-    partial = torch.empty((bsz, chunks, p_pad, _MOMENTS),
-                          dtype=torch.float32, device=chan.device)
+    return fit_iteration_moments_launch(ids, chan, tab, p_pad, p_cnt,
+                                        exact)[0]
+
+
+def fit_iteration_moments_launch(ids, chan, tab, p_pad: int, p_cnt: int,
+                                 exact: bool = True):
+    """The kernel's launch on CUDA tensors checked by
+    ``fit_iteration_moments``: (out, lim), lim the pre-pass's active limit,
+    equal to ``fit_active_limit`` (for the checks on the card)."""
+    bsz, _, n = chan.shape
+    dev = chan.device
     out = torch.empty((bsz, p_pad, _MOMENTS), dtype=torch.float32,
-                      device=chan.device)
+                      device=dev)
+    lim = torch.empty((bsz,), dtype=torch.int32, device=dev)
+    partial = torch.empty((bsz, -(-n // FIT_CHUNK), p_pad, _MOMENTS),
+                          dtype=torch.float32, device=dev)
     launch("fit_iteration_moments", ids, chan, tab, bsz, n, p_pad, p_cnt,
-           int(exact), FIT_CHUNK, partial, out)
+           int(exact), FIT_CHUNK, lim, partial, out)
     LAUNCHES["fit_iteration_moments"] += 1
-    return out
+    return out, lim
+
+
+def fit_active_limit(ids: torch.Tensor, p_pad: int,
+                     p_cnt: int) -> torch.Tensor:
+    """(B,) int32: one past the last point whose id lies in [0, min(p_cnt,
+    p_pad)), B9's active limit (segment_matmul.py::_tile_limit at point
+    granularity); the points past it add nothing."""
+    return active_limit((ids >= 0) & (ids < min(p_cnt, p_pad)))
 
 
 def classify_points_plain(ids, chan, tab, p_pad: int,

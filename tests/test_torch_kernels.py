@@ -1,7 +1,9 @@
 """The solver's kernels B1 (consistency graph) and B2 (segment sums) and
 the preprocessing kernels B8-B11: their plain versions, which the wrappers
 run on the CPU, against the JAX package's Pallas kernels in interpret mode
-and against numpy.
+and against numpy. And the radius-pair kernels' tile culling (B3's
+``tile_bounds`` and ``tiles_in_radius``): it never rejects a tile pair that
+holds a pair within the radius.
 
 B1 is held exactly (the plain version repeats the Pallas kernel's
 arithmetic); B2, B8 and B9's sums within rtol 1e-5 / atol 1e-4, the f32
@@ -25,6 +27,7 @@ from quatro_tpu.ops import segment_matmul as jsm
 from quatro_tpu.ops.segment_matmul import segment_sums as jax_segment_sums
 from quatro_tpu.solver.scale import tim_consistency_graph as jax_graph
 
+from quatro_tpu_torch.ops import frontend as tf
 from quatro_tpu_torch.ops import kernels, segment
 from quatro_tpu_torch.ops.launch import LAUNCHES
 from quatro_tpu_torch.solver.scale import tim_consistency_graph
@@ -303,3 +306,142 @@ def test_table_lookup_checks_inputs():
         segment.table_lookup(ids[:1], tab)
     with pytest.raises(ValueError):
         segment.table_lookup(ids.reshape(64, 2).T, tab)   # not contiguous
+
+
+# ------------------------------------------------ B3's tile culling ----
+
+def _boundary_cloud(radius, n_pairs=120, seed=7):
+    """Pairs at d2 within a few ulps of radius^2 on both sides (d2 in the
+    kernels' arithmetic), each point alone in its tile or with company
+    inside the pair's span, the two points across a tile edge (slot 31 of
+    one tile, slot 0 of the next) or tiles apart, with empty tiles and
+    masked holes between. Returns (points (1, V, 3), maskf (1, V), the
+    (row tile, column tile) of each pair alone in its two tiles)."""
+    rng = np.random.default_rng(seed)
+    t = tf.PAIR_TILE
+    pts, msk, alone = [], [], []
+
+    def tile(entries):
+        """One tile from (slot, point, valid) entries, the rest masked."""
+        block = np.zeros((t, 3), np.float32)
+        ok = np.zeros(t, np.float32)
+        for slot, p, v in entries:
+            block[slot], ok[slot] = p, v
+        pts.append(block)
+        msk.append(ok)
+
+    r = np.float64(radius)
+    for k in range(n_pairs):
+        a = rng.uniform(-6, 6, 3)
+        u = rng.normal(size=3)
+        u /= np.linalg.norm(u)
+        b = a + r * (1 + rng.integers(-3, 4) * 6e-8) * u
+        a32, b32 = a.astype(np.float32), b.astype(np.float32)
+        lo, hi = np.minimum(a32, b32), np.maximum(a32, b32)
+        mid = ((lo + hi) / 2).astype(np.float32)
+        company = k % 3 == 0          # points inside the pair's span
+        hole = k % 4 == 1             # a masked point far away
+        row = [(31, a32, 1.0)]
+        col = [(0, b32, 1.0)]
+        if company:
+            row.append((5, np.clip(mid, lo, hi), 1.0))
+            col.append((9, np.clip(mid, lo, hi), 1.0))
+        if hole:
+            row.append((12, a32 + 50.0, 0.0))
+        tile(row)
+        rt = len(pts) - 1
+        if k % 5 == 2:                # tiles apart: an empty tile between
+            tile([])
+        tile(col)
+        if not company:
+            alone.append((rt, len(pts) - 1))
+    return (torch.from_numpy(np.concatenate(pts))[None],
+            torch.from_numpy(np.concatenate(msk))[None], alone)
+
+
+def _random_cloud(seed, v=999):
+    """Two clouds of clustered points with holes, a fully masked tile and
+    a ragged last tile (V no multiple of 32)."""
+    rng = np.random.default_rng(seed)
+    centres = rng.uniform(-4, 4, (12, 3))
+    pts = (centres[rng.integers(0, 12, (2, v))]
+           + rng.normal(0, 0.6, (2, v, 3))).astype(np.float32)
+    maskf = (rng.uniform(size=(2, v)) > 0.15).astype(np.float32)
+    maskf[:, 64:96] = 0.0
+    maskf[1, 900:] = 0.0
+    return torch.from_numpy(pts), torch.from_numpy(maskf)
+
+
+def _assert_culling_exact(points, maskf, radius):
+    """Every valid pair with d2 <= r^2 (d2 as the kernels compute it) lies
+    in a tile pair that tiles_in_radius passes; returns (in-radius pairs,
+    tile pairs skipped, pairs at d2 == r^2)."""
+    t = tf.PAIR_TILE
+    bounds = tf.tile_bounds(points, maskf)
+    ok_tiles = tf.tiles_in_radius(bounds, bounds, radius)
+    r2 = tf._r2(radius, points)
+    n_in = n_edge = 0
+    for b in range(points.shape[0]):
+        m = maskf[b] > 0
+        _, d2 = tf._pair_geometry(points[b], points[b])
+        near = (d2 <= r2) & m[:, None] & m[None, :]
+        i, j = torch.nonzero(near, as_tuple=True)
+        assert bool(ok_tiles[b, i // t, j // t].all())
+        n_in += len(i)
+        n_edge += int(((d2 == r2) & near).sum())
+    return n_in, int((~ok_tiles).sum()), n_edge
+
+
+def test_tile_bounds_are_the_valid_points_aabbs():
+    """tile_bounds against numpy's min and max over each tile's valid
+    points, [+inf, -inf] for the empty tiles, on a ragged last tile."""
+    pts, maskf = _random_cloud(11)
+    got = tf.tile_bounds(pts, maskf).numpy()
+    t = tf.PAIR_TILE
+    assert got.shape == (2, -(-pts.shape[1] // t), 8)
+    for b in range(2):
+        for k in range(got.shape[1]):
+            p = pts[b, k * t:(k + 1) * t].numpy()
+            m = maskf[b, k * t:(k + 1) * t].numpy() > 0
+            if m.any():
+                exp = np.concatenate([p[m].min(0), [0], p[m].max(0), [0]])
+            else:
+                exp = np.float32([np.inf] * 3 + [0] + [-np.inf] * 3 + [0])
+            np.testing.assert_array_equal(got[b, k], exp)
+    np.testing.assert_array_equal(
+        tf.active_limit(maskf > 0).numpy(),
+        [int(np.nonzero(maskf[b].numpy())[0].max()) + 1 for b in range(2)])
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_tiles_in_radius_never_rejects_a_pair_in_radius(seed):
+    """Random clustered clouds at B3's normal radius: no in-radius pair
+    lies in a rejected tile pair, and the culling rejects some."""
+    pts, maskf = _random_cloud(seed)
+    n_in, skipped, _ = _assert_culling_exact(pts, maskf, 0.5)
+    assert n_in > 1000 and skipped > 100
+
+
+@pytest.mark.parametrize("radius", [0.5, 0.85])
+def test_tiles_in_radius_at_the_radius_boundary(radius):
+    """Pairs at r and r +- a few ulps, across tile edges and tiles apart,
+    alone in their tiles (the gap then is the pair's own offset, so the
+    predicate is as tight as it gets) or with company, with empty tiles
+    and masked holes: no in-radius pair is rejected, including those at
+    d2 == r^2 exactly, and a pair alone in its tiles passes exactly when
+    its d2 <= r^2 (the gap is taken in the distance's arithmetic)."""
+    pts, maskf, alone = _boundary_cloud(radius)
+    n_in, skipped, n_edge = _assert_culling_exact(pts, maskf, radius)
+    assert n_edge > 0 and skipped > 0
+    assert n_in > int((maskf > 0).sum())     # pairs beyond the self pairs
+    t = tf.PAIR_TILE
+    bounds = tf.tile_bounds(pts, maskf)
+    ok_tiles = tf.tiles_in_radius(bounds, bounds, radius)[0]
+    _, d2 = tf._pair_geometry(pts[0], pts[0])
+    r2 = tf._r2(radius, pts)
+    outside = 0
+    for rt, ct in alone:
+        inside = bool(d2[rt * t + 31, ct * t] <= r2)
+        assert bool(ok_tiles[rt, ct]) == inside
+        outside += not inside
+    assert 0 < outside < len(alone)

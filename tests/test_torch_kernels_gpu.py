@@ -70,10 +70,11 @@ def cloud(dev, scans):
 def test_extract_features_any_width_runs_the_kernels(dev, scans):
     """At V = 2000, not a multiple of 512, the card still runs the three
     front-end kernels once each (the CPU's dispatch would take the dense
-    path there). The moment sums and, on the card's own normals (an ulp
-    turns the normal of an ill-conditioned row freely), the descriptors
-    agree with the plain versions on the CPU within the bounds of
-    chip_smoke.py."""
+    path there). The moment sums equal the plain version's on CPU copies
+    bit for bit (a ragged last tile of 16 rows), and on the card's own
+    normals (an ulp turns the normal of an ill-conditioned row freely) the
+    descriptors agree with the plain versions on the CPU within the bounds
+    of chip_smoke.py."""
     cfg = PipelineConfig.for_lidar("VLP-16", max_voxels=2000)
     tf.reset_launches()
     vox, desc, dmask, normals = extract_features(*scans, cfg, device=dev)
@@ -83,9 +84,8 @@ def test_extract_features_any_width_runs_the_kernels(dev, scans):
     pts, mask = vox.points, vox.mask
     maskf = mask.float().contiguous()
     r = cfg.fpfh.normal_radius
-    torch.testing.assert_close(tf.moment_sums(pts, maskf, r).cpu(),
-                               tf.moment_sums_plain(pts.cpu(), maskf.cpu(), r),
-                               rtol=1e-5, atol=1e-4)
+    assert torch.equal(tf.moment_sums(pts, maskf, r).cpu(),
+                       tf.moment_sums_plain(pts.cpu(), maskf.cpu(), r))
     assert torch.equal(dmask, mask & normals.valid)
     ref = tf.frontend_fpfh(pts.cpu(), normals.normals.cpu(),
                            normals.valid.cpu(), mask.cpu(),
@@ -102,15 +102,82 @@ def test_dense_front_end_refused_on_the_card(dev, scans):
         extract_features(*scans, cfg, device=dev)
 
 
+def _moment_sums_bit_equal(pts, maskf, r):
+    """B3 against its plain version on CPU copies and across two launches,
+    bit for bit, its pre-pass's tile AABBs and active limit equal to
+    tile_bounds and active_limit; returns the kernel's output."""
+    before = tf.LAUNCHES["moment_sums"]
+    got, bounds, lim = tf.moment_sums_launch(pts, maskf, r)
+    assert tf.LAUNCHES["moment_sums"] == before + 1
+    assert torch.equal(got, tf.moment_sums(pts, maskf, r))
+    pc, mc = pts.cpu(), maskf.cpu()
+    assert torch.equal(got.cpu(), tf.moment_sums_plain(pc, mc, r))
+    assert torch.equal(bounds.cpu(), tf.tile_bounds(pc, mc))
+    assert torch.equal(lim.cpu(), tf.active_limit(mc > 0))
+    return got
+
+
 def test_moment_sums_kernel(cloud):
     pts, mask = cloud
-    maskf = mask.float().contiguous()
-    r = CFG.fpfh.normal_radius
-    before = tf.LAUNCHES["moment_sums"]
-    got = tf.moment_sums(pts, maskf, r)
-    assert tf.LAUNCHES["moment_sums"] == before + 1
-    torch.testing.assert_close(got, tf.moment_sums_plain(pts, maskf, r),
-                               rtol=1e-5, atol=1e-4)
+    got = _moment_sums_bit_equal(pts, mask.float().contiguous(),
+                                 CFG.fpfh.normal_radius)
+    assert float(got[..., 0].max()) > 5
+
+
+def _boundary_pairs(radius, n_pairs, rng):
+    """Point pairs at r and r +- a few ulps, each pair across a tile edge
+    (slot 31 of one tile, slot 0 of the next), one pair per two tiles,
+    the other slots masked: (points (1, 64 n_pairs, 3), maskf)."""
+    t = tf.PAIR_TILE
+    pts = np.zeros((2 * n_pairs * t, 3), np.float32)
+    maskf = np.zeros(2 * n_pairs * t, np.float32)
+    for k in range(n_pairs):
+        a = rng.uniform(-6, 6, 3)
+        u = rng.normal(size=3)
+        u /= np.linalg.norm(u)
+        b = a + radius * (1 + rng.integers(-3, 4) * 6e-8) * u
+        i = 2 * k * t + t - 1
+        pts[i], pts[i + 1] = a, b
+        maskf[i] = maskf[i + 1] = 1.0
+    return torch.from_numpy(pts)[None], torch.from_numpy(maskf)[None]
+
+
+@pytest.mark.parametrize("case", ["ragged", "one_row", "all_masked",
+                                  "boundary", "holes_first"])
+def test_moment_sums_kernel_cases(dev, case):
+    """B3 bit-equal to its plain version on CPU copies on what its active
+    limit and tile culling find hardest: V = 2000 with a ragged last tile;
+    one valid row; every row masked (zeros, limit 0); pairs at the radius
+    (d2 == r^2 and a few ulps either side) across tile edges; and valid
+    points that are not packed first, so that masked holes and empty
+    tiles fall before the limit."""
+    rng = np.random.default_rng(41)
+    r = 0.5
+    v = 2000
+    pts = (rng.uniform(-3, 3, (2, v, 3))).astype(np.float32)
+    maskf = (rng.uniform(size=(2, v)) > 0.3).astype(np.float32)
+    if case == "one_row":
+        maskf[:] = 0.0
+        maskf[:, 777] = 1.0
+    elif case == "all_masked":
+        maskf[:] = 0.0
+    elif case == "holes_first":
+        maskf[:, :1500] = 0.0
+        maskf[:, 1500:] = rng.uniform(size=(2, 500)) > 0.5
+        maskf[:, 1600:1664] = 0.0               # two empty tiles
+        maskf[:, ::7] = 1.0                     # scattered valid points
+    if case == "boundary":
+        pts, maskf = _boundary_pairs(r, 40, rng)
+    else:
+        pts, maskf = torch.from_numpy(pts), torch.from_numpy(maskf)
+    got = _moment_sums_bit_equal(pts.to(dev).contiguous(),
+                                 maskf.to(dev).contiguous(), r).cpu()
+    if case == "all_masked":
+        assert not bool(got.any())
+    elif case == "boundary":
+        assert float(got[..., 0].max()) == 2.0   # some pairs at r are in
+    else:
+        assert float(got[..., 0].max()) >= 1.0
 
 
 def test_spfh_and_fpfh_kernels(cloud):
@@ -359,8 +426,9 @@ def test_consistency_graph_kernel(recommended):
 
 
 def test_segment_sums_kernel(recommended):
-    """B2 on the vote's own entries: within rtol 1e-5 / atol 1e-4 of its
-    plain version, and the same bits on a second launch; and at 131072
+    """B2 on the vote's own entries: its plain version's bits on CPU
+    copies (the kernel's order: index order within each SEG_CHUNK chunk,
+    then chunk order), and the same bits on a second launch; and at 131072
     entries, 10 channels and an arbitrary 640 bins with ids out of
     range."""
     res, _, cfg = recommended
@@ -378,8 +446,8 @@ def test_segment_sums_kernel(recommended):
         got = segment.segment_sums(i, v, p)
         again = segment.segment_sums(i, v, p)
         assert torch.equal(got, again)
-        torch.testing.assert_close(got, segment.segment_sums_plain(i, v, p),
-                                   rtol=1e-5, atol=1e-4)
+        assert torch.equal(got.cpu(), segment.segment_sums_plain(
+            i.cpu(), v.cpu(), p, segment.SEG_CHUNK))
 
 
 def test_plain_graph_refused_on_the_card(dev, recommended):
@@ -468,19 +536,66 @@ def test_cross_histogram_kernel_cases(dev, case):
     assert int((got[:, 0] != 0).sum()) > 0
 
 
+def _fit_bit_equal(ids, chan, tab, p_pad, p_cnt, exact):
+    """B9 against its plain version on CPU copies and across two launches,
+    bit for bit, its pre-pass's limit equal to fit_active_limit; returns
+    the kernel's output."""
+    before = tf.LAUNCHES["fit_iteration_moments"]
+    got, lim = segment.fit_iteration_moments_launch(ids, chan, tab, p_pad,
+                                                    p_cnt, exact)
+    assert tf.LAUNCHES["fit_iteration_moments"] == before + 1
+    assert torch.equal(got, segment.fit_iteration_moments(
+        ids, chan, tab, p_pad, p_cnt, exact=exact))
+    ref = segment.fit_iteration_moments_plain(
+        ids.cpu(), chan.cpu(), tab.cpu(), p_pad, p_cnt, exact=exact)
+    assert torch.equal(got.cpu(), ref)
+    assert torch.equal(lim.cpu(), segment.fit_active_limit(ids.cpu(), p_pad,
+                                                           p_cnt))
+    return got
+
+
+@pytest.mark.parametrize("exact", [False, True])
+@pytest.mark.parametrize("case", ["one_patch_chunk", "out_of_range",
+                                  "ragged"])
+def test_fit_iteration_moments_kernel_cases(dev, case, exact):
+    """B9 bit-equal to its plain version on CPU copies under both flags:
+    one patch holding whole chunks (and the dump patch p_cnt the tail, as
+    Patchwork's padding does); a third of the ids at or past p_cnt or
+    below 0; and N = 9001, no multiple of the chunk, at an odd p_pad of
+    640 with runs of one patch as scan order gives them."""
+    rng = np.random.default_rng(57)
+    n, p_pad, p_cnt = {"one_patch_chunk": (3 * segment.FIT_CHUNK, 512, 504),
+                       "out_of_range": (50000, 512, 504),
+                       "ragged": (9001, 640, 600)}[case]
+    if case == "one_patch_chunk":
+        ids = np.full((2, n), 37)
+        ids[:, segment.FIT_CHUNK // 2:] = 300
+        ids[:, -700:] = p_cnt
+    elif case == "out_of_range":
+        ids = rng.integers(-p_pad // 4, p_cnt + p_pad // 4, (2, n))
+    else:
+        ids = np.repeat(rng.integers(0, p_cnt, n), rng.integers(1, 90, n))
+        ids = ids[:2 * n].reshape(2, n)
+    chan = rng.normal(0, 5, (2, 5, n)).astype(np.float32)
+    nrm = rng.normal(0, 0.1, (2, p_pad, 3)) + [0, 0, 1]
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    tab = np.concatenate([nrm, rng.normal(0, 3, (2, p_pad, 2))], -1)
+    tab[:, p_cnt:] = 0.0
+    args = [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in
+            (ids.astype(np.int32), chan, tab.astype(np.float32))]
+    got = _fit_bit_equal(*args, p_pad, p_cnt, exact)
+    assert float(got[..., 0].sum()) > 0
+    assert not bool(got[:, p_cnt:].any())
+
+
 @pytest.mark.parametrize("exact", [False, True])
 def test_fit_iteration_moments_kernel(prep_inputs, exact):
-    """B9: the same bits on a second launch, membership counts equal to
-    the plain version's, moment sums within rtol 1e-5 / atol 1e-4 (bf16
-    channels when not exact)."""
+    """B9: the same bits on a second launch and the plain version's bits
+    on CPU copies (bf16 channels when not exact; the kernel's order: index
+    order within each FIT_CHUNK chunk, then chunk order)."""
     t, p_pad, p_cnt = prep_inputs
-    args = (t["ids"], t["chan"], t["tab"], p_pad, p_cnt)
-    got = segment.fit_iteration_moments(*args, exact=exact)
-    assert torch.equal(got, segment.fit_iteration_moments(*args, exact=exact))
-    ref = segment.fit_iteration_moments_plain(*args, exact=exact)
-    assert torch.equal(got[..., 0], ref[..., 0])
+    got = _fit_bit_equal(t["ids"], t["chan"], t["tab"], p_pad, p_cnt, exact)
     assert float(got[..., 0].sum()) > 0
-    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-4)
 
 
 def test_classify_points_and_image_lookup_kernels(prep_inputs):

@@ -188,8 +188,8 @@ def test_estimate_ground_stage_by_stage(level_a, monkeypatch):
         got = segment.fit_iteration_moments(*targs, exact=exact)[0].numpy()
         np.testing.assert_array_equal(got[:, 0], ref[:, 0])
         # the summation-order bound: rtol of the sum of the terms' sizes
-        scale = segment.segment_sums_plain(targs[0][0], mom.abs(),
-                                           p_pad).numpy()
+        scale = segment.segment_sums_plain(targs[0][0], mom.abs(), p_pad,
+                                           segment.FIT_CHUNK).numpy()
         assert (np.abs(got - ref) <= SUM_RTOL * scale + 1e-6).all()
 
 

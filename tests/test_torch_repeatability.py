@@ -12,6 +12,13 @@ card's TEASER question has a fixture of its own.
   all three. ``ops/neighbors.py::pairwise_sq_dists`` (3-D points, a
   K = 3 matrix product) gave the same bits at 1, 2 and 6 threads on every
   shape tried, so it keeps its matrix product.
+- The segment sums' plain versions (B2's ``segment_sums_plain``, B9's
+  ``fit_iteration_moments_plain``; the vote's histogram and Patchwork's
+  plane fits take them) add through ``index_add_`` in the kernels' chunk
+  order, where a one-hot matrix product's order followed the thread count,
+  and B3's ``moment_sums_plain`` adds each row's terms in column order,
+  where a row sum took the order of its vectorised tree: all give the
+  same bits at 1, 2 and 6 threads, and so does Patchwork's ground mask.
 - The ordered dot product equals an independent numpy evaluation in the
   same order bit for bit, so the plain top-2 is the kernels' arithmetic.
 - ``utils/fused.atan2``, the arctangent both devices evaluate in the same
@@ -43,10 +50,18 @@ import numpy as np
 import pytest
 import torch
 
+from quatro_tpu.io.synthetic import make_correspondences
+from quatro_tpu.ops import pallas_frontend as jpf
+
 from quatro_tpu_torch.config import LidarConfig, PipelineConfig
 from quatro_tpu_torch.io.synthetic import make_scan_pair
 from quatro_tpu_torch.ops import frontend as tf
+from quatro_tpu_torch.ops import segment
 from quatro_tpu_torch.ops.matching import match_features
+from quatro_tpu_torch.ops.voxel import voxel_downsample
+from quatro_tpu_torch.preprocessing.patchwork import estimate_ground
+from quatro_tpu_torch.solver import vote
+from quatro_tpu_torch.solver.scale import tim_consistency_graph
 from quatro_tpu_torch.pipeline import extract_features
 from quatro_tpu_torch.solver.quatro import register_correspondences
 from quatro_tpu_torch.utils import fused
@@ -85,6 +100,20 @@ def level_a_scans():
     masks = torch.zeros(2, 32768, dtype=torch.bool)
     for b, xyz in enumerate(pair[:2]):
         xyz = xyz[xyz[:, 2] > -1.723 + 0.3]
+        pts[b, :len(xyz)], masks[b, :len(xyz)] = torch.from_numpy(xyz), True
+    return pts, masks
+
+
+@pytest.fixture(scope="module")
+def level_a_raw():
+    """The raw level_a VLP-16 pair (no ground strip), as (2, 32768, 3)
+    points and (2, 32768) masks."""
+    pair = make_scan_pair(seed=101, yaw_deg=38.0,
+                          translation=(2.5, -1.2, 0.04),
+                          lidar=LidarConfig.preset("VLP-16"))
+    pts = torch.zeros(2, 32768, 3)
+    masks = torch.zeros(2, 32768, dtype=torch.bool)
+    for b, xyz in enumerate(pair[:2]):
         pts[b, :len(xyz)], masks[b, :len(xyz)] = torch.from_numpy(xyz), True
     return pts, masks
 
@@ -196,3 +225,91 @@ def test_fused_atan2_is_the_jax_packages_arctan2():
     ref = np.asarray(jax.jit(jnp.arctan2)(jnp.asarray(y), jnp.asarray(x)))
     got = fused.atan2(torch.from_numpy(y), torch.from_numpy(x)).numpy()
     np.testing.assert_array_equal(got.view(np.int32), ref.view(np.int32))
+
+
+def _patchwork_like(seed, n=131072, p_pad=512, p_cnt=504):
+    """B9's shape on two clouds: ids in runs of one patch (as scan order
+    gives them), a dump patch p_cnt filling the tail, a few ids out of
+    range on both sides; channels and a table with real normals."""
+    rng = np.random.default_rng(seed)
+    runs = rng.integers(1, 200, n)
+    ids = np.repeat(rng.integers(-2, p_pad + 2, n), runs)[:2 * n]
+    ids = ids.reshape(2, n).astype(np.int32)
+    ids[:, -20000:] = p_cnt
+    chan = rng.normal(0, 8, (2, 5, n)).astype(np.float32)
+    nrm = rng.normal(0, 0.1, (2, p_pad, 3)) + [0, 0, 1]
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    tab = np.concatenate([nrm, rng.normal(0, 4, (2, p_pad, 2))], -1)
+    tab[:, p_cnt:] = 0.0
+    return (torch.from_numpy(ids), torch.from_numpy(chan),
+            torch.from_numpy(tab.astype(np.float32)), p_pad, p_cnt)
+
+
+def test_segment_sums_repeat_across_thread_counts():
+    """At B9's shape (131072 ids, 512 patches, 10 channels): B2's plain
+    sums, B9's plain moments under both flags, and the vote's histogram and
+    yaw on a correspondence set, identical at 1, 2 and 6 threads."""
+    ids, chan, tab, p_pad, p_cnt = _patchwork_like(5)
+    vals = torch.from_numpy(np.random.default_rng(6).normal(
+        0, 10, (10, ids.shape[1])).astype(np.float32))
+    src, tgt, _, _ = make_correspondences(seed=2, n_inliers=200,
+                                          n_outliers=824)
+    src, tgt = torch.from_numpy(src), torch.from_numpy(tgt)
+    mask = torch.ones(src.shape[0], dtype=torch.bool)
+    adj = tim_consistency_graph(src, tgt, mask, 0.3, 1.0)
+
+    def run():
+        v_ids, v_vals = vote.yaw_vote_entries(src, tgt, mask, adj)
+        return (segment.segment_sums_plain(ids[0], vals, p_pad,
+                                           segment.FIT_CHUNK),
+                segment.fit_iteration_moments_plain(ids, chan, tab, p_pad,
+                                                    p_cnt, exact=True),
+                segment.fit_iteration_moments_plain(ids, chan, tab, p_pad,
+                                                    p_cnt, exact=False),
+                segment.segment_sums(v_ids, v_vals, 256),
+                vote.yaw_vote(src, tgt, mask, adj, num_modes=2))
+
+    first, *rest = _at_each_thread_count(run)
+    assert float(first[1][..., 0].sum()) > 0 and float(first[3].sum()) > 0
+    for other in rest:
+        assert _same(other, first)
+
+
+def test_patchwork_ground_repeats_across_thread_counts(level_a_raw):
+    """estimate_ground on the raw level_a pair: the ground, non-ground and
+    dropped masks identical at 1 and 6 threads."""
+    cfg = PipelineConfig.for_lidar("VLP-16").patchwork
+    results = []
+    for t in (1, 6):
+        torch.set_num_threads(t)
+        results.append(estimate_ground(*level_a_raw, cfg))
+    a, b = results
+    assert int(a.ground.sum()) > 0
+    for field in ("ground", "nonground", "dropped"):
+        assert torch.equal(getattr(a, field), getattr(b, field)), field
+
+
+def test_moment_sums_repeat_across_thread_counts(level_a_scans):
+    """moment_sums_plain on the level_a voxels at V = 2048 (with holes):
+    the same bits at 1, 2 and 6 threads, and within the f32
+    summation-order bound of tests/test_torch_frontend.py (rtol 1e-5, atol
+    1e-4) of the JAX package's moment_sums_pallas (interpret)."""
+    cfg = PipelineConfig.for_lidar("VLP-16", max_voxels=2048)
+    vox = [voxel_downsample(p, m, cfg.voxel_size, 2048,
+                            active_cap=cfg.max_segment_points)
+           for p, m in zip(*level_a_scans)]
+    pts = torch.stack([v[0] for v in vox]).contiguous()
+    maskf = torch.stack([v[1] for v in vox]).float()
+    maskf[:, ::89] = 0.0
+    r = cfg.fpfh.normal_radius
+    first, *rest = _at_each_thread_count(
+        lambda: tf.moment_sums_plain(pts, maskf, r))
+    for other in rest:
+        assert torch.equal(other, first)
+    for b in range(2):
+        ref = np.asarray(jpf.moment_sums_pallas(
+            jnp.asarray(pts[b].numpy()), jnp.asarray(maskf[b].numpy()), r,
+            interpret=True))[:, :10]
+        np.testing.assert_allclose(first[b].numpy(), ref, rtol=1e-5,
+                                   atol=1e-4)
+    assert float(first[..., 0].max()) > 5
