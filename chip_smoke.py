@@ -80,7 +80,10 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    active limits) are held bit for bit against their plain versions run
    on CPU copies of the same inputs and across two launches. Each row also
    has the device time per call of the kernel and of the library call
-   (torch.profiler), so that the two compare like with like.
+   (torch.profiler, from a profiled run that saw every call), so that the
+   two compare like with like. The bounds of the radius-pair kernels (B3,
+   B4, B5) count the radius tests of the valid pairs in the tile pairs
+   that an exact culling keeps (``culled_pairs``).
 
 The last two lines of standard output are the card's kernel table as one
 JSON object and ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -104,8 +107,9 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_S = 3.35e12
 
 # f32 operations per pair, counted from the kernels' sources: the radius
-# test (3 sub, 3 mul, 2 add, 1 compare) on every pair of valid points, and
-# the work on each pair inside the radius.
+# test (3 sub, 3 mul, 2 add, 1 compare) on every pair of valid points that
+# an exact tile culling leaves (``culled_pairs``), and the work on each
+# pair inside the radius.
 OPS_PAIR_TEST = 9
 OPS_MOMENTS = 16          # 10 accumulations, 6 products
 OPS_SPFH = 80             # Darboux frame, atan2 and three bins (approx.)
@@ -735,10 +739,18 @@ def phase_profile(pair, cfg, wall_ms, top=10):
            for name, ms, count in rows if "quatro::" in name}
     log("profile: device ms per launch of the port's kernels: "
         + json.dumps(own))
-    per_wrapper = {w: round(sum(ms for name, ms, _ in rows
-                                if name.replace("void ", "").startswith(names))
-                            / MAIN_LAUNCHES[w], 6)
-                   for w, names in WRAPPER_KERNELS.items()}
+    # taken only where the profile saw each of the wrapper's launches
+    per_wrapper = {}
+    for w, names in WRAPPER_KERNELS.items():
+        mine = [(name.replace("void ", ""), ms, count)
+                for name, ms, count in rows]
+        seen = sum(c for name, _, c in mine if name.startswith(MAIN_KERNEL[w]))
+        per_wrapper[w] = (round(sum(ms for name, ms, _ in mine
+                                    if name.startswith(names))
+                                / MAIN_LAUNCHES[w], 6)
+                          if seen == MAIN_LAUNCHES[w] else
+                          f"not measured (the profile saw {seen} of "
+                          f"{MAIN_LAUNCHES[w]} launches)")
     log("profile: device ms per wrapper launch (all its kernels): "
         + json.dumps(per_wrapper))
 
@@ -797,11 +809,15 @@ def nn1_kernel_row(res_b, cfg, launches_b, row):
         launches=launches_b["nearest_neighbors"])
 
 
-def _device_hits(fn, name, reps, tries=3):
+def _device_hits(fn, name, reps, main=None, tries=5):
     """The profiler's device events (kernels, copies, fills) whose name
-    holds ``name`` over ``reps`` calls of ``fn``, profiling again when a
-    profiled run records none (the profiler now and then drops a run's
-    device events)."""
+    holds ``name`` over ``reps`` calls of ``fn``, each with its launches
+    per call, as [(event, launches per call)]. The profiler misses the
+    first device event of a profiled run, and now and then more, so an
+    event seen ``c`` times ran ceil(c / reps) times per call. A run is
+    taken when at most one launch is missing in all and, with ``main`` =
+    (kernel, launches per call), that kernel ran its launches per call;
+    else it profiles again."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -811,13 +827,17 @@ def _device_hits(fn, name, reps, tries=3):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        hits = [e for e in prof.key_averages()
+        hits = [(e, -(-e.count // reps)) for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA
                 and not e.is_user_annotation and e.self_device_time_total > 0
                 and name in e.key]
-        if hits:
+        missing = sum(k * reps - e.count for e, k in hits)
+        if hits and missing <= 1 and (main is None or sum(
+                k for e, k in hits if main[0] in e.key) == main[1]):
             return hits
-    log(f"profile: no device events of {name!r} in {tries} profiled runs; "
+        log(f"profile: {name!r} over {reps} calls: the profiler saw "
+            f"{[(e.key[:48], e.count) for e, _ in hits]}; profiling again")
+    log(f"profile: {name!r}: no profiled run in {tries} saw every call; "
         "not measured")
     return []
 
@@ -826,23 +846,25 @@ def device_ms_per_launch(fn, kernel, reps=10):
     """Mean device time per launch of the kernels whose name holds
     ``kernel``, over ``reps`` calls of ``fn``, from torch.profiler (the
     CUDA-event time of a call also holds the wrapper's own small launches
-    and host time); None where the profiler saw none."""
+    and host time); None where no profiled run saw every call."""
     hits = _device_hits(fn, kernel, reps)
     if not hits:
         return None
-    return sum(e.self_device_time_total for e in hits) / 1e3 / sum(
-        e.count for e in hits)
+    return sum(e.self_device_time_total for e, _ in hits) / 1e3 / sum(
+        e.count for e, _ in hits)
 
 
-def device_ms_per_call(fn, prefix="", reps=10):
-    """Mean device time of one call of ``fn`` over ``reps`` calls: the sum
-    of the device times of the kernels, copies and fills it ran whose name
-    holds ``prefix`` ("quatro::" for the port's own kernels, "" for all),
-    from torch.profiler; None where the profiler saw none."""
-    hits = _device_hits(fn, prefix, reps)
+def device_ms_per_call(fn, prefix="", reps=10, main=None):
+    """Mean device time of one call of ``fn``: each device event (kernel,
+    copy, fill) it runs whose name holds ``prefix`` ("quatro::" for the
+    port's own kernels, "" for all), at its mean device time from
+    torch.profiler over ``reps`` calls, times its launches per call
+    (``_device_hits``, with ``main``); None where no profiled run saw
+    every call."""
+    hits = _device_hits(fn, prefix, reps, main)
     if not hits:
         return None
-    return sum(e.self_device_time_total for e in hits) / 1e3 / reps
+    return sum(e.self_device_time_total / e.count * k for e, k in hits) / 1e3
 
 
 # device ms per call of the former designs on NVIDIA H100 80GB HBM3,
@@ -861,6 +883,35 @@ WRAPPER_KERNELS = {"moment_sums": ("quatro::tile_bounds_kernel",
                    "fit_iteration_moments": ("quatro::fit_limit_kernel",
                                              "quatro::fit_partials_kernel",
                                              "quatro::chunk_sum_kernel<9>")}
+# the kernel each wrapper launches once per call, by the profiler's name:
+# a profiled run counts only if it saw this kernel once per call
+MAIN_KERNEL = {"moment_sums": "quatro::moment_sums_kernel",
+               "spfh": "quatro::spfh_kernel", "fpfh": "quatro::fpfh_kernel",
+               "nearest_neighbors": "quatro::nn1_kernel",
+               "nearest_neighbors2": "quatro::nn2_kernel",
+               "consistency_graph": "quatro::consistency_graph_kernel",
+               "segment_sums": "quatro::segment_partials_kernel",
+               "cross_histogram": "quatro::hist_partials_kernel",
+               "fit_iteration_moments": "quatro::fit_partials_kernel",
+               "classify_points": "quatro::classify_kernel",
+               "image_lookup": "quatro::image_lookup_kernel",
+               "table_lookup": "quatro::table_lookup_kernel"}
+
+
+def culled_pairs(pts, mask, radius):
+    """Valid pairs, summed over the clouds, in the pairs of PAIR_TILE-point
+    tiles whose AABBs lie within ``radius`` (``tiles_in_radius``): the
+    pairs that an exact tile culling tests (B3's kernel does), and so the
+    radius tests these inputs need."""
+    from quatro_tpu_torch.ops import frontend as fe
+
+    bb = fe.tile_bounds(pts, mask.float())
+    passing = fe.tiles_in_radius(bb, bb, radius).double()
+    bsz, v = mask.shape
+    cnt = torch.nn.functional.pad(
+        mask.double(), (0, bb.shape[1] * fe.PAIR_TILE - v)).reshape(
+        bsz, -1, fe.PAIR_TILE).sum(-1)
+    return float(torch.einsum("br,brc,bc->", cnt, passing, cnt))
 
 
 def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b):
@@ -893,7 +944,8 @@ def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b):
     def row(name, err, k_fn, p_fn, ops, nbytes, lib_fn=None, launches=None):
         """One kernel's row: CUDA-event ms of the wrapper's call (20 calls),
         of the plain version's (5) and of the library call's (20); the
-        device ms per call of the port's kernels and of the library call
+        device ms per call of the port's kernels (``k_fn`` is one wrapper
+        call, one launch of its main kernel) and of the library call
         (torch.profiler); the bound from this run's data."""
         b_ms, by = bound(ops, nbytes)
         r = {"name": name, "route": "cuda", "source": SOURCES[name],
@@ -903,7 +955,8 @@ def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b):
              "max_abs_err": err, "ms": cuda_ms(k_fn),
              "plain_ms": cuda_ms(p_fn, 5), "bound_ms": b_ms, "bound_by": by,
              "library_ms": cuda_ms(lib_fn) if lib_fn else None,
-             "device_ms": device_ms_per_call(k_fn, "quatro::"),
+             "device_ms": device_ms_per_call(k_fn, "quatro::",
+                                             main=(MAIN_KERNEL[name], 1)),
              "library_device_ms": (device_ms_per_call(lib_fn) if lib_fn
                                    else None)}
         log(json.dumps(r))
@@ -939,12 +992,12 @@ def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b):
     log(f"moment_sums: active limits {lim.tolist()} of {v}; tile pairs "
         f"tested {tested}, skipped {skipped} per cloud; equal to the plain "
         "version on CPU copies and across two launches, bit for bit")
-    pairs_all = float((nv * nv).sum())
     n_rn = in_radius(rn, mask)
     row("moment_sums", float((got.cpu() - ref).abs().max()),
         lambda: fe.moment_sums(pts, maskf, rn),
         lambda: fe.moment_sums_plain(pts, maskf, rn),
-        pairs_all * OPS_PAIR_TEST + (n_rn + float(nv.sum())) * OPS_MOMENTS,
+        culled_pairs(pts, mask, rn) * OPS_PAIR_TEST
+        + (n_rn + float(nv.sum())) * OPS_MOMENTS,
         bsz * v * (3 + 1 + 10) * 4)
 
     # B4 SPFH, on the pipeline's own normals
@@ -958,12 +1011,12 @@ def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b):
     flipped = float((hist != rhist).any(-1).float().mean())
     log(f"spfh: bin-edge flips on {flipped:.4%} of rows")
     check(flipped < 0.005, f"SPFH bins differ on {flipped:.2%} of rows")
-    npv = pmask.sum(1).double()
     n_rf = in_radius(rf, pmask)
+    pairs_rf = culled_pairs(pts, pmask, rf)
     row("spfh", float((hist - rhist).abs().max()),
         lambda: fe.spfh(pts, nrm, pmf, rf),
         lambda: fe.spfh_plain(pts, nrm, pmf, rf),
-        float((npv * npv).sum()) * OPS_PAIR_TEST + n_rf * OPS_SPFH,
+        pairs_rf * OPS_PAIR_TEST + n_rf * OPS_SPFH,
         bsz * v * (3 + 3 + 1 + 33 + 1) * 4)
 
     # B5 FPFH weighted sums, compared after the per-block normalisation
@@ -976,7 +1029,7 @@ def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b):
     check(affected < 0.02, f"FPFH rows off by > 1: {affected:.2%}")
     row("fpfh", float(diff.max()), lambda: fe.fpfh_sums(pts, srows, pmf, rf),
         lambda: fe.fpfh_sums_plain(pts, srows, pmf, rf),
-        float((npv * npv).sum()) * OPS_PAIR_TEST + n_rf * OPS_FPFH,
+        pairs_rf * OPS_PAIR_TEST + n_rf * OPS_FPFH,
         bsz * v * (3 + 33 + 1 + 33) * 4)
 
     # B7 top-2 NN, both directions, bit for bit against the plain version

@@ -54,20 +54,16 @@
 // A block's walk is serial, so the chunk (FIT_CHUNK, 1024 points) trades
 // the blocks' length against the second pass's: of 512 to 4096, 1024 was
 // the fastest on the main path (tests/torch_fit_table_timing.py).
-// The table is read through the read-only cache (QUATRO_FIT_STAGE_TABLE 1
-// stages it in shared memory instead; tests/torch_fit_table_timing.py
-// times both). Membership and the products use the round-to-nearest
-// intrinsics in the plain version's order, so kernel and plain version
-// take the same membership decisions.
+// The table is read through the read-only cache, which measured a little
+// faster than a copy staged in shared memory by every block (PERF.md).
+// Membership and the products use the round-to-nearest intrinsics in the
+// plain version's order, so kernel and plain version take the same
+// membership decisions.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "chunk_sum.cuh"
 #include "patchwork.cuh"
-
-#ifndef QUATRO_FIT_STAGE_TABLE
-#define QUATRO_FIT_STAGE_TABLE 0
-#endif
 
 namespace quatro {
 
@@ -129,11 +125,6 @@ fit_partials_kernel(const int* __restrict__ ids, const float* __restrict__ chan,
   const int* ib = ids + (size_t)b * n;
   const float* cb = chan + (size_t)b * kTabCols * n;
   const float* tb = tab + (size_t)b * p_pad * kTabCols;
-#if QUATRO_FIT_STAGE_TABLE
-  extern __shared__ float stab[];   // [p_pad][5]
-  for (int i = tid; i < p_pad * kTabCols; i += kFitThreads) stab[i] = tb[i];
-  __syncthreads();
-#endif
   for (int i = tid; i < kFitPatches * kMoments; i += kFitThreads)
     (&sums[0][0])[i] = 0.f;
   // this warp's register copy: channel `lane` (lanes 0-9) of patch `cur`
@@ -161,12 +152,7 @@ fit_partials_kernel(const int* __restrict__ ids, const float* __restrict__ chan,
       grp = q % kFitWarps;
       float row[kTabCols];
 #pragma unroll
-      for (int k = 0; k < kTabCols; ++k)
-#if QUATRO_FIT_STAGE_TABLE
-        row[k] = stab[id * kTabCols + k];
-#else
-        row[k] = __ldg(tb + id * kTabCols + k);
-#endif
+      for (int k = 0; k < kTabCols; ++k) row[k] = __ldg(tb + id * kTabCols + k);
       member = plane_proj(row, x, y, z) < row[3];
       if (member) {
         mom[0] = 1.f;
@@ -281,13 +267,8 @@ extern "C" int quatro_fit_iteration_moments(const int* ids, const float* chan,
                              quatro::kLimitThreads, 0, stream>>>(ids, n, p_lim, lim);
   rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
-  const int smem =
-      QUATRO_FIT_STAGE_TABLE ? p_pad * quatro::kTabCols * (int)sizeof(float) : 0;
-  rc = (int)cudaFuncSetAttribute(quatro::fit_partials_kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (rc != 0) return rc;
   dim3 grid(chunks, 1 << shift, bsz);
-  quatro::fit_partials_kernel<<<grid, quatro::kFitThreads, smem, stream>>>(
+  quatro::fit_partials_kernel<<<grid, quatro::kFitThreads, 0, stream>>>(
       ids, chan, tab, n, p_pad, p_lim, exact, chunk, chunks, shift, lim, partial);
   rc = (int)cudaGetLastError();
   if (rc != 0) return rc;

@@ -55,6 +55,12 @@ def _deg2rad(deg: float) -> float:
     return float(np.float32(deg) * np.float32(math.pi / 180.0))
 
 
+def _recip(c: float) -> float:
+    """1 / c with c and the quotient rounded to f32: XLA compiles a
+    division by a constant into a multiplication by this reciprocal."""
+    return float(np.float32(1.0) / np.float32(c))
+
+
 def _sin_cos(rad: float):
     """f32 sine and cosine of an f32 angle, taken once on the host so
     that every device uses the same two constants."""
@@ -88,13 +94,15 @@ def project_to_range_image(points: torch.Tensor, mask: torch.Tensor,
     rxy = fused.hypot(x, y)
     rng = fused.sqrt(torch.clamp(fused.fma(z, z, fused.fma(x, x, y * y)),
                                  min=0.0))
-    # degrees, then the offset, rounded once: every synthetic ring lies on a
-    # row edge (utils/fused.py)
+    # degrees and the offset rounded once, and the quotients taken as XLA
+    # takes them, by the f32 reciprocal (as CUDA divides by a scalar):
+    # every synthetic ring lies on a row edge (utils/fused.py), where one
+    # rounding moves a ring's row
     deg = fused.f32(_DEG)
     vert = fused.fma(torch.atan2(z, rxy), deg, fused.f32(lidar.ang_bottom))
-    row = torch.floor(vert / lidar.ang_res_y).to(torch.int64)
+    row = torch.floor(vert * _recip(lidar.ang_res_y)).to(torch.int64)
     horiz = fused.fma(torch.atan2(x, y), deg, -90.0)
-    col = (-torch.round(horiz / lidar.ang_res_x)).to(torch.int64) \
+    col = (-torch.round(horiz * _recip(lidar.ang_res_x))).to(torch.int64) \
         + cols_n // 2
     col = torch.where(col >= cols_n, col - cols_n, col)
 

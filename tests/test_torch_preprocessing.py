@@ -271,6 +271,29 @@ def test_project_to_range_image_matches(level_a):
             assert not ((g != r) & ~touched).any()
 
 
+def test_project_to_range_image_hdl64_bit_equal():
+    """The seed-11 HDL-64E pair of tests/test_pipeline.py at capacity
+    131072, whose rings lie on row edges of a 0.427-degree grid: every
+    row, column, range, pixel and owner equal to the JAX package's compiled
+    projection, which divides by the angular resolutions as multiplications
+    by their f32 reciprocals (a true division put 4206 of the source's
+    105737 points one row up)."""
+    from quatro_tpu.io.synthetic import make_scan_pair
+
+    lidar = jcfg.PipelineConfig().lidar
+    proj = jax.jit(lambda p, m: jpr.project_to_range_image(p, m, lidar))
+    for xyz in make_scan_pair(seed=11, yaw_deg=20.0,
+                              translation=(2.5, 1.0, 0.05))[:2]:
+        pb = JaxPointBatch.from_numpy(xyz, capacity=131072)
+        ref = [np.asarray(a) for a in proj(pb.points, pb.mask)]
+        got = tpr.project_to_range_image(_t(pb.points)[None],
+                                         _t(pb.mask)[None],
+                                         qt.PipelineConfig().lidar)
+        ref[5] = np.where(np.isinf(ref[5]), np.finfo(np.float32).max, ref[5])
+        for g, r in zip(got, ref):
+            np.testing.assert_array_equal(g[0].numpy(), r)
+
+
 def _knife_edge_pixels(rimg, valid, lidar, cfg, tol=1e-6):
     """Pixels in a valid neighbour pair whose angle lies within tol of
     segment_theta_deg (f64)."""
