@@ -68,22 +68,28 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    runs, since the profiler slows the host for the runs after it): the
    card's busy time, its idle share of the median pair, the top kernels
    and the device time per launch of each of the port's kernels, and of
-   B3's and B9's wrappers with all their kernels;
+   B3's, B4's, B5's and B9's wrappers with all their kernels;
 8. kernels: each kernel on the main path's own tensors (B6 on path B's
    descriptors, B12 on the rows B10 was handed) against its plain PyTorch
    version, with its time, the plain version's time, the least time the
    card could take for the same work, and one library call computing the
    same function where there is one (1-NN, top-2 NN, segment sums, cross
    histogram, image lookup, table lookup). B2, B3 (with its active limits
-   and the tile pairs it tested and skipped), B6, B7 (both directions,
-   with the active limits it found), B8 and B9 (both flags, with its
-   active limits) are held bit for bit against their plain versions run
-   on CPU copies of the same inputs and across two launches. Each row also
+   and the tile pairs it tested and skipped), B5 (alone and on B4's tile
+   table), B6, B7 (both directions, with the active limits it found), B8
+   and B9 (both flags, with its active limits) are held bit for bit
+   against their plain versions run on CPU copies of the same inputs and
+   across two launches; B4's counts and bins equal those of its plain
+   version run on the card (the same rsqrtf and atan2f), and the tile
+   pairs kept at the FPFH radius are printed. Each row also
    has the device time per call of the kernel and of the library call
    (torch.profiler, from a profiled run that saw every call), so that the
    two compare like with like. The bounds of the radius-pair kernels (B3,
    B4, B5) count the radius tests of the valid pairs in the tile pairs
-   that an exact culling keeps (``culled_pairs``).
+   that an exact culling keeps (``culled_pairs``), and their bytes the
+   mask and the outputs of every row but the points, normals and SPFH
+   rows of the valid rows only (``radius_pair_bytes``): the kernels read
+   no other.
 
 The last two lines of standard output are the card's kernel table as one
 JSON object and ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -113,7 +119,7 @@ PEAK_BYTES_S = 3.35e12
 OPS_PAIR_TEST = 9
 OPS_MOMENTS = 16          # 10 accumulations, 6 products
 OPS_SPFH = 80             # Darboux frame, atan2 and three bins (approx.)
-OPS_FPFH = 2 + 2 * 33     # weight (max, divide) and 33 FMAs
+OPS_FPFH = 2 + 2 * 33     # weight (max, divide), 33 products and sums
 OPS_NN = 2 * 33 + 4       # 33 FMAs, the expansion, the top-2 compares
 OPS_NN1 = 2 * 33 + 4      # 33 FMAs, the expansion (3), the compare
 OPS_GRAPH = 21            # per pair: 2 x (3 sub, 3 mul, 2 add, sqrt),
@@ -751,7 +757,8 @@ def phase_profile(pair, cfg, wall_ms, top=10):
                           if seen == MAIN_LAUNCHES[w] else
                           f"not measured (the profile saw {seen} of "
                           f"{MAIN_LAUNCHES[w]} launches)")
-    log("profile: device ms per wrapper launch (all its kernels): "
+    log("profile: device ms per wrapper launch (its kernels but the shared "
+        "tile pre-pass): "
         + json.dumps(per_wrapper))
 
 
@@ -869,17 +876,22 @@ def device_ms_per_call(fn, prefix="", reps=10, main=None):
 
 # device ms per call of the former designs on NVIDIA H100 80GB HBM3,
 # 700.00 W, printed beside this run's: the top-2 and histogram kernels with
-# one thread per row each, the moment sums with one thread per row over
-# every column, the plane-fit moments with an all-pairs compare
+# one thread per row each, the moment sums, SPFH and FPFH with one thread
+# per row over every column, the plane-fit moments with an all-pairs
+# compare
 FORMER_DEVICE_MS = {"nearest_neighbors2": 1.757077,
                     "cross_histogram": 1.572931,
                     "moment_sums": 0.218100,
+                    "spfh": 0.650900, "fpfh": 0.748800,
                     "fit_iteration_moments": 0.074700}
 # the kernels of each redesigned wrapper, by the profiler's names, for its
 # device time per launch in path A's profile (chunk_sum_kernel<9> is B9's
-# second pass, <8> B8's)
-WRAPPER_KERNELS = {"moment_sums": ("quatro::tile_bounds_kernel",
-                                   "quatro::moment_sums_kernel"),
+# second pass, <8> B8's). The tile pre-pass that B3 launches and B4
+# launches for itself and B5 is listed on its own, as
+# quatro::tile_bounds_kernel, two launches per pair.
+WRAPPER_KERNELS = {"moment_sums": ("quatro::moment_sums_kernel",),
+                   "spfh": ("quatro::spfh_kernel",),
+                   "fpfh": ("quatro::fpfh_kernel",),
                    "fit_iteration_moments": ("quatro::fit_limit_kernel",
                                              "quatro::fit_partials_kernel",
                                              "quatro::chunk_sum_kernel<9>")}
@@ -912,6 +924,14 @@ def culled_pairs(pts, mask, radius):
         mask.double(), (0, bb.shape[1] * fe.PAIR_TILE - v)).reshape(
         bsz, -1, fe.PAIR_TILE).sum(-1)
     return float(torch.einsum("br,brc,bc->", cnt, passing, cnt))
+
+
+def radius_pair_bytes(mask, per_row, per_valid_row):
+    """Bytes a radius-pair kernel must move: ``per_row`` f32 words (its
+    mask and outputs) for every row, ``per_valid_row`` (its points,
+    normals or SPFH rows) only for the rows ``mask`` marks valid, which
+    are the only ones it reads them for."""
+    return (mask.numel() * per_row + int(mask.sum()) * per_valid_row) * 4
 
 
 def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b):
@@ -998,39 +1018,62 @@ def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b):
         lambda: fe.moment_sums_plain(pts, maskf, rn),
         culled_pairs(pts, mask, rn) * OPS_PAIR_TEST
         + (n_rn + float(nv.sum())) * OPS_MOMENTS,
-        bsz * v * (3 + 1 + 10) * 4)
+        radius_pair_bytes(mask, 1 + 10, 3))
 
-    # B4 SPFH, on the pipeline's own normals
+    # B4 SPFH, on the pipeline's own normals: counts and bins equal to the
+    # plain version run on the card (the same rsqrtf and atan2f) and across
+    # two launches; its pre-pass's tile AABBs and limits equal to torch's
     normals = fe.frontend_normals(pts, mask, rn)
     nrm = normals.normals.contiguous()
     pmask = mask & normals.valid
     pmf = pmask.float().contiguous()
-    hist, cnt = fe.spfh(pts, nrm, pmf, rf)
+    hist, cnt, bounds, lim = fe.spfh_launch(pts, nrm, pmf, rf)
+    again = fe.spfh(pts, nrm, pmf, rf)
+    check(torch.equal(hist, again[0]) and torch.equal(cnt, again[1]),
+          "SPFH differs between launches")
     rhist, rcnt = fe.spfh_plain(pts, nrm, pmf, rf)
+    flipped = int((hist != rhist).any(-1).sum())
+    log(f"spfh: {flipped} of {bsz * v} rows with a bin that differs from "
+        f"the plain version on the card; pair counts "
+        f"{'equal' if torch.equal(cnt, rcnt) else 'DIFFERENT'}")
     check(torch.equal(cnt, rcnt), "SPFH pair counts differ")
-    flipped = float((hist != rhist).any(-1).float().mean())
-    log(f"spfh: bin-edge flips on {flipped:.4%} of rows")
-    check(flipped < 0.005, f"SPFH bins differ on {flipped:.2%} of rows")
+    check(flipped == 0, f"SPFH bins differ on {flipped} rows")
+    rbb = fe.tile_bounds(pts.cpu(), pmf.cpu())
+    check(torch.equal(bounds.cpu(), rbb)
+          and torch.equal(lim.cpu(), fe.active_limit(pmask.cpu())),
+          "SPFH's tile AABBs or active limits differ from torch's")
+    passing = fe.tiles_in_radius(rbb, rbb, rf)
+    nct = [-(-n // fe.PAIR_TILE) for n in lim.tolist()]
+    kept = [int(passing[b, :n, :n].sum()) for b, n in enumerate(nct)]
+    log(f"spfh / fpfh: active limits {lim.tolist()} of {v}; tile pairs "
+        f"tested {[n * n for n in nct]}, kept {kept} per cloud at "
+        f"{rf} m ({[round(k / max(n * n, 1), 4) for k, n in zip(kept, nct)]})")
     n_rf = in_radius(rf, pmask)
     pairs_rf = culled_pairs(pts, pmask, rf)
     row("spfh", float((hist - rhist).abs().max()),
         lambda: fe.spfh(pts, nrm, pmf, rf),
         lambda: fe.spfh_plain(pts, nrm, pmf, rf),
         pairs_rf * OPS_PAIR_TEST + n_rf * OPS_SPFH,
-        bsz * v * (3 + 3 + 1 + 33 + 1) * 4)
+        radius_pair_bytes(pmask, 1 + 33 + 1, 3 + 3))
 
-    # B5 FPFH weighted sums, compared after the per-block normalisation
+    # B5 FPFH weighted sums, bit for bit against the plain version on CPU
+    # copies and across two launches, alone and on SPFH's tile table; timed
+    # on SPFH's table, as frontend_fpfh launches it
     srows = (hist * (100.0 / torch.clamp(cnt, min=1.0))[..., None]).contiguous()
+    table = (bounds, lim)
     got = fe.fpfh_sums(pts, srows, pmf, rf)
-    ref = fe.fpfh_sums_plain(pts, srows, pmf, rf)
-    diff = (normalize_blocks(got) - normalize_blocks(ref)).abs()
-    check(float(diff.mean()) < 0.02, f"FPFH mean diff {float(diff.mean())}")
-    affected = float((diff.amax(-1) > 1.0).float().mean())
-    check(affected < 0.02, f"FPFH rows off by > 1: {affected:.2%}")
-    row("fpfh", float(diff.max()), lambda: fe.fpfh_sums(pts, srows, pmf, rf),
+    shared = fe.fpfh_sums_launch(pts, srows, pmf, rf, table)
+    check(torch.equal(got, shared), "FPFH differs between launches")
+    ref = fe.fpfh_sums_plain(pts.cpu(), srows.cpu(), pmf.cpu(), rf)
+    check(torch.equal(got.cpu(), ref),
+          "FPFH sums differ from the plain version on CPU copies")
+    log("fpfh: equal to the plain version on CPU copies and across two "
+        "launches (one on SPFH's tile table), bit for bit")
+    row("fpfh", float((got.cpu() - ref).abs().max()),
+        lambda: fe.fpfh_sums_launch(pts, srows, pmf, rf, table),
         lambda: fe.fpfh_sums_plain(pts, srows, pmf, rf),
         pairs_rf * OPS_PAIR_TEST + n_rf * OPS_FPFH,
-        bsz * v * (3 + 33 + 1 + 33) * 4)
+        radius_pair_bytes(pmask, 1 + 33, 3 + 33))
 
     # B7 top-2 NN, both directions, bit for bit against the plain version
     # on CPU copies with the card's |a|^2 and |b|^2

@@ -34,8 +34,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     "moment_sums": ("quatro_moment_sums",
                     [_P, _P, _I, _I, _F, _P, _P, _P, _P]),
-    "spfh": ("quatro_spfh", [_P, _P, _P, _I, _I, _F, _P, _P, _P]),
-    "fpfh": ("quatro_fpfh", [_P, _P, _P, _I, _I, _F, _P, _P]),
+    "spfh": ("quatro_spfh", [_P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _P]),
+    "fpfh": ("quatro_fpfh", [_P, _P, _P, _I, _I, _F, _P, _P, _I, _P, _P]),
     "nn2": ("quatro_nn2", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _P, _P, _P, _P, _P]),
     "nn1": ("quatro_nn1", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P]),

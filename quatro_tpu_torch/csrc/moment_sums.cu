@@ -81,23 +81,7 @@ moment_sums_kernel(const float* __restrict__ pts, const float* __restrict__ mask
     const bool live = i < v && m[i] > 0.f;
     float xi = 0.f, yi = 0.f, zi = 0.f;
     if (live) { xi = p[3 * i]; yi = p[3 * i + 1]; zi = p[3 * i + 2]; }
-    const float* rb = bt + rt * kBoundsCols;
-    const int nct = (limit + kTile - 1) / kTile;
-    // the passing column tiles in ascending order, 32 tested at a time
-    int c0 = -32;
-    unsigned pass = 0;
-    auto next_tile = [&]() {
-      while (!pass) {
-        c0 += 32;
-        if (c0 >= nct) return -1;
-        const int ct = c0 + lane;
-        pass = __ballot_sync(
-            0xffffffffu, ct < nct && tiles_in_radius(rb, bt + ct * kBoundsCols, r2));
-      }
-      const int t = c0 + __ffs(pass) - 1;
-      pass &= pass - 1;
-      return t;
-    };
+    PassingTiles walk{bt + rt * kBoundsCols, bt, r2, (limit + kTile - 1) / kTile};
     // this lane's column of a tile: its point, and whether it is valid
     float cx, cy, cz, cm;
     auto fetch = [&](int t) {
@@ -108,7 +92,7 @@ moment_sums_kernel(const float* __restrict__ pts, const float* __restrict__ mask
       cz = in ? p[3 * j + 2] : 0.f;
       cm = in ? m[j] : 0.f;
     };
-    int t = next_tile();
+    int t = walk.next(lane);
     fetch(t);
     while (t >= 0) {
       const bool vj = cm > 0.f;
@@ -117,7 +101,7 @@ moment_sums_kernel(const float* __restrict__ pts, const float* __restrict__ mask
       sy[warp][lane] = vj ? cy : CUDART_NAN_F;
       sz[warp][lane] = vj ? cz : CUDART_NAN_F;
       __syncwarp();
-      t = next_tile();
+      t = walk.next(lane);
       fetch(t);   // in flight while this tile is summed
       if (live) {
 #pragma unroll 2

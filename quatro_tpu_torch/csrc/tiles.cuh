@@ -1,7 +1,7 @@
-// Tile culling for the radius-pair kernels (B3 now; B4 and B5 can take it
-// as it stands): a per-tile AABB table of the valid points, the cloud's
-// active limit, and the predicate that skips a (row tile, column tile)
-// pair holding no pair within the radius.
+// Tile culling for the radius-pair kernels (B3, B4 and B5): a per-tile
+// AABB table of the valid points, the cloud's active limit, and the
+// predicate that skips a (row tile, column tile) pair holding no pair
+// within the radius.
 //
 // Replaces quatro_tpu/ops/pallas_frontend.py::_tile_bounds,
 // ::_bbox_in_radius and ::_active_limits. The torch mirrors are
@@ -91,6 +91,32 @@ __device__ __forceinline__ bool tiles_in_radius(const float* __restrict__ rb,
     g[d] = fmaxf(fmaxf(sub(rb[d], cb[4 + d]), sub(cb[d], rb[4 + d])), 0.f);
   return sq3(g[0], g[1], g[2]) <= r2;
 }
+
+// The column tiles before the active limit that pass tiles_in_radius
+// against one row tile, in ascending order, tested 32 at a time: every lane
+// of the warp calls next() together and gets the same tile (-1 past the
+// last).
+struct PassingTiles {
+  const float* rb;   // the row tile's AABB
+  const float* bt;   // the cloud's AABB table
+  float r2;
+  int nct;           // column tiles before the limit
+  int c0 = -32;
+  unsigned pass = 0;
+
+  __device__ __forceinline__ int next(int lane) {
+    while (!pass) {
+      c0 += 32;
+      if (c0 >= nct) return -1;
+      const int ct = c0 + lane;
+      pass = __ballot_sync(0xffffffffu,
+                           ct < nct && tiles_in_radius(rb, bt + ct * kBoundsCols, r2));
+    }
+    const int t = c0 + __ffs(pass) - 1;
+    pass &= pass - 1;
+    return t;
+  }
+};
 
 // The pre-pass of a radius-pair kernel: zero lim, then fill bounds and lim.
 inline int launch_tile_bounds(const float* pts, const float* maskf, int batch, int v,

@@ -9,13 +9,18 @@ from __future__ import annotations
 
 import torch
 
+from quatro_tpu_torch.utils.fused import recip
+
 NUM_BINS = 11
 FPFH_DIM = 3 * NUM_BINS
 
 
 def _bin_index(f: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
-    """floor(11 * (f - lo) / (hi - lo)) clipped to [0, 10], int32."""
-    idx = torch.floor(NUM_BINS * (f - lo) / (hi - lo)).to(torch.int32)
+    """floor(11 * (f - lo) / (hi - lo)) clipped to [0, 10], int32, the
+    division taken as a multiplication by the f32 reciprocal of the width:
+    the JAX package's compiled division by a constant, and the SPFH
+    kernel's (csrc/spfh.cu), on the CPU and the card alike."""
+    idx = torch.floor(NUM_BINS * (f - lo) * recip(hi - lo)).to(torch.int32)
     return torch.clamp(idx, 0, NUM_BINS - 1)
 
 

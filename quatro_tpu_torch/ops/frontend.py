@@ -255,23 +255,42 @@ def spfh_plain(points: torch.Tensor, normals: torch.Tensor,
     return hist, cnt
 
 
-def spfh(points: torch.Tensor, normals: torch.Tensor,
-         pair_maskf: torch.Tensor, radius: float):
-    """Raw SPFH bin counts (B, V, 33) f32 and pair counts (B, V) f32.
-    Replaces pallas_frontend.py::spfh_pallas (csrc/spfh.cu)."""
+def _check_spfh(points, normals, pair_maskf) -> torch.device:
     bsz, v = points.shape[:2]
     check("points", points, (bsz, v, 3))
     check("normals", normals, (bsz, v, 3))
     check("pair_maskf", pair_maskf, (bsz, v))
-    if same_device(points, normals, pair_maskf).type != "cuda":
+    return same_device(points, normals, pair_maskf)
+
+
+def spfh(points: torch.Tensor, normals: torch.Tensor,
+         pair_maskf: torch.Tensor, radius: float):
+    """Raw SPFH bin counts (B, V, 33) f32 and pair counts (B, V) f32.
+    Replaces pallas_frontend.py::spfh_pallas (csrc/spfh.cu), which skips
+    the points past ``active_limit`` and the tile pairs
+    ``tiles_in_radius`` rejects, and takes the bins of the plain version
+    run on the card."""
+    if _check_spfh(points, normals, pair_maskf).type != "cuda":
         return spfh_plain(points, normals, pair_maskf, radius)
-    hist = torch.empty((bsz, v, FPFH_DIM), dtype=torch.float32,
-                       device=points.device)
-    cnt = torch.empty((bsz, v), dtype=torch.float32, device=points.device)
+    return spfh_launch(points, normals, pair_maskf, radius)[:2]
+
+
+def spfh_launch(points: torch.Tensor, normals: torch.Tensor,
+                pair_maskf: torch.Tensor, radius: float):
+    """The kernel's launch on CUDA tensors checked by ``spfh``: (hist,
+    cnt, bounds, lim), the last two the pre-pass's tile AABBs and active
+    limits of the pair mask, which ``fpfh_sums_launch`` can take."""
+    bsz, v = points.shape[:2]
+    dev = points.device
+    hist = torch.empty((bsz, v, FPFH_DIM), dtype=torch.float32, device=dev)
+    cnt = torch.empty((bsz, v), dtype=torch.float32, device=dev)
+    bounds = torch.empty((bsz, -(-v // PAIR_TILE), 8), dtype=torch.float32,
+                         device=dev)
+    lim = torch.empty((bsz,), dtype=torch.int32, device=dev)
     launch("spfh", points, normals, pair_maskf, bsz, v,
-           float(radius * radius), hist, cnt)
+           float(radius * radius), bounds, lim, hist, cnt)
     LAUNCHES["spfh"] += 1
-    return hist, cnt
+    return hist, cnt, bounds, lim
 
 
 # ----------------------------------------------------------------- B5 ----
@@ -279,9 +298,9 @@ def spfh(points: torch.Tensor, normals: torch.Tensor,
 def fpfh_sums_plain(points: torch.Tensor, spfh_rows: torch.Tensor,
                     pair_maskf: torch.Tensor, radius: float) -> torch.Tensor:
     """(B, V, 33): sum_j SPFH_j / max(d2_ij, 1e-12) over valid pairs with
-    1e-12 < d2 <= r^2, each row's terms added in column order as the
-    kernel adds them, one multiply and one add per term (the kernel fuses
-    them): slot k of a row holds its k-th in-radius column, and the slots
+    1e-12 < d2 <= r^2, each row's terms added in column order from 0 as
+    the kernel adds them, the weight, each product and each sum rounded
+    once: slot k of a row holds its k-th in-radius column, and the slots
     are added one after the other. A matrix product would sum in the
     library's order, which follows the thread count."""
     r2 = _r2(radius, points)
@@ -309,17 +328,34 @@ def fpfh_sums_plain(points: torch.Tensor, spfh_rows: torch.Tensor,
 def fpfh_sums(points: torch.Tensor, spfh_rows: torch.Tensor,
               pair_maskf: torch.Tensor, radius: float) -> torch.Tensor:
     """Unnormalised FPFH weighted sums (B, V, 33) f32. Replaces the pair
-    pass of pallas_frontend.py::frontend_fpfh (csrc/fpfh.cu)."""
+    pass of pallas_frontend.py::frontend_fpfh (csrc/fpfh.cu), which skips
+    the points past ``active_limit`` and the tile pairs
+    ``tiles_in_radius`` rejects, and equals the plain version bit for
+    bit."""
     bsz, v = points.shape[:2]
     check("points", points, (bsz, v, 3))
     check("spfh_rows", spfh_rows, (bsz, v, FPFH_DIM))
     check("pair_maskf", pair_maskf, (bsz, v))
     if same_device(points, spfh_rows, pair_maskf).type != "cuda":
         return fpfh_sums_plain(points, spfh_rows, pair_maskf, radius)
-    out = torch.empty((bsz, v, FPFH_DIM), dtype=torch.float32,
-                      device=points.device)
+    return fpfh_sums_launch(points, spfh_rows, pair_maskf, radius)
+
+
+def fpfh_sums_launch(points: torch.Tensor, spfh_rows: torch.Tensor,
+                     pair_maskf: torch.Tensor, radius: float, tiles=None):
+    """The kernel's launch on CUDA tensors checked by ``fpfh_sums``.
+    ``tiles``: (bounds, lim) of the same points and pair mask from
+    ``spfh_launch``, which spare the pre-pass; else it runs first."""
+    bsz, v = points.shape[:2]
+    dev = points.device
+    out = torch.empty((bsz, v, FPFH_DIM), dtype=torch.float32, device=dev)
+    build = tiles is None
+    if build:
+        tiles = (torch.empty((bsz, -(-v // PAIR_TILE), 8),
+                             dtype=torch.float32, device=dev),
+                 torch.empty((bsz,), dtype=torch.int32, device=dev))
     launch("fpfh", points, spfh_rows, pair_maskf, bsz, v,
-           float(radius * radius), out)
+           float(radius * radius), *tiles, int(build), out)
     LAUNCHES["fpfh"] += 1
     return out
 
@@ -329,12 +365,22 @@ def frontend_fpfh(points: torch.Tensor, normals: torch.Tensor,
                   radius: float) -> torch.Tensor:
     """(B, V, 33) FPFH descriptors: SPFH kernel, per-row x100/count
     scaling, weighted-sum kernel, then each 11-bin block normalised to
-    100 (PCL conventions, as pallas_frontend.py::frontend_fpfh)."""
+    100 (PCL conventions, as pallas_frontend.py::frontend_fpfh). On the
+    card the two kernels share the SPFH kernel's tile AABBs and limits:
+    one pre-pass for both."""
     pair_maskf = (mask & normal_valid).to(points.dtype).contiguous()
-    raw, cnt = spfh(points, normals.contiguous(), pair_maskf, radius)
-    spfh_rows = raw * (100.0 / torch.clamp(cnt, min=1.0))[..., None]
-    return normalize_blocks(fpfh_sums(points, spfh_rows.contiguous(),
-                                      pair_maskf, radius))
+    normals = normals.contiguous()
+    on_card = _check_spfh(points, normals, pair_maskf).type == "cuda"
+    if on_card:
+        raw, cnt, *tiles = spfh_launch(points, normals, pair_maskf, radius)
+    else:
+        raw, cnt = spfh_plain(points, normals, pair_maskf, radius)
+    spfh_rows = (raw * (100.0 / torch.clamp(cnt, min=1.0))[..., None]
+                 ).contiguous()
+    sums = (fpfh_sums_launch(points, spfh_rows, pair_maskf, radius, tiles)
+            if on_card else
+            fpfh_sums_plain(points, spfh_rows, pair_maskf, radius))
+    return normalize_blocks(sums)
 
 
 # ------------------------------------------------------------ B7, B6 ----

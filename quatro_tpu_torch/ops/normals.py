@@ -16,6 +16,8 @@ from typing import NamedTuple
 
 import torch
 
+from quatro_tpu_torch.utils import fused
+
 
 class Normals(NamedTuple):
     normals: torch.Tensor    # (N, 3) unit normals (0 where undefined)
@@ -62,6 +64,22 @@ def smallest_eigenpair_sym3(a11, a12, a13, a22, a23, a33):
     return tuple(v * inv for v in vec), eig3
 
 
+def centered_covariance(mom):
+    """Means and covariance of each neighbourhood from its ten
+    raw moment sums ``mom`` = [count, s_x, s_y, s_z, s_xx, s_xy, s_xz,
+    s_yy, s_yz, s_zz] (a sequence of ten tensors, count clamped to 1):
+    ``((m_x, m_y, m_z), (c_xx, c_xy, c_xz, c_yy, c_yz, c_zz))``.
+    Each entry s_ab / count - m_a m_b rounds its product and difference
+    once, as XLA's CPU code fuses them in the JAX package's dense_normals
+    (``fused.fma``): the same sums give the same covariance bits."""
+    cnt = torch.clamp(mom[0], min=1.0)
+    m = tuple(mom[k] / cnt for k in (1, 2, 3))
+    cov = tuple(fused.fma(-m[a], m[b], mom[k] / cnt)
+                for k, a, b in ((4, 0, 0), (5, 0, 1), (6, 0, 2), (7, 1, 1),
+                                (8, 1, 2), (9, 2, 2)))
+    return m, cov
+
+
 def normals_from_moments(points: torch.Tensor, mask: torch.Tensor,
                          mom: torch.Tensor,
                          viewpoint=(0.0, 0.0, 0.0)) -> Normals:
@@ -71,14 +89,8 @@ def normals_from_moments(points: torch.Tensor, mask: torch.Tensor,
     the dense and kernel front ends (identical math to the JAX package's
     dense_normals / normals_from_moments)."""
     c = mom[..., 0]
-    cnt = torch.clamp(c, min=1.0)
-    mdx, mdy, mdz = mom[..., 1] / cnt, mom[..., 2] / cnt, mom[..., 3] / cnt
-    cxx = mom[..., 4] / cnt - mdx * mdx
-    cxy = mom[..., 5] / cnt - mdx * mdy
-    cxz = mom[..., 6] / cnt - mdx * mdz
-    cyy = mom[..., 7] / cnt - mdy * mdy
-    cyz = mom[..., 8] / cnt - mdy * mdz
-    czz = mom[..., 9] / cnt - mdz * mdz
+    _, (cxx, cxy, cxz, cyy, cyz, czz) = centered_covariance(
+        mom[..., :10].unbind(-1))
 
     (n1, n2, n3), lam_min = smallest_eigenpair_sym3(cxx, cxy, cxz, cyy, cyz,
                                                     czz)

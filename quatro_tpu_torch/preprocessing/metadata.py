@@ -19,6 +19,7 @@ import torch
 
 from quatro_tpu_torch.config import LidarConfig
 from quatro_tpu_torch.preprocessing.projection import ProjectionResult
+from quatro_tpu_torch.utils import fused
 from quatro_tpu_torch.utils.fused import f32
 
 
@@ -70,8 +71,8 @@ def compute_scan_metadata(points: torch.Tensor, mask: torch.Tensor,
     first = torch.argmax(valid)
     last = n - 1 - torch.argmax(valid.flip(0))
     two_pi = f32(2 * math.pi)
-    start_o = -torch.atan2(points[first, 1], points[first, 0])
-    end_o = -torch.atan2(points[last, 1], points[last, 0]) + two_pi
+    start_o = -fused.atan2(points[first, 1], points[first, 0])
+    end_o = -fused.atan2(points[last, 1], points[last, 0]) + two_pi
     diff = end_o - start_o
     end_o = torch.where(diff > f32(3 * math.pi), end_o - two_pi,
                         torch.where(diff < f32(math.pi), end_o + two_pi,

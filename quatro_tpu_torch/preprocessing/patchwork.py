@@ -133,7 +133,7 @@ def czm_bin(points: torch.Tensor, mask: torch.Tensor, cfg: PatchworkConfig):
         _zone_tables(cfg)
     x, y = points[..., 0], points[..., 1]
     r = fused.hypot(x, y)
-    theta = torch.atan2(y, x)
+    theta = fused.atan2(y, x)
     theta = torch.where(theta > 0, theta, theta + 2 * math.pi)
 
     in_czm = (r > cfg.min_r) & (r <= cfg.max_r) & mask
@@ -213,6 +213,21 @@ def _seed_heights(hist: torch.Tensor, b0: torch.Tensor,
     return lpr_h, patch_live
 
 
+def plane_covariance(s):
+    """Patch means and covariances from the ten moment sums ``s`` (10, B,
+    P) = [count, s_x, s_y, s_z, s_xx, s_xy, s_xz, s_yy, s_yz, s_zz]:
+    ``((m_x, m_y, m_z), (c_xx, c_xy, c_xz, c_yy, c_yz, c_zz))``. Each
+    entry s_ab / count - m_a m_b rounds its product and its difference
+    apart, where XLA's CPU code rounds them once as
+    ``ops/normals.py::centered_covariance`` does; ROADMAP C ("Standing
+    divergences") says why the plane fit keeps two roundings."""
+    cnt = torch.clamp(s[0], min=1.0)
+    mx, my, mz = s[1] / cnt, s[2] / cnt, s[3] / cnt
+    return (mx, my, mz), (s[4] / cnt - mx * mx, s[5] / cnt - mx * my,
+                          s[6] / cnt - mx * mz, s[7] / cnt - my * my,
+                          s[8] / cnt - my * mz, s[9] / cnt - mz * mz)
+
+
 def estimate_ground(points, mask, cfg: PatchworkConfig = PatchworkConfig()
                     ) -> PatchworkResult:
     """Full Patchwork pass on (B, N, 3) points and (B, N) masks (or one
@@ -275,14 +290,8 @@ def estimate_ground(points, mask, cfg: PatchworkConfig = PatchworkConfig()
         s = fit_iteration_moments(pid, chan, tab, p_pad, p_cnt,
                                   exact=(it + 1 == cfg.num_iter))
         s = s[:, :p_cnt].permute(2, 0, 1)          # (10, B, P)
-        cnt = torch.clamp(s[0], min=1.0)
-        mx_r, my_r, mz_r = s[1] / cnt, s[2] / cnt, s[3] / cnt
-        cxx = s[4] / cnt - mx_r * mx_r
-        cxy = s[5] / cnt - mx_r * my_r
-        cxz = s[6] / cnt - mx_r * mz_r
-        cyy = s[7] / cnt - my_r * my_r
-        cyz = s[8] / cnt - my_r * mz_r
-        czz = s[9] / cnt - mz_r * mz_r
+        (mx_r, my_r, mz_r), (cxx, cxy, cxz, cyy, cyz, czz) = (
+            plane_covariance(s))
         (n1, n2, n3), lam_min = smallest_eigenpair_sym3(cxx, cxy, cxz, cyy,
                                                         cyz, czz)
         # empty or degenerate patches can give NaN normals: sanitise them

@@ -55,12 +55,6 @@ def _deg2rad(deg: float) -> float:
     return float(np.float32(deg) * np.float32(math.pi / 180.0))
 
 
-def _recip(c: float) -> float:
-    """1 / c with c and the quotient rounded to f32: XLA compiles a
-    division by a constant into a multiplication by this reciprocal."""
-    return float(np.float32(1.0) / np.float32(c))
-
-
 def _sin_cos(rad: float):
     """f32 sine and cosine of an f32 angle, taken once on the host so
     that every device uses the same two constants."""
@@ -99,11 +93,11 @@ def project_to_range_image(points: torch.Tensor, mask: torch.Tensor,
     # every synthetic ring lies on a row edge (utils/fused.py), where one
     # rounding moves a ring's row
     deg = fused.f32(_DEG)
-    vert = fused.fma(torch.atan2(z, rxy), deg, fused.f32(lidar.ang_bottom))
-    row = torch.floor(vert * _recip(lidar.ang_res_y)).to(torch.int64)
-    horiz = fused.fma(torch.atan2(x, y), deg, -90.0)
-    col = (-torch.round(horiz * _recip(lidar.ang_res_x))).to(torch.int64) \
-        + cols_n // 2
+    vert = fused.fma(fused.atan2(z, rxy), deg, fused.f32(lidar.ang_bottom))
+    row = torch.floor(vert * fused.recip(lidar.ang_res_y)).to(torch.int64)
+    horiz = fused.fma(fused.atan2(x, y), deg, -90.0)
+    col = (-torch.round(horiz * fused.recip(lidar.ang_res_x))).to(
+        torch.int64) + cols_n // 2
     col = torch.where(col >= cols_n, col - cols_n, col)
 
     ok = (mask & (row >= 0) & (row < rows_n) & (col >= 0) & (col < cols_n)
@@ -160,7 +154,7 @@ def _neighbor_edges(rimg: torch.Tensor, valid: torch.Tensor, dr: int, dc: int,
     d2 = torch.minimum(rimg, shifted)
     sin_a, cos_a = _sin_cos(_deg2rad(lidar.ang_res_x if dr == 0
                                      else lidar.ang_res_y))
-    angle = torch.atan2(d2 * sin_a, fused.fma(d2, -cos_a, d1))
+    angle = fused.atan2(d2 * sin_a, fused.fma(d2, -cos_a, d1))
     return valid & svalid & (angle > theta_rad)
 
 
@@ -312,7 +306,7 @@ def segment_cloud(points: torch.Tensor, mask: torch.Tensor,
         pix_pts = torch.where(occupied[..., None], pix_pts, 0.0)
         diff = torch.roll(pix_pts, -1, dims=1) - pix_pts
         upper_occ = torch.roll(occupied, -1, dims=1)
-        angle = torch.atan2(diff[..., 2],
+        angle = fused.atan2(diff[..., 2],
                             fused.hypot(diff[..., 0], diff[..., 1])) * _DEG
         ridx = torch.arange(rows_n, device=points.device)[:, None]
         gseed = ((torch.abs(angle) <= 10.0) & occupied & upper_occ

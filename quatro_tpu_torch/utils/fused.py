@@ -29,6 +29,13 @@ def f32(v: float) -> float:
     return float(np.float32(v))
 
 
+def recip(c: float) -> float:
+    """1 / c with c and the quotient rounded to f32: XLA compiles a
+    division by a constant into a multiplication by this reciprocal, and
+    CUDA a tensor divided by a Python scalar."""
+    return float(np.float32(1.0) / np.float32(c))
+
+
 def fma(a: torch.Tensor, b, c) -> torch.Tensor:
     """a * b + c (f32 tensors, or Python floats already rounded to f32)
     rounded once to f32."""
@@ -132,6 +139,29 @@ def atan2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     out = torch.where(iy == 0, on_axis, out)
     return torch.where((ix == 0) & (iy != 0),
                        torch.where(hy < 0, -_PI_O_2, _PI_O_2), out)
+
+
+def xla_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in the order of the JAX package's compiled
+    CPU reduction: XLA rewrites a long reduction into windows of 32
+    consecutive entries, each added from 0 one entry after the other,
+    repeated until 32 or fewer partial sums are left, which are then
+    added the same way. The same bits as XLA's where every level's length
+    is a multiple of 32 or at most 32: up to 32, multiples of 32 up to
+    1024 and multiples of 1024 (the dense front end's widths of 2048 and
+    8192 among them). For other lengths XLA's split was not worked out,
+    and the last window is zero-padded here."""
+    while x.shape[-1] > 32:
+        x = torch.nn.functional.pad(x, (0, -x.shape[-1] % 32))
+        x = x.reshape(*x.shape[:-1], -1, 32)
+        acc = torch.zeros_like(x[..., 0])
+        for k in range(32):
+            acc = acc + x[..., k]
+        x = acc
+    acc = torch.zeros_like(x[..., 0])
+    for k in range(x.shape[-1]):
+        acc = acc + x[..., k]
+    return acc
 
 
 def hypot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -2,8 +2,9 @@
 the preprocessing kernels B8-B11: their plain versions, which the wrappers
 run on the CPU, against the JAX package's Pallas kernels in interpret mode
 and against numpy. And the radius-pair kernels' tile culling (B3's
-``tile_bounds`` and ``tiles_in_radius``): it never rejects a tile pair that
-holds a pair within the radius.
+``tile_bounds`` and ``tiles_in_radius``, which B4 and B5 take too): it
+never rejects a tile pair that holds a pair within the radius, at the
+normal radius and at the FPFH radius.
 
 B1 is held exactly (the plain version repeats the Pallas kernel's
 arithmetic); B2, B8 and B9's sums within rtol 1e-5 / atol 1e-4, the f32
@@ -422,7 +423,16 @@ def test_tiles_in_radius_never_rejects_a_pair_in_radius(seed):
     assert n_in > 1000 and skipped > 100
 
 
-@pytest.mark.parametrize("radius", [0.5, 0.85])
+@pytest.mark.parametrize("seed", [1, 2])
+def test_tiles_in_radius_never_rejects_a_pair_at_the_fpfh_radius(seed):
+    """The same at B4's and B5's FPFH radius (0.75 m), where the culling
+    keeps more tile pairs and still rejects some."""
+    pts, maskf = _random_cloud(seed)
+    n_in, skipped, _ = _assert_culling_exact(pts, maskf, 0.75)
+    assert n_in > 1000 and skipped > 50
+
+
+@pytest.mark.parametrize("radius", [0.5, 0.75, 0.85])
 def test_tiles_in_radius_at_the_radius_boundary(radius):
     """Pairs at r and r +- a few ulps, across tile edges and tiles apart,
     alone in their tiles (the gap then is the pair's own offset, so the

@@ -180,22 +180,79 @@ def test_moment_sums_kernel_cases(dev, case):
         assert float(got[..., 0].max()) >= 1.0
 
 
+def _spfh_fpfh_bit_equal(pts, nrm, pmf, r):
+    """B4's counts and bins equal to its plain version run on the card
+    (the same rsqrtf and atan2f) and across two launches, its pre-pass's
+    tile AABBs and active limit equal to tile_bounds and active_limit; B5
+    on B4's rows bit-equal to its plain version on CPU copies, alone and
+    on B4's tile table (as frontend_fpfh launches it). Returns B4's and
+    B5's outputs on the CPU."""
+    before = {k: tf.LAUNCHES[k] for k in ("spfh", "fpfh")}
+    hist, cnt, bounds, lim = tf.spfh_launch(pts, nrm, pmf, r)
+    again = tf.spfh(pts, nrm, pmf, r)
+    assert torch.equal(hist, again[0]) and torch.equal(cnt, again[1])
+    rhist, rcnt = tf.spfh_plain(pts, nrm, pmf, r)
+    assert torch.equal(cnt, rcnt)
+    assert torch.equal(hist, rhist)
+    pc, mc = pts.cpu(), pmf.cpu()
+    assert torch.equal(bounds.cpu(), tf.tile_bounds(pc, mc))
+    assert torch.equal(lim.cpu(), tf.active_limit(mc > 0))
+    rows = (hist * (100.0 / torch.clamp(cnt, min=1.0))[..., None])
+    rows = rows.contiguous()
+    got = tf.fpfh_sums(pts, rows, pmf, r)
+    assert torch.equal(got, tf.fpfh_sums_launch(pts, rows, pmf, r,
+                                                (bounds, lim)))
+    assert torch.equal(got.cpu(), tf.fpfh_sums_plain(pc, rows.cpu(), mc, r))
+    assert {k: tf.LAUNCHES[k] - before[k] for k in before} == \
+        {"spfh": 2, "fpfh": 2}
+    return hist.cpu(), cnt.cpu(), got.cpu()
+
+
 def test_spfh_and_fpfh_kernels(cloud):
     pts, mask = cloud
     normals = tf.frontend_normals(pts, mask, CFG.fpfh.normal_radius)
     nrm = normals.normals.contiguous()
     pmf = (mask & normals.valid).float().contiguous()
-    r = CFG.fpfh.fpfh_radius
-    hist, cnt = tf.spfh(pts, nrm, pmf, r)
-    rhist, rcnt = tf.spfh_plain(pts, nrm, pmf, r)
-    assert torch.equal(cnt, rcnt)
-    flipped = float((hist != rhist).any(-1).float().mean())
-    assert flipped < 0.005, f"bin-edge flips on {flipped:.2%} of rows"
-    rows = (rhist * (100.0 / torch.clamp(rcnt, min=1.0))[..., None])
-    rows = rows.contiguous()
-    torch.testing.assert_close(tf.fpfh_sums(pts, rows, pmf, r),
-                               tf.fpfh_sums_plain(pts, rows, pmf, r),
-                               rtol=1e-4, atol=1e-3)
+    _, cnt, _ = _spfh_fpfh_bit_equal(pts, nrm, pmf, CFG.fpfh.fpfh_radius)
+    assert float(cnt.max()) > 5
+
+
+@pytest.mark.parametrize("case", ["ragged", "one_row", "all_masked",
+                                  "boundary", "holes_first"])
+def test_spfh_fpfh_kernel_cases(dev, case):
+    """B4 and B5 on B3's hard cases at the FPFH radius (0.75 m), with
+    random unit normals: V = 2000 with a ragged last tile; one valid row
+    (no pair: zeros); every row masked (zeros, limit 0); pairs at the
+    radius (d2 == r^2 and a few ulps either side) across tile edges; valid
+    points after masked holes and empty tiles."""
+    rng = np.random.default_rng(43)
+    r = 0.75
+    v = 2000
+    pts = (rng.uniform(-3, 3, (2, v, 3))).astype(np.float32)
+    maskf = (rng.uniform(size=(2, v)) > 0.3).astype(np.float32)
+    if case == "one_row":
+        maskf[:] = 0.0
+        maskf[:, 777] = 1.0
+    elif case == "all_masked":
+        maskf[:] = 0.0
+    elif case == "holes_first":
+        maskf[:, :1500] = 0.0
+        maskf[:, 1500:] = rng.uniform(size=(2, 500)) > 0.5
+        maskf[:, 1600:1664] = 0.0
+        maskf[:, ::7] = 1.0
+    if case == "boundary":
+        pts, maskf = _boundary_pairs(r, 40, rng)
+    else:
+        pts, maskf = torch.from_numpy(pts), torch.from_numpy(maskf)
+    nrm = rng.normal(size=tuple(pts.shape)).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    hist, cnt, sums = _spfh_fpfh_bit_equal(
+        pts.to(dev).contiguous(), torch.from_numpy(nrm).to(dev),
+        maskf.to(dev).contiguous(), r)
+    if case in ("one_row", "all_masked"):
+        assert not bool(cnt.any()) and not bool(sums.any())
+    else:
+        assert float(cnt.max()) >= 1.0            # some pairs at r are in
 
 
 def _nn2_bit_equal(a, b, ma, mb):
@@ -744,6 +801,32 @@ def test_fused_atan2_on_the_card(dev):
     got = fused.atan2(y.to(dev), x.to(dev)).cpu()
     assert torch.equal(got.view(torch.int32), fused.atan2(y, x).view(
         torch.int32))
+
+
+@pytest.mark.parametrize("lidar", ["VLP-16", "Velodyne-64-HDE"])
+def test_angle_bins_on_the_card(dev, lidar):
+    """The synthetic scans put points on angle edges (rings on range-image
+    row edges, every 15th column on a sector edge): Patchwork's CZM patch
+    ids and every output of the range-image projection on the card equal
+    the CPU's, which equal the JAX package's (utils/fused.atan2 on both
+    devices; CUDA's own arctangent is an ulp off on some edge points,
+    ROADMAP C 12)."""
+    from quatro_tpu_torch.preprocessing import patchwork, projection
+    cfg = PipelineConfig.for_lidar(lidar)
+    pair = make_scan_pair(seed=11, yaw_deg=20.0, translation=(2.5, 1.0, 0.05),
+                          lidar=LidarConfig.preset(lidar))
+    for xyz in pair[:2]:
+        pb = PointBatch.from_numpy(xyz, 131072)
+        pts, mask = pb.points[None], pb.mask[None]
+        for got, ref in zip(
+                patchwork.czm_bin(pts.to(dev), mask.to(dev), cfg.patchwork),
+                patchwork.czm_bin(pts, mask, cfg.patchwork)):
+            assert torch.equal(got.cpu(), ref)
+        for got, ref in zip(
+                projection.project_to_range_image(pts.to(dev), mask.to(dev),
+                                                  cfg.lidar),
+                projection.project_to_range_image(pts, mask, cfg.lidar)):
+            assert torch.equal(got.cpu(), ref)
 
 
 def test_teaser_on_jax_path_b_correspondences_on_the_card(dev):
