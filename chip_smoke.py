@@ -79,7 +79,12 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    table), B6, B7 (both directions, with the active limits it found), B8
    and B9 (both flags, with its active limits) are held bit for bit
    against their plain versions run on CPU copies of the same inputs and
-   across two launches; B4's counts and bins equal those of its plain
+   across two launches, B2 also on the arguments of one J^T apply of path
+   S's pose graph, with a row of its own (``pose_graph`` in B2's row), and
+   B1 also on a seeded N = 1000 (rows that start inside a 16-byte piece),
+   and its branch-free square root against __fsqrt_rn on every
+   non-negative float;
+   B4's counts and bins equal those of its plain
    version run on the card (the same rsqrtf and atan2f), and the tile
    pairs kept at the FPFH radius are printed. Each row also
    has the device time per call of the kernel and of the library call
@@ -574,7 +579,9 @@ def phase_sequence(cfg, card):
     """Path S: ``run_sequence`` with Scan Context loop candidates over the
     synthetic 12-scan loop under path A's configuration, with its gates,
     launch counts, the pose graph's repeatability, the windowed runner
-    against ``step``, and its times. Returns the run's launch counts."""
+    against ``step``, and its times. Returns the run's launch counts and
+    the arguments (ids, vals, p_pad) of the pose graph's first J^T apply
+    (its B2 call)."""
     from torch.profiler import ProfilerActivity, profile
 
     from quatro_tpu_torch import sequence
@@ -583,6 +590,7 @@ def phase_sequence(cfg, card):
     from quatro_tpu_torch.ops import launch
     from quatro_tpu_torch.ops.scancontext import (detect_loop_candidates,
                                                   scan_context)
+    from quatro_tpu_torch.parallel import posegraph
     from quatro_tpu_torch.parallel.posegraph import optimize_pose_graph
 
     t0 = time.perf_counter()
@@ -633,9 +641,24 @@ def phase_sequence(cfg, card):
     check(launches == expected,
           f"path S: launch counts {launches} != {expected}")
 
-    # the pose graph again on the run's own edges: the same bits
+    # the pose graph again on the run's own edges: the same bits; its
+    # first J^T apply's B2 arguments recorded (one list append per call)
     (args, kwargs), = graphs
-    again, pg_ms = _synced_ms(lambda: optimize_pose_graph(*args, **kwargs))
+    jt_calls = []
+    jt_sums = posegraph.segment_sums
+
+    def jt_recorder(*a):
+        jt_calls.append(a)
+        return jt_sums(*a)
+
+    posegraph.segment_sums = jt_recorder
+    try:
+        again, pg_ms = _synced_ms(lambda: optimize_pose_graph(*args,
+                                                              **kwargs))
+    finally:
+        posegraph.segment_sums = jt_sums
+    check(len(jt_calls) == gn * (cg + 1),
+          f"path S: {len(jt_calls)} J^T applies in one pose-graph solve")
     check(np.array_equal(again.cpu().numpy(), res.poses),
           "path S: a second pose-graph solve differs")
 
@@ -702,7 +725,7 @@ def phase_sequence(cfg, card):
         "sequence_wall": round(wall_ms, 3),
         "step_median_of_3": round(step_ms, 3),
         "step_device_busy": round(busy, 3)}) + f"; step idle share {idle}")
-    return launches
+    return launches, jt_calls[0]
 
 
 def phase_profile(pair, cfg, wall_ms, top=10):
@@ -878,12 +901,15 @@ def device_ms_per_call(fn, prefix="", reps=10, main=None):
 # 700.00 W, printed beside this run's: the top-2 and histogram kernels with
 # one thread per row each, the moment sums, SPFH and FPFH with one thread
 # per row over every column, the plane-fit moments with an all-pairs
-# compare
+# compare; the segment sums with one thread per bin comparing every entry
+# of its chunk and a second pass, the consistency graph with one thread per
+# byte (the vote's shape and N = 1024)
 FORMER_DEVICE_MS = {"nearest_neighbors2": 1.757077,
                     "cross_histogram": 1.572931,
                     "moment_sums": 0.218100,
                     "spfh": 0.650900, "fpfh": 0.748800,
-                    "fit_iteration_moments": 0.074700}
+                    "fit_iteration_moments": 0.074700,
+                    "segment_sums": 0.030200, "consistency_graph": 0.005400}
 # the kernels of each redesigned wrapper, by the profiler's names, for its
 # device time per launch in path A's profile (chunk_sum_kernel<9> is B9's
 # second pass, <8> B8's). The tile pre-pass that B3 launches and B4
@@ -902,7 +928,7 @@ MAIN_KERNEL = {"moment_sums": "quatro::moment_sums_kernel",
                "nearest_neighbors": "quatro::nn1_kernel",
                "nearest_neighbors2": "quatro::nn2_kernel",
                "consistency_graph": "quatro::consistency_graph_kernel",
-               "segment_sums": "quatro::segment_partials_kernel",
+               "segment_sums": "quatro::segment_sums_kernel",
                "cross_histogram": "quatro::hist_partials_kernel",
                "fit_iteration_moments": "quatro::fit_partials_kernel",
                "classify_points": "quatro::classify_kernel",
@@ -934,10 +960,12 @@ def radius_pair_bytes(mask, per_row, per_valid_row):
     return (mask.numel() * per_row + int(mask.sum()) * per_valid_row) * 4
 
 
-def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b):
+def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b,
+                  jt_call, launches_s):
     """Every kernel against its plain version: B1-B5 and B7-B12 on the
     main path's tensors, with the main path's launch counts (B12's 0: no
-    path launches it); B6 on path B's, with path B's."""
+    path launches it); B6 on path B's, with path B's; B2 also on path S's
+    J^T apply ``jt_call``, with path S's launch counts."""
     from quatro_tpu_torch.ops import frontend as fe
     from quatro_tpu_torch.ops.fpfh import normalize_blocks
 
@@ -961,12 +989,15 @@ def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b):
                 n += int(((d2 <= radius * radius) & (d2 > 1e-12)).sum())
         return n
 
-    def row(name, err, k_fn, p_fn, ops, nbytes, lib_fn=None, launches=None):
+    def row(name, err, k_fn, p_fn, ops, nbytes, lib_fn=None, launches=None,
+            label=None):
         """One kernel's row: CUDA-event ms of the wrapper's call (20 calls),
         of the plain version's (5) and of the library call's (20); the
         device ms per call of the port's kernels (``k_fn`` is one wrapper
         call, one launch of its main kernel) and of the library call
-        (torch.profiler); the bound from this run's data."""
+        (torch.profiler); the bound from this run's data. Appended to the
+        kernel table unless ``label`` names a second shape of the kernel
+        (then only logged, with the label, and returned)."""
         b_ms, by = bound(ops, nbytes)
         r = {"name": name, "route": "cuda", "source": SOURCES[name],
              "replaces": REPLACES[name],
@@ -979,6 +1010,9 @@ def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b):
                                              main=(MAIN_KERNEL[name], 1)),
              "library_device_ms": (device_ms_per_call(lib_fn) if lib_fn
                                    else None)}
+        if label is not None:
+            log(f"{name} ({label}): " + json.dumps(r))
+            return r
         log(json.dumps(r))
         if name in FORMER_DEVICE_MS:
             lib = (f"against the library call's {r['library_ms']:.6f} ms "
@@ -1132,6 +1166,20 @@ def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b):
         lambda: kernels.consistency_graph(cs, ct, beta),
         lambda: kernels.consistency_graph_plain(cs, ct, beta),
         float(n * n) * OPS_GRAPH, 2 * n * 3 * 4 + n * n)
+    # and at N = 1000, whose rows start inside the kernel's 16-byte pieces
+    rng = np.random.default_rng(1000)
+    rs = rng.uniform(-30, 30, (1000, 3)).astype(np.float32)
+    rt = rs + rng.normal(0, 0.5, (1000, 3)).astype(np.float32)
+    rs, rt = (torch.from_numpy(a).to(cs.device) for a in (rs, rt))
+    odd = kernels.consistency_graph(rs, rt, beta)
+    check(torch.equal(odd, kernels.consistency_graph_plain(rs, rt, beta)),
+          "consistency graph differs from plain at N = 1000")
+    log(f"consistency_graph: N 1000 (seeded), {int(odd.sum())} consistent "
+        "pairs, equal to the plain version")
+    check(kernels.sqrt_rn_mismatches() == 0,
+          "the consistency graph's square root differs from __fsqrt_rn")
+    log("consistency_graph: its branch-free square root equals __fsqrt_rn "
+        "on every non-negative float from 0 to +inf")
 
     # B2 segment sums, on the vote's own histogram entries
     adj = tim_consistency_graph(cs, ct, corr.mask, sc.noise_bound, sc.cbar2)
@@ -1164,9 +1212,48 @@ def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b):
                                            segment.SEG_CHUNK),
         float(in_range * kv), nv_ids * 4 * (1 + kv) + p_pad * kv * 4,
         library_segment)
+    rows[-1]["pose_graph"] = segment_sums_pose_graph_row(jt_call, launches_s,
+                                                         row)
     nn1_kernel_row(res_b, cfg_b, launches_b, row)
     preprocessing_kernel_rows(calls, row)
     return rows
+
+
+def segment_sums_pose_graph_row(jt_call, launches_s, row):
+    """B2 on the arguments of one J^T apply of path S's pose graph: bit for
+    bit against its plain version on CPU copies and across two launches,
+    and its row (path S's launches: one per registered edge, 410 per
+    pose-graph solve)."""
+    from quatro_tpu_torch.ops import segment
+
+    ids, vals, p_pad = jt_call
+    got = segment.segment_sums(ids, vals, p_pad)
+    again = segment.segment_sums(ids, vals, p_pad)
+    check(torch.equal(got, again),
+          "segment sums differ between launches (pose graph)")
+    ref = segment.segment_sums_plain(ids.cpu(), vals.cpu(), p_pad,
+                                     segment.SEG_CHUNK)
+    check(torch.equal(got.cpu(), ref), "segment sums differ from the plain "
+          "version on CPU copies (pose graph)")
+    kv, n = vals.shape
+    in_range = int(((ids >= 0) & (ids < p_pad)).sum())
+    log(f"segment_sums (pose graph's J^T apply): N {n}, K {kv}, p_pad "
+        f"{p_pad}, {in_range} entries in range; equal to the plain version "
+        "on CPU copies and across two launches, bit for bit")
+    dest = torch.where((ids >= 0) & (ids < p_pad), ids, p_pad).long()
+    src_rows = vals.T.contiguous()
+
+    def library_segment():
+        return torch.zeros((p_pad + 1, kv), device=vals.device).index_add_(
+            0, dest, src_rows)
+
+    return row("segment_sums", float((got.cpu() - ref).abs().max()),
+               lambda: segment.segment_sums(ids, vals, p_pad),
+               lambda: segment.segment_sums_plain(ids, vals, p_pad,
+                                                  segment.SEG_CHUNK),
+               float(in_range * kv), n * 4 * (1 + kv) + p_pad * kv * 4,
+               library_segment, launches=launches_s["segment_sums"],
+               label="pose graph's J^T apply on path S")
 
 
 def preprocessing_kernel_rows(calls, row):
@@ -1328,10 +1415,10 @@ def main() -> int:
              0.5)):
         phase_pipeline(entry, pairs[pair], gts["raw"], cfgs[cfg], name,
                        expected, EARLIER_REPEATS, max_terr=max_terr)
-    phase_sequence(cfgs["A"], card)
+    launches_s, jt_call = phase_sequence(cfgs["A"], card)
     phase_profile(pairs["tilted"], cfgs["A"], wall_a)
     rows = phase_kernels(res_a, cfgs["A"], launches_a, calls, res_b,
-                         cfgs["B"], launches_b)
+                         cfgs["B"], launches_b, jt_call, launches_s)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -42,7 +42,7 @@ SIGNATURES = {
     "consistency_graph": ("quatro_consistency_graph",
                           [_P, _P, _I, _F, _P, _P]),
     "segment_sums": ("quatro_segment_sums",
-                     [_P, _P, _I, _I, _I, _I, _P, _P, _P]),
+                     [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P]),
     "cross_histogram": ("quatro_cross_histogram",
                         [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P]),
     "fit_iteration_moments": ("quatro_fit_iteration_moments",
@@ -53,6 +53,12 @@ SIGNATURES = {
     "image_lookup": ("quatro_image_lookup", [_P, _P, _I, _I, _I, _P, _P]),
     "table_lookup": ("quatro_table_lookup", [_P, _P, _I, _I, _I, _I, _P, _P]),
 }
+
+# Further C functions of a kernel's library: name -> (source, symbol,
+# argument types). B1's library also exports the exhaustive check of its
+# square root against __fsqrt_rn.
+EXTRA = {"sqrt_rn_check": ("consistency_graph", "quatro_sqrt_rn_check",
+                           [_P, _P])}
 
 _loaded: dict = {}
 build_log: dict = {}    # name -> {"seconds": s, "ptxas": text}; last build
@@ -112,12 +118,13 @@ def build(names=None, force: bool = False) -> dict:
 
 
 def load(name: str):
-    """The ctypes function of kernel ``name``, building it if needed."""
+    """The ctypes function of kernel ``name`` (or of ``EXTRA``), building
+    its library if needed."""
     fn = _loaded.get(name)
     if fn is None:
-        build([name])
-        symbol, argtypes = SIGNATURES[name]
-        lib = ctypes.CDLL(str(BUILD_DIR / f"lib{name}.so"))
+        source, symbol, argtypes = EXTRA.get(name) or (name, *SIGNATURES[name])
+        build([source])
+        lib = ctypes.CDLL(str(BUILD_DIR / f"lib{source}.so"))
         fn = getattr(lib, symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

@@ -46,6 +46,17 @@ def consistency_graph(src: torch.Tensor, tgt: torch.Tensor,
     if same_device(src, tgt).type != "cuda":
         return consistency_graph_plain(src, tgt, beta)
     out = torch.empty((n, n), dtype=torch.bool, device=src.device)
+    if n == 0:
+        return out
     launch("consistency_graph", src, tgt, n, float(beta), out)
     LAUNCHES["consistency_graph"] += 1
     return out
+
+
+def sqrt_rn_mismatches(device="cuda") -> int:
+    """The non-negative floats, 0 to +inf, on which the B1 kernel's
+    branch-free square root differs from CUDA's __fsqrt_rn (IEEE's) in any
+    bit: 0 is the kernel's contract. Runs on the card only."""
+    bad = torch.zeros(1, dtype=torch.int64, device=device)
+    launch("sqrt_rn_check", bad)
+    return int(bad.item())

@@ -41,12 +41,13 @@ def same_device(*ts):
     return dev
 
 
-def launch(name: str, *args) -> None:
-    """Launch kernel ``name`` on the current stream; tensors are passed as
-    their device pointers."""
+def launch(name: str, *args, stream: int | None = None) -> None:
+    """Launch kernel ``name`` on ``stream`` (default: the current stream);
+    tensors are passed as their device pointers."""
     from quatro_tpu_torch import _build
     args = [a.data_ptr() if torch.is_tensor(a) else a for a in args]
-    stream = torch.cuda.current_stream().cuda_stream
+    if stream is None:
+        stream = torch.cuda.current_stream().cuda_stream
     rc = _build.load(name)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")

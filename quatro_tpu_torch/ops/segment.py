@@ -35,7 +35,7 @@ import torch
 from quatro_tpu_torch.ops.launch import (LAUNCHES, active_limit, check,
                                          launch, same_device)
 
-SEG_CHUNK = 1024        # entries per block of B2's first pass
+SEG_CHUNK = 1024        # entries per block of B2 (its block size)
 HIST_CHUNK = 8192       # points per partial histogram of B8
 FIT_CHUNK = 1024        # points per partial moment table of B9
 HIST_ROWS = 32          # histogram rows per block of B8 (shared memory)
@@ -74,20 +74,45 @@ def segment_sums(ids: torch.Tensor, vals: torch.Tensor,
     """out[p, k] = sum over i with ids[i] == p of vals[k, i]; ids (N,)
     int32, vals (K, N) f32, any N, K and p_pad; ids outside [0, p_pad)
     are dropped. Returns (p_pad, K) f32. Replaces
-    segment_matmul.py::segment_sums (csrc/segment_sums.cu); on the card
-    the sums repeat bit for bit from run to run."""
+    segment_matmul.py::segment_sums (csrc/segment_sums.cu, one launch per
+    call); on the card the sums repeat bit for bit from run to run."""
     k, n = vals.shape
     check("ids", ids, (n,), torch.int32)
     check("vals", vals, (k, n))
-    if same_device(ids, vals).type != "cuda":
+    dev = same_device(ids, vals)
+    if dev.type != "cuda":
         return segment_sums_plain(ids, vals, p_pad, SEG_CHUNK)
-    chunks = -(-n // SEG_CHUNK)
-    partial = torch.empty((chunks, p_pad, k), dtype=torch.float32,
-                          device=vals.device)
-    out = torch.empty((p_pad, k), dtype=torch.float32, device=vals.device)
-    launch("segment_sums", ids, vals, n, k, p_pad, SEG_CHUNK, partial, out)
+    out = torch.empty((p_pad, k), dtype=torch.float32, device=dev)
+    if p_pad == 0 or k == 0:
+        return out
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    partial = ticket = 0
+    if n > SEG_CHUNK:
+        ticket, partial = _segment_scratch(dev, stream,
+                                           -(-n // SEG_CHUNK) * p_pad * k)
+    launch("segment_sums", ids, vals, n, k, p_pad, SEG_CHUNK, partial,
+           ticket, out, stream=stream)
     LAUNCHES["segment_sums"] += 1
     return out
+
+
+# B2's scratch where N > SEG_CHUNK, per (device, stream): the last block's
+# ticket (an int32 that the kernel leaves at 0) and the chunks' partial
+# sums, grown when a call needs more. Two kernels on one stream run one
+# after the other; two on different streams could run at once and would
+# corrupt each other's ticket and partials, so each stream has its own.
+_SEG_SCRATCH: dict = {}
+
+
+def _segment_scratch(dev: torch.device, stream: int, floats: int):
+    buf = _SEG_SCRATCH.get((dev.index, stream))
+    if buf is None:
+        buf = _SEG_SCRATCH[(dev.index, stream)] = [
+            torch.zeros(1, dtype=torch.int32, device=dev),
+            torch.empty(0, dtype=torch.float32, device=dev)]
+    if buf[1].numel() < floats:
+        buf[1] = torch.empty(floats, dtype=torch.float32, device=dev)
+    return buf
 
 
 # ----------------------------------------------------------------- B8 ----

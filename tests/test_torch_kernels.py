@@ -103,9 +103,12 @@ def _add_at(ids, vals, p_pad):
 
 
 # an arbitrary 640 bins, N two TPU tiles (Patchwork's own p_pad is 512),
-# and the vote's shape (N = 64 anchors x 1024 correspondences, K = 3, 256
-# bins)
-@pytest.mark.parametrize("n,k,p_pad", [(2 * 8192, 5, 640), (65536, 3, 256)])
+# the vote's shape (N = 64 anchors x 1024 correspondences, K = 3, 256
+# bins), and the pose graph's J^T apply (two ends of 19 edges, K = 4, 12
+# poses), where the JAX package takes its one-hot fallback (N is no
+# multiple of 8192)
+@pytest.mark.parametrize("n,k,p_pad", [(2 * 8192, 5, 640), (65536, 3, 256),
+                                       (38, 4, 12)])
 def test_segment_sums_plain(n, k, p_pad):
     ids, vals = _segment_inputs(n, k, p_pad, seed=n + k)
     ref = np.asarray(jax_segment_sums(jnp.asarray(ids), jnp.asarray(vals),

@@ -507,6 +507,74 @@ def test_segment_sums_kernel(recommended):
             i.cpu(), v.cpu(), p, segment.SEG_CHUNK))
 
 
+def _segment_sums_bit_equal(ids, vals, p_pad):
+    """B2 against its plain version on CPU copies and across two launches,
+    bit for bit, with one launch per call and the last block's ticket back
+    at 0."""
+    before = tf.LAUNCHES["segment_sums"]
+    got = segment.segment_sums(ids, vals, p_pad)
+    again = segment.segment_sums(ids, vals, p_pad)
+    assert tf.LAUNCHES["segment_sums"] == before + 2
+    assert torch.equal(got, again)
+    assert torch.equal(got.cpu(), segment.segment_sums_plain(
+        ids.cpu(), vals.cpu(), p_pad, segment.SEG_CHUNK))
+    for ticket, _ in segment._SEG_SCRATCH.values():
+        assert int(ticket.item()) == 0
+
+
+def _segment_case(dev, n, k, lo, hi, seed):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(lo, hi, n).astype(np.int32)
+    vals = rng.normal(0, 10, (k, n)).astype(np.float32)
+    return torch.from_numpy(ids).to(dev), torch.from_numpy(vals).to(dev)
+
+
+# N around one chunk (1024) and the pose graph's 38; p_pad 12 (the pose
+# graph's) and 300 (two blocks of 256 bins); ids out of range both sides
+@pytest.mark.parametrize("p_pad", [12, 300])
+@pytest.mark.parametrize("k", [3, 4, 10])
+@pytest.mark.parametrize("n", [1, 38, 1023, 1024, 1025, 65536 + 7])
+def test_segment_sums_kernel_shapes(dev, n, k, p_pad):
+    _segment_sums_bit_equal(*_segment_case(dev, n, k, -3, p_pad + 3,
+                                           n + k + p_pad), p_pad)
+
+
+@pytest.mark.parametrize("case", ["one_bin", "out_of_range", "empty"])
+def test_segment_sums_kernel_cases(dev, case):
+    """Every entry in one bin (each chunk's run is all of it: the vote's
+    true yaw at its worst), every id out of range (zeros), and N = 0."""
+    n = {"empty": 0}.get(case, 65536 + 7)
+    lo, hi = {"one_bin": (77, 78), "out_of_range": (256, 300)}.get(
+        case, (0, 256))
+    ids, vals = _segment_case(dev, n, 3, lo, hi, 5)
+    _segment_sums_bit_equal(ids, vals, 256)
+    if case != "one_bin":
+        assert not segment.segment_sums(ids, vals, 256).any()
+
+
+def test_consistency_graph_sqrt_is_ieee(dev):
+    """B1's branch-free square root (``sqrt_rn`` in
+    csrc/consistency_graph.cu) gives __fsqrt_rn's bits on every
+    non-negative float from 0 to +inf."""
+    assert kernels.sqrt_rn_mismatches(dev) == 0
+
+
+@pytest.mark.parametrize("n", [1, 17, 1000, 1024, 2048])
+def test_consistency_graph_kernel_sizes(dev, n):
+    """B1 at sizes that are and are not multiples of 16 (rows that start
+    inside a 16-byte piece): equal to its plain version, and symmetric."""
+    rng = np.random.default_rng(n)
+    src = rng.uniform(-20, 20, (n, 3)).astype(np.float32)
+    tgt = src + rng.normal(0, 0.5, (n, 3)).astype(np.float32)
+    src, tgt = (torch.from_numpy(a).to(dev) for a in (src, tgt))
+    before = tf.LAUNCHES["consistency_graph"]
+    got = kernels.consistency_graph(src, tgt, 0.6)
+    assert tf.LAUNCHES["consistency_graph"] == before + 1
+    assert torch.equal(got, kernels.consistency_graph_plain(src, tgt, 0.6))
+    assert torch.equal(got, got.T)
+    assert 0 < int(got.sum()) < n * n or n == 1
+
+
 def test_plain_graph_refused_on_the_card(dev, recommended):
     corr = recommended[0].correspondences
     with pytest.raises(ValueError, match="CPU only"):

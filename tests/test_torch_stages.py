@@ -115,17 +115,23 @@ def test_dense_normals_eigen_inputs_are_the_jax_packages(level_a,
     then the covariance), hands its own, on the valid level_a voxels (2048,
     radius 0.5 m): the moment sums (``dense_moment_sums``) and the
     covariance (``centered_covariance``) take the package's arithmetic,
-    and what the normals still differ by is the eigen solve's."""
+    and what the normals still differ by is the eigen solve's.
+
+    JAX caches a trace by the Python function it traces, so a jit of
+    ``dense_normals.__wrapped__`` itself reuses any trace of
+    ``dense_normals`` made earlier in the process at the same shapes (as
+    tests/test_torch_frontend.py makes one), and the spy is never traced.
+    The JAX side therefore traces a fresh closure, which no earlier trace
+    can serve."""
     pts, masks, jc, tc = level_a
     vp, vm = voxel_downsample(_t(pts[0]), _t(masks[0]), tc.voxel_size, 2048,
                               active_cap=tc.max_segment_points)
     radius = tc.fpfh.normal_radius
     ref = _eigen_inputs(monkeypatch, jdf, True)
     got = _eigen_inputs(monkeypatch, tnm, False)
-    # a compile of its own, so that the recording is traced in
-    jax.jit(jdf.dense_normals.__wrapped__,
-            static_argnames=("radius", "tile"))(
-        jnp.asarray(vp.numpy()), jnp.asarray(vm.numpy()), radius)
+    # a function object of its own, traced anew, so that the spy is traced in
+    jax.jit(lambda p, m: jdf.dense_normals.__wrapped__(p, m, radius))(
+        jnp.asarray(vp.numpy()), jnp.asarray(vm.numpy()))
     jax.effects_barrier()
     dense_normals(vp, vm, radius)
     assert len(ref) == 1 and len(got) == 1
