@@ -125,8 +125,10 @@ OPS_PAIR_TEST = 9
 OPS_MOMENTS = 16          # 10 accumulations, 6 products
 OPS_SPFH = 80             # Darboux frame, atan2 and three bins (approx.)
 OPS_FPFH = 2 + 2 * 33     # weight (max, divide), 33 products and sums
-OPS_NN = 2 * 33 + 4       # 33 FMAs, the expansion, the top-2 compares
-OPS_NN1 = 2 * 33 + 4      # 33 FMAs, the expansion (3), the compare
+OPS_NN = 2 * 33 + 4       # 33 multiplies and 33 adds (unfused), the
+                          # expansion, the top-2 compares
+OPS_NN1 = 2 * 33 + 4      # 33 multiplies and 33 adds (unfused), the
+                          # expansion (3), the compare
 OPS_GRAPH = 21            # per pair: 2 x (3 sub, 3 mul, 2 add, sqrt),
                           # sub, abs, compare
 OPS_PLANE = 6             # per point: projection (3 mul, 2 add), compare
@@ -810,6 +812,9 @@ def nn1_kernel_row(res_b, cfg, launches_b, row):
         return torch.where(empty, 0, idx), torch.where(empty, fe.FLT_MAX, d2)
 
     idx, d2 = fe.nearest_neighbors(da, db, ma, mb)
+    again = fe.nearest_neighbors(da, db, ma, mb)
+    check(torch.equal(idx, again[0]) and torch.equal(d2, again[1]),
+          "1-NN kernel differs between launches")
     i1, d1, _, _ = fe.nearest_neighbors2(da, db, ma, mb)
     check(torch.equal(idx, i1) and torch.equal(d2, d1),
           "1-NN kernel differs from the top-2 kernel's first slot")
@@ -822,10 +827,18 @@ def nn1_kernel_row(res_b, cfg, launches_b, row):
     rd2 = torch.where(empty, fe.FLT_MAX, rd2)
     check(torch.equal(idx.cpu(), ridx) and torch.equal(d2.cpu(), rd2),
           "1-NN differs from its plain version on CPU copies")
+    r_end, c_end = fe.nn_active_limits(ma, mb)[0].tolist()
+    tiles, splits = -(-v // fe.NN1_ROWS), -(-v // fe.NN1_SPLIT)
+    busy_tiles = -(-r_end // fe.NN1_ROWS)
+    busy = busy_tiles * max(1, -(-c_end // fe.NN1_SPLIT))
     log(f"nearest_neighbors: {int(ma.sum())} valid source rows, "
-        f"{int(mb.sum())} valid target columns; equal to the top-2 "
-        "kernel's first slot and to the plain version on CPU copies, bit "
-        "for bit")
+        f"{int(mb.sum())} valid target columns; active limits {r_end} rows, "
+        f"{c_end} columns of {v}; {busy} of {tiles * splits} blocks did work "
+        f"({busy_tiles} row tiles of {fe.NN1_ROWS} x "
+        f"{max(1, -(-c_end // fe.NN1_SPLIT))} splits of {fe.NN1_SPLIT} "
+        f"columns), {tiles - busy_tiles} wrote empty rows; equal across two "
+        "launches, to the top-2 kernel's first slot and to the plain version "
+        "on CPU copies, bit for bit")
 
     def library_nn():
         d = torch.cdist(da[0], db[0]).square()
@@ -843,9 +856,10 @@ def _device_hits(fn, name, reps, main=None, tries=5):
     """The profiler's device events (kernels, copies, fills) whose name
     holds ``name`` over ``reps`` calls of ``fn``, each with its launches
     per call, as [(event, launches per call)]. The profiler misses the
-    first device event of a profiled run, and now and then more, so an
-    event seen ``c`` times ran ceil(c / reps) times per call. A run is
-    taken when at most one launch is missing in all and, with ``main`` =
+    first device event of a profiled run, and now and then the first of
+    another (bincount's run: its first reduction and its first fill), so
+    an event seen ``c`` times ran ceil(c / reps) times per call. A run is
+    taken when no event misses more than one launch and, with ``main`` =
     (kernel, launches per call), that kernel ran its launches per call;
     else it profiles again."""
     from torch.profiler import ProfilerActivity, profile
@@ -861,7 +875,7 @@ def _device_hits(fn, name, reps, main=None, tries=5):
                 if e.device_type == torch.autograd.DeviceType.CUDA
                 and not e.is_user_annotation and e.self_device_time_total > 0
                 and name in e.key]
-        missing = sum(k * reps - e.count for e, k in hits)
+        missing = max((k * reps - e.count for e, k in hits), default=0)
         if hits and missing <= 1 and (main is None or sum(
                 k for e, k in hits if main[0] in e.key) == main[1]):
             return hits
@@ -884,14 +898,14 @@ def device_ms_per_launch(fn, kernel, reps=10):
         e.count for e, _ in hits)
 
 
-def device_ms_per_call(fn, prefix="", reps=10, main=None):
+def device_ms_per_call(fn, prefix="", reps=10, main=None, tries=5):
     """Mean device time of one call of ``fn``: each device event (kernel,
     copy, fill) it runs whose name holds ``prefix`` ("quatro::" for the
     port's own kernels, "" for all), at its mean device time from
     torch.profiler over ``reps`` calls, times its launches per call
     (``_device_hits``, with ``main``); None where no profiled run saw
     every call."""
-    hits = _device_hits(fn, prefix, reps, main)
+    hits = _device_hits(fn, prefix, reps, main, tries)
     if not hits:
         return None
     return sum(e.self_device_time_total / e.count * k for e, k in hits) / 1e3
@@ -903,13 +917,16 @@ def device_ms_per_call(fn, prefix="", reps=10, main=None):
 # per row over every column, the plane-fit moments with an all-pairs
 # compare; the segment sums with one thread per bin comparing every entry
 # of its chunk and a second pass, the consistency graph with one thread per
-# byte (the vote's shape and N = 1024)
+# byte (the vote's shape and N = 1024); the 1-NN with 8 threads a row over
+# every column and no limits (path B's shapes), the table lookup with one
+# thread a point and 4-byte stores after the table's staging
 FORMER_DEVICE_MS = {"nearest_neighbors2": 1.757077,
                     "cross_histogram": 1.572931,
                     "moment_sums": 0.218100,
                     "spfh": 0.650900, "fpfh": 0.748800,
                     "fit_iteration_moments": 0.074700,
-                    "segment_sums": 0.030200, "consistency_graph": 0.005400}
+                    "segment_sums": 0.030200, "consistency_graph": 0.005400,
+                    "nearest_neighbors": 0.169200, "table_lookup": 0.004800}
 # the kernels of each redesigned wrapper, by the profiler's names, for its
 # device time per launch in path A's profile (chunk_sum_kernel<9> is B9's
 # second pass, <8> B8's). The tile pre-pass that B3 launches and B4
@@ -990,14 +1007,15 @@ def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b,
         return n
 
     def row(name, err, k_fn, p_fn, ops, nbytes, lib_fn=None, launches=None,
-            label=None):
+            label=None, lib_main=None):
         """One kernel's row: CUDA-event ms of the wrapper's call (20 calls),
         of the plain version's (5) and of the library call's (20); the
         device ms per call of the port's kernels (``k_fn`` is one wrapper
         call, one launch of its main kernel) and of the library call
-        (torch.profiler); the bound from this run's data. Appended to the
-        kernel table unless ``label`` names a second shape of the kernel
-        (then only logged, with the label, and returned)."""
+        (torch.profiler; ``lib_main`` names the library's main kernel and
+        its launches per call); the bound from this run's data. Appended to
+        the kernel table unless ``label`` names a second shape of the
+        kernel (then only logged, with the label, and returned)."""
         b_ms, by = bound(ops, nbytes)
         r = {"name": name, "route": "cuda", "source": SOURCES[name],
              "replaces": REPLACES[name],
@@ -1008,8 +1026,9 @@ def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b,
              "library_ms": cuda_ms(lib_fn) if lib_fn else None,
              "device_ms": device_ms_per_call(k_fn, "quatro::",
                                              main=(MAIN_KERNEL[name], 1)),
-             "library_device_ms": (device_ms_per_call(lib_fn) if lib_fn
-                                   else None)}
+             "library_device_ms": (device_ms_per_call(lib_fn, main=lib_main,
+                                                      tries=10)
+                                   if lib_fn else None)}
         if label is not None:
             log(f"{name} ({label}): " + json.dumps(r))
             return r
@@ -1292,7 +1311,8 @@ def preprocessing_kernel_rows(calls, row):
         lambda: segment.cross_histogram_plain(ids_a, ids_b, w, a_pad, b_pad),
         float(inr.sum()) * k, bsz * n * 4 * (2 + k) + bsz * k * bins * 4,
         lambda: torch.bincount(flat_key, weights=flat_w,
-                               minlength=bsz * k * (bins + 1)))
+                               minlength=bsz * k * (bins + 1)),
+        lib_main=("kernelHistogram1D", 1))
 
     # B9 plane-fit moments: iterations 1-2 in bf16, the last exact
     errs = []

@@ -38,7 +38,8 @@ SIGNATURES = {
     "fpfh": ("quatro_fpfh", [_P, _P, _P, _I, _I, _F, _P, _P, _I, _P, _P]),
     "nn2": ("quatro_nn2", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _P, _P, _P, _P, _P]),
-    "nn1": ("quatro_nn1", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P]),
+    "nn1": ("quatro_nn1", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
+                           _P, _P, _P, _P]),
     "consistency_graph": ("quatro_consistency_graph",
                           [_P, _P, _I, _F, _P, _P]),
     "segment_sums": ("quatro_segment_sums",

@@ -28,11 +28,13 @@ from quatro_tpu_torch.ops.fpfh import (FPFH_DIM, NUM_BINS, _bin_index,
                                       normalize_blocks)
 from quatro_tpu_torch.ops.launch import (LAUNCHES, active_limit,  # noqa: F401
                                          check, launch, reset_launches,
-                                         same_device)
+                                         same_device, stream_scratch)
 from quatro_tpu_torch.ops.normals import Normals, normals_from_moments
 
 FLT_MAX = torch.finfo(torch.float32).max
 NN_CHUNK = 2048          # column chunk of the top-2 tie rule
+NN1_ROWS = 64            # A rows per work item of B6's kernel
+NN1_SPLIT = 256          # B columns per work item of B6's kernel
 PAIR_TILE = 32           # points per AABB tile of the radius-pair kernels
 _ROW_TILE = 512          # rows per step of the plain versions (memory)
 
@@ -529,9 +531,12 @@ def nearest_neighbors(desc_a: torch.Tensor, desc_b: torch.Tensor,
     (int32 index, f32 squared distance), the first minimum on ties. desc
     (B, N, 33) f32, masks (B, N) bool. Invalid rows, and rows with no
     valid column, get index 0 / f32 max. Replaces
-    pallas_frontend.py::nearest_neighbors_pallas (csrc/nn1.cu); equals
+    pallas_frontend.py::nearest_neighbors_pallas (csrc/nn1.cu, which
+    skips rows and columns past ``nn_active_limits`` and splits the
+    columns into NN1_SPLIT-wide work items, one launch per call); equals
     the first slot of ``nearest_neighbors2``."""
     bsz, na = desc_a.shape[:2]
+    nb = desc_b.shape[1]
     dev, maskf_a, maskf_b, sq_a, sq_b = _nn_inputs(desc_a, desc_b, mask_a,
                                                    mask_b)
     if dev.type != "cuda":
@@ -540,8 +545,15 @@ def nearest_neighbors(desc_a: torch.Tensor, desc_b: torch.Tensor,
     else:
         idx = torch.empty((bsz, na), dtype=torch.int32, device=dev)
         d2 = torch.empty((bsz, na), dtype=torch.float32, device=dev)
-        launch("nn1", desc_a, desc_b, sq_a, sq_b, maskf_a, maskf_b, bsz, na,
-               desc_b.shape[1], idx, d2)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        partial = ticket = 0
+        if nb > NN1_SPLIT:
+            tiles = bsz * -(-na // NN1_ROWS)
+            ticket, partial = stream_scratch(
+                dev, stream, tiles, 2 * tiles * -(-nb // NN1_SPLIT) * NN1_ROWS)
+        launch("nn1", desc_a, desc_b, sq_a, sq_b, maskf_a, maskf_b,
+               nn_active_limits(mask_a, mask_b), bsz, na, nb, NN1_SPLIT,
+               partial, ticket, idx, d2, stream=stream)
         LAUNCHES["nearest_neighbors"] += 1
     empty = ~mask_a | (d2 >= FLT_MAX)
     return torch.where(empty, 0, idx), torch.where(empty, FLT_MAX, d2)

@@ -53,6 +53,31 @@ def launch(name: str, *args, stream: int | None = None) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
+# Scratch of the kernels whose last block merges the others' partials (B2,
+# B6), per (device, stream): int32 tickets that are 0 and that every kernel
+# leaves at 0, and f32 words for the partials, grown when a call needs
+# more. Kernels on one stream run one after the other, so they can share
+# it; two on different streams could run at once and would corrupt each
+# other's tickets and partials, so each stream has its own.
+_SCRATCH: dict = {}
+
+
+def stream_scratch(dev: torch.device, stream: int, tickets: int,
+                   words: int):
+    """[tickets (int32, zeros), partials (f32)] of at least the sizes asked
+    for, on ``dev`` for ``stream``."""
+    buf = _SCRATCH.get((dev.index, stream))
+    if buf is None:
+        buf = _SCRATCH[(dev.index, stream)] = [
+            torch.zeros(0, dtype=torch.int32, device=dev),
+            torch.empty(0, dtype=torch.float32, device=dev)]
+    if buf[0].numel() < tickets:
+        buf[0] = torch.zeros(tickets, dtype=torch.int32, device=dev)
+    if buf[1].numel() < words:
+        buf[1] = torch.empty(words, dtype=torch.float32, device=dev)
+    return buf
+
+
 def active_limit(mask: torch.Tensor) -> torch.Tensor:
     """(B,) int32: one past the last True entry of each row of ``mask``
     (0 where there is none), as a reduction on the mask's device with

@@ -33,7 +33,7 @@ from __future__ import annotations
 import torch
 
 from quatro_tpu_torch.ops.launch import (LAUNCHES, active_limit, check,
-                                         launch, same_device)
+                                         launch, same_device, stream_scratch)
 
 SEG_CHUNK = 1024        # entries per block of B2 (its block size)
 HIST_CHUNK = 8192       # points per partial histogram of B8
@@ -88,31 +88,12 @@ def segment_sums(ids: torch.Tensor, vals: torch.Tensor,
     stream = torch.cuda.current_stream(dev).cuda_stream
     partial = ticket = 0
     if n > SEG_CHUNK:
-        ticket, partial = _segment_scratch(dev, stream,
-                                           -(-n // SEG_CHUNK) * p_pad * k)
+        ticket, partial = stream_scratch(dev, stream, 1,
+                                         -(-n // SEG_CHUNK) * p_pad * k)
     launch("segment_sums", ids, vals, n, k, p_pad, SEG_CHUNK, partial,
            ticket, out, stream=stream)
     LAUNCHES["segment_sums"] += 1
     return out
-
-
-# B2's scratch where N > SEG_CHUNK, per (device, stream): the last block's
-# ticket (an int32 that the kernel leaves at 0) and the chunks' partial
-# sums, grown when a call needs more. Two kernels on one stream run one
-# after the other; two on different streams could run at once and would
-# corrupt each other's ticket and partials, so each stream has its own.
-_SEG_SCRATCH: dict = {}
-
-
-def _segment_scratch(dev: torch.device, stream: int, floats: int):
-    buf = _SEG_SCRATCH.get((dev.index, stream))
-    if buf is None:
-        buf = _SEG_SCRATCH[(dev.index, stream)] = [
-            torch.zeros(1, dtype=torch.int32, device=dev),
-            torch.empty(0, dtype=torch.float32, device=dev)]
-    if buf[1].numel() < floats:
-        buf[1] = torch.empty(floats, dtype=torch.float32, device=dev)
-    return buf
 
 
 # ----------------------------------------------------------------- B8 ----

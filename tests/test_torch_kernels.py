@@ -4,7 +4,10 @@ run on the CPU, against the JAX package's Pallas kernels in interpret mode
 and against numpy. And the radius-pair kernels' tile culling (B3's
 ``tile_bounds`` and ``tiles_in_radius``, which B4 and B5 take too): it
 never rejects a tile pair that holds a pair within the radius, at the
-normal radius and at the FPFH radius.
+normal radius and at the FPFH radius. And the premise of B6's kernel: the
+first minimum over all columns is the least (d2, index) over column splits
+merged in any order, bit-equal to ``nearest_neighbors_plain`` and, on 1/8-
+grid descriptors, to the JAX package's Pallas 1-NN.
 
 B1 is held exactly (the plain version repeats the Pallas kernel's
 arithmetic); B2, B8 and B9's sums within rtol 1e-5 / atol 1e-4, the f32
@@ -13,6 +16,7 @@ torch; counts, B9's membership and bf16-rounded channels, and B10 and B11
 exactly.
 """
 
+import functools
 import os
 import subprocess
 import sys
@@ -23,6 +27,7 @@ import pytest
 import torch
 
 from quatro_tpu.io.synthetic import make_correspondences
+from quatro_tpu.ops import pallas_frontend as jpf
 from quatro_tpu.ops.pallas_kernels import consistency_graph_pallas
 from quatro_tpu.ops import segment_matmul as jsm
 from quatro_tpu.ops.segment_matmul import segment_sums as jax_segment_sums
@@ -458,3 +463,112 @@ def test_tiles_in_radius_at_the_radius_boundary(radius):
         assert bool(ok_tiles[rt, ct]) == inside
         outside += not inside
     assert 0 < outside < len(alone)
+
+
+# ------------------------------------------------------------------ B6 ---
+
+def _split_merge_nn(desc_a, desc_b, maskf_a, maskf_b, sq_a, sq_b, width):
+    """A plain model of csrc/nn1.cu's column splits, before the wrapper's
+    fill: per batch entry, each split of ``width`` columns gives each row's
+    first minimum over its columns (the distances of ``_chunk_d2`` under
+    the active limits), and the splits merge by the least (d2, index),
+    last split first (any order gives the same)."""
+    bsz, na = desc_a.shape[:2]
+    nb = desc_b.shape[1]
+    lims = tf.nn_active_limits(maskf_a > 0, maskf_b > 0).tolist()
+    outs = []
+    for b in range(bsz):
+        best_d = torch.full((na,), tf.FLT_MAX)
+        best_i = torch.zeros(na, dtype=torch.int64)
+        for c0 in reversed(range(0, nb, width)):
+            d2 = tf._chunk_d2(desc_a, desc_b, maskf_a, maskf_b, sq_a, sq_b, b,
+                              c0, min(width, nb - c0), lims[b])
+            loc = torch.argmin(d2, dim=1)
+            d, j = d2.gather(1, loc[:, None])[:, 0], loc + c0
+            take = (d < best_d) | ((d == best_d) & (j < best_i))
+            best_d = torch.where(take, d, best_d)
+            best_i = torch.where(take, j, best_i)
+        outs.append((best_i, best_d))
+    idx, d2 = (torch.stack(t) for t in zip(*outs))
+    return idx.to(torch.int32), d2
+
+
+def _nn_masks(rng, na, nb, width):
+    """Mask cases: A rows valid up to row 436 (a limit that is no multiple
+    of any tile) with invalid rows scattered among them, B 90 % valid; the
+    same with split 1 of ``width`` columns masked whole; B all masked."""
+    ma = np.zeros(na, bool)
+    ma[:437] = rng.uniform(size=437) > 0.2
+    ma[[0, 1, 16, 17, 436]] = True
+    mb = rng.uniform(size=nb) > 0.1
+    cut = mb.copy()
+    cut[width:2 * width] = False
+    return {"ties": (ma, mb), "masked_split": (ma, cut),
+            "no_column": (ma, np.zeros(nb, bool))}
+
+
+def _plant_boundary_ties(da, db, width, mb):
+    """A rows 0-1 copy column width - 1, which column width (the next
+    split's first) equals; rows 16-17 copy column 2 width - 1, which 2
+    width equals, where the columns exist: the first minimum is the lower
+    side of each split boundary."""
+    for r, j in ((0, width - 1), (16, 2 * width - 1)):
+        if j + 1 < db.shape[0]:
+            db[j + 1] = db[j]
+            da[r:r + 2] = db[j]
+            mb[[j, j + 1]] = True
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_nn(key):
+    da, db, ma, mb = (np.frombuffer(b, dtype=t).reshape(s)
+                      for b, t, s in key)
+    return tuple(np.asarray(x) for x in jpf.nearest_neighbors_pallas(
+        jnp.asarray(da), jnp.asarray(db), jnp.asarray(ma), jnp.asarray(mb),
+        interpret=True))
+
+
+@pytest.mark.parametrize("nb", [1024, 2048])
+@pytest.mark.parametrize("width", [32, 256, 1000])
+def test_nearest_neighbors_split_merge_is_the_plain_version(width, nb):
+    """B6's premise: the column splits' first minima merged by the least
+    (d2, index), in reverse split order, equal ``nearest_neighbors_plain``
+    bit for bit (index and d2; tolerance 0). Descriptors on an integer grid
+    of 0-3 (exact distances with many equal minima among distinct columns)
+    and with equal minima planted on both sides of split boundaries; a
+    split masked whole; B all masked; an A row limit at 437. At Nb = 1024
+    (Na = 512) the model, on 1/8-grid descriptors (exact distances), also
+    equals the JAX package's Pallas 1-NN in interpret mode: indices and d2
+    equal on every valid row with a valid column."""
+    na = 512
+    rng = np.random.default_rng(width * 7 + nb)
+    grids = {"integer": lambda s: rng.integers(0, 4, s),
+             "eighth": lambda s: rng.integers(0, 96, s) / 8.0}
+    for grid, draw in grids.items():
+        da = draw((na, 33)).astype(np.float32)
+        db = draw((nb, 33)).astype(np.float32)
+        for case, (ma, mb) in _nn_masks(rng, na, nb, width).items():
+            ma, mb, a_np, b_np = ma.copy(), mb.copy(), da.copy(), db.copy()
+            if case == "ties":
+                _plant_boundary_ties(a_np, b_np, width, mb)
+            a, b = torch.from_numpy(a_np)[None], torch.from_numpy(b_np)[None]
+            mfa = torch.from_numpy(ma)[None].float()
+            mfb = torch.from_numpy(mb)[None].float()
+            sq_a, sq_b = (a * a).sum(-1), (b * b).sum(-1)
+            idx, d2 = _split_merge_nn(a, b, mfa, mfb, sq_a, sq_b, width)
+            ridx, rd2 = tf.nearest_neighbors_plain(a, b, mfa, mfb, sq_a, sq_b)
+            assert torch.equal(idx, ridx), (grid, case)
+            assert torch.equal(d2, rd2), (grid, case)
+            if case == "ties" and width < nb:
+                assert int(idx[0, 0]) <= width - 1
+                assert float(d2[0, 0]) == 0.0
+            if case == "no_column":
+                assert (d2 == tf.FLT_MAX).all() and (idx == 0).all()
+            if grid == "eighth" and case != "no_column" and nb == 1024:
+                key = tuple((x.tobytes(), x.dtype.str, x.shape)
+                            for x in (a_np, b_np, ma, mb))
+                pal_i, pal_d = _pallas_nn(key)
+                row = torch.from_numpy(ma)
+                np.testing.assert_array_equal(idx[0][row].numpy(),
+                                              pal_i[ma])
+                np.testing.assert_array_equal(d2[0][row].numpy(), pal_d[ma])

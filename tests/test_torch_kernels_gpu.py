@@ -20,7 +20,7 @@ from quatro_tpu_torch.config import (LidarConfig, PipelineConfig,
                                      SolverConfig, replace)
 from quatro_tpu_torch.io.synthetic import make_scan_pair
 from quatro_tpu_torch.ops import frontend as tf
-from quatro_tpu_torch.ops import kernels, segment
+from quatro_tpu_torch.ops import kernels, launch, segment
 from quatro_tpu_torch.ops.voxel import voxel_downsample
 from quatro_tpu_torch.pipeline import extract_features, register_features
 from quatro_tpu_torch.solver import vote
@@ -348,8 +348,9 @@ def test_nearest_neighbors2_kernel_cases(dev, case):
 
 @pytest.mark.parametrize("v", [2000, 8192])
 def test_nearest_neighbors_kernel(dev, v):
-    """B6 at V = 2000 and 8192 (D = 33): one launch per call; the same
-    bits as the first slot of the top-2 kernel (the same per-pair
+    """B6 at V = 2000 and 8192 (D = 33): one launch per call, two launches
+    the same bits; the same bits as the first slot of the top-2 kernel
+    (the same per-pair
     arithmetic); against the plain version distances within rtol 1e-5
     plus 1e-6 of the norm scale and the index equal wherever the gap to
     the second neighbour is clear; on descriptors rounded to a 1/8 grid
@@ -370,6 +371,8 @@ def test_nearest_neighbors_kernel(dev, v):
     before = tf.LAUNCHES["nearest_neighbors"]
     idx, d2 = tf.nearest_neighbors(a, b, ma_t, mb_t)
     assert tf.LAUNCHES["nearest_neighbors"] == before + 1
+    again = tf.nearest_neighbors(a, b, ma_t, mb_t)
+    assert torch.equal(idx, again[0]) and torch.equal(d2, again[1])
     i1, d1, _, _ = tf.nearest_neighbors2(a, b, ma_t, mb_t)
     assert torch.equal(idx, i1) and torch.equal(d2, d1)
 
@@ -396,6 +399,94 @@ def test_nearest_neighbors_kernel(dev, v):
     none = torch.zeros_like(mb_t)
     idx0, d0 = tf.nearest_neighbors(a, b, ma_t, none)
     assert (idx0 == 0).all() and (d0 == tf.FLT_MAX).all()
+
+
+def _packed(rng, n, region, valid):
+    """(n,) bool: ``valid`` True among the first ``region`` entries, the
+    last of them True, the invalid ones scattered among them: the voxel
+    grid's packing."""
+    m = np.zeros(n, bool)
+    m[rng.choice(region - 1, valid - 1, replace=False)] = True
+    m[region - 1] = True
+    return m
+
+
+# Columns 255 and 256 (either side of the first split boundary at 256
+# columns a split) and 511 copy column 100's descriptor; A rows 0-15 copy
+# it, so the first minimum is column 100, and once column 100 is masked it
+# is 255, the lower side of the boundary. Split 3 (columns 768-1023) is
+# masked whole.
+@pytest.mark.parametrize("case", ["packed", "batch", "na_gt_nb", "na_lt_nb",
+                                  "split_ties", "one_split", "no_valid_row"])
+def test_nearest_neighbors_kernel_cases(dev, case):
+    """The redesigned 1-NN kernel (active limits, column splits merged by
+    the last block of a row tile, 4 x 4 register tiles) against the plain
+    version on the CPU with the card's |a|^2 and |b|^2, index and d2 bit
+    for bit, and against the top-2 kernel's first slot: masks packed at
+    the front as the voxel grid leaves them (~30 % valid, path B's
+    occupancy); a batch of 2 with different limits per entry and Na = 6000
+    (a ragged row tile); Na above and below Nb; equal minima on both sides
+    of a split boundary with a split masked whole; Nb within one split (no
+    merge); no valid A row (limit 0). One launch per call, two launches
+    the same bits, and every ticket back at 0."""
+    rng = np.random.default_rng(23)
+    bsz, na, nb = {"packed": (1, 8192, 8192), "batch": (2, 6000, 6000),
+                   "na_gt_nb": (1, 3000, 1000), "na_lt_nb": (1, 1000, 3000),
+                   "split_ties": (1, 512, 2048), "one_split": (1, 777, 200),
+                   "no_valid_row": (1, 2048, 2048)}[case]
+    da = rng.uniform(0, 12, (bsz, na, 33)).astype(np.float32)
+    db = rng.uniform(0, 12, (bsz, nb, 33)).astype(np.float32)
+    ma = rng.uniform(size=(bsz, na)) > 0.1
+    mb = rng.uniform(size=(bsz, nb)) > 0.1
+    if case == "packed":
+        ma[0], mb[0] = _packed(rng, na, 2600, 2429), _packed(rng, nb, 2330,
+                                                            2172)
+    elif case == "batch":
+        ma[0], mb[0] = _packed(rng, na, 3001, 2500), _packed(rng, nb, 1500,
+                                                            1400)
+        ma[1], mb[1] = _packed(rng, na, 700, 650), _packed(rng, nb, 5999,
+                                                          5000)
+    elif case == "split_ties":
+        for j in (255, 256, 511):
+            db[0, j] = db[0, 100]
+        da[0, :16] = db[0, 100]
+        ma[0, :16] = True
+        mb[0, [100, 255, 256, 511]] = True
+        mb[0, 768:1024] = False
+    elif case == "no_valid_row":
+        ma[:] = False
+    a, b = (torch.from_numpy(x).to(dev) for x in (da, db))
+    ma_t, mb_t = (torch.from_numpy(x).to(dev) for x in (ma, mb))
+    sq_a, sq_b = ((x * x).sum(-1).cpu() for x in (a, b))
+
+    def plain(col_mask):
+        ri, rd = tf.nearest_neighbors_plain(a.cpu(), b.cpu(),
+                                            ma_t.float().cpu(),
+                                            col_mask.float().cpu(), sq_a,
+                                            sq_b)
+        empty = ~ma_t.cpu() | (rd >= tf.FLT_MAX)
+        return torch.where(empty, 0, ri), torch.where(empty, tf.FLT_MAX, rd)
+
+    before = tf.LAUNCHES["nearest_neighbors"]
+    idx, d2 = tf.nearest_neighbors(a, b, ma_t, mb_t)
+    assert tf.LAUNCHES["nearest_neighbors"] == before + 1
+    again = tf.nearest_neighbors(a, b, ma_t, mb_t)
+    assert torch.equal(idx, again[0]) and torch.equal(d2, again[1])
+    ridx, rd2 = plain(mb_t)
+    assert torch.equal(idx.cpu(), ridx) and torch.equal(d2.cpu(), rd2)
+    i1, d1, _, _ = tf.nearest_neighbors2(a, b, ma_t, mb_t)
+    assert torch.equal(idx, i1) and torch.equal(d2, d1)
+    if case == "split_ties":
+        assert (idx[0, :16] == 100).all() and (d2[0, :16] == 0).all()
+        cut = mb_t.clone()
+        cut[0, 100] = False
+        idx_cut, _ = tf.nearest_neighbors(a, b, ma_t, cut)
+        assert (idx_cut[0, :16] == 255).all()
+        assert torch.equal(idx_cut.cpu(), plain(cut)[0])
+    if case == "no_valid_row":
+        assert (idx == 0).all() and (d2 == tf.FLT_MAX).all()
+    for ticket, _ in launch._SCRATCH.values():
+        assert int(ticket.abs().sum()) == 0
 
 
 @pytest.mark.parametrize("path",
@@ -518,8 +609,8 @@ def _segment_sums_bit_equal(ids, vals, p_pad):
     assert torch.equal(got, again)
     assert torch.equal(got.cpu(), segment.segment_sums_plain(
         ids.cpu(), vals.cpu(), p_pad, segment.SEG_CHUNK))
-    for ticket, _ in segment._SEG_SCRATCH.values():
-        assert int(ticket.item()) == 0
+    for ticket, _ in launch._SCRATCH.values():
+        assert int(ticket.abs().sum()) == 0
 
 
 def _segment_case(dev, n, k, lo, hi, seed):
@@ -776,6 +867,32 @@ def test_table_lookup_kernel(prep_inputs):
     with pytest.raises(ValueError, match="shared memory"):
         segment.table_lookup(t["ids"], torch.zeros(
             (2, 65536, 1), device=t["ids"].device))
+
+
+@pytest.mark.parametrize("k", [1, 5, 8])
+@pytest.mark.parametrize("n", [131072, 131071, 5])
+def test_table_lookup_kernel_shapes(dev, n, k):
+    """B12 at every N and K the kernel's alignment cases reach: N a
+    multiple of 4 (16-byte loads and stores), N = 131071 (output rows
+    start at every 4-byte offset, a ragged last thread), N = 5 (one full
+    thread and a ragged one); K 1, 5 (Patchwork's) and 8; ids out of range
+    on both sides, and ids in a view 4 bytes past a 16-byte boundary.
+    Bit-equal to the plain version, one launch per call."""
+    rng = np.random.default_rng(n + k)
+    p_pad = 512
+    flat = torch.from_numpy(rng.integers(-4, p_pad + 4, 2 * n + 1).astype(
+        np.int32)).to(dev)
+    tab = torch.from_numpy(rng.normal(0, 1, (2, p_pad, k)).astype(
+        np.float32)).to(dev)
+    for ids in (flat[:2 * n].reshape(2, n), flat[1:].reshape(2, n)):
+        before = tf.LAUNCHES["table_lookup"]
+        got = segment.table_lookup(ids, tab)
+        assert tf.LAUNCHES["table_lookup"] == before + 1
+        assert torch.equal(got.cpu(), segment.table_lookup_plain(ids.cpu(),
+                                                                 tab.cpu()))
+        oor = ((ids < 0) | (ids >= p_pad)).cpu()
+        assert bool(oor.any()) or n == 5
+        assert bool((got.cpu().transpose(1, 2)[oor] == 0).all())
 
 
 def _pose_graph(dev, m=12):

@@ -1,6 +1,7 @@
 """Stage by stage, where the port's loop rounds apart from the JAX package.
 
     PYTHONPATH=. python tests/torch_sequence_stages.py [frames] [--chain]
+        [--jax-ground]
 
 Runs the loop of ``tests/test_torch_sequence.py::test_run_sequence_bands``
 (``make_synthetic_sequence(num_poses=12, seed=1, radius=6.0)`` at VLP-16
@@ -37,8 +38,12 @@ It prints, per frame or edge, the count of entries that are not bit-equal
 in each output, and at the end the first stage with any. ``frames`` cuts
 the loop to its first frames (default all 12). ``--chain`` also runs both
 packages' own ``run_sequence`` and prints the edges kept and the ATE
-before and after the closure. Not part of the test suite: all 12 frames
-take ~4 minutes on the CPU, ~1 more with ``--chain``.
+before and after the closure. ``--jax-ground`` hands the port's chain
+the JAX package's Patchwork ground and non-ground masks in place of its
+own (everything after Patchwork stays the port's), which tells whether an
+edge the two chains gate apart turns on the ground mask or on a later
+stage. Not part of the test suite: all 12 frames take ~4 minutes on the
+CPU, ~1 more with ``--chain``; ``2 --chain`` runs edge (0, 1) alone.
 """
 
 from __future__ import annotations
@@ -68,7 +73,7 @@ def differ(a, b) -> int:
     return int((a != b).sum())
 
 
-def main(frames: int, chain: bool) -> None:
+def main(frames: int, chain: bool, jax_ground: bool) -> None:
     import jax
     jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
@@ -336,8 +341,27 @@ def main(frames: int, chain: bool) -> None:
     first = next((st for st in order if counts.get(st)), None)
     print(f"first stage that rounds apart: {first or 'none'}")
 
+    if chain and jax_ground:
+        import quatro_tpu_torch.pipeline as tpl
+        port_ground = tpl.estimate_ground
+
+        def swapped(points, mask, cfg):
+            res = port_ground(points, mask, cfg)
+            clouds = zip(points.reshape(-1, *points.shape[-2:]),
+                         mask.reshape(-1, mask.shape[-1]))
+            jgs = [jit_ground(jnp.asarray(n(p)), jnp.asarray(n(m)))
+                   for p, m in clouds]
+            return res._replace(
+                ground=torch.stack([t(g.ground) for g in jgs]).reshape(
+                    mask.shape),
+                nonground=torch.stack([t(g.nonground) for g in jgs]).reshape(
+                    mask.shape))
+        tpl.estimate_ground = swapped
+        print("the port's chain runs on the JAX package's ground masks",
+              flush=True)
     if chain:
-        res = sequence.run_sequence(scans, tc, gt_poses=gt, loop_radius=5.0,
+        res = sequence.run_sequence(scans, tc, gt_poses=gt[:frames],
+                                    loop_radius=5.0,
                                     batch_size=4, device="cpu")
         jscans, jgt = jseq.make_synthetic_sequence(
             num_poses=NUM_POSES, seed=1, radius=6.0, config=jc,
@@ -353,5 +377,6 @@ def main(frames: int, chain: bool) -> None:
 
 
 if __name__ == "__main__":
-    args = [a for a in sys.argv[1:] if a != "--chain"]
-    main(int(args[0]) if args else NUM_POSES, "--chain" in sys.argv)
+    args = [a for a in sys.argv[1:] if not a.startswith("--")]
+    main(int(args[0]) if args else NUM_POSES, "--chain" in sys.argv,
+         "--jax-ground" in sys.argv)
