@@ -56,8 +56,8 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    a loop found (more than 11 edges), >= 60 % of the edges valid, ATE
    after the closure < 1 m and <= ATE before + 0.15 m, every pose finite;
    the launch counts per frame (B3-B5, B8, B10, B11 once, B9 three
-   times), per registered edge (B7 twice, B1 and B2 once, the last batch
-   padded to 16 edges) and per pose-graph solve (B2 once per J^T apply,
+   times), per batched registration call of up to 16 edges (B7 twice, B1
+   and B2 once) and per pose-graph solve (B2 once per J^T apply,
    10 x 41); a second ``optimize_pose_graph`` on the run's edges equal to
    it bit for bit; ``run_odometry_windowed(window=4)`` equal to
    ``OdometryRunner.step`` within 1e-5 rad / 1e-4 m. Times: per-frame
@@ -94,7 +94,25 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    that an exact culling keeps (``culled_pairs``), and their bytes the
    mask and the outputs of every row but the points, normals and SPFH
    rows of the valid rows only (``radius_pair_bytes``): the kernels read
-   no other.
+   no other;
+9. path P, the pair axis, last (its large batches and profiles leave
+   the profiler missing more events in the runs after them): (a)
+   bench.py's 8 distinct HDL-64E pairs (``make_scan_pair(seed=s, yaw_deg=10+7s, translation=(2+0.3s, 1-0.2s,
+   0.05))``, capacity 131072) under its configuration (8192 voxels, 1024
+   correspondences, 4 + 2 hypotheses) as one ``register_scan_pair`` call
+   at B = 8, and (b) path A's configuration at B = 4 on path A's tilted
+   pair and the first three bench pairs tilted alike: every row equal to
+   the per-pair call on its pair (exactly the voxels, correspondence
+   slots, masks, valid, GNC iterations, winner and ICP's inliers; poses
+   within 1e-5 rad / 1e-4 m), the batched call's launch counts equal to
+   one pair's, and each pair within 0.05 rad / 0.6 m of the ground truth
+   alone within it batched (the count printed); (c) ms per call and
+   pairs/s at B = 1, 8 and 64 (the 8 pairs cycled, as bench.py does),
+   median and spread of 3 runs after a warm-up, with the stage split and
+   the peak memory, the device idle share of the B = 8 call under
+   torch.profiler, and B1 with its pair axis at B = 8 and 64 (one launch,
+   bit for bit its plain version on CPU copies, device ms beside its
+   bound; ``pair_axis`` in B1's row of the kernel table).
 
 The last two lines of standard output are the card's kernel table as one
 JSON object and ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -193,6 +211,13 @@ SEQUENCE = dict(num_poses=12, seed=1, radius=6.0)
 SEQ_BATCH = 16
 PG_ITERS = (10, 40)
 SEQ_WINDOW = 4
+# path P: bench.py's pairs (bench.py:131-136) and batches, the runs timed
+# per batch, path A's batch, and the ground-truth band (path B's)
+BENCH_PAIRS = 8
+PAIR_AXIS_BATCHES = (1, 8, 64)
+PAIR_AXIS_REPEATS = 3
+P_PATH_A_BATCH = 4
+P_BAND = (0.05, 0.6)
 
 
 def log(*args):
@@ -295,6 +320,19 @@ def phase_build():
             log(f"    {line.strip()}")
 
 
+def tilted(src_xyz, tgt_xyz, gt):
+    """A pair tilted as tests/test_ground.py:142-151 tilts it: (source,
+    target, ground truth composed as there)."""
+    from quatro_tpu_torch.utils.se3 import rotation_from_rpy
+
+    a = rotation_from_rpy(*TILT_SRC).numpy()
+    b = rotation_from_rpy(*TILT_TGT).numpy()
+    gt_tilt = np.eye(4)
+    gt_tilt[:3, :3] = b @ gt[:3, :3] @ a.T          # tgt2 = B R A^T src2 + B t
+    gt_tilt[:3, 3] = b @ gt[:3, 3]
+    return src_xyz @ a.T, tgt_xyz @ b.T, gt_tilt
+
+
 def full_width_case():
     """The seed-11 HDL-64E pair of tests/test_pipeline.py: raw scans at
     capacity 131072, tilted for path A as tests/test_ground.py tilts them
@@ -305,14 +343,9 @@ def full_width_case():
                                          IcpConfig, PipelineConfig)
     from quatro_tpu_torch.io.synthetic import make_scan_pair
     from quatro_tpu_torch.types import PointBatch
-    from quatro_tpu_torch.utils.se3 import rotation_from_rpy
 
     src_xyz, tgt_xyz, gt = make_scan_pair(**PIPELINE_PAIR)
-    a = rotation_from_rpy(*TILT_SRC).numpy()
-    b = rotation_from_rpy(*TILT_TGT).numpy()
-    gt_tilt = np.eye(4)
-    gt_tilt[:3, :3] = b @ gt[:3, :3] @ a.T          # tgt2 = B R A^T src2 + B t
-    gt_tilt[:3, 3] = b @ gt[:3, 3]
+    src_tilt, tgt_tilt, gt_tilt = tilted(src_xyz, tgt_xyz, gt)
     cfgs = {
         "A": PipelineConfig.recommended(
             max_voxels=8192,
@@ -323,8 +356,8 @@ def full_width_case():
         "recommended": PipelineConfig.recommended(max_voxels=8192),
         "single": PipelineConfig(max_voxels=8192)}
     pairs = {
-        "tilted": (PointBatch.from_numpy(src_xyz @ a.T, RAW_CAPACITY),
-                   PointBatch.from_numpy(tgt_xyz @ b.T, RAW_CAPACITY)),
+        "tilted": (PointBatch.from_numpy(src_tilt, RAW_CAPACITY),
+                   PointBatch.from_numpy(tgt_tilt, RAW_CAPACITY)),
         "raw": (PointBatch.from_numpy(src_xyz, capacity=RAW_CAPACITY),
                 PointBatch.from_numpy(tgt_xyz, capacity=RAW_CAPACITY)),
         "stripped": (PointBatch.from_numpy(nonground(src_xyz), capacity=65536),
@@ -549,16 +582,17 @@ def capture_preprocessing(raw, cfg):
     return calls
 
 
-def sequence_launches(frames, registered):
+def sequence_launches(frames, calls):
     """Path S's expected launch counts: per frame the preprocessing and
-    front-end kernels, per registered edge the matcher's top-2 NN twice,
-    the graph and the vote's segment sums, and per pose-graph solve one
-    segment sum per J^T apply (gn x (cg + 1))."""
+    front-end kernels, per batched registration call (one per edge batch)
+    the matcher's top-2 NN twice, the graph and the vote's segment sums,
+    and per pose-graph solve one segment sum per J^T apply (gn x (cg +
+    1))."""
     gn, cg = PG_ITERS
     return dict(MAIN_LAUNCHES, moment_sums=frames, spfh=frames, fpfh=frames,
-                nearest_neighbors2=2 * registered,
-                consistency_graph=registered,
-                segment_sums=registered + gn * (cg + 1),
+                nearest_neighbors2=2 * calls,
+                consistency_graph=calls,
+                segment_sums=calls + gn * (cg + 1),
                 cross_histogram=frames, fit_iteration_moments=3 * frames,
                 classify_points=frames, image_lookup=frames)
 
@@ -622,14 +656,15 @@ def phase_sequence(cfg, card):
     launches = dict(launch.LAUNCHES)
     m = len(scans)
     edges = list(zip(res.edges_i.tolist(), res.edges_j.tolist()))
-    registered = -(-len(edges) // SEQ_BATCH) * SEQ_BATCH
-    expected = sequence_launches(m, registered)
+    calls = -(-len(edges) // SEQ_BATCH)
+    expected = sequence_launches(m, calls)
     log("path S run: " + json.dumps({
         "edges_total": res.edges_total, "edges_valid": res.edges_valid,
         "loop_edges": edges[m - 1:],
         "rejected": [e for e, ok in zip(edges, res.edge_mask) if not ok],
         "ate_before_m": res.ate_before, "ate_after_m": res.ate_after,
-        "wall_ms": round(wall_ms, 3), "registered_edges": registered}))
+        "wall_ms": round(wall_ms, 3), "registered_edges": len(edges),
+        "registration_calls": calls}))
     log(f"path S launches: {json.dumps(launches)}")
     check(res.edges_total > m - 1,
           "path S: place recognition found no loop candidate")
@@ -728,6 +763,254 @@ def phase_sequence(cfg, card):
         "step_median_of_3": round(step_ms, 3),
         "step_device_busy": round(busy, 3)}) + f"; step idle share {idle}")
     return launches, jt_calls[0]
+
+
+def bench_case():
+    """bench.py's 8 distinct pairs and configuration (bench.py:120-136):
+    HDL-64E scans at capacity 131072, 8192 voxels, 1024 correspondences,
+    4 clique + 2 vote hypotheses, no ground alignment or ICP. Returns
+    ([(source, target, ground truth)], config)."""
+    from quatro_tpu_torch.config import (FPFHConfig, PipelineConfig,
+                                         SolverConfig)
+    from quatro_tpu_torch.io.synthetic import make_scan_pair
+
+    cfg = PipelineConfig(max_raw_points=RAW_CAPACITY, max_voxels=8192,
+                         fpfh=FPFHConfig(max_correspondences=1024),
+                         solver=SolverConfig(num_hypotheses=4,
+                                             num_vote_hypotheses=2))
+    scans = [make_scan_pair(seed=s, yaw_deg=10.0 + 7 * s,
+                            translation=(2.0 + 0.3 * s, 1.0 - 0.2 * s, 0.05))
+             for s in range(BENCH_PAIRS)]
+    return scans, cfg
+
+
+def pair_batch(clouds, dev):
+    """(M, 3) numpy clouds as one PointBatch (B, RAW_CAPACITY, 3) on
+    ``dev``."""
+    from quatro_tpu_torch.types import PointBatch
+
+    pbs = [PointBatch.from_numpy(c, RAW_CAPACITY) for c in clouds]
+    return PointBatch(torch.stack([p.points for p in pbs]).to(dev),
+                      torch.stack([p.mask for p in pbs]).to(dev))
+
+
+EXACT_FIELDS = ("valid", "max_clique_mask", "final_inlier_mask",
+                "num_rotation_inliers", "gnc_iterations")
+
+
+def check_rows(batch, singles, name):
+    """Every row of a batched result against the per-pair call on its
+    pair: exactly the voxel clouds, the correspondence slots, the
+    solution's and the hypotheses' masks, valid, GNC iteration counts,
+    the arbitration winner and ICP's inlier count; the pose within 1e-5
+    rad / 1e-4 m. Returns the worst pose gaps (rad, m)."""
+    from quatro_tpu_torch.utils.se3 import rotation_geodesic_error
+
+    worst_r = worst_t = 0.0
+    for b, one in enumerate(singles):
+        row = batch.row(b)
+        what = f"{name}: pair {b}"
+        for got, ref in ((row.src_voxels, one.src_voxels),
+                         (row.tgt_voxels, one.tgt_voxels)):
+            check(torch.equal(got.points, ref.points)
+                  and torch.equal(got.mask, ref.mask),
+                  f"{what}: voxels differ from the per-pair call")
+        for got, ref, f in zip(row.correspondences, one.correspondences,
+                               one.correspondences._fields):
+            check(torch.equal(got, ref),
+                  f"{what}: correspondences' {f} differ from the per-pair "
+                  "call")
+        sols = [(row.solution, one.solution, "solution")]
+        if one.hypotheses is not None:
+            sols.append((row.hypotheses, one.hypotheses, "hypotheses"))
+            win = [int(torch.argmax(torch.where(r.hypotheses.valid,
+                                                r.overlaps, -1.0)))
+                   for r in (row, one)]
+            check(win[0] == win[1], f"{what}: winner {win[0]} != {win[1]}")
+        for got, ref, label in sols:
+            for f in EXACT_FIELDS:
+                check(torch.equal(getattr(got, f), getattr(ref, f)),
+                      f"{what}: {label}'s {f} differs from the per-pair call")
+        if one.icp is not None:
+            check(torch.equal(row.icp.num_inliers, one.icp.num_inliers)
+                  and torch.equal(row.icp.converged, one.icp.converged),
+                  f"{what}: ICP's inliers differ from the per-pair call")
+        worst_r = max(worst_r, float(rotation_geodesic_error(
+            one.solution.rotation.cpu(), row.solution.rotation.cpu())))
+        worst_t = max(worst_t, float((row.solution.translation
+                                      - one.solution.translation).abs()
+                                     .max()))
+    check(worst_r <= 1e-5 and worst_t <= 1e-4,
+          f"{name}: poses {worst_r} rad / {worst_t} m from the per-pair "
+          "calls")
+    return worst_r, worst_t
+
+
+def pair_axis_gate(name, cases, cfg, dev):
+    """One batched ``register_scan_pair`` call on ``cases`` [(source,
+    target, ground truth)] against the per-pair calls: every row equal
+    (``check_rows``), the launch counts of the batched call (set to 0
+    just before it, read just after) equal to one pair's call, and each
+    pair that its own call puts within P_BAND of the ground truth within
+    it batched. Returns (batched result, its launch counts)."""
+    from quatro_tpu_torch.ops import launch
+    from quatro_tpu_torch.pipeline import register_scan_pair
+
+    from quatro_tpu_torch.types import PointBatch
+
+    singles = []
+    for k, (src, tgt, _) in enumerate(cases):
+        pair = tuple(PointBatch.from_numpy(c, RAW_CAPACITY).to(dev)
+                     for c in (src, tgt))
+        if k == 0:                               # one pair's launches
+            register_scan_pair(*pair, cfg)
+            torch.cuda.synchronize()
+            launch.reset_launches()
+        singles.append(register_scan_pair(*pair, cfg))
+        torch.cuda.synchronize()
+        if k == 0:
+            one_launches = dict(launch.LAUNCHES)
+    src_b = pair_batch([c[0] for c in cases], dev)
+    tgt_b = pair_batch([c[1] for c in cases], dev)
+    register_scan_pair(src_b, tgt_b, cfg)        # warm-up
+    torch.cuda.synchronize()
+    launch.reset_launches()
+    batch, ms = _synced_ms(lambda: register_scan_pair(src_b, tgt_b, cfg))
+    launches = dict(launch.LAUNCHES)
+    check(launches == one_launches,
+          f"{name}: launches of the batched call {launches} != one pair's "
+          f"{one_launches}")
+    worst_r, worst_t = check_rows(batch, singles, name)
+    in_band = kept = 0
+    for b, (_, _, gt) in enumerate(cases):
+        ok_one = np.less(pose_errors(singles[b].solution, gt), P_BAND).all()
+        ok_row = np.less(pose_errors(batch.row(b).solution, gt),
+                         P_BAND).all()
+        in_band += int(ok_one)
+        kept += int(ok_one and ok_row)
+        check(ok_row or not ok_one,
+              f"{name}: pair {b} in band alone, out of it batched")
+    log(f"{name}: B {len(cases)} in one call ({ms:.3f} ms host wall), "
+        f"every row equal to its per-pair call (poses within "
+        f"{worst_r:.3g} rad / {worst_t:.3g} m); {kept} of {in_band} pairs "
+        f"within {P_BAND[0]} rad / {P_BAND[1]} m of the ground truth alone "
+        f"stay so batched ({len(cases)} pairs); launches "
+        f"{json.dumps(launches)} (one pair's the same)")
+    return batch, launches
+
+
+def graph_pair_axis_row(corr, cfg, label):
+    """B1 with a pair axis on a batch's own correspondences (B, N, 3): one
+    launch, bit for bit its plain version on CPU copies; its device ms per
+    call beside its bound (the B x N^2 output bytes or operations)."""
+    from quatro_tpu_torch.ops import kernels, launch
+
+    sc = cfg.solver
+    beta = 2.0 * sc.noise_bound * sc.cbar2 ** 0.5
+    cs, ct = corr.src_xyz.contiguous(), corr.tgt_xyz.contiguous()
+    bsz, n, _ = cs.shape
+    before = launch.LAUNCHES["consistency_graph"]
+    got = kernels.consistency_graph(cs, ct, beta)
+    check(launch.LAUNCHES["consistency_graph"] == before + 1,
+          f"B1 ({label}): not one launch")
+    check(torch.equal(got.cpu(), kernels.consistency_graph_plain(
+        cs.cpu(), ct.cpu(), beta)),
+        f"B1 ({label}): differs from its plain version on CPU copies")
+    b_ms, by = bound(float(bsz * n * n) * OPS_GRAPH,
+                     2 * bsz * n * 3 * 4 + bsz * n * n)
+    row = {"shape": f"({bsz},{n},3)^2 -> ({bsz},{n},{n})",
+           "device_ms": device_ms_per_call(
+               lambda: kernels.consistency_graph(cs, ct, beta), "quatro::",
+               main=(MAIN_KERNEL["consistency_graph"], 1)),
+           "ms": cuda_ms(lambda: kernels.consistency_graph(cs, ct, beta)),
+           "bound_ms": b_ms, "bound_by": by}
+    log(f"consistency_graph ({label}): " + json.dumps(row)
+        + "; one launch, equal to the plain version on CPU copies")
+    return row
+
+
+def phase_pair_axis(card, pairs, gts, cfg_a):
+    """Path P, the pair axis: (a) bench.py's 8 pairs under its
+    configuration as one call at B = 8, (b) path A's configuration at B =
+    4 (path A's tilted pair and the first three bench pairs tilted alike),
+    each against the per-pair calls (``pair_axis_gate``); (c) ms per call
+    and pairs/s at B = 1, 8 and 64 (the 8 pairs cycled as bench.py cycles
+    them, a batch per offset), median and spread of 3 runs after a
+    warm-up, with the stage split, B1 at B = 8 and 64, the device idle
+    share of the B = 8 call and the peak memory at B = 64. Returns B1's
+    pair-axis rows."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from quatro_tpu_torch.device import resolve_device
+    from quatro_tpu_torch.pipeline import register_scan_pair
+
+    dev = resolve_device(None)
+    t0 = time.perf_counter()
+    scans, cfg = bench_case()
+    log(f"path P: bench.py's {len(scans)} HDL-64E pairs ray-cast in "
+        f"{time.perf_counter() - t0:.1f} s; {cfg.max_voxels} voxels, "
+        f"{cfg.fpfh.max_correspondences} correspondences, "
+        f"{cfg.solver.num_hypotheses} + {cfg.solver.num_vote_hypotheses} "
+        "hypotheses")
+    batch8, launches8 = pair_axis_gate("path P (a), bench.py's pairs",
+                                       scans, cfg, dev)
+    src_a = pairs["tilted"][0].to_numpy()
+    tgt_a = pairs["tilted"][1].to_numpy()
+    cases_a = [(src_a, tgt_a, gts["tilted"])] + [
+        tilted(*scans[k]) for k in range(P_PATH_A_BATCH - 1)]
+    pair_axis_gate("path P (b), path A's configuration", cases_a, cfg_a,
+                   dev)
+
+    times, rows = {}, {}
+    for bsz in PAIR_AXIS_BATCHES:
+        batches = [(pair_batch([scans[(i + off) % len(scans)][0]
+                                for i in range(bsz)], dev),
+                    pair_batch([scans[(i + off) % len(scans)][1]
+                                for i in range(bsz)], dev))
+                   for off in range(PAIR_AXIS_REPEATS + 1)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        res = register_scan_pair(*batches[0], cfg)          # warm-up
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        timer = StageTimer()
+        walls = [_synced_ms(lambda: register_scan_pair(
+            *batches[1], cfg, timer=timer))[1]]
+        stages = timer.split_ms()
+        walls += [_synced_ms(lambda: register_scan_pair(*b, cfg))[1]
+                  for b in batches[2:]]
+        spread = _spread(walls)
+        times[bsz] = dict(ms_per_call=spread,
+                          pairs_per_s=round(bsz * 1e3 / spread["median"], 3),
+                          stages_ms={k: round(v, 3)
+                                     for k, v in stages.items()},
+                          peak_gib=round(peak / 2 ** 30, 3),
+                          held_before_gib=round(held / 2 ** 30, 3))
+        log(f"path P (c) B {bsz} ({card}): " + json.dumps(times[bsz]))
+        if bsz > 1:
+            rows[bsz] = graph_pair_axis_row(res.correspondences, cfg,
+                                            f"path P, B = {bsz}")
+        if bsz == 8:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                register_scan_pair(*batches[1], cfg)
+                torch.cuda.synchronize()
+            busy = sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and not e.is_user_annotation) / 1e3
+            idle = (round(1.0 - busy / spread["median"], 4) if busy > 0
+                    else "not measured (the profiler saw no device time)")
+            log(f"path P (c) B 8: device busy {busy:.3f} ms of the "
+                f"{spread['median']:.3f} ms median call; idle share {idle}")
+    check(all(times[b]["ms_per_call"]["median"] > 0 for b in times),
+          "path P: no time measured")
+    log("path P times (" + card + "): " + json.dumps(
+        {b: {"median_ms": t["ms_per_call"]["median"],
+             "pairs_per_s": t["pairs_per_s"]} for b, t in times.items()})
+        + f"; launches per batched call at B = 8: {json.dumps(launches8)}")
+    return rows
 
 
 def phase_profile(pair, cfg, wall_ms, top=10):
@@ -1439,6 +1722,12 @@ def main() -> int:
     phase_profile(pairs["tilted"], cfgs["A"], wall_a)
     rows = phase_kernels(res_a, cfgs["A"], launches_a, calls, res_b,
                          cfgs["B"], launches_b, jt_call, launches_s)
+    # last: its large batches and profiles leave the profiler missing
+    # more events in the runs after them
+    graph_rows = phase_pair_axis(card, pairs, gts, cfgs["A"])
+    for r in rows:
+        if r["name"] == "consistency_graph":
+            r["pair_axis"] = graph_rows
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

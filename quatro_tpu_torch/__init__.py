@@ -24,7 +24,8 @@ from quatro_tpu_torch.pipeline import (extract_features, register_features,
                                       register_scan_pair)
 from quatro_tpu_torch.registration import QuatroRegistration
 from quatro_tpu_torch.sequence import run_sequence
-from quatro_tpu_torch.solver.quatro import (register_correspondences,
+from quatro_tpu_torch.solver.quatro import (register_batch,
+                                            register_correspondences,
                                             register_hypotheses)
 from quatro_tpu_torch.types import PointBatch, RegistrationSolution
 
@@ -32,7 +33,7 @@ __all__ = [
     "FPFHConfig", "GroundAlignmentConfig", "IcpConfig", "LidarConfig",
     "PipelineConfig", "SolverConfig", "config_from_dict", "config_to_dict",
     "extract_features", "register_features", "register_scan_pair",
-    "register_correspondences", "register_hypotheses",
+    "register_correspondences", "register_hypotheses", "register_batch",
     "OdometryRunner", "run_sequence", "QuatroRegistration", "table_lookup",
     "PointBatch", "RegistrationSolution",
 ]

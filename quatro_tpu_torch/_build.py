@@ -41,7 +41,7 @@ SIGNATURES = {
     "nn1": ("quatro_nn1", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
                            _P, _P, _P, _P]),
     "consistency_graph": ("quatro_consistency_graph",
-                          [_P, _P, _I, _F, _P, _P]),
+                          [_P, _P, _I, _I, _F, _P, _P]),
     "segment_sums": ("quatro_segment_sums",
                      [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P]),
     "cross_histogram": ("quatro_cross_histogram",

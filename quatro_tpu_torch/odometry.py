@@ -149,10 +149,12 @@ class OdometryRunner:
         return FrameFeatures(vox.points, vox.mask, desc, dmask, **extra)
 
     def _register_impl(self, src: FrameFeatures, tgt: FrameFeatures):
-        """(final solution in the RAW frames, correspondences, the coarse
-        pose (rotation, translation) in the feature frames for overlap
-        verification against the stored, possibly leveled, voxels, and the
-        coarse overlap where arbitration already computed it, else None)."""
+        """For B pairs of features (a leading B on every field): (final
+        solutions in the RAW frames, correspondences, the coarse poses
+        (rotation, translation) in the feature frames for overlap
+        verification against the stored, possibly leveled, voxels, and
+        the coarse overlaps where arbitration already computed them, else
+        None), every pair in one batched call."""
         cfg, dev = self.config, self.device
         f = cfg.fpfh
         corr = match_features(
@@ -173,7 +175,7 @@ class OdometryRunner:
                 sols, src.voxels, src.voxel_mask, tgt.voxels, tgt.voxel_mask,
                 radius=2.0 * cfg.voxel_size)
             # arbitration already scored the winner against the clouds
-            overlap = torch.where(sols.valid, overlaps, -1.0).amax()
+            overlap = torch.where(sols.valid, overlaps, -1.0).amax(-1)
         else:
             sol = register_correspondences(corr.src_xyz, corr.tgt_xyz,
                                            corr.mask, cfg.solver, device=dev)
@@ -216,26 +218,25 @@ class OdometryRunner:
         feats = self.extract(scan)
         sol = None
         if self._prev is not None:
-            sol, *_ = self._register_impl(self._prev, feats)
+            sol = self.register_pair(self._prev, feats)
         self._prev = feats
         return sol
 
     def register_pair(self, src: FrameFeatures,
                       tgt: FrameFeatures) -> RegistrationSolution:
-        sol, *_ = self._register_impl(src, tgt)
-        return sol
+        sol, *_ = self._register_impl(FrameFeatures.stack([src]),
+                                      FrameFeatures.stack([tgt]))
+        return sol.row(0)
 
     def register_pairs(self, src: FrameFeatures, tgt: FrameFeatures
                        ) -> Tuple[RegistrationSolution, torch.Tensor]:
         """Pair registration with overlap verification for B pairs: every
         field of src and tgt carries a leading batch axis. Returns
         (solutions stacked along B, overlaps (B,)), overlap being the
-        acceptance score of solver/verify.py. The JAX package vmaps the
-        pairs; here they go one after the other on the device."""
-        out = [self._register_verify_impl(src.row(k), tgt.row(k))
-               for k in range(src.voxels.shape[0])]
-        return (RegistrationSolution.stack([s for s, _ in out]),
-                torch.stack([o for _, o in out]))
+        acceptance score of solver/verify.py. The B pairs are one batched
+        call, as the JAX package vmaps them; each row equals the pair's
+        own call."""
+        return self._register_verify_impl(src, tgt)
 
     def reset(self):
         self._prev = None

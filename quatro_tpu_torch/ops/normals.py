@@ -123,7 +123,15 @@ def estimate_normals(points: torch.Tensor, nbrs,
                      viewpoint=(0.0, 0.0, 0.0)) -> Normals:
     """PCA normals over neighbour lists (ops/neighbors.radius_neighbors,
     self included): points (N, 3). The covariance is centred on the
-    neighbourhood mean, as the JAX package's estimate_normals."""
+    neighbourhood mean, as the JAX package's estimate_normals. A batch of
+    clouds (B, N, 3) runs as one cloud of B * N points."""
+    if points.dim() == 3:
+        bsz, n = points.shape[:2]
+        off = torch.arange(bsz, device=points.device)[:, None, None] * n
+        flat = estimate_normals(points.reshape(bsz * n, 3), type(nbrs)(
+            *((nbrs.idx.long() + off).reshape(bsz * n, -1),
+              *(t.reshape(bsz * n, -1) for t in nbrs[1:]))), viewpoint)
+        return Normals(*(t.reshape(bsz, n, *t.shape[1:]) for t in flat))
     x, y, z = points[:, 0], points[:, 1], points[:, 2]
     w = nbrs.valid.to(points.dtype)                 # (N, K)
     cnt = torch.clamp(w.sum(1), min=1.0)

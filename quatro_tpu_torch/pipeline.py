@@ -5,8 +5,11 @@ matching -> Quatro solve [-> compose the leveling back -> ICP polish].
 PyTorch counterpart of ``quatro_tpu/pipeline.py`` (the reference's
 application flow, examples/run_global_registration.cpp:127-251):
 ``register_scan_pair`` takes raw scans, ``register_features`` clouds whose
-ground is already removed. The source and target clouds go through
-preprocessing and feature extraction as one batch of two.
+ground is already removed. Both take one pair or a batch of B pairs
+(the JAX package's ``jit(vmap(...))`` serving path): the B source and B
+target clouds go through preprocessing and feature extraction as one
+batch of 2B, the matcher and the solver over the pair axis, with no loop
+over pairs but the voxel grid's per cloud.
 
 Entry points take ``device=None`` (the card; see device.py) and an
 optional ``timer``: a callable given the name of each stage as it ends,
@@ -39,10 +42,12 @@ from quatro_tpu_torch.solver.quatro import (register_correspondences,
                                             register_hypotheses)
 from quatro_tpu_torch.solver.verify import arbitrate_hypotheses
 from quatro_tpu_torch.types import PointBatch, RegistrationSolution
+from quatro_tpu_torch.utils.batch import drop_axis, stack_rows, take_row
 from quatro_tpu_torch.utils.se3 import rotate_points
 
 
 class PipelineResult(NamedTuple):
+    # one pair's; a batched call gives every tensor a leading B
     solution: RegistrationSolution
     correspondences: Correspondences
     src_voxels: PointBatch
@@ -52,6 +57,15 @@ class PipelineResult(NamedTuple):
     # the multi-hypothesis path's K solutions and their overlaps (K,)
     hypotheses: Optional[RegistrationSolution] = None
     overlaps: Optional[torch.Tensor] = None
+
+    def row(self, b: int) -> "PipelineResult":
+        """Pair b's result of a batched call."""
+        return take_row(self, b)
+
+    @staticmethod
+    def stack(rows) -> "PipelineResult":
+        """Results stacked along a new leading pair axis."""
+        return stack_rows(list(rows))
 
 
 def _noop(stage: str) -> None:
@@ -113,13 +127,41 @@ def extract_features(points, mask, config: PipelineConfig, device=None,
     return PointBatch(vox_pts, vox_mask), desc, desc_mask, normals
 
 
+def _pair_axis(src: PointBatch, tgt: PointBatch, dev):
+    """Both clouds on the device with a leading pair axis (added for one
+    pair: the flag says so)."""
+    src, tgt = src.to(dev), tgt.to(dev)
+    one = src.points.dim() == 2
+    if one:
+        src = PointBatch(src.points[None], src.mask[None])
+        tgt = PointBatch(tgt.points[None], tgt.mask[None])
+    if src.points.shape[0] != tgt.points.shape[0]:
+        raise ValueError(f"{src.points.shape[0]} source and "
+                         f"{tgt.points.shape[0]} target clouds")
+    return src, tgt, one
+
+
+def _both(fn, src_points, src_mask, tgt_points, tgt_mask):
+    """``fn`` on the source and target clouds (B, N, 3) as one batch of 2B
+    where their capacities agree, else one after the other; returns the
+    source's and the target's outputs."""
+    bsz = src_points.shape[0]
+    if src_points.shape == tgt_points.shape:
+        out = fn(torch.cat([src_points, tgt_points]),
+                 torch.cat([src_mask, tgt_mask]))
+        return take_row(out, slice(0, bsz)), take_row(out, slice(bsz, None))
+    return fn(src_points, src_mask), fn(tgt_points, tgt_mask)
+
+
 def register_features(src: PointBatch, tgt: PointBatch,
                       config: PipelineConfig = PipelineConfig(),
                       device=None,
                       timer: Optional[Callable[[str], None]] = None
                       ) -> PipelineResult:
     """Feature extraction + matching + solve on already-preprocessed
-    clouds. With ``config.solver.total_hypotheses > 1`` (as in
+    clouds: one pair (N, 3), or a batch of B pairs (B, N, 3) in one call
+    with a leading B on the result (each row the per-pair call's). With
+    ``config.solver.total_hypotheses > 1`` (as in
     ``PipelineConfig.recommended()``) the solver returns clique and vote
     hypotheses and the one whose pose best overlaps the voxel clouds
     within 2 * voxel_size wins (solver/verify.py). With
@@ -127,20 +169,10 @@ def register_features(src: PointBatch, tgt: PointBatch,
     ICP on these clouds (``refine_solution``)."""
     timer = timer or _noop
     dev = resolve_device(device)
-    src, tgt = src.to(dev), tgt.to(dev)
-    if src.points.shape == tgt.points.shape:
-        vox, desc, dmask, _ = extract_features(
-            torch.stack([src.points, tgt.points]),
-            torch.stack([src.mask, tgt.mask]), config, dev, timer)
-        src_vox = PointBatch(vox.points[0], vox.mask[0])
-        tgt_vox = PointBatch(vox.points[1], vox.mask[1])
-        src_desc, tgt_desc = desc[0], desc[1]
-        src_dmask, tgt_dmask = dmask[0], dmask[1]
-    else:
-        src_vox, src_desc, src_dmask, _ = extract_features(
-            src.points, src.mask, config, dev, timer)
-        tgt_vox, tgt_desc, tgt_dmask, _ = extract_features(
-            tgt.points, tgt.mask, config, dev, timer)
+    src, tgt, one = _pair_axis(src, tgt, dev)
+    (src_vox, src_desc, src_dmask, _), (tgt_vox, tgt_desc, tgt_dmask, _) = \
+        _both(lambda p, m: extract_features(p, m, config, dev, timer),
+              src.points, src.mask, tgt.points, tgt.mask)
 
     f = config.fpfh
     corr = match_features(
@@ -169,23 +201,35 @@ def register_features(src: PointBatch, tgt: PointBatch,
         sol, icp_res = refine_solution(src.points, src.mask, tgt.points,
                                        tgt.mask, sol, config)
         timer("icp")
-    return PipelineResult(sol, corr, src_vox, tgt_vox, icp_res,
-                          hypotheses=sols, overlaps=overlaps)
+    res = PipelineResult(sol, corr, src_vox, tgt_vox, icp_res,
+                         hypotheses=sols, overlaps=overlaps)
+    return drop_axis(res) if one else res
 
 
 def refine_solution(src_points, src_mask, tgt_points, tgt_mask,
                     sol: RegistrationSolution, config: PipelineConfig):
     """Point-to-plane ICP polish of a coarse solution on the given clouds
-    (the JAX package's refine_solution): both clouds voxelised with no
-    ``active_cap`` (a raw scan keeps all its points), target normals from
-    K-capped radius neighbours, then ``refine_icp`` gated on
-    ``sol.valid``. Pass clouds that still hold the ground: without it z
-    is unconstrained wherever the remaining structure is vertical.
-    Returns (solution with the refined pose, IcpResult)."""
-    vox_s, m_s = voxel_downsample(src_points, src_mask, config.voxel_size,
-                                  config.max_voxels)
-    vox_t, m_t = voxel_downsample(tgt_points, tgt_mask, config.voxel_size,
-                                  config.max_voxels)
+    (the JAX package's refine_solution), for one pair (N, 3) or a batch
+    (B, N, 3): every cloud voxelised with no ``active_cap`` (a raw scan
+    keeps all its points), target normals from K-capped radius
+    neighbours, then ``refine_icp`` gated on ``sol.valid``. Pass clouds
+    that still hold the ground: without it z is unconstrained wherever
+    the remaining structure is vertical. Returns (solution with the
+    refined pose, IcpResult)."""
+    one = src_points.dim() == 2
+    if one:
+        return drop_axis(refine_solution(
+            src_points[None], src_mask[None], tgt_points[None],
+            tgt_mask[None], take_row(sol, None), config))
+
+    def voxels(points, mask):
+        vox = [voxel_downsample(p, m, config.voxel_size, config.max_voxels)
+               for p, m in zip(points, mask)]
+        return (torch.stack([v[0] for v in vox]),
+                torch.stack([v[1] for v in vox]))
+
+    (vox_s, m_s), (vox_t, m_t) = _both(voxels, src_points, src_mask,
+                                       tgt_points, tgt_mask)
     normals = estimate_normals(vox_t, radius_neighbors(
         vox_t, m_t, config.fpfh.normal_radius,
         config.fpfh.max_neighbors_normal))
@@ -235,10 +279,13 @@ def register_scan_pair(src: PointBatch, tgt: PointBatch,
     rejection -> [ground-plane leveling] -> ``register_features`` on the
     segment masks -> [compose the leveling back] -> [ICP polish].
 
-    Both scans are preprocessed as one batch of two whatever
+    One pair of scans (N, 3), or a batch of B pairs (B, N, 3) in one call
+    with a leading B on every tensor of the result, each row the per-pair
+    call's (the JAX package's ``jit(vmap(register_scan_pair))``). The
+    source and target scans are preprocessed as one batch of 2B whatever
     ``stack_preprocess`` says (that knob chose between two XLA programs on
     the TPU; per cloud the results are the same); scans of different
-    capacities go one at a time. With ``config.ground_alignment.enabled``
+    capacities go apart. With ``config.ground_alignment.enabled``
     both scans are leveled by their fitted ground planes before the
     yaw-only solve and the pose is composed back (full 6-DoF, the Quatro++
     extension, solver/ground.py); the correspondences, voxel clouds and
@@ -248,17 +295,10 @@ def register_scan_pair(src: PointBatch, tgt: PointBatch,
     """
     timer = timer or _noop
     dev = resolve_device(device)
-    src, tgt = src.to(dev), tgt.to(dev)
-    if src.points.shape == tgt.points.shape:
-        seg, ground = preprocess(torch.stack([src.points, tgt.points]),
-                                 torch.stack([src.mask, tgt.mask]), config,
-                                 dev, timer)
-        (src_seg, tgt_seg), (src_ground, tgt_ground) = seg, ground
-    else:
-        src_seg, src_ground = preprocess(src.points, src.mask, config, dev,
-                                         timer)
-        tgt_seg, tgt_ground = preprocess(tgt.points, tgt.mask, config, dev,
-                                         timer)
+    src, tgt, one = _pair_axis(src, tgt, dev)
+    (src_seg, src_ground), (tgt_seg, tgt_ground) = _both(
+        lambda p, m: preprocess(p, m, config, dev, timer),
+        src.points, src.mask, tgt.points, tgt.mask)
 
     coarse_cfg = config
     if config.icp.enabled:
@@ -287,4 +327,5 @@ def register_scan_pair(src: PointBatch, tgt: PointBatch,
         sol, icp_res = refine_solution(src.points, src.mask, tgt.points,
                                        tgt.mask, sol, config)
         timer("icp")
-    return res._replace(solution=sol, icp=icp_res)
+    res = res._replace(solution=sol, icp=icp_res)
+    return drop_axis(res) if one else res

@@ -122,9 +122,9 @@ def run_sequence(scans: Sequence[PointBatch],
     them; a rerun loads the cached features, skips every registered edge,
     and a killed job loses at most ``checkpoint_every`` edges of work.
 
-    Edges register ``batch_size`` at a time through
-    ``OdometryRunner.register_pairs``; the last batch is padded by
-    repeating its last edge. Each batch's poses, validity, inlier counts
+    Edges register ``batch_size`` at a time, each batch one batched call
+    of ``OdometryRunner.register_pairs`` (the last batch holds only the
+    edges left). Each batch's poses, validity, inlier counts
     and overlaps are read back once. An edge enters the pose graph iff the
     solver reports valid, the final inlier count >= ``min_edge_inliers``,
     and (when ``min_edge_overlap`` > 0) the alignment overlap passes
@@ -210,11 +210,13 @@ def run_sequence(scans: Sequence[PointBatch],
 
     for start in range(n_done, len(plan), batch_size):
         chunk = plan[start:start + batch_size]
-        padded = list(chunk) + [chunk[-1]] * (batch_size - len(chunk))
-        # edge (i, j): register src=scan_j onto tgt=scan_i
+        # edge (i, j): register src=scan_j onto tgt=scan_i; the chunk's
+        # edges in one batched call (the JAX package pads the last chunk
+        # to batch_size for vmap's static shapes; rows past the chunk
+        # would never be read)
         sols, overlaps = runner.register_pairs(
-            FrameFeatures.stack([feats[j] for _, j in padded]),
-            FrameFeatures.stack([feats[i] for i, _ in padded]))
+            FrameFeatures.stack([feats[j] for _, j in chunk]),
+            FrameFeatures.stack([feats[i] for i, _ in chunk]))
         t_all, yaw_all = solution_to_edge(sols.translation, sols.rotation)
         counts = sols.final_inlier_mask.sum(-1).to(torch.float32)
         host = torch.cat([t_all, yaw_all[:, None],

@@ -6,16 +6,23 @@ src/graph.cc:59-82), lock-step greedy clique growth with (1,2)-swap
 improvement, the exact branch-and-bound of PMC_EXACT, and the K largest
 distinct cliques of the multi-hypothesis solver.
 
+Every function takes one graph (N, N) or a batch of pairs (B, N, N).
 The JAX package's ``lax.while_loop``s are bounded Python loops here with
-the same bounds and exit tests; each exit test reads one value back from
-the device. Ties are broken as in the JAX package: ``lax.top_k`` keeps the
-lower index (stable sorts here), argmax / argmin take the first extreme.
+the same bounds and exit tests, run as vmap runs them: the loop goes on
+while any pair is live, and each pair keeps its state from the round its
+own test ended it (by ``torch.where``, or because that state is a fixed
+point of the round); one value is read back from the device per round,
+whatever B is. Ties are broken as in the JAX package: ``lax.top_k`` keeps
+the lower index (stable sorts here), argmax / argmin take the first
+extreme.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from quatro_tpu_torch.utils.batch import drop_axis
 
 
 def _count_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -24,17 +31,37 @@ def _count_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a.to(torch.float32) @ b.to(torch.float32)
 
 
+def _count_mv(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``_count_mm`` of (..., N, N) matrices and (..., N) vectors."""
+    return _count_mm(a, v[..., None])[..., 0]
+
+
 def _top_k_indices(x: torch.Tensor, k: int) -> torch.Tensor:
     """Indices of the k largest entries along the last axis, ties toward
     the lower index (lax.top_k's order)."""
     return torch.sort(x, dim=-1, descending=True, stable=True).indices[..., :k]
 
 
-def _peel_to_kcore(adj_f: torch.Tensor, alive: torch.Tensor, k) -> torch.Tensor:
-    """Fixed point of 'remove alive vertices with < k alive neighbours'."""
+def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[b, idx[b, i], :] of (B, S, N) rows by (B, K) indices."""
+    return x.gather(-2, idx[..., None].expand(*idx.shape, x.shape[-1]))
+
+
+def _put_rows(x: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor):
+    """x with rows idx[b, i] replaced by rows[b, i] (distinct indices)."""
+    return x.scatter(-2, idx[..., None].expand(*idx.shape, x.shape[-1]),
+                     rows)
+
+
+def _peel_to_kcore(adj_f: torch.Tensor, alive: torch.Tensor,
+                   k: torch.Tensor) -> torch.Tensor:
+    """Fixed point of 'remove alive vertices with < k alive neighbours',
+    per pair: adj_f (B, N, N), alive (B, N), k (B,). A row at its fixed
+    point stays there, so the loop runs until no row changes, one flag
+    read per round."""
     while True:
-        deg = _count_mm(adj_f, alive)
-        new_alive = alive * (deg >= k).to(alive.dtype)
+        deg = _count_mv(adj_f, alive)
+        new_alive = alive * (deg >= k[..., None]).to(alive.dtype)
         if not bool((new_alive != alive).any()):
             return new_alive
         alive = new_alive
@@ -42,19 +69,27 @@ def _peel_to_kcore(adj_f: torch.Tensor, alive: torch.Tensor, k) -> torch.Tensor:
 
 def max_kcore(adj: torch.Tensor, mask: torch.Tensor):
     """Largest k with a non-empty k-core, plus that core's membership mask
-    (binary search over k, each probe peeling from the best core so far)."""
+    (binary search over k, each probe peeling from the best core so far),
+    for adj (N, N) or a batch (B, N, N): (k () or (B,) int64, core mask).
+    Each pair keeps its own ``lo`` / ``hi``; a pair whose search has ended
+    probes k = 0, which peels nothing."""
+    if adj.dim() == 2:
+        return drop_axis(max_kcore(adj[None], mask[None]))
     adj_f = adj.to(torch.float32)
     alive0 = mask.to(torch.float32)
-    deg0 = _count_mm(adj_f, alive0)
-    lo, hi = 0, int(torch.where(mask, deg0, 0.0).max())
+    deg0 = _count_mv(adj_f, alive0)
+    lo = torch.zeros(mask.shape[:-1], dtype=torch.int64, device=adj.device)
+    hi = torch.where(mask, deg0, 0.0).amax(-1).to(torch.int64)
     best_core = alive0
-    while lo < hi:
+    while bool((lo < hi).any()):
+        act = lo < hi
         mid = (lo + hi + 1) // 2
-        core = _peel_to_kcore(adj_f, best_core, float(mid))
-        if bool(core.sum() > 0):
-            lo, best_core = mid, core
-        else:
-            hi = mid - 1
+        core = _peel_to_kcore(adj_f, best_core,
+                              torch.where(act, mid, 0).to(torch.float32))
+        nonempty = act & (core.sum(-1) > 0)
+        lo = torch.where(nonempty, mid, lo)
+        hi = torch.where(act & ~nonempty, mid - 1, hi)
+        best_core = torch.where(nonempty[..., None], core, best_core)
     return lo, best_core > 0
 
 
@@ -62,42 +97,49 @@ def grow_greedy_cliques(adj: torch.Tensor, seed_scores: torch.Tensor,
                         mask: torch.Tensor, num_seeds: int = 16,
                         max_size: int = 512, phase1_rounds: int = 8,
                         survivors: int = 16) -> torch.Tensor:
-    """Grow S greedy cliques in lock-step; (S, N) bool clique masks. Each
-    round adds, per seed, the candidate of highest degree within that
-    seed's candidate set (two-phase schedule as in the JAX package)."""
-    n = adj.shape[0]
+    """Grow S greedy cliques in lock-step; (S, N) bool clique masks, or
+    (B, S, N) for a batch (B, N, N). Each round adds, per seed, the
+    candidate of highest degree within that seed's candidate set
+    (two-phase schedule as in the JAX package). A seed with no candidate
+    left is a fixed point of a round, so the rounds run while any seed of
+    any pair has candidates, one flag read per round."""
+    if adj.dim() == 2:
+        return drop_axis(grow_greedy_cliques(
+            adj[None], seed_scores[None], mask[None], num_seeds, max_size,
+            phase1_rounds, survivors))
+    n = adj.shape[-1]
     dev = adj.device
     num_seeds = min(num_seeds, n)
     adj_f = adj.to(torch.float32)
     scores = torch.where(mask, seed_scores, float("-inf"))
-    seeds = _top_k_indices(scores, num_seeds)
+    seeds = _top_k_indices(scores, num_seeds)               # (B, S)
     clique = torch.nn.functional.one_hot(seeds, n).to(torch.float32)
-    cand = adj_f[seeds] * mask.to(torch.float32)
+    cand = _take_rows(adj_f, seeds) * mask.to(torch.float32)[..., None, :]
     tiebreak = -torch.arange(n, dtype=torch.float32, device=dev) * 1e-6
 
     def body(clique, cand):
         deg = _count_mm(cand, adj_f) * cand
         # early completion: a candidate set that is itself a clique is
         # absorbed whole (never past max_size)
-        csz = cand.sum(1)
-        esum = deg.sum(1)
-        room = clique.sum(1) + csz <= float(max_size)
+        csz = cand.sum(-1)
+        esum = deg.sum(-1)
+        room = clique.sum(-1) + csz <= float(max_size)
         whole = ((esum == csz * (csz - 1.0)) & (csz > 0) & room
-                 ).to(torch.float32)[:, None]
+                 ).to(torch.float32)[..., None]
         clique = clique + cand * whole
         cand = cand * (1.0 - whole)
         score = torch.where(cand > 0, deg + tiebreak, float("-inf"))
-        pick = torch.argmax(score, dim=1)
+        pick = torch.argmax(score, dim=-1)
         pick_oh = torch.nn.functional.one_hot(pick, n).to(torch.float32)
-        has_cand = ((cand.sum(1) > 0) & (clique.sum(1) < float(max_size))
-                    )[:, None].to(torch.float32)
+        has_cand = ((cand.sum(-1) > 0) & (clique.sum(-1) < float(max_size))
+                    )[..., None].to(torch.float32)
         clique = clique + pick_oh * has_cand
         cand = cand * _count_mm(pick_oh, adj_f) * has_cand
         cand = cand * (1.0 - clique)
         return clique, cand
 
     def run(clique, cand, rounds, limit):
-        while rounds < limit and bool((cand.sum(1) > 0).any()):
+        while rounds < limit and bool((cand.sum(-1) > 0).any()):
             clique, cand = body(clique, cand)
             rounds += 1
         return clique, cand, rounds
@@ -105,71 +147,94 @@ def grow_greedy_cliques(adj: torch.Tensor, seed_scores: torch.Tensor,
     if num_seeds <= survivors or phase1_rounds >= max_size:
         clique, _, _ = run(clique, cand, 0, max_size - 1)
         return clique > 0
+    # a pair whose phase 1 ended early has no candidates left, so its
+    # phase 2 is a fixed point whatever its round count
     clique, cand, r1 = run(clique, cand, 0, phase1_rounds)
-    keep = _top_k_indices(cand.sum(1), survivors)
-    c2, _, _ = run(clique[keep], cand[keep], r1, max_size - 1)
-    clique[keep] = c2
-    return clique > 0
+    keep = _top_k_indices(cand.sum(-1), survivors)
+    c2, _, _ = run(_take_rows(clique, keep), _take_rows(cand, keep), r1,
+                   max_size - 1)
+    return _put_rows(clique, keep, c2) > 0
 
 
 def improve_cliques_1swap(adj: torch.Tensor, cliques: torch.Tensor,
                           mask: torch.Tensor, rounds: int = 4) -> torch.Tensor:
-    """(1,2)-swap local improvement of (K, N) clique masks: per round, add
-    an outside vertex adjacent to every member, else drop one member u
-    and add two adjacent outside vertices that miss only u."""
+    """(1,2)-swap local improvement of (K, N) clique masks, or (B, K, N)
+    for a batch (B, N, N): per round, add an outside vertex adjacent to
+    every member, else drop one member u and add two adjacent outside
+    vertices that miss only u; a clique with neither stops there, as the
+    JAX package's ``while_loop`` does under vmap. Every clique of every
+    pair takes each round together, one flag read per round."""
     if rounds <= 0:
         return cliques
-    n = adj.shape[0]
+    if adj.dim() == 2:
+        return drop_axis(improve_cliques_1swap(adj[None], cliques[None],
+                                               mask[None], rounds))
+    bsz, kq, n = cliques.shape
     dev = adj.device
     adj_b = adj.to(torch.bool)
-    adj_f = adj_b.to(torch.float32)
+    adj_t = adj_b.to(torch.float32).transpose(-1, -2)
     k_cand = min(128, n)
     iota = torch.arange(n, device=dev)
-    out = []
-    for x in cliques:
-        x = x.clone()
-        for _ in range(rounds):
-            xf = x.to(torch.float32)
-            s = xf.sum()
-            cnt = adj_f @ xf
-            outside = ~x & mask
-            addable = (cnt == s) & outside
-            if bool(addable.any()):
-                x[torch.argmax(addable.to(torch.uint8))] = True
-                continue
-            miss1 = (cnt == s - 1.0) & outside
-            sel_key = torch.where(miss1, iota, n)
-            idx = torch.sort(sel_key, stable=True).indices[:k_cand]
-            vsel = sel_key[idx] < n
-            rows_b = adj_b[idx]
-            asub = rows_b[:, idx]
-            non_nbr = (1.0 - rows_b.to(torch.float32)) * xf[None, :]
-            uidx = torch.argmax(non_nbr, dim=1)
-            pairs = (asub & vsel[:, None] & vsel[None, :]
-                     & (uidx[:, None] == uidx[None, :]))
-            flat = pairs.reshape(-1)
-            pidx = int(torch.argmax(flat.to(torch.uint8)))
-            if not bool(flat[pidx]):
-                break
-            x[uidx[pidx // k_cand]] = False
-            x[idx[pidx // k_cand]] = True
-            x[idx[pidx % k_cand]] = True
-        out.append(x)
-    return torch.stack(out)
+    outside_ok = mask[:, None, :]
+    x = cliques.clone()
+    live = torch.ones((bsz, kq), dtype=torch.bool, device=dev)
+    for _ in range(rounds):
+        xf = x.to(torch.float32)
+        s = xf.sum(-1, keepdim=True)
+        cnt = xf @ adj_t                       # neighbours inside the clique
+        outside = ~x & outside_ok
+        addable = (cnt == s) & outside
+        can_add = addable.any(-1)
+        add_idx = torch.argmax(addable.to(torch.uint8), -1, keepdim=True)
+        x_add = x.scatter(-1, add_idx, True)
+        miss1 = (cnt == s - 1.0) & outside
+        sel_key = torch.where(miss1, iota, n)
+        idx = torch.sort(sel_key, dim=-1, stable=True).indices[..., :k_cand]
+        vsel = sel_key.gather(-1, idx) < n                    # (B, K, C)
+        rows_b = _take_rows(adj_b, idx.reshape(bsz, -1)).reshape(
+            bsz, kq, k_cand, n)                               # (B, K, C, N)
+        asub = rows_b.gather(-1, idx[..., None, :].expand(
+            bsz, kq, k_cand, k_cand))
+        # the first member each selected vertex is not adjacent to
+        uidx = torch.argmax((~rows_b & x[..., None, :]).to(torch.uint8), -1)
+        pairs = (asub & vsel[..., :, None] & vsel[..., None, :]
+                 & (uidx[..., :, None] == uidx[..., None, :]))
+        flat = pairs.reshape(bsz, kq, -1)
+        pidx = torch.argmax(flat.to(torch.uint8), -1, keepdim=True)
+        can_swap = flat.gather(-1, pidx)[..., 0]
+        p_row, p_col = pidx // k_cand, pidx % k_cand
+        x_swap = (x.scatter(-1, uidx.gather(-1, p_row), False)
+                  .scatter(-1, idx.gather(-1, p_row), True)
+                  .scatter(-1, idx.gather(-1, p_col), True))
+        moved = can_add | can_swap
+        new = torch.where(can_add[..., None], x_add, x_swap)
+        x = torch.where((live & moved)[..., None], new, x)
+        live = live & moved
+        if not bool(live.any()):
+            break
+    return x
 
 
 def improve_top_cliques(adj: torch.Tensor, cliques: torch.Tensor,
                         mask: torch.Tensor, top: int = 8,
                         rounds: int = 4) -> torch.Tensor:
-    """The 1-swap improvement applied to the `top` largest cliques."""
+    """The 1-swap improvement applied to the `top` largest cliques (of
+    each pair, for a batch)."""
     if rounds <= 0:
         return cliques
-    top = min(top, cliques.shape[0])
-    idx = _top_k_indices(cliques.sum(1), top)
-    cliques = cliques.clone()
-    cliques[idx] = improve_cliques_1swap(adj, cliques[idx], mask,
-                                         rounds=rounds)
-    return cliques
+    if adj.dim() == 2:
+        return drop_axis(improve_top_cliques(adj[None], cliques[None],
+                                             mask[None], top, rounds))
+    top = min(top, cliques.shape[-2])
+    idx = _top_k_indices(cliques.sum(-1), top)
+    return _put_rows(cliques, idx, improve_cliques_1swap(
+        adj, _take_rows(cliques, idx), mask, rounds=rounds))
+
+
+def _largest(cliques: torch.Tensor) -> torch.Tensor:
+    """The first largest of (..., S, N) clique masks: (..., N)."""
+    return _take_rows(cliques, torch.argmax(cliques.sum(-1), -1,
+                                            keepdim=True))[..., 0, :]
 
 
 def greedy_cliques(adj: torch.Tensor, seed_scores: torch.Tensor,
@@ -180,7 +245,7 @@ def greedy_cliques(adj: torch.Tensor, seed_scores: torch.Tensor,
     cliques = grow_greedy_cliques(adj, seed_scores, mask,
                                   num_seeds=num_seeds, max_size=max_size)
     cliques = improve_top_cliques(adj, cliques, mask, rounds=swap_rounds)
-    return cliques[torch.argmax(cliques.sum(1))]
+    return _largest(cliques)
 
 
 def _lowest_bit(x: int) -> int:
@@ -257,57 +322,63 @@ def clique_seed_scores(adj: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Seed attractiveness: max-core membership dominates, degree breaks
     ties."""
     _, kcore_mask = max_kcore(adj, mask)
-    return kcore_mask.to(torch.float32) * 1e6 + _count_mm(adj, mask)
+    return kcore_mask.to(torch.float32) * 1e6 + _count_mv(adj, mask)
 
 
 def top_distinct_cliques(cliques: torch.Tensor, k: int,
                          min_distinct_frac: float = 0.5,
                          force_first: bool = False):
     """The K largest pairwise-distinct cliques of (S, N) masks: ((K, N)
-    bool masks, (K,) f32 sizes). Two cliques are the same hypothesis when
-    their intersection covers >= min_distinct_frac of the smaller one;
-    singletons are never taken; with force_first, row 0 is taken first
-    whatever its size. Unfilled slots hold the first untaken rows with
-    size 0. k is clamped to S.
+    bool masks, (K,) f32 sizes), or of each pair's (B, S, N). Two cliques
+    are the same hypothesis when their intersection covers >=
+    min_distinct_frac of the smaller one; singletons are never taken; with
+    force_first, row 0 is taken first whatever its size. Unfilled slots
+    hold the first untaken rows with size 0. k is clamped to S.
 
     The JAX package's greedy ``fori_loop`` over the S rows runs on the
-    host here: the (S, S) intersection counts and the sizes come back in
-    one copy, the O(S^2) greedy runs in numpy, and the picked rows are
-    gathered on the device.
+    host here, for every pair at once: the (S, S) intersection counts and
+    the sizes come back in one copy, the O(S^2) greedy runs in numpy over
+    the pair axis, and the picked rows are gathered on the device.
     """
-    s = cliques.shape[0]
+    if cliques.dim() == 2:
+        return drop_axis(top_distinct_cliques(cliques[None], k,
+                                              min_distinct_frac, force_first))
+    s = cliques.shape[-2]
     k = min(k, s)
+    dev = cliques.device
     cf = cliques.to(torch.float32)
-    sizes = cf.sum(1)
+    sizes = cf.sum(-1)
     sort_key = sizes
     if force_first:
         bump = torch.zeros_like(sizes)
-        bump[0] = 1e9
+        bump[..., 0] = 1e9
         sort_key = sizes + bump
-    order = torch.sort(-sort_key, stable=True).indices
-    cf = cf[order]
-    sizes = sizes[order]
-    inter = _count_mm(cf, cf.T)                          # (S, S)
-    host = torch.cat([inter, sizes[None]]).cpu().numpy()
-    inter_h, sizes_h = host[:s], host[s]
-    min_sz = np.minimum(sizes_h[:, None], sizes_h[None, :])
+    order = torch.sort(-sort_key, dim=-1, stable=True).indices
+    cf = _take_rows(cf, order)
+    sizes = sizes.gather(-1, order)
+    inter = _count_mm(cf, cf.transpose(-1, -2))          # (B, S, S)
+    host = torch.cat([inter, sizes[:, None]], -2).cpu().numpy()
+    inter_h, sizes_h = host[:, :s], host[:, s]
+    min_sz = np.minimum(sizes_h[:, :, None], sizes_h[:, None, :])
     frac = np.float32(min_distinct_frac)
-    taken = np.zeros(s, bool)
-    count = 0
+    taken = np.zeros(sizes_h.shape, bool)
+    count = np.zeros(sizes_h.shape[0], np.int64)
     for i in range(s):
-        conflict = taken & (inter_h[i] >= frac * np.maximum(min_sz[i],
-                                                            np.float32(1.0)))
+        conflict = taken & (inter_h[:, i] >= frac * np.maximum(
+            min_sz[:, i], np.float32(1.0)))
         # singletons (isolated seeds) carry no hypothesis: the reference
         # aborts on cliques <= 1 (include/quatro.hpp:809-813)
-        ok = count < k and not conflict.any() and sizes_h[i] > 1
-        taken[i] = ok
-        count += int(ok)
+        ok = (count < k) & ~conflict.any(-1) & (sizes_h[:, i] > 1)
+        taken[:, i] = ok
+        count += ok
     iota = np.arange(s)
-    pick = np.argsort(np.where(taken, iota, s + iota), kind="stable")[:k]
-    pick_order = torch.from_numpy(pick).to(cf.device)
-    picked_sizes = torch.where(
-        torch.arange(k, device=cf.device) < count, sizes[pick_order], 0.0)
-    return cf[pick_order] > 0, picked_sizes
+    pick = np.argsort(np.where(taken, iota, s + iota), axis=-1,
+                      kind="stable")[:, :k]
+    pick_order = torch.from_numpy(pick).to(dev)
+    filled = (torch.arange(k, device=dev)[None, :]
+              < torch.from_numpy(count).to(dev)[:, None])
+    picked_sizes = torch.where(filled, sizes.gather(-1, pick_order), 0.0)
+    return _take_rows(cf, pick_order) > 0, picked_sizes
 
 
 def select_inliers_with_candidates(adj: torch.Tensor, mask: torch.Tensor,
@@ -316,21 +387,26 @@ def select_inliers_with_candidates(adj: torch.Tensor, mask: torch.Tensor,
                                    swap_rounds: int = 0, top: int = 8):
     """select_inliers(mode="clique") and the improved grown candidates,
     with the k-core, seed scores, growth and swaps computed once. Returns
-    (sel (N,), valid (), grown (S, N)); the selection equals
-    select_inliers' for top == 8."""
+    (sel (N,), valid (), grown (S, N)), with a leading pair axis for a
+    batch; the selection equals select_inliers' for top == 8."""
+    if adj.dim() == 2:
+        return drop_axis(select_inliers_with_candidates(
+            adj[None], mask[None], kcore_threshold, num_seeds, max_size,
+            swap_rounds, top))
     max_core, kcore_mask = max_kcore(adj, mask)
-    scores = kcore_mask.to(torch.float32) * 1e6 + _count_mm(adj, mask)
+    scores = kcore_mask.to(torch.float32) * 1e6 + _count_mv(adj, mask)
     grown = grow_greedy_cliques(adj, scores, mask, num_seeds=num_seeds,
                                 max_size=max_size)
     grown = improve_top_cliques(adj, grown, mask, top=top,
                                 rounds=swap_rounds)
-    clique_sel = grown[torch.argmax(grown.sum(1))] & mask
+    clique_sel = _largest(grown) & mask
     # an edgeless graph's largest core is the 0-core: select nothing
-    kcore_sel = kcore_mask & mask & (max_core >= 1)
-    n_valid = float(mask.sum())
-    use_kcore = max_core >= 1 and max_core >= kcore_threshold * n_valid
-    sel = kcore_sel if use_kcore else clique_sel
-    return sel, sel.sum() > 1, grown
+    kcore_sel = kcore_mask & mask & (max_core >= 1)[..., None]
+    # the threshold in float64, as the Python float of the per-pair code
+    n_valid = mask.sum(-1).to(torch.float64)
+    use_kcore = (max_core >= 1) & (max_core >= kcore_threshold * n_valid)
+    sel = torch.where(use_kcore[..., None], kcore_sel, clique_sel)
+    return sel, sel.sum(-1) > 1, grown
 
 
 def select_inliers(adj: torch.Tensor, mask: torch.Tensor, mode: str = "clique",
@@ -339,19 +415,28 @@ def select_inliers(adj: torch.Tensor, mask: torch.Tensor, mode: str = "clique",
                    exact_cap: int = 64, exact_max_steps: int = 20000):
     """Dispatch over the inlier-selection modes of Quatro::Params
     (include/quatro.hpp:184-189,248). Returns (inlier_mask (N,) bool,
-    valid () bool); valid is False when <= 1 vertex is selected (the
-    reference aborts there, include/quatro.hpp:809-813)."""
+    valid () bool), with a leading pair axis for a batch (B, N, N); valid
+    is False when <= 1 vertex is selected (the reference aborts there,
+    include/quatro.hpp:809-813). The exact search runs on the host, one
+    pair after the other."""
     if mode == "exact":
         greedy = greedy_cliques(adj, clique_seed_scores(adj, mask), mask,
                                 num_seeds=num_seeds, max_size=max_size,
                                 swap_rounds=swap_rounds) & mask
-        bb, _, _, _ = exact_max_clique_bb(adj, mask, incumbent=greedy,
-                                          cap=exact_cap,
-                                          max_steps=exact_max_steps)
+        if adj.dim() == 2:
+            bb = exact_max_clique_bb(adj, mask, incumbent=greedy,
+                                     cap=exact_cap,
+                                     max_steps=exact_max_steps)[0]
+        else:
+            bb = torch.stack([exact_max_clique_bb(
+                a, m, incumbent=g, cap=exact_cap,
+                max_steps=exact_max_steps)[0]
+                for a, m, g in zip(adj, mask, greedy)])
         # seeded with the greedy incumbent, the search can only match or
         # beat it; the max guards the truncated case
-        sel = torch.where(bb.sum() >= greedy.sum(), bb, greedy)
-        return sel, sel.sum() > 1
+        sel = torch.where((bb.sum(-1) >= greedy.sum(-1))[..., None], bb,
+                          greedy)
+        return sel, sel.sum(-1) > 1
     if mode == "clique":
         sel, valid, _ = select_inliers_with_candidates(
             adj, mask, kcore_threshold=kcore_threshold, num_seeds=num_seeds,
@@ -361,5 +446,5 @@ def select_inliers(adj: torch.Tensor, mask: torch.Tensor, mode: str = "clique",
         sel = mask
     else:
         max_core, kcore_mask = max_kcore(adj, mask)
-        sel = kcore_mask & mask & (max_core >= 1)
-    return sel, sel.sum() > 1
+        sel = kcore_mask & mask & (max_core >= 1)[..., None]
+    return sel, sel.sum(-1) > 1

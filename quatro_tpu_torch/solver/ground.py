@@ -23,7 +23,7 @@ import torch
 
 from quatro_tpu_torch.config import GroundAlignmentConfig
 from quatro_tpu_torch.ops.normals import smallest_eigenvector_3x3
-from quatro_tpu_torch.utils.fused import f32
+from quatro_tpu_torch.utils.fused import f32, pairwise_sum
 from quatro_tpu_torch.utils.se3 import rotate_points
 
 
@@ -35,7 +35,8 @@ class GroundPlane(NamedTuple):
 
 
 class GroundAlignment(NamedTuple):
-    """Leveling rotations and leveled ground heights of one scan pair."""
+    """Leveling rotations and leveled ground heights of one scan pair (a
+    batch of pairs adds a leading B to every field)."""
 
     src_level: torch.Tensor   # (3, 3) L_s
     tgt_level: torch.Tensor   # (3, 3) L_t
@@ -51,14 +52,16 @@ def _matmul3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def fit_ground_plane(points: torch.Tensor, mask: torch.Tensor) -> GroundPlane:
     """Least-squares plane through the masked points: masked centroid,
-    3x3 scatter matrix (true f32 products summed, never TF32), smallest
-    eigenvector as the normal, oriented upward."""
+    3x3 scatter matrix (true f32 products summed in one fixed order,
+    ``pairwise_sum``, so a cloud of a batch gives its own bits; never
+    TF32), smallest eigenvector as the normal, oriented upward."""
     w = mask.to(points.dtype)
     count = mask.sum(-1).to(torch.int32)
     denom = torch.clamp(w.sum(-1), min=1.0)
-    centroid = (points * w[..., None]).sum(-2) / denom[..., None]
+    centroid = pairwise_sum(points * w[..., None], -2) / denom[..., None]
     d = (points - centroid[..., None, :]) * w[..., None]
-    cov = (d[..., :, None] * d[..., None, :]).sum(-3) / denom[..., None, None]
+    cov = (pairwise_sum(d[..., :, None] * d[..., None, :], -3)
+           / denom[..., None, None])
     normal, lam_min = smallest_eigenvector_3x3(cov)
     normal = normal * torch.sign(normal[..., 2:3] + 1e-12)
     trace = cov[..., 0, 0] + cov[..., 1, 1] + cov[..., 2, 2]
@@ -108,7 +111,8 @@ def align_ground(src_points: torch.Tensor, src_ground: torch.Tensor,
                  ) -> GroundAlignment:
     """Fit both ground planes and build the pair's leveling rotations; the
     pair levels as a unit (both fits must pass, else identity and zero
-    heights). Clouds of one capacity are fitted as one batch of two."""
+    heights). Clouds of one capacity are fitted as one batch of two; a
+    batch of pairs (B, N, 3) gives each field a leading B."""
     if src_points.shape == tgt_points.shape:
         lv, h, ok = frame_leveling(torch.stack([src_points, tgt_points]),
                                    torch.stack([src_ground, tgt_ground]),
@@ -119,7 +123,9 @@ def align_ground(src_points: torch.Tensor, src_ground: torch.Tensor,
         lt, ht, ok_t = frame_leveling(tgt_points, tgt_ground, config)
     ok = ok_s & ok_t
     eye = torch.eye(3, dtype=src_points.dtype, device=src_points.device)
-    return GroundAlignment(torch.where(ok, ls, eye), torch.where(ok, lt, eye),
+    okm = ok[..., None, None]
+    return GroundAlignment(torch.where(okm, ls, eye),
+                           torch.where(okm, lt, eye),
                            torch.where(ok, hs, 0.0), torch.where(ok, ht, 0.0),
                            ok)
 

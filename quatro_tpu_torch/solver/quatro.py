@@ -9,8 +9,10 @@ reference's stage order:
     (yaw, or full SO(3) in TEASER mode) -> rotation-inlier chaining ->
     COTE translation -> compose [R|t].
 
-Both entry points take an optional ``timer``: a callable given the name
-of each solver stage as it ends ("graph", "cliques", then "vote" on the
+Every entry point takes one pair (N, 3) or a batch of B pairs (B, N, 3),
+solved together: each loop of the solver reads one flag back per round
+for the whole batch. Each takes an optional ``timer``: a callable given
+the name of each solver stage as it ends ("graph", "cliques", then "vote" on the
 multi-hypothesis path, and "polish"), for per-stage timing.
 """
 
@@ -28,6 +30,7 @@ from quatro_tpu_torch.solver import translation as trans_mod
 from quatro_tpu_torch.solver.scale import (solve_scale_tls,
                                            tim_consistency_graph)
 from quatro_tpu_torch.types import RegistrationSolution
+from quatro_tpu_torch.utils.batch import drop_axis, gather_rows
 from quatro_tpu_torch.utils.se3 import rotate_points
 
 
@@ -36,14 +39,14 @@ def _noop(stage: str) -> None:
 
 
 def _consistency_inputs(src, tgt, mask, config: SolverConfig):
-    """(scale, adjacency): the solver preamble. With ``estimate_scaling``
-    the TLS scale and its own pair-inlier adjacency (the reference's flag
-    is inert; see solve_scale_tls), else scale 1 and the consistency
-    graph."""
+    """(scale (B,), adjacency (B, N, N)): the solver preamble. With
+    ``estimate_scaling`` the TLS scale and its own pair-inlier adjacency
+    (the reference's flag is inert; see solve_scale_tls), else scale 1
+    and the consistency graph (one B1 launch for the batch)."""
     if config.estimate_scaling:
         return solve_scale_tls(src, tgt, mask, config.noise_bound,
                                config.cbar2)
-    scale = torch.ones((), dtype=src.dtype, device=src.device)
+    scale = torch.ones(src.shape[:-2], dtype=src.dtype, device=src.device)
     adj = tim_consistency_graph(src, tgt, mask, config.noise_bound,
                                 config.cbar2,
                                 use_pallas=config.use_pallas_graph)
@@ -52,28 +55,41 @@ def _consistency_inputs(src, tgt, mask, config: SolverConfig):
 
 def _chain_order(inlier_mask: torch.Tensor):
     """Sorted clique indices + cyclic successor with static shapes
-    (include/quatro.hpp:806,828-843): positions 0..m-1 hold the clique
-    indices ascending; leaf(i) = clique[(i+1) % m]."""
-    n = inlier_mask.shape[0]
+    (include/quatro.hpp:806,828-843), per row of (..., N) masks:
+    positions 0..m-1 hold the clique indices ascending; leaf(i) =
+    clique[(i+1) % m]."""
+    n = inlier_mask.shape[-1]
     iota = torch.arange(n, device=inlier_mask.device)
-    order = torch.sort(torch.where(inlier_mask, iota, n + iota),
+    order = torch.sort(torch.where(inlier_mask, iota, n + iota), dim=-1,
                        stable=True).indices
-    m = inlier_mask.sum()
-    nxt = torch.where(iota + 1 < m, iota + 1, 0)
-    return order, order[nxt], iota < m, m
+    m = inlier_mask.sum(-1)
+    nxt = torch.where(iota + 1 < m[..., None], iota + 1, 0)
+    return order, order.gather(-1, nxt), iota < m[..., None], m
 
 
 def _solve_from_inliers(src, tgt, clique_mask, valid, scale,
                         config: SolverConfig, prior_ryrx, has_prior):
-    """Chain TIMs -> GNC rotation -> COTE translation given a selected
-    inlier set (include/quatro.hpp:817-936)."""
+    """Chain TIMs -> GNC rotation -> COTE translation given selected
+    inlier sets (include/quatro.hpp:817-936): src, tgt (B, N, 3), one
+    selection per row of clique_mask (B, ..., N) (hypotheses of a pair
+    share its points), valid and scale of the rows' shape, prior_ryrx
+    (3, 3) or one per pair (B, 3, 3). Every row is solved on its own."""
     dtype, dev = src.dtype, src.device
-    n = src.shape[0]
+    n = src.shape[-2]
+    rows = clique_mask.shape[:-1]
+    lead = (src.shape[0],) + (1,) * (clique_mask.dim() - 2)
 
+    def per_row(x):                               # (B, N, 3) -> rows
+        return x.reshape(*lead, n, 3).expand(*rows, n, 3)
+
+    src_r, tgt_r = per_row(src), per_row(tgt)
+    if prior_ryrx.dim() == 3:
+        prior_ryrx = prior_ryrx.reshape(*lead, 3, 3)
     order, leaf, chain_mask, m = _chain_order(clique_mask)
-    chainf = chain_mask.to(dtype)[:, None]
-    src_tims = (src[leaf] - src[order]) * chainf
-    dst_tims = (tgt[leaf] - tgt[order]) * chainf / scale
+    chainf = chain_mask.to(dtype)[..., None]
+    src_tims = (gather_rows(src_r, leaf) - gather_rows(src_r, order)) * chainf
+    dst_tims = ((gather_rows(tgt_r, leaf) - gather_rows(tgt_r, order))
+                * chainf / scale[..., None, None])
     if has_prior:
         # level the source with the IMU roll/pitch before the yaw solve
         src_tims = rotate_points(src_tims, prior_ryrx)
@@ -88,48 +104,51 @@ def _solve_from_inliers(src, tgt, clique_mask, valid, scale,
                 config.rotation_cost_threshold)
     if config.reg_name == "Quatro":
         gnc = rot_mod.gnc_rotation_2d(
-            src_tims[:, :2], dst_tims[:, :2], chain_mask, *gnc_args,
+            src_tims[..., :2], dst_tims[..., :2], chain_mask, *gnc_args,
             algorithm=config.rotation_estimation_algorithm)
-        rotation = torch.eye(3, dtype=dtype, device=dev)
-        rotation[:2, :2] = gnc.rotation
+        rotation = torch.eye(3, dtype=dtype, device=dev).repeat(*rows, 1, 1)
+        rotation[..., :2, :2] = gnc.rotation
     else:                                 # full SO(3) (TEASER mode)
         gnc = rot_mod.gnc_rotation_3d(
             src_tims, dst_tims, chain_mask, *gnc_args,
             algorithm=config.rotation_estimation_algorithm)
         rotation = gnc.rotation
-    rotation = rotate_points(rotation, prior_ryrx.T)     # R @ RyRx
+    rotation = rotate_points(rotation, prior_ryrx.transpose(-1, -2))  # R RyRx
 
     # rotation-inlier chaining (include/quatro.hpp:860-874)
     iota = torch.arange(n, device=dev)
-    prev = torch.where(iota == 0, torch.clamp(m - 1, min=0), iota - 1)
-    rot_inliers = gnc.inlier_mask & gnc.inlier_mask[prev] & chain_mask
-    num_rot_inliers = rot_inliers.sum().to(torch.int32)
+    prev = torch.where(iota == 0, torch.clamp(m - 1, min=0)[..., None],
+                       iota - 1)
+    rot_inliers = (gnc.inlier_mask & gnc.inlier_mask.gather(-1, prev)
+                   & chain_mask)
+    num_rot_inliers = rot_inliers.sum(-1).to(torch.int32)
 
     # COTE translation (include/quatro.hpp:879-911)
     if config.using_rot_inliers_when_estimating_cote:
-        sel_mask = rot_inliers if bool(num_rot_inliers > 0) else chain_mask
+        sel_mask = torch.where((num_rot_inliers > 0)[..., None], rot_inliers,
+                               chain_mask)
     else:
         sel_mask = chain_mask
-    pos_order = torch.sort(torch.where(sel_mask, iota, n + iota),
+    pos_order = torch.sort(torch.where(sel_mask, iota, n + iota), dim=-1,
                            stable=True).indices
-    cote_mask = iota < sel_mask.sum()
-    sel_idx = order[pos_order]
+    cote_mask = iota < sel_mask.sum(-1, keepdim=True)
+    sel_idx = order.gather(-1, pos_order)
     cote = trans_mod.solve_translation(
-        rotate_points(scale * src[sel_idx], rotation), tgt[sel_idx],
+        rotate_points(scale[..., None, None] * gather_rows(src_r, sel_idx),
+                      rotation), gather_rows(tgt_r, sel_idx),
         cote_mask, config.noise_bound * config.cote_noise_bound_coeff,
         config.cbar2, use_median=(config.cote_mode == "median"))
 
-    final_mask = torch.zeros(n, dtype=torch.bool, device=dev)
-    final_mask[sel_idx] = cote.inlier_mask & cote_mask
+    final_mask = torch.zeros_like(clique_mask).scatter(
+        -1, sel_idx, cote.inlier_mask & cote_mask)
     eye = torch.eye(3, dtype=dtype, device=dev)
     return RegistrationSolution(
         valid=valid,
         scale=scale,
-        rotation=torch.where(valid, rotation, eye),
-        translation=torch.where(valid, cote.translation,
-                                torch.zeros(3, dtype=dtype, device=dev)),
+        rotation=torch.where(valid[..., None, None], rotation, eye),
+        translation=torch.where(valid[..., None], cote.translation, 0.0),
         max_clique_mask=clique_mask,
-        final_inlier_mask=final_mask & valid,
+        final_inlier_mask=final_mask & valid[..., None],
         num_rotation_inliers=num_rot_inliers,
         gnc_iterations=gnc.iterations,
         gnc_cost=gnc.cost,
@@ -137,15 +156,19 @@ def _solve_from_inliers(src, tgt, clique_mask, valid, scale,
 
 
 def _solver_inputs(src, tgt, mask, prior_ryrx, device):
-    """The inputs as contiguous f32 / bool tensors on the device, and the
-    prior (identity when none is given)."""
+    """The inputs as contiguous f32 / bool tensors on the device with a
+    pair axis (added for one pair: the flag says so), and the prior
+    (identity when none is given)."""
     dev = resolve_device(device)
     src = to_tensor(src, torch.float32, dev)
     tgt = to_tensor(tgt, torch.float32, dev)
     mask = to_tensor(mask, torch.bool, dev)
+    one = src.dim() == 2
+    if one:
+        src, tgt, mask = src[None], tgt[None], mask[None]
     prior = (torch.eye(3, dtype=src.dtype, device=dev) if prior_ryrx is None
              else to_tensor(prior_ryrx, torch.float32, dev))
-    return src, tgt, mask, prior
+    return src.contiguous(), tgt.contiguous(), mask, prior, one
 
 
 def register_correspondences(
@@ -155,14 +178,17 @@ def register_correspondences(
         ) -> RegistrationSolution:
     """Solve the robust registration problem on matched correspondences.
 
-    src, tgt: (N, 3) matched keypoints (padded; numpy or tensors); mask:
-    (N,) validity. prior_ryrx: optional IMU roll/pitch rotation; the
-    estimated yaw is composed as Rz @ RyRx and COTE sees RyRx @ src
+    src, tgt: (N, 3) matched keypoints (padded; numpy or tensors), or a
+    batch of B pairs (B, N, 3), solved together with a leading B on every
+    field of the result; mask: (N,) or (B, N) validity. prior_ryrx:
+    optional IMU roll/pitch rotation (3, 3), or one per pair (B, 3, 3);
+    the estimated yaw is composed as Rz @ RyRx and COTE sees RyRx @ src
     (reference: include/quatro.hpp:276-279,419-426,892). device: None
     means "cuda" (RuntimeError without a card); tests pass "cpu".
     """
     timer = timer or _noop
-    src, tgt, mask, prior = _solver_inputs(src, tgt, mask, prior_ryrx, device)
+    src, tgt, mask, prior, one = _solver_inputs(src, tgt, mask, prior_ryrx,
+                                                device)
     scale, adj = _consistency_inputs(src, tgt, mask, config)
     timer("graph")
     clique_mask, valid = clique_mod.select_inliers(
@@ -177,7 +203,19 @@ def register_correspondences(
     sol = _solve_from_inliers(src, tgt, clique_mask, valid, scale, config,
                               prior, prior_ryrx is not None)
     timer("polish")
-    return sol
+    return drop_axis(sol) if one else sol
+
+
+def register_batch(src, tgt, mask, config: SolverConfig = SolverConfig(),
+                   device=None) -> RegistrationSolution:
+    """The solver over a leading batch of B pairs (the JAX package's
+    ``register_batch``, a vmap of ``register_correspondences``): src, tgt
+    (B, N, 3), mask (B, N). Each pair's failure is masked by its own
+    ``valid``; a junk pair changes no other pair's result."""
+    if len(src.shape) != 3:
+        raise ValueError(f"register_batch takes (B, N, 3) pairs, got "
+                         f"{tuple(src.shape)}")
+    return register_correspondences(src, tgt, mask, config, device=device)
 
 
 def register_hypotheses(
@@ -187,19 +225,21 @@ def register_hypotheses(
         ) -> RegistrationSolution:
     """Multi-hypothesis solve: the K largest mutually distinct cliques of
     the consistency graph, then ``config.num_vote_hypotheses`` vote
-    hypotheses (solver/vote.py), each solved on its own. Returns a
-    RegistrationSolution with a leading axis of K + num_vote_hypotheses,
-    clique hypotheses first; the caller arbitrates (solver/verify.py).
+    hypotheses (solver/vote.py). Returns a RegistrationSolution with a
+    leading axis of K + num_vote_hypotheses, clique hypotheses first (after
+    the pair axis B for a batch (B, N, 3)); the caller arbitrates
+    (solver/verify.py).
 
     Hypothesis 0 is exactly register_correspondences' selection, so more
     hypotheses only add candidates. A clique hypothesis is valid when it
     has more than one vertex, a vote hypothesis from two supporters on
-    (the cyclic chain TIM is estimable from two). The JAX package vmaps
-    the polish over the hypotheses; here it is a loop, and each
-    hypothesis's GNC stops on its own test as under vmap.
+    (the cyclic chain TIM is estimable from two). The B x (K + votes)
+    hypotheses are polished in one batched solve, as the JAX package vmaps
+    them; each one's GNC stops on its own test.
     """
     timer = timer or _noop
-    src, tgt, mask, prior = _solver_inputs(src, tgt, mask, prior_ryrx, device)
+    src, tgt, mask, prior, one = _solver_inputs(src, tgt, mask, prior_ryrx,
+                                                device)
     scale, adj = _consistency_inputs(src, tgt, mask, config)
     timer("graph")
     top = max(8, k)
@@ -226,7 +266,7 @@ def register_hypotheses(
         grown = clique_mod.improve_top_cliques(
             adj, grown, mask, top=top, rounds=config.clique_swap_rounds)
     cliques, sizes = clique_mod.top_distinct_cliques(
-        torch.cat([sel0[None], grown]), k, force_first=True)
+        torch.cat([sel0[:, None], grown], 1), k, force_first=True)
     valid_k = sizes > 1
     timer("cliques")
 
@@ -238,13 +278,13 @@ def register_hypotheses(
             num_anchors=config.vote_yaw_anchors,
             num_bins=config.vote_yaw_bins,
             num_yaw_modes=config.vote_yaw_modes)
-        cliques = torch.cat([cliques, vmasks])
-        valid_k = torch.cat([valid_k, vsizes >= 2])
+        cliques = torch.cat([cliques, vmasks], 1)
+        valid_k = torch.cat([valid_k, vsizes >= 2], 1)
         timer("vote")
 
-    sols = RegistrationSolution.stack([
-        _solve_from_inliers(src, tgt, sel, ok, scale, config, prior,
-                            prior_ryrx is not None)
-        for sel, ok in zip(cliques, valid_k)])
+    sols = _solve_from_inliers(
+        src, tgt, cliques, valid_k,
+        scale[:, None].expand(valid_k.shape).contiguous(), config, prior,
+        prior_ryrx is not None)
     timer("polish")
-    return sols
+    return drop_axis(sols) if one else sols

@@ -24,9 +24,10 @@ def tim_consistency_graph(src: torch.Tensor, tgt: torch.Tensor,
                           mask: torch.Tensor, noise_bound: float,
                           cbar2: float = 1.0,
                           use_pallas=None) -> torch.Tensor:
-    """Boolean (N, N) adjacency of scale-consistent correspondence pairs
-    (the reference's scale_inliers_mask_ + Graph::addEdge,
-    include/quatro.hpp:361-385,784-789, specialised to scale = 1).
+    """Boolean (..., N, N) adjacency of scale-consistent correspondence
+    pairs (the reference's scale_inliers_mask_ + Graph::addEdge,
+    include/quatro.hpp:361-385,784-789, specialised to scale = 1); src,
+    tgt (N, 3) or a batch of pairs (B, N, 3), the batch in one B1 launch.
 
     use_pallas (SolverConfig.use_pallas_graph): on the card, None and True
     run the B1 kernel at any N and False raises ValueError (the plain graph
@@ -37,10 +38,10 @@ def tim_consistency_graph(src: torch.Tensor, tgt: torch.Tensor,
         raise ValueError("use_pallas_graph=False selects the plain "
                          "consistency graph, which runs on the CPU only; on "
                          "the card the graph is the kernel")
-    n = src.shape[0]
+    n = src.shape[-2]
     beta = 2.0 * float(noise_bound) * float(cbar2) ** 0.5
-    consistent = consistency_graph(src, tgt, beta)
-    pair_valid = mask[:, None] & mask[None, :]
+    consistent = consistency_graph(src.contiguous(), tgt.contiguous(), beta)
+    pair_valid = mask[..., :, None] & mask[..., None, :]
     off_diag = ~torch.eye(n, dtype=torch.bool, device=src.device)
     return consistent & pair_valid & off_diag
 
@@ -52,25 +53,28 @@ def solve_scale_tls(src: torch.Tensor, tgt: torch.Tensor, mask: torch.Tensor,
     inert, include/quatro.hpp:361). Each pair i < j of valid, distinct
     points measures s_ij = d_tgt / d_src with the bound beta / d_src, and
     COTE's sorted-endpoint sweep takes the consensus over the N^2
-    flattened pairs. Returns (scale (), inlier adjacency (N, N) bool: pairs
-    whose ratio lies within their bound of the scale)."""
+    flattened pairs. src, tgt (..., N, 3). Returns (scale (...), inlier
+    adjacency (..., N, N) bool: pairs whose ratio lies within their bound
+    of the scale)."""
     dtype, dev = src.dtype, src.device
-    n = src.shape[0]
+    n = src.shape[-2]
     beta = (torch.full((), 2.0 * noise_bound, dtype=dtype, device=dev)
             * torch.sqrt(torch.full((), cbar2, dtype=dtype, device=dev)))
     d_src = pairwise_distances(src)
     d_tgt = pairwise_distances(tgt)
-    pair_valid = (mask[:, None] & mask[None, :]
+    pair_valid = (mask[..., :, None] & mask[..., None, :]
                   & torch.ones((n, n), dtype=torch.bool, device=dev).triu(1)
                   & (d_src > 1e-6))
     d_src_c = torch.clamp(d_src, min=1e-6)
     ratios = d_tgt / d_src_c
     alphas = beta / d_src_c
-    flat_valid = pair_valid.reshape(-1)
+    lead = src.shape[:-2]
+    flat_valid = pair_valid.reshape(*lead, n * n)
     scale = _estimate_axis_ranges(
-        torch.where(flat_valid, ratios.reshape(-1), 0.0),
-        torch.where(flat_valid, alphas.reshape(-1), 1.0), flat_valid)
+        torch.where(flat_valid, ratios.reshape(*lead, n * n), 0.0),
+        torch.where(flat_valid, alphas.reshape(*lead, n * n), 1.0),
+        flat_valid)
     off_diag = ~torch.eye(n, dtype=torch.bool, device=dev)
-    inliers = ((torch.abs(ratios - scale) <= alphas)
-               & mask[:, None] & mask[None, :] & off_diag)
+    inliers = ((torch.abs(ratios - scale[..., None, None]) <= alphas)
+               & mask[..., :, None] & mask[..., None, :] & off_diag)
     return scale, inliers

@@ -17,13 +17,14 @@ from quatro_tpu_torch.utils.scan import prefix_sum
 
 
 class CoteResult(NamedTuple):
-    translation: torch.Tensor    # (3,)
-    inlier_mask: torch.Tensor    # (N,) inlier on ALL axes (quatro.hpp:606-614)
+    translation: torch.Tensor    # (..., 3)
+    inlier_mask: torch.Tensor    # (..., N) inlier on ALL axes (quatro.hpp:606-614)
 
 
 def _estimate_axis(x: torch.Tensor, beta: torch.Tensor, mask: torch.Tensor,
                    use_median: bool):
-    """Truncated-LS consensus estimate per row of x (A, N), with the same
+    """Truncated-LS consensus estimate per row of x (A, N) under its own
+    mask row (or one (N,) mask for every row), with the same
     noise bound ``beta`` for every correspondence — the pipeline's case
     (the reference passes constant alphas, include/quatro.hpp:600-604), in
     which the reference's six running series collapse to three.
@@ -85,41 +86,47 @@ def _estimate_axis_ranges(x: torch.Tensor, ranges: torch.Tensor,
                           mask: torch.Tensor):
     """Quatro::estimate (include/quatro.hpp:618-747) with a noise bound
     of its own for every value (the JAX package's general branch, which
-    the TLS scale takes), without the median mode: x, ranges, mask (N,).
-    Returns the estimate ()."""
+    the TLS scale takes), without the median mode: x, ranges, mask
+    (..., N). Returns the estimates (...)."""
     dtype, dev = x.dtype, x.device
-    n = x.shape[0]
+    n = x.shape[-1]
     maskf = mask.to(dtype)
     big = torch.finfo(dtype).max
-    values = torch.cat([x - ranges, x + ranges])
-    eps = torch.cat([maskf, -maskf])
+    values = torch.cat([x - ranges, x + ranges], -1)
+    eps = torch.cat([maskf, -maskf], -1)
     values = torch.where(eps != 0, values, big)            # masked last
-    order = torch.sort(values, stable=True).indices
-    eps_s = eps[order]
+    order = torch.sort(values, dim=-1, stable=True).indices
+    eps_s = eps.gather(-1, order)
     idx_s = torch.cat([torch.arange(n, device=dev)] * 2)[order]
-    x_s = x[idx_s] * torch.abs(eps_s)
-    rng_s = ranges[idx_s] * torch.abs(eps_s)
+    x_s = x.gather(-1, idx_s) * torch.abs(eps_s)
+    rng_s = ranges.gather(-1, idx_s) * torch.abs(eps_s)
     w_s = torch.where(mask, 1.0 / torch.clamp(ranges * ranges, min=1e-30),
-                      0.0)[idx_s]
+                      0.0).gather(-1, idx_s)
     card, dot_w, dot_xw, sum_x, sum_x2, rng_c = prefix_sum(torch.stack(
         [eps_s, eps_s * w_s, eps_s * w_s * x_s, eps_s * x_s,
-         eps_s * x_s * x_s, eps_s * rng_s]))
+         eps_s * x_s * x_s, eps_s * rng_s], -2)).unbind(-2)
     # `ranges_inverse_sum` (sic) starts at sum(ranges) and drops by each
     # event's range (quatro.hpp:652,696)
-    range_rem = torch.where(mask, ranges, 0.0).sum() - rng_c
+    range_rem = torch.where(mask, ranges, 0.0).sum(-1, keepdim=True) - rng_c
     x_hat = dot_xw / torch.where(dot_w == 0, 1.0, dot_w)
     cost = card * x_hat * x_hat + sum_x2 - 2.0 * sum_x * x_hat + range_rem
     cost = torch.where((card > 0.5) & (eps_s != 0), cost, big)
-    return x_hat[torch.argmin(cost)]
+    return x_hat.gather(-1, torch.argmin(cost, -1, keepdim=True))[..., 0]
 
 
 def solve_translation(src: torch.Tensor, dst: torch.Tensor,
                       mask: torch.Tensor, noise_bound: float,
                       cbar2: float = 1.0, use_median: bool = True) -> CoteResult:
-    """COTE over all three axes (reference: include/quatro.hpp:585-615).
-    src is already scale * R @ src; the per-axis values are dst - src."""
+    """COTE over all three axes (reference: include/quatro.hpp:585-615);
+    src, dst (..., N, 3), mask (..., N), every row on its own. src is
+    already scale * R @ src; the per-axis values are dst - src."""
     dtype = src.dtype
     beta = (torch.tensor(noise_bound, dtype=dtype, device=src.device)
             * torch.sqrt(torch.tensor(cbar2, dtype=dtype, device=src.device)))
-    est, inl = _estimate_axis((dst - src).T, beta, mask, use_median)
-    return CoteResult(est, inl.all(dim=0) & mask)
+    x = (dst - src).transpose(-1, -2)                   # (..., 3, N)
+    n = x.shape[-1]
+    est, inl = _estimate_axis(x.reshape(-1, n), beta,
+                              mask[..., None, :].expand(x.shape)
+                              .reshape(-1, n), use_median)
+    inl = inl.reshape(x.shape)
+    return CoteResult(est.reshape(x.shape[:-1]), inl.all(dim=-2) & mask)

@@ -14,6 +14,8 @@ tight radius.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from quatro_tpu_torch.types import RegistrationSolution
@@ -23,37 +25,47 @@ from quatro_tpu_torch.utils.se3 import rotate_points
 def alignment_overlap(src, src_mask, tgt, tgt_mask, rotation, translation,
                       radius: float, row_block: int = 2048) -> torch.Tensor:
     """Share of valid source points within ``radius`` of a valid target
-    point after applying (rotation, translation): a 0-d f32 tensor in
-    [0, 1]. The (N, M) distances are taken in blocks of ``row_block``
-    source rows."""
-    p = rotate_points(src, rotation) + translation
+    point after applying (rotation, translation): f32 in [0, 1], of the
+    leading shape of the poses and clouds broadcast together (a 0-d
+    tensor for one pose on one pair; (B, K) for K poses (B, K, 3, 3) on
+    B pairs given as (B, 1, N, 3)). The distances are taken in blocks of
+    ``row_block`` source rows, split among the poses and pairs (at least
+    one row a block); the share is an integer count, so the blocking does
+    not change it."""
+    p = rotate_points(src, rotation) + translation[..., None, :]
+    lead = torch.broadcast_shapes(p.shape[:-2], tgt.shape[:-2],
+                                  src_mask.shape[:-1], tgt_mask.shape[:-1])
+    rows = max(1, row_block // max(1, math.prod(lead)))
     r2 = torch.tensor(radius, dtype=p.dtype, device=p.device) ** 2
     inf = torch.tensor(float("inf"), dtype=p.dtype, device=p.device)
-    hits = torch.zeros((), dtype=torch.int64, device=p.device)
-    for s in range(0, p.shape[0], row_block):
-        bp = p[s:s + row_block]
-        dx = bp[:, 0:1] - tgt[None, :, 0]
-        dy = bp[:, 1:2] - tgt[None, :, 1]
-        dz = bp[:, 2:3] - tgt[None, :, 2]
-        d2 = torch.where(tgt_mask[None, :], dx * dx + dy * dy + dz * dz, inf)
-        hits = hits + ((d2.amin(1) <= r2) & src_mask[s:s + row_block]).sum()
-    return hits.to(p.dtype) / torch.clamp(src_mask.sum(), min=1).to(p.dtype)
+    hits = torch.zeros(lead, dtype=torch.int64, device=p.device)
+    for s in range(0, p.shape[-2], rows):
+        bp = p[..., s:s + rows, :]
+        dx = bp[..., :, 0:1] - tgt[..., None, :, 0]
+        dy = bp[..., :, 1:2] - tgt[..., None, :, 1]
+        dz = bp[..., :, 2:3] - tgt[..., None, :, 2]
+        d2 = torch.where(tgt_mask[..., None, :], dx * dx + dy * dy + dz * dz,
+                         inf)
+        hits = hits + ((d2.amin(-1) <= r2)
+                       & src_mask[..., s:s + rows]).sum(-1)
+    return hits.to(p.dtype) / torch.clamp(src_mask.sum(-1), min=1).to(p.dtype)
 
 
 def arbitrate_hypotheses(sols: RegistrationSolution, src, src_mask, tgt,
                          tgt_mask, radius: float,
                          max_src_points: int | None = 2048):
-    """The best of K hypotheses (a solution with a leading K axis) by
-    overlap: (winning solution without the K axis, overlaps (K,)).
-    Invalid hypotheses score -1; ties go to the first. The source side is
+    """The best of K hypotheses (a solution with a leading K axis, or
+    (B, K) for B pairs with clouds (B, N, 3)) by overlap: (winning
+    solution without the K axis, overlaps (K,) or (B, K)). Invalid
+    hypotheses score -1; ties go to the first. The source side is
     thinned by a stride to at most ``max_src_points`` points (voxels are
     Morton-ordered, so a stride thins evenly); the target stays whole."""
-    if max_src_points is not None and src.shape[0] > max_src_points:
-        stride = -(-src.shape[0] // max_src_points)
-        src = src[::stride]
-        src_mask = src_mask[::stride]
-    overlaps = torch.stack([
-        alignment_overlap(src, src_mask, tgt, tgt_mask, r, t, radius)
-        for r, t in zip(sols.rotation, sols.translation)])
+    if max_src_points is not None and src.shape[-2] > max_src_points:
+        stride = -(-src.shape[-2] // max_src_points)
+        src = src[..., ::stride, :]
+        src_mask = src_mask[..., ::stride]
+    overlaps = alignment_overlap(
+        src[..., None, :, :], src_mask[..., None, :], tgt[..., None, :, :],
+        tgt_mask[..., None, :], sols.rotation, sols.translation, radius)
     score = torch.where(sols.valid, overlaps, -1.0)
-    return sols.take(torch.argmax(score)), overlaps
+    return sols.take(torch.argmax(score, -1)), overlaps

@@ -68,6 +68,8 @@ class RegistrationSolution:
     ``RegistrationSolution``; the reference's
     ``Quatro::RegistrationSolution`` plus masked inlier bookkeeping)."""
 
+    # shapes of one pair; a batch of B pairs (and the K hypotheses of a
+    # multi-hypothesis solve) adds leading axes to every field
     valid: torch.Tensor          # () bool — False iff the clique degenerated
     scale: torch.Tensor          # () f32 — always 1 in the reference pipeline
     rotation: torch.Tensor       # (3, 3) f32
@@ -80,19 +82,33 @@ class RegistrationSolution:
 
     @staticmethod
     def stack(sols) -> "RegistrationSolution":
-        """Solutions stacked along a new leading (hypothesis) axis."""
+        """Solutions stacked along a new leading (pair or hypothesis)
+        axis."""
         return RegistrationSolution(*(
             torch.stack([getattr(s, f.name) for s in sols])
             for f in fields(RegistrationSolution)))
 
+    def row(self, b: int) -> "RegistrationSolution":
+        """Row ``b`` of a batch: pair b's solution."""
+        return RegistrationSolution(*(getattr(self, f.name)[b]
+                                      for f in fields(self)))
+
     def take(self, index) -> "RegistrationSolution":
-        """Row ``index`` (an int or a 0-d integer tensor, read on the
-        device) of every field of a stacked solution."""
-        index = torch.as_tensor(index).reshape(1)
-        return RegistrationSolution(*(
-            getattr(self, f.name).index_select(
-                0, index.to(getattr(self, f.name).device))[0]
-            for f in fields(self)))
+        """Row ``index`` of the first axis past those of ``index`` (an int
+        or an integer tensor, read on the device): a 0-d index picks one
+        hypothesis of a (K, ...) solution, a (B,) index one per pair of a
+        (B, K, ...) solution."""
+        index = torch.as_tensor(index)
+        d = index.dim()
+
+        def pick(t):
+            i = index.to(t.device).reshape(*index.shape, 1,
+                                           *([1] * (t.dim() - d - 1)))
+            return t.gather(d, i.expand(*index.shape, 1,
+                                        *t.shape[d + 1:])).squeeze(d)
+
+        return RegistrationSolution(*(pick(getattr(self, f.name))
+                                      for f in fields(self)))
 
     def transform(self) -> torch.Tensor:
         """The 4x4 homogeneous transform [R|t; 0 1]; batch-safe (leading

@@ -164,6 +164,24 @@ def xla_sum(x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def pairwise_sum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Sum over ``dim`` in one fixed order: the axis zero-padded to a power
+    of two, then its two halves added elementwise until one entry is
+    left. Elementwise additions round alike on the CPU and the card,
+    whatever the other axes hold, where torch's reductions choose their
+    order by the shape (on the card the number of outputs sets how many
+    lanes share a row), so a row of a batch sums as the row alone."""
+    x = x.movedim(dim, -1)
+    n = x.shape[-1]
+    size = 1 << max(0, (n - 1).bit_length())
+    if size != n:
+        x = torch.nn.functional.pad(x, (0, size - n))
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = x[..., :half] + x[..., half:]
+    return x[..., 0]
+
+
 def hypot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """jnp.hypot's formula, hi * sqrt(1 + (lo / hi)**2), with the inner
     multiply-add rounded once as the JAX package's compiled code does."""

@@ -61,18 +61,19 @@ def apply_transform(transform: torch.Tensor,
 
 
 def _hat(w: torch.Tensor) -> torch.Tensor:
-    """The skew matrix [w]x of a (3,) vector."""
-    z = torch.zeros_like(w[0])
-    return torch.stack([torch.stack([z, -w[2], w[1]]),
-                        torch.stack([w[2], z, -w[0]]),
-                        torch.stack([-w[1], w[0], z])])
+    """The skew matrices [w]x of (..., 3) vectors."""
+    z = torch.zeros_like(w[..., 0])
+    return torch.stack([torch.stack([z, -w[..., 2], w[..., 1]], -1),
+                        torch.stack([w[..., 2], z, -w[..., 0]], -1),
+                        torch.stack([-w[..., 1], w[..., 0], z], -1)], -2)
 
 
 def exp_so3(w: torch.Tensor) -> torch.Tensor:
-    """Rodrigues' formula: (3,) axis-angle vector -> (3, 3) rotation, with
-    the sinc / versine series below 1e-4 rad so an ICP update stays exact
-    in f32 near convergence."""
-    theta_sq = (w * w).sum()
+    """Rodrigues' formula: (..., 3) axis-angle vectors -> (..., 3, 3)
+    rotations, with the sinc / versine series below 1e-4 rad so an ICP
+    update stays exact in f32 near convergence."""
+    theta_sq = (w[..., 0] * w[..., 0] + w[..., 1] * w[..., 1]
+                + w[..., 2] * w[..., 2])
     theta = torch.sqrt(theta_sq)
     k = _hat(w)
     small = theta < 1e-4
@@ -83,7 +84,8 @@ def exp_so3(w: torch.Tensor) -> torch.Tensor:
                     (1.0 - torch.cos(theta)) / torch.where(small, one,
                                                            theta_sq))
     eye = torch.eye(3, dtype=w.dtype, device=w.device)
-    return eye + a * k + b * rotate_points(k, k.T)          # k @ k
+    return (eye + a[..., None, None] * k
+            + b[..., None, None] * rotate_points(k, k.transpose(-1, -2)))
 
 
 def rotation_from_rpy(roll, pitch, yaw) -> torch.Tensor:

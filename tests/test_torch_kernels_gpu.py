@@ -666,6 +666,68 @@ def test_consistency_graph_kernel_sizes(dev, n):
     assert 0 < int(got.sum()) < n * n or n == 1
 
 
+@pytest.mark.parametrize("n", [1000, 1001, 1024])
+@pytest.mark.parametrize("bsz", [1, 3, 8])
+def test_consistency_graph_pair_axis(dev, bsz, n):
+    """B1 over a pair axis (B, N, 3) -> (B, N, N) in one launch, bit for
+    bit its plain version on CPU copies; at N = 1001 a pair's first row
+    starts inside a 16-byte piece (1001 * 1001 % 16 = 1), at N = 1000 on
+    a piece boundary but not its rows."""
+    rng = np.random.default_rng(bsz * 7919 + n)
+    src = rng.uniform(-30, 30, (bsz, n, 3)).astype(np.float32)
+    tgt = (src + rng.normal(0, 0.5, src.shape)).astype(np.float32)
+    src, tgt = torch.from_numpy(src), torch.from_numpy(tgt)
+    before = tf.LAUNCHES["consistency_graph"]
+    got = kernels.consistency_graph(src.to(dev), tgt.to(dev), 0.6)
+    assert tf.LAUNCHES["consistency_graph"] == before + 1
+    assert got.shape == (bsz, n, n)
+    assert torch.equal(got.cpu(), kernels.consistency_graph_plain(src, tgt,
+                                                                  0.6))
+
+
+def test_batched_pipeline_launches_do_not_depend_on_batch(dev):
+    """register_scan_pair under the shipping configuration with ground
+    alignment and ICP at VLP-16 scale launches each kernel as often for
+    B = 4 pairs as for B = 1: the pair axis adds no launch."""
+    from quatro_tpu_torch.config import (FPFHConfig, GroundAlignmentConfig,
+                                         IcpConfig)
+    from quatro_tpu_torch.pipeline import register_scan_pair
+
+    lidar = LidarConfig.preset("VLP-16")
+    cfg = PipelineConfig.for_lidar(
+        "VLP-16", max_voxels=V, max_raw_points=32768,
+        fpfh=replace(FPFHConfig.for_lidar(lidar), max_correspondences=512),
+        solver=SolverConfig(num_hypotheses=4, num_vote_hypotheses=2),
+        ground_alignment=GroundAlignmentConfig(enabled=True),
+        icp=IcpConfig(enabled=True))
+    scans = [make_scan_pair(lidar=lidar, seed=s, yaw_deg=20.0 + 5 * s,
+                            translation=(2.0, 1.0, 0.05))[:2]
+             for s in (101, 102, 103, 104)]
+
+    def launches(bsz):
+        src, tgt = (PointBatch(
+            torch.stack([PointBatch.from_numpy(p[k], 32768).points
+                         for p in scans[:bsz]]),
+            torch.stack([PointBatch.from_numpy(p[k], 32768).mask
+                         for p in scans[:bsz]])) for k in (0, 1))
+        register_scan_pair(src, tgt, cfg, device=dev)
+        torch.cuda.synchronize()
+        launch.reset_launches()
+        res = register_scan_pair(src, tgt, cfg, device=dev)
+        torch.cuda.synchronize()
+        assert res.solution.rotation.shape == (bsz, 3, 3)
+        return dict(launch.LAUNCHES)
+
+    one = launches(1)
+    assert launches(4) == one
+    assert one == {"moment_sums": 1, "spfh": 1, "fpfh": 1,
+                   "nearest_neighbors": 0, "nearest_neighbors2": 2,
+                   "consistency_graph": 1, "segment_sums": 1,
+                   "cross_histogram": 1, "fit_iteration_moments": 3,
+                   "classify_points": 1, "image_lookup": 1,
+                   "table_lookup": 0}
+
+
 def test_plain_graph_refused_on_the_card(dev, recommended):
     corr = recommended[0].correspondences
     with pytest.raises(ValueError, match="CPU only"):

@@ -1,7 +1,7 @@
 """Stage by stage, where the port's loop rounds apart from the JAX package.
 
     PYTHONPATH=. python tests/torch_sequence_stages.py [frames] [--chain]
-        [--jax-ground]
+        [--jax-ground] [--jax-normals] [--jax-fpfh]
 
 Runs the loop of ``tests/test_torch_sequence.py::test_run_sequence_bands``
 (``make_synthetic_sequence(num_poses=12, seed=1, radius=6.0)`` at VLP-16
@@ -42,7 +42,12 @@ before and after the closure. ``--jax-ground`` hands the port's chain
 the JAX package's Patchwork ground and non-ground masks in place of its
 own (everything after Patchwork stays the port's), which tells whether an
 edge the two chains gate apart turns on the ground mask or on a later
-stage. Not part of the test suite: all 12 frames take ~4 minutes on the
+stage. ``--jax-normals`` and ``--jax-fpfh`` hand the chain the JAX
+package's normals, or its descriptors, each computed by the JAX
+package's compiled dense stage on the port's own inputs to that stage
+(voxels; voxels and normals). With ``--chain`` every registered edge's
+validity, inlier count and overlap are printed, as the edge gate reads
+them. Not part of the test suite: all 12 frames take ~4 minutes on the
 CPU, ~1 more with ``--chain``; ``2 --chain`` runs edge (0, 1) alone.
 """
 
@@ -73,7 +78,8 @@ def differ(a, b) -> int:
     return int((a != b).sum())
 
 
-def main(frames: int, chain: bool, jax_ground: bool) -> None:
+def main(frames: int, chain: bool, jax_ground: bool, jax_normals: bool,
+         jax_fpfh: bool) -> None:
     import jax
     jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
@@ -359,10 +365,67 @@ def main(frames: int, chain: bool, jax_ground: bool) -> None:
         tpl.estimate_ground = swapped
         print("the port's chain runs on the JAX package's ground masks",
               flush=True)
+    if chain and (jax_normals or jax_fpfh):
+        import quatro_tpu_torch.ops.dense_features as tdf
+        from quatro_tpu_torch.ops.normals import Normals
+
+        def clouds(points, mask):
+            return zip(points.reshape(-1, *points.shape[-2:]),
+                       mask.reshape(-1, mask.shape[-1]))
+
+        def jax_dense_normals(points, mask, radius):
+            outs = [jit_normals(jnp.asarray(n(p)), jnp.asarray(n(m)))
+                    for p, m in clouds(points, mask)]
+            valid = torch.stack([t(o.valid) for o in outs]).reshape(
+                mask.shape)
+            normals = torch.stack([t(o.normals) for o in outs]).reshape(
+                points.shape)
+            curv = torch.stack([t(o.curvature) for o in outs]).reshape(
+                mask.shape)
+            # the JAX package leaves rows of < 3 neighbours NaN, the port 0
+            return Normals(torch.where(valid[..., None], normals, 0.0),
+                           torch.where(valid, curv, 0.0), valid)
+
+        def jax_dense_fpfh(points, normals, normal_valid, mask, radius):
+            outs = [jit_fpfh(*(jnp.asarray(n(a)) for a in args))
+                    for args in zip(
+                        points.reshape(-1, *points.shape[-2:]),
+                        normals.reshape(-1, *normals.shape[-2:]),
+                        normal_valid.reshape(-1, mask.shape[-1]),
+                        mask.reshape(-1, mask.shape[-1]))]
+            return torch.stack([t(o) for o in outs]).reshape(
+                *mask.shape, -1)
+        if jax_normals:
+            tdf.dense_normals = jax_dense_normals
+        if jax_fpfh:
+            tdf.dense_fpfh = jax_dense_fpfh
+        print("the port's chain runs on the JAX package's "
+              + " and ".join(w for w, on in (("normals", jax_normals),
+                                             ("descriptors", jax_fpfh))
+                             if on)
+              + " (each computed on the port's own inputs to that stage)",
+              flush=True)
     if chain:
+        # each edge's inliers and overlap, as the edge gate reads them
+        from quatro_tpu_torch.odometry import OdometryRunner
+        gate_in = []
+        register_pairs = OdometryRunner.register_pairs
+
+        def recording(self, src, tgt):
+            sols, overlaps = register_pairs(self, src, tgt)
+            gate_in.extend(zip(n(sols.valid).tolist(),
+                               n(sols.final_inlier_mask.sum(-1)).tolist(),
+                               n(overlaps).tolist()))
+            return sols, overlaps
+        OdometryRunner.register_pairs = recording
         res = sequence.run_sequence(scans, tc, gt_poses=gt[:frames],
                                     loop_radius=5.0,
                                     batch_size=4, device="cpu")
+        OdometryRunner.register_pairs = register_pairs
+        for (i, j), (valid, cnt, ov) in zip(
+                zip(res.edges_i.tolist(), res.edges_j.tolist()), gate_in):
+            print(f"port edge ({i}, {j}): valid {valid}, {cnt} inliers, "
+                  f"overlap {ov:.4f}", flush=True)
         jscans, jgt = jseq.make_synthetic_sequence(
             num_poses=NUM_POSES, seed=1, radius=6.0, config=jc,
             raw_capacity=RAW)
@@ -379,4 +442,5 @@ def main(frames: int, chain: bool, jax_ground: bool) -> None:
 if __name__ == "__main__":
     args = [a for a in sys.argv[1:] if not a.startswith("--")]
     main(int(args[0]) if args else NUM_POSES, "--chain" in sys.argv,
-         "--jax-ground" in sys.argv)
+         "--jax-ground" in sys.argv, "--jax-normals" in sys.argv,
+         "--jax-fpfh" in sys.argv)
