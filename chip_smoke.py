@@ -64,12 +64,31 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    extraction and per-edge registration (median and spread), Scan
    Context, the pose graph, the whole sequence, and the device idle share
    of one ``OdometryRunner.step``;
-7. profile: one more run of path A under torch.profiler (after the timed
+7. path E, the user's entry points (eval.py and cli.py, as a user calls
+   them, at full width): (a) ``evaluate_loop_closures(n_pairs=16,
+   batch=8, config=recommended(max_voxels=8192), raw_capacity=131072,
+   seed0=0)`` (the JAX package's success-rate record, EVAL_r05.json
+   ``tpu_n300_shipping``), its pairs ray-cast once by the harness's
+   process pool into a cache, then the same with ``batch=1``: at least 15
+   of 16 pairs within 5 deg / 2 m (failures printed), every batched row's
+   valid and correspondence count equal to batch 1's and its errors
+   within 1e-3 deg / 1e-4 m, each batched call's launches equal to one
+   pair's (path A's counts); the summary, pairs/s of both and the
+   ray-cast seconds; (b) ``evaluate_outlier_robustness()`` at its
+   defaults (rates 0.5 to 0.99, 64 trials of 512 correspondences: one
+   ``register_batch`` call at B = 64 a rate, one B1 launch each), >= 5/6
+   at rates 0.5 and 0.9, each rate's row and call ms; (c)
+   ``cli.main(["register", "--synthetic", "--seed", "11", ...,
+   "--dump-dir", ..., "--json"])`` on the card: valid, the ten PLY
+   artifacts, the stage table; then ``register a.bin b.bin`` on the same
+   pair written as KITTI .bin and read by the native loader (which must
+   build): its transform equal to the synthetic run's;
+8. profile: one more run of path A under torch.profiler (after the timed
    runs, since the profiler slows the host for the runs after it): the
    card's busy time, its idle share of the median pair, the top kernels
    and the device time per launch of each of the port's kernels, and of
    B3's, B4's, B5's and B9's wrappers with all their kernels;
-8. kernels: each kernel on the main path's own tensors (B6 on path B's
+9. kernels: each kernel on the main path's own tensors (B6 on path B's
    descriptors, B12 on the rows B10 was handed) against its plain PyTorch
    version, with its time, the plain version's time, the least time the
    card could take for the same work, and one library call computing the
@@ -95,7 +114,7 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    mask and the outputs of every row but the points, normals and SPFH
    rows of the valid rows only (``radius_pair_bytes``): the kernels read
    no other;
-9. path P, the pair axis, last (its large batches and profiles leave
+10. path P, the pair axis, last (its large batches and profiles leave
    the profiler missing more events in the runs after them): (a)
    bench.py's 8 distinct HDL-64E pairs (``make_scan_pair(seed=s, yaw_deg=10+7s, translation=(2+0.3s, 1-0.2s,
    0.05))``, capacity 131072) under its configuration (8192 voxels, 1024
@@ -123,8 +142,11 @@ printing any result.
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -153,6 +175,7 @@ OPS_PLANE = 6             # per point: projection (3 mul, 2 add), compare
 OPS_MOMENTS_PT = 16       # per member point: 6 products, 10 additions
 OPS_CLASSIFY = 8          # projection, compare, flag arithmetic
 
+BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 PAIR_REPEATS = 5          # timed runs of path A
 PATH_B_REPEATS = 3
 EARLIER_REPEATS = 3       # timed runs of each earlier path
@@ -218,6 +241,23 @@ PAIR_AXIS_BATCHES = (1, 8, 64)
 PAIR_AXIS_REPEATS = 3
 P_PATH_A_BATCH = 4
 P_BAND = (0.05, 0.6)
+# path E: eval.py's success-rate run (EVAL_r05.json's tpu_n300_shipping
+# configuration and seeds) at E_PAIRS pairs, its gates, the outlier sweep
+# at the JAX defaults, and the CLI's synthetic pair
+E_PAIRS = 16
+E_BATCH = 8
+E_CONFIG = dict(max_voxels=8192)  # PipelineConfig.recommended's overrides
+E_MIN_SUCCESS = 15
+E_ROW_TOL = (1e-3, 1e-4)          # batched rows against batch=1 (deg, m)
+E_RAYCAST_LIMIT_S = 120.0
+E_SWEEP_GATES = (0.5, 0.9)        # rates held to 5/6, tests/test_eval.py:70-77
+E_CLI_SEED = 11
+E_CLI_LIDAR = "Velodyne-64-HDE"
+E_CLI_WIDTH = ("--max-raw-points", str(RAW_CAPACITY), "--max-voxels", "8192")
+E_CLI_ARTIFACTS = ("source.ply", "target.ply", "aligned.ply",
+                   "correspondences.ply", "max_clique_source.ply",
+                   "max_clique_target.ply", "final_inliers.ply",
+                   "ground_source.ply", "revert_pc.ply", "reject_pc.ply")
 
 
 def log(*args):
@@ -1013,6 +1053,174 @@ def phase_pair_axis(card, pairs, gts, cfg_a):
     return rows
 
 
+def _launch_diff(before):
+    from quatro_tpu_torch.ops import launch
+    return {k: v - before.get(k, 0) for k, v in launch.LAUNCHES.items()}
+
+
+def phase_entry(card, work_dir):
+    """Path E, the user's entry points, through eval.py and cli.py as a
+    user calls them: (a) ``evaluate_loop_closures`` at full width under
+    ``recommended(max_voxels=8192)`` (the JAX package's success-rate record,
+    EVAL_r05.json ``tpu_n300_shipping``, seeds from 0) at batch E_BATCH and
+    at batch 1 on the same pairs (ray-cast once by the harness's process
+    pool into a cache under ``work_dir``): at least E_MIN_SUCCESS of
+    E_PAIRS pairs within 5 deg / 2 m, every batched row's valid and
+    correspondence count equal to batch 1's and its errors within
+    E_ROW_TOL, each batched call's launches those of one pair; (b)
+    ``evaluate_outlier_robustness()`` at its defaults (one
+    ``register_batch`` call at B = 64 a rate, one B1 launch each), 5/6 at
+    the rates of E_SWEEP_GATES; (c) ``cli.main(["register", "--synthetic",
+    ...])`` on the card with its PLY dumps, then ``register a.bin b.bin``
+    on the same pair written as KITTI .bin and read by the native loader,
+    its transform equal to the synthetic run's."""
+    import contextlib
+    import io
+    import os
+
+    from quatro_tpu_torch import cli, native
+    from quatro_tpu_torch import eval as ev
+    from quatro_tpu_torch.config import LidarConfig, PipelineConfig
+    from quatro_tpu_torch.io import kitti
+    from quatro_tpu_torch.io.synthetic import make_scan_pair
+    from quatro_tpu_torch.ops import launch
+
+    check(native.available(), "path E: the native loader does not build")
+    cfg = PipelineConfig.recommended(**E_CONFIG)
+    pool_s = []
+    warm, register, register_batch = (ev._warm_cache, ev.register_scan_pair,
+                                      ev.register_batch)
+    calls = {}
+
+    def timed_warm(*args):
+        t0 = time.perf_counter()
+        warm(*args)
+        pool_s.append(time.perf_counter() - t0)
+
+    def counted(src, tgt, *args, **kwargs):
+        before = dict(launch.LAUNCHES)
+        out = register(src, tgt, *args, **kwargs)
+        calls.setdefault(tuple(src.points.shape[:-2]), []).append(
+            _launch_diff(before))
+        return out
+
+    reports = {}
+    ev._warm_cache, ev.register_scan_pair = timed_warm, counted
+    try:
+        for bsz in (E_BATCH, 1):
+            reports[bsz] = ev.evaluate_loop_closures(
+                n_pairs=E_PAIRS, config=cfg, raw_capacity=RAW_CAPACITY,
+                seed0=0, cache_dir=os.path.join(work_dir, "scans"),
+                batch=bsz)
+    finally:
+        ev._warm_cache, ev.register_scan_pair = warm, register
+    raycast_s = sum(pool_s)
+    log(f"path E (a): {E_PAIRS} {cfg.lidar.name} pairs ray-cast by eval.py's "
+        f"process pool in {raycast_s:.1f} s ({os.cpu_count()} cores)")
+    check(raycast_s <= E_RAYCAST_LIMIT_S,
+          f"path E: ray-casting took {raycast_s:.1f} s")
+    for bsz, rep in reports.items():
+        # wall_s times the calls after the warm-up: with batch > 1 chunk
+        # 0's result is reused, so the harness's pairs_per_s counts its
+        # pairs over the other chunks' time (as the JAX package's does)
+        timed = E_PAIRS - bsz if bsz > 1 else E_PAIRS
+        log(f"path E (a) batch {bsz} ({card}): " + json.dumps(
+            dict(rep.summary(), wall_s=rep.wall_s, compile_s=rep.compile_s,
+                 pairs_timed=timed, timed_pairs_per_s=timed / rep.wall_s)))
+        log(f"path E (a) batch {bsz} rows: " + json.dumps(
+            [[p.seed, p.valid, round(p.rot_err_deg, 5),
+              round(p.trans_err_m, 5), p.n_corr] for p in rep.pairs]))
+    batched, single = reports[E_BATCH].pairs, reports[1].pairs
+    ok = sum(p.success for p in batched)
+    failures = [(p.seed, p.rot_err_deg, p.trans_err_m, p.valid)
+                for p in batched if not p.success]
+    log(f"path E (a): {ok} of {E_PAIRS} within 5 deg / 2 m; failures "
+        f"{failures}")
+    check(ok >= E_MIN_SUCCESS, f"path E: {ok} of {E_PAIRS} successful")
+    worst = [0.0, 0.0]
+    for b, o in zip(batched, single):
+        check((b.seed, b.valid, b.n_corr) == (o.seed, o.valid, o.n_corr),
+              f"path E: seed {b.seed} batched {b} != batch 1 {o}")
+        worst = [max(worst[0], abs(b.rot_err_deg - o.rot_err_deg)),
+                 max(worst[1], abs(b.trans_err_m - o.trans_err_m))]
+    check(worst[0] <= E_ROW_TOL[0] and worst[1] <= E_ROW_TOL[1],
+          f"path E: batched rows {worst} deg / m from batch 1's")
+    one = calls[()][0]
+    check(one == MAIN_LAUNCHES, f"path E: one pair's launches {one}")
+    check(all(c == one for c in calls[(E_BATCH,)]),
+          f"path E: batched launches {calls[(E_BATCH,)]} != one pair's {one}")
+    log(f"path E (a): every batched row equal to batch 1's (errors within "
+        f"{worst[0]:.3g} deg / {worst[1]:.3g} m); launches per batched call "
+        f"{json.dumps(calls[(E_BATCH,)][0])} (one pair's the same)")
+
+    sweep_ms, sweep_b1 = [], []
+
+    def timed_batch(*args, **kwargs):
+        torch.cuda.synchronize()
+        before = dict(launch.LAUNCHES)
+        t0 = time.perf_counter()
+        out = register_batch(*args, **kwargs)
+        torch.cuda.synchronize()
+        sweep_ms.append((time.perf_counter() - t0) * 1e3)
+        sweep_b1.append(_launch_diff(before)["consistency_graph"])
+        return out
+
+    ev.register_batch = timed_batch
+    try:
+        sweep = ev.evaluate_outlier_robustness()
+    finally:
+        ev.register_batch = register_batch
+    for (rate, row), ms in zip(sweep.items(), sweep_ms):
+        log(f"path E (b) rate {rate} ({card}): " + json.dumps(
+            dict(row, register_batch_ms=round(ms, 3))))
+    check(sweep_b1 == [1] * len(sweep),
+          f"path E: B1 launches per sweep call {sweep_b1}")
+    for rate in E_SWEEP_GATES:
+        check(sweep[rate]["success_rate"] >= 5 / 6,
+              f"path E: outlier rate {rate}: {sweep[rate]}")
+
+    def run_cli(argv):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        out = buf.getvalue()
+        log(out.rstrip())
+        check(rc == 0, f"path E: cli {argv[:2]} returned {rc}")
+        res = json.loads([ln for ln in out.splitlines()
+                          if ln.startswith("{")][-1])
+        return out, res, time.perf_counter() - t0
+
+    dump = os.path.join(work_dir, "dump")
+    width = ["--lidar-type", E_CLI_LIDAR, *E_CLI_WIDTH, "--json"]
+    out, syn, syn_s = run_cli(["register", "--synthetic", "--seed",
+                               str(E_CLI_SEED), "--dump-dir", dump, *width])
+    check(syn["valid"], "path E: the CLI's synthetic pair is not valid")
+    check("steady-state solve" in out and "total" in out
+          and "# of raw cloud" in out, "path E: no stage table printed")
+    sizes = {n: os.path.getsize(os.path.join(dump, n))
+             for n in E_CLI_ARTIFACTS if os.path.exists(os.path.join(dump, n))}
+    check(len(sizes) == len(E_CLI_ARTIFACTS)
+          and all(sizes[n] > 100 for n in E_CLI_ARTIFACTS[:8]),
+          f"path E: CLI artifacts {sizes}")
+    src_xyz, tgt_xyz, _ = make_scan_pair(
+        seed=E_CLI_SEED, lidar=LidarConfig.preset(E_CLI_LIDAR))
+    bins = [os.path.join(work_dir, n) for n in ("a.bin", "b.bin")]
+    for path, xyz in zip(bins, (src_xyz, tgt_xyz)):
+        kitti.save_kitti_bin(path, xyz)
+    check(kitti._native_ready(), "path E: io/kitti.py takes numpy's route")
+    _, from_bin, bin_s = run_cli(["register", *bins, *width])
+    gap = float(np.abs(np.asarray(from_bin["transform"])
+                       - np.asarray(syn["transform"])).max())
+    check(from_bin["transform"] == syn["transform"],
+          f"path E: the .bin route's transform is {gap} from the "
+          "synthetic run's")
+    log(f"path E (c) ({card}): cli register --synthetic {syn_s:.3f} s, "
+        f"register a.bin b.bin {bin_s:.3f} s (each with its warm-up, "
+        f"ray-cast and dumps); {len(sizes)} PLY artifacts; the .bin "
+        "route's transform equal to the synthetic run's")
+
+
 def phase_profile(pair, cfg, wall_ms, top=10):
     """One more pipeline run under torch.profiler: the card's busy time
     (sum of device times on the one stream), the idle share against the
@@ -1719,6 +1927,12 @@ def main() -> int:
         phase_pipeline(entry, pairs[pair], gts["raw"], cfgs[cfg], name,
                        expected, EARLIER_REPEATS, max_terr=max_terr)
     launches_s, jt_call = phase_sequence(cfgs["A"], card)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    work_dir = tempfile.mkdtemp(prefix="smoke_entry_", dir=BUILD_DIR)
+    try:
+        phase_entry(card, work_dir)
+    finally:
+        shutil.rmtree(work_dir, ignore_errors=True)
     phase_profile(pairs["tilted"], cfgs["A"], wall_a)
     rows = phase_kernels(res_a, cfgs["A"], launches_a, calls, res_b,
                          cfgs["B"], launches_b, jt_call, launches_s)

@@ -10,14 +10,24 @@ ICP), ``register_features``, ``register_correspondences`` and
 top: ``OdometryRunner`` (one feature extraction per frame) and
 ``run_sequence`` (odometry, Scan Context loop candidates, batched edge
 registration, pose-graph solve); ``QuatroRegistration`` is the reference's
-object API over the solver. The kernels, twelve, are hand-written CUDA in
-``csrc/``; ``table_lookup`` is B12's public op.
+object API over the solver. The user's entry points sit above these:
+``python -m quatro_tpu_torch.cli {register,evaluate,overlap,sequence,
+sweep}`` (``cli.py``, with ``--device``) and the evaluation harness
+``eval.py`` (loop-closure success rate over the pair axis, outlier
+sweep), reading reference-format YAML (``config_io.py``), KITTI ``.bin``
+through the native loader (``native/``), PCD and writing PLY (``io/``).
+The kernels, twelve, are hand-written CUDA in ``csrc/``;
+``table_lookup`` is B12's public op.
 """
 
-from quatro_tpu_torch.config import (FPFHConfig, GroundAlignmentConfig,
-                                     IcpConfig, LidarConfig, PipelineConfig,
+__version__ = "0.1.0"
+
+from quatro_tpu_torch.config import (DEFAULT_CONFIG, FPFHConfig,
+                                     GroundAlignmentConfig, IcpConfig,
+                                     LidarConfig, PatchworkConfig,
+                                     PipelineConfig, ProjectionConfig,
                                      SolverConfig, config_from_dict,
-                                     config_to_dict)
+                                     config_to_dict, replace)
 from quatro_tpu_torch.odometry import OdometryRunner
 from quatro_tpu_torch.ops.segment import table_lookup
 from quatro_tpu_torch.pipeline import (extract_features, register_features,
@@ -30,8 +40,10 @@ from quatro_tpu_torch.solver.quatro import (register_batch,
 from quatro_tpu_torch.types import PointBatch, RegistrationSolution
 
 __all__ = [
-    "FPFHConfig", "GroundAlignmentConfig", "IcpConfig", "LidarConfig",
-    "PipelineConfig", "SolverConfig", "config_from_dict", "config_to_dict",
+    "DEFAULT_CONFIG", "FPFHConfig", "GroundAlignmentConfig", "IcpConfig",
+    "LidarConfig", "PatchworkConfig", "PipelineConfig", "ProjectionConfig",
+    "SolverConfig", "config_from_dict", "config_to_dict", "replace",
+    "__version__",
     "extract_features", "register_features", "register_scan_pair",
     "register_correspondences", "register_hypotheses", "register_batch",
     "OdometryRunner", "run_sequence", "QuatroRegistration", "table_lookup",

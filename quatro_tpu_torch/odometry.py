@@ -349,31 +349,57 @@ def run_odometry_windowed(scan_stream, config: PipelineConfig =
     yield from fetch(cur)
 
 
-def _file_stream(paths, capacity: int):
-    """Each KITTI .bin as a PointBatch of ``capacity`` on the CPU."""
+def _file_stream(paths, capacity: int, n_workers: int, queue_depth: int):
+    """Each KITTI .bin as (points (capacity, 3), mask (capacity,)) numpy
+    arrays, in file order: through the native prefetching ``ScanLoader``
+    (disk IO for the frames ahead overlaps the device work on this one),
+    or one ``load_kitti_bin`` at a time where the native library does not
+    build. Closing the generator closes the loader."""
+    from quatro_tpu_torch import native
     from quatro_tpu_torch.io.kitti import load_kitti_bin
-    for p in paths:
-        yield PointBatch.from_numpy(load_kitti_bin(p), capacity)
+
+    if not native.available():
+        for p in paths:
+            pb = PointBatch.from_numpy(load_kitti_bin(p), capacity)
+            yield pb.points.numpy(), pb.mask.numpy()
+        return
+    with native.ScanLoader(paths, capacity=capacity, n_workers=n_workers,
+                           queue_depth=queue_depth) as loader:
+        yield from loader
 
 
 def run_odometry_files_windowed(paths, config: PipelineConfig =
                                 PipelineConfig(), window: int = 16,
-                                capacity: Optional[int] = None, device=None):
+                                capacity: Optional[int] = None,
+                                n_workers: int = 4, queue_depth: int = 0,
+                                device=None):
     """Windowed odometry (``run_odometry_windowed``) over KITTI .bin
-    files read with numpy; the JAX package's native prefetching loader is
-    not part of the port yet."""
+    files read by the native prefetching loader. queue_depth defaults to
+    2 * window, so the disk IO of the next window overlaps the device
+    work of this one."""
     capacity = capacity or config.max_raw_points
-    yield from run_odometry_windowed(
-        ((pb.points, pb.mask) for pb in _file_stream(paths, capacity)),
-        config, window=window, device=device)
+    stream = _file_stream(paths, capacity, n_workers,
+                          queue_depth or 2 * window)
+    try:
+        yield from run_odometry_windowed(stream, config, window=window,
+                                         device=device)
+    finally:
+        stream.close()
 
 
 def run_odometry_files(paths, config: PipelineConfig = PipelineConfig(),
-                       capacity: Optional[int] = None, device=None):
+                       capacity: Optional[int] = None, n_workers: int = 4,
+                       queue_depth: int = 8, device=None):
     """Stream a sequence of KITTI .bin scans through the odometry runner,
-    read with numpy. Yields (frame_index, RegistrationSolution | None) per
-    frame."""
+    read by the native prefetching loader (frames k+1 .. k+queue_depth
+    load while frame k is registered). Yields (frame_index,
+    RegistrationSolution | None) per frame."""
     capacity = capacity or config.max_raw_points
     runner = OdometryRunner(config, device)
-    for i, pb in enumerate(_file_stream(paths, capacity)):
-        yield i, runner.step(pb)
+    stream = _file_stream(paths, capacity, n_workers, queue_depth)
+    try:
+        for i, (pts, mask) in enumerate(stream):
+            yield i, runner.step(PointBatch(torch.from_numpy(pts),
+                                            torch.from_numpy(mask)))
+    finally:
+        stream.close()

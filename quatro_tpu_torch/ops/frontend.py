@@ -25,7 +25,7 @@ import math
 import torch
 
 from quatro_tpu_torch.ops.fpfh import (FPFH_DIM, NUM_BINS, _bin_index,
-                                      normalize_blocks)
+                                      darboux_features, normalize_blocks)
 from quatro_tpu_torch.ops.launch import (LAUNCHES, active_limit,  # noqa: F401
                                          check, launch, reset_launches,
                                          same_device, stream_scratch)
@@ -183,44 +183,15 @@ def frontend_normals(points: torch.Tensor, mask: torch.Tensor,
 # ----------------------------------------------------------------- B4 ----
 
 def darboux_bins(d, d2, n_i, n_j, use_rsqrt: bool):
-    """Darboux features of pairs (pcl::computePairFeatures semantics):
+    """Darboux features of pairs binned (``ops/fpfh.darboux_features``):
     d = p_j - p_i components, d2 = |d|^2, n_i / n_j normal components.
     Returns (b1, b2, b3) int32 bins and the frame-valid mask
     (v_norm2 > 1e-20). use_rsqrt: the kernel form (rsqrt, products) of
     pallas_frontend.py:_spfh_body; else the dense form (sqrt, quotients)
-    of dense_features.py. Every product is a separate f32 operation, as
-    in the CUDA kernel."""
-
-    def dot(a, b):
-        return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
-
-    def cross(a, b):
-        return (a[1] * b[2] - a[2] * b[1],
-                a[2] * b[0] - a[0] * b[2],
-                a[0] * b[1] - a[1] * b[0])
-
-    if use_rsqrt:
-        inv_dist = torch.rsqrt(torch.clamp(d2, min=1e-30))
-        angle1 = dot(n_i, d) * inv_dist
-        angle2 = dot(n_j, d) * inv_dist
-    else:
-        dist = torch.sqrt(torch.clamp(d2, min=1e-30))
-        angle1 = dot(n_i, d) / dist
-        angle2 = dot(n_j, d) / dist
-    swap = torch.abs(angle1) < torch.abs(angle2)
-    n1s = tuple(torch.where(swap, n_j[k], n_i[k]) for k in range(3))
-    n2s = tuple(torch.where(swap, n_i[k], n_j[k]) for k in range(3))
-    ds = tuple(torch.where(swap, -d[k], d[k]) for k in range(3))
-    f3 = torch.where(swap, -angle2, angle1)
-    vv = cross(ds, n1s)
-    v_norm2 = dot(vv, vv)
-    inv = torch.rsqrt(torch.clamp(v_norm2, min=1e-30))
-    vv = tuple(c * inv for c in vv)
-    ww = cross(n1s, vv)
-    f2 = dot(vv, n2s)
-    f1 = torch.atan2(dot(ww, n2s), dot(n1s, n2s))
+    of dense_features.py."""
+    f1, f2, f3, frame_ok = darboux_features(d, d2, n_i, n_j, use_rsqrt)
     return (_bin_index(f1, -math.pi, math.pi), _bin_index(f2, -1.0, 1.0),
-            _bin_index(f3, -1.0, 1.0), v_norm2 > 1e-20)
+            _bin_index(f3, -1.0, 1.0), frame_ok)
 
 
 def _bin_counts(bins, af):

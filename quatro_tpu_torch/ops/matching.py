@@ -20,6 +20,7 @@ import torch
 from quatro_tpu_torch.device import resolve_device, to_tensor
 from quatro_tpu_torch.ops.frontend import (nearest_neighbors,
                                            nearest_neighbors2)
+from quatro_tpu_torch.ops.neighbors import pairwise_sq_dists
 from quatro_tpu_torch.utils import fused
 from quatro_tpu_torch.utils.batch import drop_axis, gather_rows
 
@@ -43,6 +44,16 @@ class Correspondences(NamedTuple):
     def stack(rows) -> "Correspondences":
         """Correspondences stacked along a new leading pair axis."""
         return Correspondences(*(torch.stack(c) for c in zip(*rows)))
+
+
+def descriptor_distances(desc_a: torch.Tensor, desc_b: torch.Tensor,
+                         mask_a: torch.Tensor, mask_b: torch.Tensor):
+    """(..., Na, Nb) squared L2 distances between descriptor sets
+    (``pairwise_sq_dists``), the float32 maximum where either row is
+    masked."""
+    d2 = pairwise_sq_dists(desc_a, desc_b)
+    return torch.where(mask_a[..., :, None] & mask_b[..., None, :], d2,
+                       torch.finfo(d2.dtype).max)
 
 
 def _nearest_neighbors(desc_a, desc_b, mask_a, mask_b):

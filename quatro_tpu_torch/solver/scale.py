@@ -9,7 +9,9 @@ fixed scale = 1 the reference's two-sided length-ratio test
 
 so the graph is one dense (N, N) boolean adjacency. ``solve_scale_tls``
 (``estimate_scaling``) estimates the scale instead and tests each pair's
-length ratio against it.
+length ratio against it; ``solve_scale`` is the reference's identity
+scale. ``pairwise_distances`` is ops/kernels.py's, re-exported here where
+the JAX package defines it.
 """
 
 from __future__ import annotations
@@ -44,6 +46,12 @@ def tim_consistency_graph(src: torch.Tensor, tgt: torch.Tensor,
     pair_valid = mask[..., :, None] & mask[..., None, :]
     off_diag = ~torch.eye(n, dtype=torch.bool, device=src.device)
     return consistent & pair_valid & off_diag
+
+
+def solve_scale(src: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
+    """The reference's scale solver: identity scale
+    (include/quatro.hpp:361)."""
+    return torch.ones((), dtype=src.dtype, device=src.device)
 
 
 def solve_scale_tls(src: torch.Tensor, tgt: torch.Tensor, mask: torch.Tensor,

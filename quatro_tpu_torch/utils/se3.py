@@ -34,6 +34,11 @@ def yaw_to_rotation(theta: torch.Tensor) -> torch.Tensor:
     ], dim=-2)
 
 
+def rotation_to_yaw(rot: torch.Tensor) -> torch.Tensor:
+    """Yaw angle of (yaw-only) rotation matrices (..., 3, 3)."""
+    return torch.atan2(rot[..., 1, 0], rot[..., 0, 0])
+
+
 def rotation_geodesic_error(r1: torch.Tensor, r2: torch.Tensor) -> torch.Tensor:
     """Angle in radians between two rotation matrices (atan2 form: the
     arccos-of-trace formula is ill-conditioned near zero in f32)."""
