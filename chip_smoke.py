@@ -114,8 +114,9 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    mask and the outputs of every row but the points, normals and SPFH
    rows of the valid rows only (``radius_pair_bytes``): the kernels read
    no other;
-10. path P, the pair axis, last (its large batches and profiles leave
-   the profiler missing more events in the runs after them): (a)
+10. path P, the pair axis, after the kernels (its large batches and
+   profiles leave the profiler missing more events in the runs after
+   them): (a)
    bench.py's 8 distinct HDL-64E pairs (``make_scan_pair(seed=s, yaw_deg=10+7s, translation=(2+0.3s, 1-0.2s,
    0.05))``, capacity 131072) under its configuration (8192 voxels, 1024
    correspondences, 4 + 2 hypotheses) as one ``register_scan_pair`` call
@@ -131,7 +132,26 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    the peak memory, the device idle share of the B = 8 call under
    torch.profiler, and B1 with its pair axis at B = 8 and 64 (one launch,
    bit for bit its plain version on CPU copies, device ms beside its
-   bound; ``pair_axis`` in B1's row of the kernel table).
+   bound; ``pair_axis`` in B1's row of the kernel table);
+11. path M, the multi-card step on one card (parallel/), after path P:
+   (a) on a one-rank NCCL group (a file store under build/),
+   ``make_full_pipeline_step`` over path S's 12 frames as the ring of
+   edges k -> (k + 1) % 12 (src scan k + 1, tgt scan k) under path A's
+   configuration, poses0 the ground truth + N(0, 0.1) with pose 0 exact:
+   solutions and poses equal to ``register_scan_pair`` at B = 12 followed
+   by ``optimize_pose_graph`` bit for bit, ATE after < 1 m, launches path
+   A's per batched call plus 6 x 25 = 150 B2 (the pose graph's J^T), the
+   collective profile 150 all-reduces; its wall over 3 calls, pairs/s and
+   the pose graph's share; then ``sharded_register_batch`` (no collective)
+   and ``make_loop_closing_step`` on an 8-pose ring of 1024
+   correspondences a pair (tests/test_parallel.py's ring), each equal to
+   the unsharded composition; (b) two gloo ranks sharing the card
+   (``--path-m-rank``, spawned; NCCL refuses two ranks on one card), each
+   on its ``local_batch_slice`` of the same ring: gloo's all_reduce on a
+   CUDA tensor first, then the rows equal to (a)'s (masks, valid and
+   counts exactly, poses within 1e-5 rad / 1e-4 m) and the all-reduced
+   poses within 1e-4 of (a)'s, each rank's profile, two runs' bits.
+   ``launches_path_m`` in every row of the kernel table.
 
 The last two lines of standard output are the card's kernel table as one
 JSON object and ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -258,6 +278,20 @@ E_CLI_ARTIFACTS = ("source.ply", "target.ply", "aligned.ply",
                    "correspondences.ply", "max_clique_source.ply",
                    "max_clique_target.ply", "final_inliers.ply",
                    "ground_source.ply", "revert_pc.ply", "reject_pc.ply")
+# path M: the steps' pose-graph trip counts (their defaults), the initial
+# poses' noise and seed (tests/test_parallel.py:137-138), the timed calls,
+# the loop-closing step's ring (pairs, inliers, outliers), the ranks that
+# share the card over gloo, their bands against one rank and their limit
+M_ITERS = (6, 24)
+M_NOISE = 0.1
+M_SEED = 7
+M_REPEATS = 3
+M_PAIRS = 8
+M_CORR = (256, 768)
+M_RANKS = 2
+M_POSE_TOL = 1e-4                 # all-reduced poses, two ranks vs one
+M_ROW_TOL = (1e-5, 1e-4)          # a rank's rows vs the one-rank call
+M_RANK_LIMIT_S = 300
 
 
 def log(*args):
@@ -802,7 +836,7 @@ def phase_sequence(cfg, card):
         "sequence_wall": round(wall_ms, 3),
         "step_median_of_3": round(step_ms, 3),
         "step_device_busy": round(busy, 3)}) + f"; step idle share {idle}")
-    return launches, jt_calls[0]
+    return launches, jt_calls[0], (scans, gt)
 
 
 def bench_case():
@@ -1892,12 +1926,320 @@ def preprocessing_kernel_rows(calls, row):
         lambda: torch.take(padded, idx))
 
 
+def loop_ring(m, n_inliers, n_outliers):
+    """tests/test_parallel.py:101-138's ring of m poses (20 deg and
+    (1.5, 0.5) m a step) with correspondences whose registration is edge k
+    -> (k + 1) % m (src scan j, tgt scan i), and poses0 = ground truth +
+    N(0, M_NOISE) with pose 0 exact. Returns numpy (src, tgt, mask,
+    edge_i, edge_j, poses0, gt)."""
+    from quatro_tpu_torch.io.synthetic import make_correspondences
+
+    rng = np.random.default_rng(M_SEED)
+    gt = np.zeros((m, 4), np.float32)
+    for k in range(1, m):
+        gt[k, 3] = gt[k - 1, 3] + np.deg2rad(20.0)
+        gt[k, :2] = gt[k - 1, :2] + [1.5, 0.5]
+    src, tgt = [], []
+    for k in range(m):
+        j = (k + 1) % m
+        c, s = np.cos(gt[k, 3]), np.sin(gt[k, 3])
+        dt = gt[j, :3] - gt[k, :3]
+        a, b, _, _ = make_correspondences(
+            seed=100 + k, n_inliers=n_inliers, n_outliers=n_outliers,
+            yaw_deg=np.rad2deg(gt[j, 3] - gt[k, 3]),
+            translation=(c * dt[0] + s * dt[1], -s * dt[0] + c * dt[1],
+                         dt[2]))
+        src.append(a)
+        tgt.append(b)
+    ei = np.arange(m, dtype=np.int32)
+    init = gt + rng.normal(0, M_NOISE, gt.shape).astype(np.float32)
+    init[0] = gt[0]
+    return (np.stack(src).astype(np.float32), np.stack(tgt).astype(np.float32),
+            np.ones((m, src[0].shape[0]), bool), ei, (ei + 1) % m, init, gt)
+
+
+def composed_poses(sols, edge_i, edge_j, poses0, num_poses):
+    """The unsharded composition's tail: the edges from the solutions
+    (weight max(final inliers, 1), mask valid), then ``optimize_pose_graph``
+    with no psum axis at path M's trip counts."""
+    from quatro_tpu_torch.parallel.posegraph import (PoseGraphEdges,
+                                                     optimize_pose_graph,
+                                                     solution_to_edge)
+    dev = sols.rotation.device
+    t_meas, yaw = solution_to_edge(sols.translation, sols.rotation)
+    weight = torch.clamp_min(sols.final_inlier_mask.sum(-1).float(), 1.0)
+    edges = PoseGraphEdges(torch.as_tensor(edge_i, device=dev),
+                           torch.as_tensor(edge_j, device=dev), t_meas, yaw,
+                           weight, sols.valid)
+    gn, cg = M_ITERS
+    return edges, optimize_pose_graph(torch.as_tensor(poses0, device=dev),
+                                      edges, num_poses, gn_iters=gn,
+                                      cg_iters=cg)
+
+
+def same_solution(got, ref, what):
+    from dataclasses import fields
+    for f in fields(got):
+        check(torch.equal(getattr(got, f.name), getattr(ref, f.name)),
+              f"{what}: {f.name} differs from the unsharded composition")
+
+
+def phase_multichip(card, scans, gt, cfg, work_dir):
+    """Path M, the multi-card step on one card: (a) on a one-rank NCCL
+    group, ``make_full_pipeline_step`` over path S's frames as the ring of
+    edges k -> (k + 1) % m, and ``make_loop_closing_step`` and
+    ``sharded_register_batch`` on M_PAIRS correspondence pairs, each equal
+    to the unsharded composition bit for bit, with its launches and
+    collective profile; (b) M_RANKS gloo ranks sharing the card, each on
+    its rows of the same pairs, against (a). Returns the raw-scan step's
+    launch counts."""
+    import torch.distributed as dist
+
+    from quatro_tpu_torch.ops import launch
+    from quatro_tpu_torch.parallel import (make_full_pipeline_step,
+                                           make_loop_closing_step,
+                                           optimize_pose_graph,
+                                           sharded_register_batch)
+    from quatro_tpu_torch.parallel.diagnostics import collective_profile
+    from quatro_tpu_torch.parallel.distributed import (global_pairs_mesh,
+                                                       initialize_multihost)
+    from quatro_tpu_torch.pipeline import register_scan_pair
+    from quatro_tpu_torch.solver.quatro import register_batch
+    from quatro_tpu_torch.types import PointBatch
+
+    gn, cg = M_ITERS
+    reduces = {"all-reduce": gn * (cg + 1)}
+    m = len(scans)
+    initialize_multihost(f"file://{work_dir}/store_nccl", num_processes=1,
+                         process_id=0)
+    try:
+        check(dist.get_backend() == "nccl",
+              f"path M: the group's backend is {dist.get_backend()}")
+        mesh = global_pairs_mesh()
+        dev = mesh.device
+        log(f"path M: one-rank {dist.get_backend()} group, mesh "
+            f"{mesh.size} rank {mesh.rank} on {dev}")
+
+        # (a) the raw-scan ring through make_full_pipeline_step
+        src = PointBatch(torch.stack([scans[(k + 1) % m].points
+                                      for k in range(m)]),
+                         torch.stack([scans[(k + 1) % m].mask
+                                      for k in range(m)])).to(dev)
+        tgt = PointBatch(torch.stack([sc.points for sc in scans]),
+                         torch.stack([sc.mask for sc in scans])).to(dev)
+        ei = np.arange(m, dtype=np.int32)
+        ej = (ei + 1) % m
+        rng = np.random.default_rng(M_SEED)
+        poses0 = gt + rng.normal(0, M_NOISE, gt.shape).astype(np.float32)
+        poses0[0] = gt[0]
+        args = (src.points, src.mask, tgt.points, tgt.mask, ei, ej, poses0)
+        step = make_full_pipeline_step(mesh, m, cfg, gn_iters=gn,
+                                       cg_iters=cg)
+        out = []
+        torch.cuda.synchronize()
+        launch.reset_launches()
+        prof, first_ms = _synced_ms(lambda: collective_profile(
+            lambda: out.append(step(*args))))
+        launches = dict(launch.LAUNCHES)
+        expected = dict(MAIN_LAUNCHES, segment_sums=MAIN_LAUNCHES[
+            "segment_sums"] + gn * (cg + 1))
+        log(f"path M (a) raw-scan step, {m} pairs: launches "
+            f"{json.dumps(launches)}; collectives {dict(prof)}")
+        check(launches == expected,
+              f"path M: launch counts {launches} != {expected}")
+        check(dict(prof) == reduces, f"path M: collectives {dict(prof)}")
+        (poses, sols), = out
+        ref = register_scan_pair(src, tgt, cfg).solution
+        edges, ref_poses = composed_poses(ref, ei, ej, poses0, m)
+        same_solution(sols, ref, "path M raw-scan step")
+        check(torch.equal(poses, ref_poses),
+              "path M: the raw-scan step's poses differ from the "
+              "unsharded composition")
+        got = poses.cpu().numpy()
+        ate = {name: float(np.sqrt(np.mean(np.sum(
+            (p[:, :3] - gt[:, :3]) ** 2, axis=1))))
+            for name, p in (("before", poses0), ("after", got))}
+        log(f"path M (a): {int(sols.valid.sum())} of {m} edges valid, "
+            f"final inliers {sols.final_inlier_mask.sum(-1).tolist()}, "
+            f"ATE {ate['before']:.6f} -> {ate['after']:.6f} m")
+        check(bool(np.isfinite(got).all()), "path M: non-finite pose")
+        check(ate["after"] < 1.0, f"path M: ATE after {ate['after']} m")
+        step_ms = [_synced_ms(lambda: step(*args))[1]
+                   for _ in range(M_REPEATS)]
+        p0 = torch.as_tensor(poses0, device=dev)
+        pg_ms = [_synced_ms(lambda: optimize_pose_graph(
+            p0, edges, m, gn_iters=gn, cg_iters=cg, psum_axis=mesh))[1]
+            for _ in range(M_REPEATS)]
+        # the pose graph's time apart: the same solve with no axis, and
+        # the all-reduces alone, one per J^T apply on a (m, 4) sum
+        pg_none_ms = [_synced_ms(lambda: optimize_pose_graph(
+            p0, edges, m, gn_iters=gn, cg_iters=cg))[1]
+            for _ in range(M_REPEATS)]
+        sums = torch.zeros((m, 4), device=dev)
+        ar_ms = [_synced_ms(lambda: [dist.all_reduce(sums) for _ in range(
+            gn * (cg + 1))])[1] for _ in range(M_REPEATS)]
+        wall = _spread(step_ms)["median"]
+        pg = _spread(pg_ms)["median"]
+
+        # (a) the loop-closing step and sharded registration, one rank
+        ring = loop_ring(M_PAIRS, *M_CORR)
+        src8, tgt8, mask8, ei8, ej8, init8, gt8 = ring
+        reg = sharded_register_batch(mesh)
+        regs = []
+        check(collective_profile(lambda: regs.append(reg(src8, tgt8, mask8)))
+              == {}, "path M: registration issued a collective")
+        ref8 = register_batch(src8, tgt8, mask8)
+        same_solution(regs[0], ref8, "path M sharded_register_batch")
+        step8 = make_loop_closing_step(mesh, M_PAIRS, gn_iters=gn,
+                                       cg_iters=cg)
+        out8 = []
+        prof8 = collective_profile(lambda: out8.append(step8(
+            src8, tgt8, mask8, ei8, ej8, init8)))
+        check(dict(prof8) == reduces, f"path M: loop closing {dict(prof8)}")
+        (poses8, sols8), = out8
+        same_solution(sols8, ref8, "path M loop-closing step")
+        check(torch.equal(poses8, composed_poses(ref8, ei8, ej8, init8,
+                                                 M_PAIRS)[1]),
+              "path M: the loop-closing step's poses differ from the "
+              "unsharded composition")
+        err8 = np.linalg.norm(poses8[:, :3].cpu().numpy() - gt8[:, :3],
+                              axis=1)
+        check(float(err8.max()) < 0.25, f"path M: ring pose errors {err8}")
+        lc_ms = [_synced_ms(lambda: step8(src8, tgt8, mask8, ei8, ej8,
+                                          init8))[1]
+                 for _ in range(M_REPEATS)]
+    finally:
+        dist.destroy_process_group()
+
+    # (b) M_RANKS gloo ranks on the one card, each on its rows
+    data = os.path.join(work_dir, "ring.npz")
+    np.savez(data, *ring)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--path-m-rank", str(r),
+         str(M_RANKS), os.path.join(work_dir, "store_gloo"), data,
+         os.path.join(work_dir, f"rank{r}.npz")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(M_RANKS)]
+    deadline = time.monotonic() + M_RANK_LIMIT_S
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        log(f"path M (b) rank {r}: " + text.strip()[-3000:])
+        check(p.returncode == 0, f"path M: rank {r} exited {p.returncode}")
+    gap = rows_r = rows_t = 0.0
+    rank_ms = []
+    for r in range(M_RANKS):
+        got = np.load(os.path.join(work_dir, f"rank{r}.npz"))
+        lo, hi = (int(x) for x in got["rows"])
+        for name in ("valid", "max_clique_mask", "final_inlier_mask",
+                     "num_rotation_inliers", "gnc_iterations"):
+            check(np.array_equal(got[name],
+                                 getattr(sols8, name)[lo:hi].cpu().numpy()),
+                  f"path M: rank {r}'s {name} differs from one rank's")
+        rows_r = max(rows_r, float(np.abs(
+            got["rotation"] - sols8.rotation[lo:hi].cpu().numpy()).max()))
+        rows_t = max(rows_t, float(np.abs(
+            got["translation"]
+            - sols8.translation[lo:hi].cpu().numpy()).max()))
+        gap = max(gap, float(np.abs(got["poses"]
+                                    - poses8.cpu().numpy()).max()))
+        rank_ms.append(float(np.median(got["step_ms"])))
+    log(f"path M (b): {M_RANKS} gloo ranks on one card: rows within "
+        f"{rows_r:.3g} rad / {rows_t:.3g} m of one rank's, poses within "
+        f"{gap:.3g} of one rank's")
+    check(rows_r <= M_ROW_TOL[0] and rows_t <= M_ROW_TOL[1],
+          "path M: a rank's rows left the pair axis's band")
+    check(gap <= M_POSE_TOL, f"path M: all-reduced poses {gap} apart")
+    log("path M times (ms; " + card + "): " + json.dumps({
+        "raw_scan_step_first": round(first_ms, 3),
+        "raw_scan_step": _spread(step_ms),
+        "raw_scan_pairs_per_s": round(m / wall * 1e3, 3),
+        "pose_graph": _spread(pg_ms),
+        "pose_graph_share": round(pg / wall, 4),
+        "pose_graph_no_axis": _spread(pg_none_ms),
+        "all_reduces_alone": _spread(ar_ms),
+        "collectives_per_step": dict(prof),
+        "loop_closing_step_8_pairs": _spread(lc_ms),
+        "loop_closing_pairs_per_s": round(
+            M_PAIRS / _spread(lc_ms)["median"] * 1e3, 3),
+        "gloo_rank_step": [round(x, 3) for x in rank_ms]}))
+    return launches
+
+
+def path_m_rank(rank, world, store, data, out):
+    """One gloo rank of path M (b), started by ``phase_multichip`` as
+    ``chip_smoke.py --path-m-rank rank world store data out``: its
+    ``local_batch_slice`` of the ring through ``make_loop_closing_step`` on
+    the card, its collective profile, two runs' bits; its rows, poses and
+    step times saved to ``out``."""
+    import torch.distributed as dist
+
+    from quatro_tpu_torch.parallel import (make_loop_closing_step,
+                                           sharded_register_batch)
+    from quatro_tpu_torch.parallel.diagnostics import collective_profile
+    from quatro_tpu_torch.parallel.distributed import (global_pairs_mesh,
+                                                       initialize_multihost,
+                                                       local_batch_slice)
+
+    rank, world = int(rank), int(world)
+    initialize_multihost(f"file://{store}", num_processes=world,
+                         process_id=rank, backend="gloo")
+    try:
+        mesh = global_pairs_mesh()
+        probe = torch.full((4,), float(rank + 1), device=mesh.device)
+        dist.all_reduce(probe)            # gloo on a CUDA tensor
+        check(bool((probe == world * (world + 1) / 2).all()),
+              f"gloo all_reduce on the card gave {probe.tolist()}")
+        ring = np.load(data)
+        src, tgt, mask, ei, ej, init, _ = (ring[f"arr_{i}"] for i in range(7))
+        sl = local_batch_slice(src.shape[0])
+        local = [torch.from_numpy(a[sl]) for a in (src, tgt, mask, ei, ej)]
+        gn, cg = M_ITERS
+        step = make_loop_closing_step(mesh, src.shape[0], gn_iters=gn,
+                                      cg_iters=cg)
+        check(collective_profile(sharded_register_batch(mesh), *local[:3])
+              == {}, "registration issued a collective")
+        out_ = []
+        prof = collective_profile(lambda: out_.append(step(*local, init)))
+        check(dict(prof) == {"all-reduce": gn * (cg + 1)},
+              f"loop closing issued {dict(prof)}")
+        poses, sols = out_[0]
+        step_ms = []
+        for _ in range(M_REPEATS):
+            dist.barrier()
+            again, ms = _synced_ms(lambda: step(*local, init))
+            step_ms.append(ms)
+            check(torch.equal(again[0], poses), "two runs differ")
+        np.savez(out, rows=[sl.start, sl.stop], poses=poses.cpu().numpy(),
+                 step_ms=step_ms, **{
+                     name: getattr(sols, name).cpu().numpy() for name in (
+                         "valid", "max_clique_mask", "final_inlier_mask",
+                         "num_rotation_inliers", "gnc_iterations",
+                         "rotation", "translation")})
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    log(f"rank {rank}: rows {sl.start}-{sl.stop}, profile {dict(prof)}, "
+        f"step ms {[round(x, 3) for x in step_ms]}")
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     import quatro_tpu_torch  # noqa: F401  (fails outside the repository)
 
+    if sys.argv[1:2] == ["--path-m-rank"]:
+        return path_m_rank(*sys.argv[2:])
     card = phase_device()
     phase_build()
     from quatro_tpu_torch.pipeline import register_features, register_scan_pair
@@ -1926,7 +2268,7 @@ def main() -> int:
              0.5)):
         phase_pipeline(entry, pairs[pair], gts["raw"], cfgs[cfg], name,
                        expected, EARLIER_REPEATS, max_terr=max_terr)
-    launches_s, jt_call = phase_sequence(cfgs["A"], card)
+    launches_s, jt_call, (scans, seq_gt) = phase_sequence(cfgs["A"], card)
     os.makedirs(BUILD_DIR, exist_ok=True)
     work_dir = tempfile.mkdtemp(prefix="smoke_entry_", dir=BUILD_DIR)
     try:
@@ -1939,9 +2281,16 @@ def main() -> int:
     # last: its large batches and profiles leave the profiler missing
     # more events in the runs after them
     graph_rows = phase_pair_axis(card, pairs, gts, cfgs["A"])
+    work_dir = tempfile.mkdtemp(prefix="smoke_multichip_", dir=BUILD_DIR)
+    try:
+        launches_m = phase_multichip(card, scans, seq_gt, cfgs["A"],
+                                     work_dir)
+    finally:
+        shutil.rmtree(work_dir, ignore_errors=True)
     for r in rows:
         if r["name"] == "consistency_graph":
             r["pair_axis"] = graph_rows
+        r["launches_path_m"] = launches_m[r["name"]]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,10 +21,13 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from quatro_tpu_torch.config import PipelineConfig, SolverConfig
 from quatro_tpu_torch.device import resolve_device
 from quatro_tpu_torch.io.synthetic import make_correspondences, make_scan_pair
+from quatro_tpu_torch.parallel import (make_pairs_mesh, pairs_sharding,
+                                       sharded_register_batch)
 from quatro_tpu_torch.pipeline import register_scan_pair
 from quatro_tpu_torch.solver.quatro import register_batch
 from quatro_tpu_torch.types import PointBatch
@@ -354,46 +357,75 @@ def evaluate_scaling(batch_per_device: int = 4,
                      device_counts: Optional[List[int]] = None,
                      n_corr: int = 512, iters: int = 10,
                      device=None) -> dict:
-    """Throughput of the batched correspondence solver, and its weak
-    scaling efficiency across device counts (throughput_n /
-    (n * throughput_1)).
+    """Weak-scaling efficiency of the sharded correspondence solver across
+    mesh sizes (throughput_n / (n * throughput_1)).
 
-    The port runs on one card: each count runs ``register_batch`` over
-    batch_per_device x count pairs, timed over ``iters`` calls after a
-    warm-up and a synchronisation. A count above 1 raises ValueError: the
-    solver sharded over several cards (the JAX package's
-    ``sharded_register_batch`` over a mesh) is not part of the port yet.
+    Each count nd runs ``sharded_register_batch(make_pairs_mesh(nd))`` over
+    batch_per_device x nd pairs, each rank of the mesh on its own rows,
+    timed over ``iters`` calls after a warm-up, between barriers with the
+    device synchronised. A count above the world size of the process
+    group (1 without one: ``initialize_multihost`` forms it) raises
+    ValueError. Under a group of n ranks a count below n runs on ranks
+    0..nd-1 (``torch.distributed.new_group``); the other ranks skip it,
+    and every rank returns rank 0's dict. ``device`` is this rank's device
+    (None: the card).
+
+    CAVEAT: ranks that share one card, or the CPU's cores, measure
+    contention, not scaling: expect efficiency ~1/n there. The structural
+    evidence (registration issues no collective) is
+    parallel/diagnostics.py::collective_profile; run this with one rank
+    per card.
     """
     dev = resolve_device(device)
-    device_counts = device_counts or [1]
-    over = [nd for nd in device_counts if nd > 1]
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    device_counts = device_counts or [d for d in (1, 2, 4, 8) if d <= world]
+    over = [nd for nd in device_counts if nd > world]
     if over:
-        raise ValueError(f"device counts {over}: the port's evaluate_scaling "
-                         "runs on one card; the solver sharded over several "
-                         "cards is not ported")
+        raise ValueError(
+            f"device counts {over} exceed the world size {world}: without "
+            "a process group the mesh is one card; start one process per "
+            "card and call parallel.distributed.initialize_multihost")
     solver = SolverConfig()
     results = {}
     base = None
     for nd in device_counts:
+        mesh = make_pairs_mesh(nd, devices=dev)
+        if mesh.rank < 0:
+            continue
         b = batch_per_device * nd
+        rows = pairs_sharding(mesh).rows(b)
         pairs = [make_correspondences(seed=s, n_inliers=max(8, n_corr // 8),
                                       n_outliers=n_corr - max(8, n_corr // 8))
-                 for s in range(b)]
+                 for s in range(b)[rows]]
         src = torch.from_numpy(np.stack([p[0] for p in pairs]))
         tgt = torch.from_numpy(np.stack([p[1] for p in pairs]))
         mask = torch.ones(src.shape[:2], dtype=torch.bool)
-        register_batch(src, tgt, mask, solver, device=dev)
-        _sync(dev)
+        fn = sharded_register_batch(mesh, solver)
+        fn(src, tgt, mask)
+        _sync_mesh(mesh)
         t0 = time.time()
         for _ in range(iters):
-            register_batch(src, tgt, mask, solver, device=dev)
-        _sync(dev)
+            fn(src, tgt, mask)
+        _sync_mesh(mesh)
         thr = b * iters / (time.time() - t0)
         if base is None:
+            # per-device baseline from the FIRST measured count (which
+            # need not be 1): efficiency = (thr/nd) / (thr_first/nd_first)
             base = thr / nd
         results[nd] = {"pairs_per_s": round(thr, 1),
                        "efficiency": round(thr / (base * nd), 3)}
+    if world > 1:
+        shared = [results]
+        dist.broadcast_object_list(shared, src=0)
+        results = shared[0]
     return results
+
+
+def _sync_mesh(mesh) -> None:
+    """The mesh's device synchronised, then its ranks met at a barrier."""
+    _sync(mesh.device)
+    if mesh.group is not None:
+        dist.barrier(group=mesh.group)
 
 
 def evaluate_outlier_robustness(

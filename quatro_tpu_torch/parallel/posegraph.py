@@ -15,8 +15,11 @@ order with no float atomics, so a second solve of the same graph on the
 card gives the same bits. Gauge freedom is fixed by projecting pose 0's
 update out of the CG solve exactly.
 
-The JAX package's ``psum_axis`` (the all-reduce of the J^T terms when the
-edges are sharded across devices) is not part of this port.
+With the edges sharded over the ranks of a process group (parallel/
+sharding.py), each rank sums its own edges' J^T terms and ``psum_axis``
+all-reduces the (M, 4) result: the only collective of the design, one per
+J^T apply, gn_iters x (cg_iters + 1) per solve. Everything else, the inner
+products of CG included, is the same on every rank after it.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from typing import NamedTuple
 import torch
 
 from quatro_tpu_torch.ops.segment import segment_sums
+from quatro_tpu_torch.parallel.mesh import all_reduce_sum, axis_group
 
 
 class PoseGraphEdges(NamedTuple):
@@ -88,9 +92,13 @@ def _edge_jacobian_apply(poses, edges: PoseGraphEdges, v):
 
 
 def _edge_jacobian_transpose_apply(poses, edges: PoseGraphEdges, u,
-                                   num_poses: int):
+                                   num_poses: int, psum_axis=None):
     """J^T @ u for a per-edge residual-space u (E, 4) -> pose space (M, 4):
-    the i and j contributions as one segment sum, in edge order."""
+    the i and j contributions as one segment sum, in edge order, then
+    summed over the ranks of ``psum_axis``. The all-reduce runs in place
+    on the segment sum's output, a fresh tensor (never a view into B2's
+    per-stream scratch, which holds only its partials), after B2 on the
+    same stream."""
     _, _, c, s, dt = _ends(poses, edges)
     ut, uy = u[:, :3], u[:, 3]
     # R(-yaw_i)^T ut, with the sign - for pose i and + for pose j
@@ -102,7 +110,7 @@ def _edge_jacobian_transpose_apply(poses, edges: PoseGraphEdges, u,
     gj = torch.cat([rt_ut, uy[:, None]], dim=-1)
     ids = torch.cat([edges.i, edges.j]).to(torch.int32).contiguous()
     vals = torch.cat([gi, gj]).T.contiguous()
-    return segment_sums(ids, vals, num_poses)
+    return all_reduce_sum(segment_sums(ids, vals, num_poses), psum_axis)
 
 
 def _zero_first(x):
@@ -112,8 +120,8 @@ def _zero_first(x):
 
 def optimize_pose_graph(poses0: torch.Tensor, edges: PoseGraphEdges,
                         num_poses: int, gn_iters: int = 8,
-                        cg_iters: int = 32,
-                        damping: float = 1e-3) -> torch.Tensor:
+                        cg_iters: int = 32, damping: float = 1e-3,
+                        psum_axis=None) -> torch.Tensor:
     """Gauss-Newton + matrix-free CG pose-graph solve, in f32.
 
     poses0: (M, 4) initial guesses; edges: measurements (maskable), on the
@@ -125,15 +133,21 @@ def optimize_pose_graph(poses0: torch.Tensor, edges: PoseGraphEdges,
     the damping keeps CG positive definite, so the poses of a component
     with no path to pose 0 stay at their initial values instead of the
     solve going NaN.
+
+    ``psum_axis`` (a ``PairsMesh`` or a process group) sums the J^T terms
+    over the ranks, each of which holds its own edges and the same poses0:
+    every rank returns the same poses. A rank with no edges still takes
+    part in every all-reduce (B2 over no entries gives zeros).
     """
-    if edges.i.shape[0] == 0:      # nothing to solve: the poses, wrapped
+    if edges.i.shape[0] == 0 and axis_group(psum_axis) is None:
+        # nothing to solve: the poses, wrapped
         return torch.cat([poses0[:, :3], wrap_angle(poses0[:, 3:])], dim=-1)
     w_edge = torch.where(edges.mask, edges.weight, 0.0)[:, None]
 
     def normal_matvec(poses, v):
         jv = _edge_jacobian_apply(poses, edges, _zero_first(v))
         jtwjv = _edge_jacobian_transpose_apply(poses, edges, jv * w_edge,
-                                               num_poses)
+                                               num_poses, psum_axis)
         return _zero_first(jtwjv) + damping * v
 
     poses = poses0
@@ -143,7 +157,8 @@ def optimize_pose_graph(poses0: torch.Tensor, edges: PoseGraphEdges,
         # delta[0] = 0: b0 = 0 and row 0 of A is damping * I
         b = _zero_first(-_edge_jacobian_transpose_apply(poses, edges,
                                                         r * w_edge,
-                                                        num_poses))
+                                                        num_poses,
+                                                        psum_axis))
         x, rr, p, rs = torch.zeros_like(poses), b, b, (b * b).sum()
         for _ in range(cg_iters):
             ap = normal_matvec(poses, p)

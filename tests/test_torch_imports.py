@@ -38,6 +38,10 @@ def test_import_loads_no_jax():
             "quatro_tpu_torch.odometry, quatro_tpu_torch.sequence, "
             "quatro_tpu_torch.registration, quatro_tpu_torch.ops.scancontext, "
             "quatro_tpu_torch.parallel.posegraph, quatro_tpu_torch.io.kitti, "
+            "quatro_tpu_torch.parallel.mesh, "
+            "quatro_tpu_torch.parallel.sharding, "
+            "quatro_tpu_torch.parallel.distributed, "
+            "quatro_tpu_torch.parallel.diagnostics, "
             "quatro_tpu_torch.preprocessing.metadata, quatro_tpu_torch.cli, "
             "quatro_tpu_torch.eval, quatro_tpu_torch.config_io, "
             "quatro_tpu_torch.native, quatro_tpu_torch.io.ply, "
