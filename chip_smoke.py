@@ -27,7 +27,14 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    warm-up run
    ("leveling" and "icp" among them); ground, non-ground and segment points
    per cloud; the hypotheses and the winner; the pair latency over five
-   more runs;
+   more runs. Then its device loops (utils/loops.py; the GNC, the k-core
+   search, the clique growth and swaps, ``top_distinct_cliques``) on its
+   own tensors, each recorded in one more run and run again through the
+   CUDA-graph route (twice) and through ``eager_loops()`` at its chunk and
+   at chunk 1 (a flag read per round, as before the graphs), all bit for
+   bit, with each loop's calls, rounds, flag reads, captures, replays and
+   ms per route (``phase_loops``; path P's B = 8 call, path S's and path
+   M's pose graphs likewise);
 4. path B, the reference matcher: ``register_scan_pair`` on the untilted
    raw pair under ``PipelineConfig(max_voxels=8192)`` with
    ``crosscheck_min_matches=0`` (crosscheck and tuple test with no
@@ -59,7 +66,9 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    times), per batched registration call of up to 16 edges (B7 twice, B1
    and B2 once) and per pose-graph solve (B2 once per J^T apply,
    10 x 41); a second ``optimize_pose_graph`` on the run's edges equal to
-   it bit for bit; ``run_odometry_windowed(window=4)`` equal to
+   it bit for bit, uncaptured (its J^T calls recorded), replayed, and as
+   a one-shot solve with no graph kept; ``run_odometry_windowed(window=4)``
+   equal to
    ``OdometryRunner.step`` within 1e-5 rad / 1e-4 m. Times: per-frame
    extraction and per-edge registration (median and spread), Scan
    Context, the pose graph, the whole sequence, and the device idle share
@@ -161,6 +170,7 @@ printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -517,6 +527,94 @@ def phase_pipeline(entry, pair, gt, cfg, name, expected, repeats,
     return res, launches, wall_ms, stages
 
 
+def _clone_tree(x):
+    if torch.is_tensor(x):
+        return x.clone()
+    if isinstance(x, tuple) and not hasattr(x, "_fields"):
+        return tuple(_clone_tree(v) for v in x)
+    return x
+
+
+def record_loops(fn):
+    """fn() with every device loop it runs recorded (utils/loops.py):
+    (fn's result, [(kind, args, kwargs)]), the loops' tensors cloned."""
+    from quatro_tpu_torch.utils import loops
+    calls, real = [], {k: getattr(loops, k) for k in ("while_chunks", "fori")}
+
+    def recorder(kind):
+        def rec(*args, **kwargs):
+            calls.append((kind, _clone_tree(args), kwargs))
+            return real[kind](*args, **kwargs)
+        return rec
+
+    for kind in real:
+        setattr(loops, kind, recorder(kind))
+    try:
+        out = fn()
+    finally:
+        for kind, f in real.items():
+            setattr(loops, kind, f)
+    return out, calls
+
+
+def _loop_state(kind, out):
+    """The state a loop returned (while_chunks also returns its trips,
+    which count the rounds a chunk runs past the exit)."""
+    return list(out[0] if kind == "while_chunks" else out)
+
+
+def phase_loops(card, label, fn):
+    """The device loops of one call of ``fn`` on the pipeline's own
+    tensors: each recorded loop run again through the CUDA-graph route
+    (twice: the second replays only) and through ``eager_loops()``, at its
+    own chunk and at chunk 1 (one flag read per round, as the loops ran
+    before the graphs), all four bit for bit. Prints per loop its calls,
+    and per call its rounds, flag reads, captures and replays on the
+    graph route and at chunk 1, with both routes' ms (host wall ending in
+    a synchronise). Returns fn's result."""
+    from quatro_tpu_torch.utils import loops
+    out, calls = record_loops(fn)
+    check(calls, f"{label}: no device loop ran")
+    table = {}
+    for kind, args, kwargs in calls:
+        name = args[0]
+
+        def run(kind=kind, args=args, kwargs=kwargs):
+            return getattr(loops, kind)(*args, **kwargs)
+
+        routes = {}
+        for route, mode in (("chunk_1", loops.eager_loops(chunk=1)),
+                            ("eager", loops.eager_loops()),
+                            ("graph", contextlib.nullcontext()),
+                            ("graph_again", contextlib.nullcontext())):
+            loops.reset_loops()
+            with mode:
+                got, ms = _synced_ms(run)
+            routes[route] = (_loop_state(kind, got), ms,
+                             dict(loops.LOOPS.get(name, {})))
+        ref = routes["eager"][0]
+        for route, (got, _, _) in routes.items():
+            check(len(got) == len(ref) and all(
+                torch.equal(a, b) for a, b in zip(got, ref)),
+                f"{label}: loop {name} on the {route} route differs from "
+                "eager_loops()")
+        row = table.setdefault(name, {"calls": 0, "graph": {},
+                                      "chunk_1": {}, "graph_ms": 0.0,
+                                      "chunk_1_ms": 0.0})
+        row["calls"] += 1
+        for route, key in (("graph_again", "graph"), ("chunk_1", "chunk_1")):
+            for k, v in routes[route][2].items():
+                row[key][k] = row[key].get(k, 0) + v
+        row["graph_ms"] += routes["graph_again"][1]
+        row["chunk_1_ms"] += routes["chunk_1"][1]
+    for row in table.values():
+        row["graph_ms"] = round(row["graph_ms"], 3)
+        row["chunk_1_ms"] = round(row["chunk_1_ms"], 3)
+    log(f"{label} device loops ({card}; graph route equal to "
+        "eager_loops() bit for bit): " + json.dumps(table))
+    return out
+
+
 def phase_solver_modes(res, cfg):
     """``register_correspondences`` on path B's correspondences under each
     solver mode off the shipping path: each valid and within 0.01 rad /
@@ -702,6 +800,7 @@ def phase_sequence(cfg, card):
                                                   scan_context)
     from quatro_tpu_torch.parallel import posegraph
     from quatro_tpu_torch.parallel.posegraph import optimize_pose_graph
+    from quatro_tpu_torch.utils import loops
 
     t0 = time.perf_counter()
     scans, gt = sequence.make_synthetic_sequence(
@@ -762,16 +861,31 @@ def phase_sequence(cfg, card):
         jt_calls.append(a)
         return jt_sums(*a)
 
+    # (uncaptured: a replay calls no Python)
     posegraph.segment_sums = jt_recorder
     try:
-        again, pg_ms = _synced_ms(lambda: optimize_pose_graph(*args,
-                                                              **kwargs))
+        with loops.eager_loops():
+            again, pg_eager_ms = _synced_ms(lambda: optimize_pose_graph(
+                *args, **kwargs))
     finally:
         posegraph.segment_sums = jt_sums
     check(len(jt_calls) == gn * (cg + 1),
           f"path S: {len(jt_calls)} J^T applies in one pose-graph solve")
     check(np.array_equal(again.cpu().numpy(), res.poses),
           "path S: a second pose-graph solve differs")
+    # the graph route: the run's own solve captured its first trip, a
+    # solve after it replays every trip, and a solve with no graph kept
+    # (a one-shot solve) runs its first trip uncaptured and captures it
+    phase_loops(card, "path S pose graph", lambda: optimize_pose_graph(
+        *args, **kwargs))
+    replayed, pg_ms = _synced_ms(lambda: optimize_pose_graph(*args,
+                                                             **kwargs))
+    loops.clear_graphs()
+    first, pg_first_ms = _synced_ms(lambda: optimize_pose_graph(*args,
+                                                                **kwargs))
+    for name, x in (("replayed", replayed), ("one-shot", first)):
+        check(np.array_equal(x.cpu().numpy(), res.poses),
+              f"path S: the {name} pose-graph solve differs")
 
     # times: extraction per frame, registration per edge, Scan Context
     runner = OdometryRunner(cfg)
@@ -833,6 +947,8 @@ def phase_sequence(cfg, card):
         "scan_context_12_scans": round(sc_ms, 3),
         "loop_detection": round(detect_ms, 3),
         "pose_graph": round(pg_ms, 3),
+        "pose_graph_one_shot": round(pg_first_ms, 3),
+        "pose_graph_uncaptured": round(pg_eager_ms, 3),
         "sequence_wall": round(wall_ms, 3),
         "step_median_of_3": round(step_ms, 3),
         "step_device_busy": round(busy, 3)}) + f"; step idle share {idle}")
@@ -1066,6 +1182,8 @@ def phase_pair_axis(card, pairs, gts, cfg_a):
             rows[bsz] = graph_pair_axis_row(res.correspondences, cfg,
                                             f"path P, B = {bsz}")
         if bsz == 8:
+            phase_loops(card, "path P (c) B = 8", lambda: register_scan_pair(
+                *batches[1], cfg))
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
@@ -2006,6 +2124,7 @@ def phase_multichip(card, scans, gt, cfg, work_dir):
     from quatro_tpu_torch.pipeline import register_scan_pair
     from quatro_tpu_torch.solver.quatro import register_batch
     from quatro_tpu_torch.types import PointBatch
+    from quatro_tpu_torch.utils import loops
 
     gn, cg = M_ITERS
     reduces = {"all-reduce": gn * (cg + 1)}
@@ -2075,6 +2194,10 @@ def phase_multichip(card, scans, gt, cfg, work_dir):
         pg_none_ms = [_synced_ms(lambda: optimize_pose_graph(
             p0, edges, m, gn_iters=gn, cg_iters=cg))[1]
             for _ in range(M_REPEATS)]
+        phase_loops(card, "path M (a) pose graph under the NCCL axis",
+                    lambda: optimize_pose_graph(p0, edges, m, gn_iters=gn,
+                                                cg_iters=cg,
+                                                psum_axis=mesh))
         sums = torch.zeros((m, 4), device=dev)
         ar_ms = [_synced_ms(lambda: [dist.all_reduce(sums) for _ in range(
             gn * (cg + 1))])[1] for _ in range(M_REPEATS)]
@@ -2109,6 +2232,8 @@ def phase_multichip(card, scans, gt, cfg, work_dir):
                                           init8))[1]
                  for _ in range(M_REPEATS)]
     finally:
+        # the graphs that captured this group's all-reduces go with it
+        loops.clear_graphs()
         dist.destroy_process_group()
 
     # (b) M_RANKS gloo ranks on the one card, each on its rows
@@ -2251,6 +2376,8 @@ def main() -> int:
     check(bool(res_a.icp.converged), "path A: ICP did not converge")
     check({"leveling", "icp"} <= set(stages_a),
           f"path A: stages {sorted(stages_a)}")
+    phase_loops(card, "path A", lambda: register_scan_pair(
+        *pairs["tilted"], cfgs["A"]))
     calls = capture_preprocessing(pairs["tilted"], cfgs["A"])
     res_b, launches_b, _, _ = phase_pipeline(
         register_scan_pair, pairs["raw"], gts["raw"], cfgs["B"],

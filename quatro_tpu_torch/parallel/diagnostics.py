@@ -17,7 +17,11 @@ calls at run time, not of sites: the loop-closing step counts
 gn_iters x (cg_iters + 1) all-reduces where XLA counts one in its loop
 body. Without a process group nothing is issued (the all-reduce helper
 does nothing), so the profile of either step is empty there: hold the
-contract on a group of one rank or more.
+contract on a group of one rank or more. A device loop replayed as a CUDA
+graph (utils/loops.py) issues its collectives without calling these
+functions; it adds the ones its capture issued to every active profile at
+each replay, and takes its capture's calls back out, so a call counts the
+same collectives on either route.
 """
 
 from __future__ import annotations
@@ -43,6 +47,8 @@ COLLECTIVES = {
     "isend": "collective-permute",
     "irecv": "collective-permute",
 }
+
+ACTIVE: list = []       # the counters of the profiles running now
 
 
 def collective_profile(fn, *args) -> Counter:
@@ -72,9 +78,12 @@ def collective_profile(fn, *args) -> Counter:
             if getattr(module, name, None) is original:
                 saved.append((module, name, original))
                 setattr(module, name, wrapper)
+    ACTIVE.append(counts)
     try:
         fn(*args)
     finally:
+        # by identity: two profiles' counters may compare equal
+        del ACTIVE[next(i for i, c in enumerate(ACTIVE) if c is counts)]
         for module, name, original in saved:
             setattr(module, name, original)
     return counts

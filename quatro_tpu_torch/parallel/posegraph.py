@@ -9,7 +9,8 @@ Gauss-Newton where each linearised step solves the normal equations
 J^T W J delta = -J^T W r by matrix-free conjugate gradients: edge-wise
 gathers, dense per-edge algebra, and a segment sum back to the poses. The
 trip counts are fixed (``gn_iters`` x ``cg_iters``) and nothing is read
-back to the host inside the loops. The scatter J^T u goes through the
+back to the host inside the loops, which on the card replay a CUDA graph
+per Gauss-Newton iteration. The scatter J^T u goes through the
 port's segment sums (ops/segment.py, B2 on the card), which add in a fixed
 order with no float atomics, so a second solve of the same graph on the
 card gives the same bits. Gauge freedom is fixed by projecting pose 0's
@@ -27,9 +28,11 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from quatro_tpu_torch.ops.segment import segment_sums
 from quatro_tpu_torch.parallel.mesh import all_reduce_sum, axis_group
+from quatro_tpu_torch.utils import loops
 
 
 class PoseGraphEdges(NamedTuple):
@@ -118,6 +121,37 @@ def _zero_first(x):
     return torch.cat([torch.zeros_like(x[:1]), x[1:]])
 
 
+def _gn_step(edges: PoseGraphEdges, w_edge, poses, num_poses: int,
+             cg_iters: int, damping: float, psum_axis):
+    """One Gauss-Newton iteration: the damped normal equations solved by
+    ``cg_iters`` CG steps, the update applied and the yaws wrapped."""
+
+    def normal_matvec(v):
+        jv = _edge_jacobian_apply(poses, edges, _zero_first(v))
+        jtwjv = _edge_jacobian_transpose_apply(poses, edges, jv * w_edge,
+                                               num_poses, psum_axis)
+        return _zero_first(jtwjv) + damping * v
+
+    r_t, r_yaw = _edge_residuals(poses, edges)
+    r = torch.cat([r_t, r_yaw[:, None]], dim=-1)
+    # delta[0] = 0: b0 = 0 and row 0 of A is damping * I
+    b = _zero_first(-_edge_jacobian_transpose_apply(poses, edges, r * w_edge,
+                                                    num_poses, psum_axis))
+    x, rr, p, rs = torch.zeros_like(poses), b, b, (b * b).sum()
+    for _ in range(cg_iters):
+        ap = normal_matvec(p)
+        denom = (p * ap).sum()
+        alpha = rs / torch.where(denom == 0, 1.0, denom)
+        x = x + alpha * p
+        rr = rr - alpha * ap
+        rs_new = (rr * rr).sum()
+        beta = rs_new / torch.where(rs == 0, 1.0, rs)
+        p = rr + beta * p
+        rs = rs_new
+    new = poses + x
+    return torch.cat([new[:, :3], wrap_angle(new[:, 3:])], dim=-1)
+
+
 def optimize_pose_graph(poses0: torch.Tensor, edges: PoseGraphEdges,
                         num_poses: int, gn_iters: int = 8,
                         cg_iters: int = 32, damping: float = 1e-3,
@@ -138,38 +172,26 @@ def optimize_pose_graph(poses0: torch.Tensor, edges: PoseGraphEdges,
     over the ranks, each of which holds its own edges and the same poses0:
     every rank returns the same poses. A rank with no edges still takes
     part in every all-reduce (B2 over no entries gives zeros).
+
+    The JAX package's ``lax.fori_loop``s (quatro_tpu/parallel/posegraph.py:
+    151-175) are one device loop of ``gn_iters`` trips here
+    (utils/loops.py), each trip a Gauss-Newton iteration with its CG steps
+    written out: on the card one trip is a CUDA graph, B2's launches and
+    NCCL's all-reduces in it, replayed with nothing read back. A gloo
+    group's all-reduce goes through the host and cannot be captured, so
+    under one the trips run uncaptured.
     """
-    if edges.i.shape[0] == 0 and axis_group(psum_axis) is None:
+    group = axis_group(psum_axis)
+    if edges.i.shape[0] == 0 and group is None:
         # nothing to solve: the poses, wrapped
         return torch.cat([poses0[:, :3], wrap_angle(poses0[:, 3:])], dim=-1)
     w_edge = torch.where(edges.mask, edges.weight, 0.0)[:, None]
 
-    def normal_matvec(poses, v):
-        jv = _edge_jacobian_apply(poses, edges, _zero_first(v))
-        jtwjv = _edge_jacobian_transpose_apply(poses, edges, jv * w_edge,
-                                               num_poses, psum_axis)
-        return _zero_first(jtwjv) + damping * v
+    def body(consts, state):
+        return (_gn_step(PoseGraphEdges(*consts[:6]), consts[6], state[0],
+                         num_poses, cg_iters, damping, psum_axis),)
 
-    poses = poses0
-    for _ in range(gn_iters):
-        r_t, r_yaw = _edge_residuals(poses, edges)
-        r = torch.cat([r_t, r_yaw[:, None]], dim=-1)
-        # delta[0] = 0: b0 = 0 and row 0 of A is damping * I
-        b = _zero_first(-_edge_jacobian_transpose_apply(poses, edges,
-                                                        r * w_edge,
-                                                        num_poses,
-                                                        psum_axis))
-        x, rr, p, rs = torch.zeros_like(poses), b, b, (b * b).sum()
-        for _ in range(cg_iters):
-            ap = normal_matvec(poses, p)
-            denom = (p * ap).sum()
-            alpha = rs / torch.where(denom == 0, 1.0, denom)
-            x = x + alpha * p
-            rr = rr - alpha * ap
-            rs_new = (rr * rr).sum()
-            beta = rs_new / torch.where(rs == 0, 1.0, rs)
-            p = rr + beta * p
-            rs = rs_new
-        new = poses + x
-        poses = torch.cat([new[:, :3], wrap_angle(new[:, 3:])], dim=-1)
+    (poses,) = loops.fori(
+        "pose_graph", body, (*edges, w_edge), (poses0,), gn_iters, 1,
+        graph=group is None or dist.get_backend(group) == "nccl")
     return poses

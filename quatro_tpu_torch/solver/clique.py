@@ -7,14 +7,16 @@ improvement, the exact branch-and-bound of PMC_EXACT, and the K largest
 distinct cliques of the multi-hypothesis solver.
 
 Every function takes one graph (N, N) or a batch of pairs (B, N, N).
-The JAX package's ``lax.while_loop``s are bounded Python loops here with
-the same bounds and exit tests, run as vmap runs them: the loop goes on
-while any pair is live, and each pair keeps its state from the round its
-own test ended it (by ``torch.where``, or because that state is a fixed
-point of the round); one value is read back from the device per round,
-whatever B is. Ties are broken as in the JAX package: ``lax.top_k`` keeps
-the lower index (stable sorts here), argmax / argmin take the first
-extreme.
+The JAX package's ``lax.while_loop``s and ``lax.fori_loop``s are device
+loops here (utils/loops.py: CUDA graphs on the card) with the same bounds
+and exit tests, run as vmap runs them: the loop goes on while any pair is
+live, and each pair keeps its state from the round its own test ended it
+(by ``torch.where``, or because that state is a fixed point of the
+round), so the rounds a chunk runs past that change none of its bits. A
+``while_loop`` reads one flag back per chunk of rounds, whatever B is; a
+``fori_loop`` reads nothing. The exact branch-and-bound runs on the host.
+Ties are broken as in the JAX package: ``lax.top_k`` keeps the lower
+index (stable sorts here), argmax / argmin take the first extreme.
 """
 
 from __future__ import annotations
@@ -22,7 +24,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from quatro_tpu_torch.utils import loops
 from quatro_tpu_torch.utils.batch import drop_axis
+
+KCORE_CHUNK = 8         # peel rounds per flag read
+GROW_CHUNK = 8          # growth rounds per flag read
+TOP_CHUNK = 32          # rows of top_distinct_cliques' greedy per graph
 
 
 def _count_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -53,44 +60,94 @@ def _put_rows(x: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor):
                      rows)
 
 
-def _peel_to_kcore(adj_f: torch.Tensor, alive: torch.Tensor,
-                   k: torch.Tensor) -> torch.Tensor:
-    """Fixed point of 'remove alive vertices with < k alive neighbours',
-    per pair: adj_f (B, N, N), alive (B, N), k (B,). A row at its fixed
-    point stays there, so the loop runs until no row changes, one flag
-    read per round."""
-    while True:
-        deg = _count_mv(adj_f, alive)
-        new_alive = alive * (deg >= k[..., None]).to(alive.dtype)
-        if not bool((new_alive != alive).any()):
-            return new_alive
-        alive = new_alive
+def _kcore_round(consts, state):
+    """One peel round of every pair's current probe of the binary search.
+    A pair whose peel did not change this round has reached its probe's
+    fixed point: it resolves the probe (lo or hi, and the best core when
+    the core is non-empty) and starts its next probe from its best core.
+    A pair whose search has ended probes k = 0, which peels nothing, so
+    its state is a fixed point of the round."""
+    (adj_f,) = consts
+    lo, hi, best, alive = state
+    act = lo < hi
+    mid = (lo + hi + 1) // 2
+    k = torch.where(act, mid, 0).to(torch.float32)
+    deg = _count_mv(adj_f, alive)
+    peeled = alive * (deg >= k[..., None]).to(alive.dtype)
+    done = ~(peeled != alive).any(-1)
+    nonempty = act & done & (peeled.sum(-1) > 0)
+    lo = torch.where(nonempty, mid, lo)
+    hi = torch.where(act & done & ~nonempty, mid - 1, hi)
+    best = torch.where(nonempty[..., None], peeled, best)
+    alive = torch.where(done[..., None], best, peeled)
+    return lo, hi, best, alive
+
+
+def _searching(state):
+    return (state[0] < state[1]).any()
 
 
 def max_kcore(adj: torch.Tensor, mask: torch.Tensor):
     """Largest k with a non-empty k-core, plus that core's membership mask
-    (binary search over k, each probe peeling from the best core so far),
-    for adj (N, N) or a batch (B, N, N): (k () or (B,) int64, core mask).
-    Each pair keeps its own ``lo`` / ``hi``; a pair whose search has ended
-    probes k = 0, which peels nothing."""
+    (binary search over k, each probe peeling from the best core so far to
+    its fixed point), for adj (N, N) or a batch (B, N, N): (k () or (B,)
+    int64, core mask).
+
+    The JAX package nests the peel's ``lax.while_loop`` in the search's
+    (quatro_tpu/solver/clique.py:61, :97). Here both are one flat device
+    loop of peel rounds (utils/loops.py), a flag read per KCORE_CHUNK
+    rounds: each pair resolves its own probe in the round its peel stops
+    changing and starts its next probe in the next, so the pairs' probes
+    interleave instead of each probe waiting for every pair's peel. A
+    k-core peel's fixed point is unique and the degrees are exact counts,
+    so each pair's (lo, best core) is the nested loops' bit for bit. Each
+    probe removes at most N vertices, a round at least one until it ends,
+    and there are at most bit_length(N) + 1 probes: that bounds the
+    rounds."""
     if adj.dim() == 2:
         return drop_axis(max_kcore(adj[None], mask[None]))
+    n = adj.shape[-1]
     adj_f = adj.to(torch.float32)
     alive0 = mask.to(torch.float32)
     deg0 = _count_mv(adj_f, alive0)
     lo = torch.zeros(mask.shape[:-1], dtype=torch.int64, device=adj.device)
     hi = torch.where(mask, deg0, 0.0).amax(-1).to(torch.int64)
-    best_core = alive0
-    while bool((lo < hi).any()):
-        act = lo < hi
-        mid = (lo + hi + 1) // 2
-        core = _peel_to_kcore(adj_f, best_core,
-                              torch.where(act, mid, 0).to(torch.float32))
-        nonempty = act & (core.sum(-1) > 0)
-        lo = torch.where(nonempty, mid, lo)
-        hi = torch.where(act & ~nonempty, mid - 1, hi)
-        best_core = torch.where(nonempty[..., None], core, best_core)
+    (lo, _, best_core, _), _ = loops.while_chunks(
+        "max_kcore", _kcore_round, _searching, (adj_f,),
+        (lo, hi, alive0, alive0), (n + 1) * (n.bit_length() + 1),
+        KCORE_CHUNK)
     return lo, best_core > 0
+
+
+def _grow_round(consts, state, max_size: int, n: int):
+    """One lock-step growth round of every seed (see
+    ``grow_greedy_cliques``); a seed with no candidate left is a fixed
+    point."""
+    adj_f, tiebreak = consts
+    clique, cand = state
+    deg = _count_mm(cand, adj_f) * cand
+    # early completion: a candidate set that is itself a clique is
+    # absorbed whole (never past max_size)
+    csz = cand.sum(-1)
+    esum = deg.sum(-1)
+    room = clique.sum(-1) + csz <= float(max_size)
+    whole = ((esum == csz * (csz - 1.0)) & (csz > 0) & room
+             ).to(torch.float32)[..., None]
+    clique = clique + cand * whole
+    cand = cand * (1.0 - whole)
+    score = torch.where(cand > 0, deg + tiebreak, float("-inf"))
+    pick = torch.argmax(score, dim=-1)
+    pick_oh = torch.nn.functional.one_hot(pick, n).to(torch.float32)
+    has_cand = ((cand.sum(-1) > 0) & (clique.sum(-1) < float(max_size))
+                )[..., None].to(torch.float32)
+    clique = clique + pick_oh * has_cand
+    cand = cand * _count_mm(pick_oh, adj_f) * has_cand
+    cand = cand * (1.0 - clique)
+    return clique, cand
+
+
+def _has_candidates(state):
+    return (state[1].sum(-1) > 0).any()
 
 
 def grow_greedy_cliques(adj: torch.Tensor, seed_scores: torch.Tensor,
@@ -100,9 +157,12 @@ def grow_greedy_cliques(adj: torch.Tensor, seed_scores: torch.Tensor,
     """Grow S greedy cliques in lock-step; (S, N) bool clique masks, or
     (B, S, N) for a batch (B, N, N). Each round adds, per seed, the
     candidate of highest degree within that seed's candidate set
-    (two-phase schedule as in the JAX package). A seed with no candidate
-    left is a fixed point of a round, so the rounds run while any seed of
-    any pair has candidates, one flag read per round."""
+    (two-phase schedule as in the JAX package). The JAX package's
+    ``lax.while_loop``s (quatro_tpu/solver/clique.py:177-190) are device
+    loops here (utils/loops.py) that read their flag, whether any seed of
+    any pair has candidates, once per GROW_CHUNK rounds; a seed with no
+    candidate left is a fixed point of a round, and a chunk never passes
+    its phase's limit."""
     if adj.dim() == 2:
         return drop_axis(grow_greedy_cliques(
             adj[None], seed_scores[None], mask[None], num_seeds, max_size,
@@ -117,43 +177,66 @@ def grow_greedy_cliques(adj: torch.Tensor, seed_scores: torch.Tensor,
     cand = _take_rows(adj_f, seeds) * mask.to(torch.float32)[..., None, :]
     tiebreak = -torch.arange(n, dtype=torch.float32, device=dev) * 1e-6
 
-    def body(clique, cand):
-        deg = _count_mm(cand, adj_f) * cand
-        # early completion: a candidate set that is itself a clique is
-        # absorbed whole (never past max_size)
-        csz = cand.sum(-1)
-        esum = deg.sum(-1)
-        room = clique.sum(-1) + csz <= float(max_size)
-        whole = ((esum == csz * (csz - 1.0)) & (csz > 0) & room
-                 ).to(torch.float32)[..., None]
-        clique = clique + cand * whole
-        cand = cand * (1.0 - whole)
-        score = torch.where(cand > 0, deg + tiebreak, float("-inf"))
-        pick = torch.argmax(score, dim=-1)
-        pick_oh = torch.nn.functional.one_hot(pick, n).to(torch.float32)
-        has_cand = ((cand.sum(-1) > 0) & (clique.sum(-1) < float(max_size))
-                    )[..., None].to(torch.float32)
-        clique = clique + pick_oh * has_cand
-        cand = cand * _count_mm(pick_oh, adj_f) * has_cand
-        cand = cand * (1.0 - clique)
-        return clique, cand
+    def body(consts, state):
+        return _grow_round(consts, state, max_size, n)
 
     def run(clique, cand, rounds, limit):
-        while rounds < limit and bool((cand.sum(-1) > 0).any()):
-            clique, cand = body(clique, cand)
-            rounds += 1
-        return clique, cand, rounds
+        (clique, cand), trips = loops.while_chunks(
+            "grow_cliques", body, _has_candidates, (adj_f, tiebreak),
+            (clique, cand), limit - rounds, GROW_CHUNK)
+        return clique, cand, rounds + trips
 
     if num_seeds <= survivors or phase1_rounds >= max_size:
         clique, _, _ = run(clique, cand, 0, max_size - 1)
         return clique > 0
-    # a pair whose phase 1 ended early has no candidates left, so its
-    # phase 2 is a fixed point whatever its round count
+    # phase 1 ends at its limit (r1 = phase1_rounds however it is
+    # chunked) or with no candidates left in any pair, and then phase 2
+    # is a fixed point whatever its round count
     clique, cand, r1 = run(clique, cand, 0, phase1_rounds)
     keep = _top_k_indices(cand.sum(-1), survivors)
     c2, _, _ = run(_take_rows(clique, keep), _take_rows(cand, keep), r1,
                    max_size - 1)
     return _put_rows(clique, keep, c2) > 0
+
+
+def _swap_round(consts, state, k_cand: int):
+    """One (1,2)-swap round of every clique (see
+    ``improve_cliques_1swap``); a clique that is no longer live keeps its
+    members."""
+    adj_b, adj_t, mask, iota = consts
+    x, live = state
+    bsz, kq, n = x.shape
+    xf = x.to(torch.float32)
+    s = xf.sum(-1, keepdim=True)
+    cnt = xf @ adj_t                       # neighbours inside the clique
+    outside = ~x & mask[:, None, :]
+    addable = (cnt == s) & outside
+    can_add = addable.any(-1)
+    add_idx = torch.argmax(addable.to(torch.uint8), -1, keepdim=True)
+    x_add = x.scatter(-1, add_idx, True)
+    miss1 = (cnt == s - 1.0) & outside
+    sel_key = torch.where(miss1, iota, n)
+    idx = torch.sort(sel_key, dim=-1, stable=True).indices[..., :k_cand]
+    vsel = sel_key.gather(-1, idx) < n                    # (B, K, C)
+    rows_b = _take_rows(adj_b, idx.reshape(bsz, -1)).reshape(
+        bsz, kq, k_cand, n)                               # (B, K, C, N)
+    asub = rows_b.gather(-1, idx[..., None, :].expand(
+        bsz, kq, k_cand, k_cand))
+    # the first member each selected vertex is not adjacent to
+    uidx = torch.argmax((~rows_b & x[..., None, :]).to(torch.uint8), -1)
+    pairs = (asub & vsel[..., :, None] & vsel[..., None, :]
+             & (uidx[..., :, None] == uidx[..., None, :]))
+    flat = pairs.reshape(bsz, kq, -1)
+    pidx = torch.argmax(flat.to(torch.uint8), -1, keepdim=True)
+    can_swap = flat.gather(-1, pidx)[..., 0]
+    p_row, p_col = pidx // k_cand, pidx % k_cand
+    x_swap = (x.scatter(-1, uidx.gather(-1, p_row), False)
+              .scatter(-1, idx.gather(-1, p_row), True)
+              .scatter(-1, idx.gather(-1, p_col), True))
+    moved = can_add | can_swap
+    new = torch.where(can_add[..., None], x_add, x_swap)
+    x = torch.where((live & moved)[..., None], new, x)
+    return x, live & moved
 
 
 def improve_cliques_1swap(adj: torch.Tensor, cliques: torch.Tensor,
@@ -162,8 +245,11 @@ def improve_cliques_1swap(adj: torch.Tensor, cliques: torch.Tensor,
     for a batch (B, N, N): per round, add an outside vertex adjacent to
     every member, else drop one member u and add two adjacent outside
     vertices that miss only u; a clique with neither stops there, as the
-    JAX package's ``while_loop`` does under vmap. Every clique of every
-    pair takes each round together, one flag read per round."""
+    JAX package's ``lax.while_loop`` does under vmap
+    (quatro_tpu/solver/clique.py:266). Every clique of every pair takes
+    each round together, all ``rounds`` of them as a device loop that
+    reads nothing back (utils/loops.py): a clique that stopped is frozen
+    by its live mask."""
     if rounds <= 0:
         return cliques
     if adj.dim() == 2:
@@ -175,43 +261,13 @@ def improve_cliques_1swap(adj: torch.Tensor, cliques: torch.Tensor,
     adj_t = adj_b.to(torch.float32).transpose(-1, -2)
     k_cand = min(128, n)
     iota = torch.arange(n, device=dev)
-    outside_ok = mask[:, None, :]
-    x = cliques.clone()
     live = torch.ones((bsz, kq), dtype=torch.bool, device=dev)
-    for _ in range(rounds):
-        xf = x.to(torch.float32)
-        s = xf.sum(-1, keepdim=True)
-        cnt = xf @ adj_t                       # neighbours inside the clique
-        outside = ~x & outside_ok
-        addable = (cnt == s) & outside
-        can_add = addable.any(-1)
-        add_idx = torch.argmax(addable.to(torch.uint8), -1, keepdim=True)
-        x_add = x.scatter(-1, add_idx, True)
-        miss1 = (cnt == s - 1.0) & outside
-        sel_key = torch.where(miss1, iota, n)
-        idx = torch.sort(sel_key, dim=-1, stable=True).indices[..., :k_cand]
-        vsel = sel_key.gather(-1, idx) < n                    # (B, K, C)
-        rows_b = _take_rows(adj_b, idx.reshape(bsz, -1)).reshape(
-            bsz, kq, k_cand, n)                               # (B, K, C, N)
-        asub = rows_b.gather(-1, idx[..., None, :].expand(
-            bsz, kq, k_cand, k_cand))
-        # the first member each selected vertex is not adjacent to
-        uidx = torch.argmax((~rows_b & x[..., None, :]).to(torch.uint8), -1)
-        pairs = (asub & vsel[..., :, None] & vsel[..., None, :]
-                 & (uidx[..., :, None] == uidx[..., None, :]))
-        flat = pairs.reshape(bsz, kq, -1)
-        pidx = torch.argmax(flat.to(torch.uint8), -1, keepdim=True)
-        can_swap = flat.gather(-1, pidx)[..., 0]
-        p_row, p_col = pidx // k_cand, pidx % k_cand
-        x_swap = (x.scatter(-1, uidx.gather(-1, p_row), False)
-                  .scatter(-1, idx.gather(-1, p_row), True)
-                  .scatter(-1, idx.gather(-1, p_col), True))
-        moved = can_add | can_swap
-        new = torch.where(can_add[..., None], x_add, x_swap)
-        x = torch.where((live & moved)[..., None], new, x)
-        live = live & moved
-        if not bool(live.any()):
-            break
+
+    def body(consts, state):
+        return _swap_round(consts, state, k_cand)
+
+    x, _ = loops.fori("swap_cliques", body, (adj_b, adj_t, mask, iota),
+                      (cliques, live), rounds, rounds)
     return x
 
 
@@ -325,6 +381,23 @@ def clique_seed_scores(adj: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return kcore_mask.to(torch.float32) * 1e6 + _count_mv(adj, mask)
 
 
+def _distinct_round(consts, state, k: int, frac: float):
+    """Row i of the greedy over the sorted rows, for every pair: taken
+    when fewer than k are taken, no taken row covers min_distinct_frac of
+    the smaller of the two, and it is no singleton."""
+    inter, sizes, iota = consts
+    taken, count, i = state
+    row = inter.index_select(-2, i)[..., 0, :]            # (B, S)
+    size_i = sizes.index_select(-1, i)                    # (B, 1)
+    min_sz = torch.minimum(sizes, size_i)
+    conflict = taken & (row >= frac * torch.clamp(min_sz, min=1.0))
+    # singletons (isolated seeds) carry no hypothesis: the reference
+    # aborts on cliques <= 1 (include/quatro.hpp:809-813)
+    ok = (count < k) & ~conflict.any(-1) & (size_i[..., 0] > 1)
+    taken = taken | ((iota == i)[None, :] & ok[:, None])
+    return taken, count + ok.to(count.dtype), i + 1
+
+
 def top_distinct_cliques(cliques: torch.Tensor, k: int,
                          min_distinct_frac: float = 0.5,
                          force_first: bool = False):
@@ -335,15 +408,16 @@ def top_distinct_cliques(cliques: torch.Tensor, k: int,
     force_first, row 0 is taken first whatever its size. Unfilled slots
     hold the first untaken rows with size 0. k is clamped to S.
 
-    The JAX package's greedy ``fori_loop`` over the S rows runs on the
-    host here, for every pair at once: the (S, S) intersection counts and
-    the sizes come back in one copy, the O(S^2) greedy runs in numpy over
-    the pair axis, and the picked rows are gathered on the device.
+    The JAX package's greedy ``fori_loop`` over the S sorted rows
+    (quatro_tpu/solver/clique.py:433-442) is a device loop here, for every
+    pair at once (utils/loops.py, TOP_CHUNK rows a graph), with nothing
+    copied to the host; the comparison is the same single f32 product and
+    compare.
     """
     if cliques.dim() == 2:
         return drop_axis(top_distinct_cliques(cliques[None], k,
                                               min_distinct_frac, force_first))
-    s = cliques.shape[-2]
+    bsz, s = cliques.shape[:2]
     k = min(k, s)
     dev = cliques.device
     cf = cliques.to(torch.float32)
@@ -357,28 +431,21 @@ def top_distinct_cliques(cliques: torch.Tensor, k: int,
     cf = _take_rows(cf, order)
     sizes = sizes.gather(-1, order)
     inter = _count_mm(cf, cf.transpose(-1, -2))          # (B, S, S)
-    host = torch.cat([inter, sizes[:, None]], -2).cpu().numpy()
-    inter_h, sizes_h = host[:, :s], host[:, s]
-    min_sz = np.minimum(sizes_h[:, :, None], sizes_h[:, None, :])
-    frac = np.float32(min_distinct_frac)
-    taken = np.zeros(sizes_h.shape, bool)
-    count = np.zeros(sizes_h.shape[0], np.int64)
-    for i in range(s):
-        conflict = taken & (inter_h[:, i] >= frac * np.maximum(
-            min_sz[:, i], np.float32(1.0)))
-        # singletons (isolated seeds) carry no hypothesis: the reference
-        # aborts on cliques <= 1 (include/quatro.hpp:809-813)
-        ok = (count < k) & ~conflict.any(-1) & (sizes_h[:, i] > 1)
-        taken[:, i] = ok
-        count += ok
-    iota = np.arange(s)
-    pick = np.argsort(np.where(taken, iota, s + iota), axis=-1,
-                      kind="stable")[:, :k]
-    pick_order = torch.from_numpy(pick).to(dev)
-    filled = (torch.arange(k, device=dev)[None, :]
-              < torch.from_numpy(count).to(dev)[:, None])
-    picked_sizes = torch.where(filled, sizes.gather(-1, pick_order), 0.0)
-    return _take_rows(cf, pick_order) > 0, picked_sizes
+    iota = torch.arange(s, device=dev)
+
+    def body(consts, state):
+        return _distinct_round(consts, state, k, min_distinct_frac)
+
+    taken, count, _ = loops.fori(
+        "top_distinct", body, (inter, sizes, iota),
+        (torch.zeros((bsz, s), dtype=torch.bool, device=dev),
+         torch.zeros(bsz, dtype=torch.int64, device=dev),
+         torch.zeros(1, dtype=torch.int64, device=dev)), s, TOP_CHUNK)
+    pick = torch.sort(torch.where(taken, iota, s + iota), dim=-1,
+                      stable=True).indices[:, :k]
+    filled = torch.arange(k, device=dev)[None, :] < count[:, None]
+    picked_sizes = torch.where(filled, sizes.gather(-1, pick), 0.0)
+    return _take_rows(cf, pick) > 0, picked_sizes
 
 
 def select_inliers_with_candidates(adj: torch.Tensor, mask: torch.Tensor,

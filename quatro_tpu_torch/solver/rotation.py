@@ -8,9 +8,10 @@ iteration is two masked reductions and a weight update; the full SO(3)
 variant (TEASER mode) solves a weighted Kabsch problem (one 3x3 SVD) per
 iteration. Two robust losses: GNC-TLS (the reference's default) and the
 graduated Geman-McClure of its FGR option. Every function takes leading
-axes (pairs, hypotheses). The loops are Python loops with the JAX
-package's bound and exit test per row; one flag is read back from the
-device per iteration, whatever the number of rows.
+axes (pairs, hypotheses). The loops keep the JAX package's bound and
+exit test per row; they are device loops (utils/loops.py) that read one
+flag back per GNC_CHUNK iterations, whatever the number of rows, and on
+the card replay CUDA graphs.
 """
 
 from __future__ import annotations
@@ -19,8 +20,11 @@ from typing import NamedTuple
 
 import torch
 
+from quatro_tpu_torch.utils import loops
 from quatro_tpu_torch.utils.fused import pairwise_sum
 from quatro_tpu_torch.utils.se3 import rotate_points
+
+GNC_CHUNK = 8           # GNC iterations per flag read
 
 
 class GncResult(NamedTuple):
@@ -78,6 +82,60 @@ def _keep(live, new, old):
                        new, old)
 
 
+def _tls_round(src, dst, maskf, nb_sq, state, gnc_factor: float,
+               cost_threshold: float, solve_rotation, apply_rotation,
+               first: bool = False):
+    """One GNC-TLS iteration of every row; a row that is not live keeps
+    its state. ``first``: iteration 0, which initialises mu and stops the
+    noise-free rows with their weights."""
+    param, weights, mu, prev_cost, cost, iters, live = state
+    p = solve_rotation(src, dst, weights * maskf)
+    diff = dst - apply_rotation(p, src)
+    res_sq = (diff * diff).sum(-1) * maskf
+    if first:                           # mu initialisation
+        mu = 1.0 / (2.0 * res_sq.amax(-1) / nb_sq - 1.0)
+        degenerate = mu <= 0            # noise-free: keep the weights
+        param = p
+    else:
+        degenerate = torch.zeros_like(live)
+        param = _keep(live, p, param)
+    th1 = (mu + 1.0) / mu * nb_sq
+    th2 = mu / (mu + 1.0) * nb_sq
+    c = pairwise_sum(weights * res_sq)
+    cost = torch.where(live, c, cost)
+    iters = iters + live.to(torch.int32)
+    w_mid = torch.sqrt((nb_sq * mu * (mu + 1.0))[..., None]
+                       / torch.clamp(res_sq, min=1e-30)) - mu[..., None]
+    w_new = torch.where(res_sq >= th1[..., None], 0.0,
+                        torch.where(res_sq <= th2[..., None], 1.0,
+                                    w_mid)) * maskf
+    step = live & ~degenerate
+    weights = _keep(step, w_new, weights)
+    converged = torch.abs(c - prev_cost) < cost_threshold
+    mu = torch.where(step, mu * gnc_factor, mu)
+    prev_cost = torch.where(step, c, prev_cost)
+    live = step & ~converged
+    return param, weights, mu, prev_cost, cost, iters, live
+
+
+def _any_live(state):
+    return state[-1].any()
+
+
+def _run_iterations(name, round_fn, src, dst, maskf, scale_sq, state,
+                    bound, solve_rotation):
+    """Iterations 1.. of a GNC loop as a device loop (utils/loops.py), one
+    flag read per GNC_CHUNK iterations. The SO(3) solve cannot be
+    captured: ``torch.linalg.svd`` on the card checks its result on the
+    host, a copy to the CPU that a capture refuses
+    (``python tests/torch_loops_capture.py svd`` shows it), so that
+    parametrisation runs the same chunks uncaptured."""
+    state, _ = loops.while_chunks(
+        name, round_fn, _any_live, (src, dst, maskf, scale_sq), state,
+        bound, GNC_CHUNK, graph=solve_rotation is not svd_rot3d)
+    return state
+
+
 def _gnc_tls(src, dst, mask, noise_bound, gnc_factor: float,
              max_iterations: int, cost_threshold: float, solve_rotation,
              apply_rotation):
@@ -88,54 +146,64 @@ def _gnc_tls(src, dst, mask, noise_bound, gnc_factor: float,
     converge on the cost difference.
 
     Rows (the leading axes of ``mask``) run as vmap runs the JAX
-    package's ``lax.while_loop``: the loop goes on while a row is live,
-    and each row keeps its state from the iteration its own test ended
-    it, by ``torch.where`` on its live mask; one flag is read back per
-    iteration."""
+    package's ``lax.while_loop`` (quatro_tpu/solver/rotation.py:145): the
+    loop goes on while a row is live, and each row keeps its state from
+    the iteration its own test ended it, by ``torch.where`` on its live
+    mask, so the iterations a chunk runs past a row's end change none of
+    its bits. Iteration 0 runs alone; iterations 1.. are a device loop
+    that reads its flag once per GNC_CHUNK iterations."""
     dtype, dev = src.dtype, src.device
     maskf = mask.to(dtype)
     nb_sq = torch.as_tensor(noise_bound, dtype=dtype, device=dev) ** 2
     nb_sq = torch.where(nb_sq < 1e-16, 1e-2, nb_sq).expand(mask.shape[:-1])
-
-    weights = maskf
-    param = None
-    mu = torch.ones_like(nb_sq)
-    prev_cost = torch.full_like(nb_sq, float("inf"))
-    cost = prev_cost
-    iters = torch.zeros(mask.shape[:-1], dtype=torch.int32, device=dev)
-    live = torch.ones(mask.shape[:-1], dtype=torch.bool, device=dev)
-    for i in range(max_iterations):
-        p = solve_rotation(src, dst, weights * maskf)
-        diff = dst - apply_rotation(p, src)
-        res_sq = (diff * diff).sum(-1) * maskf
-        if i == 0:                      # mu initialisation
-            mu = 1.0 / (2.0 * res_sq.amax(-1) / nb_sq - 1.0)
-            degenerate = mu <= 0        # noise-free: keep the weights
-        else:
-            degenerate = torch.zeros_like(live)
-        th1 = (mu + 1.0) / mu * nb_sq
-        th2 = mu / (mu + 1.0) * nb_sq
-        c = pairwise_sum(weights * res_sq)
-        param = p if param is None else _keep(live, p, param)
-        cost = torch.where(live, c, cost)
-        iters = iters + live.to(torch.int32)
-        w_mid = torch.sqrt((nb_sq * mu * (mu + 1.0))[..., None]
-                           / torch.clamp(res_sq, min=1e-30)) - mu[..., None]
-        w_new = torch.where(res_sq >= th1[..., None], 0.0,
-                            torch.where(res_sq <= th2[..., None], 1.0,
-                                        w_mid)) * maskf
-        step = live & ~degenerate
-        weights = _keep(step, w_new, weights)
-        converged = torch.abs(c - prev_cost) < cost_threshold
-        mu = torch.where(step, mu * gnc_factor, mu)
-        prev_cost = torch.where(step, c, prev_cost)
-        live = step & ~converged
-        if not bool(live.any()):
-            break
-    if param is None:                   # no iteration ran
+    if max_iterations <= 0:             # no iteration runs
         param = solve_rotation(src, dst, maskf)
+        return (param, maskf, (maskf >= 0.4) & mask,
+                torch.zeros(mask.shape[:-1], dtype=torch.int32, device=dev),
+                torch.full_like(nb_sq, float("inf")))
+    inf = torch.full_like(nb_sq, float("inf"))
+    state = (None, maskf, torch.ones_like(nb_sq), inf, inf,
+             torch.zeros(mask.shape[:-1], dtype=torch.int32, device=dev),
+             torch.ones(mask.shape[:-1], dtype=torch.bool, device=dev))
+    state = _tls_round(src, dst, maskf, nb_sq, state, gnc_factor,
+                       cost_threshold, solve_rotation, apply_rotation,
+                       first=True)
+
+    def round_fn(consts, state):
+        return _tls_round(*consts, state, gnc_factor, cost_threshold,
+                          solve_rotation, apply_rotation)
+
+    param, weights, _, _, cost, iters, _ = _run_iterations(
+        "gnc_tls", round_fn, src, dst, maskf, nb_sq, state,
+        max_iterations - 1, solve_rotation)
     inliers = (weights >= 0.4) & mask
     return param, weights, inliers, iters, cost
+
+
+def _gm_round(src, dst, maskf, eps_sq, state, gnc_factor: float,
+              cost_threshold: float, solve_rotation, apply_rotation,
+              first: bool = False):
+    """One graduated Geman-McClure iteration of every row; a row that is
+    not live keeps its state. ``first``: iteration 0, which sets mu
+    convex enough for the worst residual."""
+    param, weights, mu, prev_cost, iters, live = state
+    p = solve_rotation(src, dst, weights * maskf)
+    diff = dst - apply_rotation(p, src)
+    res_sq = (diff * diff).sum(-1) * maskf
+    if first:
+        mu = torch.clamp(res_sq.amax(-1) / eps_sq, min=1.0)
+    me = (mu * eps_sq)[..., None]
+    w = me / (res_sq + me)
+    w_new = (w * w) * maskf
+    c = pairwise_sum(w_new * res_sq)
+    done = (mu <= 1.0) & (torch.abs(c - prev_cost) < cost_threshold)
+    param = p if first else _keep(live, p, param)
+    weights = _keep(live, w_new, weights)
+    mu = torch.where(live, torch.clamp(mu / gnc_factor, min=1.0), mu)
+    prev_cost = torch.where(live, c, prev_cost)
+    iters = iters + live.to(torch.int32)
+    live = live & ~done
+    return param, weights, mu, prev_cost, iters, live
 
 
 def _fgr_gm(src, dst, mask, noise_bound, gnc_factor: float,
@@ -145,39 +213,31 @@ def _fgr_gm(src, dst, mask, noise_bound, gnc_factor: float,
     (include/quatro.hpp:172-175,225-243): w_i = (mu e^2 / (r_i^2 +
     mu e^2))^2, mu divided by gnc_factor per iteration (from convex toward
     GM), stopping on cost convergence once mu has annealed to <= 1. Rows
-    run as in ``_gnc_tls``."""
+    run as in ``_gnc_tls`` (quatro_tpu/solver/rotation.py:187)."""
     dtype, dev = src.dtype, src.device
     maskf = mask.to(dtype)
     eps_sq = torch.clamp(torch.as_tensor(noise_bound, dtype=dtype,
                                          device=dev) ** 2, min=1e-16
                          ).expand(mask.shape[:-1])
-    weights = maskf
-    param = None
-    mu = torch.ones_like(eps_sq)
-    prev_cost = torch.full_like(eps_sq, float("inf"))
     iters = torch.zeros(mask.shape[:-1], dtype=torch.int32, device=dev)
-    live = torch.ones(mask.shape[:-1], dtype=torch.bool, device=dev)
-    for i in range(max_iterations):
-        p = solve_rotation(src, dst, weights * maskf)
-        diff = dst - apply_rotation(p, src)
-        res_sq = (diff * diff).sum(-1) * maskf
-        if i == 0:                      # convex enough for the worst residual
-            mu = torch.clamp(res_sq.amax(-1) / eps_sq, min=1.0)
-        me = (mu * eps_sq)[..., None]
-        w = me / (res_sq + me)
-        w_new = (w * w) * maskf
-        c = pairwise_sum(w_new * res_sq)
-        done = (mu <= 1.0) & (torch.abs(c - prev_cost) < cost_threshold)
-        param = p if param is None else _keep(live, p, param)
-        weights = _keep(live, w_new, weights)
-        mu = torch.where(live, torch.clamp(mu / gnc_factor, min=1.0), mu)
-        prev_cost = torch.where(live, c, prev_cost)
-        iters = iters + live.to(torch.int32)
-        live = live & ~done
-        if not bool(live.any()):
-            break
-    if param is None:                   # no iteration ran
+    if max_iterations <= 0:             # no iteration runs
         param = solve_rotation(src, dst, maskf)
+        return (param, maskf, (maskf >= 0.4) & mask, iters,
+                torch.full_like(eps_sq, float("inf")))
+    state = (None, maskf, torch.ones_like(eps_sq),
+             torch.full_like(eps_sq, float("inf")), iters,
+             torch.ones(mask.shape[:-1], dtype=torch.bool, device=dev))
+    state = _gm_round(src, dst, maskf, eps_sq, state, gnc_factor,
+                      cost_threshold, solve_rotation, apply_rotation,
+                      first=True)
+
+    def round_fn(consts, state):
+        return _gm_round(*consts, state, gnc_factor, cost_threshold,
+                         solve_rotation, apply_rotation)
+
+    param, weights, _, prev_cost, iters, _ = _run_iterations(
+        "fgr_gm", round_fn, src, dst, maskf, eps_sq, state,
+        max_iterations - 1, solve_rotation)
     inliers = (weights >= 0.4) & mask
     return param, weights, inliers, iters, prev_cost
 

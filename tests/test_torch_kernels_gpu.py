@@ -992,17 +992,123 @@ def test_optimize_pose_graph_repeats_on_the_card(dev):
     the disconnected pose stays put, and it lies within 1e-3 of the CPU
     solve (f32 CG at 10 x 40 is not converged on this graph)."""
     from quatro_tpu_torch.parallel.posegraph import optimize_pose_graph
+    from quatro_tpu_torch.utils import loops
     p0, edges = _pose_graph(dev)
+    loops.reset_loops()
     before = tf.LAUNCHES["segment_sums"]
     a = optimize_pose_graph(p0, edges, 12, gn_iters=10, cg_iters=40)
     assert tf.LAUNCHES["segment_sums"] == before + 10 * 41
     b = optimize_pose_graph(p0, edges, 12, gn_iters=10, cg_iters=40)
+    assert tf.LAUNCHES["segment_sums"] == before + 2 * 10 * 41
+    # the graph route: one Gauss-Newton trip a CUDA graph, the second
+    # solve all replays
+    assert loops.LOOPS["pose_graph"]["replays"] >= 19
     assert a.device.type == "cuda" and torch.equal(a, b)
     assert bool(torch.isfinite(a).all())
     assert torch.equal(a[4], p0[4])
     cpu = optimize_pose_graph(p0.cpu(), type(edges)(*(x.cpu() for x in edges)),
                               12, gn_iters=10, cg_iters=40)
     torch.testing.assert_close(a.cpu(), cpu, rtol=0, atol=1e-3)
+
+
+def _loop_cases(dev):
+    """Each converted loop on the card, as a function of nothing: the GNC
+    (both losses) and the clique selection on three VLP-16-width pairs
+    (60 inliers, uniform junk, 12 inliers) and the pose graph of
+    ``_pose_graph``."""
+    from quatro_tpu_torch.io.synthetic import make_correspondences
+    from quatro_tpu_torch.parallel.posegraph import optimize_pose_graph
+    from quatro_tpu_torch.solver import clique, rotation
+    rng = np.random.default_rng(1)
+    cases = []
+    for seed, n_in in ((0, 60), (1, 0), (2, 12)):
+        if n_in:
+            src, tgt, _, _ = make_correspondences(
+                seed=seed, n_inliers=n_in, n_outliers=256 - n_in,
+                yaw_deg=40.0 + seed, translation=(3.0, -1.5, 0.3))
+        else:
+            src, tgt = (rng.uniform(-20, 20, (256, 3)).astype(np.float32)
+                        for _ in range(2))
+        cases.append((src, tgt, np.arange(256) < 251))
+    src, tgt, mask = (torch.from_numpy(np.stack(a)).to(dev)
+                      for a in zip(*cases))
+    adj = tim_consistency_graph(src, tgt, mask, 0.3, 1.0)
+    p0, edges = _pose_graph(dev)
+    return {
+        "gnc_tls": lambda: rotation.gnc_rotation_2d(
+            src[..., :2], tgt[..., :2], mask, 0.3),
+        "fgr_gm": lambda: rotation.gnc_rotation_2d(
+            src[..., :2], tgt[..., :2], mask, 0.3, algorithm="FGR"),
+        "cliques": lambda: clique.select_inliers_with_candidates(
+            adj, mask, num_seeds=128, swap_rounds=2),
+        "top_distinct": lambda: clique.top_distinct_cliques(
+            clique.select_inliers_with_candidates(
+                adj, mask, num_seeds=128, swap_rounds=2)[2], 4,
+            force_first=True),
+        "pose_graph": lambda: optimize_pose_graph(p0, edges, 12,
+                                                  gn_iters=10, cg_iters=40),
+    }
+
+
+def _flat(out):
+    return [out] if torch.is_tensor(out) else [t for o in out
+                                               for t in _flat(o)]
+
+
+@pytest.mark.parametrize("case", ["gnc_tls", "fgr_gm", "cliques",
+                                  "top_distinct", "pose_graph"])
+def test_device_loops_graph_equals_eager_on_the_card(dev, case):
+    """A loop's CUDA-graph route (first call: its first chunk uncaptured,
+    then the capture; second call: replays only) gives the bits of
+    ``eager_loops()``, and the same kernel launches in ``LAUNCHES``."""
+    from quatro_tpu_torch.utils import loops
+    fn = _loop_cases(dev)[case]
+    loops.clear_graphs()
+    launch.reset_launches()
+    with loops.eager_loops():
+        ref = _flat(fn())
+    eager_launches = dict(launch.LAUNCHES)
+    loops.reset_loops()
+    for call in ("capture", "replay"):
+        launch.reset_launches()
+        got = _flat(fn())
+        assert launch.LAUNCHES == eager_launches, call
+        assert len(got) == len(ref)
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r), call
+    counts = loops.LOOPS.values()
+    print(case, dict(loops.LOOPS))
+    assert sum(c["captures"] for c in counts) >= 1
+    assert sum(c["replays"] for c in counts) >= 1
+
+
+def test_device_loops_copy_out_on_the_card(dev):
+    """Two replays of one graph with other inputs: the first result's
+    tensors are left as they were (they are copies of the static
+    buffers, not the buffers)."""
+    from quatro_tpu_torch.solver import rotation
+    from quatro_tpu_torch.utils import loops
+    g = torch.Generator().manual_seed(3)
+    src = 10 * torch.randn(6, 256, 2, generator=g)
+    rot = torch.tensor([[0.6, -0.8], [0.8, 0.6]])
+    dst = src @ rot.T + 0.01 * torch.randn(6, 256, 2, generator=g)
+    dst[:, 64:] = 10 * torch.randn(6, 192, 2, generator=g)   # outliers
+    src, dst = src.to(dev), dst.to(dev)
+    mask = torch.ones(6, 256, dtype=torch.bool, device=dev)
+    loops.clear_graphs()
+    loops.reset_loops()
+    rotation.gnc_rotation_2d(src, dst, mask, 0.1)        # captures
+    first = rotation.gnc_rotation_2d(src, dst, mask, 0.1)
+    kept = [t.clone() for t in first]
+    second = rotation.gnc_rotation_2d(dst, src, mask, 0.1)
+    assert loops.LOOPS["gnc_tls"]["replays"] >= 2
+    for a, b in zip(first, kept):
+        assert torch.equal(a, b)
+    assert not torch.equal(first.rotation, second.rotation)
+    with loops.eager_loops():
+        ref = rotation.gnc_rotation_2d(src, dst, mask, 0.1)
+    for a, b in zip(first, ref):
+        assert torch.equal(a, b)
 
 
 def test_scan_context_on_the_card(dev):
