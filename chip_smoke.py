@@ -27,14 +27,18 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    warm-up run
    ("leveling" and "icp" among them); ground, non-ground and segment points
    per cloud; the hypotheses and the winner; the pair latency over five
-   more runs. Then its device loops (utils/loops.py; the GNC, the k-core
-   search, the clique growth and swaps, ``top_distinct_cliques``) on its
-   own tensors, each recorded in one more run and run again through the
-   CUDA-graph route (twice) and through ``eager_loops()`` at its chunk and
-   at chunk 1 (a flag read per round, as before the graphs), all bit for
-   bit, with each loop's calls, rounds, flag reads, captures, replays and
-   ms per route (``phase_loops``; path P's B = 8 call, path S's and path
-   M's pose graphs likewise);
+   more runs. Then its device loops (utils/loops.py; Patchwork's bf16
+   plane fits, the range-image labelling, the GNC, the k-core search,
+   the clique growth and swaps, ``top_distinct_cliques``, the overlaps'
+   blocks and ICP's passes) on its own tensors, each recorded in one more
+   run and run again through the CUDA-graph route (twice) and through
+   ``eager_loops()`` at its chunk and at chunk 1 (a flag read per round,
+   as before the graphs), all bit for bit, with each loop's calls,
+   rounds, flag reads, captures, replays and ms per route; a ``fori``
+   must read no flag, a ``while_chunks`` loop at most ceil(rounds /
+   chunk) + 1 (``phase_loops``; path P's B = 8 call, path S's extraction
+   and registration and its pose graph, and path M's pose graph
+   likewise);
 4. path B, the reference matcher: ``register_scan_pair`` on the untilted
    raw pair under ``PipelineConfig(max_voxels=8192)`` with
    ``crosscheck_min_matches=0`` (crosscheck and tuple test with no
@@ -72,7 +76,8 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    ``OdometryRunner.step`` within 1e-5 rad / 1e-4 m. Times: per-frame
    extraction and per-edge registration (median and spread), Scan
    Context, the pose graph, the whole sequence, and the device idle share
-   of one ``OdometryRunner.step``;
+   of one ``OdometryRunner.step``; the device loops of one frame's
+   extraction and one edge's registration (``phase_loops``);
 7. path E, the user's entry points (eval.py and cli.py, as a user calls
    them, at full width): (a) ``evaluate_loop_closures(n_pairs=16,
    batch=8, config=recommended(max_voxels=8192), raw_capacity=131072,
@@ -96,7 +101,11 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    runs, since the profiler slows the host for the runs after it): the
    card's busy time, its idle share of the median pair, the top kernels
    and the device time per launch of each of the port's kernels, and of
-   B3's, B4's, B5's and B9's wrappers with all their kernels;
+   B3's, B4's, B5's and B9's wrappers with all their kernels; the device
+   busy time of each stage (``stage_device_busy``: the device events
+   between marker fills launched at the stage ends) beside its ms; and
+   the ms of ``radius_neighbors``' row-tile loop on ICP's target voxels,
+   the one host loop left on the path;
 9. kernels: each kernel on the main path's own tensors (B6 on path B's
    descriptors, B12 on the rows B10 was handed) against its plain PyTorch
    version, with its time, the plain version's time, the least time the
@@ -116,8 +125,11 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    version run on the card (the same rsqrtf and atan2f), and the tile
    pairs kept at the FPFH radius are printed. Each row also
    has the device time per call of the kernel and of the library call
-   (torch.profiler, from a profiled run that saw every call), so that the
-   two compare like with like. The bounds of the radius-pair kernels (B3,
+   (torch.profiler, from a profiled run that saw every call, the calls
+   between two runs of marker fills), so that the two compare like with
+   like; the phase fails, naming them, where a kernel's row or B9's
+   uncaptured bf16 trip has none. B9's
+   row also times a bf16 trip inside a CUDA graph and uncaptured. The bounds of the radius-pair kernels (B3,
    B4, B5) count the radius tests of the valid pairs in the tile pairs
    that an exact culling keeps (``culled_pairs``), and their bytes the
    mask and the outputs of every row but the points, normals and SPFH
@@ -138,10 +150,14 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    alone within it batched (the count printed); (c) ms per call and
    pairs/s at B = 1, 8 and 64 (the 8 pairs cycled, as bench.py does),
    median and spread of 3 runs after a warm-up, with the stage split and
-   the peak memory, the device idle share of the B = 8 call under
-   torch.profiler, and B1 with its pair axis at B = 8 and 64 (one launch,
-   bit for bit its plain version on CPU copies, device ms beside its
-   bound; ``pair_axis`` in B1's row of the kernel table);
+   the peak memory, the device loops' counters of a call, the device
+   idle share of the B = 8 call under torch.profiler, B = 64's stage split
+   with each stage's device busy time, and B1 with its pair axis at B = 8
+   and 64 (one launch, bit for bit its plain version on CPU copies,
+   device ms beside its bound; ``pair_axis`` in B1's row of the kernel
+   table); at each B the batched voxel grid equal to the per-cloud call
+   on every cloud (128 at B = 64) and the overlaps to the per-pair call
+   on every pair, bit for bit;
 11. path M, the multi-card step on one card (parallel/), after path P:
    (a) on a one-rank NCCL group (a file store under build/),
    ``make_full_pipeline_step`` over path S's 12 frames as the ring of
@@ -371,6 +387,119 @@ def bound(ops, nbytes):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+_PAD = {}                 # the marker fill's tensor and profiler name
+
+
+def _pad_tensor():
+    if "t" not in _PAD:
+        _PAD["t"] = torch.empty(1, dtype=torch.int16, device="cuda")
+    return _PAD["t"]
+
+
+def pad_key():
+    """The profiler's name of the marker launch (a one-element int16
+    fill, which no path launches), learnt once from a profiled run of 64
+    of them: the device events around and between measured calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if "key" not in _PAD:
+        t = _pad_tensor()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(64):
+                t.fill_(7)
+            torch.cuda.synchronize()
+        seen = [(e.count, e.key) for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.is_user_annotation]
+        check(seen, "profile: the marker fills left no device event")
+        _PAD["key"] = max(seen)[1]
+    return _PAD["key"]
+
+
+def pad_launches(t=None, n=64):
+    """n fills of ``t`` (the marker's tensor by default): the profiler
+    drops a few device events at the ends of a profiled run (2-4 of 10
+    calls' on the H100 with torch 2.11), so the measured calls sit
+    between two runs of these."""
+    t = _pad_tensor() if t is None else t
+    for _ in range(n):
+        t.fill_(7)
+
+
+def graph_ms(fn, reps=20, replays=5):
+    """Device ms per call of ``fn`` inside a CUDA graph: ``reps`` calls
+    captured in one graph, replayed ``replays`` times between CUDA
+    events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del g
+    return start.elapsed_time(end) / (reps * replays)
+
+
+def stage_device_busy(run, tries=3):
+    """Device busy ms per stage of one call ``run(timer)``: under
+    torch.profiler a marker fill is launched at the start and at each
+    stage end (``timer``); on the one stream the device events between
+    two markers are that stage's work (graph replays included). Returns
+    {stage: busy ms}, or None when no profiled run of ``tries`` saw every
+    marker."""
+    from torch.profiler import ProfilerActivity, profile
+
+    key = pad_key()
+    t = _pad_tensor()
+    other = torch.empty(1, dtype=torch.int32, device="cuda")
+    names = []
+
+    def timer(name):
+        t.fill_(7)
+        names.append(name)
+
+    cuda = torch.autograd.DeviceType.CUDA
+    for _ in range(tries):
+        names.clear()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            pad_launches(other)
+            torch.cuda.synchronize()
+            t.fill_(7)
+            run(timer)
+            torch.cuda.synchronize()
+            pad_launches(other)
+            torch.cuda.synchronize()
+        evs = sorted((e for e in prof.events() if e.device_type == cuda
+                      and not e.is_user_annotation),
+                     key=lambda e: e.time_range.start)
+        marks = [k for k, e in enumerate(evs) if e.name == key]
+        if len(marks) == len(names) + 1:
+            busy = {}
+            for name, a, b in zip(names, marks, marks[1:]):
+                busy[name] = round(busy.get(name, 0.0) + sum(
+                    e.time_range.elapsed_us() for e in evs[a + 1:b])
+                    / 1e3, 3)
+            return busy
+        log(f"profile: stage markers seen {len(marks)} of "
+            f"{len(names) + 1}; profiling again")
+    return None
+
+
 def phase_device():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -598,6 +727,14 @@ def phase_loops(card, label, fn):
                 torch.equal(a, b) for a, b in zip(got, ref)),
                 f"{label}: loop {name} on the {route} route differs from "
                 "eager_loops()")
+        # a fori reads no flag; a while_chunks loop reads one per chunk,
+        # and one more for the exit, of the rounds it runs at chunk 1
+        reads = routes["graph_again"][2].get("reads", 0)
+        chunk = args[5] if kind == "fori" else args[6]
+        limit = (0 if kind == "fori" else
+                 -(-routes["chunk_1"][2].get("rounds", 0) // chunk) + 1)
+        check(reads <= limit, f"{label}: loop {name} read {reads} flags "
+              f"(at most {limit})")
         row = table.setdefault(name, {"calls": 0, "graph": {},
                                       "chunk_1": {}, "graph_ms": 0.0,
                                       "chunk_1_ms": 0.0})
@@ -716,6 +853,7 @@ def capture_preprocessing(raw, cfg):
     non-ground and segment points per cloud."""
     from quatro_tpu_torch.device import resolve_device
     from quatro_tpu_torch.preprocessing import patchwork, projection
+    from quatro_tpu_torch.utils import loops
 
     calls = {}
     wrapped = [(patchwork, "cross_histogram"),
@@ -735,11 +873,14 @@ def capture_preprocessing(raw, cfg):
     try:
         for (mod, fn), orig in zip(wrapped, saved):
             setattr(mod, fn, recorder(fn, orig))
-        # pipeline.preprocess, with the Patchwork result kept
-        pw = patchwork.estimate_ground(pts, msk, cfg.patchwork)
-        seg = projection.segment_cloud(
-            pts, pw.nonground, cfg.lidar, cfg.projection,
-            max_points=cfg.max_nonground_points).valid_segments
+        # pipeline.preprocess, with the Patchwork result kept; uncaptured,
+        # so that the plane fits' loop calls B9's wrapper on every trip (a
+        # replay calls no Python)
+        with loops.eager_loops():
+            pw = patchwork.estimate_ground(pts, msk, cfg.patchwork)
+            seg = projection.segment_cloud(
+                pts, pw.nonground, cfg.lidar, cfg.projection,
+                max_points=cfg.max_nonground_points).valid_segments
     finally:
         for (mod, fn), orig in zip(wrapped, saved):
             setattr(mod, fn, orig)
@@ -897,6 +1038,12 @@ def phase_sequence(cfg, card):
     register_ms = [_synced_ms(lambda: runner.register_pairs(
         FrameFeatures.stack([feats[j]]), FrameFeatures.stack([feats[i]])))[1]
         for i, j in edges]
+    # the stages' device loops of one frame's extraction and of the last
+    # edge's registration (Patchwork's fits, labelling, ICP, overlaps)
+    i, j = edges[-1]
+    phase_loops(card, "path S extract and register", lambda: (
+        runner.extract(scans[j]), runner.register_pairs(
+            FrameFeatures.stack([feats[j]]), FrameFeatures.stack([feats[i]]))))
     descs, sc_ms = _synced_ms(lambda: torch.stack([
         scan_context(sc.points.to(runner.device), sc.mask.to(runner.device))
         for sc in scans]))
@@ -1119,6 +1266,54 @@ def graph_pair_axis_row(corr, cfg, label):
     return row
 
 
+@contextlib.contextmanager
+def recorded(mod, name, calls):
+    """``mod.name`` wrapped for the block: each call's (arguments cloned,
+    keyword arguments, result) appended to ``calls``."""
+    orig = getattr(mod, name)
+
+    def rec(*args, **kwargs):
+        out = orig(*args, **kwargs)
+        calls.append((_clone_tree(args), dict(kwargs), out))
+        return out
+
+    setattr(mod, name, rec)
+    try:
+        yield calls
+    finally:
+        setattr(mod, name, orig)
+
+
+def check_batched_stages(vox_calls, overlap_calls, label):
+    """The batched voxel grid and overlaps of one call against the
+    per-cloud and per-pair calls on the same inputs, bit for bit: each
+    cloud of every ``voxel_downsample`` call against its own call, each
+    pair of every ``alignment_overlap`` call (its K poses) against the
+    call on that pair alone. Returns (clouds, pairs) checked."""
+    from quatro_tpu_torch.ops.voxel import voxel_downsample
+    from quatro_tpu_torch.solver.verify import alignment_overlap
+
+    clouds = pairs = 0
+    for args, kwargs, (vox, vmask) in vox_calls:
+        pts, msk = args[:2]
+        for c in range(pts.shape[0]):
+            one = voxel_downsample(pts[c], msk[c], *args[2:], **kwargs)
+            check(torch.equal(vox[c], one[0]) and torch.equal(vmask[c],
+                                                              one[1]),
+                  f"{label}: cloud {c} of the batched voxel grid differs "
+                  "from its own call")
+        clouds += pts.shape[0]
+    for args, kwargs, out in overlap_calls:
+        for b in range(out.shape[0]):
+            one = alignment_overlap(*(a[b:b + 1] for a in args[:6]),
+                                    *args[6:], **kwargs)
+            check(torch.equal(out[b:b + 1], one),
+                  f"{label}: pair {b}'s overlaps differ from its own call")
+        pairs += out.shape[0]
+    check(clouds and pairs, f"{label}: no voxel grid or overlap recorded")
+    return clouds, pairs
+
+
 def phase_pair_axis(card, pairs, gts, cfg_a):
     """Path P, the pair axis: (a) bench.py's 8 pairs under its
     configuration as one call at B = 8, (b) path A's configuration at B =
@@ -1131,8 +1326,11 @@ def phase_pair_axis(card, pairs, gts, cfg_a):
     pair-axis rows."""
     from torch.profiler import ProfilerActivity, profile
 
+    from quatro_tpu_torch import pipeline
     from quatro_tpu_torch.device import resolve_device
     from quatro_tpu_torch.pipeline import register_scan_pair
+    from quatro_tpu_torch.solver import verify
+    from quatro_tpu_torch.utils import loops
 
     dev = resolve_device(None)
     t0 = time.perf_counter()
@@ -1165,9 +1363,11 @@ def phase_pair_axis(card, pairs, gts, cfg_a):
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
         timer = StageTimer()
+        loops.reset_loops()
         walls = [_synced_ms(lambda: register_scan_pair(
             *batches[1], cfg, timer=timer))[1]]
         stages = timer.split_ms()
+        counters = {k: dict(v) for k, v in loops.LOOPS.items()}
         walls += [_synced_ms(lambda: register_scan_pair(*b, cfg))[1]
                   for b in batches[2:]]
         spread = _spread(walls)
@@ -1178,6 +1378,29 @@ def phase_pair_axis(card, pairs, gts, cfg_a):
                           peak_gib=round(peak / 2 ** 30, 3),
                           held_before_gib=round(held / 2 ** 30, 3))
         log(f"path P (c) B {bsz} ({card}): " + json.dumps(times[bsz]))
+        log(f"path P (c) B {bsz} device loops of one call: "
+            + json.dumps(counters))
+        # one more call with the voxel grid's and the overlaps' inputs
+        # recorded (after the peak: the records hold copies)
+        with recorded(pipeline, "voxel_downsample", []) as vox_calls, \
+                recorded(verify, "alignment_overlap", []) as ov_calls:
+            register_scan_pair(*batches[0], cfg)
+        clouds, pairs_ok = check_batched_stages(
+            vox_calls, ov_calls, f"path P (c) B = {bsz}")
+        del vox_calls, ov_calls
+        log(f"path P (c) B {bsz}: the batched voxel grid equal to the "
+            f"per-cloud call on all {clouds} clouds, the overlaps to the "
+            f"per-pair call on all {pairs_ok} pairs, bit for bit")
+        if bsz == max(PAIR_AXIS_BATCHES):
+            busy = stage_device_busy(lambda timer: register_scan_pair(
+                *batches[1], cfg, timer=timer))
+            log(f"path P (c) B {bsz} stage split ({card}; ms, CUDA events "
+                "of the timed call; device busy from torch.profiler in "
+                "one more call, between marker fills): " + json.dumps(
+                    {k: {"ms": round(v, 3), "device_busy_ms":
+                         None if busy is None else busy.get(k)}
+                     for k, v in stages.items()})
+                + f"; peak {peak / 2 ** 30:.3f} GiB")
         if bsz > 1:
             rows[bsz] = graph_pair_axis_row(res.correspondences, cfg,
                                             f"path P, B = {bsz}")
@@ -1373,14 +1596,41 @@ def phase_entry(card, work_dir):
         "route's transform equal to the synthetic run's")
 
 
-def phase_profile(pair, cfg, wall_ms, top=10):
+def phase_profile(pair, cfg, wall_ms, stages, top=10):
     """One more pipeline run under torch.profiler: the card's busy time
     (sum of device times on the one stream), the idle share against the
     unprofiled run's host wall time ``wall_ms`` (the profiler slows the
-    host, not the card), and the kernels that take the most device time."""
+    host, not the card), and the kernels that take the most device time;
+    then the device busy time of each stage beside its CUDA-event ms
+    ``stages`` (``stage_device_busy``), and the ms of the one host tile
+    loop left on the path, ``radius_neighbors`` on ICP's target voxels."""
     from torch.profiler import ProfilerActivity, profile
 
-    from quatro_tpu_torch.pipeline import register_scan_pair
+    from quatro_tpu_torch.ops.neighbors import radius_neighbors
+    from quatro_tpu_torch.pipeline import raw_scan_voxels, register_scan_pair
+
+    busy = stage_device_busy(lambda timer: register_scan_pair(
+        *pair, cfg, timer=timer))
+    log("profile: path A stages (ms, CUDA events of the counted run; "
+        "device busy from torch.profiler in one more run, between marker "
+        "fills): " + json.dumps(
+            {k: {"ms": round(v, 3), "device_busy_ms":
+                 None if busy is None else busy.get(k)}
+             for k, v in stages.items()}))
+    tgt = pair[1].to("cuda")
+    vox, vmask = raw_scan_voxels(tgt.points[None], tgt.mask[None], cfg)
+    f = cfg.fpfh
+
+    def neighbors():
+        return radius_neighbors(vox, vmask, f.normal_radius,
+                                f.max_neighbors_normal)
+
+    dev_ms = device_ms_per_call(neighbors)
+    log(f"profile: radius_neighbors on ICP's {vox.shape[1]} target voxels "
+        f"({-(-vox.shape[1] // 512)} row tiles, a host loop): "
+        f"{cuda_ms(neighbors):.3f} ms a call (CUDA events, 20 calls), "
+        f"{dev_ms} ms of it device work (torch.profiler; None where no "
+        "profiled run saw every call)")
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1498,26 +1748,29 @@ def nn1_kernel_row(res_b, cfg, launches_b, row):
 def _device_hits(fn, name, reps, main=None, tries=5):
     """The profiler's device events (kernels, copies, fills) whose name
     holds ``name`` over ``reps`` calls of ``fn``, each with its launches
-    per call, as [(event, launches per call)]. The profiler misses the
-    first device event of a profiled run, and now and then the first of
-    another (bincount's run: its first reduction and its first fill), so
+    per call, as [(event, launches per call)]. The profiler drops device
+    events at the ends of a profiled run, so the calls sit between two
+    runs of marker fills (``pad_launches``; their events are left out);
     an event seen ``c`` times ran ceil(c / reps) times per call. A run is
     taken when no event misses more than one launch and, with ``main`` =
     (kernel, launches per call), that kernel ran its launches per call;
     else it profiles again."""
     from torch.profiler import ProfilerActivity, profile
 
+    key = pad_key()
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            pad_launches()
             for _ in range(reps):
                 fn()
+            pad_launches()
             torch.cuda.synchronize()
         hits = [(e, -(-e.count // reps)) for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA
                 and not e.is_user_annotation and e.self_device_time_total > 0
-                and name in e.key]
+                and name in e.key and e.key != key]
         missing = max((k * reps - e.count for e, k in hits), default=0)
         if hits and missing <= 1 and (main is None or sum(
                 k for e, k in hits if main[0] in e.key) == main[1]):
@@ -1650,15 +1903,16 @@ def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b,
         return n
 
     def row(name, err, k_fn, p_fn, ops, nbytes, lib_fn=None, launches=None,
-            label=None, lib_main=None):
+            label=None, lib_main=None, extra=None):
         """One kernel's row: CUDA-event ms of the wrapper's call (20 calls),
         of the plain version's (5) and of the library call's (20); the
         device ms per call of the port's kernels (``k_fn`` is one wrapper
         call, one launch of its main kernel) and of the library call
-        (torch.profiler; ``lib_main`` names the library's main kernel and
-        its launches per call); the bound from this run's data. Appended to
-        the kernel table unless ``label`` names a second shape of the
-        kernel (then only logged, with the label, and returned)."""
+        (torch.profiler, None where no profiled run saw every call;
+        ``lib_main`` names the library's main kernel and its launches per
+        call); the bound from this run's data; ``extra`` keys. Appended to the kernel table unless ``label`` names a second
+        shape of the kernel (then only logged, with the label, and
+        returned)."""
         b_ms, by = bound(ops, nbytes)
         r = {"name": name, "route": "cuda", "source": SOURCES[name],
              "replaces": REPLACES[name],
@@ -1672,6 +1926,7 @@ def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b,
              "library_device_ms": (device_ms_per_call(lib_fn, main=lib_main,
                                                       tries=10)
                                    if lib_fn else None)}
+        r.update(extra or {})
         if label is not None:
             log(f"{name} ({label}): " + json.dumps(r))
             return r
@@ -1878,6 +2133,15 @@ def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b,
                                                          row)
     nn1_kernel_row(res_b, cfg_b, launches_b, row)
     preprocessing_kernel_rows(calls, row)
+    check(sorted(r["name"] for r in rows) == sorted(MAIN_KERNEL),
+          "kernel phase: not one row for each kernel")
+    missing = [r["name"] for r in rows if r["device_ms"] is None] + [
+        f"{r['name']} (bf16 trip, uncaptured)" for r in rows
+        if r.get("bf16_device_ms_uncaptured", 0.0) is None]
+    check(not missing, "kernel phase: no profiled run saw every call of "
+          f"{missing}")
+    log("kernel phase: device ms of all twelve kernels (torch.profiler): "
+        + json.dumps({r["name"]: round(r["device_ms"], 6) for r in rows}))
     return rows
 
 
@@ -1979,6 +2243,22 @@ def preprocessing_kernel_rows(calls, row):
             f"{lim.tolist()} of {ids.shape[1]} ({segment.FIT_CHUNK}-point "
             "chunks); equal to the plain version on CPU copies and across "
             "two launches, bit for bit")
+    # a bf16 trip, as the plane fits' device loop runs it: inside a CUDA
+    # graph and uncaptured
+    (b_ids, b_chan, b_tab, _, _), b_kw = next(
+        c for c in calls["fit_iteration_moments"] if not c[1]["exact"])
+
+    def bf16_trip():
+        return segment.fit_iteration_moments(b_ids, b_chan, b_tab, p_pad,
+                                             p_cnt, **b_kw)
+
+    in_graph = graph_ms(bf16_trip)
+    uncaptured = device_ms_per_call(
+        bf16_trip, "quatro::", main=(MAIN_KERNEL["fit_iteration_moments"],
+                                     1))
+    log(f"fit_iteration_moments (bf16 trip): device {in_graph:.6f} ms per "
+        f"call inside a CUDA graph (20 calls a graph), {uncaptured} ms "
+        "uncaptured (torch.profiler)")
     bsz, _, n = chan.shape
     members = float(got[..., 0].sum())
     row("fit_iteration_moments", max(errs),
@@ -1987,7 +2267,9 @@ def preprocessing_kernel_rows(calls, row):
         lambda: segment.fit_iteration_moments_plain(ids, chan, tab, p_pad,
                                                     p_cnt, **kw),
         bsz * n * OPS_PLANE + members * OPS_MOMENTS_PT,
-        bsz * n * 4 * 6 + bsz * p_pad * (5 + 10) * 4)
+        bsz * n * 4 * 6 + bsz * p_pad * (5 + 10) * 4,
+        extra={"bf16_device_ms_in_graph": in_graph,
+               "bf16_device_ms_uncaptured": uncaptured})
 
     # B10 final classification
     (ids, chan, tab, p_pad, p_cnt), _ = calls["classify_points"][0]
@@ -2402,7 +2684,7 @@ def main() -> int:
         phase_entry(card, work_dir)
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
-    phase_profile(pairs["tilted"], cfgs["A"], wall_a)
+    phase_profile(pairs["tilted"], cfgs["A"], wall_a, stages_a)
     rows = phase_kernels(res_a, cfgs["A"], launches_a, calls, res_b,
                          cfgs["B"], launches_b, jt_call, launches_s)
     # last: its large batches and profiles leave the profiler missing

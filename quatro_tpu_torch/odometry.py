@@ -33,10 +33,8 @@ import torch
 from quatro_tpu_torch.config import PipelineConfig
 from quatro_tpu_torch.device import resolve_device, to_tensor
 from quatro_tpu_torch.ops.matching import match_features
-from quatro_tpu_torch.ops.neighbors import radius_neighbors
-from quatro_tpu_torch.ops.normals import estimate_normals
-from quatro_tpu_torch.ops.voxel import voxel_downsample
-from quatro_tpu_torch.pipeline import extract_features, preprocess
+from quatro_tpu_torch.pipeline import (extract_features, preprocess,
+                                       raw_scan_normals, raw_scan_voxels)
 from quatro_tpu_torch.solver.ground import (GroundAlignment,
                                             compose_leveled_solution,
                                             frame_leveling)
@@ -130,22 +128,13 @@ class OdometryRunner:
             extra.update(level=level, ground_height=height, ground_ok=ok)
         vox, desc, dmask, _ = extract_features(pts, seg, cfg, dev)
         if cfg.icp.enabled:
-            # ICP refines on a raw-scan voxelisation (ground kept: the
-            # plane Patchwork removed is what constrains z), as
-            # pipeline.refine_solution
-            batched = points.dim() == 3
-            clouds = zip(points, mask) if batched else [(points, mask)]
-            raw = []
-            for p, m in clouds:
-                vr, mr = voxel_downsample(p, m, cfg.voxel_size,
-                                          cfg.max_voxels)
-                nrm = estimate_normals(vr, radius_neighbors(
-                    vr, mr, cfg.fpfh.normal_radius,
-                    cfg.fpfh.max_neighbors_normal))
-                raw.append((vr, mr, nrm.normals, nrm.valid))
-            raw = [torch.stack(t) if batched else t[0] for t in zip(*raw)]
-            extra.update(raw_voxels=raw[0], raw_voxel_mask=raw[1],
-                         raw_normals=raw[2], raw_normal_valid=raw[3])
+            # ICP refines on a raw-scan voxelisation, as
+            # pipeline.refine_solution does
+            vr, mr = raw_scan_voxels(points, mask, cfg)
+            nrm = raw_scan_normals(vr, mr, cfg)
+            extra.update(raw_voxels=vr, raw_voxel_mask=mr,
+                         raw_normals=nrm.normals,
+                         raw_normal_valid=nrm.valid)
         return FrameFeatures(vox.points, vox.mask, desc, dmask, **extra)
 
     def _register_impl(self, src: FrameFeatures, tgt: FrameFeatures):

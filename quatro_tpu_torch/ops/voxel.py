@@ -60,18 +60,21 @@ def _compact1by2(v: torch.Tensor) -> torch.Tensor:
 def voxel_downsample(points: torch.Tensor, mask: torch.Tensor,
                      voxel_size: float, capacity: int,
                      active_cap: int | None = None):
-    """Centroid-per-voxel downsampling.
+    """Centroid-per-voxel downsampling of one cloud or of a batch of
+    clouds in one call (the JAX package's ``vmap``).
 
-    points: (N, 3) f32; mask: (N,) bool. Returns (out_points
-    (capacity, 3), out_mask (capacity,)).
+    points: (..., N, 3) f32; mask: (..., N) bool. Returns (out_points
+    (..., capacity, 3), out_mask (..., capacity)). Every operation works
+    along a cloud's own row (sorts, gathers, scans, the bounding box), so
+    each cloud of a batch gets the bits of its own call.
 
     Overflow policy: when more than `capacity` voxels are occupied, the
     voxels with the MOST points win (ties toward lower Morton key).
-    active_cap: static bound on the number of VALID input points; post-sort
-    work runs on that prefix only (excess valid points, the highest Morton
-    keys, are dropped — as in the JAX package).
+    active_cap: static bound on the number of VALID input points per
+    cloud; post-sort work runs on that prefix only (excess valid points,
+    the highest Morton keys, are dropped — as in the JAX package).
     """
-    n = points.shape[0]
+    n = points.shape[-2]
     if n > (1 << _PBITS):
         raise ValueError(f"rank-key packing supports up to {1 << _PBITS} "
                          f"points, got {n}")
@@ -79,15 +82,18 @@ def voxel_downsample(points: torch.Tensor, mask: torch.Tensor,
     dtype = points.dtype
 
     def f32(v):
-        return torch.tensor(v, dtype=dtype, device=dev)
+        # a fill on the device, not a copy from the host
+        return torch.full((), v, dtype=dtype, device=dev)
 
     inv = f32(1.0 / voxel_size)
-    x, y, z = points[:, 0], points[:, 1], points[:, 2]
+    x, y, z = points[..., 0], points[..., 1], points[..., 2]
 
-    minb = torch.where(mask[:, None], points, f32(float("inf"))).amin(dim=0)
-    cx = torch.floor((x - minb[0]) * inv)
-    cy = torch.floor((y - minb[1]) * inv)
-    cz = torch.floor((z - minb[2]) * inv)
+    minb = torch.where(mask[..., None], points,
+                       f32(float("inf"))).amin(dim=-2)       # (..., 3)
+    mx, my, mz = minb[..., 0:1], minb[..., 1:2], minb[..., 2:3]
+    cx = torch.floor((x - mx) * inv)
+    cy = torch.floor((y - my) * inv)
+    cz = torch.floor((z - mz) * inv)
     in_grid = (mask & (cx >= 0) & (cx < _GRID) & (cy >= 0) & (cy < _GRID)
                & (cz >= 0) & (cz < _GRID))
     zero = f32(0.0)
@@ -99,22 +105,22 @@ def voxel_downsample(points: torch.Tensor, mask: torch.Tensor,
            + (_part1by2(cz.to(torch.int64)) << 2))
     key = torch.where(in_grid, key, _SENTINEL)
 
-    fx = torch.where(in_grid, (x - minb[0]) * inv - cx, zero)
-    fy = torch.where(in_grid, (y - minb[1]) * inv - cy, zero)
-    fz = torch.where(in_grid, (z - minb[2]) * inv - cz, zero)
+    fx = torch.where(in_grid, (x - mx) * inv - cx, zero)
+    fy = torch.where(in_grid, (y - my) * inv - cy, zero)
+    fz = torch.where(in_grid, (z - mz) * inv - cz, zero)
     fmax = float((1 << _FBITS) - 1)
     qx = torch.clamp(fx * _FSCALE, 0.0, fmax).to(torch.int64)
     qy = torch.clamp(fy * _FSCALE, 0.0, fmax).to(torch.int64)
     qz = torch.clamp(fz * _FSCALE, 0.0, fmax).to(torch.int64)
     pf_xy = (qx << _FBITS) + qy
 
-    key_s, order = torch.sort(key, stable=True)
-    pfxy_s = pf_xy[order]
-    qz_s = qz[order]
+    key_s, order = torch.sort(key, dim=-1, stable=True)
+    pfxy_s = pf_xy.gather(-1, order)
+    qz_s = qz.gather(-1, order)
     if active_cap is not None and active_cap < n:
-        key_s = key_s[:active_cap]
-        pfxy_s = pfxy_s[:active_cap]
-        qz_s = qz_s[:active_cap]
+        key_s = key_s[..., :active_cap]
+        pfxy_s = pfxy_s[..., :active_cap]
+        qz_s = qz_s[..., :active_cap]
         n = active_cap
     valid_b = key_s != _SENTINEL
     inv_fscale = f32(1.0 / _FSCALE)
@@ -125,12 +131,13 @@ def voxel_downsample(points: torch.Tensor, mask: torch.Tensor,
     fz_s = (qz_s.to(dtype) + 0.5) * inv_fscale * vf
 
     pos = torch.arange(n, device=dev)
-    true1 = torch.ones(1, dtype=torch.bool, device=dev)
-    is_new = torch.cat([true1, key_s[1:] != key_s[:-1]]) & valid_b
+    true1 = torch.ones(key_s.shape[:-1] + (1,), dtype=torch.bool, device=dev)
+    is_new = torch.cat([true1, key_s[..., 1:] != key_s[..., :-1]],
+                       -1) & valid_b
     start_pos = torch.where(is_new, pos, n)
-    run_end = torch.where(torch.cat([is_new[1:], true1]), pos + 1, n)
-    next_start = torch.flip(torch.cummin(torch.flip(run_end, [0]), 0).values,
-                            [0])
+    run_end = torch.where(torch.cat([is_new[..., 1:], true1], -1), pos + 1, n)
+    next_start = torch.flip(
+        torch.cummin(torch.flip(run_end, [-1]), -1).values, [-1])
     run_len = torch.where(is_new, next_start - start_pos, 0)
 
     # top-`capacity` voxels by occupancy via one packed sort: ascending
@@ -141,37 +148,42 @@ def voxel_downsample(points: torch.Tensor, mask: torch.Tensor,
     rank_key = torch.where(
         is_new, ((cmax - torch.clamp(run_len, max=cmax)) << _PBITS) + pos,
         _SENTINEL)
-    rank_s = torch.sort(rank_key).values
+    rank_s = torch.sort(rank_key, dim=-1).values[..., :k]
     # back to position (= Morton key) order: spatially ordered output
-    sel_pos = torch.where(rank_s[:k] != _SENTINEL,
-                          rank_s[:k] & ((1 << _PBITS) - 1), n)
-    sel_pos = torch.sort(sel_pos).values
+    sel_pos = torch.where(rank_s != _SENTINEL,
+                          rank_s & ((1 << _PBITS) - 1), n)
+    sel_pos = torch.sort(sel_pos, dim=-1).values
     got = sel_pos < n
     starts_top = torch.where(got, sel_pos, 0)
-    counts_top = torch.where(got, run_len[starts_top], 0)
+    counts_top = torch.where(got, run_len.gather(-1, starts_top), 0)
 
-    cs3 = prefix_sum(torch.stack([fx_s, fy_s, fz_s]))
+    cs3 = prefix_sum(torch.stack([fx_s, fy_s, fz_s], -2))     # (..., 3, n)
+
+    def at(idx):
+        return cs3.gather(-1, idx[..., None, :].expand(
+            *idx.shape[:-1], 3, idx.shape[-1]))
+
     ends = starts_top + counts_top                       # exclusive end
-    hi3 = cs3[:, torch.clamp(ends - 1, 0, n - 1)]
-    lo3 = torch.where(starts_top[None, :] > 0,
-                      cs3[:, torch.clamp(starts_top - 1, min=0)], zero)
+    hi3 = at(torch.clamp(ends - 1, 0, n - 1))
+    lo3 = torch.where(starts_top[..., None, :] > 0,
+                      at(torch.clamp(starts_top - 1, min=0)), zero)
     sums3 = hi3 - lo3
 
     out_mask = counts_top > 0
     cnt = torch.clamp(counts_top, min=1).to(dtype)
-    kk = key_s[torch.clamp(starts_top, max=n - 1)]
+    kk = key_s.gather(-1, torch.clamp(starts_top, max=n - 1))
     kx = _compact1by2(kk).to(dtype)
     ky = _compact1by2(kk >> 1).to(dtype)
     kz = _compact1by2(kk >> 2).to(dtype)
     leaf = f32(voxel_size)
-    ox = minb[0] + (kx + sums3[0] / cnt) * leaf
-    oy = minb[1] + (ky + sums3[1] / cnt) * leaf
-    oz = minb[2] + (kz + sums3[2] / cnt) * leaf
+    ox = mx + (kx + sums3[..., 0, :] / cnt) * leaf
+    oy = my + (ky + sums3[..., 1, :] / cnt) * leaf
+    oz = mz + (kz + sums3[..., 2, :] / cnt) * leaf
 
     out = torch.stack([ox, oy, oz], dim=-1)
-    out = torch.where(out_mask[:, None], out, zero)
+    out = torch.where(out_mask[..., None], out, zero)
     if k < capacity:
         pad = capacity - k
-        out = torch.cat([out, out.new_zeros((pad, 3))])
-        out_mask = torch.cat([out_mask, out_mask.new_zeros(pad)])
+        out = torch.nn.functional.pad(out, (0, 0, 0, pad))
+        out_mask = torch.nn.functional.pad(out_mask, (0, pad))
     return out, out_mask

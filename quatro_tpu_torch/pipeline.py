@@ -9,7 +9,7 @@ ground is already removed. Both take one pair or a batch of B pairs
 (the JAX package's ``jit(vmap(...))`` serving path): the B source and B
 target clouds go through preprocessing and feature extraction as one
 batch of 2B, the matcher and the solver over the pair axis, with no loop
-over pairs but the voxel grid's per cloud.
+over pairs or clouds.
 
 Entry points take ``device=None`` (the card; see device.py) and an
 optional ``timer``: a callable given the name of each stage as it ends,
@@ -101,11 +101,10 @@ def extract_features(points, mask, config: PipelineConfig, device=None,
                          "front end, which runs on the CPU only; on the "
                          "card the front end is the kernels")
 
-    vox = [voxel_downsample(p, m, config.voxel_size, config.max_voxels,
-                            active_cap=config.max_segment_points)
-           for p, m in zip(pts, msk)]
-    vox_pts = torch.stack([v[0] for v in vox]).contiguous()
-    vox_mask = torch.stack([v[1] for v in vox]).contiguous()
+    vox_pts, vox_mask = voxel_downsample(pts, msk, config.voxel_size,
+                                         config.max_voxels,
+                                         active_cap=config.max_segment_points)
+    vox_pts, vox_mask = vox_pts.contiguous(), vox_mask.contiguous()
     timer("voxel")
     if dev.type == "cuda" or (config.fpfh.use_pallas_frontend
                               and vox_pts.shape[1] % 512 == 0):
@@ -206,33 +205,43 @@ def register_features(src: PointBatch, tgt: PointBatch,
     return drop_axis(res) if one else res
 
 
+def raw_scan_voxels(points, mask, config: PipelineConfig):
+    """ICP's voxels of raw scans, one (N, 3) or a batch (B, N, 3) in one
+    call, with no ``active_cap`` (a raw scan keeps all its points, ground
+    included: the plane Patchwork removes is what constrains z). Returns
+    (voxels, voxel mask). ``refine_solution`` and
+    ``OdometryRunner.extract`` both take ICP's features from here and
+    ``raw_scan_normals``."""
+    return voxel_downsample(points, mask, config.voxel_size,
+                            config.max_voxels)
+
+
+def raw_scan_normals(vox, vmask, config: PipelineConfig):
+    """ICP's target normals of ``raw_scan_voxels``' output, from K-capped
+    radius neighbours, in one call for the batch."""
+    return estimate_normals(vox, radius_neighbors(
+        vox, vmask, config.fpfh.normal_radius,
+        config.fpfh.max_neighbors_normal))
+
+
 def refine_solution(src_points, src_mask, tgt_points, tgt_mask,
                     sol: RegistrationSolution, config: PipelineConfig):
     """Point-to-plane ICP polish of a coarse solution on the given clouds
     (the JAX package's refine_solution), for one pair (N, 3) or a batch
-    (B, N, 3): every cloud voxelised with no ``active_cap`` (a raw scan
-    keeps all its points), target normals from K-capped radius
-    neighbours, then ``refine_icp`` gated on ``sol.valid``. Pass clouds
-    that still hold the ground: without it z is unconstrained wherever
-    the remaining structure is vertical. Returns (solution with the
-    refined pose, IcpResult)."""
-    one = src_points.dim() == 2
-    if one:
+    (B, N, 3): both sides' raw-scan voxels in one batch of 2B
+    (``raw_scan_voxels``), the target's normals (``raw_scan_normals``),
+    then ``refine_icp`` gated on
+    ``sol.valid``. Pass clouds that still hold the ground: without it z
+    is unconstrained wherever the remaining structure is vertical.
+    Returns (solution with the refined pose, IcpResult)."""
+    if src_points.dim() == 2:
         return drop_axis(refine_solution(
             src_points[None], src_mask[None], tgt_points[None],
             tgt_mask[None], take_row(sol, None), config))
-
-    def voxels(points, mask):
-        vox = [voxel_downsample(p, m, config.voxel_size, config.max_voxels)
-               for p, m in zip(points, mask)]
-        return (torch.stack([v[0] for v in vox]),
-                torch.stack([v[1] for v in vox]))
-
-    (vox_s, m_s), (vox_t, m_t) = _both(voxels, src_points, src_mask,
-                                       tgt_points, tgt_mask)
-    normals = estimate_normals(vox_t, radius_neighbors(
-        vox_t, m_t, config.fpfh.normal_radius,
-        config.fpfh.max_neighbors_normal))
+    (vox_s, m_s), (vox_t, m_t) = _both(
+        lambda p, m: raw_scan_voxels(p, m, config), src_points, src_mask,
+        tgt_points, tgt_mask)
+    normals = raw_scan_normals(vox_t, m_t, config)
     icp_res = refine_icp(vox_s, m_s, vox_t, m_t, normals.normals,
                          normals.valid, sol.rotation, sol.translation,
                          config.icp, valid=sol.valid)

@@ -3,8 +3,9 @@
 PyTorch counterpart of ``quatro_tpu/preprocessing/patchwork.py`` (the
 reference's ``PatchWork::estimate_ground``, include/patchwork.hpp:329-476):
 per-point CZM patch ids, a (patch, z-bin) histogram for the seed heights,
-``num_iter`` plane fits per patch (one fused kernel each), the
-uprightness / elevation / flatness gates, and one classification pass.
+``num_iter`` plane fits per patch (one fused kernel each; all but the
+last in a ``fori`` device loop, utils/loops.py), the uprightness /
+elevation / flatness gates, and one classification pass.
 The three N-sized passes are the kernels of ``ops/segment.py``:
 ``cross_histogram`` (B8), ``fit_iteration_moments`` (B9) and
 ``classify_points`` (B10); everything else is elementwise or on the
@@ -29,7 +30,7 @@ from quatro_tpu_torch.config import PatchworkConfig
 from quatro_tpu_torch.ops.normals import smallest_eigenpair_sym3
 from quatro_tpu_torch.ops.segment import (classify_points, cross_histogram,
                                           fit_iteration_moments)
-from quatro_tpu_torch.utils import fused
+from quatro_tpu_torch.utils import fused, loops
 
 Z_BINS = 128            # seed-stage z bins per patch
 
@@ -228,6 +229,40 @@ def plane_covariance(s):
                           s[8] / cnt - my * mz, s[9] / cnt - mz * mz)
 
 
+def _fit_trip(consts, tab, cfg: PatchworkConfig, p_pad: int, exact: bool):
+    """One plane-fit iteration of ``estimate_ground``: the members under
+    the delivery table ``tab`` summed by patch (B9), each patch's plane
+    and its next table. Returns (n1, n2, n3, th_dist_d, surface_var,
+    elevation, next table), each (B, P) but the table."""
+    pid, chan, center_x, center_y, zeros_p = consts
+    p_cnt = cfg.num_patches
+    s = fit_iteration_moments(pid, chan, tab, p_pad, p_cnt, exact=exact)
+    s = s[:, :p_cnt].permute(2, 0, 1)              # (10, B, P)
+    (mx_r, my_r, mz_r), (cxx, cxy, cxz, cyy, cyz, czz) = plane_covariance(s)
+    (n1, n2, n3), lam_min = smallest_eigenpair_sym3(cxx, cxy, cxz, cyy, cyz,
+                                                    czz)
+    # empty or degenerate patches can give NaN normals: sanitise them
+    # before they reach a table (patchwork.py:340-347)
+    okp = s[0] > 0.5
+    n1 = torch.where(okp & torch.isfinite(n1), n1, 0.0)
+    n2 = torch.where(okp & torch.isfinite(n2), n2, 0.0)
+    n3 = torch.where(okp & torch.isfinite(n3), n3, 1.0)
+    lam_min = torch.where(okp & torch.isfinite(lam_min), lam_min, 0.0)
+    # deterministic sign: n_z >= 0, so "below plane + th_dist" is ground
+    flip = n3 < 0
+    n1 = torch.where(flip, -n1, n1)
+    n2 = torch.where(flip, -n2, n2)
+    n3 = torch.where(flip, -n3, n3)
+    trace = cxx + cyy + czz
+    mx_w = mx_r + center_x                          # world-frame patch mean
+    my_w = my_r + center_y
+    d = -(n1 * mx_w + n2 * my_w + n3 * mz_r)
+    th_dist_d = cfg.th_dist - d
+    surface_var = lam_min / torch.clamp(trace, min=1e-30)
+    return (n1, n2, n3, th_dist_d, surface_var, mz_r,
+            _plane_tab(n1, n2, n3, th_dist_d, zeros_p, p_pad))
+
+
 def estimate_ground(points, mask, cfg: PatchworkConfig = PatchworkConfig()
                     ) -> PatchworkResult:
     """Full Patchwork pass on (B, N, 3) points and (B, N) masks (or one
@@ -284,37 +319,19 @@ def estimate_ground(points, mask, cfg: PatchworkConfig = PatchworkConfig()
 
     # --- iterative plane fit: one fused kernel per iteration (B9) ---------
     # (include/patchwork.hpp:545-586; covariance on patch-relative offsets)
-    for it in range(cfg.num_iter):
-        # the intermediate iterations only decide the next membership:
-        # bf16 moments; the last feeds the covariance gates and is exact
-        s = fit_iteration_moments(pid, chan, tab, p_pad, p_cnt,
-                                  exact=(it + 1 == cfg.num_iter))
-        s = s[:, :p_cnt].permute(2, 0, 1)          # (10, B, P)
-        (mx_r, my_r, mz_r), (cxx, cxy, cxz, cyy, cyz, czz) = (
-            plane_covariance(s))
-        (n1, n2, n3), lam_min = smallest_eigenpair_sym3(cxx, cxy, cxz, cyy,
-                                                        cyz, czz)
-        # empty or degenerate patches can give NaN normals: sanitise them
-        # before they reach a table (patchwork.py:340-347)
-        okp = s[0] > 0.5
-        n1 = torch.where(okp & torch.isfinite(n1), n1, 0.0)
-        n2 = torch.where(okp & torch.isfinite(n2), n2, 0.0)
-        n3 = torch.where(okp & torch.isfinite(n3), n3, 1.0)
-        lam_min = torch.where(okp & torch.isfinite(lam_min), lam_min, 0.0)
-        # deterministic sign: n_z >= 0, so "below plane + th_dist" is ground
-        flip = n3 < 0
-        n1 = torch.where(flip, -n1, n1)
-        n2 = torch.where(flip, -n2, n2)
-        n3 = torch.where(flip, -n3, n3)
-        trace = cxx + cyy + czz
-        mx_w = mx_r + center_x                      # world-frame patch mean
-        my_w = my_r + center_y
-        d = -(n1 * mx_w + n2 * my_w + n3 * mz_r)
-        th_dist_d = cfg.th_dist - d
-        surface_var = lam_min / torch.clamp(trace, min=1e-30)
-        elevation = mz_r
-        if it + 1 < cfg.num_iter:
-            tab = _plane_tab(n1, n2, n3, th_dist_d, zeros_p, p_pad)
+    # The intermediate iterations only decide the next membership: bf16
+    # moments, a fori device loop over the delivery table (CUDA graphs on
+    # the card). The last is exact and feeds the covariance gates: it runs
+    # after the loop, so the bf16 / exact switch stays out of the graph.
+    consts = (pid, chan, center_x, center_y, zeros_p)
+
+    def body(consts, state):
+        return (_fit_trip(consts, state[0], cfg, p_pad, exact=False)[-1],)
+
+    (tab,) = loops.fori("patchwork_fit", body, consts, (tab,),
+                        cfg.num_iter - 1, cfg.num_iter - 1)
+    n1, n2, n3, th_dist_d, surface_var, elevation, _ = _fit_trip(
+        consts, tab, cfg, p_pad, exact=True)
 
     # --- gates, folded into the last table's flags (patchwork.hpp:394-451)
     upright = torch.abs(n3) >= cfg.uprightness_thr

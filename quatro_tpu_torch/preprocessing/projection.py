@@ -27,7 +27,7 @@ import torch
 
 from quatro_tpu_torch.config import LidarConfig, ProjectionConfig
 from quatro_tpu_torch.ops.segment import image_lookup
-from quatro_tpu_torch.utils import fused
+from quatro_tpu_torch.utils import fused, loops
 
 # Range quantisation of the packed owner key: 15 bits over _RMAX metres
 # (~3.7 mm buckets); 17 bits of point index.
@@ -38,6 +38,10 @@ _SENTINEL = (1 << 32) - 1         # uint32 max of the JAX package's words
 _INT32_MAX = (1 << 31) - 1
 _F32_MAX = torch.finfo(torch.float32).max
 _DEG = 180.0 / math.pi
+# labelling rounds per flag read: the rounds a chunk runs past the exit
+# are full sweeps of every image, ~20 ms each at B = 64 on the H100, so
+# the chunk is short (tests/torch_stage_busy.py --cc-chunks)
+CC_CHUNK = 2
 
 
 class ProjectionResult(NamedTuple):
@@ -158,6 +162,39 @@ def _neighbor_edges(rimg: torch.Tensor, valid: torch.Tensor, dr: int, dc: int,
     return valid & svalid & (angle > theta_rad)
 
 
+def _sweep(labels, e, dr, dc, steps, npix):
+    """Min-label roll-doubling sweep along (dr, dc) over the edges ``e``.
+    Wrapped contributions across the row boundary are masked: a gate that
+    would cross it contains an edge _neighbor_edges zeroed there."""
+    best = torch.where(e, torch.minimum(labels, _roll(labels, dr, dc)),
+                       labels)
+    gate = e
+    s = 1
+    for _ in range(steps - 1):
+        cand = _roll(best, dr * s, dc * s)
+        best = torch.minimum(best, torch.where(gate, cand, npix))
+        gate = gate & _roll(gate, dr * s, dc * s)
+        s *= 2
+    return best
+
+
+def _propagate_round(consts, state, sweeps, npix):
+    """One round of ``label_components``' device loop: every sweep in
+    order, the invalid pixels back at ``npix``; the state (labels, some
+    label changed)."""
+    valid, *masks = consts
+    labels, _ = state
+    out = labels
+    for e, (dr, dc, steps) in zip(masks, sweeps):
+        out = _sweep(out, e, dr, dc, steps, npix)
+    out = torch.where(valid, out, npix)
+    return out, (out != labels).any()
+
+
+def _changed(state):
+    return state[1]
+
+
 def label_components(rimg: torch.Tensor, valid: torch.Tensor,
                      lidar: LidarConfig, cfg: ProjectionConfig):
     """Connected components under the angle criterion, on (B, R, C) range
@@ -167,11 +204,14 @@ def label_components(rimg: torch.Tensor, valid: torch.Tensor,
     invalid pixels; feasible (B, R * C) bool gate per label id;
     pix_feasible (B, R, C) bool). Labels spread by roll-doubling sweeps
     along each neighbour offset (and, for 4CrossNeighbor, the composed
-    zigzag offsets) until no label changes or ``max_cc_iters`` rounds;
-    the exit test reads one flag per round, and the loop runs until every
-    cloud of the batch is at its fixed point. Component size and line
-    count come from one stable (label, row) sort: with |dr| <= 1 a
-    component's rows are contiguous, so lines = rmax - rmin + 1."""
+    zigzag offsets) until no label of any cloud changes or
+    ``max_cc_iters`` rounds: a ``while_chunks`` device loop (the JAX
+    package's ``lax.while_loop``; CUDA graphs on the card) that reads its
+    "some label changed" flag once per ``CC_CHUNK`` rounds. The rounds a
+    chunk runs past a cloud's exit change nothing: a round is a fixed
+    point at convergence. Component size and line count come from one
+    stable (label, row) sort: with |dr| <= 1 a component's rows are
+    contiguous, so lines = rmax - rmin + 1."""
     bsz, rows, cols = rimg.shape
     npix = rows * cols
     dev = rimg.device
@@ -181,23 +221,6 @@ def label_components(rimg: torch.Tensor, valid: torch.Tensor,
     theta = _deg2rad(cfg.segment_theta_deg)
     edges = [(_neighbor_edges(rimg, valid, dr, dc, lidar, theta), dr, dc)
              for dr, dc in cfg.neighbor_offsets]
-
-    flat_iota = torch.arange(npix, device=dev).reshape(rows, cols)
-    labels = torch.where(valid, flat_iota, npix)
-
-    def sweep(labels, e, dr, dc, steps):
-        # wrapped contributions across the row boundary are masked: a gate
-        # that would cross it contains an edge _neighbor_edges zeroed there
-        best = torch.where(e, torch.minimum(labels, _roll(labels, dr, dc)),
-                           labels)
-        gate = e
-        s = 1
-        for _ in range(steps - 1):
-            cand = _roll(best, dr * s, dc * s)
-            best = torch.minimum(best, torch.where(gate, cand, npix))
-            gate = gate & _roll(gate, dr * s, dc * s)
-            s *= 2
-        return best
 
     # 4CrossNeighbor converges along zigzag paths: straight doubling stops
     # at reach 4 and the composed offsets (0, +-2) / (+-2, 0) are added
@@ -216,26 +239,29 @@ def label_components(rimg: torch.Tensor, valid: torch.Tensor,
                      ((1, 1), (1, -1)), ((-1, 1), (-1, -1))):
             comp.append((compose(a, b), a[0] + b[0], a[1] + b[1]))
 
-    def propagate(labels):
-        out = labels
-        for e, dr, dc in edges:
-            reach = rows if dr != 0 else cols
-            steps = (reach - 1).bit_length() + 1
-            if is_4cross:
-                steps = min(steps, 3)
-            out = sweep(out, e, dr, dc, steps)
-        for e, dr, dc in comp:
-            reach = (rows if dr != 0 else cols) // 2
-            steps = max(reach - 1, 1).bit_length() + 1
-            out = sweep(out, e, dr, dc, steps)
-        return torch.where(valid, out, npix)
+    # each sweep's (dr, dc, doubling steps), in a round's order
+    sweeps = []
+    for _, dr, dc in edges:
+        steps = ((rows if dr != 0 else cols) - 1).bit_length() + 1
+        sweeps.append((dr, dc, min(steps, 3) if is_4cross else steps))
+    for _, dr, dc in comp:
+        reach = (rows if dr != 0 else cols) // 2
+        sweeps.append((dr, dc, max(reach - 1, 1).bit_length() + 1))
+    sweeps = tuple(sweeps)
 
-    for _ in range(cfg.max_cc_iters):
-        new = propagate(labels)
-        changed = bool((new != labels).any())
-        labels = new
-        if not changed:
-            break
+    def body(consts, state):
+        return _propagate_round(consts, state, sweeps, npix)
+
+    # int32 labels inside the loop, as the JAX package's label image
+    flat_iota = torch.arange(npix, dtype=torch.int32,
+                             device=dev).reshape(rows, cols)
+    (labels, _), _ = loops.while_chunks(
+        "label_components", body, _changed,
+        (valid, *(e for e, _, _ in edges), *(e for e, _, _ in comp)),
+        (torch.where(valid, flat_iota, npix),
+         torch.ones((), dtype=torch.bool, device=dev)),
+        cfg.max_cc_iters, CC_CHUNK)
+    labels = labels.to(torch.int64)
 
     # --- per-component stats: one stable sort by (label, row), then scans
     row_of = torch.arange(rows, device=dev).repeat_interleave(cols)

@@ -7,9 +7,10 @@ subsample of the source voxels to all target voxels (first minimum per
 row), gated by a distance schedule and the target normals' validity;
 Huber-weighted point-to-plane Gauss-Newton steps on the 6x6 normal
 equations, damped; a left-multiplicative ``exp_so3`` update of the whole
-transform. The iteration count is fixed, so the loop reads nothing back
-from the device, and a batch of pairs runs as one; ``yaw_only`` solves
-the constrained normal equations.
+transform. The iteration count is fixed: the passes are a ``fori`` device
+loop (utils/loops.py, the JAX package's ``lax.scan``; one CUDA graph on
+the card) that reads nothing back, and a batch of pairs runs as one;
+``yaw_only`` solves the constrained normal equations.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 
 from quatro_tpu_torch.config import IcpConfig
 from quatro_tpu_torch.ops.neighbors import pairwise_sq_dists
+from quatro_tpu_torch.utils import loops
 from quatro_tpu_torch.utils.batch import gather_rows
 from quatro_tpu_torch.utils.fused import pairwise_sum
 from quatro_tpu_torch.utils.se3 import exp_so3, rotate_points
@@ -82,6 +84,60 @@ def _gates(config: IcpConfig) -> list:
                           for i in range(n_anneal)]
 
 
+def _correspond(clouds, rot, trans, gate):
+    """Gated point-to-plane residuals at the current pose: (p, n, r, ok)
+    of the subsampled source (..., K)."""
+    src_s, smask_s, tgt_points, tgt_ok, tgt_normals = clouds
+    p = rotate_points(src_s, rot) + trans[..., None, :]            # (K, 3)
+    d2 = torch.where(tgt_ok[..., None, :],
+                     pairwise_sq_dists(p, tgt_points), _FLT_MAX)   # (K, V)
+    j = torch.argmin(d2, dim=-1)                                   # first min
+    d2min = d2.gather(-1, j[..., None])[..., 0]
+    ok = smask_s & (d2min <= gate * gate)
+    n = gather_rows(tgt_normals, j)
+    return p, n, (n * (p - gather_rows(tgt_points, j))).sum(-1), ok
+
+
+def _pass(consts, state, cfg):
+    """One Gauss-Newton pass of ``refine_icp``'s device loop: the state
+    (rot, trans, step) after the pass; its gate is read on the device at
+    ``step`` (a captured chunk replays for every later chunk, so no
+    position may come from the host)."""
+    *clouds, gates, dof, eye6 = consts
+    rot, trans, step = state
+    huber_delta, damping, min_corr = cfg
+    dtype = rot.dtype
+    p, n, r, ok = _correspond(clouds, rot, trans, gates.gather(0, step))
+    absr = torch.abs(r)
+    # a tensor numerator: `float / tensor` is reciprocal-then-multiply
+    huber = torch.where(absr <= huber_delta, 1.0,
+                        torch.full_like(absr, huber_delta)
+                        / torch.clamp(absr, min=1e-12))
+    w = ok.to(dtype) * huber
+    a = torch.cat([torch.linalg.cross(p, n, dim=-1), n], dim=-1)   # (K, 6)
+    aw = a * w[..., None]
+    # the normal equations' sums over K in one fixed order, so a pair of
+    # a batch gets its own bits (a matrix product's order follows the
+    # batch on the card)
+    h = pairwise_sum(a[..., :, :, None] * aw[..., :, None, :], -3)
+    g = pairwise_sum(aw * r[..., None], -2)
+    # constrained GN for yaw_only: disabled DoF decoupled before the
+    # solve (zero rows / columns / gradient, unit diagonal)
+    h = h * (dof[:, None] * dof[None, :]) + torch.diag(1.0 - dof)
+    g = g * dof
+    lam = damping * (pairwise_sum(h.diagonal(dim1=-2, dim2=-1)) + 1.0)
+    delta = -_solve_spd(h + lam[..., None, None] * eye6, g)
+    enough = ok.sum(-1) >= min_corr
+    delta = torch.where(enough[..., None], delta, 0.0)
+    # the Jacobian linearises about p = R src + t: the increment acts on
+    # the whole transform
+    dr = exp_so3(delta[..., :3])
+    rot = rotate_points(dr, rot.transpose(-1, -2))                # dr @ rot
+    trans = (rotate_points(trans[..., None, :], dr)[..., 0, :]
+             + delta[..., 3:])                                     # dr @ t
+    return rot, trans, step + 1
+
+
 def refine_icp(src_points: torch.Tensor, src_mask: torch.Tensor,
                tgt_points: torch.Tensor, tgt_mask: torch.Tensor,
                tgt_normals: torch.Tensor, tgt_normal_valid: torch.Tensor,
@@ -105,52 +161,20 @@ def refine_icp(src_points: torch.Tensor, src_mask: torch.Tensor,
     if config.yaw_only:
         dof[:2] = 0.0
     eye6 = torch.eye(6, dtype=dtype, device=dev)
+    clouds = (src_s, smask_s, tgt_points, tgt_ok, tgt_normals)
+    cfg = (config.huber_delta, config.damping, config.min_correspondences)
 
-    def correspond(rot, trans, gate):
-        """Gated point-to-plane residuals at the current pose."""
-        p = rotate_points(src_s, rot) + trans[..., None, :]        # (K, 3)
-        d2 = torch.where(tgt_ok[..., None, :],
-                         pairwise_sq_dists(p, tgt_points), _FLT_MAX)  # (K, V)
-        j = torch.argmin(d2, dim=-1)                              # first min
-        d2min = d2.gather(-1, j[..., None])[..., 0]
-        ok = smask_s & (d2min <= gate * gate)
-        n = gather_rows(tgt_normals, j)
-        return p, n, (n * (p - gather_rows(tgt_points, j))).sum(-1), ok
+    def body(consts, state):
+        return _pass(consts, state, cfg)
 
-    rot, trans = init_rotation, init_translation
-    for it in range(config.iterations):
-        p, n, r, ok = correspond(rot, trans, gates[it])
-        absr = torch.abs(r)
-        # a tensor numerator: `float / tensor` is reciprocal-then-multiply
-        huber = torch.where(absr <= config.huber_delta, 1.0,
-                            torch.full_like(absr, config.huber_delta)
-                            / torch.clamp(absr, min=1e-12))
-        w = ok.to(dtype) * huber
-        a = torch.cat([torch.linalg.cross(p, n, dim=-1), n], dim=-1)  # (K, 6)
-        aw = a * w[..., None]
-        # the normal equations' sums over K in one fixed order, so a pair
-        # of a batch gets its own bits (a matrix product's order follows
-        # the batch on the card)
-        h = pairwise_sum(a[..., :, :, None] * aw[..., :, None, :], -3)
-        g = pairwise_sum(aw * r[..., None], -2)
-        # constrained GN for yaw_only: disabled DoF decoupled before the
-        # solve (zero rows / columns / gradient, unit diagonal)
-        h = h * (dof[:, None] * dof[None, :]) + torch.diag(1.0 - dof)
-        g = g * dof
-        lam = config.damping * (pairwise_sum(h.diagonal(dim1=-2, dim2=-1))
-                                + 1.0)
-        delta = -_solve_spd(h + lam[..., None, None] * eye6, g)
-        enough = ok.sum(-1) >= config.min_correspondences
-        delta = torch.where(enough[..., None], delta, 0.0)
-        # the Jacobian linearises about p = R src + t: the increment acts
-        # on the whole transform
-        dr = exp_so3(delta[..., :3])
-        rot = rotate_points(dr, rot.transpose(-1, -2))            # dr @ rot
-        trans = (rotate_points(trans[..., None, :], dr)[..., 0, :]
-                 + delta[..., 3:])                                # dr @ t
+    rot, trans, _ = loops.fori(
+        "icp", body, (*clouds, gates, dof, eye6),
+        (init_rotation, init_translation,
+         torch.zeros(1, dtype=torch.int64, device=dev)),
+        config.iterations, config.iterations)
 
     # metrics at the returned pose
-    _, _, r_fin, ok_fin = correspond(rot, trans, gates[-1])
+    _, _, r_fin, ok_fin = _correspond(clouds, rot, trans, gates[-1])
     n_fin = ok_fin.sum(-1)
     rmse = torch.sqrt(pairwise_sum(ok_fin * r_fin * r_fin)
                       / torch.clamp(n_fin, min=1).to(dtype))

@@ -1082,6 +1082,121 @@ def test_device_loops_graph_equals_eager_on_the_card(dev, case):
     assert sum(c["replays"] for c in counts) >= 1
 
 
+def _stage_loop_cases(dev):
+    """The stages that became device loops, on the card at VLP-16 width:
+    Patchwork's bf16 fits, the labelling and the whole projection of the
+    level_a pair's raw scans as one batch of two, ICP on their raw-scan
+    voxels (both orders, as a batch of two pairs) and the overlaps of
+    K = 3 poses on that batch."""
+    from quatro_tpu_torch.pipeline import raw_scan_normals, raw_scan_voxels
+    from quatro_tpu_torch.preprocessing.patchwork import estimate_ground
+    from quatro_tpu_torch.preprocessing.projection import segment_cloud
+    from quatro_tpu_torch.solver.icp import refine_icp
+    from quatro_tpu_torch.solver.verify import alignment_overlap
+    from quatro_tpu_torch.utils.se3 import rotation_from_rpy
+    src, tgt, gt = make_scan_pair(seed=101, yaw_deg=38.0,
+                                  translation=(2.5, -1.2, 0.04),
+                                  lidar=LidarConfig.preset("VLP-16"))
+    pts = torch.zeros(2, 32768, 3)
+    masks = torch.zeros(2, 32768, dtype=torch.bool)
+    for b, xyz in enumerate((src, tgt)):
+        pts[b, :len(xyz)], masks[b, :len(xyz)] = torch.from_numpy(xyz), True
+    pts, masks = pts.to(dev), masks.to(dev)
+    cfg = PipelineConfig.for_lidar("VLP-16", max_voxels=V)
+    ground = estimate_ground(pts, masks, cfg.patchwork).ground
+    vox, vmask = raw_scan_voxels(pts, masks, cfg)
+    nrm = raw_scan_normals(vox, vmask, cfg)
+    flip = [1, 0]
+    rot = torch.from_numpy(gt[:3, :3].astype(np.float32)).to(dev)
+    rot = torch.stack([rot, rot.T])
+    trans = torch.from_numpy(gt[:3, 3].astype(np.float32)).to(dev)
+    trans = torch.stack([trans, -(rot[1] @ trans)]) + 0.1
+    poses = torch.stack([rotation_from_rpy(0.0, 0.0, a) for a in
+                         (0.0, 0.02, -0.05)]).to(dev)
+    return {
+        "patchwork_fit": lambda: estimate_ground(pts, masks, cfg.patchwork),
+        "label_components": lambda: segment_cloud(
+            pts, masks & ~ground, cfg.lidar, cfg.projection,
+            max_points=cfg.max_nonground_points),
+        "icp": lambda: refine_icp(
+            vox, vmask, vox[flip], vmask[flip], nrm.normals[flip],
+            nrm.valid[flip], rot, trans, replace(cfg.icp, enabled=True)),
+        "overlap": lambda: alignment_overlap(
+            vox[:, None], vmask[:, None], vox[flip][:, None],
+            vmask[flip][:, None], poses @ rot[:, None], trans[:, None]
+            .expand(2, 3, 3), 2.0 * cfg.voxel_size),
+    }
+
+
+@pytest.mark.parametrize("case", ["patchwork_fit", "label_components",
+                                  "icp", "overlap"])
+def test_stage_loops_graph_equals_eager_on_the_card(dev, case):
+    """Each stage's device loop on the CUDA-graph route (first call: its
+    first chunk uncaptured, then the capture; second call: replays only)
+    gives the bits of ``eager_loops()`` and of ``eager_loops(chunk=1)``,
+    with the same kernel launches (Patchwork's B8-B10, the projection's
+    B11; B9 counted at each replay), and the loop reads no flag but the
+    labelling's, at most ceil(rounds / chunk) + 1."""
+    from quatro_tpu_torch.preprocessing.projection import CC_CHUNK
+    from quatro_tpu_torch.utils import loops
+    fn = _stage_loop_cases(dev)[case]
+    loops.clear_graphs()
+    refs = []
+    for chunk in (1, None):
+        loops.reset_loops()
+        launch.reset_launches()
+        with loops.eager_loops(chunk=chunk):
+            refs.append(_flat(fn()))
+        if chunk == 1:
+            rounds = loops.LOOPS[case]["rounds"]
+    eager_launches = dict(launch.LAUNCHES)
+    for got in refs[:1]:
+        assert all(torch.equal(g, r) for g, r in zip(got, refs[1]))
+    for call in ("capture", "replay"):
+        loops.reset_loops()
+        launch.reset_launches()
+        got = _flat(fn())
+        assert launch.LAUNCHES == eager_launches, call
+        assert len(got) == len(refs[1])
+        for g, r in zip(got, refs[1]):
+            assert torch.equal(g, r), call
+        c = loops.LOOPS[case]
+        print(case, call, c)
+        assert c["captures" if call == "capture" else "replays"] >= 1
+        if case == "label_components":
+            assert c["reads"] <= -(-rounds // CC_CHUNK) + 1
+        else:
+            assert c["reads"] == 0
+
+
+def test_voxel_grid_batched_on_the_card(dev):
+    """The voxel grid of the level_a pair's two raw clouds (and of those
+    clouds four times over, with ``active_cap``) in one call equals each
+    cloud's own call on the card, bit for bit."""
+    src, tgt, _ = make_scan_pair(seed=101, yaw_deg=38.0,
+                                 translation=(2.5, -1.2, 0.04),
+                                 lidar=LidarConfig.preset("VLP-16"))
+    pts = torch.zeros(8, 32768, 3)
+    masks = torch.zeros(8, 32768, dtype=torch.bool)
+    rng = np.random.default_rng(8)
+    for b in range(8):
+        xyz = (src, tgt)[b % 2]
+        pts[b, :len(xyz)] = torch.from_numpy(xyz)
+        masks[b, :len(xyz)] = torch.from_numpy(
+            rng.random(len(xyz)) < (1.0 if b < 2 else 0.5))
+    masks[3] = False
+    pts, masks = pts.to(dev), masks.to(dev)
+    for cap in (None, CFG.max_segment_points):
+        vox, vmask = voxel_downsample(pts, masks, CFG.voxel_size, V,
+                                      active_cap=cap)
+        for b in range(8):
+            one = voxel_downsample(pts[b], masks[b], CFG.voxel_size, V,
+                                   active_cap=cap)
+            assert torch.equal(vox[b], one[0]) and torch.equal(vmask[b],
+                                                               one[1])
+        assert int(vmask[3].sum()) == 0 and int(vmask[0].sum()) > 0
+
+
 def test_device_loops_copy_out_on_the_card(dev):
     """Two replays of one graph with other inputs: the first result's
     tensors are left as they were (they are copies of the static

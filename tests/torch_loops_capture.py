@@ -23,7 +23,13 @@ the error; nothing falls back. Cases:
   replay;
 * ``profiler_after_graphs``: how many of 10 plain launches the profiler
   records before any graph, while the device loops' graphs are kept,
-  after a profiled run of replays, and after ``loops.clear_graphs()``.
+  after a profiled run of replays, and after ``loops.clear_graphs()``;
+* ``host_scalar``: a body that builds a device tensor from a Python float
+  (``torch.tensor(v, device=...)``, a copy from the host): whether the
+  capture refuses it, or captures it and replays the value of the
+  capture after the float has changed. Either way a loop body must take
+  such a tensor, built once outside the loop, through its ``consts``;
+  the case fails only if a replay picked up the new value.
 
 Prints the card's name and power limit first.
 """
@@ -40,7 +46,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 CASES = ("yaw", "clique", "segment_sums", "profiler",
-         "profiler_after_graphs", "svd", "nccl")
+         "profiler_after_graphs", "svd", "nccl", "host_scalar")
 
 
 def capture(fn, *args):
@@ -192,6 +198,29 @@ def case(name: str) -> int:
         print(f"profiler_after_graphs: elementwise events seen of 10 "
               f"calls: {counts}; loops {dict(loops.LOOPS)}", flush=True)
         return 0
+    if name == "host_scalar":
+        x = torch.randn(4096, generator=gen).to(dev)
+        scale = [2.0]
+
+        def body(x):
+            return x * torch.tensor(scale[0], device=dev)
+        try:
+            g, out, _ = capture(body, x)
+        except Exception as e:                   # the capture refused it
+            print(f"host_scalar: NOT captured: {type(e).__name__}: {e}"[:400],
+                  flush=True)
+            return 0
+        scale[0] = 3.0
+        g.replay()
+        torch.cuda.synchronize()
+        stale = torch.equal(out, x * 2.0)
+        fresh = torch.equal(out, x * 3.0)
+        print("host_scalar: captured; with the float changed from 2.0 to "
+              "3.0 a replay gives "
+              + ("the value of the capture, 2.0 (stale)" if stale else
+                 "the new value, 3.0" if fresh else "neither value"),
+              flush=True)
+        return 1 if fresh else 0
     if name == "nccl":
         import torch.distributed as dist
         os.makedirs(ROOT / "build", exist_ok=True)

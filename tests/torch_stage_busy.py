@@ -1,0 +1,122 @@
+"""Stage split and device busy time per stage of the port's main path, on
+the card, for any tree of the repository.
+
+    python tests/torch_stage_busy.py [tree] [--cc-chunks 2,4,8]
+
+``tree`` is a checkout of the repository (default: this one), e.g. an
+earlier commit unpacked with ``git archive`` into ``build/``; its
+``quatro_tpu_torch`` package is imported and its kernels are built, while
+the measuring code is this checkout's ``chip_smoke.py``. Prints the
+card's name and power limit, then one JSON line per case:
+
+* ``A``: ``register_scan_pair`` on chip_smoke.py's path A pair and
+  configuration (the tilted seed-11 HDL-64E pair, ground alignment and
+  ICP), after two warm-up calls;
+* ``P64``: bench.py's 8 pairs cycled to B = 64 as one call under its
+  configuration, after a warm-up call.
+
+Each line holds the call's host wall ms (median of 3), every stage's ms
+(CUDA events) and device busy ms (torch.profiler in one more call, the
+device events between marker fills at the stage ends), the device's busy
+total and idle share, the peak memory and the labelling loop's counters
+(rounds, flag reads, replays) of the timed call. With ``--cc-chunks``
+both cases run once for each labelling chunk (``projection.CC_CHUNK``,
+the rounds between two flag reads), in the order given. To compare two
+trees, run both in one command on one card: parent, change, change,
+parent.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("torch_stage_busy: no CUDA device", file=sys.stderr)
+        return 2
+    ap = argparse.ArgumentParser()
+    ap.add_argument("tree", nargs="?", default=str(ROOT))
+    ap.add_argument("--cc-chunks", default=None,
+                    help="comma-separated labelling chunks (default: the "
+                    "tree's CC_CHUNK)")
+    args = ap.parse_args()
+    tree = Path(args.tree).resolve()
+    sys.path.insert(0, str(tree))
+    spec = importlib.util.spec_from_file_location("smoke",
+                                                  ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    import quatro_tpu_torch
+    from quatro_tpu_torch import _build
+    from quatro_tpu_torch.pipeline import register_scan_pair
+    from quatro_tpu_torch.preprocessing import projection
+    from quatro_tpu_torch.utils import loops
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    print(f"{card}; tree {tree}; package {quatro_tpu_torch.__file__}",
+          flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build()
+
+    pairs, _, cfgs = cs.full_width_case()
+    scans, cfg_p = cs.bench_case()
+    dev = torch.device("cuda")
+    big = [cs.pair_batch([scans[i % len(scans)][k] for i in range(64)], dev)
+           for k in (0, 1)]
+    cases = {"A": (tuple(p.to(dev) for p in pairs["tilted"]), cfgs["A"]),
+             "P64": (tuple(big), cfg_p)}
+    chunks = ([int(c) for c in args.cc_chunks.split(",")]
+              if args.cc_chunks else [getattr(projection, "CC_CHUNK", None)])
+    for chunk, (name, (pair, cfg)) in ((c, case) for c in chunks
+                                       for case in cases.items()):
+        if chunk is not None:       # an earlier tree has no chunk
+            projection.CC_CHUNK = chunk
+        for _ in range(2):
+            register_scan_pair(*pair, cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            register_scan_pair(*pair, cfg)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        timer = cs.StageTimer()
+        loops.reset_loops()
+        register_scan_pair(*pair, cfg, timer=timer)
+        labelling = dict(loops.LOOPS.get("label_components", {}))
+        stages = timer.split_ms()
+        busy = cs.stage_device_busy(lambda timer: register_scan_pair(
+            *pair, cfg, timer=timer))
+        wall = sorted(walls)[1]
+        total = None if busy is None else sum(busy.values())
+        print(json.dumps({
+            "case": name, "tree": str(tree), "cc_chunk": chunk,
+            "labelling_loop": labelling, "wall_ms": round(wall, 3),
+            "walls_ms": [round(w, 3) for w in walls],
+            "stages": {k: {"ms": round(v, 3), "device_busy_ms":
+                           None if busy is None else busy.get(k)}
+                       for k, v in stages.items()},
+            "device_busy_ms": None if total is None else round(total, 3),
+            "idle_share": None if total is None else round(
+                1.0 - total / wall, 4),
+            "peak_gib": round(torch.cuda.max_memory_allocated() / 2 ** 30,
+                              3)}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
