@@ -7,9 +7,10 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions, and the float32 precision flags (TF32 off everywhere);
-2. build: the twelve kernels from quatro_tpu_torch/csrc, one nvcc per
-   source, all started together; build time and ptxas register and spill
-   summary;
+2. build: the fourteen kernels from quatro_tpu_torch/csrc (the twelve
+   of the JAX package's Pallas calls, the exact clique search and the
+   Kabsch rotation), one nvcc per source, all started together; build
+   time and ptxas register and spill summary;
 3. path A, the main path (Quatro++ coarse to fine): ``register_scan_pair``
    on the raw seed-11 HDL-64E synthetic pair (the pair of
    tests/test_pipeline.py, capacity 131072) tilted as tests/test_ground.py
@@ -45,13 +46,26 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    starvation fallback, the single-clique solver): valid, within 0.05 rad
    / 0.6 m, launches 2 (1-NN), 0 (top-2 NN), 0 (segment sums); three timed
    runs. Then ``register_correspondences`` on its correspondences under
-   each solver mode off the shipping path (TEASER full SO(3), FGR, the TLS
-   scale, exact clique): each valid and within 0.01 rad / 0.1 m of path
-   B's own pose, the scale within 0.02 of 1; each mode's time and GNC
-   iterations, and the exact search's completion, restriction and steps;
-   then TEASER on the JAX package's own path B correspondences
-   (tests/torch_teaser_path_b.npz), against the JAX package's TEASER pose
-   on the CPU;
+   each solver mode off the shipping path (TEASER full SO(3), FGR, the
+   3-D FGR, the TLS scale, exact clique): each valid and within 0.01 rad
+   / 0.1 m of path B's own pose, the scale within 0.02 of 1, the exact
+   search one kernel launch (0 in every other mode), the Kabsch kernel
+   launched in the SO(3) modes (TEASER, the 3-D FGR) and in no other;
+   each mode's time,
+   GNC iterations and device loops; for the exact search its completion,
+   restriction and steps, and the host search (Python-int bitsets) timed
+   beside it (the same solution); for TEASER and the 3-D FGR their GNC loop
+   captured and replayed, bit-equal to ``eager_loops()`` with equal
+   launches, and the route before the Kabsch kernel (torch.linalg.svd,
+   uncaptured) timed beside it;
+   the exact kernel bit-equal to its plain version run on the card (mask,
+   completed, restricted, steps) at B = 1, truncated at 40 steps and at a
+   cap of 256 (four 64-bit words). Then every mode at B = 8 on the
+   correspondences of path P's bench.py pairs in one call, each row
+   bit-equal to its per-pair call, and the exact kernel against its
+   plain version there; then TEASER on the JAX package's own path B
+   correspondences (tests/torch_teaser_path_b.npz), against the JAX
+   package's TEASER pose on the CPU;
 5. earlier paths: ``register_scan_pair`` on the untilted raw pair under
    the recommended configuration (the main path before ground alignment
    and ICP), and
@@ -111,16 +125,22 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    version, with its time, the plain version's time, the least time the
    card could take for the same work, and one library call computing the
    same function where there is one (1-NN, top-2 NN, segment sums, cross
-   histogram, image lookup, table lookup). B2, B3 (with its active limits
-   and the tile pairs it tested and skipped), B5 (alone and on B4's tile
-   table), B6, B7 (both directions, with the active limits it found), B8
-   and B9 (both flags, with its active limits) are held bit for bit
-   against their plain versions run on CPU copies of the same inputs and
-   across two launches, B2 also on the arguments of one J^T apply of path
-   S's pose graph, with a row of its own (``pose_graph`` in B2's row), and
-   B1 also on a seeded N = 1000 (rows that start inside a 16-byte piece),
-   and its branch-free square root against __fsqrt_rn on every
-   non-negative float;
+   histogram, image lookup, table lookup); the exact clique search on path
+   B's exact mode's restriction, with its steps and device ns per step
+   (bound: this run's steps, and the restriction's bytes); the Kabsch
+   kernel on path B's TEASER mode's first GNC iteration, bit for bit its
+   plain version on the card and on CPU copies (for both, the bound in
+   bytes and operations does not apply: ``bound_applies`` false, their
+   serial chains limit them). B2, B3 (with
+   its active limits and the tile pairs it tested and skipped), B5 (alone
+   and on B4's tile table), B6, B7 (both directions, with the active
+   limits it found), B8, B9 (both flags, with its active limits) and the
+   exact search are held bit for bit against their plain versions run on
+   CPU copies of the same inputs and across two launches, B2 also on the
+   arguments of one J^T apply of path S's pose graph, with a row of its
+   own (``pose_graph`` in B2's row), and B1 also on a seeded N = 1000
+   (rows that start inside a 16-byte piece), and its branch-free square
+   root against __fsqrt_rn on every non-negative float;
    B4's counts and bins equal those of its plain
    version run on the card (the same rsqrtf and atan2f), and the tile
    pairs kept at the FPFH radius are printed. Each row also
@@ -178,6 +198,11 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    poses within 1e-4 of (a)'s, each rank's profile, two runs' bits.
    ``launches_path_m`` in every row of the kernel table.
 
+After path M it prints the device loops' graphs captured per path (their
+count and bytes: static buffers plus the reserved memory's growth during
+each capture, summed over the path, ``utils/loops.CAPTURED``), the graphs
+held at each path's end and their bytes (``utils/loops.held``), and the
+same for path P's B = 64 alone.
 The last two lines of standard output are the card's kernel table as one
 JSON object and ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the quatro_tpu_torch package beside it, it fails before
@@ -220,6 +245,15 @@ OPS_GRAPH = 21            # per pair: 2 x (3 sub, 3 mul, 2 add, sqrt),
 OPS_PLANE = 6             # per point: projection (3 mul, 2 add), compare
 OPS_MOMENTS_PT = 16       # per member point: 6 products, 10 additions
 OPS_CLASSIFY = 8          # projection, compare, flag arithmetic
+OPS_EXACT_WORD = 8        # per search step and 64-bit word: two popcounts,
+                          # the non-zero test, the frames' and, or, and-not,
+                          # the vertex mask
+OPS_EXACT_STEP = 12       # per step: the two shuffle sums, the tests
+OPS_KABSCH_POINT = 9 * 3  # per point: 9 entries of H, a product and a
+                          # fused multiply-add each (the f32 product of src
+                          # and w shared by three entries)
+OPS_KABSCH_ROW = 2000     # per row: the 3 x 3 SVD's bidiagonalisation,
+                          # sweeps and back transformation (approx.)
 
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 PAIR_REPEATS = 5          # timed runs of path A
@@ -232,8 +266,14 @@ TILT_SRC = (0.07, -0.05, 0.0)
 TILT_TGT = (-0.04, 0.06, 0.0)
 SOLVER_MODES = {"TEASER": dict(reg_name="TEASER"),
                 "FGR": dict(rotation_estimation_algorithm="FGR"),
+                "TEASER FGR": dict(reg_name="TEASER",
+                                   rotation_estimation_algorithm="FGR"),
                 "TLS scale": dict(estimate_scaling=True),
                 "exact": dict(inlier_selection_mode="exact")}
+# the exact search's kernel against its plain version: a truncated search
+# and a cap of four 64-bit words
+EXACT_TRUNCATED = 40
+EXACT_WIDE_CAP = 256
 
 REPLACES = {
     "moment_sums": "quatro_tpu/ops/pallas_frontend.py:293",
@@ -248,6 +288,10 @@ REPLACES = {
     "classify_points": "quatro_tpu/ops/segment_matmul.py:385",
     "image_lookup": "quatro_tpu/ops/segment_matmul.py:482",
     "table_lookup": "quatro_tpu/ops/segment_matmul.py:420",
+    # no pl.pallas_call: the lax.while_loop of exact_max_clique_bb
+    "exact_clique": "quatro_tpu/solver/clique.py:382",
+    # no pl.pallas_call: svd_rot3d's XLA dot and LAPACK SVD
+    "kabsch": "quatro_tpu/solver/rotation.py:55",
 }
 SOURCES = {
     "moment_sums": "quatro_tpu_torch/csrc/moment_sums.cu",
@@ -262,12 +306,15 @@ SOURCES = {
     "classify_points": "quatro_tpu_torch/csrc/classify_points.cu",
     "image_lookup": "quatro_tpu_torch/csrc/image_lookup.cu",
     "table_lookup": "quatro_tpu_torch/csrc/table_lookup.cu",
+    "exact_clique": "quatro_tpu_torch/csrc/exact_clique.cu",
+    "kabsch": "quatro_tpu_torch/csrc/kabsch.cu",
 }
 MAIN_LAUNCHES = {"moment_sums": 1, "spfh": 1, "fpfh": 1,
                  "nearest_neighbors": 0, "nearest_neighbors2": 2,
                  "consistency_graph": 1, "segment_sums": 1,
                  "cross_histogram": 1, "fit_iteration_moments": 3,
-                 "classify_points": 1, "image_lookup": 1, "table_lookup": 0}
+                 "classify_points": 1, "image_lookup": 1, "table_lookup": 0,
+                 "exact_clique": 0, "kabsch": 0}
 PATH_B_LAUNCHES = dict(MAIN_LAUNCHES, nearest_neighbors=2,
                        nearest_neighbors2=0, segment_sums=0)
 FEATURES_LAUNCHES = dict(MAIN_LAUNCHES, cross_histogram=0,
@@ -752,38 +799,184 @@ def phase_loops(card, label, fn):
     return out
 
 
-def phase_solver_modes(res, cfg):
+def _host_exact_clique(sub, vvalid, best0, max_steps):
+    """``ops.kernels.exact_clique`` on the host: the restriction copied
+    there, ``host_dfs`` (tests/torch_clique_oracle.py, the tests' oracle)
+    one pair after another, the results copied back."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    from torch_clique_oracle import host_dfs
+
+    host = [t.cpu().numpy() for t in (sub, vvalid, best0)]
+    outs = [host_dfs(*(h[b] for h in host), max_steps)
+            for b in range(host[0].shape[0])]
+    dev = sub.device
+    return (torch.from_numpy(np.stack([o[0] for o in outs])).to(dev),
+            torch.tensor([o[1] for o in outs]).to(dev),
+            torch.tensor([o[2] for o in outs], dtype=torch.int32).to(dev))
+
+
+@contextlib.contextmanager
+def host_route(which):
+    """A solver stage through the host, for timing beside the card's
+    route: "exact", the host search (``_host_exact_clique``); "so3", the
+    SO(3) GNC as it ran before the Kabsch kernel: ``torch.linalg.svd`` and
+    ``det`` of a matrix product per GNC iteration, its chunks uncaptured
+    (the SVD checks its result on the host)."""
+    from quatro_tpu_torch.ops import kernels
+    from quatro_tpu_torch.solver import rotation
+    from quatro_tpu_torch.utils import loops
+    from quatro_tpu_torch.utils.se3 import rotate_points
+
+    def svd_rot3d(src, dst, weights):
+        h = (src * weights[..., None]).transpose(-1, -2) @ dst
+        u, _, vt = torch.linalg.svd(h)
+        v = vt.transpose(-1, -2)
+        det = torch.linalg.det(u) * torch.linalg.det(v)
+        v = torch.cat([v[..., :2], v[..., 2:] * torch.where(
+            det < 0, -1.0, 1.0)[..., None, None]], -1)
+        return rotate_points(v, u)
+
+    def run_uncaptured(name, round_fn, src, dst, maskf, scale_sq, state,
+                       bound):
+        state, _ = loops.while_chunks(
+            name, round_fn, rotation._any_live, (src, dst, maskf, scale_sq),
+            state, bound, rotation.GNC_CHUNK, graph=False)
+        return state
+
+    saved = (kernels.exact_clique, rotation._SO3, rotation._run_iterations)
+    if which == "exact":
+        kernels.exact_clique = _host_exact_clique
+    else:
+        rotation._SO3 = (svd_rot3d, rotation._SO3[1])
+        rotation._run_iterations = run_uncaptured
+    try:
+        yield
+    finally:
+        kernels.exact_clique, rotation._SO3, rotation._run_iterations = saved
+
+
+def _differing_fields(got, ref):
+    from dataclasses import fields
+    return [f.name for f in fields(got)
+            if not torch.equal(getattr(got, f.name), getattr(ref, f.name))]
+
+
+def exact_routes(adj, mask, inc, cap, max_steps, label):
+    """``exact_max_clique_bb`` on the card through the kernel and through
+    its plain version (``exact_clique_search_plain`` on the card, a device
+    loop): mask, completed, restricted and steps bit-equal, the kernel's
+    route one launch. Returns the kernel route's steps."""
+    from quatro_tpu_torch.ops import kernels, launch
+    from quatro_tpu_torch.solver import clique
+
+    launch.reset_launches()
+    got = clique.exact_max_clique_bb(adj, mask, incumbent=inc, cap=cap,
+                                     max_steps=max_steps)
+    torch.cuda.synchronize()
+    check(launch.LAUNCHES["exact_clique"] == 1,
+          f"exact search ({label}): {launch.LAUNCHES['exact_clique']} "
+          "launches, not one")
+    real = kernels.exact_clique
+    kernels.exact_clique = kernels.exact_clique_search_plain
+    try:
+        ref = clique.exact_max_clique_bb(adj, mask, incumbent=inc, cap=cap,
+                                         max_steps=max_steps)
+    finally:
+        kernels.exact_clique = real
+    for what, g, r in zip(("mask", "completed", "restricted", "steps"),
+                          got, ref):
+        check(torch.equal(g, r), f"exact search ({label}): the kernel's "
+              f"{what} differs from its plain version's")
+    steps = got[3].reshape(-1).tolist()
+    log(f"exact search ({label}, cap {cap}, max_steps {max_steps}): the "
+        f"kernel equal to its plain version on the card (mask, completed, "
+        f"restricted, steps); steps {steps}, completed "
+        f"{got[1].reshape(-1).tolist()}, restricted "
+        f"{got[2].reshape(-1).tolist()}")
+    return steps
+
+
+SO3_MODES = {"TEASER": "gnc_tls", "TEASER FGR": "fgr_gm"}
+
+
+def phase_solver_modes(res, cfg, card, corr8):
     """``register_correspondences`` on path B's correspondences under each
     solver mode off the shipping path: each valid and within 0.01 rad /
     0.1 m of path B's own pose (the JAX package: within 0.0012 rad / 0.007
-    m on the CPU), the TLS scale within 0.02 of 1. Logs each mode's time
-    (host wall, after a warm-up) and GNC iterations, and for "exact" the
-    search's completion, restriction and steps."""
+    m on the CPU), the TLS scale within 0.02 of 1, the exact search one
+    kernel launch and every other mode none. Logs each mode's time (host
+    wall, after a warm-up), GNC iterations and device loops; for "exact"
+    the search's completion, restriction and steps and the host search's
+    time in this run; for TEASER and the 3-D FGR their GNC loop
+    captured and replayed, bit-equal to ``eager_loops()`` with equal
+    launches, and the uncaptured torch.linalg.svd route's time. The exact
+    kernel against its plain version (``exact_routes``) at B = 1,
+    truncated and at cap 256. Then every mode at B = 8 on ``corr8`` (path
+    P's bench pairs' correspondences) in one call, each row bit-equal to
+    its per-pair call, and the exact search there at B = 8. Returns the
+    exact kernel's path B arguments and launches for the kernel table."""
     import dataclasses
 
+    from quatro_tpu_torch.ops import kabsch, kernels, launch
     from quatro_tpu_torch.solver import clique
     from quatro_tpu_torch.solver.quatro import register_correspondences
     from quatro_tpu_torch.solver.scale import tim_consistency_graph
+    from quatro_tpu_torch.utils import loops
 
     corr = res.correspondences
     ref = res.solution.transform().cpu().numpy().astype(np.float64)
     out = {}
+    exact = {}
     for name, kw in SOLVER_MODES.items():
         sc = dataclasses.replace(cfg.solver, **kw)
         args = (corr.src_xyz, corr.tgt_xyz, corr.mask, sc)
+        loops.reset_loops()
         register_correspondences(*args)                  # warm-up
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        sol = register_correspondences(*args)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
+        launch.reset_launches()
+        calls, kcalls = [], []
+        with recorded(kernels, "exact_clique", calls), \
+                recorded(kabsch, "kabsch_rotation", kcalls):
+            sol, ms = _synced_ms(lambda: register_correspondences(*args))
+        launches = dict(launch.LAUNCHES)
+        counters = {k: dict(v) for k, v in loops.LOOPS.items()}
         rerr, terr = pose_errors(sol, ref)
         info = {"ms": round(ms, 3), "valid": bool(sol.valid),
                 "gnc_iterations": int(sol.gnc_iterations),
                 "scale": float(sol.scale),
                 "clique": int(sol.max_clique_mask.sum()),
                 "rotation_vs_path_b_rad": rerr,
-                "translation_vs_path_b_m": terr}
+                "translation_vs_path_b_m": terr,
+                "exact_clique_launches": launches["exact_clique"],
+                "kabsch_launches": launches["kabsch"]}
+        check(launches["exact_clique"] == (name == "exact"),
+              f"solver mode {name}: {launches['exact_clique']} exact "
+              "search launches")
+        check((launches["kabsch"] > 0) == (name in SO3_MODES),
+              f"solver mode {name}: {launches['kabsch']} Kabsch launches")
+        if name in SO3_MODES:
+            gnc = counters.get(SO3_MODES[name], {})
+            check(gnc.get("captures", 0) >= 1 and gnc.get("replays", 0) >= 1,
+                  f"solver mode {name}: its GNC loop did not capture and "
+                  f"replay: {gnc}")
+            launch.reset_launches()
+            with loops.eager_loops():
+                eager = register_correspondences(*args)
+            torch.cuda.synchronize()
+            same_solution(sol, eager, f"solver mode {name}: the graph route "
+                          "against eager_loops()")
+            check(dict(launch.LAUNCHES) == launches,
+                  f"solver mode {name}: eager_loops() launched "
+                  f"{dict(launch.LAUNCHES)}, the graph route {launches}")
+            with host_route("so3"):
+                register_correspondences(*args)
+                _, host_ms = _synced_ms(
+                    lambda: register_correspondences(*args))
+            info.update(gnc_loop=gnc, uncaptured_svd_ms=round(host_ms, 3))
+            if name == "TEASER":
+                exact.update(kabsch_args=kcalls[0][0],
+                             kabsch_launches_b=launches["kabsch"])
         if name == "exact":
             adj = tim_consistency_graph(corr.src_xyz, corr.tgt_xyz, corr.mask,
                                         sc.noise_bound, sc.cbar2)
@@ -794,10 +987,25 @@ def phase_solver_modes(res, cfg):
             _, completed, restricted, steps = clique.exact_max_clique_bb(
                 adj, corr.mask, incumbent=greedy, cap=sc.exact_clique_cap,
                 max_steps=sc.exact_clique_max_steps)
+            with host_route("exact"):
+                register_correspondences(*args)
+                host, host_ms = _synced_ms(
+                    lambda: register_correspondences(*args))
+            same_solution(sol, host, "solver mode exact against the host "
+                          "search")
             info.update(completed=bool(completed),
-                        restricted=bool(restricted), steps=steps,
-                        greedy=int(greedy.sum()))
-        log(f"solver mode {name}: {json.dumps(info)}")
+                        restricted=bool(restricted), steps=int(steps),
+                        greedy=int(greedy.sum()),
+                        host_search_ms=round(host_ms, 3))
+            exact_routes(adj, corr.mask, greedy, sc.exact_clique_cap,
+                         sc.exact_clique_max_steps, "path B, B = 1")
+            exact_routes(adj, corr.mask, greedy, sc.exact_clique_cap,
+                         EXACT_TRUNCATED, "path B, truncated")
+            exact_routes(adj, corr.mask, greedy, EXACT_WIDE_CAP,
+                         sc.exact_clique_max_steps, "path B, multi-word")
+            exact.update(args=calls[0][0], launches_b=launches[
+                "exact_clique"], steps=int(steps))
+        log(f"solver mode {name} ({card}): {json.dumps(info)}")
         check(bool(sol.valid), f"solver mode {name}: not valid")
         check(rerr < 0.01 and terr < 0.1,
               f"solver mode {name}: {rerr} rad / {terr} m from path B")
@@ -807,7 +1015,65 @@ def phase_solver_modes(res, cfg):
             check(abs(float(sol.scale) - 1.0) < 0.02,
                   f"TLS scale {float(sol.scale)}")
         out[name] = info
-    return out
+    loops.reset_loops()
+    exact["b8"], exact["kabsch_b8"] = solver_modes_batched(corr8, cfg, card)
+    return exact
+
+
+def solver_modes_batched(corr8, cfg, card):
+    """Every solver mode on B pairs' correspondences (B, N, 3) in one
+    ``register_correspondences`` call: each row bit-equal to the per-pair
+    call on its pair, the exact search one launch for the B pairs and
+    its kernel equal to its plain version there. Returns the exact
+    call's and TEASER's call's launches."""
+    import dataclasses
+
+    from quatro_tpu_torch.ops import launch
+    from quatro_tpu_torch.solver import clique
+    from quatro_tpu_torch.solver.quatro import register_correspondences
+    from quatro_tpu_torch.solver.scale import tim_consistency_graph
+
+    bsz = corr8.src_xyz.shape[0]
+    table = {}
+    for name, kw in SOLVER_MODES.items():
+        sc = dataclasses.replace(cfg.solver, **kw)
+        args = (corr8.src_xyz, corr8.tgt_xyz, corr8.mask, sc)
+        register_correspondences(*args)                  # warm-up
+        launch.reset_launches()
+        batch, ms = _synced_ms(lambda: register_correspondences(*args))
+        launches = dict(launch.LAUNCHES)
+        check(launches["exact_clique"] == (name == "exact"),
+              f"solver mode {name} at B = {bsz}: "
+              f"{launches['exact_clique']} exact search launches")
+        check((launches["kabsch"] > 0) == (name in SO3_MODES),
+              f"solver mode {name} at B = {bsz}: {launches['kabsch']} "
+              "Kabsch launches")
+        singles_ms = 0.0
+        for b in range(bsz):
+            one, one_ms = _synced_ms(lambda: register_correspondences(
+                corr8.src_xyz[b], corr8.tgt_xyz[b], corr8.mask[b], sc))
+            singles_ms += one_ms
+            same_solution(batch.row(b), one, f"solver mode {name} at B = "
+                          f"{bsz}: row {b} against its per-pair call")
+        table[name] = {"ms": round(ms, 3), "per_pair_calls_ms": round(
+            singles_ms, 3), "valid": batch.valid.tolist(),
+            "gnc_iterations": batch.gnc_iterations.tolist(),
+            "launches": {k: v for k, v in launches.items() if v}}
+        if name == "exact":
+            adj = tim_consistency_graph(*args[:3], sc.noise_bound, sc.cbar2)
+            greedy = clique.greedy_cliques(
+                adj, clique.clique_seed_scores(adj, corr8.mask), corr8.mask,
+                num_seeds=sc.clique_num_seeds, max_size=sc.max_clique_size,
+                swap_rounds=sc.clique_swap_rounds) & corr8.mask
+            table[name]["steps"] = exact_routes(
+                adj, corr8.mask, greedy, sc.exact_clique_cap,
+                sc.exact_clique_max_steps, f"path P's pairs, B = {bsz}")
+            exact_b8 = launches["exact_clique"]
+        if name == "TEASER":
+            kabsch_b8 = launches["kabsch"]
+    log(f"solver modes at B = {bsz} (path P's bench.py pairs, {card}; every "
+        f"row bit-equal to its per-pair call): {json.dumps(table)}")
+    return exact_b8, kabsch_b8
 
 
 def phase_teaser_fixture(cfg):
@@ -1314,7 +1580,7 @@ def check_batched_stages(vox_calls, overlap_calls, label):
     return clouds, pairs
 
 
-def phase_pair_axis(card, pairs, gts, cfg_a):
+def phase_pair_axis(card, pairs, gts, cfg_a, bench):
     """Path P, the pair axis: (a) bench.py's 8 pairs under its
     configuration as one call at B = 8, (b) path A's configuration at B =
     4 (path A's tilted pair and the first three bench pairs tilted alike),
@@ -1322,8 +1588,10 @@ def phase_pair_axis(card, pairs, gts, cfg_a):
     and pairs/s at B = 1, 8 and 64 (the 8 pairs cycled as bench.py cycles
     them, a batch per offset), median and spread of 3 runs after a
     warm-up, with the stage split, B1 at B = 8 and 64, the device idle
-    share of the B = 8 call and the peak memory at B = 64. Returns B1's
-    pair-axis rows."""
+    share of the B = 8 call, the peak memory at B = 64 and the bytes the
+    device loops' graphs took at B = 64. ``bench``: (bench.py's scans,
+    its configuration, the seconds their ray-cast took). Returns B1's
+    pair-axis rows and B = 64's graph bytes."""
     from torch.profiler import ProfilerActivity, profile
 
     from quatro_tpu_torch import pipeline
@@ -1333,10 +1601,9 @@ def phase_pair_axis(card, pairs, gts, cfg_a):
     from quatro_tpu_torch.utils import loops
 
     dev = resolve_device(None)
-    t0 = time.perf_counter()
-    scans, cfg = bench_case()
+    scans, cfg, cast_s = bench
     log(f"path P: bench.py's {len(scans)} HDL-64E pairs ray-cast in "
-        f"{time.perf_counter() - t0:.1f} s; {cfg.max_voxels} voxels, "
+        f"{cast_s:.1f} s; {cfg.max_voxels} voxels, "
         f"{cfg.fpfh.max_correspondences} correspondences, "
         f"{cfg.solver.num_hypotheses} + {cfg.solver.num_vote_hypotheses} "
         "hypotheses")
@@ -1359,6 +1626,7 @@ def phase_pair_axis(card, pairs, gts, cfg_a):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
+        captured = dict(loops.CAPTURED)
         res = register_scan_pair(*batches[0], cfg)          # warm-up
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
@@ -1371,7 +1639,9 @@ def phase_pair_axis(card, pairs, gts, cfg_a):
         walls += [_synced_ms(lambda: register_scan_pair(*b, cfg))[1]
                   for b in batches[2:]]
         spread = _spread(walls)
-        times[bsz] = dict(ms_per_call=spread,
+        graphs = {k: loops.CAPTURED[k] - captured[k] for k in captured}
+        graphs["held_now"] = loops.held()
+        times[bsz] = dict(ms_per_call=spread, graphs_captured=graphs,
                           pairs_per_s=round(bsz * 1e3 / spread["median"], 3),
                           stages_ms={k: round(v, 3)
                                      for k, v in stages.items()},
@@ -1425,7 +1695,7 @@ def phase_pair_axis(card, pairs, gts, cfg_a):
         {b: {"median_ms": t["ms_per_call"]["median"],
              "pairs_per_s": t["pairs_per_s"]} for b, t in times.items()})
         + f"; launches per batched call at B = 8: {json.dumps(launches8)}")
-    return rows
+    return rows, times[max(PAIR_AXIS_BATCHES)]["graphs_captured"]
 
 
 def _launch_diff(before):
@@ -1846,7 +2116,9 @@ MAIN_KERNEL = {"moment_sums": "quatro::moment_sums_kernel",
                "fit_iteration_moments": "quatro::fit_partials_kernel",
                "classify_points": "quatro::classify_kernel",
                "image_lookup": "quatro::image_lookup_kernel",
-               "table_lookup": "quatro::table_lookup_kernel"}
+               "table_lookup": "quatro::table_lookup_kernel",
+               "exact_clique": "quatro::exact_clique_kernel",
+               "kabsch": "quatro::kabsch::kabsch_kernel"}
 
 
 def culled_pairs(pts, mask, radius):
@@ -1874,11 +2146,12 @@ def radius_pair_bytes(mask, per_row, per_valid_row):
 
 
 def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b,
-                  jt_call, launches_s):
+                  jt_call, launches_s, exact):
     """Every kernel against its plain version: B1-B5 and B7-B12 on the
     main path's tensors, with the main path's launch counts (B12's 0: no
     path launches it); B6 on path B's, with path B's; B2 also on path S's
-    J^T apply ``jt_call``, with path S's launch counts."""
+    J^T apply ``jt_call``, with path S's launch counts; the exact search
+    on path B's exact mode's restriction (``exact``), with its launches."""
     from quatro_tpu_torch.ops import frontend as fe
     from quatro_tpu_torch.ops.fpfh import normalize_blocks
 
@@ -2132,6 +2405,8 @@ def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b,
     rows[-1]["pose_graph"] = segment_sums_pose_graph_row(jt_call, launches_s,
                                                          row)
     nn1_kernel_row(res_b, cfg_b, launches_b, row)
+    exact_kernel_row(exact, row, rows)
+    kabsch_kernel_row(exact, row, rows)
     preprocessing_kernel_rows(calls, row)
     check(sorted(r["name"] for r in rows) == sorted(MAIN_KERNEL),
           "kernel phase: not one row for each kernel")
@@ -2140,9 +2415,90 @@ def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b,
         if r.get("bf16_device_ms_uncaptured", 0.0) is None]
     check(not missing, "kernel phase: no profiled run saw every call of "
           f"{missing}")
-    log("kernel phase: device ms of all twelve kernels (torch.profiler): "
+    log("kernel phase: device ms of all fourteen kernels (torch.profiler): "
         + json.dumps({r["name"]: round(r["device_ms"], 6) for r in rows}))
     return rows
+
+
+def exact_kernel_row(exact, row, rows):
+    """The exact search's kernel on path B's exact mode's restriction
+    (B = 1, cap 64): bit for bit its plain version on CPU copies (best
+    set, completed, steps) and across two launches; its row with the
+    launches per path-B pair and per B = 8 call, the steps, and the
+    device ns per step. The bound counts this run's steps
+    (OPS_EXACT_WORD per 64-bit word and OPS_EXACT_STEP per step) at the
+    f32 rate, and the restriction's bytes read once and the outputs'
+    written once; the walk's dependent chain, not either, bounds it
+    (``bound_applies`` false in its row): two dependent round trips to the
+    frame stack in global memory a step."""
+    from quatro_tpu_torch.ops import kernels
+
+    sub, vvalid, best0, max_steps = exact["args"]
+    got = kernels.exact_clique(sub, vvalid, best0, max_steps)
+    again = kernels.exact_clique(sub, vvalid, best0, max_steps)
+    ref = kernels.exact_clique_search_plain(sub.cpu(), vvalid.cpu(),
+                                            best0.cpu(), max_steps)
+    for what, g, a, r in zip(("best", "completed", "steps"), got, again,
+                             ref):
+        check(torch.equal(g, a), f"exact search's {what} differs between "
+              "launches")
+        check(torch.equal(g.cpu(), r), f"exact search's {what} differs "
+              "from the plain version on CPU copies")
+    bsz, cap = vvalid.shape
+    steps = int(got[2].sum())
+    words = -(-cap // 64)
+    row("exact_clique", 0.0,
+        lambda: kernels.exact_clique(sub, vvalid, best0, max_steps),
+        lambda: kernels.exact_clique_search_plain(sub, vvalid, best0,
+                                                  max_steps),
+        float(steps * (OPS_EXACT_WORD * words + OPS_EXACT_STEP)),
+        bsz * cap * cap + 3 * bsz * cap + 5 * bsz,
+        launches=exact["launches_b"],
+        extra={"launches_b8_call": exact["b8"], "steps": steps,
+               "shape": f"({bsz},{cap},{cap})", "bound_applies": False})
+    r = rows[-1]
+    r["ns_per_step"] = (None if r["device_ms"] is None
+                        else round(r["device_ms"] * 1e6 / steps, 3))
+    log(f"exact_clique: {steps} steps at cap {cap}, equal to the plain "
+        f"version on CPU copies and across two launches; device "
+        f"{r['device_ms']} ms, {r['ns_per_step']} ns a step")
+
+
+def kabsch_kernel_row(exact, row, rows):
+    """The Kabsch kernel on the arguments path B's TEASER mode handed it
+    (its GNC's first iteration, uncaptured): bit for bit its plain version
+    run on the card and on CPU copies, and across two launches; its row
+    with the launches per path-B TEASER call and per B = 8 call. Its
+    bound (src, dst and w read once, R written once; this run's points'
+    products and the SVD's operations at the f32 rate) is far below the
+    serial chains that limit it: each entry of H adds the N points one
+    after the other, and one thread runs the SVD."""
+    from quatro_tpu_torch.ops import kabsch
+
+    src, dst, w = exact["kabsch_args"]
+    got = kabsch.kabsch_rotation(src, dst, w)
+    again = kabsch.kabsch_rotation(src, dst, w)
+    plain = kabsch.kabsch_rotation_plain(src, dst, w)
+    ref = kabsch.kabsch_rotation_plain(src.cpu(), dst.cpu(), w.cpu())
+    check(torch.equal(got, again), "Kabsch rotations differ between "
+          "launches")
+    check(torch.equal(got, plain), "the Kabsch kernel differs from its "
+          "plain version run on the card")
+    check(torch.equal(got.cpu(), ref), "the Kabsch kernel differs from its "
+          "plain version on CPU copies")
+    rows_n = src[..., 0, 0].numel()
+    n = src.shape[-2]
+    row("kabsch", float((got.cpu() - ref).abs().max()),
+        lambda: kabsch.kabsch_rotation(src, dst, w),
+        lambda: kabsch.kabsch_rotation_plain(src, dst, w),
+        float(rows_n * (n * OPS_KABSCH_POINT + OPS_KABSCH_ROW)),
+        rows_n * (n * 7 + 9) * 4,
+        launches=exact["kabsch_launches_b"],
+        extra={"launches_b8_call": exact["kabsch_b8"],
+               "shape": f"({rows_n},{n},3)", "bound_applies": False})
+    log(f"kabsch: {rows_n} rows of {n} points, equal to the plain version "
+        "on the card and on CPU copies and across two launches; device "
+        f"{rows[-1]['device_ms']} ms")
 
 
 def segment_sums_pose_graph_row(jt_call, launches_s, row):
@@ -2378,10 +2734,9 @@ def composed_poses(sols, edge_i, edge_j, poses0, num_poses):
 
 
 def same_solution(got, ref, what):
-    from dataclasses import fields
-    for f in fields(got):
-        check(torch.equal(getattr(got, f.name), getattr(ref, f.name)),
-              f"{what}: {f.name} differs from the unsharded composition")
+    """Two RegistrationSolutions bit for bit; ``what`` names the pair."""
+    diff = _differing_fields(got, ref)
+    check(not diff, f"{what}: {diff} differ")
 
 
 def phase_multichip(card, scans, gt, cfg, work_dir):
@@ -2452,7 +2807,8 @@ def phase_multichip(card, scans, gt, cfg, work_dir):
         (poses, sols), = out
         ref = register_scan_pair(src, tgt, cfg).solution
         edges, ref_poses = composed_poses(ref, ei, ej, poses0, m)
-        same_solution(sols, ref, "path M raw-scan step")
+        same_solution(sols, ref, "path M raw-scan step against the unsharded "
+                      "composition")
         check(torch.equal(poses, ref_poses),
               "path M: the raw-scan step's poses differ from the "
               "unsharded composition")
@@ -2494,7 +2850,8 @@ def phase_multichip(card, scans, gt, cfg, work_dir):
         check(collective_profile(lambda: regs.append(reg(src8, tgt8, mask8)))
               == {}, "path M: registration issued a collective")
         ref8 = register_batch(src8, tgt8, mask8)
-        same_solution(regs[0], ref8, "path M sharded_register_batch")
+        same_solution(regs[0], ref8, "path M sharded_register_batch against "
+                      "the unsharded composition")
         step8 = make_loop_closing_step(mesh, M_PAIRS, gn_iters=gn,
                                        cg_iters=cg)
         out8 = []
@@ -2502,7 +2859,8 @@ def phase_multichip(card, scans, gt, cfg, work_dir):
             src8, tgt8, mask8, ei8, ej8, init8)))
         check(dict(prof8) == reduces, f"path M: loop closing {dict(prof8)}")
         (poses8, sols8), = out8
-        same_solution(sols8, ref8, "path M loop-closing step")
+        same_solution(sols8, ref8, "path M loop-closing step against the "
+                      "unsharded composition")
         check(torch.equal(poses8, composed_poses(ref8, ei8, ej8, init8,
                                                  M_PAIRS)[1]),
               "path M: the loop-closing step's poses differ from the "
@@ -2650,6 +3008,17 @@ def main() -> int:
     card = phase_device()
     phase_build()
     from quatro_tpu_torch.pipeline import register_features, register_scan_pair
+    from quatro_tpu_torch.utils import loops
+    graph_mem = {}
+
+    def graphs_of(label, before):
+        """The device loops' captures and their bytes since ``before``
+        (cumulative), and the graphs kept at the end and their bytes."""
+        graph_mem[label] = {k: loops.CAPTURED[k] - before[k] for k in before}
+        graph_mem[label]["held_now"] = loops.held()
+        return dict(loops.CAPTURED)
+
+    mark = dict(loops.CAPTURED)
     pairs, gts, cfgs = full_width_case()
     res_a, launches_a, wall_a, stages_a = phase_pipeline(
         register_scan_pair, pairs["tilted"], gts["tilted"], cfgs["A"],
@@ -2661,12 +3030,21 @@ def main() -> int:
     phase_loops(card, "path A", lambda: register_scan_pair(
         *pairs["tilted"], cfgs["A"]))
     calls = capture_preprocessing(pairs["tilted"], cfgs["A"])
+    mark = graphs_of("path A", mark)
+    t0 = time.perf_counter()
+    bench = (*bench_case(), time.perf_counter() - t0)
     res_b, launches_b, _, _ = phase_pipeline(
         register_scan_pair, pairs["raw"], gts["raw"], cfgs["B"],
         "path B (reference matcher, crosscheck_min_matches=0)",
         PATH_B_LAUNCHES, PATH_B_REPEATS, max_terr=0.6)
-    phase_solver_modes(res_b, cfgs["B"])
+    dev = res_b.solution.rotation.device
+    corr8 = register_scan_pair(pair_batch([c[0] for c in bench[0]], dev),
+                               pair_batch([c[1] for c in bench[0]], dev),
+                               bench[1]).correspondences
+    exact = phase_solver_modes(res_b, cfgs["B"], card, corr8)
+    del corr8
     phase_teaser_fixture(cfgs["B"])
+    mark = graphs_of("path B", mark)
     for entry, pair, cfg, name, expected, max_terr in (
             (register_scan_pair, "raw", "recommended",
              "earlier path (raw scans, recommended)", MAIN_LAUNCHES, 0.6),
@@ -2677,25 +3055,38 @@ def main() -> int:
              0.5)):
         phase_pipeline(entry, pairs[pair], gts["raw"], cfgs[cfg], name,
                        expected, EARLIER_REPEATS, max_terr=max_terr)
+    mark = graphs_of("earlier paths", mark)
     launches_s, jt_call, (scans, seq_gt) = phase_sequence(cfgs["A"], card)
+    mark = graphs_of("path S", mark)
     os.makedirs(BUILD_DIR, exist_ok=True)
     work_dir = tempfile.mkdtemp(prefix="smoke_entry_", dir=BUILD_DIR)
     try:
         phase_entry(card, work_dir)
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
+    mark = graphs_of("path E", mark)
     phase_profile(pairs["tilted"], cfgs["A"], wall_a, stages_a)
     rows = phase_kernels(res_a, cfgs["A"], launches_a, calls, res_b,
-                         cfgs["B"], launches_b, jt_call, launches_s)
+                         cfgs["B"], launches_b, jt_call, launches_s, exact)
+    mark = graphs_of("profile and kernels", mark)
     # last: its large batches and profiles leave the profiler missing
     # more events in the runs after them
-    graph_rows = phase_pair_axis(card, pairs, gts, cfgs["A"])
+    graph_rows, graph_mem["path P, B = 64 (warm-up and timed calls)"] = \
+        phase_pair_axis(card, pairs, gts, cfgs["A"], bench)
+    mark = graphs_of("path P", mark)
     work_dir = tempfile.mkdtemp(prefix="smoke_multichip_", dir=BUILD_DIR)
     try:
         launches_m = phase_multichip(card, scans, seq_gt, cfgs["A"],
                                      work_dir)
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
+    graphs_of("path M", mark)
+    log(f"device loops' graphs captured per path ({card}; graphs, and "
+        "bytes: their static buffers plus the growth of the reserved "
+        "memory during each capture, summed over the path's captures, "
+        "evicted ones included; held_now: the graphs kept at the path's "
+        "end, at most MAX_GRAPHS, and their capture bytes): "
+        + json.dumps(graph_mem))
     for r in rows:
         if r["name"] == "consistency_graph":
             r["pair_axis"] = graph_rows

@@ -16,7 +16,9 @@ sweep}`` (``cli.py``, with ``--device``) and the evaluation harness
 ``eval.py`` (loop-closure success rate over the pair axis, outlier
 sweep), reading reference-format YAML (``config_io.py``), KITTI ``.bin``
 through the native loader (``native/``), PCD and writing PLY (``io/``).
-The kernels, twelve, are hand-written CUDA in ``csrc/``;
+The kernels, twelve for the JAX package's Pallas calls, one for its
+exact clique search and one for its SO(3) Kabsch solve, are hand-written
+CUDA in ``csrc/``;
 ``table_lookup`` is B12's public op.
 """
 

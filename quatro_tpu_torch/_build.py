@@ -53,6 +53,9 @@ SIGNATURES = {
                         [_P, _P, _P, _I, _I, _I, _I, _P, _P]),
     "image_lookup": ("quatro_image_lookup", [_P, _P, _I, _I, _I, _P, _P]),
     "table_lookup": ("quatro_table_lookup", [_P, _P, _I, _I, _I, _I, _P, _P]),
+    "exact_clique": ("quatro_exact_clique",
+                     [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P]),
+    "kabsch": ("quatro_kabsch", [_P, _P, _P, _I, _I, _P, _P]),
 }
 
 # Further C functions of a kernel's library: name -> (source, symbol,

@@ -1,4 +1,5 @@
-"""The solver's consistency-graph kernel (B1).
+"""The solver's kernels: the consistency graph (B1) and the exact clique
+search.
 
 Counterpart of ``quatro_tpu/ops/pallas_kernels.py``: the (N, N) boolean
 test |d_tgt(i,j) - d_src(i,j)| <= beta over all pairs of correspondences,
@@ -7,6 +8,12 @@ with no mask or diagonal terms (the caller applies those, as in the JAX
 package). ``consistency_graph`` launches ``csrc/consistency_graph.cu`` for
 CUDA tensors and counts the launch; for CPU tensors it runs
 ``consistency_graph_plain``. There is no fallback between the two.
+
+``exact_clique`` is the branch-and-bound of
+``quatro_tpu/solver/clique.py::exact_max_clique_bb`` (a ``lax.while_loop``
+there, no Pallas kernel) on B pairs' restricted graphs: one launch of
+``csrc/exact_clique.cu`` for CUDA tensors, ``exact_clique_search_plain``
+(the JAX loop's body over the pair axis, a device loop) for CPU tensors.
 """
 
 from __future__ import annotations
@@ -14,7 +21,9 @@ from __future__ import annotations
 import torch
 
 from quatro_tpu_torch.ops.launch import LAUNCHES, check, launch, same_device
-from quatro_tpu_torch.utils import fused
+from quatro_tpu_torch.utils import fused, loops
+
+EXACT_CHUNK = 64        # search steps of the plain version per flag read
 
 
 def pairwise_distances(points: torch.Tensor) -> torch.Tensor:
@@ -68,3 +77,99 @@ def sqrt_rn_mismatches(device="cuda") -> int:
     bad = torch.zeros(1, dtype=torch.int64, device=device)
     launch("sqrt_rn_check", bad)
     return int(bad.item())
+
+
+def _exact_step(consts, state, max_steps: int):
+    """One step of the JAX package's search body on every pair that is
+    still searching (quatro_tpu/solver/clique.py:362-380); a pair whose
+    stack is empty or whose steps reached ``max_steps`` keeps its state.
+    Only the frames below the stack pointer are ever read, so the include
+    frame is written only where it is pushed."""
+    sub, depth_iota, cap_iota = consts
+    p_stk, c_stk, sp, best_size, best_set, steps = state
+    live = (sp > 0) & (steps < max_steps)
+    sp1 = torch.clamp(sp - 1, min=0)
+    at = depth_iota == sp1[:, None]                          # (B, depth)
+    idx = sp1[:, None, None].expand(-1, 1, p_stk.shape[-1])
+    p = p_stk.gather(1, idx)[:, 0]
+    c = c_stk.gather(1, idx)[:, 0]
+    csz = c.sum(-1)
+    psz = p.sum(-1)
+    improved = live & (csz > best_size)
+    best_size = torch.where(improved, csz, best_size)
+    best_set = torch.where(improved[:, None], c, best_set)
+    push = live & (csz + psz > best_size) & (psz > 0)
+    v = torch.argmax(p.to(torch.uint8), -1)                  # first in P
+    vm = cap_iota == v[:, None]
+    row = sub.gather(1, v[:, None, None].expand(-1, 1, sub.shape[-1]))[:, 0]
+    ex = (at & push[:, None])[..., None]
+    top = ((depth_iota == (sp1 + 1)[:, None]) & push[:, None])[..., None]
+    p_stk = torch.where(top, (p & row)[:, None], torch.where(
+        ex, (p & ~vm)[:, None], p_stk))
+    c_stk = torch.where(top, (c | vm)[:, None], c_stk)
+    sp = torch.where(live, torch.where(push, sp1 + 2, sp1), sp)
+    return p_stk, c_stk, sp, best_size, best_set, steps + live.to(steps.dtype)
+
+
+def exact_clique_search_plain(sub: torch.Tensor, vvalid: torch.Tensor,
+                              best0: torch.Tensor, max_steps: int):
+    """The exact search on B restricted graphs in torch operations:
+    (best (B, cap) bool, completed (B,) bool, steps (B,) int32) of
+    sub (B, cap, cap), vvalid (B, cap) and incumbent best0 (B, cap) bool.
+    The JAX package's ``lax.while_loop`` under vmap: stacks (B, cap + 2,
+    cap), a device loop (utils/loops.py) that reads its flag once per
+    EXACT_CHUNK steps while any pair is searching."""
+    bsz, cap = vvalid.shape
+    dev = sub.device
+    depth = cap + 2
+    p_stk = torch.zeros((bsz, depth, cap), dtype=torch.bool, device=dev)
+    p_stk[:, 0] = vvalid
+    state = (p_stk, torch.zeros_like(p_stk),
+             torch.ones(bsz, dtype=torch.int64, device=dev),
+             best0.sum(-1), best0.clone(),
+             torch.zeros(bsz, dtype=torch.int32, device=dev))
+
+    def body(consts, state):
+        return _exact_step(consts, state, max_steps)
+
+    def searching(state):
+        return ((state[2] > 0) & (state[5] < max_steps)).any()
+
+    (_, _, sp, _, best, steps), _ = loops.while_chunks(
+        "exact_clique", body, searching,
+        (sub, torch.arange(depth, device=dev), torch.arange(cap, device=dev)),
+        state, max(max_steps, 0), EXACT_CHUNK)
+    return best & vvalid, sp == 0, steps
+
+
+def exact_clique(sub: torch.Tensor, vvalid: torch.Tensor, best0: torch.Tensor,
+                 max_steps: int):
+    """The exact clique search on B pairs' restricted graphs sub (B, cap,
+    cap), vvalid (B, cap), incumbent best0 (B, cap), all bool and
+    contiguous, at most ``max_steps`` steps a pair: (best (B, cap) bool,
+    completed (B,) bool, steps (B,) int32). One launch of
+    csrc/exact_clique.cu for the B pairs on the card, bit for bit
+    ``exact_clique_search_plain``; that plain version on the CPU."""
+    if sub.dim() != 3:
+        raise ValueError(f"sub: expected (B, cap, cap), got "
+                         f"{tuple(sub.shape)}")
+    bsz, cap = sub.shape[:2]
+    check("sub", sub, (bsz, cap, cap), torch.bool)
+    check("vvalid", vvalid, (bsz, cap), torch.bool)
+    check("best0", best0, (bsz, cap), torch.bool)
+    if same_device(sub, vvalid, best0).type != "cuda":
+        return exact_clique_search_plain(sub, vvalid, best0, max_steps)
+    dev = sub.device
+    best = torch.empty((bsz, cap), dtype=torch.bool, device=dev)
+    completed = torch.empty(bsz, dtype=torch.bool, device=dev)
+    steps = torch.empty(bsz, dtype=torch.int32, device=dev)
+    if bsz == 0:
+        return best, completed, steps
+    # per pair, in 64-bit words: the adjacency rows, cap + 2 frames of two
+    # bitsets, the best set
+    scratch = torch.empty(bsz * -(-cap // 64) * (3 * cap + 5),
+                          dtype=torch.int64, device=dev)
+    launch("exact_clique", sub, vvalid, best0, bsz, cap, int(max_steps),
+           scratch, best, completed, steps)
+    LAUNCHES["exact_clique"] += 1
+    return best, completed, steps

@@ -14,16 +14,17 @@ live, and each pair keeps its state from the round its own test ended it
 (by ``torch.where``, or because that state is a fixed point of the
 round), so the rounds a chunk runs past that change none of its bits. A
 ``while_loop`` reads one flag back per chunk of rounds, whatever B is; a
-``fori_loop`` reads nothing. The exact branch-and-bound runs on the host.
+``fori_loop`` reads nothing. The exact branch-and-bound is one search of
+all pairs (``ops.kernels.exact_clique``: a kernel launch on the card).
 Ties are broken as in the JAX package: ``lax.top_k`` keeps the lower
 index (stable sorts here), argmax / argmin take the first extreme.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
+from quatro_tpu_torch.ops import kernels
 from quatro_tpu_torch.utils import loops
 from quatro_tpu_torch.utils.batch import drop_axis
 
@@ -304,10 +305,6 @@ def greedy_cliques(adj: torch.Tensor, seed_scores: torch.Tensor,
     return _largest(cliques)
 
 
-def _lowest_bit(x: int) -> int:
-    return (x & -x).bit_length() - 1
-
-
 def exact_max_clique_bb(adj: torch.Tensor, mask: torch.Tensor,
                         incumbent: torch.Tensor | None = None,
                         cap: int = 64, max_steps: int = 20000):
@@ -315,62 +312,48 @@ def exact_max_clique_bb(adj: torch.Tensor, mask: torch.Tensor,
     src/graph.cc:106-127): the JAX package's iterative Carraghan-Pardalos
     DFS over the ``cap`` highest-scored vertices (max-core membership,
     then degree), with the |C| + |P| bound and the greedy incumbent as
-    warm start, at most ``max_steps`` steps.
+    warm start, at most ``max_steps`` steps; for adj (N, N) or a batch of
+    pairs (B, N, N).
 
-    The restriction, its validity and the incumbent are copied to the
-    host once, and the DFS runs there on Python-int bitsets (bit i is
-    restricted vertex i; "the first candidate" is the lowest set bit).
-    It is boolean logic, so the result equals the JAX package's
-    ``lax.while_loop``, without a flag read per step.
+    The restriction, its k-core check and the incumbent are batched torch
+    operations; the search of all pairs is one call of
+    ``ops.kernels.exact_clique`` (one kernel launch on the card, the JAX
+    loop's body as a device loop on the CPU). Nothing is read back.
 
-    Returns (clique mask (N,) bool, completed () bool: the search ended
-    before max_steps, restricted () bool: the cap cut into the max k-core,
-    steps: the DFS steps taken, an int the JAX package does not report).
+    Returns (clique mask (..., N) bool, completed (...) bool: the search
+    ended before max_steps, restricted (...) bool: the cap cut into the
+    max k-core, steps (...) int32: the search steps taken, which the JAX
+    package does not report).
     """
-    n = adj.shape[0]
+    if adj.dim() == 2:
+        return drop_axis(exact_max_clique_bb(
+            adj[None], mask[None],
+            None if incumbent is None else incumbent[None], cap, max_steps))
+    n = adj.shape[-1]
     dev = adj.device
     cap = min(cap, n)
     eye = torch.eye(n, dtype=torch.bool, device=dev)
-    adj_b = adj & mask[:, None] & mask[None, :] & ~eye
+    adj_b = adj & mask[..., :, None] & mask[..., None, :] & ~eye
     scores = torch.where(mask, clique_seed_scores(adj, mask), float("-inf"))
-    vsel = _top_k_indices(scores, cap)
-    vvalid = mask[vsel] & (scores[vsel] > float("-inf"))
-    sub = adj_b[vsel][:, vsel] & vvalid[:, None] & vvalid[None, :]
+    vsel = _top_k_indices(scores, cap)                       # (B, cap)
+    vvalid = mask.gather(-1, vsel) & (scores.gather(-1, vsel)
+                                      > float("-inf"))
+    sub = _take_rows(adj_b, vsel).gather(
+        -1, vsel[:, None, :].expand(-1, cap, -1))
+    sub = sub & vvalid[..., :, None] & vvalid[..., None, :]
     _, core_mask = max_kcore(adj_b, mask)
     core_in = core_mask & mask
-    restricted = core_in.sum() > (core_in[vsel] & vvalid).sum()
+    restricted = core_in.sum(-1) > (core_in.gather(-1, vsel) & vvalid).sum(-1)
     if incumbent is not None:
-        inc_sub = incumbent[vsel] & vvalid
+        inc_sub = incumbent.gather(-1, vsel) & vvalid
         # usable only if the whole incumbent lies inside the restriction
-        inc_ok = inc_sub.sum() == (incumbent & mask).sum()
-        best0 = inc_sub & inc_ok
+        inc_ok = inc_sub.sum(-1) == (incumbent & mask).sum(-1)
+        best0 = inc_sub & inc_ok[..., None]
     else:
-        best0 = torch.zeros(cap, dtype=torch.bool, device=dev)
-
-    host = torch.cat([sub, vvalid[None], best0[None]]).cpu().numpy()
-    weights = 1 << np.arange(cap, dtype=object)
-    sub_bits = [int((row * weights).sum()) for row in host[:cap]]
-    p0 = int((host[cap] * weights).sum())
-    best = int((host[cap + 1] * weights).sum())
-    best_size = best.bit_count()
-    stack = [(p0, 0)]                      # (candidates, clique) frames
-    steps = 0
-    while stack and steps < max_steps:
-        p, c = stack.pop()
-        csz, psz = c.bit_count(), p.bit_count()
-        if csz > best_size:
-            best, best_size = c, csz
-        if csz + psz > best_size and psz > 0:
-            v = _lowest_bit(p)
-            vm = 1 << v
-            stack.append((p & ~vm, c))         # exclude v, explored later
-            stack.append((p & sub_bits[v], c | vm))   # include v, first
-        steps += 1
-    best_mask = torch.tensor([(best >> i) & 1 for i in range(cap)],
-                             dtype=torch.bool).to(dev)
-    out = torch.zeros(n, dtype=torch.bool, device=dev)
-    out[vsel] = best_mask & vvalid
-    completed = torch.tensor(not stack).to(dev)
+        best0 = torch.zeros_like(vvalid)
+    best, completed, steps = kernels.exact_clique(
+        sub.contiguous(), vvalid.contiguous(), best0.contiguous(), max_steps)
+    out = torch.zeros_like(mask).scatter(-1, vsel, best)
     return out, completed, restricted, steps
 
 
@@ -484,21 +467,14 @@ def select_inliers(adj: torch.Tensor, mask: torch.Tensor, mode: str = "clique",
     (include/quatro.hpp:184-189,248). Returns (inlier_mask (N,) bool,
     valid () bool), with a leading pair axis for a batch (B, N, N); valid
     is False when <= 1 vertex is selected (the reference aborts there,
-    include/quatro.hpp:809-813). The exact search runs on the host, one
-    pair after the other."""
+    include/quatro.hpp:809-813). The exact search takes every pair in
+    one call."""
     if mode == "exact":
         greedy = greedy_cliques(adj, clique_seed_scores(adj, mask), mask,
                                 num_seeds=num_seeds, max_size=max_size,
                                 swap_rounds=swap_rounds) & mask
-        if adj.dim() == 2:
-            bb = exact_max_clique_bb(adj, mask, incumbent=greedy,
-                                     cap=exact_cap,
-                                     max_steps=exact_max_steps)[0]
-        else:
-            bb = torch.stack([exact_max_clique_bb(
-                a, m, incumbent=g, cap=exact_cap,
-                max_steps=exact_max_steps)[0]
-                for a, m, g in zip(adj, mask, greedy)])
+        bb = exact_max_clique_bb(adj, mask, incumbent=greedy, cap=exact_cap,
+                                 max_steps=exact_max_steps)[0]
         # seeded with the greedy incumbent, the search can only match or
         # beat it; the max guards the truncated case
         sel = torch.where((bb.sum(-1) >= greedy.sum(-1))[..., None], bb,

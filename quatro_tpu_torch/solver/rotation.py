@@ -5,13 +5,15 @@ include/quatro.hpp:430-572). The weighted 2x2 orthogonal Procrustes
 problem has the closed form
 theta* = atan2(sum_i w_i (x_i x y_i), sum_i w_i (x_i . y_i)), so each yaw
 iteration is two masked reductions and a weight update; the full SO(3)
-variant (TEASER mode) solves a weighted Kabsch problem (one 3x3 SVD) per
-iteration. Two robust losses: GNC-TLS (the reference's default) and the
-graduated Geman-McClure of its FGR option. Every function takes leading
-axes (pairs, hypotheses). The loops keep the JAX package's bound and
-exit test per row; they are device loops (utils/loops.py) that read one
-flag back per GNC_CHUNK iterations, whatever the number of rows, and on
-the card replay CUDA graphs.
+variant (TEASER mode) solves a weighted Kabsch problem per iteration
+(ops/kabsch.py: the JAX package's H and LAPACK SVD, rounding by rounding,
+one kernel launch on the card). Two robust losses: GNC-TLS (the
+reference's default) and the graduated Geman-McClure of its FGR option.
+Every function takes leading axes (pairs, hypotheses). The loops keep
+the JAX package's bound and exit test per row; they are device loops
+(utils/loops.py) that read one flag back per GNC_CHUNK iterations,
+whatever the number of rows, and on the card replay CUDA graphs, the
+SO(3) ones too.
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ from typing import NamedTuple
 
 import torch
 
-from quatro_tpu_torch.utils import loops
+from quatro_tpu_torch.ops import kabsch
+from quatro_tpu_torch.utils import fused, loops
 from quatro_tpu_torch.utils.fused import pairwise_sum
 from quatro_tpu_torch.utils.se3 import rotate_points
 
@@ -57,22 +60,29 @@ def svd_rot3d(src: torch.Tensor, dst: torch.Tensor,
               weights: torch.Tensor) -> torch.Tensor:
     """Weighted Kabsch: the proper rotation R with R @ src ~= dst
     (teaser::utils::svdRot, include/teaser/utils.h:123-149): H = X W Y^T,
-    R = V U^T with the determinant fix; any leading axes. H is the JAX
-    package's f32 matrix product (TF32 is never enabled); on a
-    97 %-outlier fixture a sum in another order moved FGR's 3-D optimum
-    by 6e-5."""
-    h = (src * weights[..., None]).transpose(-1, -2) @ dst
-    u, _, vt = torch.linalg.svd(h)
-    v = vt.transpose(-1, -2)
-    det = torch.linalg.det(u) * torch.linalg.det(v)
-    v = torch.cat([v[..., :2], v[..., 2:]
-                   * torch.where(det < 0, -1.0, 1.0)[..., None, None]], -1)
-    return rotate_points(v, u)                           # v @ u.T
+    R = V U^T with the determinant fix; any leading axes. The JAX
+    package's H and SVD rounding by rounding (ops/kabsch.py: H by fused
+    multiply-adds in point order, LAPACK's sgesdd on the 3 x 3 H), one
+    kernel launch for all rows on the card, nothing read back: a GNC loop
+    that ends on an ill-conditioned H turns one ulp into 1e-5 of
+    rotation."""
+    return kabsch.kabsch_rotation(src, dst, weights)
+
+
+def _rotate_fused(points: torch.Tensor, rotation: torch.Tensor):
+    """points @ rotation.T as the JAX package's compiled dot computes it:
+    each entry a fused multiply-add of the next product, in index order.
+    The SO(3) GNC's residuals, and so its weights, keep its bits."""
+    rt = rotation.transpose(-1, -2)
+    out = points[..., :, 0:1] * rt[..., 0:1, :]
+    for k in (1, 2):
+        out = fused.fma(points[..., :, k:k + 1], rt[..., k:k + 1, :], out)
+    return out
 
 
 # (solve_rotation, apply_rotation) of the two rotation parametrisations
 _YAW = (yaw_procrustes, lambda th, x: rotate_points(x, rot2d(th)))
-_SO3 = (svd_rot3d, lambda r, x: rotate_points(x, r))
+_SO3 = (svd_rot3d, lambda r, x: _rotate_fused(x, r))
 
 
 def _keep(live, new, old):
@@ -123,16 +133,13 @@ def _any_live(state):
 
 
 def _run_iterations(name, round_fn, src, dst, maskf, scale_sq, state,
-                    bound, solve_rotation):
+                    bound):
     """Iterations 1.. of a GNC loop as a device loop (utils/loops.py), one
-    flag read per GNC_CHUNK iterations. The SO(3) solve cannot be
-    captured: ``torch.linalg.svd`` on the card checks its result on the
-    host, a copy to the CPU that a capture refuses
-    (``python tests/torch_loops_capture.py svd`` shows it), so that
-    parametrisation runs the same chunks uncaptured."""
+    flag read per GNC_CHUNK iterations, replayed as CUDA graphs on the
+    card (both parametrisations)."""
     state, _ = loops.while_chunks(
         name, round_fn, _any_live, (src, dst, maskf, scale_sq), state,
-        bound, GNC_CHUNK, graph=solve_rotation is not svd_rot3d)
+        bound, GNC_CHUNK)
     return state
 
 
@@ -175,7 +182,7 @@ def _gnc_tls(src, dst, mask, noise_bound, gnc_factor: float,
 
     param, weights, _, _, cost, iters, _ = _run_iterations(
         "gnc_tls", round_fn, src, dst, maskf, nb_sq, state,
-        max_iterations - 1, solve_rotation)
+        max_iterations - 1)
     inliers = (weights >= 0.4) & mask
     return param, weights, inliers, iters, cost
 
@@ -199,7 +206,9 @@ def _gm_round(src, dst, maskf, eps_sq, state, gnc_factor: float,
     done = (mu <= 1.0) & (torch.abs(c - prev_cost) < cost_threshold)
     param = p if first else _keep(live, p, param)
     weights = _keep(live, w_new, weights)
-    mu = torch.where(live, torch.clamp(mu / gnc_factor, min=1.0), mu)
+    # mu / gnc_factor as XLA compiles a division by a constant
+    mu = torch.where(live, torch.clamp(mu * fused.recip(gnc_factor), min=1.0),
+                     mu)
     prev_cost = torch.where(live, c, prev_cost)
     iters = iters + live.to(torch.int32)
     live = live & ~done
@@ -237,7 +246,7 @@ def _fgr_gm(src, dst, mask, noise_bound, gnc_factor: float,
 
     param, weights, _, prev_cost, iters, _ = _run_iterations(
         "fgr_gm", round_fn, src, dst, maskf, eps_sq, state,
-        max_iterations - 1, solve_rotation)
+        max_iterations - 1)
     inliers = (weights >= 0.4) & mask
     return param, weights, inliers, iters, prev_cost
 

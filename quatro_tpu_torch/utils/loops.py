@@ -35,7 +35,14 @@ too: it is for the tests and ``chip_smoke.py``, which hold the two routes
 bit for bit; nothing on the main path enters it.
 
 Counters: ``LOOPS[name]`` holds the loop's rounds, flag reads, captures
-and replays since ``reset_loops()``. ``ops.launch.LAUNCHES`` counts on the
+and replays since ``reset_loops()``, and after a capture ``graph_bytes``:
+the bytes of the graph's static buffers plus what the device's reserved
+memory grew by during the capture (the pool's new segments; a capture
+that fits in segments the pool already holds adds none). ``CAPTURED``
+sums the captures and their bytes since the process started
+(``reset_loops`` leaves it): cumulative, graphs since evicted or cleared
+included. ``held()`` gives the graphs kept now and the sum of their
+capture bytes, for reports. ``ops.launch.LAUNCHES`` counts on the
 host, so a capture's kernel launches are taken back out of it and added
 again at each replay: a path counts the same launches either way.
 """
@@ -53,6 +60,7 @@ from quatro_tpu_torch.ops.launch import LAUNCHES
 MAX_GRAPHS = 64         # captured chunks kept (least recently used go)
 
 LOOPS: dict = {}        # name -> {"rounds", "reads", "captures", "replays"}
+CAPTURED = {"graphs": 0, "bytes": 0}    # every capture since the start
 
 _GRAPHS: OrderedDict = OrderedDict()
 _POOLS: dict = {}       # device index -> graph memory pool
@@ -68,7 +76,7 @@ def _count(name: str, **kw) -> None:
     c = LOOPS.setdefault(name, {"rounds": 0, "reads": 0, "captures": 0,
                                 "replays": 0})
     for k, v in kw.items():
-        c[k] += v
+        c[k] = c.get(k, 0) + v
 
 
 @contextlib.contextmanager
@@ -133,6 +141,14 @@ class _Entry(NamedTuple):
     flag: Optional[torch.Tensor]
     launches: dict
     collectives: Counter
+    nbytes: int
+
+
+def held() -> dict:
+    """The captured chunks kept now (at most MAX_GRAPHS) and the sum of
+    their capture bytes (``graph_bytes``)."""
+    return {"graphs": len(_GRAPHS),
+            "bytes": sum(e.nbytes for e in _GRAPHS.values())}
 
 
 class _Loop:
@@ -190,6 +206,9 @@ class _Loop:
             out, flag = _chunk(self.body, self.cond, self.consts, state, n)
         consts = tuple(torch.empty_like(c) for c in self.consts)
         static = tuple(torch.empty_like(s) for s in state)
+        buffers = sum(t.numel() * t.element_size()
+                      for t in (*consts, *static))
+        reserved = torch.cuda.memory_reserved(dev)
         from quatro_tpu_torch.parallel.diagnostics import (ACTIVE,
                                                            collective_profile)
         before = dict(LAUNCHES)
@@ -224,11 +243,14 @@ class _Loop:
         cur.wait_stream(side)
         for t in (*out, *(() if flag is None else (flag,))):
             t.record_stream(cur)
+        grew = buffers + torch.cuda.memory_reserved(dev) - reserved
         _GRAPHS[key] = _Entry(graph, consts, static, flags[0], launches,
-                              collectives)
+                              collectives, grew)
         while len(_GRAPHS) > MAX_GRAPHS:
             _GRAPHS.popitem(last=False)
-        _count(self.name, captures=1)
+        _count(self.name, captures=1, graph_bytes=grew)
+        CAPTURED["graphs"] += 1
+        CAPTURED["bytes"] += grew
         self.static = False
         return out, flag
 

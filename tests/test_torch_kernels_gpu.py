@@ -1,4 +1,4 @@
-"""The twelve CUDA kernels against their plain PyTorch versions, on the card,
+"""The thirteen CUDA kernels against their plain PyTorch versions, on the card,
 and the loop-closing path's device code (pose graph, Scan Context).
 
 Every test here is marked ``gpu`` and skips without a CUDA device. The
@@ -12,6 +12,8 @@ kernels on the CPU (tests/test_torch_frontend.py); the tolerances are
 those of chip_smoke.py.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -24,6 +26,7 @@ from quatro_tpu_torch.ops import kernels, launch, segment
 from quatro_tpu_torch.ops.voxel import voxel_downsample
 from quatro_tpu_torch.pipeline import extract_features, register_features
 from quatro_tpu_torch.solver import vote
+from quatro_tpu_torch.solver.quatro import register_correspondences
 from quatro_tpu_torch.solver.scale import tim_consistency_graph
 from quatro_tpu_torch.types import PointBatch
 
@@ -549,7 +552,8 @@ def test_recommended_runs_all_six_kernels(recommended):
                         "nearest_neighbors2": 2, "consistency_graph": 1,
                         "segment_sums": 1, "cross_histogram": 0,
                         "fit_iteration_moments": 0, "classify_points": 0,
-                        "image_lookup": 0, "table_lookup": 0}
+                        "image_lookup": 0, "table_lookup": 0,
+                        "exact_clique": 0, "kabsch": 0}
     assert bool(res.solution.valid)
     assert res.hypotheses.rotation.shape[0] == 6
     for name in ("valid", "rotation", "translation", "max_clique_mask",
@@ -725,7 +729,7 @@ def test_batched_pipeline_launches_do_not_depend_on_batch(dev):
                    "consistency_graph": 1, "segment_sums": 1,
                    "cross_histogram": 1, "fit_iteration_moments": 3,
                    "classify_points": 1, "image_lookup": 1,
-                   "table_lookup": 0}
+                   "table_lookup": 0, "exact_clique": 0, "kabsch": 0}
 
 
 def test_plain_graph_refused_on_the_card(dev, recommended):
@@ -909,7 +913,7 @@ def test_register_scan_pair_runs_all_ten_kernels(dev):
         "nearest_neighbors2": 2,
         "consistency_graph": 1, "segment_sums": 1, "cross_histogram": 1,
         "fit_iteration_moments": 3, "classify_points": 1, "image_lookup": 1,
-        "table_lookup": 0}
+        "table_lookup": 0, "exact_clique": 0, "kabsch": 0}
     assert bool(res.solution.valid)
 
 
@@ -1034,11 +1038,30 @@ def _loop_cases(dev):
                       for a in zip(*cases))
     adj = tim_consistency_graph(src, tgt, mask, 0.3, 1.0)
     p0, edges = _pose_graph(dev)
+
+    from pathlib import Path
+    z = np.load(Path(__file__).resolve().parent / "torch_teaser_path_b.npz")
+    solver = PipelineConfig(max_voxels=8192).solver
+
+    def solve(**kw):
+        """The JAX package's path B correspondences (the synthetic pairs'
+        cliques are noise-free, so TEASER's GNC stops at iteration 0)."""
+        sol = register_correspondences(
+            z["src_xyz"], z["tgt_xyz"], z["mask"],
+            dataclasses.replace(solver, **kw), device=dev)
+        return [getattr(sol, f.name) for f in dataclasses.fields(sol)]
+
     return {
         "gnc_tls": lambda: rotation.gnc_rotation_2d(
             src[..., :2], tgt[..., :2], mask, 0.3),
         "fgr_gm": lambda: rotation.gnc_rotation_2d(
             src[..., :2], tgt[..., :2], mask, 0.3, algorithm="FGR"),
+        "gnc_tls_3d": lambda: rotation.gnc_rotation_3d(src, tgt, mask, 0.3),
+        "fgr_gm_3d": lambda: rotation.gnc_rotation_3d(src, tgt, mask, 0.3,
+                                                      algorithm="FGR"),
+        "teaser": lambda: solve(reg_name="TEASER"),
+        "teaser_fgr": lambda: solve(reg_name="TEASER",
+                                    rotation_estimation_algorithm="FGR"),
         "cliques": lambda: clique.select_inliers_with_candidates(
             adj, mask, num_seeds=128, swap_rounds=2),
         "top_distinct": lambda: clique.top_distinct_cliques(
@@ -1055,12 +1078,20 @@ def _flat(out):
                                                for t in _flat(o)]
 
 
-@pytest.mark.parametrize("case", ["gnc_tls", "fgr_gm", "cliques",
-                                  "top_distinct", "pose_graph"])
+# the GNC loop that each SO(3) case must capture and replay
+SO3_LOOP = {"gnc_tls_3d": "gnc_tls", "fgr_gm_3d": "fgr_gm",
+            "teaser": "gnc_tls", "teaser_fgr": "fgr_gm"}
+
+
+@pytest.mark.parametrize("case", ["gnc_tls", "fgr_gm", "gnc_tls_3d",
+                                  "fgr_gm_3d", "teaser", "teaser_fgr",
+                                  "cliques", "top_distinct", "pose_graph"])
 def test_device_loops_graph_equals_eager_on_the_card(dev, case):
     """A loop's CUDA-graph route (first call: its first chunk uncaptured,
     then the capture; second call: replays only) gives the bits of
-    ``eager_loops()``, and the same kernel launches in ``LAUNCHES``."""
+    ``eager_loops()``, and the same kernel launches in ``LAUNCHES``. The
+    SO(3) GNC (TEASER, the 3-D FGR) captures and replays like the yaw
+    loop."""
     from quatro_tpu_torch.utils import loops
     fn = _loop_cases(dev)[case]
     loops.clear_graphs()
@@ -1080,6 +1111,13 @@ def test_device_loops_graph_equals_eager_on_the_card(dev, case):
     print(case, dict(loops.LOOPS))
     assert sum(c["captures"] for c in counts) >= 1
     assert sum(c["replays"] for c in counts) >= 1
+    if case in SO3_LOOP:
+        c = loops.LOOPS[SO3_LOOP[case]]
+        assert c["captures"] >= 1 and c["replays"] >= 1
+        assert c["graph_bytes"] >= 0
+        assert eager_launches["kabsch"] >= 1
+        held = loops.held()
+        assert 1 <= held["graphs"] <= loops.MAX_GRAPHS and held["bytes"] >= 0
 
 
 def _stage_loop_cases(dev):
@@ -1224,6 +1262,125 @@ def test_device_loops_copy_out_on_the_card(dev):
         ref = rotation.gnc_rotation_2d(src, dst, mask, 0.1)
     for a, b in zip(first, ref):
         assert torch.equal(a, b)
+
+
+def _exact_restrictions(cap, max_steps):
+    """The restricted graphs, validity and incumbents that
+    ``exact_max_clique_bb`` hands ``ops.kernels.exact_clique`` for the
+    three pairs of ``_loop_cases`` (60 inliers, junk, 12 inliers) on the
+    CPU, with the greedy incumbent: [(sub, vvalid, best0)] (B = 3)."""
+    from quatro_tpu_torch.io.synthetic import make_correspondences
+    from quatro_tpu_torch.solver import clique
+    rng = np.random.default_rng(1)
+    cases = []
+    for seed, n_in in ((0, 60), (1, 0), (2, 12)):
+        if n_in:
+            src, tgt, _, _ = make_correspondences(
+                seed=seed, n_inliers=n_in, n_outliers=256 - n_in,
+                yaw_deg=40.0 + seed, translation=(3.0, -1.5, 0.3))
+        else:
+            src, tgt = (rng.uniform(-20, 20, (256, 3)).astype(np.float32)
+                        for _ in range(2))
+        cases.append((src, tgt, np.arange(256) < 251))
+    src, tgt, mask = (torch.from_numpy(np.stack(a)) for a in zip(*cases))
+    adj = tim_consistency_graph(src, tgt, mask, 0.3, 1.0)
+    inc = clique.greedy_cliques(adj, clique.clique_seed_scores(adj, mask),
+                                mask) & mask
+    seen = []
+    real = kernels.exact_clique
+
+    def rec(*args):
+        seen.append(args[:3])
+        return real(*args)
+
+    kernels.exact_clique = rec
+    try:
+        clique.exact_max_clique_bb(adj, mask, incumbent=inc, cap=cap,
+                                   max_steps=max_steps)
+    finally:
+        kernels.exact_clique = real
+    return seen[0], (adj, mask, inc)
+
+
+@pytest.mark.parametrize("bsz,cap,max_steps", [
+    (1, 64, 20000), (3, 64, 20000), (3, 64, 40), (3, 150, 20000),
+    (3, 256, 2000)], ids=["b1", "b3", "truncated", "cap150", "cap256"])
+def test_exact_clique_kernel(dev, bsz, cap, max_steps):
+    """The exact search's kernel against its plain version on CPU copies,
+    bit for bit (best set, completed, steps), in one launch for the
+    pairs; 64-bit words 1, 3 and 4 a bitset. Then exact_max_clique_bb on
+    the card against the CPU: every output equal, one launch."""
+    from quatro_tpu_torch.solver import clique
+    (sub, vvalid, best0), (adj, mask, inc) = _exact_restrictions(
+        cap, max_steps)
+    sub, vvalid, best0 = sub[:bsz], vvalid[:bsz], best0[:bsz]
+    ref = kernels.exact_clique_search_plain(sub, vvalid, best0, max_steps)
+    launch.reset_launches()
+    got = kernels.exact_clique(*(t.to(dev).contiguous()
+                                 for t in (sub, vvalid, best0)), max_steps)
+    torch.cuda.synchronize()
+    assert launch.LAUNCHES["exact_clique"] == 1
+    for g, r in zip(got, ref):
+        assert torch.equal(g.cpu(), r)
+    print(f"B {bsz} cap {cap}: steps {ref[2].tolist()}, completed "
+          f"{ref[1].tolist()}")
+    cpu = clique.exact_max_clique_bb(adj[:bsz], mask[:bsz],
+                                     incumbent=inc[:bsz], cap=cap,
+                                     max_steps=max_steps)
+    launch.reset_launches()
+    card = clique.exact_max_clique_bb(adj[:bsz].to(dev), mask[:bsz].to(dev),
+                                      incumbent=inc[:bsz].to(dev), cap=cap,
+                                      max_steps=max_steps)
+    assert launch.LAUNCHES["exact_clique"] == 1
+    for g, r in zip(card, cpu):
+        assert torch.equal(g.cpu(), r)
+
+
+def _kabsch_inputs(rows, n, seed):
+    """src, dst (rows, n, 3) and w (rows, n): random rows, then a zero-
+    weight row, a planar and a reflected set, and rows whose H is a hard
+    3 x 3 matrix (src the unit vectors, w 1, so H = dst exactly): rank 1,
+    near rank 2, singular values 572, 0.7 and 0.2, diagonal, -I."""
+    rng = np.random.default_rng(seed)
+    src = rng.normal(0, 10, (rows, n, 3)).astype(np.float32)
+    dst = rng.normal(0, 10, (rows, n, 3)).astype(np.float32)
+    w = rng.uniform(0, 1, (rows, n)).astype(np.float32)
+    hard = [np.outer(rng.normal(size=3), rng.normal(size=3)) * 50,
+            np.array([[1.0, 2.0, 1.0 + 1e-4], [0.5, -1.0, 0.25],
+                      [3.0, 0.0, 1.5]]) * 100,
+            np.diag([572.0, 0.7, 0.2]) @ np.linalg.qr(
+                rng.normal(size=(3, 3)))[0],
+            np.diag(rng.normal(size=3)), -np.eye(3)]
+    if rows >= 3 + len(hard) and n >= 3:
+        w[0] = 0.0
+        src[1, :, 2] = dst[1, :, 2] = 0.0
+        dst[2] = src[2] * np.float32([1.0, 1.0, -1.0])
+        for k, h in enumerate(hard):
+            src[3 + k], dst[3 + k], w[3 + k] = 0.0, 0.0, 0.0
+            src[3 + k, :3], dst[3 + k, :3], w[3 + k, :3] = np.eye(3), h, 1.0
+    return (torch.from_numpy(src), torch.from_numpy(dst),
+            torch.from_numpy(w))
+
+
+@pytest.mark.parametrize("rows,n", [(1, 3), (5, 1), (8, 256), (48, 512),
+                                    (8, 2000), (384, 600)])
+def test_kabsch_kernel(dev, rows, n):
+    """The Kabsch kernel against its plain version on CPU copies and on
+    the card, bit for bit, one launch for the rows; the rows of a batch
+    equal to their own calls."""
+    from quatro_tpu_torch.ops import kabsch
+    src, dst, w = _kabsch_inputs(rows, n, rows + n)
+    ref = kabsch.kabsch_rotation_plain(src, dst, w)
+    src, dst, w = src.to(dev), dst.to(dev), w.to(dev)
+    launch.reset_launches()
+    got = kabsch.kabsch_rotation(src, dst, w)
+    torch.cuda.synchronize()
+    assert launch.LAUNCHES["kabsch"] == 1
+    assert torch.equal(got.cpu(), ref)
+    assert torch.equal(got, kabsch.kabsch_rotation_plain(src, dst, w))
+    for b in (0, rows - 1):
+        assert torch.equal(got[b], kabsch.kabsch_rotation(src[b], dst[b],
+                                                          w[b]))
 
 
 def test_scan_context_on_the_card(dev):

@@ -10,8 +10,12 @@ captures), replays the graph and compares its outputs with an uncaptured
 run on the same inputs bit for bit. A case that cannot be captured prints
 the error; nothing falls back. Cases:
 
-* ``svd``: ``solver/rotation.svd_rot3d`` at the polish's shape (48 rows of
-  512 correspondences): ``torch.linalg.svd`` and ``det`` on (48, 3, 3);
+* ``svd``: ``torch.linalg.svd`` and ``det`` on (48, 3, 3), the polish's
+  shape (48 rows): the SVD checks its result on the host, which a
+  capture refuses (the case exits 0 when it is refused, 1 if captured);
+* ``so3``: ``solver/rotation.svd_rot3d`` at the polish's shape (48 rows of
+  512 correspondences), which uses neither (one launch of the Kabsch
+  kernel, built first): it captures;
 * ``yaw``: ``yaw_procrustes`` and the TLS weight update;
 * ``clique``: a batched counting matmul, a stable sort, argmax, one_hot,
   scatter and gather at the clique loops' shapes;
@@ -46,7 +50,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 CASES = ("yaw", "clique", "segment_sums", "profiler",
-         "profiler_after_graphs", "svd", "nccl", "host_scalar")
+         "profiler_after_graphs", "svd", "so3", "nccl", "host_scalar")
 
 
 def capture(fn, *args):
@@ -91,6 +95,15 @@ def case(name: str) -> int:
     torch.cuda.set_device(dev)
     gen = torch.Generator(device="cpu").manual_seed(0)
     if name == "svd":
+        h = torch.randn(48, 3, 3, generator=gen).to(dev)
+
+        def body(h):
+            u, _, vt = torch.linalg.svd(h)
+            return vt.transpose(-1, -2) @ u.transpose(-1, -2), \
+                torch.linalg.det(u)
+        rc = report("torch.linalg.svd + det (48, 3, 3)", body, h)
+        return 0 if rc else 1                    # refusing it is expected
+    if name == "so3":
         from quatro_tpu_torch.solver.rotation import svd_rot3d
         src = torch.randn(48, 512, 3, generator=gen).to(dev)
         dst = torch.randn(48, 512, 3, generator=gen).to(dev)
