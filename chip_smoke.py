@@ -7,10 +7,11 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions, and the float32 precision flags (TF32 off everywhere);
-2. build: the fourteen kernels from quatro_tpu_torch/csrc (the twelve
-   of the JAX package's Pallas calls, the exact clique search and the
-   Kabsch rotation), one nvcc per source, all started together; build
-   time and ptxas register and spill summary;
+2. build: the sixteen kernels from quatro_tpu_torch/csrc (the twelve
+   of the JAX package's Pallas calls, the exact clique search, the
+   Kabsch rotation, the labelling's sweep and the overlaps' hit counts),
+   one nvcc per source, all started together; build time and ptxas
+   register and spill summary;
 3. path A, the main path (Quatro++ coarse to fine): ``register_scan_pair``
    on the raw seed-11 HDL-64E synthetic pair (the pair of
    tests/test_pipeline.py, capacity 131072) tilted as tests/test_ground.py
@@ -24,7 +25,11 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    the launch counts over the run 1 (moments), 1 (SPFH), 1 (FPFH), 0
    (1-NN), 2 (top-2 NN), 1 (consistency graph), 1 (segment sums), 1 (cross
    histogram), 3 (plane-fit moments), 1 (classification), 1 (image
-   lookup), 0 (table lookup). Per-stage times from CUDA events after one
+   lookup), 0 (table lookup), 1 (overlap hits) and 8 sweeps (4 diagonal,
+   4 composed) a labelling round run (the rounds follow the data: every
+   launch count of every path holds the sweeps to the rounds the
+   labelling loop ran, ``launches_match``). Per-stage times from CUDA
+   events after one
    warm-up run
    ("leveling" and "icp" among them); ground, non-ground and segment points
    per cloud; the hypotheses and the winner; the pair latency over five
@@ -131,7 +136,16 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    kernel on path B's TEASER mode's first GNC iteration, bit for bit its
    plain version on the card and on CPU copies (for both, the bound in
    bytes and operations does not apply: ``bound_applies`` false, their
-   serial chains limit them). B2, B3 (with
+   serial chains limit them); the labelling's sweep kernel on every sweep
+   path A's labelling ran, bit for bit its plain version on the card (the
+   first round's also on CPU copies), its row timing one round (8
+   launches; bound: the round's bytes), and segment_cloud with the kernel
+   against the plain sweeps on the card under all three neighbour modes
+   (every field, labels, feasibility) on path A's clouds and on a VLP-16
+   and an Ouster OS1-64 pair; the overlap kernel on path A's arbitration
+   call (bound: 9 operations per valid source row and valid target
+   point), bit for bit its plain version on the card and on CPU copies,
+   and with a NaN in a valid target point (no hit). B2, B3 (with
    its active limits and the tile pairs it tested and skipped), B5 (alone
    and on B4's tile table), B6, B7 (both directions, with the active
    limits it found), B8, B9 (both flags, with its active limits) and the
@@ -177,7 +191,12 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    device ms beside its bound; ``pair_axis`` in B1's row of the kernel
    table); at each B the batched voxel grid equal to the per-cloud call
    on every cloud (128 at B = 64) and the overlaps to the per-pair call
-   on every pair, bit for bit;
+   on every pair, bit for bit; at B = 64 the sweep kernel on the first
+   labelling round of the 128 images and the overlap kernel on the 384
+   (pair, pose) rows, each bit for bit its plain version on the card with
+   its device, call and plain ms and bound (``b64`` in their rows), and
+   segment_cloud with the kernel against the plain sweeps under all three
+   neighbour modes;
 11. path M, the multi-card step on one card (parallel/), after path P:
    (a) on a one-rank NCCL group (a file store under build/),
    ``make_full_pipeline_step`` over path S's 12 frames as the ring of
@@ -254,6 +273,8 @@ OPS_KABSCH_POINT = 9 * 3  # per point: 9 entries of H, a product and a
                           # and w shared by three entries)
 OPS_KABSCH_ROW = 2000     # per row: the 3 x 3 SVD's bidiagonalisation,
                           # sweeps and back transformation (approx.)
+OPS_OVERLAP = 9           # per (valid source row, valid target point): 3
+                          # sub, 3 mul, 2 add, the min
 
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 PAIR_REPEATS = 5          # timed runs of path A
@@ -292,6 +313,10 @@ REPLACES = {
     "exact_clique": "quatro_tpu/solver/clique.py:382",
     # no pl.pallas_call: svd_rot3d's XLA dot and LAPACK SVD
     "kabsch": "quatro_tpu/solver/rotation.py:55",
+    # no pl.pallas_call: the XLA fusions of label_components' sweep and of
+    # alignment_overlap's block_hits
+    "label_sweep": "quatro_tpu/preprocessing/projection.py:203",
+    "overlap_hits": "quatro_tpu/solver/verify.py:63",
 }
 SOURCES = {
     "moment_sums": "quatro_tpu_torch/csrc/moment_sums.cu",
@@ -308,19 +333,31 @@ SOURCES = {
     "table_lookup": "quatro_tpu_torch/csrc/table_lookup.cu",
     "exact_clique": "quatro_tpu_torch/csrc/exact_clique.cu",
     "kabsch": "quatro_tpu_torch/csrc/kabsch.cu",
+    "label_sweep": "quatro_tpu_torch/csrc/label_sweep.cu",
+    "overlap_hits": "quatro_tpu_torch/csrc/overlap_hits.cu",
 }
+# label_sweep launches follow the data: one a sweep of every labelling
+# round run, SWEEPS_PER_ROUND a round under 4CrossNeighbor (4 diagonal, 4
+# composed). In the launch dicts below its entry is the sweeps a round;
+# ``launches_match`` holds a run's count to that many per round it ran.
+SWEEPS_PER_ROUND = 8
 MAIN_LAUNCHES = {"moment_sums": 1, "spfh": 1, "fpfh": 1,
                  "nearest_neighbors": 0, "nearest_neighbors2": 2,
                  "consistency_graph": 1, "segment_sums": 1,
                  "cross_histogram": 1, "fit_iteration_moments": 3,
                  "classify_points": 1, "image_lookup": 1, "table_lookup": 0,
-                 "exact_clique": 0, "kabsch": 0}
+                 "exact_clique": 0, "kabsch": 0,
+                 "label_sweep": SWEEPS_PER_ROUND, "overlap_hits": 1}
 PATH_B_LAUNCHES = dict(MAIN_LAUNCHES, nearest_neighbors=2,
-                       nearest_neighbors2=0, segment_sums=0)
+                       nearest_neighbors2=0, segment_sums=0, overlap_hits=0)
 FEATURES_LAUNCHES = dict(MAIN_LAUNCHES, cross_histogram=0,
                          fit_iteration_moments=0, classify_points=0,
-                         image_lookup=0)
-SINGLE_LAUNCHES = dict(FEATURES_LAUNCHES, segment_sums=0)
+                         image_lookup=0, label_sweep=0)
+SINGLE_LAUNCHES = dict(FEATURES_LAUNCHES, segment_sums=0, overlap_hits=0)
+# the labelling's sweep kernel against its plain version on images of
+# other presets (ray-cast pairs, all three neighbour modes)
+LABEL_PRESETS = ("VLP-16", "Ouster-OS1-64")
+NEIGHBOR_MODES = ("4CrossNeighbor", "4Neighbor", "8Neighbor")
 # path S: make_synthetic_sequence's arguments, run_sequence's edge batch
 # and pose-graph trip counts, and the windowed runner's window
 SEQUENCE = dict(num_poses=12, seed=1, radius=6.0)
@@ -374,6 +411,39 @@ def log(*args):
 def check(cond, what):
     if not cond:
         raise AssertionError(what)
+
+
+def label_rounds():
+    """The labelling rounds run since the loops' counters were reset
+    (``utils/loops.LOOPS``): the data decide them."""
+    from quatro_tpu_torch.utils import loops
+    return loops.LOOPS.get("label_components", {}).get("rounds", 0)
+
+
+def launch_counts(rounds0=0):
+    """``LAUNCHES`` as they stand, with "label_rounds": the labelling
+    rounds run since ``label_rounds()`` was ``rounds0``."""
+    from quatro_tpu_torch.ops import launch
+    return dict(launch.LAUNCHES, label_rounds=label_rounds() - rounds0)
+
+
+def launches_match(got, expected):
+    """A run's counts (``launch_counts``) against ``expected``, whose
+    label_sweep is the sweeps a labelling round: every other kernel's
+    count equal, label_sweep that many per round the run ran."""
+    want = dict(expected,
+                label_sweep=expected["label_sweep"] * got["label_rounds"])
+    return all(got[k] == v for k, v in want.items())
+
+
+def same_launches(a, b):
+    """Two runs' counts equal but for what the data decide: the rounds,
+    and so label_sweep (each run SWEEPS_PER_ROUND a round it ran)."""
+    data = ("label_sweep", "label_rounds")
+    return (all(x["label_sweep"] == SWEEPS_PER_ROUND * x["label_rounds"]
+                for x in (a, b))
+            and {k: v for k, v in a.items() if k not in data}
+            == {k: v for k, v in b.items() if k not in data})
 
 
 def nonground(xyz, sensor_height=1.723, margin=0.3):
@@ -652,12 +722,13 @@ def phase_pipeline(entry, pair, gt, cfg, name, expected, repeats,
     entry(*pair, cfg)                                # warm-up
     torch.cuda.synchronize()
     launch.reset_launches()
+    rounds0 = label_rounds()
     timer = StageTimer()
     t0 = time.perf_counter()
     res = entry(*pair, cfg, timer=timer)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    launches = dict(launch.LAUNCHES)
+    launches = launch_counts(rounds0)
     stages = timer.split_ms()
 
     sol = res.solution
@@ -687,8 +758,9 @@ def phase_pipeline(entry, pair, gt, cfg, name, expected, repeats,
     check(rerr < max_rerr, f"{name}: rotation error {rerr} rad")
     check(terr < max_terr, f"{name}: translation error {terr} m")
     check(torch.isfinite(sol.transform()).all(), f"{name}: non-finite pose")
-    check(launches == expected,
-          f"{name}: launch counts {launches} != {expected}")
+    check(launches_match(launches, expected),
+          f"{name}: launch counts {launches} != {expected} (label_sweep a "
+          "round)")
 
     walls = []
     for _ in range(repeats):
@@ -1115,8 +1187,10 @@ def phase_teaser_fixture(cfg):
 def capture_preprocessing(raw, cfg):
     """The arguments the main path hands each preprocessing kernel: one
     more preprocessing run of the pair (after the counted run) with the
-    four wrappers wrapped to record their arguments. Logs the ground,
-    non-ground and segment points per cloud."""
+    five wrappers wrapped to record their arguments (the sweep's on every
+    sweep of every round), and segment_cloud's and label_components'
+    arguments. Logs the ground, non-ground and segment points per
+    cloud."""
     from quatro_tpu_torch.device import resolve_device
     from quatro_tpu_torch.preprocessing import patchwork, projection
     from quatro_tpu_torch.utils import loops
@@ -1124,7 +1198,8 @@ def capture_preprocessing(raw, cfg):
     calls = {}
     wrapped = [(patchwork, "cross_histogram"),
                (patchwork, "fit_iteration_moments"),
-               (patchwork, "classify_points"), (projection, "image_lookup")]
+               (patchwork, "classify_points"), (projection, "image_lookup"),
+               (projection, "label_sweep"), (projection, "label_components")]
     saved = [getattr(mod, fn) for mod, fn in wrapped]
 
     def recorder(name, fn):
@@ -1144,9 +1219,10 @@ def capture_preprocessing(raw, cfg):
         # replay calls no Python)
         with loops.eager_loops():
             pw = patchwork.estimate_ground(pts, msk, cfg.patchwork)
-            seg = projection.segment_cloud(
-                pts, pw.nonground, cfg.lidar, cfg.projection,
-                max_points=cfg.max_nonground_points).valid_segments
+            seg_args = ((pts, pw.nonground, cfg.lidar, cfg.projection),
+                        {"max_points": cfg.max_nonground_points})
+            seg = projection.segment_cloud(*seg_args[0],
+                                           **seg_args[1]).valid_segments
     finally:
         for (mod, fn), orig in zip(wrapped, saved):
             setattr(mod, fn, orig)
@@ -1158,22 +1234,37 @@ def capture_preprocessing(raw, cfg):
         "segments": seg.sum(1).tolist()}))
     check(bool((pw.ground.sum(1) > 0).all() and (seg.sum(1) > 0).all()),
           "preprocessing left no ground or no segments")
+    calls["segment_cloud"] = [seg_args]
     return calls
+
+
+def capture_overlap(pair, cfg):
+    """The arguments the main path hands the overlap kernel's wrapper: one
+    more run of the pair with ``verify.overlap_hits`` recording them."""
+    from quatro_tpu_torch.pipeline import register_scan_pair
+    from quatro_tpu_torch.solver import verify
+
+    with recorded(verify, "overlap_hits", []) as calls:
+        register_scan_pair(*pair, cfg)
+    torch.cuda.synchronize()
+    check(len(calls) == 1, f"path A: {len(calls)} overlap calls, not one")
+    return calls[0][0]
 
 
 def sequence_launches(frames, calls):
     """Path S's expected launch counts: per frame the preprocessing and
-    front-end kernels, per batched registration call (one per edge batch)
-    the matcher's top-2 NN twice, the graph and the vote's segment sums,
-    and per pose-graph solve one segment sum per J^T apply (gn x (cg +
-    1))."""
+    front-end kernels (the sweeps per labelling round), per batched
+    registration call (one per edge batch) the matcher's top-2 NN twice,
+    the graph, the vote's segment sums and the overlaps, and per
+    pose-graph solve one segment sum per J^T apply (gn x (cg + 1))."""
     gn, cg = PG_ITERS
     return dict(MAIN_LAUNCHES, moment_sums=frames, spfh=frames, fpfh=frames,
                 nearest_neighbors2=2 * calls,
                 consistency_graph=calls,
                 segment_sums=calls + gn * (cg + 1),
                 cross_histogram=frames, fit_iteration_moments=3 * frames,
-                classify_points=frames, image_lookup=frames)
+                classify_points=frames, image_lookup=frames,
+                overlap_hits=calls)
 
 
 def _spread(ms):
@@ -1226,6 +1317,7 @@ def phase_sequence(cfg, card):
     gn, cg = PG_ITERS
     torch.cuda.synchronize()
     launch.reset_launches()
+    rounds0 = label_rounds()
     sequence.optimize_pose_graph = recorder
     try:
         res, wall_ms = _synced_ms(lambda: sequence.run_sequence(
@@ -1233,7 +1325,7 @@ def phase_sequence(cfg, card):
             batch_size=SEQ_BATCH, gn_iters=gn, cg_iters=cg))
     finally:
         sequence.optimize_pose_graph = solve
-    launches = dict(launch.LAUNCHES)
+    launches = launch_counts(rounds0)
     m = len(scans)
     edges = list(zip(res.edges_i.tolist(), res.edges_j.tolist()))
     calls = -(-len(edges) // SEQ_BATCH)
@@ -1255,8 +1347,9 @@ def phase_sequence(cfg, card):
     check(res.ate_after <= res.ate_before + 0.15,
           f"path S: closing made it worse: {res.ate_before} -> "
           f"{res.ate_after} m")
-    check(launches == expected,
-          f"path S: launch counts {launches} != {expected}")
+    check(launches_match(launches, expected),
+          f"path S: launch counts {launches} != {expected} (label_sweep a "
+          "round)")
 
     # the pose graph again on the run's own edges: the same bits; its
     # first J^T apply's B2 arguments recorded (one list append per call)
@@ -1453,7 +1546,9 @@ def pair_axis_gate(name, cases, cfg, dev):
     """One batched ``register_scan_pair`` call on ``cases`` [(source,
     target, ground truth)] against the per-pair calls: every row equal
     (``check_rows``), the launch counts of the batched call (set to 0
-    just before it, read just after) equal to one pair's call, and each
+    just before it, read just after) equal to one pair's call (the sweeps
+    each 8 a labelling round that call ran: the batch runs as many
+    rounds as its slowest cloud), and each
     pair that its own call puts within P_BAND of the ground truth within
     it batched. Returns (batched result, its launch counts)."""
     from quatro_tpu_torch.ops import launch
@@ -1469,20 +1564,22 @@ def pair_axis_gate(name, cases, cfg, dev):
             register_scan_pair(*pair, cfg)
             torch.cuda.synchronize()
             launch.reset_launches()
+            rounds0 = label_rounds()
         singles.append(register_scan_pair(*pair, cfg))
         torch.cuda.synchronize()
         if k == 0:
-            one_launches = dict(launch.LAUNCHES)
+            one_launches = launch_counts(rounds0)
     src_b = pair_batch([c[0] for c in cases], dev)
     tgt_b = pair_batch([c[1] for c in cases], dev)
     register_scan_pair(src_b, tgt_b, cfg)        # warm-up
     torch.cuda.synchronize()
     launch.reset_launches()
+    rounds0 = label_rounds()
     batch, ms = _synced_ms(lambda: register_scan_pair(src_b, tgt_b, cfg))
-    launches = dict(launch.LAUNCHES)
-    check(launches == one_launches,
+    launches = launch_counts(rounds0)
+    check(same_launches(launches, one_launches),
           f"{name}: launches of the batched call {launches} != one pair's "
-          f"{one_launches}")
+          f"{one_launches} (label_sweep: {SWEEPS_PER_ROUND} a round run)")
     worst_r, worst_t = check_rows(batch, singles, name)
     in_band = kept = 0
     for b, (_, _, gt) in enumerate(cases):
@@ -1498,7 +1595,7 @@ def pair_axis_gate(name, cases, cfg, dev):
         f"{worst_r:.3g} rad / {worst_t:.3g} m); {kept} of {in_band} pairs "
         f"within {P_BAND[0]} rad / {P_BAND[1]} m of the ground truth alone "
         f"stay so batched ({len(cases)} pairs); launches "
-        f"{json.dumps(launches)} (one pair's the same)")
+        f"{json.dumps(launches)} (one pair's {json.dumps(one_launches)})")
     return batch, launches
 
 
@@ -1589,9 +1686,11 @@ def phase_pair_axis(card, pairs, gts, cfg_a, bench):
     them, a batch per offset), median and spread of 3 runs after a
     warm-up, with the stage split, B1 at B = 8 and 64, the device idle
     share of the B = 8 call, the peak memory at B = 64 and the bytes the
-    device loops' graphs took at B = 64. ``bench``: (bench.py's scans,
-    its configuration, the seconds their ray-cast took). Returns B1's
-    pair-axis rows and B = 64's graph bytes."""
+    device loops' graphs took at B = 64, and the sweep and overlap kernels
+    at B = 64's shapes (``stage_kernel_rows_b64``). ``bench``: (bench.py's
+    scans, its configuration, the seconds their ray-cast took). Returns
+    B1's pair-axis rows, B = 64's graph bytes, the sweep and overlap
+    kernels' B = 64 rows and the launches of the B = 8 call."""
     from torch.profiler import ProfilerActivity, profile
 
     from quatro_tpu_torch import pipeline
@@ -1662,6 +1761,15 @@ def phase_pair_axis(card, pairs, gts, cfg_a, bench):
             f"per-cloud call on all {clouds} clouds, the overlaps to the "
             f"per-pair call on all {pairs_ok} pairs, bit for bit")
         if bsz == max(PAIR_AXIS_BATCHES):
+            # the labelling's and the overlaps' inputs of one more call:
+            # their kernels against the plain versions at this shape
+            with recorded(pipeline, "segment_cloud", []) as seg_calls, \
+                    recorded(verify, "overlap_hits", []) as hit_calls:
+                register_scan_pair(*batches[0], cfg)
+            stage_rows = stage_kernel_rows_b64(
+                (seg_calls[0][0], seg_calls[0][1]), hit_calls[0][0],
+                f"path P, B = {bsz}")
+            del seg_calls, hit_calls
             busy = stage_device_busy(lambda timer: register_scan_pair(
                 *batches[1], cfg, timer=timer))
             log(f"path P (c) B {bsz} stage split ({card}; ms, CUDA events "
@@ -1695,12 +1803,14 @@ def phase_pair_axis(card, pairs, gts, cfg_a, bench):
         {b: {"median_ms": t["ms_per_call"]["median"],
              "pairs_per_s": t["pairs_per_s"]} for b, t in times.items()})
         + f"; launches per batched call at B = 8: {json.dumps(launches8)}")
-    return rows, times[max(PAIR_AXIS_BATCHES)]["graphs_captured"]
+    return (rows, times[max(PAIR_AXIS_BATCHES)]["graphs_captured"],
+            stage_rows, launches8)
 
 
 def _launch_diff(before):
-    from quatro_tpu_torch.ops import launch
-    return {k: v - before.get(k, 0) for k, v in launch.LAUNCHES.items()}
+    """The launches (and labelling rounds) since ``before``, a
+    ``launch_counts()``."""
+    return {k: v - before.get(k, 0) for k, v in launch_counts().items()}
 
 
 def phase_entry(card, work_dir):
@@ -1728,7 +1838,6 @@ def phase_entry(card, work_dir):
     from quatro_tpu_torch.config import LidarConfig, PipelineConfig
     from quatro_tpu_torch.io import kitti
     from quatro_tpu_torch.io.synthetic import make_scan_pair
-    from quatro_tpu_torch.ops import launch
 
     check(native.available(), "path E: the native loader does not build")
     cfg = PipelineConfig.recommended(**E_CONFIG)
@@ -1743,7 +1852,7 @@ def phase_entry(card, work_dir):
         pool_s.append(time.perf_counter() - t0)
 
     def counted(src, tgt, *args, **kwargs):
-        before = dict(launch.LAUNCHES)
+        before = launch_counts()
         out = register(src, tgt, *args, **kwargs)
         calls.setdefault(tuple(src.points.shape[:-2]), []).append(
             _launch_diff(before))
@@ -1791,8 +1900,9 @@ def phase_entry(card, work_dir):
     check(worst[0] <= E_ROW_TOL[0] and worst[1] <= E_ROW_TOL[1],
           f"path E: batched rows {worst} deg / m from batch 1's")
     one = calls[()][0]
-    check(one == MAIN_LAUNCHES, f"path E: one pair's launches {one}")
-    check(all(c == one for c in calls[(E_BATCH,)]),
+    check(launches_match(one, MAIN_LAUNCHES),
+          f"path E: one pair's launches {one}")
+    check(all(same_launches(c, one) for c in calls[(E_BATCH,)]),
           f"path E: batched launches {calls[(E_BATCH,)]} != one pair's {one}")
     log(f"path E (a): every batched row equal to batch 1's (errors within "
         f"{worst[0]:.3g} deg / {worst[1]:.3g} m); launches per batched call "
@@ -1802,7 +1912,7 @@ def phase_entry(card, work_dir):
 
     def timed_batch(*args, **kwargs):
         torch.cuda.synchronize()
-        before = dict(launch.LAUNCHES)
+        before = launch_counts()
         t0 = time.perf_counter()
         out = register_batch(*args, **kwargs)
         torch.cuda.synchronize()
@@ -2118,7 +2228,12 @@ MAIN_KERNEL = {"moment_sums": "quatro::moment_sums_kernel",
                "image_lookup": "quatro::image_lookup_kernel",
                "table_lookup": "quatro::table_lookup_kernel",
                "exact_clique": "quatro::exact_clique_kernel",
-               "kabsch": "quatro::kabsch::kabsch_kernel"}
+               "kabsch": "quatro::kabsch::kabsch_kernel",
+               # a row times a labelling round: 8 launches of the two
+               "label_sweep": "quatro::label_sweep_",
+               "overlap_hits": "quatro::overlap_hits_kernel"}
+# launches of MAIN_KERNEL in one timed call of a row (1 where not listed)
+LAUNCHES_PER_CALL = {"label_sweep": SWEEPS_PER_ROUND}
 
 
 def culled_pairs(pts, mask, radius):
@@ -2146,12 +2261,14 @@ def radius_pair_bytes(mask, per_row, per_valid_row):
 
 
 def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b,
-                  jt_call, launches_s, exact):
+                  jt_call, launches_s, exact, overlap_args):
     """Every kernel against its plain version: B1-B5 and B7-B12 on the
     main path's tensors, with the main path's launch counts (B12's 0: no
     path launches it); B6 on path B's, with path B's; B2 also on path S's
     J^T apply ``jt_call``, with path S's launch counts; the exact search
-    on path B's exact mode's restriction (``exact``), with its launches."""
+    on path B's exact mode's restriction (``exact``), with its launches;
+    the labelling's sweep on every sweep path A ran (``calls``) and the
+    overlap on path A's arbitration call (``overlap_args``)."""
     from quatro_tpu_torch.ops import frontend as fe
     from quatro_tpu_torch.ops.fpfh import normalize_blocks
 
@@ -2194,8 +2311,9 @@ def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b,
              "max_abs_err": err, "ms": cuda_ms(k_fn),
              "plain_ms": cuda_ms(p_fn, 5), "bound_ms": b_ms, "bound_by": by,
              "library_ms": cuda_ms(lib_fn) if lib_fn else None,
-             "device_ms": device_ms_per_call(k_fn, "quatro::",
-                                             main=(MAIN_KERNEL[name], 1)),
+             "device_ms": device_ms_per_call(
+                 k_fn, "quatro::", main=(MAIN_KERNEL[name],
+                                         LAUNCHES_PER_CALL.get(name, 1))),
              "library_device_ms": (device_ms_per_call(lib_fn, main=lib_main,
                                                       tries=10)
                                    if lib_fn else None)}
@@ -2408,6 +2526,11 @@ def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b,
     exact_kernel_row(exact, row, rows)
     kabsch_kernel_row(exact, row, rows)
     preprocessing_kernel_rows(calls, row)
+    label_sweep_row(calls, main_launches, row, rows)
+    segment_routes_equal(calls["segment_cloud"][0], "path A")
+    for preset in LABEL_PRESETS:
+        segment_routes_equal(preset_segment_args(preset), preset)
+    overlap_row(overlap_args, main_launches, row)
     check(sorted(r["name"] for r in rows) == sorted(MAIN_KERNEL),
           "kernel phase: not one row for each kernel")
     missing = [r["name"] for r in rows if r["device_ms"] is None] + [
@@ -2415,7 +2538,7 @@ def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b,
         if r.get("bf16_device_ms_uncaptured", 0.0) is None]
     check(not missing, "kernel phase: no profiled run saw every call of "
           f"{missing}")
-    log("kernel phase: device ms of all fourteen kernels (torch.profiler): "
+    log("kernel phase: device ms of all sixteen kernels (torch.profiler): "
         + json.dumps({r["name"]: round(r["device_ms"], 6) for r in rows}))
     return rows
 
@@ -2682,6 +2805,249 @@ def preprocessing_kernel_rows(calls, row):
         lambda: torch.take(padded, idx))
 
 
+@contextlib.contextmanager
+def sweep_route(plain):
+    """The labelling's sweeps through their kernel, or (``plain``) through
+    its plain version on the card, every loop uncaptured: a captured round
+    is keyed by its body's code, which does not see the swap."""
+    from quatro_tpu_torch.ops.labels import label_sweep_plain
+    from quatro_tpu_torch.preprocessing import projection
+    from quatro_tpu_torch.utils import loops
+
+    real = projection.label_sweep
+    if plain:
+        projection.label_sweep = label_sweep_plain
+    try:
+        with loops.eager_loops():
+            yield
+    finally:
+        projection.label_sweep = real
+
+
+def segment_routes_equal(seg_args, label):
+    """segment_cloud on ``seg_args`` ((points, mask, lidar, projection
+    config), keyword arguments) under each neighbour mode, with the sweep
+    kernel and with its plain version on the card: every field of the
+    result (segment masks, labels) and label_components' labels,
+    feasibility and pixel feasibility bit for bit, and the kernel launched
+    once a sweep of every round run. Returns each mode's rounds, feasible
+    components and segment points."""
+    import dataclasses
+
+    from quatro_tpu_torch.preprocessing import projection
+
+    (pts, mask, lidar, pcfg), kwargs = seg_args
+    summary = {}
+    for mode in NEIGHBOR_MODES:
+        cfg = dataclasses.replace(pcfg, neighbor_mode=mode)
+        runs = []
+        for plain in (False, True):
+            before = launch_counts()
+            with recorded(projection, "label_components", []) as comps, \
+                    sweep_route(plain):
+                res = projection.segment_cloud(pts, mask, lidar, cfg,
+                                               **kwargs)
+            torch.cuda.synchronize()
+            runs.append((tuple(res) + tuple(comps[0][2]),
+                         _launch_diff(before)))
+        (got, n_k), (ref, n_p) = runs
+        names = res._fields + ("labels", "feasible", "pix_feasible")
+        for what, a, b in zip(names, got, ref):
+            check(torch.equal(a, b), f"{label}, {mode}: {what} with the "
+                  "sweep kernel differs from its plain version")
+        sweeps = len(projection.sweep_schedule(lidar.n_scan,
+                                               lidar.horizon_scan, cfg))
+        check(n_k["label_sweep"] == sweeps * n_k["label_rounds"] > 0
+              and n_p["label_sweep"] == 0,
+              f"{label}, {mode}: {n_k['label_sweep']} sweep launches in "
+              f"{n_k['label_rounds']} rounds of {sweeps} sweeps")
+        summary[mode] = {"rounds": n_k["label_rounds"],
+                         "components": int(got[7].sum()),
+                         "segment_points": got[0].sum(-1).tolist()}
+    log(f"label_sweep ({label}: {tuple(pts.shape[:-2])} clouds, "
+        f"{lidar.n_scan} x {lidar.horizon_scan} images): labels, "
+        "feasibility and segment masks with the kernel equal to its plain "
+        "version on the card under every neighbour mode, bit for bit: "
+        + json.dumps(summary))
+    return summary
+
+
+def preset_segment_args(preset):
+    """segment_cloud's arguments for a ray-cast pair of a lidar preset
+    (tests/test_torch_kernels_gpu.py's level_a pair), ground stripped as
+    ``nonground`` strips it, as one batch of two clouds on the card."""
+    from quatro_tpu_torch.config import LidarConfig, ProjectionConfig
+    from quatro_tpu_torch.device import resolve_device
+    from quatro_tpu_torch.io.synthetic import make_scan_pair
+
+    lidar = LidarConfig.preset(preset)
+    pair = make_scan_pair(seed=101, yaw_deg=38.0,
+                          translation=(2.5, -1.2, 0.04), lidar=lidar)
+    n = 65536
+    pts = torch.zeros(2, n, 3)
+    mask = torch.zeros(2, n, dtype=torch.bool)
+    for b, xyz in enumerate(pair[:2]):
+        xyz = nonground(xyz)[:n]
+        pts[b, :len(xyz)], mask[b, :len(xyz)] = torch.from_numpy(xyz), True
+    dev = resolve_device()
+    return (pts.to(dev), mask.to(dev), lidar, ProjectionConfig()), {}
+
+
+def sweep_round_work(round_args):
+    """The bytes one labelling round's sweeps must move: each reads its
+    labels (int32) and edges (bool) once and writes its labels."""
+    return float(sum(a[0].numel() * (4 + 1 + 4) for a in round_args))
+
+
+def label_sweep_row(calls, main_launches, row, rows):
+    """The sweep kernel on every sweep path A's labelling ran (recorded in
+    ``capture_preprocessing``, uncaptured), bit for bit its plain version
+    on the card, the first round's also on CPU copies; its row times one
+    round (SWEEPS_PER_ROUND launches on the round's recorded inputs), with
+    the row and walk kernels' device ms per launch."""
+    from quatro_tpu_torch.ops.labels import label_sweep, label_sweep_plain
+
+    sweeps = [args for args, _ in calls["label_sweep"]]
+    check(sweeps and len(sweeps) % SWEEPS_PER_ROUND == 0,
+          f"path A: {len(sweeps)} sweeps recorded")
+    for k, args in enumerate(sweeps):
+        got = label_sweep(*args)
+        check(torch.equal(got, label_sweep_plain(*args)),
+              f"label_sweep: sweep {k} {args[2:5]} differs from its plain "
+              "version on the card")
+    first = sweeps[:SWEEPS_PER_ROUND]
+    for args in first:
+        check(torch.equal(label_sweep(*args).cpu(), label_sweep_plain(
+            args[0].cpu(), args[1].cpu(), *args[2:])),
+            f"label_sweep: {args[2:5]} differs from its plain version on "
+            "CPU copies")
+    per_kernel = {k: device_ms_per_launch(
+        lambda: [label_sweep(*a) for a in first], f"quatro::{k}")
+        for k in ("label_sweep_row_kernel", "label_sweep_walk_kernel")}
+    labels = first[0][0]
+    log(f"label_sweep (path A): {len(sweeps)} sweeps in "
+        f"{len(sweeps) // SWEEPS_PER_ROUND} rounds on "
+        f"{tuple(labels.shape)} int32 images, each equal to its plain "
+        "version on the card (the first round's also on CPU copies); "
+        f"device ms per launch {json.dumps(per_kernel)}")
+    row("label_sweep", 0.0,
+        lambda: [label_sweep(*a) for a in first],
+        lambda: [label_sweep_plain(*a) for a in first],
+        0.0, sweep_round_work(first), launches=main_launches["label_sweep"],
+        extra={"unit": f"one labelling round ({SWEEPS_PER_ROUND} launches)",
+               "label_rounds": main_launches["label_rounds"],
+               "shape": str(tuple(labels.shape)),
+               "sweeps": [list(a[2:5]) for a in first],
+               "device_ms_per_launch": per_kernel})
+
+
+def overlap_work(p, pm, tgt, tm):
+    """(operations, bytes) of one overlap call: OPS_OVERLAP per (valid
+    source row, valid target point) of every leading entry; the kernel's
+    operands read once and the int64 hits written once."""
+    from quatro_tpu_torch.ops.overlap import kernel_operands
+
+    lead = torch.broadcast_shapes(p.shape[:-2], tgt.shape[:-2],
+                                  pm.shape[:-1], tm.shape[:-1])
+    ops = kernel_operands(p, pm, tgt, tm, lead)
+    idx = ops[4].long()
+    pairs = (ops[1].sum(-1)[idx[1]].double()
+             * ops[3].sum(-1)[idx[3]].double()).sum()
+    nbytes = sum(t.numel() * t.element_size() for t in ops) + 8 * idx.shape[1]
+    return float(pairs) * OPS_OVERLAP, float(nbytes)
+
+
+def overlap_row(args, main_launches, row):
+    """The overlap kernel on path A's arbitration call (6 poses on one
+    pair), bit for bit its plain version on the card and on CPU copies and
+    across two launches, then with a NaN in a valid target point (no row
+    hits: the min propagates it, as torch.amin does); its row."""
+    from quatro_tpu_torch.ops.overlap import overlap_hits, overlap_hits_plain
+
+    p, pm, tgt, tm, r2, row_block = args
+    got = overlap_hits(*args)
+    check(torch.equal(got, overlap_hits(*args)),
+          "overlap hits differ between launches")
+    check(torch.equal(got, overlap_hits_plain(*args)),
+          "overlap hits differ from the plain version on the card")
+    ref = overlap_hits_plain(*(t.cpu() for t in args[:5]), row_block)
+    check(torch.equal(got.cpu(), ref),
+          "overlap hits differ from the plain version on CPU copies")
+    # a NaN in the first valid target point of the pair
+    first = int(torch.nonzero(tm.reshape(-1))[0])
+    t_nan = tgt.clone()
+    t_nan.reshape(-1, 3)[first, 1] = float("nan")
+    nan_args = (p, pm, t_nan, tm, r2, row_block)
+    got_nan = overlap_hits(*nan_args)
+    check(torch.equal(got_nan, overlap_hits_plain(*nan_args))
+          and int(got_nan.max()) == 0,
+          f"overlap hits with a NaN target point: {got_nan.tolist()}")
+    log(f"overlap_hits (path A): {tuple(p.shape)} posed source against "
+        f"{tuple(tgt.shape)} target, hits {got.tolist()}, equal to the "
+        "plain version on the card and on CPU copies and across two "
+        "launches; with a NaN in a valid target point "
+        f"{got_nan.tolist()}, equal to the plain version")
+    ops, nbytes = overlap_work(p, pm, tgt, tm)
+    row("overlap_hits", float((got.cpu() - ref).abs().max()),
+        lambda: overlap_hits(*args), lambda: overlap_hits_plain(*args),
+        ops, nbytes, launches=main_launches["overlap_hits"],
+        extra={"shape": f"{tuple(p.shape)} x {tuple(tgt.shape)}"})
+
+
+def stage_kernel_rows_b64(seg_args, overlap_args, label):
+    """The sweep and overlap kernels at path P's B = 64 shapes: the first
+    labelling round on its 128 images (recorded from one uncaptured
+    segment_cloud on ``seg_args``), the arbitration call's 384 (pair,
+    pose) rows; each bit for bit its plain version on the card, with its
+    device ms, call ms, plain ms and bound. Then the labels, feasibility
+    and segment masks under every neighbour mode (``segment_routes_equal``)."""
+    from quatro_tpu_torch.ops.labels import label_sweep, label_sweep_plain
+    from quatro_tpu_torch.ops.overlap import overlap_hits, overlap_hits_plain
+    from quatro_tpu_torch.preprocessing import projection
+
+    first = []
+    real = projection.label_sweep
+
+    def rec(*args):
+        out = real(*args)
+        if len(first) < SWEEPS_PER_ROUND:
+            first.append(args)
+        return out
+
+    projection.label_sweep = rec
+    try:
+        with sweep_route(False):
+            projection.segment_cloud(*seg_args[0], **seg_args[1])
+    finally:
+        projection.label_sweep = real
+    for args in first:
+        check(torch.equal(label_sweep(*args), label_sweep_plain(*args)),
+              f"label_sweep ({label}): {args[2:5]} differs from its plain "
+              "version on the card")
+    out = {}
+    for name, k_fn, p_fn, work, shape in (
+            ("label_sweep", lambda: [label_sweep(*a) for a in first],
+             lambda: [label_sweep_plain(*a) for a in first],
+             (0.0, sweep_round_work(first)), tuple(first[0][0].shape)),
+            ("overlap_hits", lambda: overlap_hits(*overlap_args),
+             lambda: overlap_hits_plain(*overlap_args),
+             overlap_work(*overlap_args[:4]),
+             (tuple(overlap_args[0].shape), tuple(overlap_args[2].shape)))):
+        if name == "overlap_hits":
+            check(torch.equal(k_fn(), p_fn()), f"overlap_hits ({label}): "
+                  "differs from its plain version on the card")
+        b_ms, by = bound(*work)
+        out[name] = {"shape": str(shape), "device_ms": device_ms_per_call(
+            k_fn, "quatro::", main=(MAIN_KERNEL[name],
+                                    LAUNCHES_PER_CALL.get(name, 1))),
+            "ms": cuda_ms(k_fn), "plain_ms": cuda_ms(p_fn, 5),
+            "bound_ms": b_ms, "bound_by": by}
+    log(f"label_sweep / overlap_hits ({label}): " + json.dumps(out)
+        + "; each equal to its plain version on the card")
+    segment_routes_equal(seg_args, label)
+    return out
+
+
 def loop_ring(m, n_inliers, n_outliers):
     """tests/test_parallel.py:101-138's ring of m poses (20 deg and
     (1.5, 0.5) m a step) with correspondences whose registration is edge k
@@ -2794,15 +3160,17 @@ def phase_multichip(card, scans, gt, cfg, work_dir):
         out = []
         torch.cuda.synchronize()
         launch.reset_launches()
+        rounds0 = label_rounds()
         prof, first_ms = _synced_ms(lambda: collective_profile(
             lambda: out.append(step(*args))))
-        launches = dict(launch.LAUNCHES)
+        launches = launch_counts(rounds0)
         expected = dict(MAIN_LAUNCHES, segment_sums=MAIN_LAUNCHES[
             "segment_sums"] + gn * (cg + 1))
         log(f"path M (a) raw-scan step, {m} pairs: launches "
             f"{json.dumps(launches)}; collectives {dict(prof)}")
-        check(launches == expected,
-              f"path M: launch counts {launches} != {expected}")
+        check(launches_match(launches, expected),
+              f"path M: launch counts {launches} != {expected} "
+              "(label_sweep a round)")
         check(dict(prof) == reduces, f"path M: collectives {dict(prof)}")
         (poses, sols), = out
         ref = register_scan_pair(src, tgt, cfg).solution
@@ -3030,6 +3398,7 @@ def main() -> int:
     phase_loops(card, "path A", lambda: register_scan_pair(
         *pairs["tilted"], cfgs["A"]))
     calls = capture_preprocessing(pairs["tilted"], cfgs["A"])
+    overlap_args = capture_overlap(pairs["tilted"], cfgs["A"])
     mark = graphs_of("path A", mark)
     t0 = time.perf_counter()
     bench = (*bench_case(), time.perf_counter() - t0)
@@ -3067,12 +3436,15 @@ def main() -> int:
     mark = graphs_of("path E", mark)
     phase_profile(pairs["tilted"], cfgs["A"], wall_a, stages_a)
     rows = phase_kernels(res_a, cfgs["A"], launches_a, calls, res_b,
-                         cfgs["B"], launches_b, jt_call, launches_s, exact)
+                         cfgs["B"], launches_b, jt_call, launches_s, exact,
+                         overlap_args)
+    del calls, overlap_args
     mark = graphs_of("profile and kernels", mark)
     # last: its large batches and profiles leave the profiler missing
     # more events in the runs after them
-    graph_rows, graph_mem["path P, B = 64 (warm-up and timed calls)"] = \
-        phase_pair_axis(card, pairs, gts, cfgs["A"], bench)
+    (graph_rows, graph_mem["path P, B = 64 (warm-up and timed calls)"],
+     stage_rows, launches8) = phase_pair_axis(card, pairs, gts, cfgs["A"],
+                                              bench)
     mark = graphs_of("path P", mark)
     work_dir = tempfile.mkdtemp(prefix="smoke_multichip_", dir=BUILD_DIR)
     try:
@@ -3090,6 +3462,10 @@ def main() -> int:
     for r in rows:
         if r["name"] == "consistency_graph":
             r["pair_axis"] = graph_rows
+        if r["name"] in stage_rows:
+            r["b64"] = stage_rows[r["name"]]
+            r["launches_b8_call"] = launches8[r["name"]]
+            r["label_rounds_b8_call"] = launches8["label_rounds"]
         r["launches_path_m"] = launches_m[r["name"]]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

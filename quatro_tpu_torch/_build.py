@@ -56,6 +56,10 @@ SIGNATURES = {
     "exact_clique": ("quatro_exact_clique",
                      [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P]),
     "kabsch": ("quatro_kabsch", [_P, _P, _P, _I, _I, _P, _P]),
+    "label_sweep": ("quatro_label_sweep",
+                    [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P]),
+    "overlap_hits": ("quatro_overlap_hits",
+                     [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P]),
 }
 
 # Further C functions of a kernel's library: name -> (source, symbol,

@@ -1,0 +1,139 @@
+"""The hit counts of the registration overlap.
+
+For a posed source cloud and a target cloud, the number of valid source
+points with a valid target point within a radius, for every pose and pair
+at once (``solver/verify.alignment_overlap``; the ``block_hits`` fusion
+of ``quatro_tpu/solver/verify.py:63`` inside its ``lax.map``, no Pallas
+kernel there). ``overlap_hits`` launches ``csrc/overlap_hits.cu`` for
+CUDA tensors and counts the launch; for CPU tensors it runs
+``overlap_hits_plain``, the blocked torch route (a ``fori`` device loop
+over fixed blocks of source rows). There is no fallback between the two.
+
+Distances are difference-first per coordinate, ((dx dx) + (dy dy)) +
+(dz dz) with every operation rounded on its own, never the Gram identity
+(``torch.cdist``'s default), whose f32 cancellation at 40-80 m ranges
+reaches ~1e-2 m^2.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from quatro_tpu_torch.ops.launch import LAUNCHES, launch, same_device
+from quatro_tpu_torch.utils import loops
+
+
+def _lead(p, pm, tgt, tgt_mask):
+    return torch.broadcast_shapes(p.shape[:-2], tgt.shape[:-2],
+                                  pm.shape[:-1], tgt_mask.shape[:-1])
+
+
+def _block_hits(consts, state, rows):
+    """One block of ``overlap_hits_plain``'s device loop: the hits of the
+    ``rows`` source rows from the device-side offset ``start`` on (a
+    captured chunk replays for every later chunk, so no position may come
+    from the host)."""
+    p, pm, tgt, tgt_mask, r2, iota = consts
+    hits, start = state
+    idx = start + iota
+    bp = p.index_select(-2, idx)
+    dx = bp[..., :, 0:1] - tgt[..., None, :, 0]
+    dy = bp[..., :, 1:2] - tgt[..., None, :, 1]
+    dz = bp[..., :, 2:3] - tgt[..., None, :, 2]
+    d2 = torch.where(tgt_mask[..., None, :], dx * dx + dy * dy + dz * dz,
+                     float("inf"))
+    hits = hits + ((d2.amin(-1) <= r2) & pm.index_select(-1, idx)).sum(-1)
+    return hits, start + rows
+
+
+def overlap_hits_plain(p, pm, tgt, tgt_mask, r2,
+                       row_block: int = 2048) -> torch.Tensor:
+    """int64 hits of the lead shape (p's, pm's, tgt's and tgt_mask's
+    leading axes broadcast together) in torch operations: the distances
+    in blocks of ``row_block`` source rows split among the leading
+    entries (at least one row a block), the source padded to a whole
+    number of blocks and the padding masked out (as the JAX package pads),
+    the blocks a ``fori`` device loop (utils/loops.py, the JAX package's
+    ``lax.map``). The count is an integer, so the blocking does not
+    change it."""
+    lead = _lead(p, pm, tgt, tgt_mask)
+    rows = max(1, row_block // max(1, math.prod(lead)))
+    n = p.shape[-2]
+    blocks = -(-n // rows)
+    pad = blocks * rows - n
+    pm = torch.nn.functional.pad(pm, (0, pad))
+    p = torch.nn.functional.pad(p, (0, 0, 0, pad))
+    dev = p.device
+    iota = torch.arange(rows, device=dev)
+
+    def body(consts, state):
+        return _block_hits(consts, state, rows)
+
+    hits, _ = loops.fori(
+        "overlap", body, (p, pm, tgt, tgt_mask, r2, iota),
+        (torch.zeros(lead, dtype=torch.int64, device=dev),
+         torch.zeros((), dtype=torch.int64, device=dev)), blocks, blocks)
+    return hits
+
+
+def _rows_of(t: torch.Tensor, core: int, lead) -> torch.Tensor:
+    """(prod(lead),) int32: each leading entry's row of ``t`` with its
+    leading axes flattened, under the broadcast to ``lead``."""
+    tl = t.shape[:t.dim() - core]
+    return torch.arange(math.prod(tl), dtype=torch.int32,
+                        device=t.device).reshape(tl).expand(lead).reshape(-1)
+
+
+def kernel_operands(p, pm, tgt, tgt_mask, lead):
+    """What csrc/overlap_hits.cu reads: p (Lp, N, 3), pm (Lpm, N), tgt
+    (Lt, M, 3) and tgt_mask (Ltm, M), each flattened over its own leading
+    axes and contiguous (a pair's target once, whatever its poses), and
+    idx (4, prod(lead)) int32, each leading entry's row of the four."""
+    n, m = p.shape[-2], tgt.shape[-2]
+    idx = torch.stack([_rows_of(p, 2, lead), _rows_of(pm, 1, lead),
+                       _rows_of(tgt, 2, lead),
+                       _rows_of(tgt_mask, 1, lead)]).contiguous()
+    return (p.reshape(-1, n, 3).contiguous(), pm.reshape(-1, n).contiguous(),
+            tgt.reshape(-1, m, 3).contiguous(),
+            tgt_mask.reshape(-1, m).contiguous(), idx)
+
+
+def overlap_hits(p: torch.Tensor, pm: torch.Tensor, tgt: torch.Tensor,
+                 tgt_mask: torch.Tensor, r2: torch.Tensor,
+                 row_block: int = 2048) -> torch.Tensor:
+    """int64 hits of the lead shape: for each leading entry, the valid
+    rows of the posed source p (..., N, 3) (mask pm (..., N)) whose
+    nearest valid point of tgt (..., M, 3) (mask tgt_mask (..., M)) lies
+    within r2 (a 0-d f32 tensor, the squared radius); the leading axes
+    broadcast. One launch of csrc/overlap_hits.cu for CUDA tensors (each
+    pair's target read in place, whatever its poses), bit for bit
+    ``overlap_hits_plain``; that plain version, in blocks of
+    ``row_block`` rows, for CPU tensors."""
+    if p.dtype != torch.float32 or tgt.dtype != torch.float32:
+        raise TypeError(f"p and tgt: expected float32, got {p.dtype} and "
+                        f"{tgt.dtype}")
+    if pm.dtype != torch.bool or tgt_mask.dtype != torch.bool:
+        raise TypeError("pm and tgt_mask must be bool")
+    if r2.dtype != torch.float32 or r2.dim() != 0:
+        raise TypeError("r2 must be a 0-d float32 tensor")
+    if p.shape[-1] != 3 or tgt.shape[-1] != 3:
+        raise ValueError(f"p {tuple(p.shape)} and tgt {tuple(tgt.shape)} "
+                         "must end in 3")
+    lead = _lead(p, pm, tgt, tgt_mask)
+    if same_device(p, pm, tgt, tgt_mask, r2).type != "cuda":
+        return overlap_hits_plain(p, pm, tgt, tgt_mask, r2, row_block)
+    n, m = p.shape[-2], tgt.shape[-2]
+    if pm.shape[-1] != n or tgt_mask.shape[-1] != m:
+        raise ValueError(f"masks {tuple(pm.shape)} / {tuple(tgt_mask.shape)} "
+                         f"do not fit p {tuple(p.shape)} / tgt "
+                         f"{tuple(tgt.shape)}")
+    out = torch.zeros(lead, dtype=torch.int64, device=p.device)
+    count = math.prod(lead)
+    if count == 0 or n == 0:
+        return out
+    pk, pmk, tk, tmk, idx = kernel_operands(p, pm, tgt, tgt_mask, lead)
+    launch("overlap_hits", pk, pmk, tk, tmk, r2, idx, count, n, m, out)
+    LAUNCHES["overlap_hits"] += 1
+    return out

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from quatro_tpu_torch.config import LidarConfig, ProjectionConfig
+from quatro_tpu_torch.ops.labels import label_sweep, roll_image
 from quatro_tpu_torch.ops.segment import image_lookup
 from quatro_tpu_torch.utils import fused, loops
 
@@ -38,10 +39,15 @@ _SENTINEL = (1 << 32) - 1         # uint32 max of the JAX package's words
 _INT32_MAX = (1 << 31) - 1
 _F32_MAX = torch.finfo(torch.float32).max
 _DEG = 180.0 / math.pi
-# labelling rounds per flag read: the rounds a chunk runs past the exit
-# are full sweeps of every image, ~20 ms each at B = 64 on the H100, so
-# the chunk is short (tests/torch_stage_busy.py --cc-chunks)
+# labelling rounds per flag read: a round past the exit costs ~1.4 ms of
+# device work at B = 64 on the H100 (eight sweep launches) and a flag
+# read ~0.3-0.5 ms of host wait; of 1, 2, 4 and 8, 2 was the fastest there
+# (tests/torch_stage_busy.py --cc-chunks 1,2,4,8)
 CC_CHUNK = 2
+# 4CrossNeighbor's composed offsets, as pairs of diagonal offsets: (0, 2),
+# (0, -2), (2, 0), (-2, 0)
+_COMPOSED = (((1, 1), (-1, 1)), ((1, -1), (-1, -1)), ((1, 1), (1, -1)),
+             ((-1, 1), (-1, -1)))
 
 
 class ProjectionResult(NamedTuple):
@@ -137,19 +143,13 @@ def project_to_range_image(points: torch.Tensor, mask: torch.Tensor,
             owner.reshape(bsz, rows_n, cols_n))
 
 
-def _roll(t: torch.Tensor, dr: int, dc: int) -> torch.Tensor:
-    """t shifted so that out[r, c] = t[r + dr, c + dc], both axes wrapping
-    (jnp.roll(t, (-dr, -dc)) over the image axes)."""
-    return torch.roll(t, shifts=(-dr, -dc), dims=(-2, -1))
-
-
 def _neighbor_edges(rimg: torch.Tensor, valid: torch.Tensor, dr: int, dc: int,
                     lidar: LidarConfig, theta_rad: float):
     """Symmetric angle-criterion edge mask toward neighbour (dr, dc)
     (reference: include/imageProjection.hpp:526-541). Columns wrap, rows
     do not."""
-    shifted = _roll(rimg, dr, dc)
-    svalid = _roll(valid, dr, dc)
+    shifted = roll_image(rimg, dr, dc)
+    svalid = roll_image(valid, dr, dc)
     if dr != 0:
         rows = rimg.shape[-2]
         ridx = torch.arange(rows, device=rimg.device)[:, None]
@@ -162,37 +162,41 @@ def _neighbor_edges(rimg: torch.Tensor, valid: torch.Tensor, dr: int, dc: int,
     return valid & svalid & (angle > theta_rad)
 
 
-def _sweep(labels, e, dr, dc, steps, npix):
-    """Min-label roll-doubling sweep along (dr, dc) over the edges ``e``.
-    Wrapped contributions across the row boundary are masked: a gate that
-    would cross it contains an edge _neighbor_edges zeroed there."""
-    best = torch.where(e, torch.minimum(labels, _roll(labels, dr, dc)),
-                       labels)
-    gate = e
-    s = 1
-    for _ in range(steps - 1):
-        cand = _roll(best, dr * s, dc * s)
-        best = torch.minimum(best, torch.where(gate, cand, npix))
-        gate = gate & _roll(gate, dr * s, dc * s)
-        s *= 2
-    return best
-
-
 def _propagate_round(consts, state, sweeps, npix):
     """One round of ``label_components``' device loop: every sweep in
-    order, the invalid pixels back at ``npix``; the state (labels, some
-    label changed)."""
+    order (one ``label_sweep`` launch each on the card), the invalid
+    pixels back at ``npix``; the state (labels, some label changed)."""
     valid, *masks = consts
     labels, _ = state
     out = labels
     for e, (dr, dc, steps) in zip(masks, sweeps):
-        out = _sweep(out, e, dr, dc, steps, npix)
+        out = label_sweep(out, e, dr, dc, steps, npix)
     out = torch.where(valid, out, npix)
     return out, (out != labels).any()
 
 
 def _changed(state):
     return state[1]
+
+
+def sweep_schedule(rows: int, cols: int, cfg: ProjectionConfig):
+    """Each sweep's (dr, dc, doubling steps) in a labelling round's order:
+    the neighbour offsets (2^(steps - 1) covers the image's extent along
+    the offset; reach 4 under 4CrossNeighbor), then under 4CrossNeighbor
+    the composed offsets (0, +-2) / (+-2, 0), reaching half the extent."""
+    offsets = cfg.neighbor_offsets
+    is_4cross = set(offsets) == {(-1, -1), (-1, 1), (1, 1), (1, -1)}
+    sweeps = []
+    for dr, dc in offsets:
+        steps = ((rows if dr != 0 else cols) - 1).bit_length() + 1
+        sweeps.append((dr, dc, min(steps, 3) if is_4cross else steps))
+    if is_4cross:
+        for a, b in _COMPOSED:
+            dr = a[0] + b[0]
+            reach = (rows if dr != 0 else cols) // 2
+            sweeps.append((dr, a[1] + b[1], max(reach - 1, 1).bit_length()
+                           + 1))
+    return tuple(sweeps)
 
 
 def label_components(rimg: torch.Tensor, valid: torch.Tensor,
@@ -202,9 +206,11 @@ def label_components(rimg: torch.Tensor, valid: torch.Tensor,
 
     Returns (labels (B, R, C): min flat index of the component, -1 for
     invalid pixels; feasible (B, R * C) bool gate per label id;
-    pix_feasible (B, R, C) bool). Labels spread by roll-doubling sweeps
-    along each neighbour offset (and, for 4CrossNeighbor, the composed
-    zigzag offsets) until no label of any cloud changes or
+    pix_feasible (B, R, C) bool). Labels spread by min-label sweeps along
+    each neighbour offset (and, for 4CrossNeighbor, the composed zigzag
+    offsets; ``sweep_schedule``), each one ``ops/labels.label_sweep``
+    (a kernel launch on the card, the roll-doubling on the CPU), until no
+    label of any cloud changes or
     ``max_cc_iters`` rounds: a ``while_chunks`` device loop (the JAX
     package's ``lax.while_loop``; CUDA graphs on the card) that reads its
     "some label changed" flag once per ``CC_CHUNK`` rounds. The rounds a
@@ -233,21 +239,12 @@ def label_components(rimg: torch.Tensor, valid: torch.Tensor,
 
         def compose(a, b):
             ea, eb = emap[a], emap[b]
-            return (ea & _roll(eb, *a)) | (eb & _roll(ea, *b))
+            return (ea & roll_image(eb, *a)) | (eb & roll_image(ea, *b))
 
-        for a, b in (((1, 1), (-1, 1)), ((1, -1), (-1, -1)),
-                     ((1, 1), (1, -1)), ((-1, 1), (-1, -1))):
+        for a, b in _COMPOSED:
             comp.append((compose(a, b), a[0] + b[0], a[1] + b[1]))
 
-    # each sweep's (dr, dc, doubling steps), in a round's order
-    sweeps = []
-    for _, dr, dc in edges:
-        steps = ((rows if dr != 0 else cols) - 1).bit_length() + 1
-        sweeps.append((dr, dc, min(steps, 3) if is_4cross else steps))
-    for _, dr, dc in comp:
-        reach = (rows if dr != 0 else cols) // 2
-        sweeps.append((dr, dc, max(reach - 1, 1).bit_length() + 1))
-    sweeps = tuple(sweeps)
+    sweeps = sweep_schedule(rows, cols, cfg)
 
     def body(consts, state):
         return _propagate_round(consts, state, sweeps, npix)

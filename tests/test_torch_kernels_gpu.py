@@ -1,4 +1,4 @@
-"""The thirteen CUDA kernels against their plain PyTorch versions, on the card,
+"""The sixteen CUDA kernels against their plain PyTorch versions, on the card,
 and the loop-closing path's device code (pose graph, Scan Context).
 
 Every test here is marked ``gpu`` and skips without a CUDA device. The
@@ -553,7 +553,8 @@ def test_recommended_runs_all_six_kernels(recommended):
                         "segment_sums": 1, "cross_histogram": 0,
                         "fit_iteration_moments": 0, "classify_points": 0,
                         "image_lookup": 0, "table_lookup": 0,
-                        "exact_clique": 0, "kabsch": 0}
+                        "exact_clique": 0, "kabsch": 0, "label_sweep": 0,
+                        "overlap_hits": 1}
     assert bool(res.solution.valid)
     assert res.hypotheses.rotation.shape[0] == 6
     for name in ("valid", "rotation", "translation", "max_clique_mask",
@@ -692,10 +693,15 @@ def test_consistency_graph_pair_axis(dev, bsz, n):
 def test_batched_pipeline_launches_do_not_depend_on_batch(dev):
     """register_scan_pair under the shipping configuration with ground
     alignment and ICP at VLP-16 scale launches each kernel as often for
-    B = 4 pairs as for B = 1: the pair axis adds no launch."""
+    B = 4 pairs as for B = 1: the pair axis adds no launch. The overlap
+    kernel launches once a call; the labelling's sweep kernel once a
+    sweep of every round run (8 a round), and the rounds follow the data,
+    so it is held to that relation and left out of the equality."""
     from quatro_tpu_torch.config import (FPFHConfig, GroundAlignmentConfig,
                                          IcpConfig)
     from quatro_tpu_torch.pipeline import register_scan_pair
+    from quatro_tpu_torch.preprocessing.projection import sweep_schedule
+    from quatro_tpu_torch.utils import loops
 
     lidar = LidarConfig.preset("VLP-16")
     cfg = PipelineConfig.for_lidar(
@@ -717,10 +723,18 @@ def test_batched_pipeline_launches_do_not_depend_on_batch(dev):
         register_scan_pair(src, tgt, cfg, device=dev)
         torch.cuda.synchronize()
         launch.reset_launches()
+        loops.reset_loops()
         res = register_scan_pair(src, tgt, cfg, device=dev)
         torch.cuda.synchronize()
         assert res.solution.rotation.shape == (bsz, 3, 3)
-        return dict(launch.LAUNCHES)
+        got = dict(launch.LAUNCHES)
+        # the labelling's rounds follow the data (the batch's slowest
+        # cloud): one sweep launch a sweep of every round run
+        rounds = loops.LOOPS["label_components"]["rounds"]
+        assert rounds > 0
+        assert got.pop("label_sweep") == len(sweep_schedule(
+            cfg.lidar.n_scan, cfg.lidar.horizon_scan, cfg.projection)) * rounds
+        return got
 
     one = launches(1)
     assert launches(4) == one
@@ -729,7 +743,8 @@ def test_batched_pipeline_launches_do_not_depend_on_batch(dev):
                    "consistency_graph": 1, "segment_sums": 1,
                    "cross_histogram": 1, "fit_iteration_moments": 3,
                    "classify_points": 1, "image_lookup": 1,
-                   "table_lookup": 0, "exact_clique": 0, "kabsch": 0}
+                   "table_lookup": 0, "exact_clique": 0, "kabsch": 0,
+                   "overlap_hits": 1}
 
 
 def test_plain_graph_refused_on_the_card(dev, recommended):
@@ -895,8 +910,10 @@ def test_classify_points_and_image_lookup_kernels(prep_inputs):
 def test_register_scan_pair_runs_all_ten_kernels(dev):
     """register_scan_pair on the raw level_a VLP-16 pair under the shipping
     solver: every kernel launched, the preprocessing ones once per batch
-    of two (three plane fits)."""
+    of two (three plane fits), the labelling's sweep kernel 8 times a
+    round run, the overlap kernel once."""
     from quatro_tpu_torch.pipeline import register_scan_pair
+    from quatro_tpu_torch.utils import loops
     cfg = replace(CFG, max_raw_points=32768,
                   solver=SolverConfig(num_hypotheses=4,
                                       num_vote_hypotheses=2))
@@ -906,14 +923,18 @@ def test_register_scan_pair_runs_all_ten_kernels(dev):
     src, tgt = (PointBatch.from_numpy(xyz, 32768) for xyz in pair[:2])
     register_scan_pair(src, tgt, cfg, device=dev)
     tf.reset_launches()
+    loops.reset_loops()
     res = register_scan_pair(src, tgt, cfg, device=dev)
     torch.cuda.synchronize()
+    rounds = loops.LOOPS["label_components"]["rounds"]
+    assert rounds > 0
     assert dict(tf.LAUNCHES) == {
         "moment_sums": 1, "spfh": 1, "fpfh": 1, "nearest_neighbors": 0,
         "nearest_neighbors2": 2,
         "consistency_graph": 1, "segment_sums": 1, "cross_histogram": 1,
         "fit_iteration_moments": 3, "classify_points": 1, "image_lookup": 1,
-        "table_lookup": 0, "exact_clique": 0, "kabsch": 0}
+        "table_lookup": 0, "exact_clique": 0, "kabsch": 0,
+        "label_sweep": 8 * rounds, "overlap_hits": 1}
     assert bool(res.solution.valid)
 
 
@@ -1173,8 +1194,10 @@ def test_stage_loops_graph_equals_eager_on_the_card(dev, case):
     first chunk uncaptured, then the capture; second call: replays only)
     gives the bits of ``eager_loops()`` and of ``eager_loops(chunk=1)``,
     with the same kernel launches (Patchwork's B8-B10, the projection's
-    B11; B9 counted at each replay), and the loop reads no flag but the
-    labelling's, at most ceil(rounds / chunk) + 1."""
+    B11 and sweep kernel; B9 and the sweeps counted at each replay), and
+    the loop reads no flag but the labelling's, at most ceil(rounds /
+    chunk) + 1. The overlaps are one kernel launch on the card (no loop):
+    the same bits on every call."""
     from quatro_tpu_torch.preprocessing.projection import CC_CHUNK
     from quatro_tpu_torch.utils import loops
     fn = _stage_loop_cases(dev)[case]
@@ -1186,7 +1209,7 @@ def test_stage_loops_graph_equals_eager_on_the_card(dev, case):
         with loops.eager_loops(chunk=chunk):
             refs.append(_flat(fn()))
         if chunk == 1:
-            rounds = loops.LOOPS[case]["rounds"]
+            rounds = loops.LOOPS.get(case, {}).get("rounds", 0)
     eager_launches = dict(launch.LAUNCHES)
     for got in refs[:1]:
         assert all(torch.equal(g, r) for g, r in zip(got, refs[1]))
@@ -1198,6 +1221,11 @@ def test_stage_loops_graph_equals_eager_on_the_card(dev, case):
         assert len(got) == len(refs[1])
         for g, r in zip(got, refs[1]):
             assert torch.equal(g, r), call
+        if case == "overlap":
+            # one kernel launch on the card: no device loop there
+            assert "overlap" not in loops.LOOPS
+            assert launch.LAUNCHES["overlap_hits"] == 1
+            continue
         c = loops.LOOPS[case]
         print(case, call, c)
         assert c["captures" if call == "capture" else "replays"] >= 1
@@ -1381,6 +1409,202 @@ def test_kabsch_kernel(dev, rows, n):
     for b in (0, rows - 1):
         assert torch.equal(got[b], kabsch.kabsch_rotation(src[b], dst[b],
                                                           w[b]))
+
+
+def _sweep_images(bsz, rows, cols, seed, edge_share=0.93):
+    """bsz images of labels (some past npix) and edges: random edges with
+    long runs, a full ring row, a ring row broken at one column, a full
+    column and a gap of rows (tests/test_torch_label_overlap.py)."""
+    rng = np.random.default_rng(seed)
+    npix = rows * cols
+    labels = rng.integers(0, npix + 64, (bsz, rows, cols)).astype(np.int32)
+    edges = rng.random((bsz, rows, cols)) < edge_share
+    edges[:, rows // 2] = True
+    edges[1::2, rows // 3] = True
+    edges[1::2, rows // 3, cols // 5] = False
+    edges[::2, :, cols // 7] = True
+    edges[1::2, 1:3] = False
+    return torch.from_numpy(labels), torch.from_numpy(edges), npix
+
+
+def _sweeps_bit_equal(dev, labels, edges, npix, sched):
+    """Every sweep of ``sched`` in order (each on the kernel's previous
+    output, the edges rolled a column a sweep): the kernel equal to its
+    plain version on CPU copies and on the card, one launch a sweep."""
+    from quatro_tpu_torch.ops.labels import label_sweep, label_sweep_plain
+    cur = labels.to(dev)
+    for k, (dr, dc, steps) in enumerate(sched):
+        e = torch.roll(edges, k, dims=-1).contiguous()
+        ed = e.to(dev)
+        launch.reset_launches()
+        got = label_sweep(cur, ed, dr, dc, steps, npix)
+        torch.cuda.synchronize()
+        assert launch.LAUNCHES["label_sweep"] == 1
+        assert torch.equal(got.cpu(), label_sweep_plain(
+            cur.cpu(), e, dr, dc, steps, npix)), (dr, dc, steps)
+        assert torch.equal(got, label_sweep_plain(cur, ed, dr, dc, steps,
+                                                  npix)), (dr, dc, steps)
+        cur = got
+
+
+@pytest.mark.parametrize("mode", ["4CrossNeighbor", "4Neighbor",
+                                  "8Neighbor"])
+@pytest.mark.parametrize("shape", [(16, 1800), (32, 1800), (64, 1800),
+                                   (16, 1024), (64, 1024)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_label_sweep_kernel(dev, shape, mode):
+    """The sweep kernel on every sweep of the mode's round (row kernel for
+    dr = 0, walk kernel otherwise) at every lidar preset's shape, bit for
+    bit its plain version: wrapped full rows, broken chains, labels past
+    npix."""
+    from quatro_tpu_torch.config import ProjectionConfig
+    from quatro_tpu_torch.preprocessing.projection import sweep_schedule
+    rows, cols = shape
+    cfg = dataclasses.replace(ProjectionConfig(), neighbor_mode=mode)
+    labels, edges, npix = _sweep_images(3, rows, cols, rows + cols)
+    _sweeps_bit_equal(dev, labels, edges, npix,
+                      sweep_schedule(rows, cols, cfg))
+
+
+def test_label_sweep_kernel_path_p_batch(dev):
+    """A round of 4CrossNeighbor sweeps on path P's B = 64 batch shape:
+    128 images of 64 x 1800 in one launch a sweep, bit for bit."""
+    from quatro_tpu_torch.config import ProjectionConfig
+    from quatro_tpu_torch.preprocessing.projection import sweep_schedule
+    labels, edges, npix = _sweep_images(128, 64, 1800, 64)
+    _sweeps_bit_equal(dev, labels, edges, npix,
+                      sweep_schedule(64, 1800, ProjectionConfig()))
+
+
+@pytest.mark.parametrize("share", [0.93, 1.0])
+@pytest.mark.parametrize("steps", [1, 2, 3, 6, 12])
+@pytest.mark.parametrize("offset", [(0, 1), (0, -2), (1, 1), (-2, 0),
+                                    (1, 0), (-1, -1)])
+def test_label_sweep_kernel_steps(dev, offset, steps, share):
+    """One sweep at each doubling depth on 16 x 64 images, reach shorter
+    and longer than the chains and than the cycle (share 1.0: every edge
+    holds, across the row boundary too), bit for bit the plain version."""
+    labels, edges, npix = _sweep_images(2, 16, 64, steps, share)
+    if share == 1.0:
+        edges[:] = True
+    _sweeps_bit_equal(dev, labels, edges, npix, [(*offset, steps)])
+
+
+@pytest.mark.parametrize("mode", ["4CrossNeighbor", "4Neighbor",
+                                  "8Neighbor"])
+@pytest.mark.parametrize("lidar", ["VLP-16", "Ouster-OS1-64", "HDL-32E"])
+def test_label_components_kernel_modes(dev, lidar, mode):
+    """label_components on the range images of a raw pair of each preset,
+    as one batch: labels, feasibility and pixel feasibility on the card
+    equal to the CPU's, and the sweep kernel launched once a sweep of
+    every round run."""
+    from quatro_tpu_torch.config import ProjectionConfig
+    from quatro_tpu_torch.preprocessing import projection
+    from quatro_tpu_torch.utils import loops
+    lid = LidarConfig.preset(lidar)
+    cfg = dataclasses.replace(ProjectionConfig(), neighbor_mode=mode)
+    pair = make_scan_pair(seed=101, yaw_deg=38.0,
+                          translation=(2.5, -1.2, 0.04), lidar=lid)
+    pts = torch.zeros(2, 65536, 3)
+    masks = torch.zeros(2, 65536, dtype=torch.bool)
+    for b, xyz in enumerate(pair[:2]):
+        xyz = xyz[xyz[:, 2] > -1.723 + 0.3][:65536]
+        pts[b, :len(xyz)], masks[b, :len(xyz)] = torch.from_numpy(xyz), True
+    *_, rimg, owner = projection.project_to_range_image(pts, masks, lid)
+    valid = owner >= 0
+    ref = projection.label_components(rimg, valid, lid, cfg)
+    loops.reset_loops()
+    launch.reset_launches()
+    got = projection.label_components(rimg.to(dev), valid.to(dev), lid, cfg)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert torch.equal(g.cpu(), r)
+    rounds = loops.LOOPS["label_components"]["rounds"]
+    assert launch.LAUNCHES["label_sweep"] == len(projection.sweep_schedule(
+        lid.n_scan, lid.horizon_scan, cfg)) * rounds
+    assert int(ref[1].sum()) > 0
+
+
+def _overlap_case(lead, special, seed=3, k=4, ns=300, nt=420, bsz=3):
+    """Clouds and poses for a leading shape (tests/test_torch_label_overlap
+    .py): "one" pose on one pair, "edges" B poses on B pairs, "hypotheses"
+    (B, K) poses on (B, 1, N, 3) clouds; ``special`` a NaN or an inf in a
+    valid target point (a NaN also in a masked one and a valid source
+    row). Returns (p posed, pm, tgt, tgt_mask) on the CPU."""
+    from quatro_tpu_torch.utils.se3 import rotate_points, rotation_from_rpy
+    rng = np.random.default_rng(seed)
+    tgt = rng.uniform(-12, 12, (bsz, nt, 3)).astype(np.float32)
+    src = (tgt[:, :ns] + rng.normal(0, 0.25, (bsz, ns, 3))).astype(
+        np.float32)
+    smask = rng.random((bsz, ns)) > 0.15
+    tmask = rng.random((bsz, nt)) > 0.15
+    if special != "finite":
+        tmask[:, 5] = True
+        tgt[:, 5, 1] = np.nan if special == "nan" else np.inf
+        tmask[:, 6] = False
+        tgt[:, 6] = np.nan
+        smask[:, 9] = True
+        src[:, 9, 0] = np.nan
+    yaws = rng.uniform(-0.08, 0.08, (bsz, k))
+    trans = torch.from_numpy(rng.normal(0, 0.2, (bsz, k, 3)).astype(
+        np.float32))
+    rot = torch.stack([rotation_from_rpy(0.0, 0.0, float(a))
+                       for a in yaws.ravel()]).reshape(bsz, k, 3, 3)
+    src, smask, tgt, tmask = (torch.from_numpy(a) for a in
+                              (src, smask, tgt, tmask))
+    if lead == "one":
+        src, smask, tgt, tmask = src[0], smask[0], tgt[0], tmask[0]
+        rot, trans = rot[0, 0], trans[0, 0]
+    elif lead == "edges":
+        rot, trans = rot[:, 0], trans[:, 0]
+    else:
+        src, smask, tgt, tmask = (a[:, None] for a in
+                                  (src, smask, tgt, tmask))
+    p = rotate_points(src, rot) + trans[..., None, :]
+    return p, smask, tgt, tmask
+
+
+@pytest.mark.parametrize("special", ["finite", "nan", "inf"])
+@pytest.mark.parametrize("lead", ["one", "edges", "hypotheses"])
+def test_overlap_hits_kernel(dev, lead, special):
+    """The overlap kernel on each leading shape alignment_overlap serves,
+    with a NaN or an inf in a valid target point: one launch, the hits
+    bit for bit its plain version on CPU copies and on the card."""
+    from quatro_tpu_torch.ops.overlap import overlap_hits, overlap_hits_plain
+    p, pm, tgt, tm = _overlap_case(lead, special)
+    r2 = torch.full((), 0.6) ** 2
+    ref = overlap_hits_plain(p, pm, tgt, tm, r2)
+    args = [t.to(dev) for t in (p, pm, tgt, tm, r2)]
+    launch.reset_launches()
+    got = overlap_hits(*args)
+    torch.cuda.synchronize()
+    assert launch.LAUNCHES["overlap_hits"] == 1
+    assert got.dtype == torch.int64 and got.shape == ref.shape
+    assert torch.equal(got.cpu(), ref)
+    assert torch.equal(got, overlap_hits_plain(*args))
+    if special == "nan":
+        assert int(ref.max()) == 0
+    else:
+        assert int(ref.min()) > 0
+
+
+@pytest.mark.parametrize("bsz,k,ns,nt", [(64, 6, 2048, 8192),
+                                         (1, 6, 2048, 8192),
+                                         (2, 3, 1, 1), (5, 1, 129, 1025)])
+def test_overlap_hits_kernel_shapes(dev, bsz, k, ns, nt):
+    """The overlap kernel at path P's B = 64 shape (384 poses, 2048
+    source rows, 8192 targets: eight rows a thread, eight tiles), path A's
+    (6 poses: one row a thread) and ragged ones, bit for bit the plain
+    version on the card, one launch."""
+    from quatro_tpu_torch.ops.overlap import overlap_hits, overlap_hits_plain
+    p, pm, tgt, tm = (t.to(dev) for t in _overlap_case(
+        "hypotheses", "finite", seed=bsz + nt, k=k, ns=ns, nt=nt, bsz=bsz))
+    r2 = torch.full((), 0.6, device=dev) ** 2
+    launch.reset_launches()
+    got = overlap_hits(p, pm, tgt, tm, r2)
+    torch.cuda.synchronize()
+    assert launch.LAUNCHES["overlap_hits"] == 1
+    assert torch.equal(got, overlap_hits_plain(p, pm, tgt, tm, r2))
 
 
 def test_scan_context_on_the_card(dev):
