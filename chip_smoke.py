@@ -9,7 +9,8 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    versions, and the float32 precision flags (TF32 off everywhere);
 2. build: the sixteen kernels from quatro_tpu_torch/csrc (the twelve
    of the JAX package's Pallas calls, the exact clique search, the
-   Kabsch rotation, the labelling's sweep and the overlaps' hit counts),
+   Kabsch rotation, the range-image labelling and the overlaps' hit
+   counts),
    one nvcc per source, all started together; build time and ptxas
    register and spill summary;
 3. path A, the main path (Quatro++ coarse to fine): ``register_scan_pair``
@@ -25,16 +26,15 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    the launch counts over the run 1 (moments), 1 (SPFH), 1 (FPFH), 0
    (1-NN), 2 (top-2 NN), 1 (consistency graph), 1 (segment sums), 1 (cross
    histogram), 3 (plane-fit moments), 1 (classification), 1 (image
-   lookup), 0 (table lookup), 1 (overlap hits) and 8 sweeps (4 diagonal,
-   4 composed) a labelling round run (the rounds follow the data: every
-   launch count of every path holds the sweeps to the rounds the
-   labelling loop ran, ``launches_match``). Per-stage times from CUDA
-   events after one
-   warm-up run
+   lookup), 0 (table lookup), 1 (overlap hits) and 1 (the labelling: one
+   launch a ``label_components`` call, each image to its own exit; every
+   path's launch counts hold it so, and its logs give the most rounds an
+   image ran, ``launch_counts``). Per-stage times from CUDA events after
+   one warm-up run
    ("leveling" and "icp" among them); ground, non-ground and segment points
    per cloud; the hypotheses and the winner; the pair latency over five
    more runs. Then its device loops (utils/loops.py; Patchwork's bf16
-   plane fits, the range-image labelling, the GNC, the k-core search,
+   plane fits, the GNC, the k-core search,
    the clique growth and swaps, ``top_distinct_cliques``, the overlaps'
    blocks and ICP's passes) on its own tensors, each recorded in one more
    run and run again through the CUDA-graph route (twice) and through
@@ -85,8 +85,8 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    the JAX package's own for this run (tests/test_scancontext.py:87-98):
    a loop found (more than 11 edges), >= 60 % of the edges valid, ATE
    after the closure < 1 m and <= ATE before + 0.15 m, every pose finite;
-   the launch counts per frame (B3-B5, B8, B10, B11 once, B9 three
-   times), per batched registration call of up to 16 edges (B7 twice, B1
+   the launch counts per frame (B3-B5, B8, B10, B11 and the labelling
+   once, B9 three times), per batched registration call of up to 16 edges (B7 twice, B1
    and B2 once) and per pose-graph solve (B2 once per J^T apply,
    10 x 41); a second ``optimize_pose_graph`` on the run's edges equal to
    it bit for bit, uncaptured (its J^T calls recorded), replayed, and as
@@ -122,7 +122,9 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    and the device time per launch of each of the port's kernels, and of
    B3's, B4's, B5's and B9's wrappers with all their kernels; the device
    busy time of each stage (``stage_device_busy``: the device events
-   between marker fills launched at the stage ends) beside its ms; and
+   between marker fills launched at the stage ends) beside its ms, and
+   the projection stage's device time by kernel (its sorts, scatter,
+   scans, the labelling kernel); and
    the ms of ``radius_neighbors``' row-tile loop on ICP's target voxels,
    the one host loop left on the path;
 9. kernels: each kernel on the main path's own tensors (B6 on path B's
@@ -136,13 +138,15 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    kernel on path B's TEASER mode's first GNC iteration, bit for bit its
    plain version on the card and on CPU copies (for both, the bound in
    bytes and operations does not apply: ``bound_applies`` false, their
-   serial chains limit them); the labelling's sweep kernel on every sweep
-   path A's labelling ran, bit for bit its plain version on the card (the
-   first round's also on CPU copies), its row timing one round (8
-   launches; bound: the round's bytes), and segment_cloud with the kernel
-   against the plain sweeps on the card under all three neighbour modes
-   (every field, labels, feasibility) on path A's clouds and on a VLP-16
-   and an Ouster OS1-64 pair; the overlap kernel on path A's arbitration
+   serial chains limit them); the labelling kernel on path A's labelling
+   call, bit for bit its plain route (labels and each image's rounds) on
+   the card and on CPU copies, its row timing the whole labelling (one
+   launch; bound: the bytes of valid, the masks and the labels written,
+   13 a pixel), with its cluster size and shared memory a CTA, and
+   segment_cloud with the kernel against the plain route on the card
+   under all three neighbour modes and at max_cc_iters = 2 (every field,
+   labels, feasibility, rounds) on path A's clouds and on a VLP-16 and an
+   Ouster OS1-64 pair; the overlap kernel on path A's arbitration
    call (bound: 9 operations per valid source row and valid target
    point), bit for bit its plain version on the card and on CPU copies,
    and with a NaN in a valid target point (no hit). B2, B3 (with
@@ -191,12 +195,13 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    device ms beside its bound; ``pair_axis`` in B1's row of the kernel
    table); at each B the batched voxel grid equal to the per-cloud call
    on every cloud (128 at B = 64) and the overlaps to the per-pair call
-   on every pair, bit for bit; at B = 64 the sweep kernel on the first
-   labelling round of the 128 images and the overlap kernel on the 384
-   (pair, pose) rows, each bit for bit its plain version on the card with
-   its device, call and plain ms and bound (``b64`` in their rows), and
-   segment_cloud with the kernel against the plain sweeps under all three
-   neighbour modes;
+   on every pair, bit for bit; at B = 64 the labelling kernel on the 128
+   images and the overlap kernel on the 384 (pair, pose) rows, each bit
+   for bit its plain version on the card with its device, call and plain
+   ms and bound (``b64`` in their rows), segment_cloud with the kernel
+   against the plain route under all three neighbour modes and at
+   max_cc_iters = 2, and the projection stage's device time by kernel
+   (as for path A in the profile phase);
 11. path M, the multi-card step on one card (parallel/), after path P:
    (a) on a one-rank NCCL group (a file store under build/),
    ``make_full_pipeline_step`` over path S's 12 frames as the ring of
@@ -232,7 +237,9 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -313,9 +320,9 @@ REPLACES = {
     "exact_clique": "quatro_tpu/solver/clique.py:382",
     # no pl.pallas_call: svd_rot3d's XLA dot and LAPACK SVD
     "kabsch": "quatro_tpu/solver/rotation.py:55",
-    # no pl.pallas_call: the XLA fusions of label_components' sweep and of
-    # alignment_overlap's block_hits
-    "label_sweep": "quatro_tpu/preprocessing/projection.py:203",
+    # no pl.pallas_call: label_components' lax.while_loop (its propagate
+    # and sweep, XLA loop fusions) and alignment_overlap's block_hits
+    "label_sweep": "quatro_tpu/preprocessing/projection.py:269",
     "overlap_hits": "quatro_tpu/solver/verify.py:63",
 }
 SOURCES = {
@@ -336,28 +343,26 @@ SOURCES = {
     "label_sweep": "quatro_tpu_torch/csrc/label_sweep.cu",
     "overlap_hits": "quatro_tpu_torch/csrc/overlap_hits.cu",
 }
-# label_sweep launches follow the data: one a sweep of every labelling
-# round run, SWEEPS_PER_ROUND a round under 4CrossNeighbor (4 diagonal, 4
-# composed). In the launch dicts below its entry is the sweeps a round;
-# ``launches_match`` holds a run's count to that many per round it ran.
-SWEEPS_PER_ROUND = 8
+# label_sweep: one launch a label_components call (the whole labelling)
 MAIN_LAUNCHES = {"moment_sums": 1, "spfh": 1, "fpfh": 1,
                  "nearest_neighbors": 0, "nearest_neighbors2": 2,
                  "consistency_graph": 1, "segment_sums": 1,
                  "cross_histogram": 1, "fit_iteration_moments": 3,
                  "classify_points": 1, "image_lookup": 1, "table_lookup": 0,
                  "exact_clique": 0, "kabsch": 0,
-                 "label_sweep": SWEEPS_PER_ROUND, "overlap_hits": 1}
+                 "label_sweep": 1, "overlap_hits": 1}
 PATH_B_LAUNCHES = dict(MAIN_LAUNCHES, nearest_neighbors=2,
                        nearest_neighbors2=0, segment_sums=0, overlap_hits=0)
 FEATURES_LAUNCHES = dict(MAIN_LAUNCHES, cross_histogram=0,
                          fit_iteration_moments=0, classify_points=0,
                          image_lookup=0, label_sweep=0)
 SINGLE_LAUNCHES = dict(FEATURES_LAUNCHES, segment_sums=0, overlap_hits=0)
-# the labelling's sweep kernel against its plain version on images of
-# other presets (ray-cast pairs, all three neighbour modes)
+# the labelling kernel against its plain route on images of other presets
+# (ray-cast pairs, all three neighbour modes, and a cap of LABEL_CAP
+# rounds that stops images before their exits)
 LABEL_PRESETS = ("VLP-16", "Ouster-OS1-64")
 NEIGHBOR_MODES = ("4CrossNeighbor", "4Neighbor", "8Neighbor")
+LABEL_CAP = 2
 # path S: make_synthetic_sequence's arguments, run_sequence's edge batch
 # and pose-graph trip counts, and the windowed runner's window
 SEQUENCE = dict(num_poses=12, seed=1, radius=6.0)
@@ -413,37 +418,54 @@ def check(cond, what):
         raise AssertionError(what)
 
 
+# each label_sweeps call's per-image rounds (device tensors, read when a
+# run's counts are read), recorded by ``record_label_rounds``
+LABEL_ROUNDS = []
+
+
+def record_label_rounds():
+    """Wrap ``projection.label_sweeps`` for the whole run so that each
+    call's rounds (B,) are kept (no host read on the path)."""
+    from quatro_tpu_torch.preprocessing import projection
+
+    real = projection.label_sweeps
+
+    def rec(*args, **kwargs):
+        out = real(*args, **kwargs)
+        LABEL_ROUNDS.append(out[1])
+        return out
+
+    projection.label_sweeps = rec
+
+
 def label_rounds():
-    """The labelling rounds run since the loops' counters were reset
-    (``utils/loops.LOOPS``): the data decide them."""
-    from quatro_tpu_torch.utils import loops
-    return loops.LOOPS.get("label_components", {}).get("rounds", 0)
+    """A mark: the labelling calls recorded so far."""
+    return len(LABEL_ROUNDS)
 
 
-def launch_counts(rounds0=0):
-    """``LAUNCHES`` as they stand, with "label_rounds": the labelling
-    rounds run since ``label_rounds()`` was ``rounds0``."""
+def launch_counts(rounds0=None):
+    """``LAUNCHES`` as they stand; with a mark ``rounds0``, also
+    "label_rounds": the most rounds an image ran in the labelling calls
+    since the mark (the data decide them; 0 where none ran)."""
     from quatro_tpu_torch.ops import launch
-    return dict(launch.LAUNCHES, label_rounds=label_rounds() - rounds0)
+    out = dict(launch.LAUNCHES)
+    if rounds0 is not None:
+        out["label_rounds"] = max((int(r.max()) for r in
+                                   LABEL_ROUNDS[rounds0:] if r.numel()),
+                                  default=0)
+    return out
 
 
 def launches_match(got, expected):
-    """A run's counts (``launch_counts``) against ``expected``, whose
-    label_sweep is the sweeps a labelling round: every other kernel's
-    count equal, label_sweep that many per round the run ran."""
-    want = dict(expected,
-                label_sweep=expected["label_sweep"] * got["label_rounds"])
-    return all(got[k] == v for k, v in want.items())
+    """A run's counts (``launch_counts``) equal ``expected`` kernel by
+    kernel."""
+    return all(got[k] == v for k, v in expected.items())
 
 
 def same_launches(a, b):
-    """Two runs' counts equal but for what the data decide: the rounds,
-    and so label_sweep (each run SWEEPS_PER_ROUND a round it ran)."""
-    data = ("label_sweep", "label_rounds")
-    return (all(x["label_sweep"] == SWEEPS_PER_ROUND * x["label_rounds"]
-                for x in (a, b))
-            and {k: v for k, v in a.items() if k not in data}
-            == {k: v for k, v in b.items() if k not in data})
+    """Two runs' kernel counts equal (the rounds may differ)."""
+    return ({k: v for k, v in a.items() if k != "label_rounds"}
+            == {k: v for k, v in b.items() if k != "label_rounds"})
 
 
 def nonground(xyz, sensor_height=1.723, margin=0.3):
@@ -571,13 +593,14 @@ def graph_ms(fn, reps=20, replays=5):
     return start.elapsed_time(end) / (reps * replays)
 
 
-def stage_device_busy(run, tries=3):
+def stage_device_busy(run, tries=3, by_kernel=None):
     """Device busy ms per stage of one call ``run(timer)``: under
     torch.profiler a marker fill is launched at the start and at each
     stage end (``timer``); on the one stream the device events between
     two markers are that stage's work (graph replays included). Returns
     {stage: busy ms}, or None when no profiled run of ``tries`` saw every
-    marker."""
+    marker. A dict ``by_kernel`` gets {stage: {event name: [launches,
+    ms]}} of the same run."""
     from torch.profiler import ProfilerActivity, profile
 
     key = pad_key()
@@ -611,10 +634,41 @@ def stage_device_busy(run, tries=3):
                 busy[name] = round(busy.get(name, 0.0) + sum(
                     e.time_range.elapsed_us() for e in evs[a + 1:b])
                     / 1e3, 3)
+                if by_kernel is not None:
+                    split = by_kernel.setdefault(name, {})
+                    for e in evs[a + 1:b]:
+                        c = split.setdefault(e.name, [0, 0.0])
+                        c[0] += 1
+                        c[1] += e.time_range.elapsed_us() / 1e3
             return busy
         log(f"profile: stage markers seen {len(marks)} of "
             f"{len(names) + 1}; profiling again")
     return None
+
+
+def short_kernel_name(name, width=150):
+    """A profiler kernel name without its namespaces' boilerplate, cut to
+    ``width`` characters: the functor that tells torch's elementwise
+    kernels apart stays in view."""
+    for noise in ("void ", "at::native::", "(anonymous namespace)::",
+                  "at_cuda_detail::cub::", "std::array<char*, "):
+        name = name.replace(noise, "")
+    return name[:width]
+
+
+def log_stage_kernels(label, by_kernel, stages=("projection",
+                                                "arbitration"), top=16):
+    """The device time of ``stages`` by kernel (``stage_device_busy``'s
+    ``by_kernel``), the largest first (``short_kernel_name``)."""
+    for stage in stages:
+        split = by_kernel.get(stage, {})
+        total = sum(ms for _, ms in split.values())
+        rows = sorted(split.items(), key=lambda kv: -kv[1][1])[:top]
+        log(f"{label}: {stage} device {total:.3f} ms by kernel "
+            f"({len(split)} names; launches, ms, share): " + json.dumps(
+                [[short_kernel_name(name), n, round(ms, 4),
+                  round(ms / total, 4) if total else None]
+                 for name, (n, ms) in rows]))
 
 
 def phase_device():
@@ -759,8 +813,7 @@ def phase_pipeline(entry, pair, gt, cfg, name, expected, repeats,
     check(terr < max_terr, f"{name}: translation error {terr} m")
     check(torch.isfinite(sol.transform()).all(), f"{name}: non-finite pose")
     check(launches_match(launches, expected),
-          f"{name}: launch counts {launches} != {expected} (label_sweep a "
-          "round)")
+          f"{name}: launch counts {launches} != {expected}")
 
     walls = []
     for _ in range(repeats):
@@ -1187,8 +1240,8 @@ def phase_teaser_fixture(cfg):
 def capture_preprocessing(raw, cfg):
     """The arguments the main path hands each preprocessing kernel: one
     more preprocessing run of the pair (after the counted run) with the
-    five wrappers wrapped to record their arguments (the sweep's on every
-    sweep of every round), and segment_cloud's and label_components'
+    five wrappers wrapped to record their arguments (the labelling's
+    ``label_sweeps``), and segment_cloud's and label_components'
     arguments. Logs the ground, non-ground and segment points per
     cloud."""
     from quatro_tpu_torch.device import resolve_device
@@ -1199,7 +1252,7 @@ def capture_preprocessing(raw, cfg):
     wrapped = [(patchwork, "cross_histogram"),
                (patchwork, "fit_iteration_moments"),
                (patchwork, "classify_points"), (projection, "image_lookup"),
-               (projection, "label_sweep"), (projection, "label_components")]
+               (projection, "label_sweeps"), (projection, "label_components")]
     saved = [getattr(mod, fn) for mod, fn in wrapped]
 
     def recorder(name, fn):
@@ -1253,7 +1306,7 @@ def capture_overlap(pair, cfg):
 
 def sequence_launches(frames, calls):
     """Path S's expected launch counts: per frame the preprocessing and
-    front-end kernels (the sweeps per labelling round), per batched
+    front-end kernels (the labelling once), per batched
     registration call (one per edge batch) the matcher's top-2 NN twice,
     the graph, the vote's segment sums and the overlaps, and per
     pose-graph solve one segment sum per J^T apply (gn x (cg + 1))."""
@@ -1264,7 +1317,7 @@ def sequence_launches(frames, calls):
                 segment_sums=calls + gn * (cg + 1),
                 cross_histogram=frames, fit_iteration_moments=3 * frames,
                 classify_points=frames, image_lookup=frames,
-                overlap_hits=calls)
+                label_sweep=frames, overlap_hits=calls)
 
 
 def _spread(ms):
@@ -1298,6 +1351,7 @@ def phase_sequence(cfg, card):
                                                   scan_context)
     from quatro_tpu_torch.parallel import posegraph
     from quatro_tpu_torch.parallel.posegraph import optimize_pose_graph
+    from quatro_tpu_torch.preprocessing import projection
     from quatro_tpu_torch.utils import loops
 
     t0 = time.perf_counter()
@@ -1320,12 +1374,16 @@ def phase_sequence(cfg, card):
     rounds0 = label_rounds()
     sequence.optimize_pose_graph = recorder
     try:
-        res, wall_ms = _synced_ms(lambda: sequence.run_sequence(
-            scans, cfg, gt_poses=gt, use_place_recognition=True,
-            batch_size=SEQ_BATCH, gn_iters=gn, cg_iters=cg))
+        # each labelling call's operands cloned, for the check below
+        with recorded(projection, "label_sweeps", []) as lab_calls:
+            res, wall_ms = _synced_ms(lambda: sequence.run_sequence(
+                scans, cfg, gt_poses=gt, use_place_recognition=True,
+                batch_size=SEQ_BATCH, gn_iters=gn, cg_iters=cg))
     finally:
         sequence.optimize_pose_graph = solve
     launches = launch_counts(rounds0)
+    labelling_calls_equal(lab_calls, "path S")
+    del lab_calls
     m = len(scans)
     edges = list(zip(res.edges_i.tolist(), res.edges_j.tolist()))
     calls = -(-len(edges) // SEQ_BATCH)
@@ -1348,8 +1406,7 @@ def phase_sequence(cfg, card):
           f"path S: closing made it worse: {res.ate_before} -> "
           f"{res.ate_after} m")
     check(launches_match(launches, expected),
-          f"path S: launch counts {launches} != {expected} (label_sweep a "
-          "round)")
+          f"path S: launch counts {launches} != {expected}")
 
     # the pose graph again on the run's own edges: the same bits; its
     # first J^T apply's B2 arguments recorded (one list append per call)
@@ -1546,9 +1603,8 @@ def pair_axis_gate(name, cases, cfg, dev):
     """One batched ``register_scan_pair`` call on ``cases`` [(source,
     target, ground truth)] against the per-pair calls: every row equal
     (``check_rows``), the launch counts of the batched call (set to 0
-    just before it, read just after) equal to one pair's call (the sweeps
-    each 8 a labelling round that call ran: the batch runs as many
-    rounds as its slowest cloud), and each
+    just before it, read just after) equal to one pair's call (the
+    labelling's rounds, each image's own, may differ), and each
     pair that its own call puts within P_BAND of the ground truth within
     it batched. Returns (batched result, its launch counts)."""
     from quatro_tpu_torch.ops import launch
@@ -1579,7 +1635,7 @@ def pair_axis_gate(name, cases, cfg, dev):
     launches = launch_counts(rounds0)
     check(same_launches(launches, one_launches),
           f"{name}: launches of the batched call {launches} != one pair's "
-          f"{one_launches} (label_sweep: {SWEEPS_PER_ROUND} a round run)")
+          f"{one_launches}")
     worst_r, worst_t = check_rows(batch, singles, name)
     in_band = kept = 0
     for b, (_, _, gt) in enumerate(cases):
@@ -1770,8 +1826,10 @@ def phase_pair_axis(card, pairs, gts, cfg_a, bench):
                 (seg_calls[0][0], seg_calls[0][1]), hit_calls[0][0],
                 f"path P, B = {bsz}")
             del seg_calls, hit_calls
+            by_kernel = {}
             busy = stage_device_busy(lambda timer: register_scan_pair(
-                *batches[1], cfg, timer=timer))
+                *batches[1], cfg, timer=timer), by_kernel=by_kernel)
+            log_stage_kernels(f"path P (c) B {bsz}", by_kernel)
             log(f"path P (c) B {bsz} stage split ({card}; ms, CUDA events "
                 "of the timed call; device busy from torch.profiler in "
                 "one more call, between marker fills): " + json.dumps(
@@ -1808,8 +1866,7 @@ def phase_pair_axis(card, pairs, gts, cfg_a, bench):
 
 
 def _launch_diff(before):
-    """The launches (and labelling rounds) since ``before``, a
-    ``launch_counts()``."""
+    """The launches since ``before``, a ``launch_counts()``."""
     return {k: v - before.get(k, 0) for k, v in launch_counts().items()}
 
 
@@ -1989,8 +2046,10 @@ def phase_profile(pair, cfg, wall_ms, stages, top=10):
     from quatro_tpu_torch.ops.neighbors import radius_neighbors
     from quatro_tpu_torch.pipeline import raw_scan_voxels, register_scan_pair
 
+    by_kernel = {}
     busy = stage_device_busy(lambda timer: register_scan_pair(
-        *pair, cfg, timer=timer))
+        *pair, cfg, timer=timer), by_kernel=by_kernel)
+    log_stage_kernels("profile: path A", by_kernel)
     log("profile: path A stages (ms, CUDA events of the counted run; "
         "device busy from torch.profiler in one more run, between marker "
         "fills): " + json.dumps(
@@ -2213,7 +2272,9 @@ WRAPPER_KERNELS = {"moment_sums": ("quatro::moment_sums_kernel",),
                    "fpfh": ("quatro::fpfh_kernel",),
                    "fit_iteration_moments": ("quatro::fit_limit_kernel",
                                              "quatro::fit_partials_kernel",
-                                             "quatro::chunk_sum_kernel<9>")}
+                                             "quatro::chunk_sum_kernel<9>"),
+                   "overlap_hits": ("quatro::overlap_pack_kernel",
+                                    "quatro::overlap_hits_kernel")}
 # the kernel each wrapper launches once per call, by the profiler's name:
 # a profiled run counts only if it saw this kernel once per call
 MAIN_KERNEL = {"moment_sums": "quatro::moment_sums_kernel",
@@ -2229,11 +2290,8 @@ MAIN_KERNEL = {"moment_sums": "quatro::moment_sums_kernel",
                "table_lookup": "quatro::table_lookup_kernel",
                "exact_clique": "quatro::exact_clique_kernel",
                "kabsch": "quatro::kabsch::kabsch_kernel",
-               # a row times a labelling round: 8 launches of the two
-               "label_sweep": "quatro::label_sweep_",
+               "label_sweep": "quatro::label_sweeps_kernel",
                "overlap_hits": "quatro::overlap_hits_kernel"}
-# launches of MAIN_KERNEL in one timed call of a row (1 where not listed)
-LAUNCHES_PER_CALL = {"label_sweep": SWEEPS_PER_ROUND}
 
 
 def culled_pairs(pts, mask, radius):
@@ -2267,7 +2325,7 @@ def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b,
     path launches it); B6 on path B's, with path B's; B2 also on path S's
     J^T apply ``jt_call``, with path S's launch counts; the exact search
     on path B's exact mode's restriction (``exact``), with its launches;
-    the labelling's sweep on every sweep path A ran (``calls``) and the
+    the labelling kernel on path A's labelling call (``calls``) and the
     overlap on path A's arbitration call (``overlap_args``)."""
     from quatro_tpu_torch.ops import frontend as fe
     from quatro_tpu_torch.ops.fpfh import normalize_blocks
@@ -2312,8 +2370,7 @@ def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b,
              "plain_ms": cuda_ms(p_fn, 5), "bound_ms": b_ms, "bound_by": by,
              "library_ms": cuda_ms(lib_fn) if lib_fn else None,
              "device_ms": device_ms_per_call(
-                 k_fn, "quatro::", main=(MAIN_KERNEL[name],
-                                         LAUNCHES_PER_CALL.get(name, 1))),
+                 k_fn, "quatro::", main=(MAIN_KERNEL[name], 1)),
              "library_device_ms": (device_ms_per_call(lib_fn, main=lib_main,
                                                       tries=10)
                                    if lib_fn else None)}
@@ -2807,67 +2864,81 @@ def preprocessing_kernel_rows(calls, row):
 
 @contextlib.contextmanager
 def sweep_route(plain):
-    """The labelling's sweeps through their kernel, or (``plain``) through
-    its plain version on the card, every loop uncaptured: a captured round
-    is keyed by its body's code, which does not see the swap."""
-    from quatro_tpu_torch.ops.labels import label_sweep_plain
+    """The labelling through its kernel, or (``plain``) through its plain
+    route on the card, uncaptured; yields a list that gets each call's
+    (labels, rounds)."""
+    from quatro_tpu_torch.ops.labels import label_sweeps_plain
     from quatro_tpu_torch.preprocessing import projection
     from quatro_tpu_torch.utils import loops
 
-    real = projection.label_sweep
-    if plain:
-        projection.label_sweep = label_sweep_plain
+    real = projection.label_sweeps
+    outs = []
+
+    def run(*args, **kwargs):
+        out = (label_sweeps_plain if plain else real)(*args, **kwargs)
+        outs.append(out)
+        return out
+
+    projection.label_sweeps = run
     try:
         with loops.eager_loops():
-            yield
+            yield outs
     finally:
-        projection.label_sweep = real
+        projection.label_sweeps = real
 
 
 def segment_routes_equal(seg_args, label):
     """segment_cloud on ``seg_args`` ((points, mask, lidar, projection
-    config), keyword arguments) under each neighbour mode, with the sweep
-    kernel and with its plain version on the card: every field of the
-    result (segment masks, labels) and label_components' labels,
-    feasibility and pixel feasibility bit for bit, and the kernel launched
-    once a sweep of every round run. Returns each mode's rounds, feasible
-    components and segment points."""
+    config), keyword arguments) under each neighbour mode, and under the
+    first with max_cc_iters = LABEL_CAP, with the labelling kernel and
+    with its plain route on the card: every field of the result (segment
+    masks, labels), label_components' labels, feasibility and pixel
+    feasibility and each image's rounds bit for bit, and the kernel
+    launched once. Returns each case's rounds, feasible components and
+    segment points."""
     import dataclasses
 
     from quatro_tpu_torch.preprocessing import projection
 
     (pts, mask, lidar, pcfg), kwargs = seg_args
     summary = {}
-    for mode in NEIGHBOR_MODES:
+    cases = [(mode, None) for mode in NEIGHBOR_MODES]
+    cases.append((NEIGHBOR_MODES[0], LABEL_CAP))
+    for mode, cap in cases:
         cfg = dataclasses.replace(pcfg, neighbor_mode=mode)
+        if cap is not None:
+            cfg = dataclasses.replace(cfg, max_cc_iters=cap)
         runs = []
         for plain in (False, True):
             before = launch_counts()
             with recorded(projection, "label_components", []) as comps, \
-                    sweep_route(plain):
+                    sweep_route(plain) as outs:
                 res = projection.segment_cloud(pts, mask, lidar, cfg,
                                                **kwargs)
             torch.cuda.synchronize()
-            runs.append((tuple(res) + tuple(comps[0][2]),
+            runs.append((tuple(res) + tuple(comps[0][2]) + (outs[0][1],),
                          _launch_diff(before)))
         (got, n_k), (ref, n_p) = runs
-        names = res._fields + ("labels", "feasible", "pix_feasible")
+        names = res._fields + ("labels", "feasible", "pix_feasible",
+                               "rounds")
+        key = mode if cap is None else f"{mode}, max_cc_iters {cap}"
         for what, a, b in zip(names, got, ref):
-            check(torch.equal(a, b), f"{label}, {mode}: {what} with the "
-                  "sweep kernel differs from its plain version")
-        sweeps = len(projection.sweep_schedule(lidar.n_scan,
-                                               lidar.horizon_scan, cfg))
-        check(n_k["label_sweep"] == sweeps * n_k["label_rounds"] > 0
-              and n_p["label_sweep"] == 0,
-              f"{label}, {mode}: {n_k['label_sweep']} sweep launches in "
-              f"{n_k['label_rounds']} rounds of {sweeps} sweeps")
-        summary[mode] = {"rounds": n_k["label_rounds"],
-                         "components": int(got[7].sum()),
-                         "segment_points": got[0].sum(-1).tolist()}
+            check(torch.equal(a, b), f"{label}, {key}: {what} with the "
+                  "labelling kernel differs from its plain route")
+        rounds = got[-1].tolist()
+        check(n_k["label_sweep"] == 1 and n_p["label_sweep"] == 0
+              and min(rounds) > 0,
+              f"{label}, {key}: {n_k['label_sweep']} labelling launches, "
+              f"rounds {rounds}")
+        check(cap is None or max(rounds) == cap,
+              f"{label}, {key}: rounds {rounds} never reach the cap")
+        summary[key] = {"rounds": rounds, "components": int(got[7].sum()),
+                        "segment_points": got[0].sum(-1).tolist()}
     log(f"label_sweep ({label}: {tuple(pts.shape[:-2])} clouds, "
         f"{lidar.n_scan} x {lidar.horizon_scan} images): labels, "
-        "feasibility and segment masks with the kernel equal to its plain "
-        "version on the card under every neighbour mode, bit for bit: "
+        "feasibility, segment masks and each image's rounds with the kernel "
+        "equal to its plain route on the card under every neighbour mode "
+        f"and at max_cc_iters {LABEL_CAP}, bit for bit: "
         + json.dumps(summary))
     return summary
 
@@ -2893,52 +2964,107 @@ def preset_segment_args(preset):
     return (pts.to(dev), mask.to(dev), lidar, ProjectionConfig()), {}
 
 
-def sweep_round_work(round_args):
-    """The bytes one labelling round's sweeps must move: each reads its
-    labels (int32) and edges (bool) once and writes its labels."""
-    return float(sum(a[0].numel() * (4 + 1 + 4) for a in round_args))
+def labelling_bytes(args):
+    """The bytes a labelling call must move: valid and each edge mask read
+    once, the int32 labels written once (13 a pixel under 8 masks)."""
+    labels, _, masks = args[:3]
+    return float(labels.numel() * (1 + len(masks) + 4))
+
+
+def kernel_registers(source):
+    """{entry: registers} of a kernel library's entries, from this run's
+    build (ptxas -v); {} where it was not built in this run."""
+    from quatro_tpu_torch import _build
+
+    out, entry = {}, None
+    for line in _build.build_log.get(source, {}).get("ptxas",
+                                                     "").splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            out[entry] = int(m.group(1))
+            entry = None
+    return out
+
+
+def labelling_routes(args, label):
+    """The labelling kernel on a recorded ``label_sweeps`` call: labels and
+    each image's rounds equal across two launches, to the plain route on
+    the card (uncaptured) and on CPU copies. Returns (kernel fn, plain
+    fn, rounds, layout)."""
+    from quatro_tpu_torch.ops.labels import (label_layout, label_sweeps,
+                                             label_sweeps_plain)
+    from quatro_tpu_torch.utils import loops
+
+    def plain():
+        with loops.eager_loops():
+            return label_sweeps_plain(*args)
+
+    got = label_sweeps(*args)
+    again = label_sweeps(*args)
+    ref = plain()
+    cpu = label_sweeps_plain(args[0].cpu(), args[1].cpu(),
+                             [m.cpu() for m in args[2]], *args[3:])
+    for what, other in (("a second launch", again), ("the plain route on "
+                        "the card", ref)):
+        check(torch.equal(got[0], other[0]) and torch.equal(got[1],
+                                                            other[1]),
+              f"label_sweep ({label}): labels or rounds differ from {what}")
+    check(torch.equal(got[0].cpu(), cpu[0]) and torch.equal(got[1].cpu(),
+                                                            cpu[1]),
+          f"label_sweep ({label}): labels or rounds differ from the plain "
+          "route on CPU copies")
+    return ((lambda: label_sweeps(*args)), plain, got[1].tolist(),
+            label_layout(*args[0].shape))
+
+
+def labelling_calls_equal(recs, label):
+    """Each ``label_sweeps`` call of a path (``recorded``: its operands
+    cloned, its result) against the plain route on the card (uncaptured)
+    on the same operands: labels and each image's rounds bit for bit.
+    Returns each call's rounds."""
+    from quatro_tpu_torch.ops.labels import label_sweeps_plain
+    from quatro_tpu_torch.utils import loops
+
+    check(len(recs) > 0, f"{label}: no labelling call recorded")
+    rounds = []
+    for k, (args, kwargs, out) in enumerate(recs):
+        with loops.eager_loops():
+            ref = label_sweeps_plain(*args, **kwargs)
+        check(torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1]),
+              f"label_sweep ({label}, call {k}): labels or rounds differ "
+              "from the plain route on the card")
+        rounds.append(out[1].tolist())
+    log(f"label_sweep ({label}): {len(recs)} labelling calls of "
+        f"{[int(a[0].shape[0]) for a, _, _ in recs]} images, rounds "
+        f"{rounds}; labels and each image's rounds equal to the plain route "
+        "on the card, bit for bit")
+    return rounds
 
 
 def label_sweep_row(calls, main_launches, row, rows):
-    """The sweep kernel on every sweep path A's labelling ran (recorded in
-    ``capture_preprocessing``, uncaptured), bit for bit its plain version
-    on the card, the first round's also on CPU copies; its row times one
-    round (SWEEPS_PER_ROUND launches on the round's recorded inputs), with
-    the row and walk kernels' device ms per launch."""
-    from quatro_tpu_torch.ops.labels import label_sweep, label_sweep_plain
-
-    sweeps = [args for args, _ in calls["label_sweep"]]
-    check(sweeps and len(sweeps) % SWEEPS_PER_ROUND == 0,
-          f"path A: {len(sweeps)} sweeps recorded")
-    for k, args in enumerate(sweeps):
-        got = label_sweep(*args)
-        check(torch.equal(got, label_sweep_plain(*args)),
-              f"label_sweep: sweep {k} {args[2:5]} differs from its plain "
-              "version on the card")
-    first = sweeps[:SWEEPS_PER_ROUND]
-    for args in first:
-        check(torch.equal(label_sweep(*args).cpu(), label_sweep_plain(
-            args[0].cpu(), args[1].cpu(), *args[2:])),
-            f"label_sweep: {args[2:5]} differs from its plain version on "
-            "CPU copies")
-    per_kernel = {k: device_ms_per_launch(
-        lambda: [label_sweep(*a) for a in first], f"quatro::{k}")
-        for k in ("label_sweep_row_kernel", "label_sweep_walk_kernel")}
-    labels = first[0][0]
-    log(f"label_sweep (path A): {len(sweeps)} sweeps in "
-        f"{len(sweeps) // SWEEPS_PER_ROUND} rounds on "
-        f"{tuple(labels.shape)} int32 images, each equal to its plain "
-        "version on the card (the first round's also on CPU copies); "
-        f"device ms per launch {json.dumps(per_kernel)}")
-    row("label_sweep", 0.0,
-        lambda: [label_sweep(*a) for a in first],
-        lambda: [label_sweep_plain(*a) for a in first],
-        0.0, sweep_round_work(first), launches=main_launches["label_sweep"],
-        extra={"unit": f"one labelling round ({SWEEPS_PER_ROUND} launches)",
-               "label_rounds": main_launches["label_rounds"],
-               "shape": str(tuple(labels.shape)),
-               "sweeps": [list(a[2:5]) for a in first],
-               "device_ms_per_launch": per_kernel})
+    """The labelling kernel on path A's labelling call (recorded in
+    ``capture_preprocessing``), bit for bit its plain route on the card
+    and on CPU copies (``labelling_routes``); its row times the whole
+    labelling, with its cluster size, shared memory a CTA and registers."""
+    recs = calls["label_sweeps"]
+    check(len(recs) == 1, f"path A: {len(recs)} labelling calls recorded")
+    (args, _), = recs
+    k_fn, p_fn, rounds, layout = labelling_routes(args, "path A")
+    labels = args[0]
+    log(f"label_sweep (path A): {tuple(labels.shape)} int32 images, "
+        f"{len(args[2])} edge masks, rounds {rounds} (max_cc_iters "
+        f"{args[4]}), layout {json.dumps(layout)}; labels and rounds equal "
+        "to the plain route on the card and on CPU copies and across two "
+        "launches")
+    row("label_sweep", 0.0, k_fn, p_fn, 0.0, labelling_bytes(args),
+        launches=main_launches["label_sweep"],
+        extra={"unit": "the whole labelling (one launch)",
+               "label_rounds": rounds, "shape": str(tuple(labels.shape)),
+               "sweeps": [list(s) for s in args[3]], **layout,
+               "registers": kernel_registers("label_sweep")})
 
 
 def overlap_work(p, pm, tgt, tm):
@@ -2950,18 +3076,33 @@ def overlap_work(p, pm, tgt, tm):
     lead = torch.broadcast_shapes(p.shape[:-2], tgt.shape[:-2],
                                   pm.shape[:-1], tm.shape[:-1])
     ops = kernel_operands(p, pm, tgt, tm, lead)
-    idx = ops[4].long()
-    pairs = (ops[1].sum(-1)[idx[1]].double()
-             * ops[3].sum(-1)[idx[3]].double()).sum()
+    pack, idx = ops[4].long(), ops[5].long()
+    rows_valid = ops[1].sum(-1)[idx[1]].double()
+    tgt_valid = ops[3].sum(-1)[pack[1]][idx[2]].double()
+    pairs = (rows_valid * tgt_valid).sum()
     nbytes = sum(t.numel() * t.element_size() for t in ops) + 8 * idx.shape[1]
     return float(pairs) * OPS_OVERLAP, float(nbytes)
+
+
+def overlap_extra(p, tgt):
+    """The overlap call's plan (rows a thread, tiles, splits) and the
+    kernels' registers, for its row."""
+    from quatro_tpu_torch.ops.overlap import overlap_plan
+
+    lead = math.prod(torch.broadcast_shapes(p.shape[:-2], tgt.shape[:-2]))
+    plan = overlap_plan(lead, p.shape[-2], tgt.shape[-2],
+                        torch.cuda.get_device_properties(
+                            p.device).multi_processor_count)
+    return {"plan_rows_tiles_splits": list(plan),
+            "registers": kernel_registers("overlap_hits")}
 
 
 def overlap_row(args, main_launches, row):
     """The overlap kernel on path A's arbitration call (6 poses on one
     pair), bit for bit its plain version on the card and on CPU copies and
-    across two launches, then with a NaN in a valid target point (no row
-    hits: the min propagates it, as torch.amin does); its row."""
+    across two launches, then with a NaN in the first and in the last
+    valid target point (no row hits: the min propagates it, as torch.amin
+    does); its row."""
     from quatro_tpu_torch.ops.overlap import overlap_hits, overlap_hits_plain
 
     p, pm, tgt, tm, r2, row_block = args
@@ -2973,75 +3114,67 @@ def overlap_row(args, main_launches, row):
     ref = overlap_hits_plain(*(t.cpu() for t in args[:5]), row_block)
     check(torch.equal(got.cpu(), ref),
           "overlap hits differ from the plain version on CPU copies")
-    # a NaN in the first valid target point of the pair
-    first = int(torch.nonzero(tm.reshape(-1))[0])
-    t_nan = tgt.clone()
-    t_nan.reshape(-1, 3)[first, 1] = float("nan")
-    nan_args = (p, pm, t_nan, tm, r2, row_block)
-    got_nan = overlap_hits(*nan_args)
-    check(torch.equal(got_nan, overlap_hits_plain(*nan_args))
-          and int(got_nan.max()) == 0,
-          f"overlap hits with a NaN target point: {got_nan.tolist()}")
+    nan_hits = []
+    valid_t = torch.nonzero(tm.reshape(-1))
+    for where in (int(valid_t[0]), int(valid_t[-1])):
+        t_nan = tgt.clone()
+        t_nan.reshape(-1, 3)[where, 1] = float("nan")
+        nan_args = (p, pm, t_nan, tm, r2, row_block)
+        got_nan = overlap_hits(*nan_args)
+        check(torch.equal(got_nan, overlap_hits_plain(*nan_args))
+              and int(got_nan.max()) == 0,
+              f"overlap hits with a NaN target point: {got_nan.tolist()}")
+        nan_hits.append(got_nan.tolist())
     log(f"overlap_hits (path A): {tuple(p.shape)} posed source against "
         f"{tuple(tgt.shape)} target, hits {got.tolist()}, equal to the "
         "plain version on the card and on CPU copies and across two "
-        "launches; with a NaN in a valid target point "
-        f"{got_nan.tolist()}, equal to the plain version")
+        "launches; with a NaN in the first / last valid target point "
+        f"{nan_hits}, equal to the plain version")
     ops, nbytes = overlap_work(p, pm, tgt, tm)
     row("overlap_hits", float((got.cpu() - ref).abs().max()),
         lambda: overlap_hits(*args), lambda: overlap_hits_plain(*args),
         ops, nbytes, launches=main_launches["overlap_hits"],
-        extra={"shape": f"{tuple(p.shape)} x {tuple(tgt.shape)}"})
+        extra={"shape": f"{tuple(p.shape)} x {tuple(tgt.shape)}",
+               **overlap_extra(p, tgt)})
 
 
 def stage_kernel_rows_b64(seg_args, overlap_args, label):
-    """The sweep and overlap kernels at path P's B = 64 shapes: the first
-    labelling round on its 128 images (recorded from one uncaptured
-    segment_cloud on ``seg_args``), the arbitration call's 384 (pair,
-    pose) rows; each bit for bit its plain version on the card, with its
-    device ms, call ms, plain ms and bound. Then the labels, feasibility
-    and segment masks under every neighbour mode (``segment_routes_equal``)."""
-    from quatro_tpu_torch.ops.labels import label_sweep, label_sweep_plain
+    """The labelling and overlap kernels at path P's B = 64 shapes: the
+    labelling of its 128 images (recorded from one segment_cloud on
+    ``seg_args``), the arbitration call's 384 (pair, pose) rows; each bit
+    for bit its plain version on the card (the labelling also on CPU
+    copies, with each image's rounds), with its device ms, call ms, plain
+    ms and bound. Then the labels, feasibility, segment masks and rounds
+    under every neighbour mode and at the cap (``segment_routes_equal``)."""
     from quatro_tpu_torch.ops.overlap import overlap_hits, overlap_hits_plain
     from quatro_tpu_torch.preprocessing import projection
 
-    first = []
-    real = projection.label_sweep
-
-    def rec(*args):
-        out = real(*args)
-        if len(first) < SWEEPS_PER_ROUND:
-            first.append(args)
-        return out
-
-    projection.label_sweep = rec
-    try:
-        with sweep_route(False):
-            projection.segment_cloud(*seg_args[0], **seg_args[1])
-    finally:
-        projection.label_sweep = real
-    for args in first:
-        check(torch.equal(label_sweep(*args), label_sweep_plain(*args)),
-              f"label_sweep ({label}): {args[2:5]} differs from its plain "
-              "version on the card")
+    with recorded(projection, "label_sweeps", []) as recs:
+        projection.segment_cloud(*seg_args[0], **seg_args[1])
+    (args, _, _), = recs
+    del recs
+    k_lab, p_lab, rounds, layout = labelling_routes(args, label)
+    check(torch.equal(overlap_hits(*overlap_args),
+                      overlap_hits_plain(*overlap_args)),
+          f"overlap_hits ({label}): differs from its plain version on the "
+          "card")
     out = {}
-    for name, k_fn, p_fn, work, shape in (
-            ("label_sweep", lambda: [label_sweep(*a) for a in first],
-             lambda: [label_sweep_plain(*a) for a in first],
-             (0.0, sweep_round_work(first)), tuple(first[0][0].shape)),
+    for name, k_fn, p_fn, work, shape, extra in (
+            ("label_sweep", k_lab, p_lab, (0.0, labelling_bytes(args)),
+             tuple(args[0].shape),
+             dict(layout, label_rounds_max=max(rounds),
+                  label_rounds_sum=sum(rounds))),
             ("overlap_hits", lambda: overlap_hits(*overlap_args),
              lambda: overlap_hits_plain(*overlap_args),
              overlap_work(*overlap_args[:4]),
-             (tuple(overlap_args[0].shape), tuple(overlap_args[2].shape)))):
-        if name == "overlap_hits":
-            check(torch.equal(k_fn(), p_fn()), f"overlap_hits ({label}): "
-                  "differs from its plain version on the card")
+             (tuple(overlap_args[0].shape), tuple(overlap_args[2].shape)),
+             overlap_extra(overlap_args[0], overlap_args[2]))):
         b_ms, by = bound(*work)
-        out[name] = {"shape": str(shape), "device_ms": device_ms_per_call(
-            k_fn, "quatro::", main=(MAIN_KERNEL[name],
-                                    LAUNCHES_PER_CALL.get(name, 1))),
-            "ms": cuda_ms(k_fn), "plain_ms": cuda_ms(p_fn, 5),
-            "bound_ms": b_ms, "bound_by": by}
+        out[name] = dict({"shape": str(shape),
+                          "device_ms": device_ms_per_call(
+                              k_fn, "quatro::", main=(MAIN_KERNEL[name], 1)),
+                          "ms": cuda_ms(k_fn), "plain_ms": cuda_ms(p_fn, 5),
+                          "bound_ms": b_ms, "bound_by": by}, **extra)
     log(f"label_sweep / overlap_hits ({label}): " + json.dumps(out)
         + "; each equal to its plain version on the card")
     segment_routes_equal(seg_args, label)
@@ -3125,6 +3258,7 @@ def phase_multichip(card, scans, gt, cfg, work_dir):
     from quatro_tpu_torch.parallel.distributed import (global_pairs_mesh,
                                                        initialize_multihost)
     from quatro_tpu_torch.pipeline import register_scan_pair
+    from quatro_tpu_torch.preprocessing import projection
     from quatro_tpu_torch.solver.quatro import register_batch
     from quatro_tpu_torch.types import PointBatch
     from quatro_tpu_torch.utils import loops
@@ -3161,16 +3295,19 @@ def phase_multichip(card, scans, gt, cfg, work_dir):
         torch.cuda.synchronize()
         launch.reset_launches()
         rounds0 = label_rounds()
-        prof, first_ms = _synced_ms(lambda: collective_profile(
-            lambda: out.append(step(*args))))
+        # each labelling call's operands cloned, for the check below
+        with recorded(projection, "label_sweeps", []) as lab_calls:
+            prof, first_ms = _synced_ms(lambda: collective_profile(
+                lambda: out.append(step(*args))))
         launches = launch_counts(rounds0)
+        labelling_calls_equal(lab_calls, "path M (a)")
+        del lab_calls
         expected = dict(MAIN_LAUNCHES, segment_sums=MAIN_LAUNCHES[
             "segment_sums"] + gn * (cg + 1))
         log(f"path M (a) raw-scan step, {m} pairs: launches "
             f"{json.dumps(launches)}; collectives {dict(prof)}")
         check(launches_match(launches, expected),
-              f"path M: launch counts {launches} != {expected} "
-              "(label_sweep a round)")
+              f"path M: launch counts {launches} != {expected}")
         check(dict(prof) == reduces, f"path M: collectives {dict(prof)}")
         (poses, sols), = out
         ref = register_scan_pair(src, tgt, cfg).solution
@@ -3375,6 +3512,7 @@ def main() -> int:
         return path_m_rank(*sys.argv[2:])
     card = phase_device()
     phase_build()
+    record_label_rounds()
     from quatro_tpu_torch.pipeline import register_features, register_scan_pair
     from quatro_tpu_torch.utils import loops
     graph_mem = {}

@@ -57,16 +57,20 @@ SIGNATURES = {
                      [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P]),
     "kabsch": ("quatro_kabsch", [_P, _P, _P, _I, _I, _P, _P]),
     "label_sweep": ("quatro_label_sweep",
-                    [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P]),
+                    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P]),
     "overlap_hits": ("quatro_overlap_hits",
-                     [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P]),
+                     [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                      _I, _I, _P, _P, _P, _P, _P, _P, _P, _P]),
 }
 
 # Further C functions of a kernel's library: name -> (source, symbol,
 # argument types). B1's library also exports the exhaustive check of its
-# square root against __fsqrt_rn.
+# square root against __fsqrt_rn; the labelling's library, the cluster
+# layout it picks for a batch.
 EXTRA = {"sqrt_rn_check": ("consistency_graph", "quatro_sqrt_rn_check",
-                           [_P, _P])}
+                           [_P, _P]),
+         "label_layout": ("label_sweep", "quatro_label_layout",
+                          [_I, _I, _I, _P])}
 
 _loaded: dict = {}
 build_log: dict = {}    # name -> {"seconds": s, "ptxas": text}; last build

@@ -1,134 +1,323 @@
-// One min-label sweep of the range-image labelling, for a batch of images.
+// The range-image labelling, every sweep of every round, for a batch of
+// images in one launch.
 //
-// The counterpart of the sweep of quatro_tpu/preprocessing/projection.py:203
-// (label_components: XLA fuses each roll-doubling step's rolls, wheres and
-// mins into loop fusions inside the lax.while_loop at :269; no Pallas
-// kernel there), bit for bit quatro_tpu_torch/ops/labels.py::
-// label_sweep_plain, the same doubling in torch operations.
+// The counterpart of label_components' lax.while_loop at
+// quatro_tpu/preprocessing/projection.py:269, its propagate (:246) and its
+// sweep (:203) (XLA fuses each roll-doubling step's rolls, wheres and mins
+// into loop fusions; no Pallas kernel there), bit for bit
+// quatro_tpu_torch/ops/labels.py::label_sweeps_plain: a while_chunks
+// device loop of rounds, each every sweep of the schedule in order
+// (label_sweep_plain, the roll-doubling in torch operations), then
+// where(valid, out, npix).
 //
-// labels (B, R, C) int32, edges (B, R, C) bool, out (B, R, C) int32; the
-// sweep's offset d = (dr, dc), its doubling steps and npix. With
-// K = 2^(steps - 1) and m(i) the number of consecutive holding edges
-// e[i], e[i + d], e[i + 2d], ... (positions wrap on both axes, as the rolls
-// do; infinite when the whole cycle holds):
+// labels (B, R, C) int32 (the initial labels), valid (B, R, C) bool and
+// up to 8 edge masks (B, R, C) bool, one a sweep -> out (B, R, C) int32
+// and rounds (B,) int32. A sweep has an offset d = (dr, dc), its doubling
+// steps and npix. With K = 2^(steps - 1) and m(i) the number of
+// consecutive holding edges e[i], e[i + d], e[i + 2d], ... (positions wrap
+// on both axes, as the rolls do; infinite when the whole cycle holds):
 //   out[i] = min(labels[i + k d] for k = 0 .. min(K, m(i))),
 // and also min'd with npix where steps >= 2 and m(i) <= K - 2 (the
 // doubling's where(gate, cand, npix) on a broken gate somewhere in its
 // tree; the labelling's labels never exceed npix, so it changes nothing
 // there, but it keeps the kernel the plain version's function on any
-// input).
+// input). Each sweep reads the previous sweep's whole output (Jacobi).
 //
-// Bound on the card: bytes. A sweep reads the labels and the edges once
-// and writes the labels: 9 bytes a pixel, 132.7 MB at path P's B = 64 (128
-// images of 64 x 1800), 0.040 ms at 3.35 TB/s.
-// Design: two kernels, by the offset.
-// - dr == 0: the chain stays in its row, and runs round it on a wall (K
-//   covers the row's cycle: 1800 steps a pixel). One block per (image,
-//   row), the row's labels and edges in shared memory, and the doubling
-//   itself there (steps - 1 passes over the row, two buffers, one barrier
-//   a pass).
-// - dr != 0: one thread per pixel walking the chain from it, at most
-//   min(K, the cycle's length) steps; the row boundary's edges are 0 in
-//   the labelling, so a walk
-//   stops within R steps (<= 4 for 4CrossNeighbor's diagonal sweeps, <= 32
-//   for its composed (+-2, 0) ones). Neighbouring threads walk
-//   neighbouring columns, so each step's loads are coalesced.
+// The per-image loop: each image runs rounds until a round changes none
+// of its labels (compared with the round's input), or max_iters rounds,
+// as the JAX package's cond / body count them; rounds[b] is that count.
+// The plain version runs the whole batch to its slowest image, but a
+// round is a fixed point once an image's round has changed nothing, so an
+// image that stops at its own exit ends with the batched loop's bits.
+//
+// Bound on the card: bytes. The labelling reads valid and the edge masks
+// once and writes the labels once: 13 bytes a pixel under 8 masks (9
+// under 4), 192 MB at path P's B = 64 (128 images of 64 x 1800), 0.057 ms
+// at 3.35 TB/s.
+// Design: one thread-block cluster per image, the image held in the
+// cluster's distributed shared memory for the whole labelling, so global
+// memory is read once and written once.
+// - Layout: a CTA of the cluster owns ceil(R / cluster) rows: their labels
+//   in two int32 buffers (a sweep reads one and writes the other), one
+//   byte a pixel of edge bits (bit s: sweep s's mask) and one of valid: 10
+//   bytes a pixel. An HDL-64E image (64 x 1800) takes 72 KB a CTA in a
+//   cluster of 16, 144 KB in one of 8.
+// - dr == 0 sweeps whose K covers the row's cycles (every labelling sweep
+//   of the presets) stay in a row (the chain runs round it on a wall), in
+//   the CTA's own shared memory: the min to the next break as a segmented
+//   suffix scan along each cycle (row_scan), one warp a (row, cycle), a
+//   chunk a lane, the chunks composed by shuffles, the wrap closed by the
+//   value at the cycle's start.
+// - Every other sweep walks each pixel's chain, at most min(K, the
+//   cycle's length) steps; the row boundary's edges are 0 in the
+//   labelling, so a walk with dr != 0 stops within R steps (<= 4 for
+//   4CrossNeighbor's diagonal sweeps, <= 32 for its composed (+-2, 0)
+//   ones). A step on another CTA's rows reads its labels and edge bits
+//   through DSMEM (map_shared_rank); a cluster.sync() ends every sweep.
+// - The change flag: a pixel changed where a sweep lowered a valid
+//   pixel's label (the sweeps only lower labels, so the round's output
+//   differs from its input exactly there) or where an invalid pixel's
+//   label was not npix at the round's start. Each CTA ORs its threads'
+//   flags, writes its word, and after a cluster.sync every CTA ORs all
+//   the cluster's words (integer reads; alternate words in alternate
+//   rounds), so every CTA takes the same exit.
+// - Layout: CTAs of 1024 threads in clusters of 16 (non-portable) or 8,
+//   whichever the resident clusters (cudaOccupancyMaxActiveClusters) and
+//   the batch finish in the fewest waves per CTA of a cluster;
+//   quatro_label_layout reports the choice, or that no cluster holds the
+//   image.
+#include <climits>
+
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace quatro {
 
-constexpr int kSweepThreads = 256;
-constexpr int kRowSmemLimit = 227 * 1024;
+constexpr int kThreads = 1024;                  // threads a CTA
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxSweeps = 8;
+constexpr int kMaxCluster = 16;
+constexpr int kPixelBytes = 10;                 // 2 x int32 + 2 bytes
+constexpr int kDynSmemLimit = 226 * 1024;       // leaves 1 KB of static
+
+struct Sweeps {
+  const unsigned char* edges[kMaxSweeps];
+  long long limit[kMaxSweeps];    // walk bound: min(K, the cycle's length)
+  int period[kMaxSweeps];         // the cycle's length
+  int dr[kMaxSweeps];
+  int dc[kMaxSweeps];
+  int steps[kMaxSweeps];
+  int count;
+};
 
 __host__ __device__ __forceinline__ int wrap_mod(long long v, int n) {
   long long r = v % n;
   return (int)(r < 0 ? r + n : r);
 }
 
-// The doubling of one row in shared memory: level 0, then steps - 1
-// passes, each reading the other buffer.
-__global__ void __launch_bounds__(kSweepThreads)
-label_sweep_row_kernel(const int* __restrict__ labels,
-                       const unsigned char* __restrict__ edges, int cols, int dc,
-                       int steps, int npix, int* __restrict__ out) {
-  extern __shared__ int smem[];
-  int* best_a = smem;
-  int* best_b = smem + cols;
-  unsigned char* gate_a = reinterpret_cast<unsigned char*>(smem + 2 * cols);
-  unsigned char* gate_b = gate_a + cols;
-  const size_t base = (size_t)blockIdx.x * cols;
-  for (int c = threadIdx.x; c < cols; c += blockDim.x) {
-    best_b[c] = labels[base + c];
-    gate_a[c] = edges[base + c];
-  }
-  __syncthreads();
-  const int sh0 = wrap_mod(dc, cols);
-  for (int c = threadIdx.x; c < cols; c += blockDim.x) {
-    int j = c + sh0;
-    if (j >= cols) j -= cols;
-    const int l = best_b[c];
-    best_a[c] = gate_a[c] ? min(l, best_b[j]) : l;
-  }
-  __syncthreads();
-  int* cur = best_a;
-  int* nxt = best_b;
-  unsigned char* g = gate_a;
-  unsigned char* gn = gate_b;
-  long long s = 1;
-  for (int it = 0; it < steps - 1; ++it) {
-    const int sh = wrap_mod(s * dc, cols);
-    for (int c = threadIdx.x; c < cols; c += blockDim.x) {
-      int j = c + sh;
-      if (j >= cols) j -= cols;
-      const bool gc = g[c] != 0;
-      nxt[c] = min(cur[c], gc ? cur[j] : npix);
-      gn[c] = gc && g[j];
-    }
-    __syncthreads();
-    int* t = cur;
-    cur = nxt;
-    nxt = t;
-    unsigned char* u = g;
-    g = gn;
-    gn = u;
-    s *= 2;
-  }
-  for (int c = threadIdx.x; c < cols; c += blockDim.x) out[base + c] = cur[c];
+// A chunk's map from the value at its end to the value at its start:
+// closed (c) at a break, the min up to it (v) and its distance (d); open,
+// min(v, x) at d plus the input's distance. The identity is open, INT_MAX,
+// 0.
+struct ChunkMap {
+  int v, d, c;
+};
+
+// f after g: f on the earlier positions, g on the later.
+__device__ __forceinline__ ChunkMap compose(ChunkMap f, ChunkMap g) {
+  if (f.c) return f;
+  return {min(f.v, g.v), f.d + g.d, g.c};
 }
 
-// The chain walk from each pixel, at most ``limit`` = min(K, the cycle's
-// length) steps: a walk that goes round the whole cycle has seen every
-// label it can reach, and its chain never breaks.
-__global__ void __launch_bounds__(kSweepThreads)
-label_sweep_walk_kernel(const int* __restrict__ labels,
-                        const unsigned char* __restrict__ edges, long long total,
-                        int rows, int cols, int dr, int dc, int steps, long long limit,
-                        int npix, int* __restrict__ out) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const int img_px = rows * cols;
-  const long long img = i / img_px;
-  const int p = (int)(i - img * img_px);
-  const int* lab = labels + img * img_px;
-  const unsigned char* e = edges + img * img_px;
-  int r = p / cols;
-  int c = p - r * cols;
-  const int sr = wrap_mod(dr, rows);
-  const int sc = wrap_mod(dc, cols);
-  const long long reach = 1LL << (steps - 1);
-  int v = lab[p];
-  long long m = 0;
-  while (m < limit && e[r * cols + c]) {
-    r += sr;
-    if (r >= rows) r -= rows;
-    c += sc;
-    if (c >= cols) c -= cols;
-    v = min(v, lab[r * cols + c]);
-    ++m;
+__device__ __forceinline__ ChunkMap shfl_down(ChunkMap f, int off) {
+  const unsigned full = 0xffffffffu;
+  return {__shfl_down_sync(full, f.v, off), __shfl_down_sync(full, f.d, off),
+          __shfl_down_sync(full, f.c, off)};
+}
+
+// A dr == 0 sweep whose reach covers its cycles (K >= period), on the
+// CTA's rows: along each cycle x_k = q + k dc (mod cols) of a row, out_k =
+// e_k ? min(l_k, out_{k+1}) : l_k with m_k = the links to the next break,
+// the whole cycle's min where every link holds (the walk of the header
+// with limit = period, and its npix term). One warp a cycle, ceil(period /
+// 32), made odd, positions a lane: each lane's chunk as a ChunkMap,
+// composed by a suffix scan of shuffles; the value at position 0 closes
+// the cycle. From src into dst. Returns whether it lowered a valid
+// pixel's label. Positions in int: a CTA's shared memory holds a row of
+// at most 23142 columns, so k dc < 2^31.
+__device__ int row_scan(const int* src, int* dst, const unsigned char* bits,
+                        const unsigned char* vld, int nrow, int cols, int dcw, int period,
+                        long long reach, int steps, int npix, int s) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const int cycles = cols / period;
+  // odd, so that a warp's lanes, a chunk apart along a cycle of step 1 or
+  // 2, meet in at most two shared-memory banks
+  const int chunk = ((period + 31) / 32) | 1;
+  const int k0 = min(period, lane * chunk);
+  const int k1 = min(period, k0 + chunk);
+  int changed = 0;
+  for (int item = threadIdx.x >> 5; item < nrow * cycles; item += kWarps) {
+    const int r = item / cycles;
+    const int q = item - r * cycles;
+    const int* lrow = src + r * cols;
+    int* orow = dst + r * cols;
+    const unsigned char* brow = bits + r * cols;
+    const unsigned char* vrow = vld + r * cols;
+    // the chunk's map; an empty chunk is the identity
+    ChunkMap h = {INT_MAX, 0, 0};
+    int col = (q + k0 * dcw) % cols;
+    for (int k = k0; k < k1; ++k) {
+      h.v = min(h.v, lrow[col]);
+      if (!((brow[col] >> s) & 1)) {
+        h.c = 1;
+        h.d = k - k0;
+        break;
+      }
+      col += dcw;
+      if (col >= cols) col -= cols;
+    }
+    if (!h.c) h.d = k1 - k0;
+    // suffix scan: lane j holds chunk j's map composed with every later
+    // chunk's
+    for (int off = 1; off < 32; off *= 2) {
+      const ChunkMap o = shfl_down(h, off);
+      if (lane + off < 32) h = compose(h, o);
+    }
+    const ChunkMap p0 = {__shfl_sync(full, h.v, 0), __shfl_sync(full, h.d, 0),
+                         __shfl_sync(full, h.c, 0)};
+    // the value at the chunk's end: the later chunks' map applied to the
+    // value at position 0
+    ChunkMap nx = shfl_down(h, 1);
+    if (lane == 31) nx = {INT_MAX, 0, 0};
+    int cv = nx.c ? nx.v : min(nx.v, p0.v);
+    int cd = nx.c ? nx.d : nx.d + p0.d;
+    if (k1 > k0) col = (q + (k1 - 1) * dcw) % cols;
+    for (int k = k1 - 1; k >= k0; --k) {
+      const int l = lrow[col];
+      int o;
+      if (!p0.c) {
+        o = p0.v;           // every link holds: the cycle's min, no npix
+      } else {
+        if ((brow[col] >> s) & 1) {
+          cv = min(l, cv);
+          cd += 1;
+        } else {
+          cv = l;
+          cd = 0;
+        }
+        o = cv;
+        if (steps >= 2 && cd < period && cd <= reach - 2) o = min(o, npix);
+      }
+      orow[col] = o;
+      changed |= vrow[col] && o < l;
+      col -= dcw;
+      if (col < 0) col += cols;
+    }
   }
-  // a chain that broke after m edges: the doubling's broken gates
-  if (steps >= 2 && m < limit && m <= reach - 2) v = min(v, npix);
-  out[i] = v;
+  return changed;
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+label_sweeps_kernel(const int* __restrict__ labels, const unsigned char* __restrict__ valid,
+                    Sweeps sw, int rows, int cols, int rpc, int npix, int max_iters,
+                    int* __restrict__ out, int* __restrict__ rounds_out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int flag[2];
+  __shared__ int* rlab[2][kMaxCluster];
+  __shared__ const unsigned char* rbits[kMaxCluster];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int img = blockIdx.x / cs;
+  const int span = rpc * cols;
+  int* buf[2];
+  buf[0] = reinterpret_cast<int*>(smem);
+  buf[1] = buf[0] + span;
+  unsigned char* bits = reinterpret_cast<unsigned char*>(buf[1] + span);
+  unsigned char* vld = bits + span;
+  const int row0 = rank * rpc;
+  const int nrow = max(0, min(rpc, rows - row0));
+  const int np = nrow * cols;
+  const size_t base = (size_t)img * rows * cols + (size_t)row0 * cols;
+  const int nt = kThreads;
+
+  for (int i = threadIdx.x; i < np; i += nt) {
+    buf[0][i] = labels[base + i];
+    vld[i] = valid[base + i] != 0;
+    unsigned b = 0;
+    for (int s = 0; s < sw.count; ++s) b |= (unsigned)(sw.edges[s][base + i] != 0) << s;
+    bits[i] = (unsigned char)b;
+  }
+  if (threadIdx.x < cs) {
+    const int r = threadIdx.x;
+    rlab[0][r] = r == rank ? buf[0] : cluster.map_shared_rank(buf[0], r);
+    rlab[1][r] = r == rank ? buf[1] : cluster.map_shared_rank(buf[1], r);
+    rbits[r] = r == rank ? bits : cluster.map_shared_rank(bits, r);
+  }
+  cluster.sync();
+
+  int cur = 0;
+  int rounds = 0;
+  bool live = max_iters > 0;
+  while (live) {
+    int changed = 0;
+    for (int i = threadIdx.x; i < np; i += nt)
+      changed |= !vld[i] && buf[cur][i] != npix;
+    for (int s = 0; s < sw.count; ++s) {
+      const int dr = sw.dr[s];
+      const int dc = sw.dc[s];
+      const int steps = sw.steps[s];
+      if (dr == 0 && sw.limit[s] == sw.period[s]) {
+        changed |= row_scan(buf[cur], buf[cur ^ 1], bits, vld, nrow, cols,
+                            wrap_mod(dc, cols), sw.period[s], 1LL << (steps - 1), steps,
+                            npix, s);
+        cur ^= 1;
+      } else {
+        const int sr = wrap_mod(dr, rows);
+        const int sc = wrap_mod(dc, cols);
+        const long long limit = sw.limit[s];
+        const long long reach = 1LL << (steps - 1);
+        int* const* src = rlab[cur];
+        const int* mine = buf[cur];
+        int* dst = buf[cur ^ 1];
+        int lr = threadIdx.x / cols;
+        int c0 = threadIdx.x - lr * cols;
+        const int step_r = nt / cols;
+        const int step_c = nt - step_r * cols;
+        for (int i = threadIdx.x; i < np; i += nt) {
+          const int l = mine[i];
+          int v = l;
+          long long m = 0;
+          if ((bits[i] >> s) & 1) {
+            int r = row0 + lr;
+            int c = c0;
+            int owner = rank;
+            int off = i;
+            do {
+              r += sr;
+              if (r >= rows) r -= rows;
+              c += sc;
+              if (c >= cols) c -= cols;
+              owner = r / rpc;
+              off = (r - owner * rpc) * cols + c;
+              v = min(v, src[owner][off]);
+              ++m;
+            } while (m < limit && ((rbits[owner][off] >> s) & 1));
+          }
+          // a chain that broke after m edges: the doubling's broken gates
+          if (steps >= 2 && m < limit && m <= reach - 2) v = min(v, npix);
+          dst[i] = v;
+          changed |= vld[i] && v < l;
+          lr += step_r;
+          c0 += step_c;
+          if (c0 >= cols) {
+            c0 -= cols;
+            ++lr;
+          }
+        }
+        cur ^= 1;
+      }
+      cluster.sync();
+    }
+    for (int i = threadIdx.x; i < np; i += nt)
+      if (!vld[i]) buf[cur][i] = npix;
+    ++rounds;
+    const int any = __syncthreads_or(changed);
+    if (threadIdx.x == 0) flag[rounds & 1] = any;
+    cluster.sync();
+    int img_any = 0;
+    if (threadIdx.x < cs) img_any = *cluster.map_shared_rank(&flag[rounds & 1], (int)threadIdx.x);
+    img_any = __syncthreads_or(img_any);
+    live = img_any != 0 && rounds < max_iters;
+  }
+  for (int i = threadIdx.x; i < np; i += nt) out[base + i] = buf[cur][i];
+  if (rank == 0 && threadIdx.x == 0) rounds_out[img] = rounds;
+  // no CTA leaves while another may still read its shared memory
+  cluster.sync();
 }
 
 __host__ long long gcd_ll(long long a, long long b) {
@@ -140,35 +329,162 @@ __host__ long long gcd_ll(long long a, long long b) {
   return a;
 }
 
+__host__ size_t smem_bytes(int rows, int cols, int cs) {
+  const int rpc = (rows + cs - 1) / cs;
+  return (size_t)kPixelBytes * rpc * cols;
+}
+
+__host__ cudaLaunchConfig_t make_config(int bsz, int cs, size_t smem, cudaStream_t stream,
+                                        cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(bsz * cs), 1, 1);
+  cfg.blockDim = dim3((unsigned)kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = (unsigned)cs;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// The kernel's attributes for a layout: its shared memory, and clusters
+// past 8 CTAs allowed.
+__host__ cudaError_t set_attributes(int cs, size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(label_sweeps_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess || cs <= 8) return err;
+  return cudaFuncSetAttribute(label_sweeps_kernel,
+                              cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+}
+
+__host__ int resident_clusters(int bsz, int cs, size_t smem) {
+  if (set_attributes(cs, smem) != cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = make_config(bsz, cs, smem, nullptr, &attr);
+  int resident = 0;
+  if (cudaOccupancyMaxActiveClusters(&resident, label_sweeps_kernel, &cfg) != cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  return resident;
+}
+
+// The layout for bsz images of rows x cols: of clusters of 16 and 8 CTAs
+// (at most the row count, and 4, 2, 1 below that), those whose CTAs'
+// shared memory fits and of which at least one cluster can be resident
+// (cudaOccupancyMaxActiveClusters), the one with the fewest waves of
+// clusters per CTA of a cluster, ceil(bsz / resident) / cs (the larger
+// cluster on a tie). info: {cluster size, dynamic shared bytes a CTA,
+// resident clusters, the limit of dynamic shared bytes a CTA}; where none
+// fits, cudaErrorInvalidConfiguration and info {the largest cluster
+// tried, the shared bytes a CTA of it would need, 0, the limit}.
+__host__ int choose_layout(int bsz, int rows, int cols, int* info) {
+  // the last answer, per device: a call at the same shape asks nothing
+  static int seen[4] = {-1, 0, 0, 0};
+  static int seen_info[4];
+  int device = 0;
+  cudaError_t derr = cudaGetDevice(&device);
+  if (derr != cudaSuccess) return (int)derr;
+  if (seen[0] == device && seen[1] == bsz && seen[2] == rows && seen[3] == cols) {
+    for (int k = 0; k < 4; ++k) info[k] = seen_info[k];
+    return 0;
+  }
+  int best = 0;
+  double best_cost = 0.0;
+  int tried = 0;
+  for (int cs = kMaxCluster; cs >= 1; cs /= 2) {
+    if (cs > rows && cs > 1) continue;
+    const size_t smem = smem_bytes(rows, cols, cs);
+    if (tried == 0) {
+      tried = cs;
+      info[0] = cs;
+      info[1] = (int)(smem < (size_t)INT_MAX ? smem : (size_t)INT_MAX);
+      info[2] = 0;
+      info[3] = kDynSmemLimit;
+    }
+    if (smem > (size_t)kDynSmemLimit) continue;
+    const int resident = resident_clusters(bsz, cs, smem);
+    if (resident >= 1) {
+      const double cost = (double)((bsz + resident - 1) / resident) / cs;
+      if (best == 0 || cost < best_cost) {
+        best = cs;
+        best_cost = cost;
+        info[0] = cs;
+        info[1] = (int)smem;
+        info[2] = resident;
+      }
+    }
+    // the layouts only get smaller from here; 16 and 8 cover the presets
+    if (cs <= 8 && best != 0) break;
+  }
+  if (best == 0) return (int)cudaErrorInvalidConfiguration;
+  seen[0] = device;
+  seen[1] = bsz;
+  seen[2] = rows;
+  seen[3] = cols;
+  for (int k = 0; k < 4; ++k) seen_info[k] = info[k];
+  return 0;
+}
+
 }  // namespace quatro
 
-extern "C" int quatro_label_sweep(const int* labels, const unsigned char* edges, int bsz,
-                                  int rows, int cols, int dr, int dc, int steps, int npix,
-                                  int* out, cudaStream_t stream) {
+// The layout quatro_label_sweep takes for bsz images of rows x cols: info
+// (host int[4]) = {cluster size, dynamic shared bytes a CTA, resident
+// clusters, the limit of dynamic shared bytes a CTA}. Returns
+// cudaErrorInvalidConfiguration where no layout fits, with info {the
+// largest cluster tried, the shared bytes a CTA of it would need, 0, the
+// limit}; another CUDA error where the card cannot be asked.
+extern "C" int quatro_label_layout(int bsz, int rows, int cols, int* info) {
+  using namespace quatro;
+  if (bsz <= 0 || rows <= 0 || cols <= 0) return (int)cudaErrorInvalidValue;
+  return choose_layout(bsz, rows, cols, info);
+}
+
+// labels, valid (B, R, C); edge_ptrs (host, nsweeps device pointers of
+// (B, R, C) bool masks); sched (host, nsweeps x (dr, dc, steps)); out
+// (B, R, C) int32, rounds (B,) int32. One launch, in the layout
+// quatro_label_layout reports.
+extern "C" int quatro_label_sweep(const int* labels, const unsigned char* valid,
+                                  const long long* edge_ptrs, const int* sched, int nsweeps,
+                                  int bsz, int rows, int cols, int npix, int max_iters,
+                                  int* out, int* rounds, cudaStream_t stream) {
   using namespace quatro;
   if (bsz <= 0 || rows <= 0 || cols <= 0) return 0;
-  if (steps < 1 || steps > 40) return (int)cudaErrorInvalidValue;
-  if (dr == 0) {
-    const size_t smem = (size_t)cols * (2 * sizeof(int) + 2);
-    if (smem > (size_t)kRowSmemLimit) return (int)cudaErrorInvalidValue;
-    if (smem > 48 * 1024) {
-      cudaError_t err = cudaFuncSetAttribute(
-          label_sweep_row_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err != cudaSuccess) return (int)err;
-    }
-    label_sweep_row_kernel<<<bsz * rows, kSweepThreads, smem, stream>>>(
-        labels, edges, cols, dc, steps, npix, out);
-  } else {
+  if (nsweeps < 1 || nsweeps > kMaxSweeps || max_iters < 0) return (int)cudaErrorInvalidValue;
+  Sweeps sw = {};
+  sw.count = nsweeps;
+  for (int s = 0; s < nsweeps; ++s) {
+    const int dr = sched[3 * s], dc = sched[3 * s + 1], steps = sched[3 * s + 2];
+    if (steps < 1 || steps > 40) return (int)cudaErrorInvalidValue;
+    sw.edges[s] = reinterpret_cast<const unsigned char*>(edge_ptrs[s]);
+    sw.dr[s] = dr;
+    sw.dc[s] = dc;
+    sw.steps[s] = steps;
     // the cycle of positions i, i + d, ... on the (rows, cols) torus
     const long long pr = rows / gcd_ll(wrap_mod(dr, rows), rows);
     const long long pc = cols / gcd_ll(wrap_mod(dc, cols), cols);
     const long long period = pr / gcd_ll(pr, pc) * pc;
     const long long reach = 1LL << (steps - 1);
-    const long long total = (long long)bsz * rows * cols;
-    const long long blocks = (total + kSweepThreads - 1) / kSweepThreads;
-    label_sweep_walk_kernel<<<(unsigned)blocks, kSweepThreads, 0, stream>>>(
-        labels, edges, total, rows, cols, dr, dc, steps, reach < period ? reach : period,
-        npix, out);
+    sw.limit[s] = reach < period ? reach : period;
+    sw.period[s] = (int)period;
   }
+  int info[4];
+  cudaError_t e = (cudaError_t)choose_layout(bsz, rows, cols, info);
+  if (e != cudaSuccess) return (int)e;
+  const int cs = info[0];
+  const size_t smem = (size_t)info[1];
+  e = set_attributes(cs, smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = make_config(bsz, cs, smem, stream, &attr);
+  e = cudaLaunchKernelEx(&cfg, label_sweeps_kernel, labels, valid, sw, rows, cols,
+                         (rows + cs - 1) / cs, npix, max_iters, out, rounds);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

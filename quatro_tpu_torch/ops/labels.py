@@ -1,12 +1,17 @@
-"""The range-image labelling's min-label sweep.
+"""The range-image labelling's min-label sweeps.
 
-One sweep of ``preprocessing/projection.label_components`` (the sweep of
-``quatro_tpu/preprocessing/projection.py:203``, which XLA fuses into loop
-fusions inside the labelling's ``lax.while_loop``; no Pallas kernel
-there), for a batch of images. ``label_sweep`` launches
-``csrc/label_sweep.cu`` for CUDA tensors and counts the launch; for CPU
-tensors it runs ``label_sweep_plain``, the JAX package's roll-doubling in
-torch operations. There is no fallback between the two.
+``preprocessing/projection.label_components`` spreads labels by rounds of
+min-label sweeps (the ``lax.while_loop`` at
+``quatro_tpu/preprocessing/projection.py:269``, its ``propagate`` and its
+``sweep`` at :203, which XLA fuses into loop fusions; no Pallas kernel
+there). ``label_sweeps`` runs that whole loop for a batch of images: one
+launch of ``csrc/label_sweep.cu`` for CUDA tensors (one thread-block
+cluster an image, every round and sweep in its distributed shared
+memory, each image to its own exit), counted in ``LAUNCHES
+["label_sweep"]``; for CPU tensors ``label_sweeps_plain``, a
+``while_chunks`` device loop of rounds of ``label_sweep_plain`` (the JAX
+package's roll-doubling in torch operations). There is no fallback
+between the two.
 """
 
 from __future__ import annotations
@@ -14,6 +19,16 @@ from __future__ import annotations
 import torch
 
 from quatro_tpu_torch.ops.launch import LAUNCHES, check, launch, same_device
+from quatro_tpu_torch.utils import loops
+
+MAX_SWEEPS = 8                  # edge masks a round (8Neighbor, 4CrossNeighbor)
+# rounds per flag read of the plain route (label_sweeps_plain; the kernel
+# reads no flag): 2, of 1, 2, 4 and 8 the fastest when that route ran on
+# the H100 at B = 64, where a round past the exit cost ~1.4 ms of device
+# work and a flag read ~0.3-0.5 ms of host wait (tests/torch_stage_busy.py
+# --cc-chunks 1,2,4,8 on that route)
+CC_CHUNK = 2
+_NO_LAYOUT = 9                  # cudaErrorInvalidConfiguration
 
 
 def roll_image(t: torch.Tensor, dr: int, dc: int) -> torch.Tensor:
@@ -40,26 +55,110 @@ def label_sweep_plain(labels: torch.Tensor, e: torch.Tensor, dr: int,
     return best
 
 
-def label_sweep(labels: torch.Tensor, edges: torch.Tensor, dr: int, dc: int,
-                steps: int, npix: int) -> torch.Tensor:
-    """One sweep of (B, R, C) int32 labels along (dr, dc) over the (B, R,
-    C) bool edges, ``steps`` doubling steps (reach 2^(steps - 1)); both
-    contiguous. One launch of csrc/label_sweep.cu for CUDA tensors, bit
-    for bit ``label_sweep_plain``; that plain version for CPU tensors."""
+def _propagate_round(consts, state, sweeps, npix):
+    """One round of ``label_sweeps_plain``'s device loop: every sweep in
+    order, the invalid pixels back at ``npix``; the state (labels, each
+    image still live, each image's rounds). An image counts a round while
+    every round before it changed one of its labels."""
+    valid, *masks = consts
+    labels, live, rounds = state
+    out = labels
+    for e, (dr, dc, steps) in zip(masks, sweeps):
+        out = label_sweep_plain(out, e, dr, dc, steps, npix)
+    out = torch.where(valid, out, npix)
+    changed = (out != labels).flatten(1).any(1)
+    return out, live & changed, rounds + live.to(torch.int32)
+
+
+def _any_live(state):
+    return state[1].any()
+
+
+def label_sweeps_plain(labels: torch.Tensor, valid: torch.Tensor, masks,
+                       sweeps, max_iters: int, npix: int):
+    """(labels, rounds (B,) int32): rounds of every sweep of ``sweeps``
+    ((dr, dc, steps) each, over the matching edge mask of ``masks``), then
+    ``where(valid, out, npix)``, until a round changes no label of any
+    image or ``max_iters`` rounds; a ``while_chunks`` device loop
+    (utils/loops.py, the JAX package's ``lax.while_loop``) reading its
+    flag once per ``CC_CHUNK`` rounds. The rounds run past an image's exit
+    change nothing: a round is a fixed point once it has changed none of
+    the image's labels. rounds[b] counts image b's rounds as the JAX
+    package's loop counts them on that image alone."""
+    bsz = labels.shape[0]
+    dev = labels.device
+
+    def body(consts, state):
+        return _propagate_round(consts, state, sweeps, npix)
+
+    (out, _, rounds), _ = loops.while_chunks(
+        "label_components", body, _any_live, (valid, *masks),
+        (labels, torch.ones(bsz, dtype=torch.bool, device=dev),
+         torch.zeros(bsz, dtype=torch.int32, device=dev)), max_iters,
+        CC_CHUNK)
+    return out, rounds
+
+
+def label_sweeps(labels: torch.Tensor, valid: torch.Tensor, masks, sweeps,
+                 max_iters: int, npix: int):
+    """(labels (B, R, C) int32, rounds (B,) int32): the labelling's rounds
+    of sweeps on (B, R, C) int32 initial labels, (B, R, C) bool ``valid``
+    and one (B, R, C) bool edge mask per sweep of ``sweeps`` (at most
+    MAX_SWEEPS), all contiguous. One launch of csrc/label_sweep.cu for
+    CUDA tensors, every image to its own exit, bit for bit
+    ``label_sweeps_plain``, or ValueError where no cluster's shared memory
+    holds an image (``label_layout``); that plain version for CPU
+    tensors."""
     if labels.dim() != 3:
         raise ValueError(f"labels: expected (B, R, C), got "
                          f"{tuple(labels.shape)}")
-    bsz, rows, cols = labels.shape
-    check("labels", labels, (bsz, rows, cols), torch.int32)
-    check("edges", edges, (bsz, rows, cols), torch.bool)
-    if not 1 <= steps <= 40:
-        raise ValueError(f"steps must lie in [1, 40], got {steps}")
-    if same_device(labels, edges).type != "cuda":
-        return label_sweep_plain(labels, edges, dr, dc, steps, npix)
+    shape = tuple(labels.shape)
+    bsz, rows, cols = shape
+    check("labels", labels, shape, torch.int32)
+    check("valid", valid, shape, torch.bool)
+    masks, sweeps = list(masks), [tuple(s) for s in sweeps]
+    if not 1 <= len(sweeps) <= MAX_SWEEPS or len(masks) != len(sweeps):
+        raise ValueError(f"{len(masks)} masks for {len(sweeps)} sweeps: "
+                         f"expected one a sweep, 1 to {MAX_SWEEPS}")
+    for k, e in enumerate(masks):
+        check(f"masks[{k}]", e, shape, torch.bool)
+    for dr, dc, steps in sweeps:
+        if not 1 <= steps <= 40:
+            raise ValueError(f"steps must lie in [1, 40], got {steps}")
+    if max_iters < 0:
+        raise ValueError(f"max_iters must be >= 0, got {max_iters}")
+    if same_device(labels, valid, *masks).type != "cuda":
+        return label_sweeps_plain(labels, valid, masks, sweeps, max_iters,
+                                  npix)
     out = torch.empty_like(labels)
+    rounds = torch.empty(bsz, dtype=torch.int32, device=labels.device)
     if labels.numel() == 0:
-        return out
-    launch("label_sweep", labels, edges, bsz, rows, cols, int(dr), int(dc),
-           int(steps), int(npix), out)
+        return out, rounds.zero_()
+    label_layout(bsz, rows, cols)       # ValueError where no cluster fits
+    ptrs = torch.tensor([e.data_ptr() for e in masks], dtype=torch.int64)
+    sched = torch.tensor(sweeps, dtype=torch.int32)
+    launch("label_sweep", labels, valid, ptrs, sched, len(sweeps), bsz,
+           rows, cols, int(npix), int(max_iters), out, rounds)
     LAUNCHES["label_sweep"] += 1
-    return out
+    return out, rounds
+
+
+def label_layout(bsz: int, rows: int, cols: int) -> dict:
+    """The kernel's layout for ``bsz`` images of rows x cols on the
+    current card, as csrc/label_sweep.cu chooses it: cluster size, dynamic
+    shared bytes a CTA, resident clusters (cudaOccupancyMaxActiveClusters)
+    and the limit of shared bytes a CTA. ValueError where no cluster
+    holds such an image. Needs the card."""
+    from quatro_tpu_torch import _build
+    info = torch.zeros(4, dtype=torch.int32)
+    rc = _build.load("label_layout")(bsz, rows, cols, info.data_ptr())
+    cluster, smem, resident, limit = info.tolist()
+    if rc == _NO_LAYOUT:
+        raise ValueError(
+            f"a {rows} x {cols} image fits no cluster of the labelling "
+            f"kernel: a cluster of {cluster} CTAs needs {smem} bytes of "
+            f"shared memory a CTA, against a limit of {limit}")
+    if rc != 0:
+        raise RuntimeError(f"label_layout: CUDA error {rc}")
+    return {"cluster": cluster, "smem_bytes": smem,
+            "resident_clusters": resident, "smem_limit": limit}

@@ -26,9 +26,9 @@ import numpy as np
 import torch
 
 from quatro_tpu_torch.config import LidarConfig, ProjectionConfig
-from quatro_tpu_torch.ops.labels import label_sweep, roll_image
+from quatro_tpu_torch.ops.labels import label_sweeps, roll_image
 from quatro_tpu_torch.ops.segment import image_lookup
-from quatro_tpu_torch.utils import fused, loops
+from quatro_tpu_torch.utils import fused
 
 # Range quantisation of the packed owner key: 15 bits over _RMAX metres
 # (~3.7 mm buckets); 17 bits of point index.
@@ -39,11 +39,6 @@ _SENTINEL = (1 << 32) - 1         # uint32 max of the JAX package's words
 _INT32_MAX = (1 << 31) - 1
 _F32_MAX = torch.finfo(torch.float32).max
 _DEG = 180.0 / math.pi
-# labelling rounds per flag read: a round past the exit costs ~1.4 ms of
-# device work at B = 64 on the H100 (eight sweep launches) and a flag
-# read ~0.3-0.5 ms of host wait; of 1, 2, 4 and 8, 2 was the fastest there
-# (tests/torch_stage_busy.py --cc-chunks 1,2,4,8)
-CC_CHUNK = 2
 # 4CrossNeighbor's composed offsets, as pairs of diagonal offsets: (0, 2),
 # (0, -2), (2, 0), (-2, 0)
 _COMPOSED = (((1, 1), (-1, 1)), ((1, -1), (-1, -1)), ((1, 1), (1, -1)),
@@ -162,23 +157,6 @@ def _neighbor_edges(rimg: torch.Tensor, valid: torch.Tensor, dr: int, dc: int,
     return valid & svalid & (angle > theta_rad)
 
 
-def _propagate_round(consts, state, sweeps, npix):
-    """One round of ``label_components``' device loop: every sweep in
-    order (one ``label_sweep`` launch each on the card), the invalid
-    pixels back at ``npix``; the state (labels, some label changed)."""
-    valid, *masks = consts
-    labels, _ = state
-    out = labels
-    for e, (dr, dc, steps) in zip(masks, sweeps):
-        out = label_sweep(out, e, dr, dc, steps, npix)
-    out = torch.where(valid, out, npix)
-    return out, (out != labels).any()
-
-
-def _changed(state):
-    return state[1]
-
-
 def sweep_schedule(rows: int, cols: int, cfg: ProjectionConfig):
     """Each sweep's (dr, dc, doubling steps) in a labelling round's order:
     the neighbour offsets (2^(steps - 1) covers the image's extent along
@@ -208,14 +186,14 @@ def label_components(rimg: torch.Tensor, valid: torch.Tensor,
     invalid pixels; feasible (B, R * C) bool gate per label id;
     pix_feasible (B, R, C) bool). Labels spread by min-label sweeps along
     each neighbour offset (and, for 4CrossNeighbor, the composed zigzag
-    offsets; ``sweep_schedule``), each one ``ops/labels.label_sweep``
-    (a kernel launch on the card, the roll-doubling on the CPU), until no
-    label of any cloud changes or
-    ``max_cc_iters`` rounds: a ``while_chunks`` device loop (the JAX
-    package's ``lax.while_loop``; CUDA graphs on the card) that reads its
-    "some label changed" flag once per ``CC_CHUNK`` rounds. The rounds a
-    chunk runs past a cloud's exit change nothing: a round is a fixed
-    point at convergence. Component size and line count come from one
+    offsets; ``sweep_schedule``) in rounds, until a round changes no label
+    of the image or ``max_cc_iters`` rounds (the JAX package's
+    ``lax.while_loop``): ``ops/labels.label_sweeps``, on the card one
+    kernel launch for the batch, each image to its own exit and no flag
+    read on the host; on the CPU a ``while_chunks`` device loop that reads
+    its "some label changed" flag once per ``ops/labels.CC_CHUNK`` rounds,
+    whose rounds past an image's exit change nothing (a round is a fixed
+    point at convergence). Component size and line count come from one
     stable (label, row) sort: with |dr| <= 1 a component's rows are
     contiguous, so lines = rmax - rmin + 1."""
     bsz, rows, cols = rimg.shape
@@ -245,19 +223,14 @@ def label_components(rimg: torch.Tensor, valid: torch.Tensor,
             comp.append((compose(a, b), a[0] + b[0], a[1] + b[1]))
 
     sweeps = sweep_schedule(rows, cols, cfg)
-
-    def body(consts, state):
-        return _propagate_round(consts, state, sweeps, npix)
-
     # int32 labels inside the loop, as the JAX package's label image
     flat_iota = torch.arange(npix, dtype=torch.int32,
                              device=dev).reshape(rows, cols)
-    (labels, _), _ = loops.while_chunks(
-        "label_components", body, _changed,
-        (valid, *(e for e, _, _ in edges), *(e for e, _, _ in comp)),
-        (torch.where(valid, flat_iota, npix),
-         torch.ones((), dtype=torch.bool, device=dev)),
-        cfg.max_cc_iters, CC_CHUNK)
+    valid = valid.contiguous()
+    labels, _ = label_sweeps(
+        torch.where(valid, flat_iota, npix), valid,
+        [e.contiguous() for e, _, _ in edges + comp], sweeps,
+        cfg.max_cc_iters, npix)
     labels = labels.to(torch.int64)
 
     # --- per-component stats: one stable sort by (label, row), then scans

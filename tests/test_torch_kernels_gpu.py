@@ -694,13 +694,12 @@ def test_batched_pipeline_launches_do_not_depend_on_batch(dev):
     """register_scan_pair under the shipping configuration with ground
     alignment and ICP at VLP-16 scale launches each kernel as often for
     B = 4 pairs as for B = 1: the pair axis adds no launch. The overlap
-    kernel launches once a call; the labelling's sweep kernel once a
-    sweep of every round run (8 a round), and the rounds follow the data,
-    so it is held to that relation and left out of the equality."""
+    kernel and the labelling kernel launch once a call, whatever the
+    rounds each image's labelling runs, and the labelling runs no device
+    loop on the card."""
     from quatro_tpu_torch.config import (FPFHConfig, GroundAlignmentConfig,
                                          IcpConfig)
     from quatro_tpu_torch.pipeline import register_scan_pair
-    from quatro_tpu_torch.preprocessing.projection import sweep_schedule
     from quatro_tpu_torch.utils import loops
 
     lidar = LidarConfig.preset("VLP-16")
@@ -727,14 +726,8 @@ def test_batched_pipeline_launches_do_not_depend_on_batch(dev):
         res = register_scan_pair(src, tgt, cfg, device=dev)
         torch.cuda.synchronize()
         assert res.solution.rotation.shape == (bsz, 3, 3)
-        got = dict(launch.LAUNCHES)
-        # the labelling's rounds follow the data (the batch's slowest
-        # cloud): one sweep launch a sweep of every round run
-        rounds = loops.LOOPS["label_components"]["rounds"]
-        assert rounds > 0
-        assert got.pop("label_sweep") == len(sweep_schedule(
-            cfg.lidar.n_scan, cfg.lidar.horizon_scan, cfg.projection)) * rounds
-        return got
+        assert "label_components" not in loops.LOOPS
+        return dict(launch.LAUNCHES)
 
     one = launches(1)
     assert launches(4) == one
@@ -744,7 +737,7 @@ def test_batched_pipeline_launches_do_not_depend_on_batch(dev):
                    "cross_histogram": 1, "fit_iteration_moments": 3,
                    "classify_points": 1, "image_lookup": 1,
                    "table_lookup": 0, "exact_clique": 0, "kabsch": 0,
-                   "overlap_hits": 1}
+                   "label_sweep": 1, "overlap_hits": 1}
 
 
 def test_plain_graph_refused_on_the_card(dev, recommended):
@@ -910,8 +903,8 @@ def test_classify_points_and_image_lookup_kernels(prep_inputs):
 def test_register_scan_pair_runs_all_ten_kernels(dev):
     """register_scan_pair on the raw level_a VLP-16 pair under the shipping
     solver: every kernel launched, the preprocessing ones once per batch
-    of two (three plane fits), the labelling's sweep kernel 8 times a
-    round run, the overlap kernel once."""
+    of two (three plane fits), the labelling kernel once (no device loop),
+    the overlap kernel once."""
     from quatro_tpu_torch.pipeline import register_scan_pair
     from quatro_tpu_torch.utils import loops
     cfg = replace(CFG, max_raw_points=32768,
@@ -926,15 +919,14 @@ def test_register_scan_pair_runs_all_ten_kernels(dev):
     loops.reset_loops()
     res = register_scan_pair(src, tgt, cfg, device=dev)
     torch.cuda.synchronize()
-    rounds = loops.LOOPS["label_components"]["rounds"]
-    assert rounds > 0
+    assert "label_components" not in loops.LOOPS
     assert dict(tf.LAUNCHES) == {
         "moment_sums": 1, "spfh": 1, "fpfh": 1, "nearest_neighbors": 0,
         "nearest_neighbors2": 2,
         "consistency_graph": 1, "segment_sums": 1, "cross_histogram": 1,
         "fit_iteration_moments": 3, "classify_points": 1, "image_lookup": 1,
         "table_lookup": 0, "exact_clique": 0, "kabsch": 0,
-        "label_sweep": 8 * rounds, "overlap_hits": 1}
+        "label_sweep": 1, "overlap_hits": 1}
     assert bool(res.solution.valid)
 
 
@@ -1194,11 +1186,9 @@ def test_stage_loops_graph_equals_eager_on_the_card(dev, case):
     first chunk uncaptured, then the capture; second call: replays only)
     gives the bits of ``eager_loops()`` and of ``eager_loops(chunk=1)``,
     with the same kernel launches (Patchwork's B8-B10, the projection's
-    B11 and sweep kernel; B9 and the sweeps counted at each replay), and
-    the loop reads no flag but the labelling's, at most ceil(rounds /
-    chunk) + 1. The overlaps are one kernel launch on the card (no loop):
-    the same bits on every call."""
-    from quatro_tpu_torch.preprocessing.projection import CC_CHUNK
+    B11 and labelling kernel; B9 counted at each replay), and the loop
+    reads no flag. The labelling and the overlaps are one kernel launch
+    each on the card (no loop): the same bits on every call."""
     from quatro_tpu_torch.utils import loops
     fn = _stage_loop_cases(dev)[case]
     loops.clear_graphs()
@@ -1208,8 +1198,6 @@ def test_stage_loops_graph_equals_eager_on_the_card(dev, case):
         launch.reset_launches()
         with loops.eager_loops(chunk=chunk):
             refs.append(_flat(fn()))
-        if chunk == 1:
-            rounds = loops.LOOPS.get(case, {}).get("rounds", 0)
     eager_launches = dict(launch.LAUNCHES)
     for got in refs[:1]:
         assert all(torch.equal(g, r) for g, r in zip(got, refs[1]))
@@ -1221,18 +1209,16 @@ def test_stage_loops_graph_equals_eager_on_the_card(dev, case):
         assert len(got) == len(refs[1])
         for g, r in zip(got, refs[1]):
             assert torch.equal(g, r), call
-        if case == "overlap":
+        if case in ("overlap", "label_components"):
             # one kernel launch on the card: no device loop there
-            assert "overlap" not in loops.LOOPS
-            assert launch.LAUNCHES["overlap_hits"] == 1
+            assert case not in loops.LOOPS
+            assert launch.LAUNCHES["overlap_hits" if case == "overlap"
+                                   else "label_sweep"] == 1
             continue
         c = loops.LOOPS[case]
         print(case, call, c)
         assert c["captures" if call == "capture" else "replays"] >= 1
-        if case == "label_components":
-            assert c["reads"] <= -(-rounds // CC_CHUNK) + 1
-        else:
-            assert c["reads"] == 0
+        assert c["reads"] == 0
 
 
 def test_voxel_grid_batched_on_the_card(dev):
@@ -1427,24 +1413,35 @@ def _sweep_images(bsz, rows, cols, seed, edge_share=0.93):
     return torch.from_numpy(labels), torch.from_numpy(edges), npix
 
 
-def _sweeps_bit_equal(dev, labels, edges, npix, sched):
-    """Every sweep of ``sched`` in order (each on the kernel's previous
-    output, the edges rolled a column a sweep): the kernel equal to its
-    plain version on CPU copies and on the card, one launch a sweep."""
-    from quatro_tpu_torch.ops.labels import label_sweep, label_sweep_plain
-    cur = labels.to(dev)
-    for k, (dr, dc, steps) in enumerate(sched):
-        e = torch.roll(edges, k, dims=-1).contiguous()
-        ed = e.to(dev)
-        launch.reset_launches()
-        got = label_sweep(cur, ed, dr, dc, steps, npix)
-        torch.cuda.synchronize()
-        assert launch.LAUNCHES["label_sweep"] == 1
-        assert torch.equal(got.cpu(), label_sweep_plain(
-            cur.cpu(), e, dr, dc, steps, npix)), (dr, dc, steps)
-        assert torch.equal(got, label_sweep_plain(cur, ed, dr, dc, steps,
-                                                  npix)), (dr, dc, steps)
-        cur = got
+def _labelling_bit_equal(dev, labels, edges, npix, sched, max_iters,
+                         valid_share=0.85):
+    """The labelling kernel on ``sched`` (one mask a sweep: the edges
+    rolled a column a sweep), some pixels invalid, against its plain route
+    on CPU copies and on the card (uncaptured): labels and each image's
+    rounds bit for bit, one launch. Returns the rounds."""
+    from quatro_tpu_torch.ops.labels import label_sweeps, label_sweeps_plain
+    from quatro_tpu_torch.utils import loops
+    rng = np.random.default_rng(labels.shape[1] + len(sched))
+    valid = torch.from_numpy(rng.random(tuple(labels.shape)) < valid_share)
+    masks = [torch.roll(edges, k, dims=-1).contiguous()
+             for k in range(len(sched))]
+    args = (labels, valid, masks, sched, max_iters, npix)
+    ref = label_sweeps_plain(*args)
+    on_dev = (labels.to(dev), valid.to(dev), [m.to(dev) for m in masks],
+              sched, max_iters, npix)
+    launch.reset_launches()
+    loops.reset_loops()
+    got = label_sweeps(*on_dev)
+    torch.cuda.synchronize()
+    assert launch.LAUNCHES["label_sweep"] == 1
+    assert "label_components" not in loops.LOOPS
+    assert torch.equal(got[0].cpu(), ref[0]) and torch.equal(got[1].cpu(),
+                                                              ref[1])
+    with loops.eager_loops():
+        plain = label_sweeps_plain(*on_dev)
+    assert torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])
+    assert int(got[1].max()) <= max_iters
+    return got[1].tolist()
 
 
 @pytest.mark.parametrize("mode", ["4CrossNeighbor", "4Neighbor",
@@ -1453,27 +1450,29 @@ def _sweeps_bit_equal(dev, labels, edges, npix, sched):
                                    (16, 1024), (64, 1024)],
                          ids=lambda s: f"{s[0]}x{s[1]}")
 def test_label_sweep_kernel(dev, shape, mode):
-    """The sweep kernel on every sweep of the mode's round (row kernel for
-    dr = 0, walk kernel otherwise) at every lidar preset's shape, bit for
-    bit its plain version: wrapped full rows, broken chains, labels past
-    npix."""
+    """The labelling kernel on the mode's sweeps at every lidar preset's
+    shape (row scans for dr = 0, DSMEM walks otherwise), to the images'
+    own exits and capped at 2 rounds, bit for bit its plain route:
+    wrapped full rows, broken chains, labels past npix."""
     from quatro_tpu_torch.config import ProjectionConfig
     from quatro_tpu_torch.preprocessing.projection import sweep_schedule
     rows, cols = shape
     cfg = dataclasses.replace(ProjectionConfig(), neighbor_mode=mode)
     labels, edges, npix = _sweep_images(3, rows, cols, rows + cols)
-    _sweeps_bit_equal(dev, labels, edges, npix,
-                      sweep_schedule(rows, cols, cfg))
+    sched = sweep_schedule(rows, cols, cfg)
+    rounds = _labelling_bit_equal(dev, labels, edges, npix, sched, 48)
+    capped = _labelling_bit_equal(dev, labels, edges, npix, sched, 2)
+    assert capped == [min(r, 2) for r in rounds]
 
 
 def test_label_sweep_kernel_path_p_batch(dev):
-    """A round of 4CrossNeighbor sweeps on path P's B = 64 batch shape:
-    128 images of 64 x 1800 in one launch a sweep, bit for bit."""
+    """The 4CrossNeighbor labelling on path P's B = 64 batch shape: 128
+    images of 64 x 1800 in one launch, bit for bit."""
     from quatro_tpu_torch.config import ProjectionConfig
     from quatro_tpu_torch.preprocessing.projection import sweep_schedule
     labels, edges, npix = _sweep_images(128, 64, 1800, 64)
-    _sweeps_bit_equal(dev, labels, edges, npix,
-                      sweep_schedule(64, 1800, ProjectionConfig()))
+    _labelling_bit_equal(dev, labels, edges, npix,
+                         sweep_schedule(64, 1800, ProjectionConfig()), 48)
 
 
 @pytest.mark.parametrize("share", [0.93, 1.0])
@@ -1481,23 +1480,52 @@ def test_label_sweep_kernel_path_p_batch(dev):
 @pytest.mark.parametrize("offset", [(0, 1), (0, -2), (1, 1), (-2, 0),
                                     (1, 0), (-1, -1)])
 def test_label_sweep_kernel_steps(dev, offset, steps, share):
-    """One sweep at each doubling depth on 16 x 64 images, reach shorter
-    and longer than the chains and than the cycle (share 1.0: every edge
-    holds, across the row boundary too), bit for bit the plain version."""
+    """A one-sweep labelling at each doubling depth on 16 x 64 images,
+    reach shorter and longer than the chains and than the cycle (share
+    1.0: every edge holds, across the row boundary too), for 1 and 3
+    rounds, bit for bit the plain route."""
     labels, edges, npix = _sweep_images(2, 16, 64, steps, share)
     if share == 1.0:
         edges[:] = True
-    _sweeps_bit_equal(dev, labels, edges, npix, [(*offset, steps)])
+    for max_iters in (1, 3):
+        _labelling_bit_equal(dev, labels, edges, npix, [(*offset, steps)],
+                             max_iters)
+
+
+@pytest.mark.parametrize("offset", [(0, 16), (0, 32), (0, -8), (0, 64)])
+def test_label_sweep_kernel_row_cycles(dev, offset):
+    """dr = 0 sweeps whose reach covers rows of many cycles (period 4, 2,
+    8 and 1 on 64 x 64 images: a CTA's rows hold more cycles than it has
+    warps, so each warp scans several in turn), alone and after a
+    diagonal sweep, bit for bit the plain route."""
+    labels, edges, npix = _sweep_images(3, 64, 64, 7)
+    for sched in ([(*offset, 6)], [(1, 1, 3), (*offset, 6)]):
+        for max_iters in (1, 48):
+            _labelling_bit_equal(dev, labels, edges, npix, sched, max_iters)
+
+
+def test_label_sweep_kernel_refuses_oversized(dev):
+    """An image that no cluster's shared memory holds raises ValueError
+    naming the limit; the largest preset's fits."""
+    from quatro_tpu_torch.ops.labels import label_layout, label_sweeps
+    labels = torch.zeros(1, 16, 30000, dtype=torch.int32, device=dev)
+    valid = torch.ones_like(labels, dtype=torch.bool)
+    with pytest.raises(ValueError, match="limit"):
+        label_sweeps(labels, valid, [valid], [(0, 1, 3)], 4, 16 * 30000)
+    for bsz in (2, 128):
+        lay = label_layout(bsz, 64, 1800)
+        assert lay["cluster"] in (8, 16) and lay["resident_clusters"] >= 1
+        print(bsz, lay)
 
 
 @pytest.mark.parametrize("mode", ["4CrossNeighbor", "4Neighbor",
                                   "8Neighbor"])
 @pytest.mark.parametrize("lidar", ["VLP-16", "Ouster-OS1-64", "HDL-32E"])
-def test_label_components_kernel_modes(dev, lidar, mode):
+def test_label_components_kernel_modes(dev, lidar, mode, monkeypatch):
     """label_components on the range images of a raw pair of each preset,
-    as one batch: labels, feasibility and pixel feasibility on the card
-    equal to the CPU's, and the sweep kernel launched once a sweep of
-    every round run."""
+    as one batch: labels, feasibility, pixel feasibility and each image's
+    rounds on the card equal to the CPU's; one labelling launch and no
+    device loop on the card."""
     from quatro_tpu_torch.config import ProjectionConfig
     from quatro_tpu_torch.preprocessing import projection
     from quatro_tpu_torch.utils import loops
@@ -1512,6 +1540,15 @@ def test_label_components_kernel_modes(dev, lidar, mode):
         pts[b, :len(xyz)], masks[b, :len(xyz)] = torch.from_numpy(xyz), True
     *_, rimg, owner = projection.project_to_range_image(pts, masks, lid)
     valid = owner >= 0
+    rounds = []
+    real = projection.label_sweeps
+
+    def spy(*args, **kwargs):
+        out = real(*args, **kwargs)
+        rounds.append(out[1].cpu())
+        return out
+
+    monkeypatch.setattr(projection, "label_sweeps", spy)
     ref = projection.label_components(rimg, valid, lid, cfg)
     loops.reset_loops()
     launch.reset_launches()
@@ -1519,9 +1556,9 @@ def test_label_components_kernel_modes(dev, lidar, mode):
     torch.cuda.synchronize()
     for g, r in zip(got, ref):
         assert torch.equal(g.cpu(), r)
-    rounds = loops.LOOPS["label_components"]["rounds"]
-    assert launch.LAUNCHES["label_sweep"] == len(projection.sweep_schedule(
-        lid.n_scan, lid.horizon_scan, cfg)) * rounds
+    assert torch.equal(rounds[0], rounds[1]) and int(rounds[1].min()) > 0
+    assert launch.LAUNCHES["label_sweep"] == 1
+    assert "label_components" not in loops.LOOPS
     assert int(ref[1].sum()) > 0
 
 

@@ -137,28 +137,86 @@ def test_label_sweep_plain_is_the_chain_min(shape, mode):
                                     (2, 0), (-1, -1)])
 def test_label_sweep_plain_steps(offset, steps):
     """One sweep at each doubling depth on a 16 x 64 image (chains longer
-    and shorter than the reach), against the oracle; the wrapper on CPU
-    tensors is the plain version and launches nothing."""
+    and shorter than the reach), against the oracle."""
     dr, dc = offset
     labels, edges, npix = _sweep_images(16, 64, 7 * steps)
-    before = dict(LAUNCHES)
-    got = tlab.label_sweep(_t(labels), _t(edges), dr, dc, steps, npix)
-    assert LAUNCHES == before
+    got = tlab.label_sweep_plain(_t(labels), _t(edges), dr, dc, steps, npix)
     np.testing.assert_array_equal(
         got.numpy(), _chain_oracle(labels, edges, dr, dc, steps, npix))
 
 
+def _host_rounds(labels, valid, masks, sweeps, max_iters, npix):
+    """The labelling's loop for each image alone, on the host: rounds of
+    the chain oracle's sweeps and where(valid, out, npix), counted as the
+    JAX package's cond / body count them. Returns (labels, rounds)."""
+    outs, counts = [], []
+    for b in range(labels.shape[0]):
+        cur, it, changed = labels[b:b + 1], 0, True
+        while changed and it < max_iters:
+            out = cur
+            for e, (dr, dc, steps) in zip(masks, sweeps):
+                out = _chain_oracle(out, e[b:b + 1], dr, dc, steps, npix)
+            out = np.where(valid[b:b + 1], out, npix).astype(np.int32)
+            changed, cur, it = bool((out != cur).any()), out, it + 1
+        outs.append(cur[0])
+        counts.append(it)
+    return np.stack(outs), np.array(counts, np.int32)
+
+
+@pytest.mark.parametrize("max_iters", [0, 1, 3, 48])
+@pytest.mark.parametrize("mode", MODES)
+def test_label_sweeps_on_cpu_is_the_plain_route(mode, max_iters):
+    """The labelling op's wrapper on CPU tensors: the plain route, no
+    launch, each image's labels and rounds those of the host loop of the
+    chain oracle's sweeps (random edges, labels past npix, one image with
+    no valid pixel)."""
+    rows, cols = 16, 64
+    cfg = dataclasses.replace(tcfg.ProjectionConfig(), neighbor_mode=mode)
+    sweeps = tpr.sweep_schedule(rows, cols, cfg)
+    labels, edges, npix = _sweep_images(rows, cols, 11)
+    valid = np.random.default_rng(12).random(labels.shape) < 0.8
+    valid[1] = False
+    labels = np.where(valid, labels, npix).astype(np.int32)
+    masks = [np.roll(edges, k, axis=-1) for k in range(len(sweeps))]
+    before = dict(LAUNCHES)
+    got, rounds = tlab.label_sweeps(_t(labels), _t(valid),
+                                    [_t(e) for e in masks], sweeps,
+                                    max_iters, npix)
+    assert LAUNCHES == before
+    assert rounds.dtype == torch.int32 and got.dtype == torch.int32
+    want, want_rounds = _host_rounds(labels, valid, masks, sweeps,
+                                     max_iters, npix)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(rounds.numpy(), want_rounds)
+    assert int(want_rounds[1]) == min(1, max_iters)
+
+
 def test_label_sweep_checks_its_inputs():
+    """The labelling op's wrapper refuses what its kernel does not take."""
     labels = torch.zeros(2, 4, 8, dtype=torch.int32)
+    valid = torch.ones(2, 4, 8, dtype=torch.bool)
     edges = torch.ones(2, 4, 8, dtype=torch.bool)
+    sweeps = [(0, 1, 3)]
     with pytest.raises(TypeError):
-        tlab.label_sweep(labels.long(), edges, 0, 1, 3, 32)
+        tlab.label_sweeps(labels.long(), valid, [edges], sweeps, 4, 32)
+    with pytest.raises(TypeError):
+        tlab.label_sweeps(labels, valid.int(), [edges], sweeps, 4, 32)
     with pytest.raises(ValueError):
-        tlab.label_sweep(labels, edges[:, :3], 0, 1, 3, 32)
+        tlab.label_sweeps(labels, valid, [edges[:, :3]], sweeps, 4, 32)
     with pytest.raises(ValueError):
-        tlab.label_sweep(labels[0], edges[0], 0, 1, 3, 32)
+        tlab.label_sweeps(labels[0], valid[0], [edges[0]], sweeps, 4, 32)
     with pytest.raises(ValueError):
-        tlab.label_sweep(labels, edges, 0, 1, 0, 32)
+        tlab.label_sweeps(labels, valid, [edges], [(0, 1, 0)], 4, 32)
+    with pytest.raises(ValueError):
+        tlab.label_sweeps(labels, valid, [edges, edges], sweeps, 4, 32)
+    with pytest.raises(ValueError):
+        tlab.label_sweeps(labels, valid, [edges] * 9, sweeps * 9, 4, 32)
+    with pytest.raises(ValueError):
+        tlab.label_sweeps(labels, valid, [edges], sweeps, -1, 32)
+    with pytest.raises(ValueError):
+        tlab.label_sweeps(labels, valid, [edges.transpose(1, 2)
+                                          .contiguous().transpose(1, 2)],
+                          sweeps, 4, 32)
 
 
 def _wall_scene(seed, lidar):
@@ -208,6 +266,104 @@ def test_label_components_matches_jax_at_other_widths(lidar, mode):
         if mode == "4CrossNeighbor":
             root = root + (np.add.outer(np.arange(2), np.arange(cols)) % 2)
         assert (ref[0][ring:ring + 2] == root).all()
+
+
+def _jax_labelling(rimg, valid, lidar, cfg, monkeypatch):
+    """The JAX package's label_components on one image, and its
+    while_loop's round count: a spy on ``jax.lax.while_loop`` traced into
+    a fresh jit of the function's ``__wrapped__``."""
+    seen = []
+    real = jax.lax.while_loop
+
+    def spy(cond, body, init):
+        out = real(cond, body, init)
+        jax.debug.callback(lambda it: seen.append(int(it)), out[-1])
+        return out
+
+    monkeypatch.setattr(jax.lax, "while_loop", spy)
+    fn = jax.jit(lambda r, v: jpr.label_components.__wrapped__(
+        r, v, lidar, cfg))
+    got = [np.asarray(a) for a in fn(jnp.asarray(rimg), jnp.asarray(valid))]
+    jax.effects_barrier()
+    monkeypatch.setattr(jax.lax, "while_loop", real)
+    assert len(seen) == 1
+    return got, seen[0]
+
+
+@pytest.mark.parametrize("max_iters", [1, 2, 3, 48])
+@pytest.mark.parametrize("mode", MODES)
+def test_label_rounds_match_jax(mode, max_iters, monkeypatch):
+    """Each image's rounds in the plain route (one batched call on two
+    VLP-16 wall scenes) equal the JAX package's while_loop count on that
+    image alone, and so do the labels, feasibility and pixel feasibility,
+    at caps below and above the images' own exits."""
+    lidar_j = jcfg.LidarConfig.preset("VLP-16")
+    lidar_t = qt.LidarConfig.preset("VLP-16")
+    cfg_j = dataclasses.replace(jcfg.ProjectionConfig(), neighbor_mode=mode,
+                                max_cc_iters=max_iters)
+    cfg_t = dataclasses.replace(tcfg.ProjectionConfig(), neighbor_mode=mode,
+                                max_cc_iters=max_iters)
+    scenes = [_wall_scene(seed, lidar_j) for seed in (5, 6)]
+    calls = []
+    real = tpr.label_sweeps
+
+    def spy(*args, **kwargs):
+        out = real(*args, **kwargs)
+        calls.append(out)
+        return out
+
+    monkeypatch.setattr(tpr, "label_sweeps", spy)
+    got = tpr.label_components(_t(np.stack([s[0] for s in scenes])),
+                               _t(np.stack([s[1] for s in scenes])),
+                               lidar_t, cfg_t)
+    monkeypatch.setattr(tpr, "label_sweeps", real)
+    (_, rounds), = calls
+    for b, (r, v) in enumerate(scenes):
+        ref, it = _jax_labelling(r, v, lidar_j, cfg_j, monkeypatch)
+        assert int(rounds[b]) == it, (b, int(rounds[b]), it)
+        for g, want in zip(got, ref):
+            np.testing.assert_array_equal(g[b].numpy(), want)
+    assert int(rounds.max()) <= max_iters
+    if max_iters == 1:
+        assert rounds.tolist() == [1, 1]
+
+
+def test_label_sweeps_images_stop_on_their_own():
+    """A batch whose images converge at different rounds (a wall scene, an
+    image with no valid pixel, a lone blob): each image's labels and
+    rounds in the batched plain route are those of its own call."""
+    lidar = jcfg.LidarConfig.preset("VLP-16")
+    rows, cols = lidar.n_scan, lidar.horizon_scan
+    cfg = tcfg.ProjectionConfig()
+    rimg, valid = _wall_scene(5, lidar)
+    blob = np.zeros_like(valid)
+    blob[3:6, 40:52] = True
+    rimgs = np.stack([rimg, rimg, np.where(blob, 9.0, np.inf)]).astype(
+        np.float32)
+    valids = np.stack([valid, np.zeros_like(valid), blob])
+    lid = qt.LidarConfig.preset("VLP-16")
+    theta = tpr._deg2rad(cfg.segment_theta_deg)
+    sweeps = tpr.sweep_schedule(rows, cols, cfg)
+    npix = rows * cols
+
+    def operands(sl):
+        r, v = _t(rimgs[sl]), _t(valids[sl])
+        edges = {(dr, dc): tpr._neighbor_edges(r, v, dr, dc, lid, theta)
+                 for dr, dc in cfg.neighbor_offsets}
+        masks = [edges[o] for o in cfg.neighbor_offsets] + [
+            (edges[a] & tlab.roll_image(edges[b], *a))
+            | (edges[b] & tlab.roll_image(edges[a], *b))
+            for a, b in tpr._COMPOSED]
+        iota = torch.arange(npix, dtype=torch.int32).reshape(rows, cols)
+        return torch.where(v, iota, npix), v, masks
+
+    got, rounds = tlab.label_sweeps_plain(*operands(slice(0, 3)), sweeps,
+                                          48, npix)
+    assert len(set(rounds.tolist())) == 3, rounds.tolist()
+    for b in range(3):
+        one, n = tlab.label_sweeps_plain(*operands(slice(b, b + 1)), sweeps,
+                                         48, npix)
+        assert torch.equal(got[b:b + 1], one) and int(rounds[b]) == int(n[0])
 
 
 # ---------------------------------------------------------- the overlap --
@@ -276,16 +432,58 @@ def test_alignment_overlap_matches_jax(lead, special):
         assert float(np.min(want)) > 0.1
 
 
-def _kernel_model(p, pm, tgt, tm, r2, idx):
+@pytest.mark.parametrize("masks", ["sparse", "no_target", "one_target",
+                                   "nan_first", "nan_last"])
+def test_alignment_overlap_masks_match_jax(masks):
+    """alignment_overlap on B = 3 pairs x K = 4 poses against the JAX
+    package's, exactly, at the masks the kernel's compaction meets: 5 % of
+    the points valid, a pair whose target has no valid point, a target
+    with one valid point, and a NaN in the first or the last valid target
+    point (every row of that pair without a hit)."""
+    src, smask, tgt, tmask, yaws, trans = _overlap_case("hypotheses",
+                                                        "finite", seed=8)
+    rng = np.random.default_rng(9)
+    if masks == "sparse":
+        smask = rng.random(smask.shape) < 0.05
+        tmask = rng.random(tmask.shape) < 0.05
+    elif masks == "no_target":
+        tmask[1] = False
+    elif masks == "one_target":
+        tmask[:] = False
+        tmask[:, :, 17] = True
+        smask[:, :, 17] = True
+    else:
+        k = 0 if masks == "nan_first" else tmask.shape[-1] - 1
+        tmask[:, :, k] = True
+        tgt[:, :, k, 2] = np.nan
+    rot = torch.stack([rotation_from_rpy(0.0, 0.0, float(a))
+                       for a in np.ravel(yaws)]).reshape(
+        np.shape(yaws) + (3, 3))
+    got = alignment_overlap(_t(src), _t(smask), _t(tgt), _t(tmask), rot,
+                            _t(trans), 0.6)
+    want = _jax_overlap(src, smask, tgt, tmask, rot.numpy(), trans, 0.6)
+    np.testing.assert_array_equal(got.numpy(), want)
+    if masks == "no_target":
+        assert float(np.abs(want[1]).max()) == 0.0 < float(want[0].min())
+    elif masks.startswith("nan"):
+        assert float(np.abs(want).max()) == 0.0
+    else:
+        assert float(want.max()) > 0.0
+
+
+def _kernel_model(p, pm, tgt, tm, r2, pack, idx):
     """The kernel's contract on its operands, in torch: for each leading
     entry l, the rows of p[idx[0, l]] valid in pm[idx[1, l]] whose
-    NaN-propagating min over tgt[idx[2, l]] (+inf where tm[idx[3, l]] is
-    False) of ((dx dx) + (dy dy)) + (dz dz) is <= r2."""
+    NaN-propagating min over the valid points of its target combination
+    c = idx[2, l] (tgt[pack[0, c]] where tm[pack[1, c]]; +inf if none) of
+    ((dx dx) + (dy dy)) + (dz dz) is <= r2."""
     out = []
-    for ip, ipm, it, itm in idx.T.tolist():
-        d = p[ip][:, None, :] - tgt[it][None, :, :]
+    for ip, ipm, c in idx.T.tolist():
+        it, itm = pack[:, c].tolist()
+        t = tgt[it][tm[itm]]
+        d = p[ip][:, None, :] - t[None, :, :]
         d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
-        d2 = torch.where(tm[itm][None, :], d2, float("inf"))
+        d2 = torch.cat([d2, torch.full((d2.shape[0], 1), float("inf"))], 1)
         out.append(int(((d2.amin(-1) <= r2) & pm[ipm]).sum()))
     return torch.tensor(out, dtype=torch.int64)
 
@@ -294,10 +492,12 @@ def _kernel_model(p, pm, tgt, tm, r2, idx):
 @pytest.mark.parametrize("lead", ["one", "edges", "hypotheses"])
 def test_overlap_kernel_operands(lead, special):
     """The operands the wrapper hands csrc/overlap_hits.cu (each cloud
-    flattened over its own leading axes, the (4, L) row map of the
-    broadcast; the (B, 1, M, 3) target not repeated K times), run through
-    a torch model of the kernel, give the plain route's hits; the wrapper
-    on CPU tensors is the plain route and launches nothing."""
+    flattened over its own leading axes, the (2, Ct) target combinations
+    and the (3, L) row map of the broadcast; the (B, 1, M, 3) target
+    packed once, not K times), run through a torch model of the kernel
+    over the valid targets only, give the plain route's hits; the plan's
+    rows a thread, tiles and splits at path A's and B = 64's shapes; the
+    wrapper on CPU tensors is the plain route and launches nothing."""
     src, smask, tgt, tmask, yaws, trans = _overlap_case(lead, special)
     rot = torch.stack([rotation_from_rpy(0.0, 0.0, float(a))
                        for a in np.ravel(yaws)]).reshape(
@@ -314,7 +514,10 @@ def test_overlap_kernel_operands(lead, special):
     plain = tov.overlap_hits(p, pm, tg, tm, r2)
     assert LAUNCHES == before
     assert torch.equal(plain, tov.overlap_hits_plain(p, pm, tg, tm, r2, 64))
-    model = _kernel_model(*ops[:4], r2, ops[4]).reshape(lead_shape)
+    assert ops[4].shape == (2, 1 if lead == "one" else 3)
+    assert tov.overlap_plan(6, 2048, 8192) == (1, 16, 3)
+    assert tov.overlap_plan(384, 2048, 8192) == (4, 4, 1)
+    model = _kernel_model(*ops[:4], r2, *ops[4:]).reshape(lead_shape)
     assert torch.equal(model, plain)
 
 
@@ -328,3 +531,30 @@ def test_overlap_hits_checks_its_inputs():
         tov.overlap_hits(p, pm.float(), p, pm, r2)
     with pytest.raises(TypeError):
         tov.overlap_hits(p, pm, p, pm, r2[None])
+
+
+def test_overlap_index_operands_kept_by_shape():
+    """The target combinations and row map of kernel_operands depend on
+    the leading shapes alone: a second call at the same shapes, with other
+    values, hands back the same index tensors; another shape gets its
+    own, equal to a fresh build."""
+    rng = np.random.default_rng(5)
+
+    def operands(lead_p, lead_t, n=7, m=9):
+        p = _t(rng.normal(size=lead_p + (n, 3)).astype(np.float32))
+        tgt = _t(rng.normal(size=lead_t + (m, 3)).astype(np.float32))
+        pm = _t(rng.random(lead_p + (n,)) < 0.7)
+        tm = _t(rng.random(lead_t + (m,)) < 0.7)
+        lead = torch.broadcast_shapes(lead_p, lead_t)
+        return p, pm, tgt, tm, lead
+
+    first = tov.kernel_operands(*operands((2, 3), (2, 1)))
+    again = operands((2, 3), (2, 1))
+    second = tov.kernel_operands(*again)
+    assert second[4] is first[4] and second[5] is first[5]
+    assert torch.equal(second[0], again[0].reshape(-1, 7, 3))
+    other = operands((4,), (4,))
+    got = tov.kernel_operands(*other)
+    fresh = tov._index_operands(*other)
+    assert got[4] is not first[4]
+    assert torch.equal(got[4], fresh[0]) and torch.equal(got[5], fresh[1])

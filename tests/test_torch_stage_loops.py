@@ -7,7 +7,8 @@ the JAX package's execution model, on the CPU at VLP-16 scale.
   3 and 8 clouds of different valid counts (one empty), with and without
   ``active_cap``.
 - ``refine_icp`` (a ``fori`` over its passes), ``label_components`` (a
-  ``while_chunks`` over its rounds) and ``estimate_ground`` (a ``fori``
+  ``while_chunks`` over its rounds, the CPU's route; one kernel launch on
+  the card) and ``estimate_ground`` (a ``fori``
   over its bf16 plane fits) give the same bits under
   ``eager_loops(chunk=1)`` (a flag read per round) and at their default
   chunk, and agree with the JAX package's functions on the same numpy
@@ -38,6 +39,7 @@ from quatro_tpu.solver.icp import refine_icp as jax_icp
 import quatro_tpu_torch as qt
 import quatro_tpu_torch.config as tcfg
 from quatro_tpu_torch.io.synthetic import make_scan_pair
+from quatro_tpu_torch.ops.labels import CC_CHUNK
 from quatro_tpu_torch.ops.voxel import voxel_downsample
 from quatro_tpu_torch.pipeline import raw_scan_normals, raw_scan_voxels
 from quatro_tpu_torch.preprocessing import patchwork as tpw
@@ -207,7 +209,7 @@ def test_label_components_loop_routes_and_jax(mode):
         loops.reset_loops()
         tpr.label_components(rimg, valid, lidar_t, cfg_t)
         rounds = loops.LOOPS["label_components"]["rounds"]
-    assert c["reads"] <= -(-rounds // tpr.CC_CHUNK) + 1
+    assert c["reads"] <= -(-rounds // CC_CHUNK) + 1
     assert c["rounds"] >= rounds
     for b, (r, v) in enumerate(scenes):
         ref = [np.asarray(a) for a in jpr.label_components(

@@ -1,7 +1,7 @@
 """Stage split and device busy time per stage of the port's main path, on
 the card, for any tree of the repository.
 
-    python tests/torch_stage_busy.py [tree] [--cc-chunks 2,4,8]
+    python tests/torch_stage_busy.py [tree] [--cc-chunks 2,4,8] [--cases A,P64]
 
 ``tree`` is a checkout of the repository (default: this one), e.g. an
 earlier commit unpacked with ``git archive`` into ``build/``; its
@@ -17,12 +17,17 @@ card's name and power limit, then one JSON line per case:
 
 Each line holds the call's host wall ms (median of 3), every stage's ms
 (CUDA events) and device busy ms (torch.profiler in one more call, the
-device events between marker fills at the stage ends), the device's busy
+device events between marker fills at the stage ends), the projection's
+and the arbitration's device time by kernel (the largest first) with the
+labelling's kernels' and the overlap's kernels' sums, the device's busy
 total and idle share, the peak memory and the labelling loop's counters
-(rounds, flag reads, replays) of the timed call. With ``--cc-chunks``
-both cases run once for each labelling chunk (``projection.CC_CHUNK``,
-the rounds between two flag reads), in the order given. To compare two
-trees, run both in one command on one card: parent, change, change,
+(rounds, flag reads, replays; empty where the labelling is one kernel
+launch) of the timed call. With ``--cc-chunks`` both cases run once for
+each labelling chunk (``projection.CC_CHUNK``, the rounds between two
+flag reads of a tree whose labelling is a device loop on the card; a
+later tree keeps its chunk in ``ops/labels.py`` for the CPU's route
+alone), in the order given. ``--cases A`` runs path A alone. To compare
+two trees, run both in one command on one card: parent, change, change,
 parent.
 """
 
@@ -50,6 +55,8 @@ def main() -> int:
     ap.add_argument("--cc-chunks", default=None,
                     help="comma-separated labelling chunks (default: the "
                     "tree's CC_CHUNK)")
+    ap.add_argument("--cases", default="A,P64",
+                    help="comma-separated cases to run, of A and P64")
     args = ap.parse_args()
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree))
@@ -70,18 +77,22 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.build()
 
-    pairs, _, cfgs = cs.full_width_case()
-    scans, cfg_p = cs.bench_case()
+    names = args.cases.split(",")
     dev = torch.device("cuda")
-    big = [cs.pair_batch([scans[i % len(scans)][k] for i in range(64)], dev)
-           for k in (0, 1)]
-    cases = {"A": (tuple(p.to(dev) for p in pairs["tilted"]), cfgs["A"]),
-             "P64": (tuple(big), cfg_p)}
+    cases = {}
+    if "A" in names:
+        pairs, _, cfgs = cs.full_width_case()
+        cases["A"] = (tuple(p.to(dev) for p in pairs["tilted"]), cfgs["A"])
+    if "P64" in names:
+        scans, cfg_p = cs.bench_case()
+        cases["P64"] = (tuple(
+            cs.pair_batch([scans[i % len(scans)][k] for i in range(64)], dev)
+            for k in (0, 1)), cfg_p)
     chunks = ([int(c) for c in args.cc_chunks.split(",")]
               if args.cc_chunks else [getattr(projection, "CC_CHUNK", None)])
     for chunk, (name, (pair, cfg)) in ((c, case) for c in chunks
                                        for case in cases.items()):
-        if chunk is not None:       # an earlier tree has no chunk
+        if chunk is not None:       # a tree with no chunk on the card
             projection.CC_CHUNK = chunk
         for _ in range(2):
             register_scan_pair(*pair, cfg)
@@ -99,13 +110,25 @@ def main() -> int:
         register_scan_pair(*pair, cfg, timer=timer)
         labelling = dict(loops.LOOPS.get("label_components", {}))
         stages = timer.split_ms()
+        by_kernel = {}
         busy = cs.stage_device_busy(lambda timer: register_scan_pair(
-            *pair, cfg, timer=timer))
+            *pair, cfg, timer=timer), by_kernel=by_kernel)
+        split = {st: sorted(([cs.short_kernel_name(k), n, round(ms, 4)]
+                             for k, (n, ms) in
+                             by_kernel.get(st, {}).items()),
+                            key=lambda r: -r[2])
+                 for st in ("projection", "arbitration")}
         wall = sorted(walls)[1]
         total = None if busy is None else sum(busy.values())
         print(json.dumps({
             "case": name, "tree": str(tree), "cc_chunk": chunk,
             "labelling_loop": labelling, "wall_ms": round(wall, 3),
+            "labelling_device_ms": round(sum(
+                r[2] for r in split["projection"] if "label_sweep" in r[0]),
+                4),
+            "overlap_device_ms": round(sum(
+                r[2] for r in split["arbitration"] if "overlap_" in r[0]), 4),
+            "kernels": {st: rows[:12] for st, rows in split.items()},
             "walls_ms": [round(w, 3) for w in walls],
             "stages": {k: {"ms": round(v, 3), "device_busy_ms":
                            None if busy is None else busy.get(k)}
