@@ -7,10 +7,11 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions, and the float32 precision flags (TF32 off everywhere);
-2. build: the sixteen kernels from quatro_tpu_torch/csrc (the twelve
+2. build: the nineteen kernels from quatro_tpu_torch/csrc (the twelve
    of the JAX package's Pallas calls, the exact clique search, the
-   Kabsch rotation, the range-image labelling and the overlaps' hit
-   counts),
+   Kabsch rotation, the range-image labelling, the overlaps' hit
+   counts, and the range image's point keys and owners, edge masks and
+   component stats),
    one nvcc per source, all started together; build time and ptxas
    register and spill summary;
 3. path A, the main path (Quatro++ coarse to fine): ``register_scan_pair``
@@ -26,7 +27,9 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    the launch counts over the run 1 (moments), 1 (SPFH), 1 (FPFH), 0
    (1-NN), 2 (top-2 NN), 1 (consistency graph), 1 (segment sums), 1 (cross
    histogram), 3 (plane-fit moments), 1 (classification), 1 (image
-   lookup), 0 (table lookup), 1 (overlap hits) and 1 (the labelling: one
+   lookup), 0 (table lookup), 1 (overlap hits), 1 each (range image, edge
+   masks, component stats: one wrapper call a ``segment_cloud`` call)
+   and 1 (the labelling: one
    launch a ``label_components`` call, each image to its own exit; every
    path's launch counts hold it so, and its logs give the most rounds an
    image ran, ``launch_counts``). Per-stage times from CUDA events after
@@ -123,8 +126,9 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    B3's, B4's, B5's and B9's wrappers with all their kernels; the device
    busy time of each stage (``stage_device_busy``: the device events
    between marker fills launched at the stage ends) beside its ms, and
-   the projection stage's device time by kernel (its sorts, scatter,
-   scans, the labelling kernel); and
+   the projection's, arbitration's and Patchwork's device time and
+   launches by kernel (the projection: the range image's kernels and
+   sort, the edge masks, the labelling, the stats); and
    the ms of ``radius_neighbors``' row-tile loop on ICP's target voxels,
    the one host loop left on the path;
 9. kernels: each kernel on the main path's own tensors (B6 on path B's
@@ -146,7 +150,17 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    segment_cloud with the kernel against the plain route on the card
    under all three neighbour modes and at max_cc_iters = 2 (every field,
    labels, feasibility, rounds) on path A's clouds and on a VLP-16 and an
-   Ouster OS1-64 pair; the overlap kernel on path A's arbitration
+   Ouster OS1-64 pair, the range image's three kernels with it (their
+   plain versions on the plain route); the range image's keys and owners,
+   edge masks and component stats each on path A's recorded operands,
+   bit for bit their plain versions on the card (NaN where NaN) and
+   across two launches, the range image also with NaN and inf points and
+   with a max_points prefix of half the valid points and none, the edge
+   masks under all three neighbour modes, each with its row (device ms
+   of every event of the wrapper's call, the sort's too, and of the
+   port's kernels alone; bound: the inputs read and outputs written once,
+   OPS_RANGE_POINT / OPS_EDGE / OPS_STATS; no library call); the overlap
+   kernel on path A's arbitration
    call (bound: 9 operations per valid source row and valid target
    point), bit for bit its plain version on the card and on CPU copies,
    and with a NaN in a valid target point (no hit). B2, B3 (with
@@ -196,12 +210,13 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    table); at each B the batched voxel grid equal to the per-cloud call
    on every cloud (128 at B = 64) and the overlaps to the per-pair call
    on every pair, bit for bit; at B = 64 the labelling kernel on the 128
-   images and the overlap kernel on the 384 (pair, pose) rows, each bit
-   for bit its plain version on the card with its device, call and plain
-   ms and bound (``b64`` in their rows), segment_cloud with the kernel
-   against the plain route under all three neighbour modes and at
-   max_cc_iters = 2, and the projection stage's device time by kernel
-   (as for path A in the profile phase);
+   images, the overlap kernel on the 384 (pair, pose) rows and the range
+   image's three kernels on the 128 clouds, each bit for bit its plain
+   version on the card with its device, call and plain ms and bound
+   (``b64`` in their rows), segment_cloud with the kernels against the
+   plain routes under all three neighbour modes and at max_cc_iters = 2,
+   and the projection's, arbitration's and Patchwork's device time and
+   launches by kernel (as for path A in the profile phase);
 11. path M, the multi-card step on one card (parallel/), after path P:
    (a) on a one-rank NCCL group (a file store under build/),
    ``make_full_pipeline_step`` over path S's 12 frames as the ring of
@@ -282,6 +297,14 @@ OPS_KABSCH_ROW = 2000     # per row: the 3 x 3 SVD's bidiagonalisation,
                           # sweeps and back transformation (approx.)
 OPS_OVERLAP = 9           # per (valid source row, valid target point): 3
                           # sub, 3 mul, 2 add, the min
+OPS_RANGE_POINT = 105     # per point: hypot 10, range 7, two fdlibm
+                          # arctangents of ~32 each, row and column 12, the
+                          # tests, pixel and key 12
+OPS_EDGE = 38             # per (pixel, offset): max, min, a product, a
+                          # multiply-add in f64, an arctangent, the test
+OPS_COMPOSE = 3           # per (pixel, composed mask): two ands, an or
+OPS_STATS = 12            # per pixel: the label test, row, three atomics,
+                          # the gate's compares
 
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 PAIR_REPEATS = 5          # timed runs of path A
@@ -324,6 +347,12 @@ REPLACES = {
     # and sweep, XLA loop fusions) and alignment_overlap's block_hits
     "label_sweep": "quatro_tpu/preprocessing/projection.py:269",
     "overlap_hits": "quatro_tpu/solver/verify.py:63",
+    # no pl.pallas_call: project_to_range_image's keys and owner image,
+    # _neighbor_edges and the composed masks, label_components' stats
+    # (XLA loop fusions around lax.sort)
+    "range_image": "quatro_tpu/preprocessing/projection.py:72",
+    "edge_masks": "quatro_tpu/preprocessing/projection.py:141",
+    "component_stats": "quatro_tpu/preprocessing/projection.py:279",
 }
 SOURCES = {
     "moment_sums": "quatro_tpu_torch/csrc/moment_sums.cu",
@@ -342,20 +371,28 @@ SOURCES = {
     "kabsch": "quatro_tpu_torch/csrc/kabsch.cu",
     "label_sweep": "quatro_tpu_torch/csrc/label_sweep.cu",
     "overlap_hits": "quatro_tpu_torch/csrc/overlap_hits.cu",
+    "range_image": "quatro_tpu_torch/csrc/range_image.cu",
+    "edge_masks": "quatro_tpu_torch/csrc/edge_masks.cu",
+    "component_stats": "quatro_tpu_torch/csrc/component_stats.cu",
 }
-# label_sweep: one launch a label_components call (the whole labelling)
+# label_sweep: one launch a label_components call (the whole labelling);
+# range_image, edge_masks, component_stats: one wrapper call a
+# segment_cloud call
 MAIN_LAUNCHES = {"moment_sums": 1, "spfh": 1, "fpfh": 1,
                  "nearest_neighbors": 0, "nearest_neighbors2": 2,
                  "consistency_graph": 1, "segment_sums": 1,
                  "cross_histogram": 1, "fit_iteration_moments": 3,
                  "classify_points": 1, "image_lookup": 1, "table_lookup": 0,
                  "exact_clique": 0, "kabsch": 0,
-                 "label_sweep": 1, "overlap_hits": 1}
+                 "label_sweep": 1, "overlap_hits": 1, "range_image": 1,
+                 "edge_masks": 1, "component_stats": 1}
+PROJECTION_KERNELS = ("range_image", "edge_masks", "component_stats")
 PATH_B_LAUNCHES = dict(MAIN_LAUNCHES, nearest_neighbors=2,
                        nearest_neighbors2=0, segment_sums=0, overlap_hits=0)
 FEATURES_LAUNCHES = dict(MAIN_LAUNCHES, cross_histogram=0,
                          fit_iteration_moments=0, classify_points=0,
-                         image_lookup=0, label_sweep=0)
+                         image_lookup=0, label_sweep=0,
+                         **dict.fromkeys(PROJECTION_KERNELS, 0))
 SINGLE_LAUNCHES = dict(FEATURES_LAUNCHES, segment_sums=0, overlap_hits=0)
 # the labelling kernel against its plain route on images of other presets
 # (ray-cast pairs, all three neighbour modes, and a cap of LABEL_CAP
@@ -656,15 +693,17 @@ def short_kernel_name(name, width=150):
     return name[:width]
 
 
-def log_stage_kernels(label, by_kernel, stages=("projection",
-                                                "arbitration"), top=16):
+def log_stage_kernels(label, by_kernel, stages=("projection", "arbitration",
+                                                "patchwork"), top=16):
     """The device time of ``stages`` by kernel (``stage_device_busy``'s
-    ``by_kernel``), the largest first (``short_kernel_name``)."""
+    ``by_kernel``), the largest first (``short_kernel_name``), with each
+    stage's device launches."""
     for stage in stages:
         split = by_kernel.get(stage, {})
         total = sum(ms for _, ms in split.values())
         rows = sorted(split.items(), key=lambda kv: -kv[1][1])[:top]
-        log(f"{label}: {stage} device {total:.3f} ms by kernel "
+        log(f"{label}: {stage} device {total:.3f} ms in "
+            f"{sum(n for n, _ in split.values())} launches by kernel "
             f"({len(split)} names; launches, ms, share): " + json.dumps(
                 [[short_kernel_name(name), n, round(ms, 4),
                   round(ms / total, 4) if total else None]
@@ -1240,9 +1279,9 @@ def phase_teaser_fixture(cfg):
 def capture_preprocessing(raw, cfg):
     """The arguments the main path hands each preprocessing kernel: one
     more preprocessing run of the pair (after the counted run) with the
-    five wrappers wrapped to record their arguments (the labelling's
-    ``label_sweeps``), and segment_cloud's and label_components'
-    arguments. Logs the ground, non-ground and segment points per
+    eight wrappers wrapped to record their arguments (the labelling's
+    ``label_sweeps``, the range image's three), and segment_cloud's and
+    label_components' arguments. Logs the ground, non-ground and segment points per
     cloud."""
     from quatro_tpu_torch.device import resolve_device
     from quatro_tpu_torch.preprocessing import patchwork, projection
@@ -1252,7 +1291,8 @@ def capture_preprocessing(raw, cfg):
     wrapped = [(patchwork, "cross_histogram"),
                (patchwork, "fit_iteration_moments"),
                (patchwork, "classify_points"), (projection, "image_lookup"),
-               (projection, "label_sweeps"), (projection, "label_components")]
+               (projection, "label_sweeps"), (projection, "label_components"),
+               *((projection, k) for k in PROJECTION_KERNELS)]
     saved = [getattr(mod, fn) for mod, fn in wrapped]
 
     def recorder(name, fn):
@@ -1317,7 +1357,8 @@ def sequence_launches(frames, calls):
                 segment_sums=calls + gn * (cg + 1),
                 cross_histogram=frames, fit_iteration_moments=3 * frames,
                 classify_points=frames, image_lookup=frames,
-                label_sweep=frames, overlap_hits=calls)
+                label_sweep=frames, overlap_hits=calls,
+                **dict.fromkeys(PROJECTION_KERNELS, frames))
 
 
 def _spread(ms):
@@ -2274,7 +2315,11 @@ WRAPPER_KERNELS = {"moment_sums": ("quatro::moment_sums_kernel",),
                                              "quatro::fit_partials_kernel",
                                              "quatro::chunk_sum_kernel<9>"),
                    "overlap_hits": ("quatro::overlap_pack_kernel",
-                                    "quatro::overlap_hits_kernel")}
+                                    "quatro::overlap_hits_kernel"),
+                   "range_image": ("quatro::range_keys_kernel",
+                                   "quatro::range_owner_kernel"),
+                   "component_stats": ("quatro::component_accumulate_kernel",
+                                       "quatro::component_feasible_kernel")}
 # the kernel each wrapper launches once per call, by the profiler's name:
 # a profiled run counts only if it saw this kernel once per call
 MAIN_KERNEL = {"moment_sums": "quatro::moment_sums_kernel",
@@ -2291,7 +2336,10 @@ MAIN_KERNEL = {"moment_sums": "quatro::moment_sums_kernel",
                "exact_clique": "quatro::exact_clique_kernel",
                "kabsch": "quatro::kabsch::kabsch_kernel",
                "label_sweep": "quatro::label_sweeps_kernel",
-               "overlap_hits": "quatro::overlap_hits_kernel"}
+               "overlap_hits": "quatro::overlap_hits_kernel",
+               "range_image": "quatro::range_keys_kernel",
+               "edge_masks": "quatro::edge_masks_kernel",
+               "component_stats": "quatro::component_feasible_kernel"}
 
 
 def culled_pairs(pts, mask, radius):
@@ -2351,11 +2399,12 @@ def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b,
         return n
 
     def row(name, err, k_fn, p_fn, ops, nbytes, lib_fn=None, launches=None,
-            label=None, lib_main=None, extra=None):
+            label=None, lib_main=None, extra=None, prefix="quatro::"):
         """One kernel's row: CUDA-event ms of the wrapper's call (20 calls),
         of the plain version's (5) and of the library call's (20); the
         device ms per call of the port's kernels (``k_fn`` is one wrapper
-        call, one launch of its main kernel) and of the library call
+        call, one launch of its main kernel; with ``prefix`` "" every
+        device event of the call, a sort's too) and of the library call
         (torch.profiler, None where no profiled run saw every call;
         ``lib_main`` names the library's main kernel and its launches per
         call); the bound from this run's data; ``extra`` keys. Appended to the kernel table unless ``label`` names a second
@@ -2370,7 +2419,7 @@ def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b,
              "plain_ms": cuda_ms(p_fn, 5), "bound_ms": b_ms, "bound_by": by,
              "library_ms": cuda_ms(lib_fn) if lib_fn else None,
              "device_ms": device_ms_per_call(
-                 k_fn, "quatro::", main=(MAIN_KERNEL[name], 1)),
+                 k_fn, prefix, main=(MAIN_KERNEL[name], 1)),
              "library_device_ms": (device_ms_per_call(lib_fn, main=lib_main,
                                                       tries=10)
                                    if lib_fn else None)}
@@ -2584,6 +2633,7 @@ def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b,
     kabsch_kernel_row(exact, row, rows)
     preprocessing_kernel_rows(calls, row)
     label_sweep_row(calls, main_launches, row, rows)
+    projection_kernel_rows(calls, main_launches, row)
     segment_routes_equal(calls["segment_cloud"][0], "path A")
     for preset in LABEL_PRESETS:
         segment_routes_equal(preset_segment_args(preset), preset)
@@ -2595,7 +2645,7 @@ def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b,
         if r.get("bf16_device_ms_uncaptured", 0.0) is None]
     check(not missing, "kernel phase: no profiled run saw every call of "
           f"{missing}")
-    log("kernel phase: device ms of all sixteen kernels (torch.profiler): "
+    log("kernel phase: device ms of all nineteen kernels (torch.profiler): "
         + json.dumps({r["name"]: round(r["device_ms"], 6) for r in rows}))
     return rows
 
@@ -2864,14 +2914,17 @@ def preprocessing_kernel_rows(calls, row):
 
 @contextlib.contextmanager
 def sweep_route(plain):
-    """The labelling through its kernel, or (``plain``) through its plain
-    route on the card, uncaptured; yields a list that gets each call's
-    (labels, rounds)."""
+    """The labelling and the range image's three kernels (keys and owners,
+    edge masks, component stats) through their kernels, or (``plain``)
+    through their plain versions on the card, uncaptured; yields a list
+    that gets each labelling call's (labels, rounds)."""
+    from quatro_tpu_torch.ops import range_image as ri
     from quatro_tpu_torch.ops.labels import label_sweeps_plain
     from quatro_tpu_torch.preprocessing import projection
     from quatro_tpu_torch.utils import loops
 
     real = projection.label_sweeps
+    saved = {k: getattr(projection, k) for k in PROJECTION_KERNELS}
     outs = []
 
     def run(*args, **kwargs):
@@ -2880,22 +2933,27 @@ def sweep_route(plain):
         return out
 
     projection.label_sweeps = run
+    if plain:
+        for k in PROJECTION_KERNELS:
+            setattr(projection, k, getattr(ri, f"{k}_plain"))
     try:
         with loops.eager_loops():
             yield outs
     finally:
         projection.label_sweeps = real
+        for k, fn in saved.items():
+            setattr(projection, k, fn)
 
 
 def segment_routes_equal(seg_args, label):
     """segment_cloud on ``seg_args`` ((points, mask, lidar, projection
     config), keyword arguments) under each neighbour mode, and under the
-    first with max_cc_iters = LABEL_CAP, with the labelling kernel and
-    with its plain route on the card: every field of the result (segment
-    masks, labels), label_components' labels, feasibility and pixel
-    feasibility and each image's rounds bit for bit, and the kernel
-    launched once. Returns each case's rounds, feasible components and
-    segment points."""
+    first with max_cc_iters = LABEL_CAP, with the labelling and range-image
+    kernels and with their plain versions on the card (``sweep_route``):
+    every field of the result (segment masks, range image, labels,
+    owners), label_components' labels, feasibility and pixel feasibility
+    and each image's rounds bit for bit, and each kernel launched once.
+    Returns each case's rounds, feasible components and segment points."""
     import dataclasses
 
     from quatro_tpu_torch.preprocessing import projection
@@ -2930,16 +2988,18 @@ def segment_routes_equal(seg_args, label):
               and min(rounds) > 0,
               f"{label}, {key}: {n_k['label_sweep']} labelling launches, "
               f"rounds {rounds}")
+        check(all(n_k[k] == 1 and n_p[k] == 0 for k in PROJECTION_KERNELS),
+              f"{label}, {key}: projection kernel launches {n_k} / {n_p}")
         check(cap is None or max(rounds) == cap,
               f"{label}, {key}: rounds {rounds} never reach the cap")
         summary[key] = {"rounds": rounds, "components": int(got[7].sum()),
                         "segment_points": got[0].sum(-1).tolist()}
-    log(f"label_sweep ({label}: {tuple(pts.shape[:-2])} clouds, "
-        f"{lidar.n_scan} x {lidar.horizon_scan} images): labels, "
-        "feasibility, segment masks and each image's rounds with the kernel "
-        "equal to its plain route on the card under every neighbour mode "
-        f"and at max_cc_iters {LABEL_CAP}, bit for bit: "
-        + json.dumps(summary))
+    log(f"label_sweep, range_image, edge_masks, component_stats ({label}: "
+        f"{tuple(pts.shape[:-2])} clouds, {lidar.n_scan} x "
+        f"{lidar.horizon_scan} images): labels, feasibility, segment masks, "
+        "range image, owners and each image's rounds with the kernels equal "
+        "to their plain routes on the card under every neighbour mode and "
+        f"at max_cc_iters {LABEL_CAP}, bit for bit: " + json.dumps(summary))
     return summary
 
 
@@ -3067,6 +3127,138 @@ def label_sweep_row(calls, main_launches, row, rows):
                "registers": kernel_registers("label_sweep")})
 
 
+def same_bits(a, b):
+    """Equal dtypes, shapes and values, bit for bit where not NaN and NaN
+    at the same places (torch.equal is false on any NaN)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(
+        torch.where(nan, 0.0, a), torch.where(nan, 0.0, b))
+
+
+def routes_equal(name, args, label):
+    """One projection kernel's wrapper on ``args`` against its plain
+    version on the card, every output bit for bit (NaN where NaN), and
+    across two launches; returns the outputs."""
+    from quatro_tpu_torch.ops import range_image as ri
+
+    got = getattr(ri, name)(*args)
+    again = getattr(ri, name)(*args)
+    ref = getattr(ri, f"{name}_plain")(*args)
+    got_t, again_t, ref_t = ((t,) if torch.is_tensor(t) else tuple(t)
+                             for t in (got, again, ref))
+    check(all(same_bits(g, a) for g, a in zip(got_t, again_t)),
+          f"{name} ({label}): differs between launches")
+    check(all(same_bits(g, r) for g, r in zip(got_t, ref_t)),
+          f"{name} ({label}): differs from its plain version on the card")
+    return got
+
+
+def with_specials(points, mask):
+    """Copies of a batch of clouds with NaN and inf coordinates in valid
+    and masked points, and cloud 0's last point alone far out at the end
+    of the range quantisation (its packed word the sentinel where it is
+    the last of 2^17 points)."""
+    points, mask = points.clone(), mask.clone()
+    last = mask.shape[1] - 1
+    points[0, 3, 1] = float("nan")
+    points[-1, 5] = float("nan")
+    mask[-1, 5] = False
+    points[0, 7, 0] = float("inf")
+    points[-1, 9, 2] = -float("inf")
+    points[0, 11] = torch.tensor([float("inf"), float("inf"), 1.0])
+    points[0, last] = torch.tensor([125.0, 0.4, 0.0])
+    mask[0, last] = True
+    return points, mask
+
+
+def projection_work(name, args):
+    """(operations, bytes) of one call of a projection kernel's wrapper:
+    OPS_RANGE_POINT a point; OPS_EDGE a (pixel, offset) and OPS_COMPOSE a
+    composed mask; OPS_STATS a pixel; its inputs read once and its outputs
+    written once (the sort's own traffic not counted)."""
+    if name == "range_image":
+        points, _, lidar = args[:3]
+        bsz, n = points.shape[:2]
+        npix = lidar.n_scan * lidar.horizon_scan
+        return (float(bsz * n * OPS_RANGE_POINT),
+                float(bsz * n * (12 + 1 + 8 + 8 + 4 + 1 + 8)
+                      + bsz * npix * (4 + 8)))
+    if name == "edge_masks":
+        from quatro_tpu_torch.ops.range_image import is_4cross
+        rimg, _, offsets = args[:3]
+        pix = rimg.numel()
+        comp = 4 if is_4cross(offsets) else 0
+        return (float(pix * (len(offsets) * OPS_EDGE + comp * OPS_COMPOSE)),
+                float(pix * (4 + 1 + len(offsets) + comp)))
+    labels = args[0]
+    return (float(labels.numel() * OPS_STATS),
+            float(labels.numel() * (4 + 1 + 8 + 1 + 1)))
+
+
+def projection_cases(calls, label):
+    """The three projection kernels on one segment_cloud call's recorded
+    operands (``calls``: capture_preprocessing's), each against its plain
+    version on the card (``routes_equal``); the range image also with NaN
+    and inf points and with a max_points prefix of half the valid points
+    (and none), the edge masks also under the other two neighbour modes.
+    Returns {name: operands}."""
+    import dataclasses
+
+    from quatro_tpu_torch.config import ProjectionConfig
+
+    ops = {k: calls[k][0][0] for k in PROJECTION_KERNELS}
+    points, mask, lidar, min_range, cap = ops["range_image"]
+    half = max(1, int(mask.sum(1).min()) // 2)
+    notes = {}
+    for case, (p, m, c) in {"recorded": (points, mask, cap),
+                            "nan_inf": (*with_specials(points, mask), cap),
+                            "prefix": (points, mask, half),
+                            "no_prefix": (points, mask, None)}.items():
+        out = routes_equal("range_image", (p, m, lidar, min_range, c),
+                           f"{label}, {case}")
+        notes[case] = {"max_points": c, "owned": int((out[6] >= 0).sum()),
+                       "nan_ranges": int(torch.isnan(out[2]).sum())}
+    rimg, valid, offsets, sc_x, sc_y, theta = ops["edge_masks"]
+    for mode in NEIGHBOR_MODES:
+        offs = dataclasses.replace(ProjectionConfig(),
+                                   neighbor_mode=mode).neighbor_offsets
+        out = routes_equal("edge_masks", (rimg, valid, offs, sc_x, sc_y,
+                                          theta), f"{label}, {mode}")
+        notes[mode] = {"masks": out.shape[0], "edges": int(out.sum())}
+    out = routes_equal("component_stats", ops["component_stats"], label)
+    notes["components"] = int(out[1].sum())
+    log(f"range_image, edge_masks, component_stats ({label}): equal to "
+        "their plain versions on the card and across two launches, bit "
+        "for bit (the range image also with NaN and inf points and "
+        "prefixes, the edge masks under every neighbour mode): "
+        + json.dumps(notes))
+    return ops
+
+
+def projection_kernel_rows(calls, main_launches, row):
+    """The three projection kernels on path A's segment_cloud call
+    (``projection_cases``), each with its row: the wrapper's device ms
+    (every device event of the call, the sort's too) and the port's
+    kernels' alone, bound from this call's shapes, no library call."""
+    from quatro_tpu_torch.ops import range_image as ri
+
+    ops = projection_cases(calls, "path A")
+    for name in PROJECTION_KERNELS:
+        args = ops[name]
+        k_fn = (lambda f=getattr(ri, name), a=args: f(*a))
+        p_fn = (lambda f=getattr(ri, f"{name}_plain"), a=args: f(*a))
+        row(name, 0.0, k_fn, p_fn, *projection_work(name, args),
+            launches=main_launches[name], prefix="",
+            extra={"kernel_device_ms": device_ms_per_call(
+                k_fn, "quatro::", main=(MAIN_KERNEL[name], 1)),
+                   "shape": str(tuple(args[0].shape)),
+                   "registers": kernel_registers(name)})
+
+
 def overlap_work(p, pm, tgt, tm):
     """(operations, bytes) of one overlap call: OPS_OVERLAP per (valid
     source row, valid target point) of every leading entry; the kernel's
@@ -3139,43 +3331,59 @@ def overlap_row(args, main_launches, row):
 
 
 def stage_kernel_rows_b64(seg_args, overlap_args, label):
-    """The labelling and overlap kernels at path P's B = 64 shapes: the
-    labelling of its 128 images (recorded from one segment_cloud on
-    ``seg_args``), the arbitration call's 384 (pair, pose) rows; each bit
-    for bit its plain version on the card (the labelling also on CPU
-    copies, with each image's rounds), with its device ms, call ms, plain
-    ms and bound. Then the labels, feasibility, segment masks and rounds
-    under every neighbour mode and at the cap (``segment_routes_equal``)."""
+    """The labelling, overlap and projection kernels at path P's B = 64
+    shapes: the labelling, range image, edge masks and stats of its 128
+    clouds (recorded from one segment_cloud on ``seg_args``;
+    ``projection_cases``), the arbitration call's 384 (pair, pose) rows;
+    each bit for bit its plain version on the card (the labelling also on
+    CPU copies, with each image's rounds), with its device ms, call ms,
+    plain ms and bound. Then the labels, feasibility, segment masks and
+    rounds under every neighbour mode and at the cap
+    (``segment_routes_equal``)."""
+    from quatro_tpu_torch.ops import range_image as ri
     from quatro_tpu_torch.ops.overlap import overlap_hits, overlap_hits_plain
     from quatro_tpu_torch.preprocessing import projection
 
-    with recorded(projection, "label_sweeps", []) as recs:
+    with contextlib.ExitStack() as stack:
+        recs = {k: stack.enter_context(recorded(projection, k, []))
+                for k in ("label_sweeps", *PROJECTION_KERNELS)}
         projection.segment_cloud(*seg_args[0], **seg_args[1])
-    (args, _, _), = recs
-    del recs
+    (args, _, _), = recs.pop("label_sweeps")
     k_lab, p_lab, rounds, layout = labelling_routes(args, label)
+    ops = projection_cases(recs, label)
+    del recs
     check(torch.equal(overlap_hits(*overlap_args),
                       overlap_hits_plain(*overlap_args)),
           f"overlap_hits ({label}): differs from its plain version on the "
           "card")
     out = {}
-    for name, k_fn, p_fn, work, shape, extra in (
-            ("label_sweep", k_lab, p_lab, (0.0, labelling_bytes(args)),
-             tuple(args[0].shape),
-             dict(layout, label_rounds_max=max(rounds),
-                  label_rounds_sum=sum(rounds))),
-            ("overlap_hits", lambda: overlap_hits(*overlap_args),
-             lambda: overlap_hits_plain(*overlap_args),
-             overlap_work(*overlap_args[:4]),
-             (tuple(overlap_args[0].shape), tuple(overlap_args[2].shape)),
-             overlap_extra(overlap_args[0], overlap_args[2]))):
+    cases = [("label_sweep", k_lab, p_lab, (0.0, labelling_bytes(args)),
+              tuple(args[0].shape),
+              dict(layout, label_rounds_max=max(rounds),
+                   label_rounds_sum=sum(rounds)), "quatro::"),
+             ("overlap_hits", lambda: overlap_hits(*overlap_args),
+              lambda: overlap_hits_plain(*overlap_args),
+              overlap_work(*overlap_args[:4]),
+              (tuple(overlap_args[0].shape), tuple(overlap_args[2].shape)),
+              overlap_extra(overlap_args[0], overlap_args[2]), "quatro::")]
+    for name in PROJECTION_KERNELS:
+        a = ops[name]
+        k_fn = (lambda f=getattr(ri, name), a=a: f(*a))
+        cases.append((name, k_fn,
+                      (lambda f=getattr(ri, f"{name}_plain"), a=a: f(*a)),
+                      projection_work(name, a), tuple(a[0].shape),
+                      {"kernel_device_ms": device_ms_per_call(
+                          k_fn, "quatro::", main=(MAIN_KERNEL[name], 1))},
+                      ""))
+    for name, k_fn, p_fn, work, shape, extra, prefix in cases:
         b_ms, by = bound(*work)
         out[name] = dict({"shape": str(shape),
                           "device_ms": device_ms_per_call(
-                              k_fn, "quatro::", main=(MAIN_KERNEL[name], 1)),
+                              k_fn, prefix, main=(MAIN_KERNEL[name], 1)),
                           "ms": cuda_ms(k_fn), "plain_ms": cuda_ms(p_fn, 5),
                           "bound_ms": b_ms, "bound_by": by}, **extra)
-    log(f"label_sweep / overlap_hits ({label}): " + json.dumps(out)
+    log(f"label_sweep / overlap_hits / range_image / edge_masks / "
+        f"component_stats ({label}): " + json.dumps(out)
         + "; each equal to its plain version on the card")
     segment_routes_equal(seg_args, label)
     return out

@@ -16,7 +16,8 @@ LAUNCHES = {"moment_sums": 0, "spfh": 0, "fpfh": 0, "nearest_neighbors": 0,
             "consistency_graph": 0, "segment_sums": 0, "cross_histogram": 0,
             "fit_iteration_moments": 0, "classify_points": 0,
             "image_lookup": 0, "table_lookup": 0, "exact_clique": 0,
-            "kabsch": 0, "label_sweep": 0, "overlap_hits": 0}
+            "kabsch": 0, "label_sweep": 0, "overlap_hits": 0,
+            "range_image": 0, "edge_masks": 0, "component_stats": 0}
 
 
 def reset_launches() -> None:

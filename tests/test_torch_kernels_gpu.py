@@ -1,4 +1,4 @@
-"""The sixteen CUDA kernels against their plain PyTorch versions, on the card,
+"""The nineteen CUDA kernels against their plain PyTorch versions, on the card,
 and the loop-closing path's device code (pose graph, Scan Context).
 
 Every test here is marked ``gpu`` and skips without a CUDA device. The
@@ -13,6 +13,7 @@ those of chip_smoke.py.
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -554,7 +555,8 @@ def test_recommended_runs_all_six_kernels(recommended):
                         "fit_iteration_moments": 0, "classify_points": 0,
                         "image_lookup": 0, "table_lookup": 0,
                         "exact_clique": 0, "kabsch": 0, "label_sweep": 0,
-                        "overlap_hits": 1}
+                        "overlap_hits": 1, "range_image": 0,
+                        "edge_masks": 0, "component_stats": 0}
     assert bool(res.solution.valid)
     assert res.hypotheses.rotation.shape[0] == 6
     for name in ("valid", "rotation", "translation", "max_clique_mask",
@@ -737,7 +739,8 @@ def test_batched_pipeline_launches_do_not_depend_on_batch(dev):
                    "cross_histogram": 1, "fit_iteration_moments": 3,
                    "classify_points": 1, "image_lookup": 1,
                    "table_lookup": 0, "exact_clique": 0, "kabsch": 0,
-                   "label_sweep": 1, "overlap_hits": 1}
+                   "label_sweep": 1, "overlap_hits": 1, "range_image": 1,
+                   "edge_masks": 1, "component_stats": 1}
 
 
 def test_plain_graph_refused_on_the_card(dev, recommended):
@@ -926,7 +929,8 @@ def test_register_scan_pair_runs_all_ten_kernels(dev):
         "consistency_graph": 1, "segment_sums": 1, "cross_histogram": 1,
         "fit_iteration_moments": 3, "classify_points": 1, "image_lookup": 1,
         "table_lookup": 0, "exact_clique": 0, "kabsch": 0,
-        "label_sweep": 1, "overlap_hits": 1}
+        "label_sweep": 1, "overlap_hits": 1, "range_image": 1,
+        "edge_masks": 1, "component_stats": 1}
     assert bool(res.solution.valid)
 
 
@@ -1737,3 +1741,279 @@ def test_teaser_on_jax_path_b_correspondences_on_the_card(dev):
         print(f"{name}: the card's pose within {err:.3g} of the JAX "
               "package's")
         assert err <= 1.3e-5, (name, err)
+
+
+# --------------------------------------- the range image's three kernels --
+
+def _same_bits(a, b):
+    """Equal values, bit for bit where not NaN, NaN at the same places
+    (torch.equal is false on any NaN)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(
+        torch.where(nan, 0.0, a), torch.where(nan, 0.0, b))
+
+
+@functools.lru_cache(maxsize=None)
+def _ray_cast(lidar, seed):
+    return make_scan_pair(seed=seed, yaw_deg=20.0,
+                          translation=(2.5, 1.0, 0.05),
+                          lidar=LidarConfig.preset(lidar))
+
+
+def _raw_pair(lidar, n=131072, seed=11):
+    """The raw synthetic pair of a preset (tests/test_pipeline.py's seed-11
+    recipe) as (2, n, 3) points and (2, n) masks on the CPU."""
+    pair = _ray_cast(lidar, seed)
+    pts = torch.zeros(2, n, 3)
+    mask = torch.zeros(2, n, dtype=torch.bool)
+    for b, xyz in enumerate(pair[:2]):
+        xyz = xyz[:n]
+        pts[b, :len(xyz)], mask[b, :len(xyz)] = torch.from_numpy(xyz), True
+    return pts, mask
+
+
+def _with_specials(pts, mask):
+    """NaN and inf coordinates in valid and masked points, and the mask's
+    last point a return at the far end of the range quantisation."""
+    pts, mask = pts.clone(), mask.clone()
+    pts[0, 3, 1] = float("nan")
+    pts[1, 5] = float("nan")
+    mask[1, 5] = False
+    pts[0, 7, 0] = float("inf")
+    pts[1, 9, 2] = -float("inf")
+    pts[0, 11] = torch.tensor([float("inf"), float("inf"), 1.0])
+    pts[1, -1] = torch.tensor([125.0, 0.4, 0.0])
+    mask[1, -1] = True
+    return pts, mask
+
+
+@pytest.mark.parametrize("case", ["plain", "specials", "prefix"])
+@pytest.mark.parametrize("lidar", ["Velodyne-64-HDE", "VLP-16",
+                                   "Ouster-OS1-64", "HDL-32E"])
+def test_range_image_kernel(dev, lidar, case):
+    """The keys kernel, the sort and the owner kernel on a raw pair of each
+    preset (131072 points a cloud), with NaN and inf points, and with a
+    max_points prefix: every output bit for bit the plain version on the
+    card and on the CPU (there but a NaN point's row and column), one
+    counted launch a call."""
+    from quatro_tpu_torch.ops.range_image import range_image, range_image_plain
+    lid = LidarConfig.preset(lidar)
+    pts, mask = _raw_pair(lidar)
+    if case == "specials":
+        pts, mask = _with_specials(pts, mask)
+    cap = 40000 if case == "prefix" else None
+    ref = range_image_plain(pts, mask, lid, 0.1, cap)
+    launch.reset_launches()
+    got = range_image(pts.to(dev), mask.to(dev), lid, 0.1, cap)
+    torch.cuda.synchronize()
+    assert launch.LAUNCHES["range_image"] == 1
+    plain = range_image_plain(pts.to(dev), mask.to(dev), lid, 0.1, cap)
+    # a NaN point's row and column differ between the CPU's torch chain
+    # and the card's (x86 makes a negative default NaN, the card a
+    # positive one, and fused.atan2 branches on the sign): it is never in
+    # the image on either
+    nan = torch.isnan(pts).any(-1)
+    for name, g, p, r in zip(("row", "col", "rng", "ok", "flat", "img",
+                              "owner"), got, plain, ref):
+        assert _same_bits(g, p), name
+        g = g.cpu()
+        if name in ("row", "col"):
+            g, r = g[~nan], r[~nan]
+        assert _same_bits(g, r), name
+    assert not bool(got[3].cpu()[nan].any())
+    assert int((got[6] >= 0).sum()) > 0
+
+
+def test_range_image_kernel_small_shapes(dev):
+    """Clouds of 0, 1 and 33 points, an all-masked cloud, max_points 0 and
+    5, and a point whose packed word is the sentinel: equal to the plain
+    version on the card."""
+    from quatro_tpu_torch.ops.range_image import range_image, range_image_plain
+    lid = LidarConfig.preset("VLP-16")
+    rng = np.random.default_rng(5)
+    for n, cap, share in ((0, None, 1.0), (1, None, 1.0), (33, None, 0.7),
+                          (33, None, 0.0), (33, 0, 1.0), (33, 5, 1.0)):
+        pts = torch.from_numpy(rng.uniform(-30, 30, (2, n, 3)).astype(
+            np.float32)).to(dev)
+        mask = torch.from_numpy(rng.random((2, n)) < share).to(dev)
+        got = range_image(pts, mask, lid, 0.1, cap)
+        for g, p in zip(got, range_image_plain(pts, mask, lid, 0.1, cap)):
+            assert _same_bits(g, p), (n, cap, share)
+    # the last of 131072 points alone in its pixel at the end of the range
+    # quantisation: its packed word is the sentinel, the pixel stays empty
+    pts = torch.zeros(1, 1 << 17, 3, device=dev)
+    mask = torch.zeros(1, 1 << 17, dtype=torch.bool, device=dev)
+    pts[0, -1] = torch.tensor([125.0, 0.4, 0.0])
+    mask[0, -1] = True
+    got = range_image(pts, mask, lid)
+    for g, p in zip(got, range_image_plain(pts, mask, lid)):
+        assert _same_bits(g, p)
+    assert bool(got[3][0, -1]) and int(got[6].max()) == -1
+
+
+def _images(dev, lidar, n=65536):
+    """Range images and valid masks of the preset's raw pair, ground
+    stripped as chip_smoke.py's nonground strips it, on the card."""
+    from quatro_tpu_torch.preprocessing import projection
+    lid = LidarConfig.preset(lidar)
+    pts, mask = _raw_pair(lidar, n)
+    mask &= pts[..., 2] > -1.723 + 0.3
+    *_, rimg, owner = projection.project_to_range_image(pts.to(dev),
+                                                        mask.to(dev), lid)
+    return rimg, owner >= 0, lid
+
+
+@pytest.mark.parametrize("mode", ["4CrossNeighbor", "4Neighbor",
+                                  "8Neighbor"])
+@pytest.mark.parametrize("lidar", ["Velodyne-64-HDE", "VLP-16",
+                                   "Ouster-OS1-64", "HDL-32E"])
+def test_edge_masks_kernel(dev, lidar, mode):
+    """Every edge mask of a labelling call in one launch, on each preset's
+    images under each mode, bit for bit the plain version on the card and
+    on the CPU."""
+    from quatro_tpu_torch.config import ProjectionConfig
+    from quatro_tpu_torch.ops.range_image import edge_masks, edge_masks_plain
+    from quatro_tpu_torch.preprocessing import projection as pr
+    rimg, valid, lid = _images(dev, lidar)
+    cfg = dataclasses.replace(ProjectionConfig(), neighbor_mode=mode)
+    args = (cfg.neighbor_offsets, pr._sin_cos(pr._deg2rad(lid.ang_res_x)),
+            pr._sin_cos(pr._deg2rad(lid.ang_res_y)),
+            pr._deg2rad(cfg.segment_theta_deg))
+    launch.reset_launches()
+    got = edge_masks(rimg, valid, *args)
+    torch.cuda.synchronize()
+    assert launch.LAUNCHES["edge_masks"] == 1
+    assert got.shape[0] == 8 if mode != "4Neighbor" else got.shape[0] == 4
+    assert torch.equal(got, edge_masks_plain(rimg, valid, *args))
+    assert torch.equal(got.cpu(), edge_masks_plain(rimg.cpu(), valid.cpu(),
+                                                   *args))
+    assert int(got.sum()) > 0
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (3, 5), (5, 37), (17, 65),
+                                   (33, 130)], ids=lambda s: f"{s[0]}x{s[1]}")
+def test_edge_masks_kernel_wrapping(dev, shape):
+    """Images smaller and a little larger than a tile (16 x 64), where the
+    halo wraps onto the tile itself, random ranges with ties and every
+    pixel valid on a whole row and a whole column: bit for bit the plain
+    version under each mode."""
+    from quatro_tpu_torch.config import ProjectionConfig
+    from quatro_tpu_torch.ops.range_image import edge_masks, edge_masks_plain
+    rows, cols = shape
+    rng = np.random.default_rng(rows * cols)
+    rimg = rng.choice([4.0, 4.01, 4.5, 9.0, 30.0],
+                      (2, rows, cols)).astype(np.float32)
+    valid = rng.random((2, rows, cols)) < 0.8
+    valid[:, rows // 2] = True
+    valid[:, :, cols // 3] = True
+    rimg, valid = torch.from_numpy(rimg).to(dev), torch.from_numpy(valid).to(
+        dev)
+    for mode in ("4CrossNeighbor", "4Neighbor", "8Neighbor"):
+        cfg = dataclasses.replace(ProjectionConfig(), neighbor_mode=mode)
+        args = (cfg.neighbor_offsets, (0.0034906, 0.99999392),
+                (0.0348995, 0.99939083), 0.17453292)
+        assert torch.equal(edge_masks(rimg, valid, *args),
+                           edge_masks_plain(rimg, valid, *args)), mode
+
+
+def _random_labels(bsz, rows, cols, seed):
+    """Label images of the labelling's form and past it: components of
+    single pixels, full-height columns, blobs, valid pixels at the npix
+    sentinel, invalid pixels with any label."""
+    rng = np.random.default_rng(seed)
+    npix = rows * cols
+    flat = np.arange(npix).reshape(rows, cols)
+    labels = np.full((bsz, rows, cols), npix, np.int32)
+    valid = rng.random((bsz, rows, cols)) < 0.6
+    for b in range(bsz):
+        labels[b] = np.where(valid[b], flat, npix)          # singles
+        for c in rng.choice(cols, 6, replace=False):        # full height
+            labels[b, :, c] = c
+            valid[b, :, c] = True
+        for _ in range(40):                                  # blobs
+            r0, c0 = rng.integers(0, rows), rng.integers(0, cols)
+            h, w = rng.integers(1, 8), rng.integers(1, 40)
+            labels[b, r0:r0 + h, c0:c0 + w] = r0 * cols + c0
+            valid[b, r0:r0 + h, c0:c0 + w] = True
+        sent = rng.random((rows, cols)) < 0.02
+        labels[b][sent] = npix
+        valid[b][sent] = True
+        junk = ~valid[b] & (rng.random((rows, cols)) < 0.3)
+        labels[b][junk] = rng.integers(0, npix, int(junk.sum()))
+    return torch.from_numpy(labels), torch.from_numpy(valid)
+
+
+@pytest.mark.parametrize("shape", [(64, 1800), (16, 1800), (64, 1024),
+                                   (3, 7)], ids=lambda s: f"{s[0]}x{s[1]}")
+def test_component_stats_kernel(dev, shape):
+    """The stats on random label images (singles, full-height components,
+    blobs, npix sentinels) and on the labelling's own labels of an HDL-64E
+    pair, under two gates: bit for bit the plain version on the card and
+    on the CPU, across two launches, one counted launch a call."""
+    from quatro_tpu_torch.ops.range_image import (component_stats,
+                                                  component_stats_plain)
+    labels, valid = _random_labels(3, *shape, seed=sum(shape))
+    cases = [(labels, valid)]
+    if shape == (64, 1800):
+        from quatro_tpu_torch.config import ProjectionConfig
+        from quatro_tpu_torch.preprocessing import projection
+        rimg, v, lid = _images(dev, "Velodyne-64-HDE")
+        lab, _, _ = projection.label_components(rimg, v, lid,
+                                                ProjectionConfig())
+        npix = lab.shape[1] * lab.shape[2]
+        cases.append((torch.where(v, lab, npix).to(torch.int32).cpu(),
+                      v.cpu()))
+    feasible = 0
+    for lab, v in cases:
+        for gate in ((30, 5, 3), (1000, 2, 2)):
+            ref = component_stats_plain(lab, v, *gate)
+            d_lab, d_v = lab.to(dev), v.to(dev)
+            launch.reset_launches()
+            got = component_stats(d_lab, d_v, *gate)
+            again = component_stats(d_lab, d_v, *gate)
+            torch.cuda.synchronize()
+            assert launch.LAUNCHES["component_stats"] == 2
+            for g, a, p, r in zip(got, again,
+                                  component_stats_plain(d_lab, d_v, *gate),
+                                  ref):
+                assert torch.equal(g, a) and torch.equal(g, p)
+                assert torch.equal(g.cpu(), r)
+            feasible += int(got[1].sum())
+    assert feasible > 0
+
+
+@pytest.mark.parametrize("mode", ["Patchwork", "LeGO-LOAM"])
+def test_segment_cloud_runs_the_range_image_kernels(dev, mode, monkeypatch):
+    """segment_cloud on an HDL-64E pair on the card: each of the three
+    kernels launched once, no utils/fused.atan2 torch chain on the
+    projection's path in Patchwork mode (the LeGO-LOAM ground test keeps
+    one), every field equal to the CPU's."""
+    from quatro_tpu_torch.preprocessing import projection
+    from quatro_tpu_torch.utils import fused
+    lid = LidarConfig.preset("Velodyne-64-HDE")
+    pts, mask = _raw_pair("Velodyne-64-HDE")
+    if mode == "Patchwork":
+        mask &= pts[..., 2] > -1.723 + 0.3
+    ref = projection.segment_cloud(pts, mask, lid, ground_mode=mode)
+    calls = []
+    real = fused.atan2
+
+    def spy(*args):
+        calls.append(1)
+        return real(*args)
+
+    monkeypatch.setattr(fused, "atan2", spy)
+    launch.reset_launches()
+    got = projection.segment_cloud(pts.to(dev), mask.to(dev), lid,
+                                   ground_mode=mode)
+    torch.cuda.synchronize()
+    assert {k: launch.LAUNCHES[k] for k in ("range_image", "edge_masks",
+                                            "component_stats")} == {
+        "range_image": 1, "edge_masks": 1, "component_stats": 1}
+    assert len(calls) == (0 if mode == "Patchwork" else 1)
+    for g, r in zip(got, ref):
+        assert torch.equal(g.cpu(), r)

@@ -17,9 +17,11 @@ card's name and power limit, then one JSON line per case:
 
 Each line holds the call's host wall ms (median of 3), every stage's ms
 (CUDA events) and device busy ms (torch.profiler in one more call, the
-device events between marker fills at the stage ends), the projection's
-and the arbitration's device time by kernel (the largest first) with the
-labelling's kernels' and the overlap's kernels' sums, the device's busy
+device events between marker fills at the stage ends), the projection's,
+the arbitration's and Patchwork's device time and device launches by
+kernel (the largest first), each of those stages' device ms and launch
+count, with the labelling's kernels', the overlap's kernels' and the
+port's own kernels' in the projection (``quatro::``) sums, the device's busy
 total and idle share, the peak memory and the labelling loop's counters
 (rounds, flag reads, replays; empty where the labelling is one kernel
 launch) of the timed call. With ``--cc-chunks`` both cases run once for
@@ -117,7 +119,7 @@ def main() -> int:
                              for k, (n, ms) in
                              by_kernel.get(st, {}).items()),
                             key=lambda r: -r[2])
-                 for st in ("projection", "arbitration")}
+                 for st in ("projection", "arbitration", "patchwork")}
         wall = sorted(walls)[1]
         total = None if busy is None else sum(busy.values())
         print(json.dumps({
@@ -128,6 +130,12 @@ def main() -> int:
                 4),
             "overlap_device_ms": round(sum(
                 r[2] for r in split["arbitration"] if "overlap_" in r[0]), 4),
+            "projection_own_kernels_ms": round(sum(
+                r[2] for r in split["projection"] if "quatro::" in r[0]), 4),
+            "stage_device_ms": {st: round(sum(r[2] for r in rows), 4)
+                                for st, rows in split.items()},
+            "stage_launches": {st: sum(r[1] for r in rows)
+                               for st, rows in split.items()},
             "kernels": {st: rows[:12] for st, rows in split.items()},
             "walls_ms": [round(w, 3) for w in walls],
             "stages": {k: {"ms": round(v, 3), "device_busy_ms":
