@@ -7,13 +7,14 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions, and the float32 precision flags (TF32 off everywhere);
-2. build: the nineteen kernels from quatro_tpu_torch/csrc (the twelve
+2. build: the twenty-two kernels from quatro_tpu_torch/csrc (the twelve
    of the JAX package's Pallas calls, the exact clique search, the
    Kabsch rotation, the range-image labelling, the overlaps' hit
-   counts, and the range image's point keys and owners, edge masks and
-   component stats),
-   one nvcc per source, all started together; build time and ptxas
-   register and spill summary;
+   counts, the range image's point keys and owners, edge masks and
+   component stats, and Patchwork's CZM points, seed heights and plane
+   fits), one nvcc per source (twenty-one: the seed heights and plane
+   fits share csrc/plane_fit.cu), all started together; build time and
+   ptxas register and spill summary;
 3. path A, the main path (Quatro++ coarse to fine): ``register_scan_pair``
    on the raw seed-11 HDL-64E synthetic pair (the pair of
    tests/test_pipeline.py, capacity 131072) tilted as tests/test_ground.py
@@ -28,8 +29,9 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    (1-NN), 2 (top-2 NN), 1 (consistency graph), 1 (segment sums), 1 (cross
    histogram), 3 (plane-fit moments), 1 (classification), 1 (image
    lookup), 0 (table lookup), 1 (overlap hits), 1 each (range image, edge
-   masks, component stats: one wrapper call a ``segment_cloud`` call)
-   and 1 (the labelling: one
+   masks, component stats: one wrapper call a ``segment_cloud`` call),
+   1/1/3 for CZM points, seed heights, plane fits (one wrapper call an
+   ``estimate_ground`` call, a plane fit one a fit) and 1 (the labelling: one
    launch a ``label_components`` call, each image to its own exit; every
    path's launch counts hold it so, and its logs give the most rounds an
    image ran, ``launch_counts``). Per-stage times from CUDA events after
@@ -99,7 +101,9 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    extraction and per-edge registration (median and spread), Scan
    Context, the pose graph, the whole sequence, and the device idle share
    of one ``OdometryRunner.step``; the device loops of one frame's
-   extraction and one edge's registration (``phase_loops``);
+   extraction and one edge's registration (``phase_loops``); every
+   labelling and every ``estimate_ground`` call of the run against its
+   plain route on the card, bit for bit;
 7. path E, the user's entry points (eval.py and cli.py, as a user calls
    them, at full width): (a) ``evaluate_loop_closures(n_pairs=16,
    batch=8, config=recommended(max_voxels=8192), raw_capacity=131072,
@@ -126,9 +130,7 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    B3's, B4's, B5's and B9's wrappers with all their kernels; the device
    busy time of each stage (``stage_device_busy``: the device events
    between marker fills launched at the stage ends) beside its ms, and
-   the projection's, arbitration's and Patchwork's device time and
-   launches by kernel (the projection: the range image's kernels and
-   sort, the edge masks, the labelling, the stats); and
+   every stage's device time and launches by kernel; and
    the ms of ``radius_neighbors``' row-tile loop on ICP's target voxels,
    the one host loop left on the path;
 9. kernels: each kernel on the main path's own tensors (B6 on path B's
@@ -156,7 +158,14 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    bit for bit their plain versions on the card (NaN where NaN) and
    across two launches, the range image also with NaN and inf points and
    with a max_points prefix of half the valid points and none, the edge
-   masks under all three neighbour modes, each with its row (device ms
+   masks under all three neighbour modes; Patchwork's CZM points, seed
+   heights and plane fits on path A's ``estimate_ground`` operands, on the
+   VLP-16 and OS1-64 pairs with NaN and inf points and an empty cloud,
+   each under the configured Patchwork and under ``PATCHWORK_VARIANT``
+   (the global elevation gate, one fit): every wrapper call bit for bit
+   its plain version on the card and across two launches, and every
+   field of ``estimate_ground`` with the kernels bit for bit the plain
+   routes (``patchwork_cases``); each with its row (device ms
    of every event of the wrapper's call, the sort's too, and of the
    port's kernels alone; bound: the inputs read and outputs written once,
    OPS_RANGE_POINT / OPS_EDGE / OPS_STATS; no library call); the overlap
@@ -213,17 +222,20 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    images, the overlap kernel on the 384 (pair, pose) rows and the range
    image's three kernels on the 128 clouds, each bit for bit its plain
    version on the card with its device, call and plain ms and bound
-   (``b64`` in their rows), segment_cloud with the kernels against the
+   (``b64`` in their rows), Patchwork's three kernels likewise on the 128
+   clouds' ``estimate_ground`` call (``patchwork_cases``, ``b64``),
+   segment_cloud with the kernels against the
    plain routes under all three neighbour modes and at max_cc_iters = 2,
-   and the projection's, arbitration's and Patchwork's device time and
-   launches by kernel (as for path A in the profile phase);
+   and every stage's device time and launches by kernel (as for path A
+   in the profile phase);
 11. path M, the multi-card step on one card (parallel/), after path P:
    (a) on a one-rank NCCL group (a file store under build/),
    ``make_full_pipeline_step`` over path S's 12 frames as the ring of
    edges k -> (k + 1) % 12 (src scan k + 1, tgt scan k) under path A's
    configuration, poses0 the ground truth + N(0, 0.1) with pose 0 exact:
    solutions and poses equal to ``register_scan_pair`` at B = 12 followed
-   by ``optimize_pose_graph`` bit for bit, ATE after < 1 m, launches path
+   by ``optimize_pose_graph`` bit for bit, every labelling and
+   ``estimate_ground`` call against its plain route, ATE after < 1 m, launches path
    A's per batched call plus 6 x 25 = 150 B2 (the pose graph's J^T), the
    collective profile 150 all-reduces; its wall over 3 calls, pairs/s and
    the pose graph's share; then ``sharded_register_batch`` (no collective)
@@ -251,6 +263,7 @@ printing any result.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -305,6 +318,18 @@ OPS_EDGE = 38             # per (pixel, offset): max, min, a product, a
 OPS_COMPOSE = 3           # per (pixel, composed mask): two ands, an or
 OPS_STATS = 12            # per pixel: the label test, row, three atomics,
                           # the gate's compares
+OPS_CZM_POINT = 140       # per point: hypot 10, an fdlibm arctangent ~35,
+                          # the wrap, the zone's compares, two quotients and
+                          # truncations, the CZM tests, two differences, the
+                          # z-bin (difference, quotient, floor, clamps), a
+                          # product, the z range's compares
+OPS_SEED_BIN = 14         # per (patch, bin): eligibility, two products, the
+                          # prefix (6 adds) and a difference, the take's
+                          # clamps, the share's product and quotient, the
+                          # tree's add
+OPS_PLANE_FIT = 170       # per patch: the covariance 15, the eigenpair ~110
+                          # (acosf, cosf, rsqrtf ~20 each), the sanitising,
+                          # sign, offset and gates ~30
 
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 PAIR_REPEATS = 5          # timed runs of path A
@@ -353,6 +378,13 @@ REPLACES = {
     "range_image": "quatro_tpu/preprocessing/projection.py:72",
     "edge_masks": "quatro_tpu/preprocessing/projection.py:141",
     "component_stats": "quatro_tpu/preprocessing/projection.py:279",
+    # no pl.pallas_call: estimate_ground's czm_bin, _patch_center_of_point,
+    # channels and z-bins (:119-186, 232-295), its seed stage (:296-319),
+    # its plane algebra and gates (:328-387), XLA loop fusions around the
+    # Pallas kernels
+    "czm_points": "quatro_tpu/preprocessing/patchwork.py:119",
+    "seed_heights": "quatro_tpu/preprocessing/patchwork.py:296",
+    "plane_fit": "quatro_tpu/preprocessing/patchwork.py:328",
 }
 SOURCES = {
     "moment_sums": "quatro_tpu_torch/csrc/moment_sums.cu",
@@ -374,10 +406,14 @@ SOURCES = {
     "range_image": "quatro_tpu_torch/csrc/range_image.cu",
     "edge_masks": "quatro_tpu_torch/csrc/edge_masks.cu",
     "component_stats": "quatro_tpu_torch/csrc/component_stats.cu",
+    "czm_points": "quatro_tpu_torch/csrc/czm_points.cu",
+    "seed_heights": "quatro_tpu_torch/csrc/plane_fit.cu",
+    "plane_fit": "quatro_tpu_torch/csrc/plane_fit.cu",
 }
 # label_sweep: one launch a label_components call (the whole labelling);
 # range_image, edge_masks, component_stats: one wrapper call a
-# segment_cloud call
+# segment_cloud call; czm_points, seed_heights: one wrapper call an
+# estimate_ground call, plane_fit one a plane fit (num_iter)
 MAIN_LAUNCHES = {"moment_sums": 1, "spfh": 1, "fpfh": 1,
                  "nearest_neighbors": 0, "nearest_neighbors2": 2,
                  "consistency_graph": 1, "segment_sums": 1,
@@ -385,14 +421,21 @@ MAIN_LAUNCHES = {"moment_sums": 1, "spfh": 1, "fpfh": 1,
                  "classify_points": 1, "image_lookup": 1, "table_lookup": 0,
                  "exact_clique": 0, "kabsch": 0,
                  "label_sweep": 1, "overlap_hits": 1, "range_image": 1,
-                 "edge_masks": 1, "component_stats": 1}
+                 "edge_masks": 1, "component_stats": 1, "czm_points": 1,
+                 "seed_heights": 1, "plane_fit": 3}
 PROJECTION_KERNELS = ("range_image", "edge_masks", "component_stats")
+PATCHWORK_KERNELS = ("czm_points", "seed_heights", "plane_fit")
+# Patchwork's kernels also held against their plain versions off the
+# default configuration: the far patches' global elevation gate and one
+# exact fit (no fori trip)
+PATCHWORK_VARIANT = dict(using_global_elevation=True, num_iter=1)
 PATH_B_LAUNCHES = dict(MAIN_LAUNCHES, nearest_neighbors=2,
                        nearest_neighbors2=0, segment_sums=0, overlap_hits=0)
 FEATURES_LAUNCHES = dict(MAIN_LAUNCHES, cross_histogram=0,
                          fit_iteration_moments=0, classify_points=0,
                          image_lookup=0, label_sweep=0,
-                         **dict.fromkeys(PROJECTION_KERNELS, 0))
+                         **dict.fromkeys(PROJECTION_KERNELS, 0),
+                         **dict.fromkeys(PATCHWORK_KERNELS, 0))
 SINGLE_LAUNCHES = dict(FEATURES_LAUNCHES, segment_sums=0, overlap_hits=0)
 # the labelling kernel against its plain route on images of other presets
 # (ray-cast pairs, all three neighbour modes, and a cap of LABEL_CAP
@@ -693,12 +736,11 @@ def short_kernel_name(name, width=150):
     return name[:width]
 
 
-def log_stage_kernels(label, by_kernel, stages=("projection", "arbitration",
-                                                "patchwork"), top=16):
-    """The device time of ``stages`` by kernel (``stage_device_busy``'s
-    ``by_kernel``), the largest first (``short_kernel_name``), with each
-    stage's device launches."""
-    for stage in stages:
+def log_stage_kernels(label, by_kernel, stages=None, top=16):
+    """The device time of ``stages`` (default: every stage) by kernel
+    (``stage_device_busy``'s ``by_kernel``), the largest first
+    (``short_kernel_name``), with each stage's device launches."""
+    for stage in (by_kernel if stages is None else stages):
         split = by_kernel.get(stage, {})
         total = sum(ms for _, ms in split.values())
         rows = sorted(split.items(), key=lambda kv: -kv[1][1])[:top]
@@ -1328,6 +1370,7 @@ def capture_preprocessing(raw, cfg):
     check(bool((pw.ground.sum(1) > 0).all() and (seg.sum(1) > 0).all()),
           "preprocessing left no ground or no segments")
     calls["segment_cloud"] = [seg_args]
+    calls["estimate_ground"] = [((pts, msk, cfg.patchwork), {})]
     return calls
 
 
@@ -1358,7 +1401,8 @@ def sequence_launches(frames, calls):
                 cross_histogram=frames, fit_iteration_moments=3 * frames,
                 classify_points=frames, image_lookup=frames,
                 label_sweep=frames, overlap_hits=calls,
-                **dict.fromkeys(PROJECTION_KERNELS, frames))
+                **dict.fromkeys(PROJECTION_KERNELS, frames),
+                czm_points=frames, seed_heights=frames, plane_fit=3 * frames)
 
 
 def _spread(ms):
@@ -1384,7 +1428,7 @@ def phase_sequence(cfg, card):
     (its B2 call)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from quatro_tpu_torch import sequence
+    from quatro_tpu_torch import pipeline, sequence
     from quatro_tpu_torch.odometry import (FrameFeatures, OdometryRunner,
                                            run_odometry_windowed)
     from quatro_tpu_torch.ops import launch
@@ -1415,8 +1459,10 @@ def phase_sequence(cfg, card):
     rounds0 = label_rounds()
     sequence.optimize_pose_graph = recorder
     try:
-        # each labelling call's operands cloned, for the check below
-        with recorded(projection, "label_sweeps", []) as lab_calls:
+        # each labelling and Patchwork call's operands cloned, for the
+        # checks below
+        with recorded(projection, "label_sweeps", []) as lab_calls, \
+                recorded(pipeline, "estimate_ground", []) as pw_calls:
             res, wall_ms = _synced_ms(lambda: sequence.run_sequence(
                 scans, cfg, gt_poses=gt, use_place_recognition=True,
                 batch_size=SEQ_BATCH, gn_iters=gn, cg_iters=cg))
@@ -1424,7 +1470,8 @@ def phase_sequence(cfg, card):
         sequence.optimize_pose_graph = solve
     launches = launch_counts(rounds0)
     labelling_calls_equal(lab_calls, "path S")
-    del lab_calls
+    patchwork_calls_equal(pw_calls, "path S")
+    del lab_calls, pw_calls
     m = len(scans)
     edges = list(zip(res.edges_i.tolist(), res.edges_j.tolist()))
     calls = -(-len(edges) // SEQ_BATCH)
@@ -1861,12 +1908,15 @@ def phase_pair_axis(card, pairs, gts, cfg_a, bench):
             # the labelling's and the overlaps' inputs of one more call:
             # their kernels against the plain versions at this shape
             with recorded(pipeline, "segment_cloud", []) as seg_calls, \
-                    recorded(verify, "overlap_hits", []) as hit_calls:
+                    recorded(verify, "overlap_hits", []) as hit_calls, \
+                    recorded(pipeline, "estimate_ground", []) as pw_calls:
                 register_scan_pair(*batches[0], cfg)
             stage_rows = stage_kernel_rows_b64(
                 (seg_calls[0][0], seg_calls[0][1]), hit_calls[0][0],
                 f"path P, B = {bsz}")
-            del seg_calls, hit_calls
+            stage_rows.update(patchwork_rows_b64(pw_calls[0][0],
+                                                 f"path P, B = {bsz}"))
+            del seg_calls, hit_calls, pw_calls
             by_kernel = {}
             busy = stage_device_busy(lambda timer: register_scan_pair(
                 *batches[1], cfg, timer=timer), by_kernel=by_kernel)
@@ -2319,7 +2369,9 @@ WRAPPER_KERNELS = {"moment_sums": ("quatro::moment_sums_kernel",),
                    "range_image": ("quatro::range_keys_kernel",
                                    "quatro::range_owner_kernel"),
                    "component_stats": ("quatro::component_accumulate_kernel",
-                                       "quatro::component_feasible_kernel")}
+                                       "quatro::component_feasible_kernel"),
+                   "czm_points": ("quatro::czm_zrange_kernel",
+                                  "quatro::czm_points_kernel")}
 # the kernel each wrapper launches once per call, by the profiler's name:
 # a profiled run counts only if it saw this kernel once per call
 MAIN_KERNEL = {"moment_sums": "quatro::moment_sums_kernel",
@@ -2339,7 +2391,10 @@ MAIN_KERNEL = {"moment_sums": "quatro::moment_sums_kernel",
                "overlap_hits": "quatro::overlap_hits_kernel",
                "range_image": "quatro::range_keys_kernel",
                "edge_masks": "quatro::edge_masks_kernel",
-               "component_stats": "quatro::component_feasible_kernel"}
+               "component_stats": "quatro::component_feasible_kernel",
+               "czm_points": "quatro::czm_points_kernel",
+               "seed_heights": "quatro::seed_heights_kernel",
+               "plane_fit": "quatro::plane_fit_kernel"}
 
 
 def culled_pairs(pts, mask, radius):
@@ -2634,9 +2689,11 @@ def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b,
     preprocessing_kernel_rows(calls, row)
     label_sweep_row(calls, main_launches, row, rows)
     projection_kernel_rows(calls, main_launches, row)
+    patchwork_kernel_rows(calls, main_launches, row)
     segment_routes_equal(calls["segment_cloud"][0], "path A")
     for preset in LABEL_PRESETS:
         segment_routes_equal(preset_segment_args(preset), preset)
+        patchwork_cases(*patchwork_preset_args(preset), preset)
     overlap_row(overlap_args, main_launches, row)
     check(sorted(r["name"] for r in rows) == sorted(MAIN_KERNEL),
           "kernel phase: not one row for each kernel")
@@ -2645,7 +2702,7 @@ def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b,
         if r.get("bf16_device_ms_uncaptured", 0.0) is None]
     check(not missing, "kernel phase: no profiled run saw every call of "
           f"{missing}")
-    log("kernel phase: device ms of all nineteen kernels (torch.profiler): "
+    log("kernel phase: device ms of all twenty-two kernels (torch.profiler): "
         + json.dumps({r["name"]: round(r["device_ms"], 6) for r in rows}))
     return rows
 
@@ -2914,17 +2971,20 @@ def preprocessing_kernel_rows(calls, row):
 
 @contextlib.contextmanager
 def sweep_route(plain):
-    """The labelling and the range image's three kernels (keys and owners,
-    edge masks, component stats) through their kernels, or (``plain``)
-    through their plain versions on the card, uncaptured; yields a list
-    that gets each labelling call's (labels, rounds)."""
+    """The labelling, the range image's three kernels (keys and owners,
+    edge masks, component stats) and Patchwork's three (CZM points, seed
+    heights, plane fits) through their kernels, or (``plain``) through
+    their plain versions on the card, uncaptured; yields a list that gets
+    each labelling call's (labels, rounds)."""
+    from quatro_tpu_torch.ops import czm
     from quatro_tpu_torch.ops import range_image as ri
     from quatro_tpu_torch.ops.labels import label_sweeps_plain
-    from quatro_tpu_torch.preprocessing import projection
+    from quatro_tpu_torch.preprocessing import patchwork, projection
     from quatro_tpu_torch.utils import loops
 
     real = projection.label_sweeps
     saved = {k: getattr(projection, k) for k in PROJECTION_KERNELS}
+    saved_pw = {k: getattr(patchwork, k) for k in PATCHWORK_KERNELS}
     outs = []
 
     def run(*args, **kwargs):
@@ -2936,6 +2996,8 @@ def sweep_route(plain):
     if plain:
         for k in PROJECTION_KERNELS:
             setattr(projection, k, getattr(ri, f"{k}_plain"))
+        for k in PATCHWORK_KERNELS:
+            setattr(patchwork, k, getattr(czm, f"{k}_plain"))
     try:
         with loops.eager_loops():
             yield outs
@@ -2943,6 +3005,8 @@ def sweep_route(plain):
         projection.label_sweeps = real
         for k, fn in saved.items():
             setattr(projection, k, fn)
+        for k, fn in saved_pw.items():
+            setattr(patchwork, k, fn)
 
 
 def segment_routes_equal(seg_args, label):
@@ -3009,11 +3073,9 @@ def preset_segment_args(preset):
     ``nonground`` strips it, as one batch of two clouds on the card."""
     from quatro_tpu_torch.config import LidarConfig, ProjectionConfig
     from quatro_tpu_torch.device import resolve_device
-    from quatro_tpu_torch.io.synthetic import make_scan_pair
 
     lidar = LidarConfig.preset(preset)
-    pair = make_scan_pair(seed=101, yaw_deg=38.0,
-                          translation=(2.5, -1.2, 0.04), lidar=lidar)
+    pair = preset_pair(preset)
     n = 65536
     pts = torch.zeros(2, n, 3)
     mask = torch.zeros(2, n, dtype=torch.bool)
@@ -3389,6 +3451,250 @@ def stage_kernel_rows_b64(seg_args, overlap_args, label):
     return out
 
 
+def patchwork_run(points, mask, cfg):
+    """One ``estimate_ground`` on the card, its fits uncaptured, with the
+    three Patchwork wrappers recorded: (result, {name: [(arguments
+    cloned, keyword arguments, result)]})."""
+    from quatro_tpu_torch.preprocessing import patchwork
+    from quatro_tpu_torch.utils import loops
+
+    with contextlib.ExitStack() as stack:
+        recs = {k: stack.enter_context(recorded(patchwork, k, []))
+                for k in PATCHWORK_KERNELS}
+        with loops.eager_loops():
+            res = patchwork.estimate_ground(points, mask, cfg)
+    return res, recs
+
+
+def patchwork_kernels_equal(recs, label):
+    """Each recorded call of the three Patchwork wrappers again: the
+    wrapper twice and its plain version on the card on the same operands,
+    every output bit for bit (NaN where NaN) and equal to the recorded
+    call's. Returns {name: calls}."""
+    from quatro_tpu_torch.ops import czm
+
+    counts = {}
+    for name in PATCHWORK_KERNELS:
+        check(recs.get(name), f"{label}: no {name} call recorded")
+        for k, (args, kwargs, out) in enumerate(recs[name]):
+            runs = [out, getattr(czm, name)(*args, **kwargs),
+                    getattr(czm, f"{name}_plain")(*args, **kwargs)]
+            ref, again, plain = ((t,) if torch.is_tensor(t) else tuple(t)
+                                 for t in runs)
+            for what, other in (("a second launch", again),
+                                ("its plain version on the card", plain)):
+                check(len(other) == len(ref) and all(
+                    same_bits(a, b) for a, b in zip(ref, other)),
+                    f"{name} ({label}, call {k}): differs from {what}")
+        counts[name] = len(recs[name])
+    log(f"czm_points, seed_heights, plane_fit ({label}): calls "
+        f"{json.dumps(counts)}, each equal across launches and to its "
+        "plain version on the card, bit for bit")
+    return counts
+
+
+def patchwork_routes_equal(points, mask, cfg, label):
+    """``estimate_ground`` with Patchwork's kernels and with their plain
+    versions on the card (``sweep_route``, uncaptured): every field bit
+    for bit, the kernels launched once, once and num_iter times on the
+    kernel route and never on the plain one. Returns the ground points
+    per cloud."""
+    from quatro_tpu_torch.preprocessing import patchwork
+
+    runs = []
+    for plain in (False, True):
+        before = launch_counts()
+        with sweep_route(plain):
+            res = patchwork.estimate_ground(points, mask, cfg)
+        torch.cuda.synchronize()
+        runs.append((res, _launch_diff(before)))
+    (got, n_k), (ref, n_p) = runs
+    for field, a, b in zip(got._fields, got, ref):
+        check(same_bits(a, b), f"{label}: estimate_ground's {field} with "
+              "the Patchwork kernels differs from the plain route")
+    want = {"czm_points": 1, "seed_heights": 1, "plane_fit": cfg.num_iter}
+    check(all(n_k[k] == v and n_p[k] == 0 for k, v in want.items()),
+          f"{label}: Patchwork kernel launches {n_k} / {n_p}")
+    return got.ground.sum(-1).tolist()
+
+
+def patchwork_cases(points, mask, cfg, label):
+    """Patchwork's three kernels on one ``estimate_ground`` call on
+    (points, mask), under ``cfg`` and under ``PATCHWORK_VARIANT``: every
+    recorded wrapper call bit for bit its plain version on the card
+    (``patchwork_kernels_equal``), and the call's every field with the
+    kernels bit for bit the plain route (``patchwork_routes_equal``).
+    Returns the calls recorded under ``cfg``."""
+    import dataclasses
+
+    out, ground = {}, {}
+    variant = dataclasses.replace(cfg, **PATCHWORK_VARIANT)
+    for key, c in (("configured", cfg), ("variant", variant)):
+        _, recs = patchwork_run(points, mask, c)
+        patchwork_kernels_equal(recs, f"{label}, {key}")
+        ground[key] = patchwork_routes_equal(points, mask, c,
+                                             f"{label}, {key}")
+        if key == "configured":
+            out = recs
+    log(f"estimate_ground ({label}, {tuple(points.shape)} points): with "
+        "the Patchwork kernels equal to the plain routes on the card, every "
+        f"field bit for bit, under its configuration and {PATCHWORK_VARIANT}"
+        f"; ground points {json.dumps(ground)}")
+    return out
+
+
+def patchwork_work(name, args, kwargs):
+    """(operations, bytes) of one Patchwork wrapper call: OPS_CZM_POINT a
+    point, OPS_SEED_BIN a (patch, bin), OPS_PLANE_FIT a patch; the parts
+    of its inputs that the kernel reads, once, and its outputs written
+    once."""
+    from quatro_tpu_torch.ops import czm
+
+    if name == "czm_points":
+        points, mask, cfg = args
+        bsz, n = points.shape[:2]
+        # the centre rows that the points gather (csrc/czm_points.cu)
+        keep = mask & (points[..., 2] >= -1.8 * cfg.sensor_height)
+        patch, _ = czm.czm_bin(points, keep, cfg)
+        rows = torch.unique(torch.clamp(patch, 0, cfg.num_patches - 1))
+        # points 12 and mask 1 in, 8 a centre row; ids, z-bins, five
+        # channels, two weights and b0 out
+        return (float(bsz * n * OPS_CZM_POINT),
+                float(bsz * n * (13 + 4 + 4 + 20 + 8) + bsz * 4
+                      + 8 * rows.numel()))
+    if name == "seed_heights":
+        hist, _, cfg = args
+        bsz, _, p_pad, zbins = hist.shape
+        p = cfg.num_patches
+        # the P patches' counts and z sums and b0 in (not the rows past
+        # P); lpr_h, live and every table row out
+        return (float(bsz * p * zbins * OPS_SEED_BIN),
+                float(bsz * 2 * p * zbins * 4 + bsz * 4 + bsz * p * 5
+                      + bsz * p_pad * 20))
+    sums, _, cfg = args[:3]
+    bsz, p_pad, _ = sums.shape
+    p = cfg.num_patches
+    # the P patches' sums and the centres in, every table row out; the
+    # last fit also reads the thresholds, the concentric indices and live,
+    # and writes six planes' fields and accepted
+    final = kwargs.get("final")
+    return (float(bsz * p * OPS_PLANE_FIT),
+            float(bsz * p * 10 * 4 + (5 if final else 2) * p * 4
+                  + bsz * p_pad * 20
+                  + ((24 + 1 + 1) * bsz * p if final else 0)))
+
+
+def patchwork_fns(name, args, kwargs):
+    """The wrapper's and the plain version's call on recorded operands."""
+    from quatro_tpu_torch.ops import czm
+
+    return ((lambda f=getattr(czm, name): f(*args, **kwargs)),
+            (lambda f=getattr(czm, f"{name}_plain"): f(*args, **kwargs)))
+
+
+def patchwork_kernel_rows(calls, main_launches, row):
+    """Patchwork's three kernels on path A's ``estimate_ground`` operands
+    (``patchwork_cases``), each with its row: plane_fit's on the exact
+    last fit, with the bf16 trip's device ms in a CUDA graph and
+    uncaptured; no library call."""
+    (args, _), = calls["estimate_ground"]
+    recs = patchwork_cases(*args, "path A")
+    for name in PATCHWORK_KERNELS:
+        a, kw, _ = recs[name][-1]
+        k_fn, p_fn = patchwork_fns(name, a, kw)
+        extra = {"shape": str(tuple(a[0].shape)),
+                 "registers": kernel_registers(SOURCES[name].split("/")[-1]
+                                               .split(".")[0])}
+        if name == "plane_fit":
+            trip, _ = patchwork_fns(name, *recs[name][0][:2])
+            extra.update(bf16_device_ms_in_graph=graph_ms(trip),
+                         bf16_device_ms_uncaptured=device_ms_per_call(
+                             trip, "quatro::",
+                             main=(MAIN_KERNEL[name], 1)))
+        row(name, 0.0, k_fn, p_fn, *patchwork_work(name, a, kw),
+            launches=main_launches[name], extra=extra)
+
+
+def patchwork_rows_b64(args, label):
+    """Patchwork's three kernels at path P's B = 64 shapes, on one
+    ``estimate_ground`` call's operands (``patchwork_cases``): each bit
+    for bit its plain version on the card, with its device ms, call ms,
+    plain ms and bound (plane_fit's on the exact last fit)."""
+    recs = patchwork_cases(*args, label)
+    out = {}
+    for name in PATCHWORK_KERNELS:
+        a, kw, _ = recs[name][-1]
+        k_fn, p_fn = patchwork_fns(name, a, kw)
+        b_ms, by = bound(*patchwork_work(name, a, kw))
+        out[name] = {"shape": str(tuple(a[0].shape)),
+                     "device_ms": device_ms_per_call(
+                         k_fn, "quatro::", main=(MAIN_KERNEL[name], 1)),
+                     "ms": cuda_ms(k_fn), "plain_ms": cuda_ms(p_fn, 5),
+                     "bound_ms": b_ms, "bound_by": by}
+    log(f"czm_points / seed_heights / plane_fit ({label}): "
+        + json.dumps(out) + "; each equal to its plain version on the card")
+    return out
+
+
+def patchwork_calls_equal(recs, label):
+    """Each ``estimate_ground`` call of a path (``recorded``: its operands
+    cloned, its result) against the plain route on the card
+    (``sweep_route``) on the same operands: every field bit for bit.
+    Returns each call's clouds."""
+    from quatro_tpu_torch.preprocessing import patchwork
+
+    check(len(recs) > 0, f"{label}: no estimate_ground call recorded")
+    for k, (args, kwargs, out) in enumerate(recs):
+        with sweep_route(True):
+            ref = patchwork.estimate_ground(*args, **kwargs)
+        for field, a, b in zip(out._fields, out, ref):
+            check(same_bits(a, b), f"estimate_ground ({label}, call {k}): "
+                  f"{field} differs from the plain route on the card")
+    clouds = [int(a[0].shape[0]) if a[0].dim() == 3 else 1
+              for a, _, _ in recs]
+    log(f"estimate_ground ({label}): {len(recs)} calls of {clouds} clouds, "
+        "every field equal to the plain route on the card, bit for bit")
+    return clouds
+
+
+@functools.lru_cache(maxsize=None)
+def preset_pair(preset):
+    """tests/test_torch_kernels_gpu.py's level_a pair of a lidar preset,
+    ray-cast once: numpy (source, target)."""
+    from quatro_tpu_torch.config import LidarConfig
+    from quatro_tpu_torch.io.synthetic import make_scan_pair
+
+    return make_scan_pair(seed=101, yaw_deg=38.0,
+                          translation=(2.5, -1.2, 0.04),
+                          lidar=LidarConfig.preset(preset))[:2]
+
+
+def patchwork_preset_args(preset):
+    """``estimate_ground``'s operands for a preset's raw pair (capacity
+    RAW_CAPACITY) with tests/torch_czm_cases.py's special points (NaN and
+    inf points, points on the CZM's edges, a kept point at +inf height in
+    the second cloud: its z range, and so its seed stage's bins,
+    unbounded) and an empty third cloud, on the card, with the preset's
+    Patchwork configuration."""
+    from quatro_tpu_torch.config import PipelineConfig
+    from quatro_tpu_torch.device import resolve_device
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    from torch_czm_cases import czm_specials
+
+    n = RAW_CAPACITY
+    pts = torch.zeros(2, n, 3)
+    mask = torch.zeros(2, n, dtype=torch.bool)
+    for b, xyz in enumerate(preset_pair(preset)):
+        xyz = xyz[:n]
+        pts[b, :len(xyz)], mask[b, :len(xyz)] = torch.from_numpy(xyz), True
+    cfg = PipelineConfig.for_lidar(preset).patchwork
+    pts, mask = czm_specials(pts, mask, cfg)
+    dev = resolve_device()
+    return pts.to(dev), mask.to(dev), cfg
+
+
 def loop_ring(m, n_inliers, n_outliers):
     """tests/test_parallel.py:101-138's ring of m poses (20 deg and
     (1.5, 0.5) m a step) with correspondences whose registration is edge k
@@ -3457,6 +3763,7 @@ def phase_multichip(card, scans, gt, cfg, work_dir):
     launch counts."""
     import torch.distributed as dist
 
+    from quatro_tpu_torch import pipeline
     from quatro_tpu_torch.ops import launch
     from quatro_tpu_torch.parallel import (make_full_pipeline_step,
                                            make_loop_closing_step,
@@ -3503,13 +3810,16 @@ def phase_multichip(card, scans, gt, cfg, work_dir):
         torch.cuda.synchronize()
         launch.reset_launches()
         rounds0 = label_rounds()
-        # each labelling call's operands cloned, for the check below
-        with recorded(projection, "label_sweeps", []) as lab_calls:
+        # each labelling and Patchwork call's operands cloned, for the
+        # checks below
+        with recorded(projection, "label_sweeps", []) as lab_calls, \
+                recorded(pipeline, "estimate_ground", []) as pw_calls:
             prof, first_ms = _synced_ms(lambda: collective_profile(
                 lambda: out.append(step(*args))))
         launches = launch_counts(rounds0)
         labelling_calls_equal(lab_calls, "path M (a)")
-        del lab_calls
+        patchwork_calls_equal(pw_calls, "path M (a)")
+        del lab_calls, pw_calls
         expected = dict(MAIN_LAUNCHES, segment_sums=MAIN_LAUNCHES[
             "segment_sums"] + gn * (cg + 1))
         log(f"path M (a) raw-scan step, {m} pairs: launches "

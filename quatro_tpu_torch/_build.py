@@ -70,19 +70,28 @@ SIGNATURES = {
     "component_stats": ("quatro_component_stats",
                         [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                          _P]),
+    "czm_points": ("quatro_czm_points",
+                   [_P, _P, _I, _I, _I, _P, _P, _I, _I, _F, _F, _F, _F, _F,
+                    _P, _P, _P, _P, _P, _P, _P, _P]),
+    "plane_fit": ("quatro_plane_fit",
+                  [_P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _I, _F, _P, _P,
+                   _P, _P]),
 }
 
 # Further C functions of a kernel's library: name -> (source, symbol,
 # argument types). B1's library also exports the exhaustive check of its
 # square root against __fsqrt_rn; the labelling's library, the cluster
 # layout it picks for a batch; the range image's, its owner kernel (after
-# the sort).
+# the sort); the plane fit's, the seed heights' kernel.
 EXTRA = {"sqrt_rn_check": ("consistency_graph", "quatro_sqrt_rn_check",
                            [_P, _P]),
          "label_layout": ("label_sweep", "quatro_label_layout",
                           [_I, _I, _I, _P]),
          "range_image_owner": ("range_image", "quatro_range_image_owner",
-                               [_P, _P, _I, _I, _I, _I, _P, _P, _P])}
+                               [_P, _P, _I, _I, _I, _I, _P, _P, _P]),
+         "seed_heights": ("plane_fit", "quatro_seed_heights",
+                          [_P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P,
+                           _P])}
 
 _loaded: dict = {}
 build_log: dict = {}    # name -> {"seconds": s, "ptxas": text}; last build

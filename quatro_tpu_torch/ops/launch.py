@@ -17,7 +17,8 @@ LAUNCHES = {"moment_sums": 0, "spfh": 0, "fpfh": 0, "nearest_neighbors": 0,
             "fit_iteration_moments": 0, "classify_points": 0,
             "image_lookup": 0, "table_lookup": 0, "exact_clique": 0,
             "kabsch": 0, "label_sweep": 0, "overlap_hits": 0,
-            "range_image": 0, "edge_masks": 0, "component_stats": 0}
+            "range_image": 0, "edge_masks": 0, "component_stats": 0,
+            "czm_points": 0, "seed_heights": 0, "plane_fit": 0}
 
 
 def reset_launches() -> None:
@@ -50,7 +51,12 @@ def launch(name: str, *args, stream: int | None = None) -> None:
     args = [a.data_ptr() if torch.is_tensor(a) else a for a in args]
     if stream is None:
         stream = torch.cuda.current_stream().cuda_stream
-    rc = _build.load(name)(*args, stream)
+    fn = _build.load(name)
+    # ctypes passes arguments past its signature on unchecked
+    if len(args) + 1 != len(fn.argtypes):
+        raise TypeError(f"{name}: {len(args)} arguments and the stream for "
+                        f"a launcher of {len(fn.argtypes)} parameters")
+    rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 

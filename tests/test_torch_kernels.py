@@ -7,7 +7,9 @@ never rejects a tile pair that holds a pair within the radius, at the
 normal radius and at the FPFH radius. And the premise of B6's kernel: the
 first minimum over all columns is the least (d2, index) over column splits
 merged in any order, bit-equal to ``nearest_neighbors_plain`` and, on 1/8-
-grid descriptors, to the JAX package's Pallas 1-NN.
+grid descriptors, to the JAX package's Pallas 1-NN. And every kernel
+launcher's ctypes signature (``_build.SIGNATURES`` / ``EXTRA``) against
+its C function in csrc/.
 
 B1 is held exactly (the plain version repeats the Pallas kernel's
 arithmetic); B2, B8 and B9's sums within rtol 1e-5 / atol 1e-4, the f32
@@ -18,6 +20,7 @@ exactly.
 
 import functools
 import os
+import re
 import subprocess
 import sys
 
@@ -572,3 +575,48 @@ def test_nearest_neighbors_split_merge_is_the_plain_version(width, nb):
                 np.testing.assert_array_equal(idx[0][row].numpy(),
                                               pal_i[ma])
                 np.testing.assert_array_equal(d2[0][row].numpy(), pal_d[ma])
+
+
+# ----------------------------------------------------------- launchers --
+
+def _c_launchers():
+    """{symbol: (source stem, [parameter declarations])} of every
+    ``extern "C"`` function in csrc/*.cu."""
+    from quatro_tpu_torch import _build
+    out = {}
+    for path in sorted(_build.CSRC.glob("*.cu")):
+        for m in re.finditer(r'extern "C"\s+int\s+(\w+)\s*\(([^)]*)\)',
+                             path.read_text()):
+            out[m.group(1)] = (path.stem, [p.strip()
+                                           for p in m.group(2).split(",")])
+    return out
+
+
+def _launcher_entries():
+    from quatro_tpu_torch import _build
+    entries = {k: (k, *v) for k, v in _build.SIGNATURES.items()}
+    entries.update(_build.EXTRA)
+    return entries
+
+
+@pytest.mark.parametrize("name", sorted(_launcher_entries()))
+def test_launcher_signature_matches_its_c_function(name):
+    """Each ctypes signature in ``_build.SIGNATURES`` / ``EXTRA`` names a
+    function of its source and gives each C parameter its type: a pointer
+    or the stream as c_void_p, an int as c_int, a float as c_float (ctypes
+    cannot see the C side: a wrong or missing type there passes a bad
+    pointer or value to the card, or shifts the arguments after it)."""
+    import ctypes
+    source, symbol, argtypes = _launcher_entries()[name]
+    launchers = _c_launchers()
+    assert symbol in launchers, symbol
+    stem, params = launchers[symbol]
+    assert stem == source
+
+    def ctype(param):
+        if "*" in param or param.split()[0] == "cudaStream_t":
+            return ctypes.c_void_p
+        return {"int": ctypes.c_int, "float": ctypes.c_float}[
+            param.split()[0]]
+
+    assert [ctype(p) for p in params] == list(argtypes), params

@@ -1,4 +1,4 @@
-"""The nineteen CUDA kernels against their plain PyTorch versions, on the card,
+"""The twenty-two CUDA kernels against their plain PyTorch versions, on the card,
 and the loop-closing path's device code (pose graph, Scan Context).
 
 Every test here is marked ``gpu`` and skips without a CUDA device. The
@@ -30,6 +30,8 @@ from quatro_tpu_torch.solver import vote
 from quatro_tpu_torch.solver.quatro import register_correspondences
 from quatro_tpu_torch.solver.scale import tim_consistency_graph
 from quatro_tpu_torch.types import PointBatch
+
+from torch_czm_cases import CZM_CONFIGS, czm_specials
 
 pytestmark = pytest.mark.gpu
 
@@ -556,7 +558,8 @@ def test_recommended_runs_all_six_kernels(recommended):
                         "image_lookup": 0, "table_lookup": 0,
                         "exact_clique": 0, "kabsch": 0, "label_sweep": 0,
                         "overlap_hits": 1, "range_image": 0,
-                        "edge_masks": 0, "component_stats": 0}
+                        "edge_masks": 0, "component_stats": 0,
+                        "czm_points": 0, "seed_heights": 0, "plane_fit": 0}
     assert bool(res.solution.valid)
     assert res.hypotheses.rotation.shape[0] == 6
     for name in ("valid", "rotation", "translation", "max_clique_mask",
@@ -740,7 +743,8 @@ def test_batched_pipeline_launches_do_not_depend_on_batch(dev):
                    "classify_points": 1, "image_lookup": 1,
                    "table_lookup": 0, "exact_clique": 0, "kabsch": 0,
                    "label_sweep": 1, "overlap_hits": 1, "range_image": 1,
-                   "edge_masks": 1, "component_stats": 1}
+                   "edge_masks": 1, "component_stats": 1, "czm_points": 1,
+                   "seed_heights": 1, "plane_fit": 3}
 
 
 def test_plain_graph_refused_on_the_card(dev, recommended):
@@ -930,7 +934,8 @@ def test_register_scan_pair_runs_all_ten_kernels(dev):
         "fit_iteration_moments": 3, "classify_points": 1, "image_lookup": 1,
         "table_lookup": 0, "exact_clique": 0, "kabsch": 0,
         "label_sweep": 1, "overlap_hits": 1, "range_image": 1,
-        "edge_masks": 1, "component_stats": 1}
+        "edge_masks": 1, "component_stats": 1, "czm_points": 1,
+        "seed_heights": 1, "plane_fit": 3}
     assert bool(res.solution.valid)
 
 
@@ -2017,3 +2022,151 @@ def test_segment_cloud_runs_the_range_image_kernels(dev, mode, monkeypatch):
     assert len(calls) == (0 if mode == "Patchwork" else 1)
     for g, r in zip(got, ref):
         assert torch.equal(g.cpu(), r)
+
+
+# --------------------------------------------- Patchwork's CZM and planes --
+
+def _czm_case(lidar, case):
+    """A raw pair of a preset with ``czm_specials``' points and empty third
+    cloud, as (3, N, 3) and (3, N) on the CPU, with the configuration
+    ``case`` of ``CZM_CONFIGS``."""
+    cfg = PipelineConfig.for_lidar(lidar).patchwork
+    cfg = dataclasses.replace(cfg, **CZM_CONFIGS[case])
+    return (*czm_specials(*_raw_pair(lidar), cfg), cfg)
+
+
+@pytest.mark.parametrize("case", list(CZM_CONFIGS))
+@pytest.mark.parametrize("lidar", ["Velodyne-64-HDE", "VLP-16",
+                                   "Ouster-OS1-64"])
+def test_czm_kernels(dev, lidar, case):
+    """czm_points, seed_heights and plane_fit (each fit, bf16 trips and
+    the exact last one) on a raw pair of each preset with special points
+    and an empty cloud, under each configuration: every output bit for bit
+    the plain version on the card (NaN where NaN), equal across two
+    launches, one counted launch a call."""
+    from quatro_tpu_torch.ops import czm
+    pts, mask, cfg = _czm_case(lidar, case)
+    pts, mask = pts.to(dev), mask.to(dev)
+    p_cnt = cfg.num_patches
+    p_pad = czm._pad128(p_cnt + 1)
+    launch.reset_launches()
+    got = czm.czm_points(pts, mask, cfg)
+    again = czm.czm_points(pts, mask, cfg)
+    torch.cuda.synchronize()
+    assert launch.LAUNCHES["czm_points"] == 2
+    ref = czm.czm_points_plain(pts, mask, cfg)
+    for name, g, a, r in zip(("pid", "zb", "chan", "weights", "b0"), got,
+                             again, ref):
+        assert _same_bits(g, a) and _same_bits(g, r), name
+    pid, zb, chan, weights, b0 = got
+    assert int((pid < p_cnt).sum()) > 1000 and b0[2] == 0
+    hist = segment.cross_histogram(pid, zb, weights, p_pad, czm.Z_BINS)
+    seeds = czm.seed_heights(hist, b0, cfg)
+    for name, g, r in zip(("lpr_h", "live", "tab"), seeds,
+                          czm.seed_heights_plain(hist, b0, cfg)):
+        assert _same_bits(g, r), name
+    assert launch.LAUNCHES["seed_heights"] == 1
+    _, live, tab = seeds
+    ptab = czm._patch_tables(cfg, pts.device)
+    for trip in range(cfg.num_iter):
+        final = trip + 1 == cfg.num_iter
+        sums = segment.fit_iteration_moments(pid, chan, tab, p_pad, p_cnt,
+                                             exact=final)
+        out = czm.plane_fit(sums, ptab, cfg, final=final, patch_live=live)
+        ref = czm.plane_fit_plain(sums, ptab, cfg, final=final,
+                                  patch_live=live)
+        outs = out if final else (out,)
+        refs = ref if final else (ref,)
+        for g, r in zip(outs, refs):
+            assert _same_bits(g, r), (trip, final)
+        tab = outs[-2] if final else out
+    assert launch.LAUNCHES["plane_fit"] == cfg.num_iter
+    assert int(outs[-1].sum()) > 0
+
+
+def test_czm_points_refuses_too_many_zones(dev):
+    from quatro_tpu_torch.ops import czm
+    cfg = PipelineConfig().patchwork
+    k = czm.MAX_ZONES + 1
+    cfg = dataclasses.replace(
+        cfg, num_zones=k, num_sectors_each_zone=(8,) * k,
+        num_rings_each_zone=(1,) * k,
+        min_ranges_each_zone=tuple(2.7 + 8.0 * i for i in range(k)))
+    pts, mask = _raw_pair("VLP-16", n=4096)
+    with pytest.raises(ValueError, match="zones"):
+        czm.czm_points(pts.to(dev), mask.to(dev), cfg)
+
+
+def test_plane_fit_kernel_in_a_cuda_graph(dev):
+    """The bf16 trip's plane_fit captured in a CUDA graph with B9 (as the
+    patchwork_fit fori captures it): the replay gives the eager bits."""
+    from quatro_tpu_torch.ops import czm
+    pts, mask, cfg = _czm_case("Velodyne-64-HDE", "default")
+    pts, mask = pts.to(dev), mask.to(dev)
+    p_cnt = cfg.num_patches
+    p_pad = czm._pad128(p_cnt + 1)
+    pid, zb, chan, weights, b0 = czm.czm_points(pts, mask, cfg)
+    _, _, tab = czm.seed_heights(segment.cross_histogram(
+        pid, zb, weights, p_pad, czm.Z_BINS), b0, cfg)
+    ptab = czm._patch_tables(cfg, pts.device)
+
+    def trip():
+        return czm.plane_fit(segment.fit_iteration_moments(
+            pid, chan, tab, p_pad, p_cnt, exact=False), ptab, cfg)
+
+    want = trip()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        trip()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = trip()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("num_iter", [1, 3])
+def test_estimate_ground_runs_the_czm_kernels(dev, num_iter, monkeypatch):
+    """estimate_ground on an HDL-64E pair on the card: czm_points and
+    seed_heights launched once, plane_fit num_iter times (the bf16 trips
+    inside the patchwork_fit graph), no utils/fused.atan2 or hypot and no
+    smallest_eigenpair_sym3 torch chain, and every field equal to the
+    plain route's on the card (the three wrappers swapped for their plain
+    versions)."""
+    from quatro_tpu_torch.ops import czm
+    from quatro_tpu_torch.preprocessing import patchwork
+    from quatro_tpu_torch.utils import fused
+    cfg = dataclasses.replace(PipelineConfig().patchwork, num_iter=num_iter)
+    pts, mask = (t.to(dev) for t in _raw_pair("Velodyne-64-HDE"))
+    patchwork.estimate_ground(pts, mask, cfg)       # the fits' graph
+    calls = []
+
+    def spy(real):
+        def call(*args):
+            calls.append(real)
+            return real(*args)
+        return call
+
+    monkeypatch.setattr(fused, "atan2", spy(fused.atan2))
+    monkeypatch.setattr(fused, "hypot", spy(fused.hypot))
+    monkeypatch.setattr(czm, "smallest_eigenpair_sym3",
+                        spy(czm.smallest_eigenpair_sym3))
+    launch.reset_launches()
+    got = patchwork.estimate_ground(pts, mask, cfg)
+    torch.cuda.synchronize()
+    assert {k: launch.LAUNCHES[k] for k in ("czm_points", "seed_heights",
+                                            "plane_fit")} == {
+        "czm_points": 1, "seed_heights": 1, "plane_fit": num_iter}
+    assert not calls
+    monkeypatch.undo()
+    for name in ("czm_points", "seed_heights", "plane_fit"):
+        monkeypatch.setattr(patchwork, name, getattr(czm, f"{name}_plain"))
+    from quatro_tpu_torch.utils import loops
+    with loops.eager_loops():
+        ref = patchwork.estimate_ground(pts, mask, cfg)
+    for name, g, r in zip(got._fields, got, ref):
+        assert torch.equal(g, r), name
+    assert int(got.ground.sum()) > 10000

@@ -48,7 +48,7 @@ from quatro_tpu.types import PointBatch as JaxPointBatch
 
 import quatro_tpu_torch as qt
 from quatro_tpu_torch.config import ProjectionConfig
-from quatro_tpu_torch.ops import segment
+from quatro_tpu_torch.ops import czm, segment
 from quatro_tpu_torch.pipeline import preprocess
 from quatro_tpu_torch.preprocessing import patchwork as tpw
 from quatro_tpu_torch.preprocessing import projection as tpr
@@ -97,9 +97,9 @@ def _t(x):
 
 def test_patch_tables_equal():
     jc, tc = jcfg.PatchworkConfig(), qt.PipelineConfig().patchwork
-    for a, b in zip(jpw._patch_metadata(jc), tpw._patch_metadata(tc)):
+    for a, b in zip(jpw._patch_metadata(jc), czm._patch_metadata(tc)):
         np.testing.assert_array_equal(a, b)
-    for a, b in zip(jpw._patch_centers(jc), tpw._patch_centers(tc)):
+    for a, b in zip(jpw._patch_centers(jc), czm._patch_centers(tc)):
         assert a.dtype == b.dtype == np.float32
         np.testing.assert_array_equal(a, b)
     # 2*16 + 4*32 + 4*54 + 4*32 = 504 patches, padded with the dump slot

@@ -103,12 +103,12 @@ def main(frames: int, chain: bool, jax_ground: bool, jax_normals: bool,
     import quatro_tpu_torch as qt
     import quatro_tpu_torch.ops.normals as tnm
     from quatro_tpu_torch import sequence
+    from quatro_tpu_torch.ops.czm import plane_covariance
     from quatro_tpu_torch.ops.dense_features import dense_fpfh, dense_normals
     from quatro_tpu_torch.ops.segment import fit_iteration_moments
     from quatro_tpu_torch.ops.matching import match_features
     from quatro_tpu_torch.ops.voxel import voxel_downsample
-    from quatro_tpu_torch.preprocessing.patchwork import (estimate_ground,
-                                                          plane_covariance)
+    from quatro_tpu_torch.preprocessing.patchwork import estimate_ground
     from quatro_tpu_torch.preprocessing.projection import segment_cloud
     from quatro_tpu_torch.solver.ground import frame_leveling
     from quatro_tpu_torch.solver.quatro import register_correspondences

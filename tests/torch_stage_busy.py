@@ -17,11 +17,11 @@ card's name and power limit, then one JSON line per case:
 
 Each line holds the call's host wall ms (median of 3), every stage's ms
 (CUDA events) and device busy ms (torch.profiler in one more call, the
-device events between marker fills at the stage ends), the projection's,
-the arbitration's and Patchwork's device time and device launches by
-kernel (the largest first), each of those stages' device ms and launch
-count, with the labelling's kernels', the overlap's kernels' and the
-port's own kernels' in the projection (``quatro::``) sums, the device's busy
+device events between marker fills at the stage ends), every stage's
+device time and device launches by kernel (the largest first), each
+stage's device ms and launch count, with the labelling's kernels', the
+overlap's kernels' and the port's own kernels' in the projection and in
+Patchwork (``quatro::``) sums, the device's busy
 total and idle share, the peak memory and the labelling loop's counters
 (rounds, flag reads, replays; empty where the labelling is one kernel
 launch) of the timed call. With ``--cc-chunks`` both cases run once for
@@ -116,22 +116,26 @@ def main() -> int:
         busy = cs.stage_device_busy(lambda timer: register_scan_pair(
             *pair, cfg, timer=timer), by_kernel=by_kernel)
         split = {st: sorted(([cs.short_kernel_name(k), n, round(ms, 4)]
-                             for k, (n, ms) in
-                             by_kernel.get(st, {}).items()),
+                             for k, (n, ms) in kernels.items()),
                             key=lambda r: -r[2])
-                 for st in ("projection", "arbitration", "patchwork")}
+                 for st, kernels in by_kernel.items()}
         wall = sorted(walls)[1]
         total = None if busy is None else sum(busy.values())
         print(json.dumps({
             "case": name, "tree": str(tree), "cc_chunk": chunk,
             "labelling_loop": labelling, "wall_ms": round(wall, 3),
             "labelling_device_ms": round(sum(
-                r[2] for r in split["projection"] if "label_sweep" in r[0]),
-                4),
+                r[2] for r in split.get("projection", [])
+                if "label_sweep" in r[0]), 4),
             "overlap_device_ms": round(sum(
-                r[2] for r in split["arbitration"] if "overlap_" in r[0]), 4),
+                r[2] for r in split.get("arbitration", [])
+                if "overlap_" in r[0]), 4),
             "projection_own_kernels_ms": round(sum(
-                r[2] for r in split["projection"] if "quatro::" in r[0]), 4),
+                r[2] for r in split.get("projection", [])
+                if "quatro::" in r[0]), 4),
+            "patchwork_own_kernels_ms": round(sum(
+                r[2] for r in split.get("patchwork", [])
+                if "quatro::" in r[0]), 4),
             "stage_device_ms": {st: round(sum(r[2] for r in rows), 4)
                                 for st, rows in split.items()},
             "stage_launches": {st: sum(r[1] for r in rows)
