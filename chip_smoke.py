@@ -7,14 +7,16 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions, and the float32 precision flags (TF32 off everywhere);
-2. build: the twenty-two kernels from quatro_tpu_torch/csrc (the twelve
+2. build: the twenty-six kernels from quatro_tpu_torch/csrc (the twelve
    of the JAX package's Pallas calls, the exact clique search, the
    Kabsch rotation, the range-image labelling, the overlaps' hit
    counts, the range image's point keys and owners, edge masks and
-   component stats, and Patchwork's CZM points, seed heights and plane
-   fits), one nvcc per source (twenty-one: the seed heights and plane
-   fits share csrc/plane_fit.cu), all started together; build time and
-   ptxas register and spill summary;
+   component stats, Patchwork's CZM points, seed heights and plane
+   fits, and the clique stage's k-core search, growth, swaps and
+   distinct greedy), one nvcc per source (twenty-two: the seed heights
+   and plane fits share csrc/plane_fit.cu, the clique stage's four
+   csrc/cliques.cu), all started together; build time and ptxas
+   register and spill summary;
 3. path A, the main path (Quatro++ coarse to fine): ``register_scan_pair``
    on the raw seed-11 HDL-64E synthetic pair (the pair of
    tests/test_pipeline.py, capacity 131072) tilted as tests/test_ground.py
@@ -31,7 +33,9 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    lookup), 0 (table lookup), 1 (overlap hits), 1 each (range image, edge
    masks, component stats: one wrapper call a ``segment_cloud`` call),
    1/1/3 for CZM points, seed heights, plane fits (one wrapper call an
-   ``estimate_ground`` call, a plane fit one a fit) and 1 (the labelling: one
+   ``estimate_ground`` call, a plane fit one a fit), 1/1/1/2 for the
+   k-core search, growth, swaps and distinct greedy (the K clique
+   hypotheses' and the vote's) and 1 (the labelling: one
    launch a ``label_components`` call, each image to its own exit; every
    path's launch counts hold it so, and its logs give the most rounds an
    image ran, ``launch_counts``). Per-stage times from CUDA events after
@@ -39,9 +43,10 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    ("leveling" and "icp" among them); ground, non-ground and segment points
    per cloud; the hypotheses and the winner; the pair latency over five
    more runs. Then its device loops (utils/loops.py; Patchwork's bf16
-   plane fits, the GNC, the k-core search,
-   the clique growth and swaps, ``top_distinct_cliques``, the overlaps'
-   blocks and ICP's passes) on its own tensors, each recorded in one more
+   plane fits, the GNC, the overlaps' blocks and ICP's passes; the clique
+   stage's loops, the k-core search, the growth, the swaps and the
+   distinct greedy, run on the card only on their plain route since its
+   four kernels, csrc/cliques.cu) on its own tensors, each recorded in one more
    run and run again through the CUDA-graph route (twice) and through
    ``eager_loops()`` at its chunk and at chunk 1 (a flag read per round,
    as before the graphs), all bit for bit, with each loop's calls,
@@ -165,7 +170,15 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    (the global elevation gate, one fit): every wrapper call bit for bit
    its plain version on the card and across two launches, and every
    field of ``estimate_ground`` with the kernels bit for bit the plain
-   routes (``patchwork_cases``); each with its row (device ms
+   routes (``patchwork_cases``); the clique stage's four kernels on path
+   A's calls (the k-core search with the graph's pack, the growth and
+   swaps on its packed graph, both distinct greedies), each bit for bit
+   its plain version on the card, and on tests/torch_clique_cases.py's
+   graphs (N = 1, 33, 100, an all-False mask, an edgeless, a complete, a
+   self-loop, an asymmetric graph, a junk pair, 195 miss-one vertices)
+   and at N = 2048, whose packed rows exceed a block's shared memory
+   (``clique_cases``; their library column one round's cuBLAS counting
+   product, their bound the bool graph's bytes); each with its row (device ms
    of every event of the wrapper's call, the sort's too, and of the
    port's kernels alone; bound: the inputs read and outputs written once,
    OPS_RANGE_POINT / OPS_EDGE / OPS_STATS; no library call); the overlap
@@ -223,7 +236,8 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    image's three kernels on the 128 clouds, each bit for bit its plain
    version on the card with its device, call and plain ms and bound
    (``b64`` in their rows), Patchwork's three kernels likewise on the 128
-   clouds' ``estimate_ground`` call (``patchwork_cases``, ``b64``),
+   clouds' ``estimate_ground`` call (``patchwork_cases``, ``b64``), the
+   clique stage's four on the 64 pairs' calls (``clique_rows_b64``),
    segment_cloud with the kernels against the
    plain routes under all three neighbour modes and at max_cc_iters = 2,
    and every stage's device time and launches by kernel (as for path A
@@ -385,6 +399,13 @@ REPLACES = {
     "czm_points": "quatro_tpu/preprocessing/patchwork.py:119",
     "seed_heights": "quatro_tpu/preprocessing/patchwork.py:296",
     "plane_fit": "quatro_tpu/preprocessing/patchwork.py:328",
+    # no pl.pallas_call: the clique stage's lax.while_loops (the k-core
+    # search's peel and binary search, the growth's two phases, the swap
+    # under vmap) and top_distinct_cliques' lax.fori_loop
+    "kcore_search": "quatro_tpu/solver/clique.py:65",
+    "grow_cliques": "quatro_tpu/solver/clique.py:104",
+    "swap_cliques": "quatro_tpu/solver/clique.py:197",
+    "distinct_cliques": "quatro_tpu/solver/clique.py:401",
 }
 SOURCES = {
     "moment_sums": "quatro_tpu_torch/csrc/moment_sums.cu",
@@ -409,11 +430,15 @@ SOURCES = {
     "czm_points": "quatro_tpu_torch/csrc/czm_points.cu",
     "seed_heights": "quatro_tpu_torch/csrc/plane_fit.cu",
     "plane_fit": "quatro_tpu_torch/csrc/plane_fit.cu",
+    **dict.fromkeys(("kcore_search", "grow_cliques", "swap_cliques",
+                     "distinct_cliques"), "quatro_tpu_torch/csrc/cliques.cu"),
 }
 # label_sweep: one launch a label_components call (the whole labelling);
 # range_image, edge_masks, component_stats: one wrapper call a
 # segment_cloud call; czm_points, seed_heights: one wrapper call an
-# estimate_ground call, plane_fit one a plane fit (num_iter)
+# estimate_ground call, plane_fit one a plane fit (num_iter); the clique
+# stage: one k-core search, growth and swap a solve, the distinct greedy
+# once for the K clique hypotheses and once for the vote's
 MAIN_LAUNCHES = {"moment_sums": 1, "spfh": 1, "fpfh": 1,
                  "nearest_neighbors": 0, "nearest_neighbors2": 2,
                  "consistency_graph": 1, "segment_sums": 1,
@@ -422,21 +447,31 @@ MAIN_LAUNCHES = {"moment_sums": 1, "spfh": 1, "fpfh": 1,
                  "exact_clique": 0, "kabsch": 0,
                  "label_sweep": 1, "overlap_hits": 1, "range_image": 1,
                  "edge_masks": 1, "component_stats": 1, "czm_points": 1,
-                 "seed_heights": 1, "plane_fit": 3}
+                 "seed_heights": 1, "plane_fit": 3, "kcore_search": 1,
+                 "grow_cliques": 1, "swap_cliques": 1, "distinct_cliques": 2}
 PROJECTION_KERNELS = ("range_image", "edge_masks", "component_stats")
 PATCHWORK_KERNELS = ("czm_points", "seed_heights", "plane_fit")
+CLIQUE_KERNELS = ("kcore_search", "grow_cliques", "swap_cliques",
+                  "distinct_cliques")
+# the clique kernels also held against their plain versions on
+# tests/torch_clique_cases.py's graphs (edge cases) and at N = 2048, whose
+# packed rows exceed a block's shared memory (read through L2)
+CLIQUE_EDGE_CASES = ("n1", "n33", "n100", "mask_off", "edgeless", "complete",
+                     "loops", "asym", "junk_batch", "miss_one", "wide_2048")
 # Patchwork's kernels also held against their plain versions off the
 # default configuration: the far patches' global elevation gate and one
 # exact fit (no fori trip)
 PATCHWORK_VARIANT = dict(using_global_elevation=True, num_iter=1)
 PATH_B_LAUNCHES = dict(MAIN_LAUNCHES, nearest_neighbors=2,
-                       nearest_neighbors2=0, segment_sums=0, overlap_hits=0)
+                       nearest_neighbors2=0, segment_sums=0, overlap_hits=0,
+                       distinct_cliques=0)
 FEATURES_LAUNCHES = dict(MAIN_LAUNCHES, cross_histogram=0,
                          fit_iteration_moments=0, classify_points=0,
                          image_lookup=0, label_sweep=0,
                          **dict.fromkeys(PROJECTION_KERNELS, 0),
                          **dict.fromkeys(PATCHWORK_KERNELS, 0))
-SINGLE_LAUNCHES = dict(FEATURES_LAUNCHES, segment_sums=0, overlap_hits=0)
+SINGLE_LAUNCHES = dict(FEATURES_LAUNCHES, segment_sums=0, overlap_hits=0,
+                       distinct_cliques=0)
 # the labelling kernel against its plain route on images of other presets
 # (ray-cast pairs, all three neighbour modes, and a cap of LABEL_CAP
 # rounds that stops images before their exits)
@@ -1186,13 +1221,15 @@ def phase_solver_modes(res, cfg, card, corr8):
         if name == "exact":
             adj = tim_consistency_graph(corr.src_xyz, corr.tgt_xyz, corr.mask,
                                         sc.noise_bound, sc.cbar2)
+            scores, packed = clique.clique_seed_scores_and_bits(
+                adj, corr.mask)
             greedy = clique.greedy_cliques(
-                adj, clique.clique_seed_scores(adj, corr.mask), corr.mask,
-                num_seeds=sc.clique_num_seeds, max_size=sc.max_clique_size,
-                swap_rounds=sc.clique_swap_rounds) & corr.mask
+                adj, scores, corr.mask, num_seeds=sc.clique_num_seeds,
+                max_size=sc.max_clique_size,
+                swap_rounds=sc.clique_swap_rounds, packed=packed) & corr.mask
             _, completed, restricted, steps = clique.exact_max_clique_bb(
                 adj, corr.mask, incumbent=greedy, cap=sc.exact_clique_cap,
-                max_steps=sc.exact_clique_max_steps)
+                max_steps=sc.exact_clique_max_steps, seed_scores=scores)
             with host_route("exact"):
                 register_correspondences(*args)
                 host, host_ms = _synced_ms(
@@ -1267,10 +1304,12 @@ def solver_modes_batched(corr8, cfg, card):
             "launches": {k: v for k, v in launches.items() if v}}
         if name == "exact":
             adj = tim_consistency_graph(*args[:3], sc.noise_bound, sc.cbar2)
+            scores, packed = clique.clique_seed_scores_and_bits(
+                adj, corr8.mask)
             greedy = clique.greedy_cliques(
-                adj, clique.clique_seed_scores(adj, corr8.mask), corr8.mask,
-                num_seeds=sc.clique_num_seeds, max_size=sc.max_clique_size,
-                swap_rounds=sc.clique_swap_rounds) & corr8.mask
+                adj, scores, corr8.mask, num_seeds=sc.clique_num_seeds,
+                max_size=sc.max_clique_size,
+                swap_rounds=sc.clique_swap_rounds, packed=packed) & corr8.mask
             table[name]["steps"] = exact_routes(
                 adj, corr8.mask, greedy, sc.exact_clique_cap,
                 sc.exact_clique_max_steps, f"path P's pairs, B = {bsz}")
@@ -1391,7 +1430,8 @@ def sequence_launches(frames, calls):
     """Path S's expected launch counts: per frame the preprocessing and
     front-end kernels (the labelling once), per batched
     registration call (one per edge batch) the matcher's top-2 NN twice,
-    the graph, the vote's segment sums and the overlaps, and per
+    the graph, the clique stage's kernels, the vote's segment sums and
+    the overlaps, and per
     pose-graph solve one segment sum per J^T apply (gn x (cg + 1))."""
     gn, cg = PG_ITERS
     return dict(MAIN_LAUNCHES, moment_sums=frames, spfh=frames, fpfh=frames,
@@ -1402,7 +1442,9 @@ def sequence_launches(frames, calls):
                 classify_points=frames, image_lookup=frames,
                 label_sweep=frames, overlap_hits=calls,
                 **dict.fromkeys(PROJECTION_KERNELS, frames),
-                czm_points=frames, seed_heights=frames, plane_fit=3 * frames)
+                czm_points=frames, seed_heights=frames, plane_fit=3 * frames,
+                kcore_search=calls, grow_cliques=calls, swap_cliques=calls,
+                distinct_cliques=2 * calls)
 
 
 def _spread(ms):
@@ -1910,13 +1952,16 @@ def phase_pair_axis(card, pairs, gts, cfg_a, bench):
             with recorded(pipeline, "segment_cloud", []) as seg_calls, \
                     recorded(verify, "overlap_hits", []) as hit_calls, \
                     recorded(pipeline, "estimate_ground", []) as pw_calls:
-                register_scan_pair(*batches[0], cfg)
+                _, clique_calls = clique_run(
+                    lambda: register_scan_pair(*batches[0], cfg))
             stage_rows = stage_kernel_rows_b64(
                 (seg_calls[0][0], seg_calls[0][1]), hit_calls[0][0],
                 f"path P, B = {bsz}")
             stage_rows.update(patchwork_rows_b64(pw_calls[0][0],
                                                  f"path P, B = {bsz}"))
-            del seg_calls, hit_calls, pw_calls
+            stage_rows.update(clique_rows_b64(clique_calls,
+                                              f"path P, B = {bsz}"))
+            del seg_calls, hit_calls, pw_calls, clique_calls
             by_kernel = {}
             busy = stage_device_busy(lambda timer: register_scan_pair(
                 *batches[1], cfg, timer=timer), by_kernel=by_kernel)
@@ -2371,7 +2416,9 @@ WRAPPER_KERNELS = {"moment_sums": ("quatro::moment_sums_kernel",),
                    "component_stats": ("quatro::component_accumulate_kernel",
                                        "quatro::component_feasible_kernel"),
                    "czm_points": ("quatro::czm_zrange_kernel",
-                                  "quatro::czm_points_kernel")}
+                                  "quatro::czm_points_kernel"),
+                   "kcore_search": ("quatro::clq::clique_pack_kernel",
+                                    "quatro::clq::kcore_kernel")}
 # the kernel each wrapper launches once per call, by the profiler's name:
 # a profiled run counts only if it saw this kernel once per call
 MAIN_KERNEL = {"moment_sums": "quatro::moment_sums_kernel",
@@ -2394,7 +2441,11 @@ MAIN_KERNEL = {"moment_sums": "quatro::moment_sums_kernel",
                "component_stats": "quatro::component_feasible_kernel",
                "czm_points": "quatro::czm_points_kernel",
                "seed_heights": "quatro::seed_heights_kernel",
-               "plane_fit": "quatro::plane_fit_kernel"}
+               "plane_fit": "quatro::plane_fit_kernel",
+               "kcore_search": "quatro::clq::kcore_kernel",
+               "grow_cliques": "quatro::clq::grow_kernel",
+               "swap_cliques": "quatro::clq::swap_kernel",
+               "distinct_cliques": "quatro::clq::distinct_kernel"}
 
 
 def culled_pairs(pts, mask, radius):
@@ -2422,14 +2473,15 @@ def radius_pair_bytes(mask, per_row, per_valid_row):
 
 
 def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b,
-                  jt_call, launches_s, exact, overlap_args):
+                  jt_call, launches_s, exact, overlap_args, clique_recs):
     """Every kernel against its plain version: B1-B5 and B7-B12 on the
     main path's tensors, with the main path's launch counts (B12's 0: no
     path launches it); B6 on path B's, with path B's; B2 also on path S's
     J^T apply ``jt_call``, with path S's launch counts; the exact search
     on path B's exact mode's restriction (``exact``), with its launches;
-    the labelling kernel on path A's labelling call (``calls``) and the
-    overlap on path A's arbitration call (``overlap_args``)."""
+    the labelling kernel on path A's labelling call (``calls``), the
+    overlap on path A's arbitration call (``overlap_args``) and the clique
+    stage's four kernels on path A's calls (``clique_recs``)."""
     from quatro_tpu_torch.ops import frontend as fe
     from quatro_tpu_torch.ops.fpfh import normalize_blocks
 
@@ -2690,6 +2742,7 @@ def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b,
     label_sweep_row(calls, main_launches, row, rows)
     projection_kernel_rows(calls, main_launches, row)
     patchwork_kernel_rows(calls, main_launches, row)
+    clique_kernel_rows(clique_recs, main_launches, row)
     segment_routes_equal(calls["segment_cloud"][0], "path A")
     for preset in LABEL_PRESETS:
         segment_routes_equal(preset_segment_args(preset), preset)
@@ -2702,7 +2755,7 @@ def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b,
         if r.get("bf16_device_ms_uncaptured", 0.0) is None]
     check(not missing, "kernel phase: no profiled run saw every call of "
           f"{missing}")
-    log("kernel phase: device ms of all twenty-two kernels (torch.profiler): "
+    log("kernel phase: device ms of all twenty-six kernels (torch.profiler): "
         + json.dumps({r["name"]: round(r["device_ms"], 6) for r in rows}))
     return rows
 
@@ -3657,6 +3710,257 @@ def patchwork_calls_equal(recs, label):
     return clouds
 
 
+# ------------------------------------------------------- clique stage --
+
+def _clique_cases():
+    """tests/torch_clique_cases.py (the graphs and clique rows the clique
+    kernels are held on, and the stage's calls on one batch)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    import torch_clique_cases
+    return torch_clique_cases
+
+
+def clique_run(fn):
+    """fn() with solver/clique.py's four clique wrappers recorded: (fn's
+    result, {name: [(arguments cloned, keyword arguments, result)]})."""
+    from quatro_tpu_torch.solver import clique
+
+    with contextlib.ExitStack() as stack:
+        recs = {k: stack.enter_context(recorded(clique, k, []))
+                for k in CLIQUE_KERNELS}
+        out = fn()
+    return out, recs
+
+
+def capture_cliques(pair, cfg):
+    """The clique wrappers' calls of one more path A run (``clique_run``):
+    one k-core search, growth and swap, two distinct greedies (the K
+    clique hypotheses, the vote's)."""
+    from quatro_tpu_torch.pipeline import register_scan_pair
+
+    _, recs = clique_run(lambda: register_scan_pair(*pair, cfg))
+    torch.cuda.synchronize()
+    counts = {k: len(v) for k, v in recs.items()}
+    check(counts == {k: MAIN_LAUNCHES[k] for k in CLIQUE_KERNELS},
+          f"path A: clique wrapper calls {counts}")
+    return recs
+
+
+def _clique_args(name, args, kwargs):
+    """A clique wrapper call's arguments by name, defaults filled in."""
+    import inspect
+
+    from quatro_tpu_torch.ops import cliques as tcl
+
+    bound = inspect.signature(getattr(tcl, name)).bind(*args, **kwargs)
+    bound.apply_defaults()
+    return dict(bound.arguments)
+
+
+def _as_tuple(out):
+    return (out,) if torch.is_tensor(out) else tuple(out)
+
+
+def clique_fns(name, args, kwargs):
+    """The wrapper's and the plain version's call on recorded operands,
+    each returning a tuple of tensors (the k-core search's packed graph
+    left out; the plain versions take no packed graph)."""
+    from quatro_tpu_torch.ops import cliques as tcl
+
+    wrapper = getattr(tcl, name)
+    plain = getattr(tcl, f"{name}_plain")
+    plain_kw = {k: v for k, v in _clique_args(name, args, kwargs).items()
+                if k != "packed"}
+    keep = 3 if name == "kcore_search" else None
+    return ((lambda: _as_tuple(wrapper(*args, **kwargs))[:keep]),
+            (lambda: _as_tuple(plain(**plain_kw))))
+
+
+def clique_calls_equal(recs, label):
+    """Each recorded call of the four clique wrappers again: the wrapper
+    once more and its plain version on the card (uncaptured) on the same
+    operands, every output bit for bit equal to the recorded call's.
+    Returns {name: calls}."""
+    from quatro_tpu_torch.utils import loops
+
+    counts = {}
+    for name in CLIQUE_KERNELS:
+        check(recs.get(name), f"{label}: no {name} call recorded")
+        for k, (args, kwargs, out) in enumerate(recs[name]):
+            k_fn, p_fn = clique_fns(name, args, kwargs)
+            ref = _as_tuple(out)[:3 if name == "kcore_search" else None]
+            with loops.eager_loops():
+                plain = p_fn()
+            for what, other in (("a second launch", k_fn()),
+                                ("its plain version on the card", plain)):
+                check(len(other) == len(ref) and all(
+                    same_bits(a, b) for a, b in zip(ref, other)),
+                    f"{name} ({label}, call {k}): differs from {what}")
+        counts[name] = len(recs[name])
+    log(f"kcore_search, grow_cliques, swap_cliques, distinct_cliques "
+        f"({label}): calls {json.dumps(counts)}, each equal across launches "
+        "and to its plain version on the card, bit for bit")
+    return counts
+
+
+def clique_cases():
+    """The four clique kernels against their plain versions on the card
+    on tests/torch_clique_cases.py's graphs (``CLIQUE_EDGE_CASES``: N = 1,
+    33, 100, an all-False mask, an edgeless and a complete graph, self
+    loops, an asymmetric graph, three pairs with a junk one, 195 miss-one
+    vertices; two graphs at N = 2048) through ``clique_stage_calls`` (the
+    k-core search, three growths, two swaps, two distinct greedies), and
+    the distinct greedy on its row cases under both force_first: every
+    output bit for bit. Logs where each kernel's packed rows sat."""
+    from quatro_tpu_torch.ops import cliques as tcl
+    from quatro_tpu_torch.utils import loops
+
+    from quatro_tpu_torch.device import resolve_device
+
+    cases = _clique_cases()
+    dev = resolve_device()
+    routes = {}
+    for name in CLIQUE_EDGE_CASES:
+        if name == "wide_2048":
+            adj, mask = cases.wide_graphs(2, 2048, dev)
+        else:
+            adj, mask = (cases.miss_one_batch()[:2] if name == "miss_one"
+                         else cases.graph_case(name))
+            adj, mask = (torch.from_numpy(a).to(dev).contiguous()
+                         for a in (adj, mask))
+        tcl.reset_routes()
+        got = cases.clique_stage_calls(adj, mask, tcl, True)
+        routes[name] = {k: [r for r, c in v.items() if c]
+                        for k, v in tcl.ROUTES.items()}
+        with loops.eager_loops():
+            ref = cases.clique_stage_calls(adj, mask, tcl, False)
+        for call, outs in got.items():
+            check(len(outs) == len(ref[call]) and all(
+                same_bits(a, b) for a, b in zip(outs, ref[call])),
+                f"clique cases, {name}: {call} differs from the plain "
+                "version on the card")
+    for name in ("random", "singletons", "all_false"):
+        rows = torch.from_numpy(cases.distinct_case(name)).to(dev)
+        for force_first in (False, True):
+            got = tcl.distinct_cliques(rows, 4, force_first=force_first)
+            ref = tcl.distinct_cliques_plain(rows, 4,
+                                             force_first=force_first)
+            check(all(same_bits(a, b) for a, b in zip(got, ref)),
+                  f"clique cases, distinct rows {name}: differ from the "
+                  "plain version on the card")
+    check(routes["wide_2048"]["kcore_search"] == ["global"],
+          f"clique cases: N = 2048's rows not read through L2: {routes}")
+    log("clique kernels on tests/torch_clique_cases.py's graphs and rows: "
+        "every output equal to the plain version on the card, bit for bit; "
+        "packed rows (shared memory or L2) by case: " + json.dumps(routes))
+
+
+def clique_work(name, args, kwargs):
+    """(operations, bytes) of one clique wrapper call: the inputs its
+    kernels read once and the outputs they write once. The k-core search
+    packs the (B, N, N) bool graph (N^2 B bytes read) and writes its bits,
+    rows and columns (B, N, ceil(N / 32)) int32 each; the growth reads
+    both (its symmetry test and its column counts), the swaps the rows,
+    and neither reads the bool graph. The operations are left at 0: the
+    kernels' popcount rounds are dependent chains, bound by their latency
+    and by one block a pair, which neither rate sees."""
+    a = _clique_args(name, args, kwargs)
+    if name == "distinct_cliques":
+        c = a["cliques"]
+        bsz, s, n = c.shape
+        k = min(a["k"], s)
+        return 0.0, float(c.numel() + bsz * k * (n + 4))
+    bsz, n = a["mask"].shape
+    bits = bsz * n * (-(-n // 32)) * 4  # one of rows, cols
+    base = a["mask"].numel()
+    if name == "kcore_search":          # lo, core, deg and the bits out
+        return 0.0, float(base + a["adj"].numel()
+                          + bsz * (8 + n + 4 * n) + 2 * bits)
+    if name == "grow_cliques":          # scores, tiebreak in; cliques out
+        s = min(a["num_seeds"], n)
+        return 0.0, float(base + 2 * bits + 4 * bsz * n + 4 * n
+                          + bsz * s * n)
+    return 0.0, float(base + bits + 2 * a["cliques"].numel())
+
+
+def clique_library(name, args, kwargs):
+    """One round of the counting product that the kernel's loop replaces
+    (``ops.cliques._count_mm``: a cuBLAS product over f32 0/1 operands),
+    at this call's shape: (fn, label). Its operands are made once here,
+    as the plain route makes them once a loop."""
+    from quatro_tpu_torch.ops import cliques as tcl
+
+    a = _clique_args(name, args, kwargs)
+    if name == "distinct_cliques":
+        cf = a["cliques"].float()
+        return ((lambda: tcl._count_mm(cf, cf.transpose(-1, -2))),
+                f"one product cf @ cf^T, {tuple(cf.shape)} f32")
+    adj_f = a["adj"].float()
+    bsz, n = a["mask"].shape
+    if name == "kcore_search":
+        alive = a["mask"].float()
+        return ((lambda: tcl._count_mv(adj_f, alive)),
+                f"one peel round's adj @ alive, ({bsz}, {n}, {n}) f32")
+    if name == "grow_cliques":
+        cand = adj_f[:, :min(a["num_seeds"], n)].contiguous()
+        return ((lambda: tcl._count_mm(cand, adj_f)),
+                f"one growth round's cand @ adj, {tuple(cand.shape)} f32")
+    adj_t = adj_f.transpose(-1, -2)
+    x = a["cliques"][:, :min(a["top"], a["cliques"].shape[1])].float()
+    return ((lambda: x @ adj_t),
+            f"one swap round's x @ adj^T, {tuple(x.shape)} f32")
+
+
+def clique_kernel_rows(recs, main_launches, row):
+    """The clique stage's four kernels on path A's calls
+    (``capture_cliques``): each bit for bit its plain version on the card
+    (``clique_calls_equal``) and on the edge cases (``clique_cases``), with
+    its row on the call the main path makes first (the k-core search with
+    its pack, the growth and swaps on its packed graph, the K hypotheses'
+    distinct greedy); the library column one round's counting product."""
+    from quatro_tpu_torch.ops import cliques as tcl
+
+    clique_calls_equal(recs, "path A")
+    clique_cases()
+    for name in CLIQUE_KERNELS:
+        a, kw, _ = recs[name][0]
+        k_fn, p_fn = clique_fns(name, a, kw)
+        lib_fn, lib_label = clique_library(name, a, kw)
+        tcl.reset_routes()
+        k_fn()
+        extra = {"shape": str(tuple(a[0].shape)),
+                 "registers": kernel_registers("cliques"),
+                 "library": lib_label, "calls_path_a": len(recs[name]),
+                 "packed_rows": [r for r, c in tcl.ROUTES[name].items()
+                                 if c]}
+        row(name, 0.0, k_fn, p_fn, *clique_work(name, a, kw), lib_fn,
+            launches=main_launches[name], extra=extra)
+
+
+def clique_rows_b64(recs, label):
+    """The clique stage's four kernels at path P's B = 64 shapes, on one
+    call's recorded operands: each bit for bit its plain version on the
+    card (``clique_calls_equal``), with its device ms, call ms, plain ms,
+    bound and one round's counting product."""
+    clique_calls_equal(recs, label)
+    out = {}
+    for name in CLIQUE_KERNELS:
+        a, kw, _ = recs[name][0]
+        k_fn, p_fn = clique_fns(name, a, kw)
+        lib_fn, lib_label = clique_library(name, a, kw)
+        b_ms, by = bound(*clique_work(name, a, kw))
+        out[name] = {"shape": str(tuple(a[0].shape)),
+                     "device_ms": device_ms_per_call(
+                         k_fn, "quatro::", main=(MAIN_KERNEL[name], 1)),
+                     "ms": cuda_ms(k_fn), "plain_ms": cuda_ms(p_fn, 5),
+                     "bound_ms": b_ms, "bound_by": by,
+                     "library_ms": cuda_ms(lib_fn), "library": lib_label}
+    log(f"kcore_search / grow_cliques / swap_cliques / distinct_cliques "
+        f"({label}): " + json.dumps(out)
+        + "; each equal to its plain version on the card")
+    return out
+
 @functools.lru_cache(maxsize=None)
 def preset_pair(preset):
     """tests/test_torch_kernels_gpu.py's level_a pair of a lidar preset,
@@ -4055,6 +4359,7 @@ def main() -> int:
         *pairs["tilted"], cfgs["A"]))
     calls = capture_preprocessing(pairs["tilted"], cfgs["A"])
     overlap_args = capture_overlap(pairs["tilted"], cfgs["A"])
+    clique_recs = capture_cliques(pairs["tilted"], cfgs["A"])
     mark = graphs_of("path A", mark)
     t0 = time.perf_counter()
     bench = (*bench_case(), time.perf_counter() - t0)
@@ -4093,8 +4398,8 @@ def main() -> int:
     phase_profile(pairs["tilted"], cfgs["A"], wall_a, stages_a)
     rows = phase_kernels(res_a, cfgs["A"], launches_a, calls, res_b,
                          cfgs["B"], launches_b, jt_call, launches_s, exact,
-                         overlap_args)
-    del calls, overlap_args
+                         overlap_args, clique_recs)
+    del calls, overlap_args, clique_recs
     mark = graphs_of("profile and kernels", mark)
     # last: its large batches and profiles leave the profiler missing
     # more events in the runs after them

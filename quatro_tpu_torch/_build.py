@@ -76,13 +76,16 @@ SIGNATURES = {
     "plane_fit": ("quatro_plane_fit",
                   [_P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _I, _F, _P, _P,
                    _P, _P]),
+    "cliques": ("quatro_kcore_search", [_P, _P, _I, _I, _I, _P, _P, _P, _P]),
 }
 
 # Further C functions of a kernel's library: name -> (source, symbol,
 # argument types). B1's library also exports the exhaustive check of its
 # square root against __fsqrt_rn; the labelling's library, the cluster
 # layout it picks for a batch; the range image's, its owner kernel (after
-# the sort); the plane fit's, the seed heights' kernel.
+# the sort); the plane fit's, the seed heights' kernel; the cliques', the
+# graph's packing, the growth, the swaps, the distinct greedy and the
+# shared memory each kernel takes.
 EXTRA = {"sqrt_rn_check": ("consistency_graph", "quatro_sqrt_rn_check",
                            [_P, _P]),
          "label_layout": ("label_sweep", "quatro_label_layout",
@@ -91,7 +94,19 @@ EXTRA = {"sqrt_rn_check": ("consistency_graph", "quatro_sqrt_rn_check",
                                [_P, _P, _I, _I, _I, _I, _P, _P, _P]),
          "seed_heights": ("plane_fit", "quatro_seed_heights",
                           [_P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P,
-                           _P])}
+                           _P]),
+         "clique_pack": ("cliques", "quatro_clique_pack",
+                         [_P, _I, _I, _P, _P, _P]),
+         "grow_cliques": ("cliques", "quatro_grow_cliques",
+                          [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                           _I, _P, _P, _P]),
+         "swap_cliques": ("cliques", "quatro_swap_cliques",
+                          [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P]),
+         "distinct_cliques": ("cliques", "quatro_distinct_cliques",
+                              [_P, _I, _I, _I, _I, _F, _I, _I, _P, _P, _P,
+                               _P]),
+         "clique_smem": ("cliques", "quatro_clique_smem",
+                         [_I, _I, _I, _I, _P])}
 
 _loaded: dict = {}
 build_log: dict = {}    # name -> {"seconds": s, "ptxas": text}; last build

@@ -18,7 +18,9 @@ LAUNCHES = {"moment_sums": 0, "spfh": 0, "fpfh": 0, "nearest_neighbors": 0,
             "image_lookup": 0, "table_lookup": 0, "exact_clique": 0,
             "kabsch": 0, "label_sweep": 0, "overlap_hits": 0,
             "range_image": 0, "edge_masks": 0, "component_stats": 0,
-            "czm_points": 0, "seed_heights": 0, "plane_fit": 0}
+            "czm_points": 0, "seed_heights": 0, "plane_fit": 0,
+            "kcore_search": 0, "grow_cliques": 0, "swap_cliques": 0,
+            "distinct_cliques": 0}
 
 
 def reset_launches() -> None:

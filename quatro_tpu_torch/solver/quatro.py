@@ -259,12 +259,13 @@ def register_hypotheses(
             swap_rounds=config.clique_swap_rounds,
             exact_cap=config.exact_clique_cap,
             exact_max_steps=config.exact_clique_max_steps)
+        scores, packed = clique_mod.clique_seed_scores_and_bits(adj, mask)
         grown = clique_mod.grow_greedy_cliques(
-            adj, clique_mod.clique_seed_scores(adj, mask), mask,
-            num_seeds=config.clique_num_seeds,
-            max_size=config.max_clique_size)
+            adj, scores, mask, num_seeds=config.clique_num_seeds,
+            max_size=config.max_clique_size, packed=packed)
         grown = clique_mod.improve_top_cliques(
-            adj, grown, mask, top=top, rounds=config.clique_swap_rounds)
+            adj, grown, mask, top=top, rounds=config.clique_swap_rounds,
+            packed=packed)
     cliques, sizes = clique_mod.top_distinct_cliques(
         torch.cat([sel0[:, None], grown], 1), k, force_first=True)
     valid_k = sizes > 1

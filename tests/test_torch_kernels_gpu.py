@@ -1,4 +1,4 @@
-"""The twenty-two CUDA kernels against their plain PyTorch versions, on the card,
+"""The twenty-six CUDA kernels against their plain PyTorch versions, on the card,
 and the loop-closing path's device code (pose graph, Scan Context).
 
 Every test here is marked ``gpu`` and skips without a CUDA device. The
@@ -12,6 +12,7 @@ kernels on the CPU (tests/test_torch_frontend.py); the tolerances are
 those of chip_smoke.py.
 """
 
+import contextlib
 import dataclasses
 import functools
 
@@ -31,6 +32,9 @@ from quatro_tpu_torch.solver.quatro import register_correspondences
 from quatro_tpu_torch.solver.scale import tim_consistency_graph
 from quatro_tpu_torch.types import PointBatch
 
+from torch_clique_cases import (GRAPHS, clique_stage_calls, distinct_case,
+                                graph_case, miss_one_batch,
+                                plain_clique_route, wide_graphs)
 from torch_czm_cases import CZM_CONFIGS, czm_specials
 
 pytestmark = pytest.mark.gpu
@@ -559,7 +563,9 @@ def test_recommended_runs_all_six_kernels(recommended):
                         "exact_clique": 0, "kabsch": 0, "label_sweep": 0,
                         "overlap_hits": 1, "range_image": 0,
                         "edge_masks": 0, "component_stats": 0,
-                        "czm_points": 0, "seed_heights": 0, "plane_fit": 0}
+                        "czm_points": 0, "seed_heights": 0, "plane_fit": 0,
+                        "kcore_search": 1, "grow_cliques": 1,
+                        "swap_cliques": 1, "distinct_cliques": 2}
     assert bool(res.solution.valid)
     assert res.hypotheses.rotation.shape[0] == 6
     for name in ("valid", "rotation", "translation", "max_clique_mask",
@@ -744,7 +750,9 @@ def test_batched_pipeline_launches_do_not_depend_on_batch(dev):
                    "table_lookup": 0, "exact_clique": 0, "kabsch": 0,
                    "label_sweep": 1, "overlap_hits": 1, "range_image": 1,
                    "edge_masks": 1, "component_stats": 1, "czm_points": 1,
-                   "seed_heights": 1, "plane_fit": 3}
+                   "seed_heights": 1, "plane_fit": 3, "kcore_search": 1,
+                   "grow_cliques": 1, "swap_cliques": 1,
+                   "distinct_cliques": 2}
 
 
 def test_plain_graph_refused_on_the_card(dev, recommended):
@@ -935,7 +943,8 @@ def test_register_scan_pair_runs_all_ten_kernels(dev):
         "table_lookup": 0, "exact_clique": 0, "kabsch": 0,
         "label_sweep": 1, "overlap_hits": 1, "range_image": 1,
         "edge_masks": 1, "component_stats": 1, "czm_points": 1,
-        "seed_heights": 1, "plane_fit": 3}
+        "seed_heights": 1, "plane_fit": 3, "kcore_search": 1,
+        "grow_cliques": 1, "swap_cliques": 1, "distinct_cliques": 2}
     assert bool(res.solution.valid)
 
 
@@ -1095,6 +1104,38 @@ def _loop_cases(dev):
     }
 
 
+CLIQUE_LOOPS = ("max_kcore", "grow_cliques", "swap_cliques", "top_distinct")
+
+
+def _clique_routes(fn):
+    """fn (the clique selection, or the distinct greedy after it) on the
+    kernel route: no device loop of the clique stage runs, each kernel's
+    wrapper launches once; its bits equal the plain route's on the
+    CUDA-graph route (twice: capture, then replays) and eager."""
+    from quatro_tpu_torch.utils import loops
+    loops.reset_loops()
+    launch.reset_launches()
+    got = _flat(fn())
+    torch.cuda.synchronize()
+    assert not set(CLIQUE_LOOPS) & set(loops.LOOPS), dict(loops.LOOPS)
+    want = {"kcore_search": 1, "grow_cliques": 1, "swap_cliques": 1}
+    assert all(launch.LAUNCHES[k] == v for k, v in want.items()), \
+        dict(launch.LAUNCHES)
+    assert launch.LAUNCHES["distinct_cliques"] == (len(got) == 2)
+    loops.reset_loops()
+    for route in ("graph", "graph_again", "eager"):
+        mode = (loops.eager_loops() if route == "eager"
+                else contextlib.nullcontext())
+        with plain_clique_route(), mode:
+            ref = _flat(fn())
+        assert len(got) == len(ref)
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r), route
+    counts = [loops.LOOPS[k] for k in CLIQUE_LOOPS if k in loops.LOOPS]
+    assert sum(c["captures"] for c in counts) >= 1
+    assert sum(c["replays"] for c in counts) >= 1
+
+
 def _flat(out):
     return [out] if torch.is_tensor(out) else [t for o in out
                                                for t in _flat(o)]
@@ -1113,10 +1154,15 @@ def test_device_loops_graph_equals_eager_on_the_card(dev, case):
     then the capture; second call: replays only) gives the bits of
     ``eager_loops()``, and the same kernel launches in ``LAUNCHES``. The
     SO(3) GNC (TEASER, the 3-D FGR) captures and replays like the yaw
-    loop."""
+    loop. The clique stage's loops run on the card only on its plain
+    route since its kernels (csrc/cliques.cu): there the kernel route is
+    held against the plain route, graph and eager (``_clique_routes``)."""
     from quatro_tpu_torch.utils import loops
     fn = _loop_cases(dev)[case]
     loops.clear_graphs()
+    if case in ("cliques", "top_distinct"):
+        _clique_routes(fn)
+        return
     launch.reset_launches()
     with loops.eager_loops():
         ref = _flat(fn())
@@ -2170,3 +2216,154 @@ def test_estimate_ground_runs_the_czm_kernels(dev, num_iter, monkeypatch):
     for name, g, r in zip(got._fields, got, ref):
         assert torch.equal(g, r), name
     assert int(got.ground.sum()) > 10000
+
+
+# -------------------------------------------------------- clique stage --
+
+CLIQUE_CASES = [*GRAPHS, "miss_one", "wide_1024_1", "wide_1024_64",
+                "wide_2048_2"]
+
+
+def _clique_graph(name, dev):
+    """A case of tests/torch_clique_cases.py on the card: (adj, mask)."""
+    if name.startswith("wide"):
+        _, n, b = name.split("_")
+        return wide_graphs(int(b), int(n), dev)
+    adj, mask = (miss_one_batch()[:2] if name == "miss_one"
+                 else graph_case(name))
+    return (torch.from_numpy(adj).to(dev).contiguous(),
+            torch.from_numpy(mask).to(dev).contiguous())
+
+
+@pytest.mark.parametrize("name", CLIQUE_CASES)
+def test_clique_kernels(dev, name):
+    """Each of the clique stage's four kernels against its plain version
+    on the card (and on CPU copies below N = 1024) on the same inputs, bit
+    for bit: every output of the k-core search, three growths, two swaps,
+    two distinct greedies; the launches counted; the packed rows staged in
+    shared memory up to N = 1024 and read through L2 at N = 2048."""
+    from quatro_tpu_torch.ops import cliques as tcl
+    from quatro_tpu_torch.utils import loops
+    adj, mask = _clique_graph(name, dev)
+    n = adj.shape[-1]
+    tcl.reset_routes()
+    launch.reset_launches()
+    got = clique_stage_calls(adj, mask, tcl, True)
+    torch.cuda.synchronize()
+    assert {k: launch.LAUNCHES[k] for k in tcl.KIND} == {
+        "kcore_search": 1, "grow_cliques": 3, "swap_cliques": 2,
+        "distinct_cliques": 2}
+    with loops.eager_loops():
+        ref = clique_stage_calls(adj, mask, tcl, False)
+    refs = [ref]
+    if n < 1024:
+        refs.append(clique_stage_calls(adj.cpu(), mask.cpu(), tcl, False))
+    for r in refs:
+        for call, outs in got.items():
+            assert len(outs) == len(r[call])
+            for k, (g, want) in enumerate(zip(outs, r[call])):
+                assert g.dtype == want.dtype and g.shape == want.shape
+                assert torch.equal(g.cpu(), want.cpu()), (call, k)
+    staged = "global" if n > 1024 else "shared"
+    for k in ("kcore_search", "grow_cliques", "swap_cliques"):
+        assert tcl.ROUTES[k][staged] == launch.LAUNCHES[k], (k, tcl.ROUTES)
+    print(name, {k: v.sum().item() for k, v in zip(
+        ("k", "core"), got["kcore_search"][:2])},
+        "largest", int(got["swap"][0].sum(-1).max()), dict(tcl.ROUTES))
+
+
+def _distinct_rows(name):
+    if name == "wide":          # 1000 rows of 2048: the packed rows in L2
+        rng = np.random.default_rng(3)
+        rows = rng.uniform(size=(2, 1000, 2048)) < rng.uniform(
+            0.001, 0.05, (2, 1000, 1))
+        rows[:, 1::3] = rows[:, ::3][:, :rows[:, 1::3].shape[1]]
+        return rows
+    return distinct_case(name)
+
+
+@pytest.mark.parametrize("name,k", [("random", 4), ("random", 8),
+                                    ("singletons", 4), ("all_false", 4),
+                                    ("wide", 4), ("wide", 16)])
+@pytest.mark.parametrize("force_first", [False, True])
+def test_distinct_cliques_kernel(dev, name, k, force_first):
+    """The distinct greedy's kernel against its plain version on the card
+    and on CPU copies, bit for bit, one launch; at 1000 rows of 2048 its
+    packed rows read through L2."""
+    from quatro_tpu_torch.ops import cliques as tcl
+    rows = torch.from_numpy(_distinct_rows(name))
+    tcl.reset_routes()
+    launch.reset_launches()
+    got = tcl.distinct_cliques(rows.to(dev), k, force_first=force_first)
+    torch.cuda.synchronize()
+    assert launch.LAUNCHES["distinct_cliques"] == 1
+    for ref in (tcl.distinct_cliques_plain(rows.to(dev), k,
+                                           force_first=force_first),
+                tcl.distinct_cliques_plain(rows, k, force_first=force_first)):
+        for g, r in zip(got, ref):
+            assert torch.equal(g.cpu(), r.cpu())
+    assert tcl.ROUTES["distinct_cliques"][
+        "global" if name == "wide" else "shared"] == 1
+
+
+@pytest.mark.parametrize("mode", ["clique", "kcore", "exact"])
+def test_select_inliers_runs_the_clique_kernels(dev, mode):
+    """select_inliers in each mode, greedy_cliques, clique_seed_scores and
+    top_distinct_cliques on three VLP-16-width pairs on the card: the
+    kernels' route, with no device loop of the clique stage, equal to the
+    plain route bit for bit; the launches per call."""
+    from quatro_tpu_torch.solver import clique
+    from quatro_tpu_torch.utils import loops
+    adj, mask = wide_graphs(3, 256, dev)
+
+    def stage():
+        sel = clique.select_inliers(adj, mask, mode=mode, num_seeds=128,
+                                    swap_rounds=2)
+        scores, packed = clique.clique_seed_scores_and_bits(adj, mask)
+        greedy = clique.greedy_cliques(adj, scores, mask, packed=packed,
+                                       num_seeds=16,
+                                       swap_rounds=1)
+        grown = clique.select_inliers_with_candidates(
+            adj, mask, num_seeds=128, swap_rounds=2)[2]
+        picked = clique.top_distinct_cliques(grown, 4)
+        return _flat((sel, scores, greedy, grown, picked))
+
+    loops.reset_loops()
+    launch.reset_launches()
+    got = stage()
+    torch.cuda.synchronize()
+    assert not set(CLIQUE_LOOPS) & set(loops.LOOPS)
+    # k-core searches: the mode's (1; exact: the seed scores, which the
+    # greedy and the restriction share, and the restriction's k-core, 2),
+    # then the seed scores' (whose bits the greedy takes) and the
+    # selection's; growths: the mode's (none for kcore), the greedy's and
+    # the selection's
+    kcore = {"clique": 3, "kcore": 3, "exact": 4}[mode]
+    grow = {"clique": 3, "kcore": 2, "exact": 3}[mode]
+    assert launch.LAUNCHES["kcore_search"] == kcore, dict(launch.LAUNCHES)
+    assert launch.LAUNCHES["grow_cliques"] == grow
+    assert launch.LAUNCHES["distinct_cliques"] == 1
+    with plain_clique_route(), loops.eager_loops():
+        ref = stage()
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
+
+
+def test_grow_cliques_at_the_exact_sum_limit(dev):
+    """The growth's early completion at the edge of the range where the
+    plain route's f32 sums are exact (ops.cliques.GROW_EXACT): on a
+    complete graph of GROW_EXACT + 1 vertices with max_size GROW_EXACT +
+    1, every seed absorbs its GROW_EXACT candidates whole, bit for bit the
+    plain version on the card; a max_size one larger is refused
+    (ValueError), as the plain route would test it on rounded sums."""
+    from quatro_tpu_torch.ops import cliques as tcl
+    n = tcl.GROW_EXACT + 1
+    adj = ~torch.eye(n, dtype=torch.bool, device=dev)[None]
+    mask = torch.ones((1, n), dtype=torch.bool, device=dev)
+    _, core, deg, packed = tcl.kcore_search(adj, mask)
+    scores = core.to(torch.float32) * 1e6 + deg
+    got = tcl.grow_cliques(adj, scores, mask, 16, n, 8, 16, packed)
+    ref = tcl.grow_cliques_plain(adj, scores, mask, 16, n, 8, 16)
+    assert torch.equal(got, ref)
+    assert bool(got.all())
+    with pytest.raises(ValueError):
+        tcl.grow_cliques(adj, scores, mask, 16, n + 1, 8, 16, packed)

@@ -20,8 +20,8 @@ Each line holds the call's host wall ms (median of 3), every stage's ms
 device events between marker fills at the stage ends), every stage's
 device time and device launches by kernel (the largest first), each
 stage's device ms and launch count, with the labelling's kernels', the
-overlap's kernels' and the port's own kernels' in the projection and in
-Patchwork (``quatro::``) sums, the device's busy
+overlap's kernels' and the port's own kernels' in the projection, in
+Patchwork and in the cliques (``quatro::``) sums, the device's busy
 total and idle share, the peak memory and the labelling loop's counters
 (rounds, flag reads, replays; empty where the labelling is one kernel
 launch) of the timed call. With ``--cc-chunks`` both cases run once for
@@ -135,6 +135,9 @@ def main() -> int:
                 if "quatro::" in r[0]), 4),
             "patchwork_own_kernels_ms": round(sum(
                 r[2] for r in split.get("patchwork", [])
+                if "quatro::" in r[0]), 4),
+            "cliques_own_kernels_ms": round(sum(
+                r[2] for r in split.get("cliques", [])
                 if "quatro::" in r[0]), 4),
             "stage_device_ms": {st: round(sum(r[2] for r in rows), 4)
                                 for st, rows in split.items()},
