@@ -7,16 +7,17 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions, and the float32 precision flags (TF32 off everywhere);
-2. build: the twenty-six kernels from quatro_tpu_torch/csrc (the twelve
+2. build: the thirty kernels from quatro_tpu_torch/csrc (the twelve
    of the JAX package's Pallas calls, the exact clique search, the
    Kabsch rotation, the range-image labelling, the overlaps' hit
    counts, the range image's point keys and owners, edge masks and
    component stats, Patchwork's CZM points, seed heights and plane
-   fits, and the clique stage's k-core search, growth, swaps and
-   distinct greedy), one nvcc per source (twenty-two: the seed heights
+   fits, the clique stage's k-core search, growth, swaps and
+   distinct greedy, and ICP's neighbour lists, normals, correspondences
+   and updates), one nvcc per source (twenty-five: the seed heights
    and plane fits share csrc/plane_fit.cu, the clique stage's four
-   csrc/cliques.cu), all started together; build time and ptxas
-   register and spill summary;
+   csrc/cliques.cu, ICP's correspondences and updates csrc/icp.cu), all
+   started together; build time and ptxas register and spill summary;
 3. path A, the main path (Quatro++ coarse to fine): ``register_scan_pair``
    on the raw seed-11 HDL-64E synthetic pair (the pair of
    tests/test_pipeline.py, capacity 131072) tilted as tests/test_ground.py
@@ -35,7 +36,11 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    1/1/3 for CZM points, seed heights, plane fits (one wrapper call an
    ``estimate_ground`` call, a plane fit one a fit), 1/1/1/2 for the
    k-core search, growth, swaps and distinct greedy (the K clique
-   hypotheses' and the vote's) and 1 (the labelling: one
+   hypotheses' and the vote's), 1/1/13/12 for ICP's neighbour lists,
+   normals, correspondences and updates (the target's lists and normals
+   once, a correspondence and an update a pass of the 12 in the loop's
+   CUDA graph, counted at its replays, and the correspondences once more
+   at the returned pose) and 1 (the labelling: one
    launch a ``label_components`` call, each image to its own exit; every
    path's launch counts hold it so, and its logs give the most rounds an
    image ran, ``launch_counts``). Per-stage times from CUDA events after
@@ -95,10 +100,14 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    the JAX package's own for this run (tests/test_scancontext.py:87-98):
    a loop found (more than 11 edges), >= 60 % of the edges valid, ATE
    after the closure < 1 m and <= ATE before + 0.15 m, every pose finite;
-   the launch counts per frame (B3-B5, B8, B10, B11 and the labelling
-   once, B9 three times), per batched registration call of up to 16 edges (B7 twice, B1
-   and B2 once) and per pose-graph solve (B2 once per J^T apply,
-   10 x 41); a second ``optimize_pose_graph`` on the run's edges equal to
+   the launch counts per frame (B3-B5, B8, B10, B11, the labelling and
+   ICP's lists and normals once, B9 three times), per batched
+   registration call of up to 16 edges (B7 twice, B1 and B2 once, ICP's
+   correspondences 13 and updates 12 times) and per pose-graph solve (B2
+   once per J^T apply, 10 x 41); ICP's four kernels on one frame's
+   extraction and the first batch of edges, every call bit for bit its
+   plain version on the card; a second ``optimize_pose_graph`` on the
+   run's edges equal to
    it bit for bit, uncaptured (its J^T calls recorded), replayed, and as
    a one-shot solve with no graph kept; ``run_odometry_windowed(window=4)``
    equal to
@@ -118,7 +127,8 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    of 16 pairs within 5 deg / 2 m (failures printed), every batched row's
    valid and correspondence count equal to batch 1's and its errors
    within 1e-3 deg / 1e-4 m, each batched call's launches equal to one
-   pair's (path A's counts); the summary, pairs/s of both and the
+   pair's (path A's counts but ICP's: no ICP); the summary, pairs/s of
+   both and the
    ray-cast seconds; (b) ``evaluate_outlier_robustness()`` at its
    defaults (rates 0.5 to 0.99, 64 trials of 512 correspondences: one
    ``register_batch`` call at B = 64 a rate, one B1 launch each), >= 5/6
@@ -136,8 +146,8 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    busy time of each stage (``stage_device_busy``: the device events
    between marker fills launched at the stage ends) beside its ms, and
    every stage's device time and launches by kernel; and
-   the ms of ``radius_neighbors``' row-tile loop on ICP's target voxels,
-   the one host loop left on the path;
+   the ``icp`` stage's device time and launches by sub-step (raw voxels,
+   lists, normals, passes, final) and kernel (``icp_substeps``);
 9. kernels: each kernel on the main path's own tensors (B6 on path B's
    descriptors, B12 on the rows B10 was handed) against its plain PyTorch
    version, with its time, the plain version's time, the least time the
@@ -178,7 +188,15 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    self-loop, an asymmetric graph, a junk pair, 195 miss-one vertices)
    and at N = 2048, whose packed rows exceed a block's shared memory
    (``clique_cases``; their library column one round's cuBLAS counting
-   product, their bound the bool graph's bytes); each with its row (device ms
+   product, their bound the bool graph's bytes); ICP's four kernels on
+   path A's calls (the target's lists and normals, every pass's
+   correspondences and update, the final correspondences), each bit for
+   bit its plain version on the card and across two launches, with the
+   blocks a launch runs and the SMs they spread over, the library calls
+   ``torch.cdist`` + ``topk`` (lists) and ``cdist`` + ``argmin``
+   (correspondences), their bound the operations of the distances to
+   the valid columns and the bytes in and out once (``icp_kernel_rows``);
+   each with its row (device ms
    of every event of the wrapper's call, the sort's too, and of the
    port's kernels alone; bound: the inputs read and outputs written once,
    OPS_RANGE_POINT / OPS_EDGE / OPS_STATS; no library call); the overlap
@@ -237,7 +255,9 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    version on the card with its device, call and plain ms and bound
    (``b64`` in their rows), Patchwork's three kernels likewise on the 128
    clouds' ``estimate_ground`` call (``patchwork_cases``, ``b64``), the
-   clique stage's four on the 64 pairs' calls (``clique_rows_b64``),
+   clique stage's four on the 64 pairs' calls (``clique_rows_b64``), B2
+   on the vote's call with its bound and ``index_add_`` on the same ids
+   and values (``b2_row_b64``, ``b64`` in B2's row),
    segment_cloud with the kernels against the
    plain routes under all three neighbour modes and at max_cc_iters = 2,
    and every stage's device time and launches by kernel (as for path A
@@ -406,6 +426,13 @@ REPLACES = {
     "grow_cliques": "quatro_tpu/solver/clique.py:104",
     "swap_cliques": "quatro_tpu/solver/clique.py:197",
     "distinct_cliques": "quatro_tpu/solver/clique.py:401",
+    # no pl.pallas_call: radius_neighbors' lax.map of Gram blocks and
+    # lax.top_k, estimate_normals' XLA fusions, refine_icp's correspond and
+    # step inside its lax.scan
+    "radius_knn": "quatro_tpu/ops/neighbors.py:48",
+    "neighbor_normals": "quatro_tpu/ops/normals.py:94",
+    "icp_correspond": "quatro_tpu/solver/icp.py:108",
+    "icp_update": "quatro_tpu/solver/icp.py:119",
 }
 SOURCES = {
     "moment_sums": "quatro_tpu_torch/csrc/moment_sums.cu",
@@ -432,13 +459,20 @@ SOURCES = {
     "plane_fit": "quatro_tpu_torch/csrc/plane_fit.cu",
     **dict.fromkeys(("kcore_search", "grow_cliques", "swap_cliques",
                      "distinct_cliques"), "quatro_tpu_torch/csrc/cliques.cu"),
+    "radius_knn": "quatro_tpu_torch/csrc/knn.cu",
+    "neighbor_normals": "quatro_tpu_torch/csrc/neighbor_normals.cu",
+    **dict.fromkeys(("icp_correspond", "icp_update"),
+                    "quatro_tpu_torch/csrc/icp.cu"),
 }
 # label_sweep: one launch a label_components call (the whole labelling);
 # range_image, edge_masks, component_stats: one wrapper call a
 # segment_cloud call; czm_points, seed_heights: one wrapper call an
 # estimate_ground call, plane_fit one a plane fit (num_iter); the clique
 # stage: one k-core search, growth and swap a solve, the distinct greedy
-# once for the K clique hypotheses and once for the vote's
+# once for the K clique hypotheses and once for the vote's; ICP's lists
+# and normals once (the target's raw-scan voxels), its correspondences once
+# a pass and once at the returned pose, its update once a pass
+ICP_PASSES = 12           # IcpConfig.iterations
 MAIN_LAUNCHES = {"moment_sums": 1, "spfh": 1, "fpfh": 1,
                  "nearest_neighbors": 0, "nearest_neighbors2": 2,
                  "consistency_graph": 1, "segment_sums": 1,
@@ -448,11 +482,32 @@ MAIN_LAUNCHES = {"moment_sums": 1, "spfh": 1, "fpfh": 1,
                  "label_sweep": 1, "overlap_hits": 1, "range_image": 1,
                  "edge_masks": 1, "component_stats": 1, "czm_points": 1,
                  "seed_heights": 1, "plane_fit": 3, "kcore_search": 1,
-                 "grow_cliques": 1, "swap_cliques": 1, "distinct_cliques": 2}
+                 "grow_cliques": 1, "swap_cliques": 1, "distinct_cliques": 2,
+                 "radius_knn": 1, "neighbor_normals": 1,
+                 "icp_correspond": ICP_PASSES + 1, "icp_update": ICP_PASSES}
 PROJECTION_KERNELS = ("range_image", "edge_masks", "component_stats")
 PATCHWORK_KERNELS = ("czm_points", "seed_heights", "plane_fit")
 CLIQUE_KERNELS = ("kcore_search", "grow_cliques", "swap_cliques",
                   "distinct_cliques")
+ICP_KERNELS = ("radius_knn", "neighbor_normals", "icp_correspond",
+               "icp_update")
+# the wrappers' names in the modules that call them (recorded there)
+ICP_CALLERS = {"radius_knn": ("pipeline", "radius_neighbors"),
+               "neighbor_normals": ("pipeline", "estimate_normals"),
+               "icp_correspond": ("solver.icp", "icp_correspond"),
+               "icp_update": ("solver.icp", "icp_update")}
+OPS_KNN_PAIR = 10         # per (row, column): the dot's product and two
+# fused terms (2 each), the norms' sum, 2 a.b, the difference, the clamp
+OPS_NORMAL_SLOT = 30      # per list slot: 4 weighted products, 3
+# differences, 12 moment products, 10 tree additions
+OPS_NORMAL_POINT = 150    # per point: 10 quotients, the eigenpair ~110, the
+# curvature, flip and masks
+OPS_CORR_PAIR = 10        # per (source row, target): as OPS_KNN_PAIR
+OPS_CORR_ROW = 40         # per source row: the pose, gate, residual, Huber
+# weight and cross product
+OPS_UPDATE_ROW = 42 * 3   # per row: 42 products (2 for h's), 42 additions
+OPS_UPDATE_PAIR = 1500    # per pair: the 6 x 7 Gauss-Jordan, exp_so3 and the
+# update (a one-thread chain)
 # the clique kernels also held against their plain versions on
 # tests/torch_clique_cases.py's graphs (edge cases) and at N = 2048, whose
 # packed rows exceed a block's shared memory (read through L2)
@@ -462,10 +517,12 @@ CLIQUE_EDGE_CASES = ("n1", "n33", "n100", "mask_off", "edgeless", "complete",
 # default configuration: the far patches' global elevation gate and one
 # exact fit (no fori trip)
 PATCHWORK_VARIANT = dict(using_global_elevation=True, num_iter=1)
-PATH_B_LAUNCHES = dict(MAIN_LAUNCHES, nearest_neighbors=2,
+# PipelineConfig.recommended() without ICP (the earlier raw path, path E)
+RECOMMENDED_LAUNCHES = dict(MAIN_LAUNCHES, **dict.fromkeys(ICP_KERNELS, 0))
+PATH_B_LAUNCHES = dict(RECOMMENDED_LAUNCHES, nearest_neighbors=2,
                        nearest_neighbors2=0, segment_sums=0, overlap_hits=0,
                        distinct_cliques=0)
-FEATURES_LAUNCHES = dict(MAIN_LAUNCHES, cross_histogram=0,
+FEATURES_LAUNCHES = dict(RECOMMENDED_LAUNCHES, cross_histogram=0,
                          fit_iteration_moments=0, classify_points=0,
                          image_lookup=0, label_sweep=0,
                          **dict.fromkeys(PROJECTION_KERNELS, 0),
@@ -1430,8 +1487,9 @@ def sequence_launches(frames, calls):
     """Path S's expected launch counts: per frame the preprocessing and
     front-end kernels (the labelling once), per batched
     registration call (one per edge batch) the matcher's top-2 NN twice,
-    the graph, the clique stage's kernels, the vote's segment sums and
-    the overlaps, and per
+    the graph, the clique stage's kernels, the vote's segment sums, the
+    overlaps and ICP's passes (ICP's lists and normals once a frame), and
+    per
     pose-graph solve one segment sum per J^T apply (gn x (cg + 1))."""
     gn, cg = PG_ITERS
     return dict(MAIN_LAUNCHES, moment_sums=frames, spfh=frames, fpfh=frames,
@@ -1444,7 +1502,10 @@ def sequence_launches(frames, calls):
                 **dict.fromkeys(PROJECTION_KERNELS, frames),
                 czm_points=frames, seed_heights=frames, plane_fit=3 * frames,
                 kcore_search=calls, grow_cliques=calls, swap_cliques=calls,
-                distinct_cliques=2 * calls)
+                distinct_cliques=2 * calls, radius_knn=frames,
+                neighbor_normals=frames,
+                icp_correspond=(ICP_PASSES + 1) * calls,
+                icp_update=ICP_PASSES * calls)
 
 
 def _spread(ms):
@@ -1584,6 +1645,14 @@ def phase_sequence(cfg, card):
     register_ms = [_synced_ms(lambda: runner.register_pairs(
         FrameFeatures.stack([feats[j]]), FrameFeatures.stack([feats[i]])))[1]
         for i, j in edges]
+    # ICP's kernels on one frame's extraction and the first batch of edges
+    # (every call against its plain version on the card)
+    batch = edges[:SEQ_BATCH]
+    icp_calls_equal(icp_run(lambda: (runner.extract(scans[0]),
+                                     runner.register_pairs(
+        FrameFeatures.stack([feats[j] for _, j in batch]),
+        FrameFeatures.stack([feats[i] for i, _ in batch]))))[1],
+        f"path S, one frame and a batch of {len(batch)} edges")
     # the stages' device loops of one frame's extraction and of the last
     # edge's registration (Patchwork's fits, labelling, ICP, overlaps)
     i, j = edges[-1]
@@ -1882,7 +1951,7 @@ def phase_pair_axis(card, pairs, gts, cfg_a, bench):
     from quatro_tpu_torch import pipeline
     from quatro_tpu_torch.device import resolve_device
     from quatro_tpu_torch.pipeline import register_scan_pair
-    from quatro_tpu_torch.solver import verify
+    from quatro_tpu_torch.solver import verify, vote
     from quatro_tpu_torch.utils import loops
 
     dev = resolve_device(None)
@@ -1951,7 +2020,8 @@ def phase_pair_axis(card, pairs, gts, cfg_a, bench):
             # their kernels against the plain versions at this shape
             with recorded(pipeline, "segment_cloud", []) as seg_calls, \
                     recorded(verify, "overlap_hits", []) as hit_calls, \
-                    recorded(pipeline, "estimate_ground", []) as pw_calls:
+                    recorded(pipeline, "estimate_ground", []) as pw_calls, \
+                    recorded(vote, "segment_sums", []) as b2_calls:
                 _, clique_calls = clique_run(
                     lambda: register_scan_pair(*batches[0], cfg))
             stage_rows = stage_kernel_rows_b64(
@@ -1961,7 +2031,9 @@ def phase_pair_axis(card, pairs, gts, cfg_a, bench):
                                                  f"path P, B = {bsz}"))
             stage_rows.update(clique_rows_b64(clique_calls,
                                               f"path P, B = {bsz}"))
-            del seg_calls, hit_calls, pw_calls, clique_calls
+            stage_rows["segment_sums"] = b2_row_b64(b2_calls[0][0],
+                                                    f"path P, B = {bsz}")
+            del seg_calls, hit_calls, pw_calls, clique_calls, b2_calls
             by_kernel = {}
             busy = stage_device_busy(lambda timer: register_scan_pair(
                 *batches[1], cfg, timer=timer), by_kernel=by_kernel)
@@ -2093,7 +2165,7 @@ def phase_entry(card, work_dir):
     check(worst[0] <= E_ROW_TOL[0] and worst[1] <= E_ROW_TOL[1],
           f"path E: batched rows {worst} deg / m from batch 1's")
     one = calls[()][0]
-    check(launches_match(one, MAIN_LAUNCHES),
+    check(launches_match(one, RECOMMENDED_LAUNCHES),
           f"path E: one pair's launches {one}")
     check(all(same_launches(c, one) for c in calls[(E_BATCH,)]),
           f"path E: batched launches {calls[(E_BATCH,)]} != one pair's {one}")
@@ -2175,12 +2247,11 @@ def phase_profile(pair, cfg, wall_ms, stages, top=10):
     unprofiled run's host wall time ``wall_ms`` (the profiler slows the
     host, not the card), and the kernels that take the most device time;
     then the device busy time of each stage beside its CUDA-event ms
-    ``stages`` (``stage_device_busy``), and the ms of the one host tile
-    loop left on the path, ``radius_neighbors`` on ICP's target voxels."""
+    ``stages`` (``stage_device_busy``), and the ``icp`` stage's device
+    time by sub-step and kernel (``icp_substeps``)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from quatro_tpu_torch.ops.neighbors import radius_neighbors
-    from quatro_tpu_torch.pipeline import raw_scan_voxels, register_scan_pair
+    from quatro_tpu_torch.pipeline import register_scan_pair
 
     by_kernel = {}
     busy = stage_device_busy(lambda timer: register_scan_pair(
@@ -2192,20 +2263,7 @@ def phase_profile(pair, cfg, wall_ms, stages, top=10):
             {k: {"ms": round(v, 3), "device_busy_ms":
                  None if busy is None else busy.get(k)}
              for k, v in stages.items()}))
-    tgt = pair[1].to("cuda")
-    vox, vmask = raw_scan_voxels(tgt.points[None], tgt.mask[None], cfg)
-    f = cfg.fpfh
-
-    def neighbors():
-        return radius_neighbors(vox, vmask, f.normal_radius,
-                                f.max_neighbors_normal)
-
-    dev_ms = device_ms_per_call(neighbors)
-    log(f"profile: radius_neighbors on ICP's {vox.shape[1]} target voxels "
-        f"({-(-vox.shape[1] // 512)} row tiles, a host loop): "
-        f"{cuda_ms(neighbors):.3f} ms a call (CUDA events, 20 calls), "
-        f"{dev_ms} ms of it device work (torch.profiler; None where no "
-        "profiled run saw every call)")
+    icp_substeps(pair, cfg, "profile: path A icp sub-steps")
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2391,6 +2449,10 @@ def device_ms_per_call(fn, prefix="", reps=10, main=None, tries=5):
 # byte (the vote's shape and N = 1024); the 1-NN with 8 threads a row over
 # every column and no limits (path B's shapes), the table lookup with one
 # thread a point and 4-byte stores after the table's staging
+# path A's icp stage before ICP's four kernels: device ms and launches of
+# PR 22's tree on NVIDIA H100 80GB HBM3, 700.00 W (tests/torch_stage_busy.py
+# --cases A, two runs in the call that timed these kernels' tree beside it)
+FORMER_ICP = {"device_ms": [14.061, 14.077], "launches": 3560}
 FORMER_DEVICE_MS = {"nearest_neighbors2": 1.757077,
                     "cross_histogram": 1.572931,
                     "moment_sums": 0.218100,
@@ -2445,7 +2507,11 @@ MAIN_KERNEL = {"moment_sums": "quatro::moment_sums_kernel",
                "kcore_search": "quatro::clq::kcore_kernel",
                "grow_cliques": "quatro::clq::grow_kernel",
                "swap_cliques": "quatro::clq::swap_kernel",
-               "distinct_cliques": "quatro::clq::distinct_kernel"}
+               "distinct_cliques": "quatro::clq::distinct_kernel",
+               "radius_knn": "quatro::knn::radius_knn_kernel",
+               "neighbor_normals": "quatro::nrm::neighbor_normals_kernel",
+               "icp_correspond": "quatro::icp::icp_correspond_kernel",
+               "icp_update": "quatro::icp::icp_update_kernel"}
 
 
 def culled_pairs(pts, mask, radius):
@@ -2473,15 +2539,17 @@ def radius_pair_bytes(mask, per_row, per_valid_row):
 
 
 def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b,
-                  jt_call, launches_s, exact, overlap_args, clique_recs):
+                  jt_call, launches_s, exact, overlap_args, clique_recs,
+                  icp_recs):
     """Every kernel against its plain version: B1-B5 and B7-B12 on the
     main path's tensors, with the main path's launch counts (B12's 0: no
     path launches it); B6 on path B's, with path B's; B2 also on path S's
     J^T apply ``jt_call``, with path S's launch counts; the exact search
     on path B's exact mode's restriction (``exact``), with its launches;
     the labelling kernel on path A's labelling call (``calls``), the
-    overlap on path A's arbitration call (``overlap_args``) and the clique
-    stage's four kernels on path A's calls (``clique_recs``)."""
+    overlap on path A's arbitration call (``overlap_args``), the clique
+    stage's four kernels on path A's calls (``clique_recs``) and ICP's four
+    on path A's calls (``icp_recs``)."""
     from quatro_tpu_torch.ops import frontend as fe
     from quatro_tpu_torch.ops.fpfh import normalize_blocks
 
@@ -2743,6 +2811,7 @@ def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b,
     projection_kernel_rows(calls, main_launches, row)
     patchwork_kernel_rows(calls, main_launches, row)
     clique_kernel_rows(clique_recs, main_launches, row)
+    icp_kernel_rows(icp_recs, main_launches, row)
     segment_routes_equal(calls["segment_cloud"][0], "path A")
     for preset in LABEL_PRESETS:
         segment_routes_equal(preset_segment_args(preset), preset)
@@ -2755,7 +2824,7 @@ def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b,
         if r.get("bf16_device_ms_uncaptured", 0.0) is None]
     check(not missing, "kernel phase: no profiled run saw every call of "
           f"{missing}")
-    log("kernel phase: device ms of all twenty-six kernels (torch.profiler): "
+    log("kernel phase: device ms of all thirty kernels (torch.profiler): "
         + json.dumps({r["name"]: round(r["device_ms"], 6) for r in rows}))
     return rows
 
@@ -3961,6 +4030,246 @@ def clique_rows_b64(recs, label):
         + "; each equal to its plain version on the card")
     return out
 
+# ---------------------------------------------------------------- ICP --
+
+def _icp_module(name):
+    import importlib
+    return importlib.import_module(f"quatro_tpu_torch.{name}")
+
+
+# each ICP kernel's wrapper and plain version: (module, wrapper)
+ICP_FNS = {"radius_knn": ("ops.neighbors", "radius_neighbors"),
+           "neighbor_normals": ("ops.normals", "estimate_normals"),
+           "icp_correspond": ("ops.icp", "icp_correspond"),
+           "icp_update": ("ops.icp", "icp_update")}
+
+
+def icp_run(fn):
+    """fn() under ``eager_loops()`` (each pass calls the wrappers from
+    Python; a graph replay calls none) with ICP's four wrappers recorded
+    where the path calls them: (fn's result, {kernel: [(arguments cloned,
+    keyword arguments, result)]})."""
+    from quatro_tpu_torch.utils import loops
+
+    with contextlib.ExitStack() as stack:
+        recs = {k: stack.enter_context(recorded(_icp_module(mod), attr, []))
+                for k, (mod, attr) in ICP_CALLERS.items()}
+        stack.enter_context(loops.eager_loops())
+        out = fn()
+    torch.cuda.synchronize()
+    return out, recs
+
+
+def capture_icp(pair, cfg):
+    """ICP's wrapper calls of one more path A run (``icp_run``): the
+    target's lists and normals once, the correspondences 13 times (12
+    passes and the returned pose), the update 12 times."""
+    from quatro_tpu_torch.pipeline import register_scan_pair
+
+    _, recs = icp_run(lambda: register_scan_pair(*pair, cfg))
+    counts = {k: len(v) for k, v in recs.items()}
+    check(counts == {k: MAIN_LAUNCHES[k] for k in ICP_KERNELS},
+          f"path A: ICP wrapper calls {counts}")
+    return recs
+
+
+def exact_bits(a, b):
+    """Equal dtypes, shapes and bits (f32 through their int32 views, so
+    -0.0 and NaN payloads count)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def icp_fns(name, args, kwargs):
+    """The wrapper's and the plain version's call on recorded operands,
+    each returning a tuple of tensors."""
+    mod, fn = ICP_FNS[name]
+    m = _icp_module(mod)
+    wrapper, plain = getattr(m, fn), getattr(m, f"{fn}_plain")
+    return ((lambda: _as_tuple(wrapper(*args, **kwargs))),
+            (lambda: _as_tuple(plain(*args, **kwargs))))
+
+
+def icp_calls_equal(recs, label):
+    """Each recorded call of ICP's four wrappers again: the wrapper once
+    more and its plain version on the card on the same operands, every
+    output bit for bit the recorded call's. Returns {name: calls}."""
+    counts = {}
+    for name in ICP_KERNELS:
+        check(recs.get(name), f"{label}: no {name} call recorded")
+        for k, (args, kwargs, out) in enumerate(recs[name]):
+            k_fn, p_fn = icp_fns(name, args, kwargs)
+            ref = _as_tuple(out)
+            for what, other in (("a second launch", k_fn()),
+                                ("its plain version on the card", p_fn())):
+                check(len(other) == len(ref) and all(
+                    exact_bits(a, b) for a, b in zip(ref, other)),
+                    f"{name} ({label}, call {k}): differs from {what}")
+        counts[name] = len(recs[name])
+    log(f"radius_knn, neighbor_normals, icp_correspond, icp_update "
+        f"({label}): calls {json.dumps(counts)}, each equal across launches "
+        "and to its plain version on the card, bit for bit")
+    return counts
+
+
+def icp_shape(name, args):
+    """(batch, rows, columns or slots) of a recorded call."""
+    if name == "radius_knn":
+        return args[0].shape[0], args[0].shape[1], args[0].shape[1]
+    if name == "neighbor_normals":
+        return tuple(args[1].idx.shape)
+    if name == "icp_correspond":
+        return args[0].shape[0], args[0].shape[1], args[4].shape[1]
+    return tuple(args[0].shape)
+
+
+def icp_work(name, args):
+    """(operations, bytes) of one ICP wrapper call on this run's data: the
+    inputs read once, the outputs written once, and the distances the
+    valid columns (targets) need, for every row."""
+    from quatro_tpu_torch.ops.icp import ROW_WIDTH
+
+    if name == "radius_knn":
+        pts, mask, _, k = args[:4]
+        bsz, n = mask.shape
+        pairs = float(n * mask.sum())
+        return pairs * OPS_KNN_PAIR, float(bsz * n * (12 + 1 + 9 * k))
+    if name == "neighbor_normals":
+        bsz, n, k = args[1].idx.shape
+        return (float(bsz * n * (k * OPS_NORMAL_SLOT + OPS_NORMAL_POINT)),
+                float(bsz * n * (12 + 5 * k + 17)))
+    if name == "icp_correspond":
+        src, tgt_ok, gates = args[0], args[5], args[7]
+        bsz, ks, v = src.shape[0], src.shape[1], tgt_ok.shape[1]
+        pairs = float(ks * tgt_ok.sum())
+        return (pairs * OPS_CORR_PAIR + bsz * ks * OPS_CORR_ROW,
+                float(bsz * ks * (13 + 4 * ROW_WIDTH + 1)
+                      + bsz * v * 25 + bsz * 48 + 4 * gates.numel() + 8))
+    bsz, ks = args[1].shape
+    return (float(bsz * (ks * OPS_UPDATE_ROW + OPS_UPDATE_PAIR)),
+            float(bsz * ks * (4 * ROW_WIDTH + 1) + bsz * 96 + 40))
+
+
+def icp_library(name, args):
+    """One PyTorch call computing the same function, where there is one
+    (``torch.cdist`` + ``topk`` for the lists, + ``argmin`` for the
+    correspondences; both on this call's operands, the pose applied
+    first): (fn, label), else (None, None)."""
+    from quatro_tpu_torch.ops.neighbors import _FLT_MAX
+
+    if name == "radius_knn":
+        pts, mask, _, k = args[:4]
+
+        def lib():
+            d = torch.cdist(pts, pts).square()
+            d = torch.where(mask[..., None, :], d, _FLT_MAX)
+            return torch.topk(d, k, dim=-1, largest=False)
+        return lib, "cdist + topk"
+    if name == "icp_correspond":
+        src, _, rot, trans, tgt, tgt_ok = args[:6]
+
+        def lib():
+            p = src @ rot.transpose(-1, -2) + trans[..., None, :]
+            d = torch.cdist(p, tgt).square()
+            d = torch.where(tgt_ok[..., None, :], d, _FLT_MAX)
+            return torch.argmin(d, dim=-1)
+        return lib, "cdist + argmin"
+    return None, None
+
+
+def icp_blocks(name, args):
+    """The blocks one launch runs (csrc/knn.cu: 16 rows a block of 512
+    threads; csrc/neighbor_normals.cu: 8 points a block of 256;
+    csrc/icp.cu: 8 source rows a block of 256, the update a block of 1024
+    a pair) and the SMs they can spread over (at most 132)."""
+    bsz, rows, _ = icp_shape(name, args)
+    per = {"radius_knn": 16, "neighbor_normals": 8, "icp_correspond": 8}
+    blocks = bsz * (-(-rows // per[name]) if name in per else 1)
+    return {"blocks": blocks, "sms": min(blocks, 132)}
+
+
+def icp_kernel_rows(recs, main_launches, row):
+    """ICP's four kernels on path A's calls (``capture_icp``): each bit for
+    bit its plain version on the card and across two launches
+    (``icp_calls_equal``), with its row on the first call (the
+    correspondences' and the update's of the first pass), the blocks
+    each launch runs and, for the lists and the correspondences, the
+    library call."""
+    icp_calls_equal(recs, "path A")
+    for name in ICP_KERNELS:
+        a, kw, _ = recs[name][0]
+        k_fn, p_fn = icp_fns(name, a, kw)
+        lib_fn, lib_label = icp_library(name, a)
+        extra = {"shape": str(icp_shape(name, a)),
+                 "registers": kernel_registers(SOURCES[name].split("/")[-1]
+                                               [:-3]),
+                 "library": lib_label, "calls_path_a": len(recs[name]),
+                 **icp_blocks(name, a)}
+        row(name, 0.0, k_fn, p_fn, *icp_work(name, a), lib_fn,
+            launches=main_launches[name], extra=extra)
+
+
+def icp_substeps(pair, cfg, label):
+    """The ``icp`` stage of one path A call split by sub-step: its
+    ``refine_solution`` call recorded, then run again with a timer
+    (raw voxels, lists, normals, passes, final), each sub-step's device
+    busy ms and its device time and launches by kernel
+    (``stage_device_busy``, ``log_stage_kernels``)."""
+    from quatro_tpu_torch import pipeline
+
+    with recorded(pipeline, "refine_solution", []) as calls:
+        pipeline.register_scan_pair(*pair, cfg)
+    args, kwargs, _ = calls[0]
+    by_kernel = {}
+    busy = stage_device_busy(lambda timer: pipeline.refine_solution(
+        *args, **kwargs, timer=timer), by_kernel=by_kernel)
+    log_stage_kernels(label, by_kernel)
+    total = sum(ms for split in by_kernel.values() for _, ms in
+                split.values())
+    launches = sum(n for split in by_kernel.values() for n, _ in
+                   split.values())
+    log(f"{label}: device busy ms by sub-step " + json.dumps(busy)
+        + f"; the stage {total:.3f} ms of device work in {launches} "
+        f"launches (before ICP's kernels: {FORMER_ICP})")
+    return busy
+
+
+def b2_row_b64(args, label):
+    """B2 at the vote's shape of one B = 64 call (its recorded operands):
+    the kernel's device and call ms, its bound (the ids and values read
+    once, the sums written once: bytes), and ``index_add_``'s device and
+    call ms on the same ids and values."""
+    from quatro_tpu_torch.ops import segment
+
+    ids, vals, p_pad = args
+    kv, n = vals.shape
+    live = (ids >= 0) & (ids < p_pad)
+    dest = torch.where(live, ids, p_pad).long()
+    src_rows = vals.T.contiguous()
+
+    def k_fn():
+        return segment.segment_sums(ids, vals, p_pad)
+
+    def lib():
+        return torch.zeros((p_pad + 1, kv), device=vals.device).index_add_(
+            0, dest, src_rows)
+
+    b_ms, by = bound(float(int(live.sum()) * kv),
+                     n * 4 * (1 + kv) + p_pad * kv * 4)
+    out = {"shape": f"ids ({n},), vals ({kv}, {n}), p_pad {p_pad}",
+           "device_ms": device_ms_per_call(
+               k_fn, "quatro::", main=(MAIN_KERNEL["segment_sums"], 1)),
+           "ms": cuda_ms(k_fn), "bound_ms": b_ms, "bound_by": by,
+           "library_ms": cuda_ms(lib),
+           "library_device_ms": device_ms_per_call(lib, tries=10),
+           "library": "index_add_"}
+    log(f"segment_sums ({label}, the vote's B2 call): " + json.dumps(out))
+    return out
+
+
 @functools.lru_cache(maxsize=None)
 def preset_pair(preset):
     """tests/test_torch_kernels_gpu.py's level_a pair of a lidar preset,
@@ -4360,6 +4669,7 @@ def main() -> int:
     calls = capture_preprocessing(pairs["tilted"], cfgs["A"])
     overlap_args = capture_overlap(pairs["tilted"], cfgs["A"])
     clique_recs = capture_cliques(pairs["tilted"], cfgs["A"])
+    icp_recs = capture_icp(pairs["tilted"], cfgs["A"])
     mark = graphs_of("path A", mark)
     t0 = time.perf_counter()
     bench = (*bench_case(), time.perf_counter() - t0)
@@ -4377,7 +4687,8 @@ def main() -> int:
     mark = graphs_of("path B", mark)
     for entry, pair, cfg, name, expected, max_terr in (
             (register_scan_pair, "raw", "recommended",
-             "earlier path (raw scans, recommended)", MAIN_LAUNCHES, 0.6),
+             "earlier path (raw scans, recommended)", RECOMMENDED_LAUNCHES,
+             0.6),
             (register_features, "stripped", "recommended",
              "earlier path (features, recommended)", FEATURES_LAUNCHES, 0.5),
             (register_features, "stripped", "single",
@@ -4398,8 +4709,8 @@ def main() -> int:
     phase_profile(pairs["tilted"], cfgs["A"], wall_a, stages_a)
     rows = phase_kernels(res_a, cfgs["A"], launches_a, calls, res_b,
                          cfgs["B"], launches_b, jt_call, launches_s, exact,
-                         overlap_args, clique_recs)
-    del calls, overlap_args, clique_recs
+                         overlap_args, clique_recs, icp_recs)
+    del calls, overlap_args, clique_recs, icp_recs
     mark = graphs_of("profile and kernels", mark)
     # last: its large batches and profiles leave the profiler missing
     # more events in the runs after them

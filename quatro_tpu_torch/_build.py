@@ -77,6 +77,13 @@ SIGNATURES = {
                   [_P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _I, _F, _P, _P,
                    _P, _P]),
     "cliques": ("quatro_kcore_search", [_P, _P, _I, _I, _I, _P, _P, _P, _P]),
+    "knn": ("quatro_radius_knn", [_P, _P, _I, _I, _I, _F, _P, _P, _P, _P]),
+    "neighbor_normals": ("quatro_neighbor_normals",
+                         [_P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _P, _P,
+                          _P]),
+    "icp": ("quatro_icp_correspond",
+            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P,
+             _P]),
 }
 
 # Further C functions of a kernel's library: name -> (source, symbol,
@@ -85,7 +92,7 @@ SIGNATURES = {
 # layout it picks for a batch; the range image's, its owner kernel (after
 # the sort); the plane fit's, the seed heights' kernel; the cliques', the
 # graph's packing, the growth, the swaps, the distinct greedy and the
-# shared memory each kernel takes.
+# shared memory each kernel takes; ICP's, the update kernel.
 EXTRA = {"sqrt_rn_check": ("consistency_graph", "quatro_sqrt_rn_check",
                            [_P, _P]),
          "label_layout": ("label_sweep", "quatro_label_layout",
@@ -106,7 +113,10 @@ EXTRA = {"sqrt_rn_check": ("consistency_graph", "quatro_sqrt_rn_check",
                               [_P, _I, _I, _I, _I, _F, _I, _I, _P, _P, _P,
                                _P]),
          "clique_smem": ("cliques", "quatro_clique_smem",
-                         [_I, _I, _I, _I, _P])}
+                         [_I, _I, _I, _I, _P]),
+         "icp_update": ("icp", "quatro_icp_update",
+                        [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P, _P, _P,
+                         _P])}
 
 _loaded: dict = {}
 build_log: dict = {}    # name -> {"seconds": s, "ptxas": text}; last build

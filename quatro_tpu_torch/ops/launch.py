@@ -20,7 +20,8 @@ LAUNCHES = {"moment_sums": 0, "spfh": 0, "fpfh": 0, "nearest_neighbors": 0,
             "range_image": 0, "edge_masks": 0, "component_stats": 0,
             "czm_points": 0, "seed_heights": 0, "plane_fit": 0,
             "kcore_search": 0, "grow_cliques": 0, "swap_cliques": 0,
-            "distinct_cliques": 0}
+            "distinct_cliques": 0, "radius_knn": 0, "neighbor_normals": 0,
+            "icp_correspond": 0, "icp_update": 0}
 
 
 def reset_launches() -> None:

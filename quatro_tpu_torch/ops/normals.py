@@ -6,7 +6,8 @@ eigenvector of the smallest eigenvalue of its neighbourhood covariance,
 oriented toward the viewpoint. The 3x3 problem is solved in closed form
 (trigonometric eigenvalues + cross-product eigenvector), elementwise over
 all points, from moment sums (the front end) or from K-capped neighbour
-lists (``estimate_normals``, the ICP target's normals).
+lists (``estimate_normals``, the ICP target's normals: csrc/
+neighbor_normals.cu on the card, ``estimate_normals_plain`` on the CPU).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from typing import NamedTuple
 
 import torch
 
+from quatro_tpu_torch.ops.launch import LAUNCHES, check, launch, same_device
 from quatro_tpu_torch.utils import fused
 
 
@@ -119,28 +121,24 @@ def smallest_eigenvector_3x3(a: torch.Tensor):
     return torch.stack([v1, v2, v3], dim=-1), eig
 
 
-def estimate_normals(points: torch.Tensor, nbrs,
-                     viewpoint=(0.0, 0.0, 0.0)) -> Normals:
-    """PCA normals over neighbour lists (ops/neighbors.radius_neighbors,
-    self included): points (N, 3). The covariance is centred on the
-    neighbourhood mean, as the JAX package's estimate_normals. A batch of
-    clouds (B, N, 3) runs as one cloud of B * N points."""
-    if points.dim() == 3:
-        bsz, n = points.shape[:2]
-        off = torch.arange(bsz, device=points.device)[:, None, None] * n
-        flat = estimate_normals(points.reshape(bsz * n, 3), type(nbrs)(
-            *((nbrs.idx.long() + off).reshape(bsz * n, -1),
-              *(t.reshape(bsz * n, -1) for t in nbrs[1:]))), viewpoint)
-        return Normals(*(t.reshape(bsz, n, *t.shape[1:]) for t in flat))
-    x, y, z = points[:, 0], points[:, 1], points[:, 2]
-    w = nbrs.valid.to(points.dtype)                 # (N, K)
-    cnt = torch.clamp(w.sum(1), min=1.0)
-    idx = nbrs.idx.long()
-    xs, ys, zs = x[idx], y[idx], z[idx]
-    mx, my, mz = ((w * c).sum(1) / cnt for c in (xs, ys, zs))
+def estimate_normals_plain(points: torch.Tensor, nbrs,
+                           viewpoint=(0.0, 0.0, 0.0)) -> Normals:
+    """``estimate_normals`` in torch operations. Each neighbourhood's sums
+    go over its K slots in ``fused.pairwise_sum``'s tree, the same for any
+    batch on the CPU and the card (a torch reduction's order follows the
+    shape on the card), and every other step is elementwise."""
+    lead, (n, k) = points.shape[:-2], nbrs.idx.shape[-2:]
+    pts = points.reshape(-1, n, 3)
+    idx = nbrs.idx.reshape(-1, n * k).long()
+    x, y, z = pts.unbind(-1)
+    w = nbrs.valid.reshape(-1, n, k).to(points.dtype)
+    cnt = torch.clamp(fused.pairwise_sum(w), min=1.0)
+    xs, ys, zs = (c.gather(1, idx).reshape(-1, n, k) for c in (x, y, z))
+    mx, my, mz = (fused.pairwise_sum(w * c) / cnt for c in (xs, ys, zs))
 
     def moment(ca, ma, cb, mb):
-        return (w * (ca - ma[:, None]) * (cb - mb[:, None])).sum(1) / cnt
+        return fused.pairwise_sum(
+            w * (ca - ma[..., None]) * (cb - mb[..., None])) / cnt
 
     cxx, cxy, cxz = moment(xs, mx, xs, mx), moment(xs, mx, ys, my), \
         moment(xs, mx, zs, mz)
@@ -152,8 +150,39 @@ def estimate_normals(points: torch.Tensor, nbrs,
     flip = (n1 * (viewpoint[0] - x) + n2 * (viewpoint[1] - y)
             + n3 * (viewpoint[2] - z)) < 0
     sign = torch.where(flip, -1.0, 1.0).to(points.dtype)
-    valid = nbrs.valid.sum(1) >= 3
+    valid = nbrs.valid.reshape(-1, n, k).sum(-1) >= 3
     ok = valid.to(points.dtype)
     normal = torch.stack([n1 * sign * ok, n2 * sign * ok, n3 * sign * ok],
                          dim=-1)
-    return Normals(normal, torch.where(valid, curvature, 0.0), valid)
+    return Normals(normal.reshape(*lead, n, 3),
+                   torch.where(valid, curvature, 0.0).reshape(*lead, n),
+                   valid.reshape(*lead, n))
+
+
+def estimate_normals(points: torch.Tensor, nbrs,
+                     viewpoint=(0.0, 0.0, 0.0)) -> Normals:
+    """PCA normals over neighbour lists (ops/neighbors.radius_neighbors,
+    self included): points (N, 3), or a batch of clouds (B, N, 3) with
+    lists (B, N, K). The covariance is centred on the neighbourhood mean,
+    as the JAX package's estimate_normals. For CUDA tensors one launch of
+    csrc/neighbor_normals.cu (a warp a point, the eigenpair of
+    csrc/eig_sym3.cuh; K <= 64), bit for bit ``estimate_normals_plain``,
+    which runs for CPU tensors."""
+    if same_device(points, nbrs.idx, nbrs.valid).type != "cuda":
+        return estimate_normals_plain(points, nbrs, viewpoint)
+    lead, (n, k) = points.shape[:-2], nbrs.idx.shape[-2:]
+    if k > 64:
+        raise ValueError(f"estimate_normals: K = {k} > 64 on the card")
+    check("points", points, (*lead, n, 3))
+    check("idx", nbrs.idx, (*lead, n, k), torch.int32)
+    check("valid", nbrs.valid, (*lead, n, k), torch.bool)
+    dev = points.device
+    normal = torch.empty((*lead, n, 3), dtype=torch.float32, device=dev)
+    curvature = torch.empty((*lead, n), dtype=torch.float32, device=dev)
+    valid = torch.empty((*lead, n), dtype=torch.bool, device=dev)
+    bsz = points[..., 0, 0].numel()
+    if bsz and n:
+        launch("neighbor_normals", points, nbrs.idx, nbrs.valid, bsz, n, k,
+               *(fused.f32(v) for v in viewpoint), normal, curvature, valid)
+        LAUNCHES["neighbor_normals"] += 1
+    return Normals(normal, curvature, valid)

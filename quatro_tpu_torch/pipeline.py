@@ -216,16 +216,21 @@ def raw_scan_voxels(points, mask, config: PipelineConfig):
                             config.max_voxels)
 
 
-def raw_scan_normals(vox, vmask, config: PipelineConfig):
+def raw_scan_normals(vox, vmask, config: PipelineConfig,
+                     timer: Optional[Callable[[str], None]] = None):
     """ICP's target normals of ``raw_scan_voxels``' output, from K-capped
-    radius neighbours, in one call for the batch."""
-    return estimate_normals(vox, radius_neighbors(
-        vox, vmask, config.fpfh.normal_radius,
-        config.fpfh.max_neighbors_normal))
+    radius neighbours, in one call for the batch (on the card one launch
+    each of csrc/knn.cu and csrc/neighbor_normals.cu); ``timer`` marks
+    "icp lists" after the lists."""
+    nbrs = radius_neighbors(vox, vmask, config.fpfh.normal_radius,
+                            config.fpfh.max_neighbors_normal)
+    (timer or _noop)("icp lists")
+    return estimate_normals(vox, nbrs)
 
 
 def refine_solution(src_points, src_mask, tgt_points, tgt_mask,
-                    sol: RegistrationSolution, config: PipelineConfig):
+                    sol: RegistrationSolution, config: PipelineConfig,
+                    timer: Optional[Callable[[str], None]] = None):
     """Point-to-plane ICP polish of a coarse solution on the given clouds
     (the JAX package's refine_solution), for one pair (N, 3) or a batch
     (B, N, 3): both sides' raw-scan voxels in one batch of 2B
@@ -233,18 +238,23 @@ def refine_solution(src_points, src_mask, tgt_points, tgt_mask,
     then ``refine_icp`` gated on
     ``sol.valid``. Pass clouds that still hold the ground: without it z
     is unconstrained wherever the remaining structure is vertical.
+    ``timer`` marks the sub-steps "icp voxels", "icp lists", "icp
+    normals", "icp passes" and "icp final".
     Returns (solution with the refined pose, IcpResult)."""
     if src_points.dim() == 2:
         return drop_axis(refine_solution(
             src_points[None], src_mask[None], tgt_points[None],
-            tgt_mask[None], take_row(sol, None), config))
+            tgt_mask[None], take_row(sol, None), config, timer))
+    timer = timer or _noop
     (vox_s, m_s), (vox_t, m_t) = _both(
         lambda p, m: raw_scan_voxels(p, m, config), src_points, src_mask,
         tgt_points, tgt_mask)
-    normals = raw_scan_normals(vox_t, m_t, config)
+    timer("icp voxels")
+    normals = raw_scan_normals(vox_t, m_t, config, timer)
+    timer("icp normals")
     icp_res = refine_icp(vox_s, m_s, vox_t, m_t, normals.normals,
                          normals.valid, sol.rotation, sol.translation,
-                         config.icp, valid=sol.valid)
+                         config.icp, valid=sol.valid, timer=timer)
     return dataclasses.replace(sol, rotation=icp_res.rotation,
                                translation=icp_res.translation), icp_res
 

@@ -10,23 +10,22 @@ equations, damped; a left-multiplicative ``exp_so3`` update of the whole
 transform. The iteration count is fixed: the passes are a ``fori`` device
 loop (utils/loops.py, the JAX package's ``lax.scan``; one CUDA graph on
 the card) that reads nothing back, and a batch of pairs runs as one;
-``yaw_only`` solves the constrained normal equations.
+``yaw_only`` solves the constrained normal equations. On the card a pass is
+two kernel launches (ops/icp.py: the correspondences, then the update);
+the final correspondences at the returned pose are one more.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
 from quatro_tpu_torch.config import IcpConfig
-from quatro_tpu_torch.ops.neighbors import pairwise_sq_dists
+from quatro_tpu_torch.ops.icp import icp_correspond, icp_update
 from quatro_tpu_torch.utils import loops
-from quatro_tpu_torch.utils.batch import gather_rows
+from quatro_tpu_torch.utils.batch import drop_axis, gather_rows
 from quatro_tpu_torch.utils.fused import pairwise_sum
-from quatro_tpu_torch.utils.se3 import exp_so3, rotate_points
-
-_FLT_MAX = torch.finfo(torch.float32).max
 
 
 class IcpResult(NamedTuple):
@@ -56,22 +55,6 @@ def _subsample(points: torch.Tensor, mask: torch.Tensor, k: int):
             mask.gather(-1, sel) & (ik < torch.clamp(m, max=k)))
 
 
-def _solve_spd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """x with a @ x = b for (..., n, n) symmetric positive definite a (the
-    damped normal equations) and (..., n) b: Gauss-Jordan elimination
-    without pivoting, in elementwise operations, so every system of a
-    batch is solved in the same operations whatever the batch (torch's
-    batched solvers pick their algorithm by the batch size on the card).
-    Nothing is read back from the device."""
-    n = a.shape[-1]
-    m = torch.cat([a, b[..., None]], -1)                   # (..., n, n + 1)
-    rows = torch.arange(n, device=a.device)[:, None]
-    for j in range(n):
-        pivot = m[..., j:j + 1, :] / m[..., j:j + 1, j:j + 1]
-        m = torch.where(rows == j, pivot, m - m[..., :, j:j + 1] * pivot)
-    return m[..., n]
-
-
 def _gates(config: IcpConfig) -> list:
     """The correspondence-distance schedule: hold the wide gate for basin
     capture, then anneal geometrically to the final gate."""
@@ -84,65 +67,25 @@ def _gates(config: IcpConfig) -> list:
                           for i in range(n_anneal)]
 
 
-def _correspond(clouds, rot, trans, gate):
-    """Gated point-to-plane residuals at the current pose: (p, n, r, ok)
-    of the subsampled source (..., K)."""
-    src_s, smask_s, tgt_points, tgt_ok, tgt_normals = clouds
-    p = rotate_points(src_s, rot) + trans[..., None, :]            # (K, 3)
-    d2 = torch.where(tgt_ok[..., None, :],
-                     pairwise_sq_dists(p, tgt_points), _FLT_MAX)   # (K, V)
-    j = torch.argmin(d2, dim=-1)                                   # first min
-    d2min = d2.gather(-1, j[..., None])[..., 0]
-    ok = smask_s & (d2min <= gate * gate)
-    n = gather_rows(tgt_normals, j)
-    return p, n, (n * (p - gather_rows(tgt_points, j))).sum(-1), ok
-
-
 def _pass(consts, state, cfg):
     """One Gauss-Newton pass of ``refine_icp``'s device loop: the state
     (rot, trans, step) after the pass; its gate is read on the device at
     ``step`` (a captured chunk replays for every later chunk, so no
     position may come from the host)."""
-    *clouds, gates, dof, eye6 = consts
+    *clouds, gates, dof = consts
     rot, trans, step = state
     huber_delta, damping, min_corr = cfg
-    dtype = rot.dtype
-    p, n, r, ok = _correspond(clouds, rot, trans, gates.gather(0, step))
-    absr = torch.abs(r)
-    # a tensor numerator: `float / tensor` is reciprocal-then-multiply
-    huber = torch.where(absr <= huber_delta, 1.0,
-                        torch.full_like(absr, huber_delta)
-                        / torch.clamp(absr, min=1e-12))
-    w = ok.to(dtype) * huber
-    a = torch.cat([torch.linalg.cross(p, n, dim=-1), n], dim=-1)   # (K, 6)
-    aw = a * w[..., None]
-    # the normal equations' sums over K in one fixed order, so a pair of
-    # a batch gets its own bits (a matrix product's order follows the
-    # batch on the card)
-    h = pairwise_sum(a[..., :, :, None] * aw[..., :, None, :], -3)
-    g = pairwise_sum(aw * r[..., None], -2)
-    # constrained GN for yaw_only: disabled DoF decoupled before the
-    # solve (zero rows / columns / gradient, unit diagonal)
-    h = h * (dof[:, None] * dof[None, :]) + torch.diag(1.0 - dof)
-    g = g * dof
-    lam = damping * (pairwise_sum(h.diagonal(dim1=-2, dim2=-1)) + 1.0)
-    delta = -_solve_spd(h + lam[..., None, None] * eye6, g)
-    enough = ok.sum(-1) >= min_corr
-    delta = torch.where(enough[..., None], delta, 0.0)
-    # the Jacobian linearises about p = R src + t: the increment acts on
-    # the whole transform
-    dr = exp_so3(delta[..., :3])
-    rot = rotate_points(dr, rot.transpose(-1, -2))                # dr @ rot
-    trans = (rotate_points(trans[..., None, :], dr)[..., 0, :]
-             + delta[..., 3:])                                     # dr @ t
-    return rot, trans, step + 1
+    rows, ok = icp_correspond(*clouds[:2], rot, trans, *clouds[2:], gates,
+                              step, huber_delta)
+    return icp_update(rows, ok, rot, trans, step, dof, damping, min_corr)
 
 
 def refine_icp(src_points: torch.Tensor, src_mask: torch.Tensor,
                tgt_points: torch.Tensor, tgt_mask: torch.Tensor,
                tgt_normals: torch.Tensor, tgt_normal_valid: torch.Tensor,
                init_rotation: torch.Tensor, init_translation: torch.Tensor,
-               config: IcpConfig, valid=True) -> IcpResult:
+               config: IcpConfig, valid=True,
+               timer: Optional[Callable[[str], None]] = None) -> IcpResult:
     """Polish (R, t) so that R @ src + t aligns to tgt, point-to-plane.
 
     src/tgt: (V, 3) voxel clouds with masks; tgt_normals (V, 3) and their
@@ -150,8 +93,17 @@ def refine_icp(src_points: torch.Tensor, src_mask: torch.Tensor,
     a leading B on every argument (and on the result's fields), solved
     together. ``valid`` (the coarse solution's) gates the whole
     refinement: where it is False the pose passes through unchanged.
+    ``timer`` marks "icp passes" after the loop and "icp final" after the
+    metrics.
     """
     dtype, dev = src_points.dtype, src_points.device
+    validb = torch.as_tensor(valid, dtype=torch.bool, device=dev)
+    if src_points.dim() == 2:
+        return drop_axis(refine_icp(
+            *(t[None] for t in (src_points, src_mask, tgt_points, tgt_mask,
+                                tgt_normals, tgt_normal_valid, init_rotation,
+                                init_translation)), config, validb[None],
+            timer))
     src_s, smask_s = _subsample(src_points, src_mask,
                                 config.max_source_points)
     # the schedule is computed on the host and rounded to f32 once
@@ -160,28 +112,35 @@ def refine_icp(src_points: torch.Tensor, src_mask: torch.Tensor,
     dof = torch.ones(6, dtype=dtype, device=dev)   # [wx, wy, wz, tx, ty, tz]
     if config.yaw_only:
         dof[:2] = 0.0
-    eye6 = torch.eye(6, dtype=dtype, device=dev)
-    clouds = (src_s, smask_s, tgt_points, tgt_ok, tgt_normals)
+    clouds = tuple(t.contiguous() for t in (src_s, smask_s, tgt_points,
+                                            tgt_ok, tgt_normals))
     cfg = (config.huber_delta, config.damping, config.min_correspondences)
 
     def body(consts, state):
         return _pass(consts, state, cfg)
 
     rot, trans, _ = loops.fori(
-        "icp", body, (*clouds, gates, dof, eye6),
-        (init_rotation, init_translation,
+        "icp", body, (*clouds, gates, dof),
+        (init_rotation.contiguous(), init_translation.contiguous(),
          torch.zeros(1, dtype=torch.int64, device=dev)),
         config.iterations, config.iterations)
+    if timer:
+        timer("icp passes")
 
     # metrics at the returned pose
-    _, _, r_fin, ok_fin = _correspond(clouds, rot, trans, gates[-1])
+    last = torch.full((1,), len(gates) - 1, dtype=torch.int64, device=dev)
+    rows, ok_fin = icp_correspond(*clouds[:2], rot, trans, *clouds[2:],
+                                  gates, last, config.huber_delta)
+    r_fin = rows[..., 7]
     n_fin = ok_fin.sum(-1)
     rmse = torch.sqrt(pairwise_sum(ok_fin * r_fin * r_fin)
                       / torch.clamp(n_fin, min=1).to(dtype))
-    validb = torch.as_tensor(valid, dtype=torch.bool, device=dev)
-    return IcpResult(
+    out = IcpResult(
         rotation=torch.where(validb[..., None, None], rot, init_rotation),
         translation=torch.where(validb[..., None], trans, init_translation),
         rmse=rmse,
         num_inliers=n_fin.to(torch.int32),
         converged=validb & (n_fin >= config.min_correspondences))
+    if timer:
+        timer("icp final")
+    return out

@@ -1,4 +1,4 @@
-"""The twenty-six CUDA kernels against their plain PyTorch versions, on the card,
+"""The thirty CUDA kernels against their plain PyTorch versions, on the card,
 and the loop-closing path's device code (pose graph, Scan Context).
 
 Every test here is marked ``gpu`` and skips without a CUDA device. The
@@ -565,7 +565,9 @@ def test_recommended_runs_all_six_kernels(recommended):
                         "edge_masks": 0, "component_stats": 0,
                         "czm_points": 0, "seed_heights": 0, "plane_fit": 0,
                         "kcore_search": 1, "grow_cliques": 1,
-                        "swap_cliques": 1, "distinct_cliques": 2}
+                        "swap_cliques": 1, "distinct_cliques": 2,
+                        "radius_knn": 0, "neighbor_normals": 0,
+                        "icp_correspond": 0, "icp_update": 0}
     assert bool(res.solution.valid)
     assert res.hypotheses.rotation.shape[0] == 6
     for name in ("valid", "rotation", "translation", "max_clique_mask",
@@ -752,7 +754,9 @@ def test_batched_pipeline_launches_do_not_depend_on_batch(dev):
                    "edge_masks": 1, "component_stats": 1, "czm_points": 1,
                    "seed_heights": 1, "plane_fit": 3, "kcore_search": 1,
                    "grow_cliques": 1, "swap_cliques": 1,
-                   "distinct_cliques": 2}
+                   "distinct_cliques": 2, "radius_knn": 1,
+                   "neighbor_normals": 1, "icp_correspond": 13,
+                   "icp_update": 12}
 
 
 def test_plain_graph_refused_on_the_card(dev, recommended):
@@ -944,7 +948,9 @@ def test_register_scan_pair_runs_all_ten_kernels(dev):
         "label_sweep": 1, "overlap_hits": 1, "range_image": 1,
         "edge_masks": 1, "component_stats": 1, "czm_points": 1,
         "seed_heights": 1, "plane_fit": 3, "kcore_search": 1,
-        "grow_cliques": 1, "swap_cliques": 1, "distinct_cliques": 2}
+        "grow_cliques": 1, "swap_cliques": 1, "distinct_cliques": 2,
+        "radius_knn": 0, "neighbor_normals": 0, "icp_correspond": 0,
+        "icp_update": 0}
     assert bool(res.solution.valid)
 
 
@@ -2367,3 +2373,188 @@ def test_grow_cliques_at_the_exact_sum_limit(dev):
     assert bool(got.all())
     with pytest.raises(ValueError):
         tcl.grow_cliques(adj, scores, mask, 16, n + 1, 8, 16, packed)
+
+
+# ------------------------------------------------------------------ ICP --
+
+def _bits(a, b):
+    """Equal bit for bit (float tensors through their int32 views, so NaN
+    and -0.0 count)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+@pytest.fixture(scope="module")
+def icp_card(dev):
+    """tests/torch_icp_cases.py's clouds on the card, with the target's
+    lists and normals from the plain versions there."""
+    from quatro_tpu_torch.ops.neighbors import radius_neighbors_plain
+    from quatro_tpu_torch.ops.normals import estimate_normals_plain
+    from torch_icp_cases import icp_clouds
+    vox, vmask, gt, cfg = icp_clouds(dev)
+    f = cfg.fpfh
+    nbrs = radius_neighbors_plain(vox[1], vmask[1], f.normal_radius,
+                                  f.max_neighbors_normal)
+    return vox, vmask, gt, cfg, estimate_normals_plain(vox[1], nbrs)
+
+
+@pytest.mark.parametrize("k", [48, 1, 32, 33, 64])
+@pytest.mark.parametrize("case", ["as_is", "few_valid", "all_masked"])
+def test_radius_knn_kernel(dev, icp_card, case, k):
+    """csrc/knn.cu on a batch of two clouds, one launch, every output bit
+    for bit the plain version on the card; the unbatched call too."""
+    from quatro_tpu_torch.ops.neighbors import (radius_neighbors,
+                                                radius_neighbors_plain)
+    from torch_icp_cases import list_masks
+    vox, vmask, _, cfg, _ = icp_card
+    mask = list_masks(vmask)[case]
+    r = cfg.fpfh.normal_radius
+    launch.reset_launches()
+    got = radius_neighbors(vox, mask, r, k)
+    assert launch.LAUNCHES["radius_knn"] == 1
+    ref = radius_neighbors_plain(vox, mask, r, k)
+    assert all(_bits(g, e) for g, e in zip(got, ref))
+    one = radius_neighbors(vox[1], mask[1], r, k)
+    assert all(_bits(g, e[1]) for g, e in zip(one, ref))
+
+
+def test_radius_knn_kernel_odd_shapes(dev):
+    """Clouds whose sizes are no multiple of a block's rows or of a staged
+    chunk (N = 5, 517, 1500), points on a coarse grid (equal distances:
+    the lower index wins), K up to N."""
+    from quatro_tpu_torch.ops.neighbors import (radius_neighbors,
+                                                radius_neighbors_plain)
+    rng = np.random.default_rng(23)
+    for n in (5, 517, 1500):
+        pts = torch.from_numpy(rng.integers(-4, 5, (3, n, 3)).astype(
+            np.float32) * 0.25).to(dev)
+        mask = torch.from_numpy(rng.random((3, n)) < 0.8).to(dev)
+        for k in sorted({1, min(n, 48), min(n, 64)}):
+            got = radius_neighbors(pts, mask, 0.6, k)
+            ref = radius_neighbors_plain(pts, mask, 0.6, k)
+            assert all(_bits(g, e) for g, e in zip(got, ref)), (n, k)
+
+
+@pytest.mark.parametrize("k", [48, 1, 16, 33, 64])
+@pytest.mark.parametrize("case", ["as_is", "few_valid"])
+def test_neighbor_normals_kernel(dev, icp_card, case, k):
+    """csrc/neighbor_normals.cu on both clouds' lists (one launch), bit for
+    bit the plain version on the card; a viewpoint off the origin too."""
+    from quatro_tpu_torch.ops.neighbors import radius_neighbors
+    from quatro_tpu_torch.ops.normals import (estimate_normals,
+                                              estimate_normals_plain)
+    from torch_icp_cases import list_masks
+    vox, vmask, _, cfg, _ = icp_card
+    lists = radius_neighbors(vox, list_masks(vmask)[case],
+                             cfg.fpfh.normal_radius, k)
+    for vp in ((0.0, 0.0, 0.0), (1.5, -2.0, 0.3)):
+        launch.reset_launches()
+        got = estimate_normals(vox, lists, vp)
+        assert launch.LAUNCHES["neighbor_normals"] == 1
+        ref = estimate_normals_plain(vox, lists, vp)
+        assert all(_bits(g, e) for g, e in zip(got, ref)), vp
+
+
+@pytest.mark.parametrize("case", ["as_is", "all_masked"])
+def test_icp_correspond_kernel(dev, icp_card, case):
+    """csrc/icp.cu's correspondences for a batch of two pairs at each gate
+    of the schedule, bit for bit the plain version on the card."""
+    from quatro_tpu_torch.ops import icp as ticp
+    from torch_icp_cases import correspond_args
+    vox, vmask, gt, cfg, nrm = icp_card
+    args = correspond_args(vox, vmask, nrm.normals, nrm.valid, gt, cfg,
+                           case, dev)
+    for s in range(len(args[-1])):
+        step = torch.tensor([s], device=dev)
+        launch.reset_launches()
+        got = ticp.icp_correspond(*args, step, cfg.icp.huber_delta)
+        assert launch.LAUNCHES["icp_correspond"] == 1
+        ref = ticp.icp_correspond_plain(*args, step, cfg.icp.huber_delta)
+        assert all(_bits(g, e) for g, e in zip(got, ref)), s
+    if case == "all_masked":
+        assert not bool(got[1][1].any())
+
+
+@pytest.mark.parametrize("rows_kept", [2048, 1200, 1, 5000])
+@pytest.mark.parametrize("yaw_only", [False, True])
+def test_icp_update_kernel(dev, icp_card, yaw_only, rows_kept):
+    """csrc/icp.cu's update on the correspondences' rows (the first
+    ``rows_kept``, or the rows tiled to 5000: a tree of 8192 leaves),
+    with the min_correspondences gate passed and failed, bit for bit the
+    plain version on the card."""
+    from quatro_tpu_torch.ops import icp as ticp
+    from torch_icp_cases import correspond_args, dof_of
+    vox, vmask, gt, cfg, nrm = icp_card
+    args = correspond_args(vox, vmask, nrm.normals, nrm.valid, gt, cfg,
+                           "as_is", dev)
+    step = torch.tensor([3], device=dev)
+    rows, ok = ticp.icp_correspond(*args, step, cfg.icp.huber_delta)
+    if rows_kept > rows.shape[1]:
+        reps = -(-rows_kept // rows.shape[1])
+        rows = rows.repeat(1, reps, 1)[:, :rows_kept].contiguous()
+        ok = ok.repeat(1, reps)[:, :rows_kept].contiguous()
+    else:
+        rows = rows[:, :rows_kept].contiguous()
+        ok = ok[:, :rows_kept].contiguous()
+    dof = dof_of(yaw_only).to(dev)
+    for min_corr in (cfg.icp.min_correspondences, rows_kept + 1):
+        launch.reset_launches()
+        got = ticp.icp_update(rows, ok, args[2], args[3], step, dof,
+                              cfg.icp.damping, min_corr)
+        assert launch.LAUNCHES["icp_update"] == 1
+        ref = ticp.icp_update_plain(rows, ok, args[2], args[3], step, dof,
+                                    cfg.icp.damping, min_corr)
+        assert all(_bits(g, e) for g, e in zip(got, ref)), min_corr
+
+
+@pytest.mark.parametrize("yaw_only", [False, True])
+def test_refine_icp_runs_the_icp_kernels(dev, icp_card, yaw_only,
+                                         monkeypatch):
+    """raw_scan_normals and refine_icp on the card: K1 and K2 once, the
+    correspondences iterations + 1 times and the update iterations times
+    (counted inside the loop's graph at its replays), every field bit for
+    bit the plain route on the card (the wrappers swapped for their plain
+    versions, the loop eager); on the graph route twice."""
+    from quatro_tpu_torch import pipeline
+    from quatro_tpu_torch.ops import icp as ticp
+    from quatro_tpu_torch.ops import neighbors, normals
+    from quatro_tpu_torch.solver import icp as sicp
+    from quatro_tpu_torch.utils import loops
+    from torch_icp_cases import init_poses
+    vox, vmask, gt, cfg, _ = icp_card
+    ic = replace(cfg.icp, enabled=True, yaw_only=yaw_only)
+    rot, trans = init_poses(gt, dev)
+
+    def run():
+        nrm = pipeline.raw_scan_normals(vox[1:], vmask[1:], cfg)
+        res = sicp.refine_icp(vox[:1], vmask[:1], vox[1:], vmask[1:],
+                              nrm.normals, nrm.valid, rot[:1], trans[:1],
+                              ic)
+        return (*nrm, *res)
+
+    loops.clear_graphs()
+    launch.reset_launches()
+    got = run()
+    torch.cuda.synchronize()
+    counts = {k: launch.LAUNCHES[k] for k in ("radius_knn",
+                                              "neighbor_normals",
+                                              "icp_correspond", "icp_update")}
+    assert counts == {"radius_knn": 1, "neighbor_normals": 1,
+                      "icp_correspond": ic.iterations + 1,
+                      "icp_update": ic.iterations}, counts
+    again = run()
+    assert all(_bits(g, e) for g, e in zip(again, got))
+    monkeypatch.setattr(pipeline, "radius_neighbors",
+                        neighbors.radius_neighbors_plain)
+    monkeypatch.setattr(pipeline, "estimate_normals",
+                        normals.estimate_normals_plain)
+    monkeypatch.setattr(sicp, "icp_correspond", ticp.icp_correspond_plain)
+    monkeypatch.setattr(sicp, "icp_update", ticp.icp_update_plain)
+    launch.reset_launches()
+    with loops.eager_loops():
+        ref = run()
+    assert not any(launch.LAUNCHES[k] for k in counts)
+    assert all(_bits(g, e) for g, e in zip(got, ref))

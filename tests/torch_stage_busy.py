@@ -21,7 +21,7 @@ device events between marker fills at the stage ends), every stage's
 device time and device launches by kernel (the largest first), each
 stage's device ms and launch count, with the labelling's kernels', the
 overlap's kernels' and the port's own kernels' in the projection, in
-Patchwork and in the cliques (``quatro::``) sums, the device's busy
+Patchwork, in the cliques and in ICP (``quatro::``) sums, the device's busy
 total and idle share, the peak memory and the labelling loop's counters
 (rounds, flag reads, replays; empty where the labelling is one kernel
 launch) of the timed call. With ``--cc-chunks`` both cases run once for
@@ -138,6 +138,9 @@ def main() -> int:
                 if "quatro::" in r[0]), 4),
             "cliques_own_kernels_ms": round(sum(
                 r[2] for r in split.get("cliques", [])
+                if "quatro::" in r[0]), 4),
+            "icp_own_kernels_ms": round(sum(
+                r[2] for r in split.get("icp", [])
                 if "quatro::" in r[0]), 4),
             "stage_device_ms": {st: round(sum(r[2] for r in rows), 4)
                                 for st, rows in split.items()},
