@@ -433,6 +433,11 @@ REPLACES = {
     "neighbor_normals": "quatro_tpu/ops/normals.py:94",
     "icp_correspond": "quatro_tpu/solver/icp.py:108",
     "icp_update": "quatro_tpu/solver/icp.py:119",
+    # no pl.pallas_call: match_features' candidate assembly (XLA fusions
+    # before its lax.sort), tuple_test_keep's lax.scan over the trials and
+    # the compaction's sort
+    "match_candidates": "quatro_tpu/ops/matching.py:230",
+    "tuple_compact": "quatro_tpu/ops/matching.py:165",
 }
 SOURCES = {
     "moment_sums": "quatro_tpu_torch/csrc/moment_sums.cu",
@@ -463,6 +468,8 @@ SOURCES = {
     "neighbor_normals": "quatro_tpu_torch/csrc/neighbor_normals.cu",
     **dict.fromkeys(("icp_correspond", "icp_update"),
                     "quatro_tpu_torch/csrc/icp.cu"),
+    "match_candidates": "quatro_tpu_torch/csrc/match_candidates.cu",
+    "tuple_compact": "quatro_tpu_torch/csrc/tuple_test.cu",
 }
 # label_sweep: one launch a label_components call (the whole labelling);
 # range_image, edge_masks, component_stats: one wrapper call a
@@ -471,7 +478,8 @@ SOURCES = {
 # stage: one k-core search, growth and swap a solve, the distinct greedy
 # once for the K clique hypotheses and once for the vote's; ICP's lists
 # and normals once (the target's raw-scan voxels), its correspondences once
-# a pass and once at the returned pose, its update once a pass
+# a pass and once at the returned pose, its update once a pass; the
+# matcher's candidates and tuple test once a matcher call
 ICP_PASSES = 12           # IcpConfig.iterations
 MAIN_LAUNCHES = {"moment_sums": 1, "spfh": 1, "fpfh": 1,
                  "nearest_neighbors": 0, "nearest_neighbors2": 2,
@@ -484,13 +492,15 @@ MAIN_LAUNCHES = {"moment_sums": 1, "spfh": 1, "fpfh": 1,
                  "seed_heights": 1, "plane_fit": 3, "kcore_search": 1,
                  "grow_cliques": 1, "swap_cliques": 1, "distinct_cliques": 2,
                  "radius_knn": 1, "neighbor_normals": 1,
-                 "icp_correspond": ICP_PASSES + 1, "icp_update": ICP_PASSES}
+                 "icp_correspond": ICP_PASSES + 1, "icp_update": ICP_PASSES,
+                 "match_candidates": 1, "tuple_compact": 1}
 PROJECTION_KERNELS = ("range_image", "edge_masks", "component_stats")
 PATCHWORK_KERNELS = ("czm_points", "seed_heights", "plane_fit")
 CLIQUE_KERNELS = ("kcore_search", "grow_cliques", "swap_cliques",
                   "distinct_cliques")
 ICP_KERNELS = ("radius_knn", "neighbor_normals", "icp_correspond",
                "icp_update")
+MATCH_KERNELS = ("match_candidates", "tuple_compact")
 # the wrappers' names in the modules that call them (recorded there)
 ICP_CALLERS = {"radius_knn": ("pipeline", "radius_neighbors"),
                "neighbor_normals": ("pipeline", "estimate_normals"),
@@ -508,6 +518,10 @@ OPS_CORR_ROW = 40         # per source row: the pose, gate, residual, Huber
 OPS_UPDATE_ROW = 42 * 3   # per row: 42 products (2 for h's), 42 additions
 OPS_UPDATE_PAIR = 1500    # per pair: the 6 x 7 Gauss-Jordan, exp_so3 and the
 # update (a one-thread chain)
+OPS_TRIPLE = 22           # per live triple of the tuple test: its first
+# side's two lengths (3 sub, 3 mul, 2 add, a root each), two products and
+# two compares, which every triple needs before its gate can fail
+MATCH_STARVED = 40        # valid target keypoints of the starving pair
 # the clique kernels also held against their plain versions on
 # tests/torch_clique_cases.py's graphs (edge cases) and at N = 2048, whose
 # packed rows exceed a block's shared memory (read through L2)
@@ -1488,9 +1502,8 @@ def sequence_launches(frames, calls):
     front-end kernels (the labelling once), per batched
     registration call (one per edge batch) the matcher's top-2 NN twice,
     the graph, the clique stage's kernels, the vote's segment sums, the
-    overlaps and ICP's passes (ICP's lists and normals once a frame), and
-    per
-    pose-graph solve one segment sum per J^T apply (gn x (cg + 1))."""
+    overlaps, ICP's passes (ICP's lists and normals once a frame) and the
+    matcher's two kernels, and per pose-graph solve one segment sum per J^T apply (gn x (cg + 1))."""
     gn, cg = PG_ITERS
     return dict(MAIN_LAUNCHES, moment_sums=frames, spfh=frames, fpfh=frames,
                 nearest_neighbors2=2 * calls,
@@ -1505,7 +1518,8 @@ def sequence_launches(frames, calls):
                 distinct_cliques=2 * calls, radius_knn=frames,
                 neighbor_normals=frames,
                 icp_correspond=(ICP_PASSES + 1) * calls,
-                icp_update=ICP_PASSES * calls)
+                icp_update=ICP_PASSES * calls,
+                **dict.fromkeys(MATCH_KERNELS, calls))
 
 
 def _spread(ms):
@@ -1942,7 +1956,9 @@ def phase_pair_axis(card, pairs, gts, cfg_a, bench):
     warm-up, with the stage split, B1 at B = 8 and 64, the device idle
     share of the B = 8 call, the peak memory at B = 64 and the bytes the
     device loops' graphs took at B = 64, and the sweep and overlap kernels
-    at B = 64's shapes (``stage_kernel_rows_b64``). ``bench``: (bench.py's
+    at B = 64's shapes (``stage_kernel_rows_b64``), Patchwork's, the
+    clique stage's, the matcher's (``match_rows_b64``) and B2's pair axis
+    (``b2_row_b64``) on that call's operands. ``bench``: (bench.py's
     scans, its configuration, the seconds their ray-cast took). Returns
     B1's pair-axis rows, B = 64's graph bytes, the sweep and overlap
     kernels' B = 64 rows and the launches of the B = 8 call."""
@@ -2022,8 +2038,9 @@ def phase_pair_axis(card, pairs, gts, cfg_a, bench):
                     recorded(verify, "overlap_hits", []) as hit_calls, \
                     recorded(pipeline, "estimate_ground", []) as pw_calls, \
                     recorded(vote, "segment_sums", []) as b2_calls:
-                _, clique_calls = clique_run(
-                    lambda: register_scan_pair(*batches[0], cfg))
+                (_, match_calls), clique_calls = clique_run(
+                    lambda: match_run(
+                        lambda: register_scan_pair(*batches[0], cfg)))
             stage_rows = stage_kernel_rows_b64(
                 (seg_calls[0][0], seg_calls[0][1]), hit_calls[0][0],
                 f"path P, B = {bsz}")
@@ -2033,7 +2050,10 @@ def phase_pair_axis(card, pairs, gts, cfg_a, bench):
                                               f"path P, B = {bsz}"))
             stage_rows["segment_sums"] = b2_row_b64(b2_calls[0][0],
                                                     f"path P, B = {bsz}")
-            del seg_calls, hit_calls, pw_calls, clique_calls, b2_calls
+            stage_rows.update(match_rows_b64(match_calls,
+                                             f"path P, B = {bsz}"))
+            del (seg_calls, hit_calls, pw_calls, clique_calls, b2_calls,
+                 match_calls)
             by_kernel = {}
             busy = stage_device_busy(lambda timer: register_scan_pair(
                 *batches[1], cfg, timer=timer), by_kernel=by_kernel)
@@ -2127,12 +2147,19 @@ def phase_entry(card, work_dir):
     ev._warm_cache, ev.register_scan_pair = timed_warm, counted
     try:
         for bsz in (E_BATCH, 1):
-            reports[bsz] = ev.evaluate_loop_closures(
-                n_pairs=E_PAIRS, config=cfg, raw_capacity=RAW_CAPACITY,
-                seed0=0, cache_dir=os.path.join(work_dir, "scans"),
-                batch=bsz)
+            def run(bsz=bsz):
+                return ev.evaluate_loop_closures(
+                    n_pairs=E_PAIRS, config=cfg, raw_capacity=RAW_CAPACITY,
+                    seed0=0, cache_dir=os.path.join(work_dir, "scans"),
+                    batch=bsz)
+            if bsz == E_BATCH:      # the batched calls' matcher recorded
+                reports[bsz], match_recs = match_run(run)
+            else:
+                reports[bsz] = run()
     finally:
         ev._warm_cache, ev.register_scan_pair = warm, register
+    match_calls_equal(match_recs, f"path E (a) batch {E_BATCH}")
+    del match_recs
     raycast_s = sum(pool_s)
     log(f"path E (a): {E_PAIRS} {cfg.lidar.name} pairs ray-cast by eval.py's "
         f"process pool in {raycast_s:.1f} s ({os.cpu_count()} cores)")
@@ -2511,7 +2538,9 @@ MAIN_KERNEL = {"moment_sums": "quatro::moment_sums_kernel",
                "radius_knn": "quatro::knn::radius_knn_kernel",
                "neighbor_normals": "quatro::nrm::neighbor_normals_kernel",
                "icp_correspond": "quatro::icp::icp_correspond_kernel",
-               "icp_update": "quatro::icp::icp_update_kernel"}
+               "icp_update": "quatro::icp::icp_update_kernel",
+               "match_candidates": "quatro::mc::match_candidates_kernel",
+               "tuple_compact": "quatro::tup::tuple_compact_kernel"}
 
 
 def culled_pairs(pts, mask, radius):
@@ -2540,7 +2569,7 @@ def radius_pair_bytes(mask, per_row, per_valid_row):
 
 def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b,
                   jt_call, launches_s, exact, overlap_args, clique_recs,
-                  icp_recs):
+                  icp_recs, match_recs, match_recs_b):
     """Every kernel against its plain version: B1-B5 and B7-B12 on the
     main path's tensors, with the main path's launch counts (B12's 0: no
     path launches it); B6 on path B's, with path B's; B2 also on path S's
@@ -2548,8 +2577,9 @@ def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b,
     on path B's exact mode's restriction (``exact``), with its launches;
     the labelling kernel on path A's labelling call (``calls``), the
     overlap on path A's arbitration call (``overlap_args``), the clique
-    stage's four kernels on path A's calls (``clique_recs``) and ICP's four
-    on path A's calls (``icp_recs``)."""
+    stage's four kernels on path A's calls (``clique_recs``), ICP's four
+    on path A's calls (``icp_recs``) and the matcher's two on path A's and
+    path B's calls (``match_recs``, ``match_recs_b``)."""
     from quatro_tpu_torch.ops import frontend as fe
     from quatro_tpu_torch.ops.fpfh import normalize_blocks
 
@@ -2812,6 +2842,8 @@ def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b,
     patchwork_kernel_rows(calls, main_launches, row)
     clique_kernel_rows(clique_recs, main_launches, row)
     icp_kernel_rows(icp_recs, main_launches, row)
+    match_kernel_rows(match_recs, main_launches, row, match_recs_b,
+                      match_recs_b["match_features"][0])
     segment_routes_equal(calls["segment_cloud"][0], "path A")
     for preset in LABEL_PRESETS:
         segment_routes_equal(preset_segment_args(preset), preset)
@@ -2824,7 +2856,8 @@ def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b,
         if r.get("bf16_device_ms_uncaptured", 0.0) is None]
     check(not missing, "kernel phase: no profiled run saw every call of "
           f"{missing}")
-    log("kernel phase: device ms of all thirty kernels (torch.profiler): "
+    log("kernel phase: device ms of all thirty-two kernels "
+        "(torch.profiler): "
         + json.dumps({r["name"]: round(r["device_ms"], 6) for r in rows}))
     return rows
 
@@ -4237,36 +4270,283 @@ def icp_substeps(pair, cfg, label):
     return busy
 
 
+# ----------------------------------------------------------- matcher --
+
+def match_run(fn):
+    """fn() with the matcher's two wrappers recorded where ops/matching.py
+    calls them, and the pipeline's ``match_features`` calls: (fn's result,
+    {kernel: [(arguments cloned, keyword arguments, result)],
+    "match_features": [...]})."""
+    from quatro_tpu_torch import pipeline
+    from quatro_tpu_torch.ops import matching
+
+    with contextlib.ExitStack() as stack:
+        recs = {k: stack.enter_context(recorded(matching, k, []))
+                for k in MATCH_KERNELS}
+        recs["match_features"] = stack.enter_context(
+            recorded(pipeline, "match_features", []))
+        out = fn()
+    torch.cuda.synchronize()
+    return out, recs
+
+
+def capture_matching(pair, cfg, label):
+    """The matcher's wrapper calls of one more run of ``pair`` under
+    ``cfg`` (``match_run``): one call of each kernel."""
+    from quatro_tpu_torch.pipeline import register_scan_pair
+
+    _, recs = match_run(lambda: register_scan_pair(*pair, cfg))
+    counts = {k: len(recs[k]) for k in MATCH_KERNELS}
+    check(counts == dict.fromkeys(MATCH_KERNELS, 1),
+          f"{label}: matcher wrapper calls {counts}")
+    return recs
+
+
+def match_fns(name, args, kwargs):
+    """The wrapper's and the plain version's call on recorded operands,
+    each returning a tuple of tensors."""
+    from quatro_tpu_torch.ops import match_kernels as mk
+
+    wrapper, plain = getattr(mk, name), getattr(mk, f"{name}_plain")
+    return ((lambda: _as_tuple(wrapper(*args, **kwargs))),
+            (lambda: _as_tuple(plain(*args, **kwargs))))
+
+
+def match_calls_equal(recs, label):
+    """Each recorded call of the matcher's two wrappers again: the wrapper
+    once more and its plain version on the card on the same operands,
+    every output bit for bit the recorded call's. Returns {name:
+    calls}."""
+    counts = {}
+    for name in MATCH_KERNELS:
+        check(recs.get(name), f"{label}: no {name} call recorded")
+        for k, (args, kwargs, out) in enumerate(recs[name]):
+            k_fn, p_fn = match_fns(name, args, kwargs)
+            ref = _as_tuple(out)
+            for what, other in (("a second launch", k_fn()),
+                                ("its plain version on the card", p_fn())):
+                check(len(other) == len(ref) and all(
+                    exact_bits(a, b) for a, b in zip(ref, other)),
+                    f"{name} ({label}, call {k}): differs from {what}")
+        counts[name] = len(recs[name])
+    ncorr = [int(n) for _, _, (_, nc) in recs["match_candidates"]
+             for n in nc.tolist()]
+    log(f"match_candidates, tuple_compact ({label}): calls "
+        f"{json.dumps(counts)} (candidates a pair: {ncorr[:8]}"
+        f"{' ...' if len(ncorr) > 8 else ''}), each equal across launches "
+        "and to its plain version on the card, bit for bit")
+    return counts
+
+
+@contextlib.contextmanager
+def plain_match_route():
+    """ops/matching.py's two kernel wrappers swapped for their plain
+    versions for the block."""
+    from quatro_tpu_torch.ops import match_kernels as mk
+    from quatro_tpu_torch.ops import matching
+
+    saved = {k: getattr(matching, k) for k in MATCH_KERNELS}
+    for k in MATCH_KERNELS:
+        setattr(matching, k, getattr(mk, f"{k}_plain"))
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(matching, k, v)
+
+
+def match_branches(feat_call, label):
+    """``match_features`` on one recorded pipeline call's keypoints and
+    descriptors under each branch (the starvation fallback, crosscheck
+    alone, the union without crosscheck), the pair batched with itself
+    with its target cut to MATCH_STARVED valid keypoints (which starves
+    under the fallback): the two kernels once each a call, every output
+    bit for bit the plain route on the card."""
+    from quatro_tpu_torch.ops import matching
+
+    args, kwargs, _ = feat_call
+    x = [a if a.dim() == (3 if i < 4 else 2) else a[None]
+         for i, a in enumerate(args[:6])]
+    tm = x[5][0]
+    starved = tm & (torch.cumsum(tm.int(), 0) <= MATCH_STARVED)
+    batch = [torch.cat([a[:1], a[:1]]) for a in x[:5]] + [
+        torch.stack([tm, starved])]
+    base = {k: v for k, v in kwargs.items()
+            if k not in ("use_crosscheck", "crosscheck_min_matches")}
+    kept = {}
+    for branch, kw in (("fallback", dict(crosscheck_min_matches=64)),
+                       ("crosscheck", dict(crosscheck_min_matches=0)),
+                       ("union", dict(use_crosscheck=False))):
+        before = launch_counts()
+        got = matching.match_features(*batch, **base, **kw)
+        diff = _launch_diff(before)
+        check({k: diff[k] for k in MATCH_KERNELS}
+              == dict.fromkeys(MATCH_KERNELS, 1),
+              f"{label} ({branch}): matcher launches {diff}")
+        with plain_match_route():
+            ref = matching.match_features(*batch, **base, **kw)
+        check(all(exact_bits(a, b) for a, b in zip(got, ref)),
+              f"{label} ({branch}): the kernels' correspondences differ "
+              "from the plain route's on the card")
+        kept[branch] = got.mask.sum(-1).tolist()
+    log(f"match_features ({label}): every branch on the pair and its "
+        f"starving copy, correspondences kept {json.dumps(kept)}; each bit "
+        "for bit the plain route on the card")
+    return kept
+
+
+def _live_triples(ncorr, tt, trials, seed):
+    """Triples of the tuple test whose three members are candidates,
+    summed over the pairs: what any tuple test of these inputs must
+    evaluate."""
+    from quatro_tpu_torch.ops.match_kernels import tuple_shifts
+
+    shifts = tuple_shifts(tt, trials, seed)
+    total = 0
+    for n in ncorr:
+        live = min(int(n), tt)
+        i = np.arange(live)
+        for s1, s2 in shifts:
+            total += int((((i + s1) % tt < live) & ((i + s2) % tt < live))
+                         .sum())
+    return total
+
+
+def match_work(name, args):
+    """(operations, bytes) of one matcher wrapper call on this run's data:
+    the candidates' neighbours and masks read once and the keys written
+    once; the tuple test's live triples (``OPS_TRIPLE`` each), the prefix
+    of keys, the candidates' coordinates read once and the outputs
+    written once."""
+    from quatro_tpu_torch.ops.match_kernels import FALLBACK, candidate_count
+
+    if name == "match_candidates":
+        sm, tm, mode = args[8], args[9], args[10]
+        bsz, na = sm.shape
+        nb = tm.shape[1]
+        per = 8 * (2 if mode == FALLBACK else 1)
+        return 0.0, float(bsz * ((na + nb) * (per + 1)
+                                 + candidate_count(mode, na, nb) * 8 + 4))
+    keys, ncorr, _, _, tt, cap, use_tuple, _, trials, seed = args[:10]
+    nc = ncorr.tolist()
+    live = sum(min(n, tt) for n in nc)
+    ops = (_live_triples(nc, tt, trials, seed) * OPS_TRIPLE
+           if use_tuple else 0)
+    return (float(ops), float(keys.shape[0] * (tt * 8 + 4 + cap * 33)
+                              + (live * 24 if use_tuple else 0)))
+
+
+def match_library(name, args):
+    """The compaction's library yardstick: one stable ``torch.sort`` of
+    the prefix's keys and a ``gather`` of the first ``capacity`` (the
+    candidate keys have none: None, None)."""
+    if name != "tuple_compact":
+        return None, None
+    keys, tt, cap = args[0], args[4], args[5]
+    prefix = keys[:, :tt]
+
+    def lib():
+        order = torch.sort(prefix, dim=-1, stable=True).indices
+        return prefix.gather(-1, order[:, :cap])
+    return lib, "torch.sort(stable=True) + gather"
+
+
+def match_kernel_rows(recs, main_launches, row, recs_b, feats_b):
+    """The matcher's two kernels: on path A's calls (``capture_matching``)
+    and path B's (crosscheck alone) bit for bit their plain versions on
+    the card and across two launches, every branch on path B's
+    descriptors (``match_branches``), and their rows on path A's call with
+    the blocks each launch runs (a block a pair) and, for the
+    compaction, the library's sort and gather."""
+    match_calls_equal(recs, "path A")
+    match_calls_equal(recs_b, "path B")
+    match_branches(feats_b, "path B")
+    for name in MATCH_KERNELS:
+        a, kw, _ = recs[name][0]
+        k_fn, p_fn = match_fns(name, a, kw)
+        lib_fn, lib_label = match_library(name, a)
+        bsz = a[0].shape[0]
+        extra = {"shape": str(tuple(a[0].shape)),
+                 "registers": kernel_registers(SOURCES[name].split("/")[-1]
+                                               [:-3]),
+                 "library": lib_label, "blocks": bsz, "sms": min(bsz, 132)}
+        row(name, 0.0, k_fn, p_fn, *match_work(name, a), lib_fn,
+            launches=main_launches[name], extra=extra)
+
+
+def match_rows_b64(recs, label):
+    """The matcher's two kernels at path P's B = 64 call, on its recorded
+    operands: bit for bit their plain versions on the card
+    (``match_calls_equal``), with device ms, call ms, plain ms, bound and
+    the compaction's library sort."""
+    match_calls_equal(recs, label)
+    out = {}
+    for name in MATCH_KERNELS:
+        a, kw, _ = recs[name][0]
+        k_fn, p_fn = match_fns(name, a, kw)
+        lib_fn, lib_label = match_library(name, a)
+        b_ms, by = bound(*match_work(name, a))
+        out[name] = {"shape": str(tuple(a[0].shape)),
+                     "device_ms": device_ms_per_call(
+                         k_fn, "quatro::", main=(MAIN_KERNEL[name], 1)),
+                     "ms": cuda_ms(k_fn), "plain_ms": cuda_ms(p_fn, 5),
+                     "bound_ms": b_ms, "bound_by": by,
+                     "library_ms": cuda_ms(lib_fn) if lib_fn else None,
+                     "library_device_ms": (device_ms_per_call(lib_fn,
+                                                              tries=10)
+                                           if lib_fn else None),
+                     "library": lib_label}
+    log(f"match_candidates / tuple_compact ({label}): " + json.dumps(out))
+    return out
+
+
 def b2_row_b64(args, label):
-    """B2 at the vote's shape of one B = 64 call (its recorded operands):
+    """B2 with its pair axis at the vote's shape of one B = 64 call (its
+    recorded operands, ids (B, E), vals (B, 3, E)): bit for bit its plain
+    version on CPU copies, each pair's one-row call and a second launch;
     the kernel's device and call ms, its bound (the ids and values read
     once, the sums written once: bytes), and ``index_add_``'s device and
-    call ms on the same ids and values."""
+    call ms on the same ids and values (the pairs' bins side by side, a
+    dump row for the dropped ids)."""
     from quatro_tpu_torch.ops import segment
 
     ids, vals, p_pad = args
-    kv, n = vals.shape
+    bsz, kv, n = vals.shape
+    got = segment.segment_sums(ids, vals, p_pad)
+    check(torch.equal(got, segment.segment_sums(ids, vals, p_pad)),
+          f"{label}: B2 differs between launches")
+    check(torch.equal(got.cpu(), segment.segment_sums_plain(
+        ids.cpu(), vals.cpu(), p_pad, segment.SEG_CHUNK)),
+        f"{label}: B2 differs from its plain version on CPU copies")
+    check(all(torch.equal(got[b], segment.segment_sums(ids[b], vals[b],
+                                                       p_pad))
+              for b in range(bsz)),
+          f"{label}: B2's pair axis differs from the one-row calls")
     live = (ids >= 0) & (ids < p_pad)
-    dest = torch.where(live, ids, p_pad).long()
-    src_rows = vals.T.contiguous()
+    off = torch.arange(bsz, device=ids.device)[:, None] * p_pad
+    dest = torch.where(live, ids + off, bsz * p_pad).reshape(-1).long()
+    src_rows = vals.transpose(1, 2).reshape(-1, kv).contiguous()
 
     def k_fn():
         return segment.segment_sums(ids, vals, p_pad)
 
     def lib():
-        return torch.zeros((p_pad + 1, kv), device=vals.device).index_add_(
-            0, dest, src_rows)
+        return torch.zeros((bsz * p_pad + 1, kv),
+                           device=vals.device).index_add_(0, dest, src_rows)
 
     b_ms, by = bound(float(int(live.sum()) * kv),
-                     n * 4 * (1 + kv) + p_pad * kv * 4)
-    out = {"shape": f"ids ({n},), vals ({kv}, {n}), p_pad {p_pad}",
+                     bsz * n * 4 * (1 + kv) + bsz * p_pad * kv * 4)
+    out = {"shape": f"ids ({bsz}, {n}), vals ({bsz}, {kv}, {n}), p_pad "
+                    f"{p_pad}",
            "device_ms": device_ms_per_call(
                k_fn, "quatro::", main=(MAIN_KERNEL["segment_sums"], 1)),
            "ms": cuda_ms(k_fn), "bound_ms": b_ms, "bound_by": by,
            "library_ms": cuda_ms(lib),
            "library_device_ms": device_ms_per_call(lib, tries=10),
            "library": "index_add_"}
-    log(f"segment_sums ({label}, the vote's B2 call): " + json.dumps(out))
+    log(f"segment_sums ({label}, the vote's B2 call with its pair axis; "
+        "equal to its plain version on CPU copies and to each pair's "
+        "one-row call, bit for bit): " + json.dumps(out))
     return out
 
 
@@ -4670,6 +4950,7 @@ def main() -> int:
     overlap_args = capture_overlap(pairs["tilted"], cfgs["A"])
     clique_recs = capture_cliques(pairs["tilted"], cfgs["A"])
     icp_recs = capture_icp(pairs["tilted"], cfgs["A"])
+    match_recs = capture_matching(pairs["tilted"], cfgs["A"], "path A")
     mark = graphs_of("path A", mark)
     t0 = time.perf_counter()
     bench = (*bench_case(), time.perf_counter() - t0)
@@ -4677,6 +4958,7 @@ def main() -> int:
         register_scan_pair, pairs["raw"], gts["raw"], cfgs["B"],
         "path B (reference matcher, crosscheck_min_matches=0)",
         PATH_B_LAUNCHES, PATH_B_REPEATS, max_terr=0.6)
+    match_recs_b = capture_matching(pairs["raw"], cfgs["B"], "path B")
     dev = res_b.solution.rotation.device
     corr8 = register_scan_pair(pair_batch([c[0] for c in bench[0]], dev),
                                pair_batch([c[1] for c in bench[0]], dev),
@@ -4709,8 +4991,9 @@ def main() -> int:
     phase_profile(pairs["tilted"], cfgs["A"], wall_a, stages_a)
     rows = phase_kernels(res_a, cfgs["A"], launches_a, calls, res_b,
                          cfgs["B"], launches_b, jt_call, launches_s, exact,
-                         overlap_args, clique_recs, icp_recs)
-    del calls, overlap_args, clique_recs, icp_recs
+                         overlap_args, clique_recs, icp_recs, match_recs,
+                         match_recs_b)
+    del calls, overlap_args, clique_recs, icp_recs, match_recs, match_recs_b
     mark = graphs_of("profile and kernels", mark)
     # last: its large batches and profiles leave the profiler missing
     # more events in the runs after them

@@ -43,7 +43,7 @@ SIGNATURES = {
     "consistency_graph": ("quatro_consistency_graph",
                           [_P, _P, _I, _I, _F, _P, _P]),
     "segment_sums": ("quatro_segment_sums",
-                     [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P]),
+                     [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P]),
     "cross_histogram": ("quatro_cross_histogram",
                         [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P]),
     "fit_iteration_moments": ("quatro_fit_iteration_moments",
@@ -84,6 +84,12 @@ SIGNATURES = {
     "icp": ("quatro_icp_correspond",
             [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P,
              _P]),
+    "match_candidates": ("quatro_match_candidates",
+                         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                          _I, _I, _P, _P, _P]),
+    "tuple_test": ("quatro_tuple_compact",
+                   [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                    _I, _F, _F, _I, _P, _P, _P, _P, _P, _P]),
 }
 
 # Further C functions of a kernel's library: name -> (source, symbol,

@@ -1,25 +1,31 @@
-// Segment sums over a small group axis.
+// Segment sums over a small group axis, for a batch of segment problems.
 //
-// Replaces quatro_tpu/ops/segment_matmul.py::segment_sums (_seg_kernel):
-//   out[p, k] = sum over i with ids[i] == p of vals[k, i],
-// ids (N,) int32, vals (K, N) f32, out (p_pad, K) f32; ids outside
-// [0, p_pad) are dropped. The TPU kernel builds one-hot tiles for the MXU
-// in a 3-term bf16 split because the TPU has no cheap scatter; none of
-// that carries over.
+// Replaces quatro_tpu/ops/segment_matmul.py::segment_sums (_seg_kernel),
+// with the pair axis that jax.vmap gives it in the JAX package's vote:
+//   out[b, p, k] = sum over i with ids[b, i] == p of vals[b, k, i],
+// ids (B, N) int32, vals (B, K, N) f32, out (B, p_pad, K) f32; ids
+// outside [0, p_pad) are dropped. The TPU kernel builds one-hot tiles for
+// the MXU in a 3-term bf16 split because the TPU has no cheap scatter;
+// none of that carries over.
 //
 // Order of the sums, which ops/segment.py::segment_sums_plain repeats on
-// the CPU bit for bit: within each chunk of 1024 consecutive entries
-// (SEG_CHUNK), every bin adds its entries in index order starting from 0;
-// then the chunks' sums are added in chunk order, starting from 0. No
-// float atomics: a run repeats bit for bit.
+// the CPU bit for bit: within each chunk of 1024 consecutive entries of a
+// row (SEG_CHUNK), every bin adds its entries in index order starting
+// from 0; then the row's chunk sums are added in chunk order, starting
+// from 0. So row b's sums are those of a call on row b alone. No float
+// atomics: a run repeats bit for bit.
 //
 // Bound on the card: bytes. On the vote's shape (N = 65536, K = 3,
-// p_pad = 256) the inputs are 1.05 MB, 0.31 us at 3.35 TB/s, and the
-// 0.2 M additions are nothing; on the pose graph's J^T apply (N ~ 38,
+// p_pad = 256) the inputs are 1.05 MB a pair, 0.31 us at 3.35 TB/s, and
+// the 0.2 M additions are nothing; on the pose graph's J^T apply (N ~ 38,
 // K = 4, p_pad 12) the launch is all there is. So the design aims at
-// latency: one launch, few dependent steps.
-// Design: a block of 1024 threads takes one chunk (one entry a thread)
-// and up to 256 bins (blockIdx.y covers more):
+// latency: one launch, few dependent steps, and a merge per row: with the
+// rows flattened into one problem of B * p_pad bins, the vote at B = 64
+// wrote 4096 chunks x 16384 bins x 3 of partials (805 MB) and one block
+// read them all back.
+// Design: a block of 1024 threads takes one chunk of one row (one entry a
+// thread; blockIdx.z is the row) and up to 256 bins (blockIdx.y covers
+// more):
 // 1. a stable counting sort of the chunk's in-range entries by bin, in
 //    shared memory: each warp ranks its 32 entries by bin with
 //    __match_any_sync and __popc of the lower lanes, the lowest lane of a
@@ -39,11 +45,13 @@
 //    range per chunk on the main path;
 // 3. a single chunk (N <= 1024: the pose graph) writes out directly
 //    (0 + s == s for a sum that starts from +0). Otherwise each block
-//    writes its chunk's sums to the partial scratch, and the last block to
-//    finish, known by an integer ticket (atomicAdd after __threadfence),
-//    adds the partials in chunk order (32 loads in flight per output) and
-//    sets the ticket back to 0. The ticket decides who adds, never the
-//    order of the additions.
+//    writes its chunk's sums to its row's partial scratch (B x chunks x
+//    p_pad x K in all: 12.6 MB at the vote's B = 64), and the last block
+//    of the row to finish, known by the row's integer ticket (atomicAdd
+//    after __threadfence), adds the row's partials in chunk order (32
+//    loads in flight per output) and sets the ticket back to 0, so a CUDA
+//    graph's replay finds every ticket at 0. The ticket decides who adds,
+//    never the order of the additions.
 #include <cuda_runtime.h>
 
 namespace quatro {
@@ -60,6 +68,15 @@ __global__ void __launch_bounds__(kSegThreads)
 segment_sums_kernel(const int* __restrict__ ids, const float* __restrict__ vals,
                     int n, int k, int p_pad, int chunks, float* __restrict__ partial,
                     int* __restrict__ ticket, float* __restrict__ out) {
+  // this block's row
+  const size_t row = blockIdx.z;
+  ids += row * n;
+  vals += row * k * n;
+  out += row * p_pad * k;
+  if (chunks > 1) {
+    partial += row * chunks * p_pad * k;
+    ticket += row;
+  }
   // per warp and bin: the warp's count, then the count of the warps before
   __shared__ __align__(16) unsigned short cnt[kSegWarps][kSegStride];
   __shared__ int first[kSegBins + 1];                // a bin's first slot
@@ -185,19 +202,20 @@ segment_sums_kernel(const int* __restrict__ ids, const float* __restrict__ vals,
 
 }  // namespace quatro
 
-// ids (N,) int32, vals (K, N) f32 -> out (p_pad, K) f32, in chunks of
-// `chunk` entries, which must be the block's 1024. Where N > chunk,
-// partial holds ceil(N / chunk) * p_pad * K f32 of scratch and ticket an
-// int that is 0 (and is 0 again when the kernel ends); both may be null
-// otherwise. One launch per call.
-extern "C" int quatro_segment_sums(const int* ids, const float* vals, int n, int k,
-                                   int p_pad, int chunk, float* partial, int* ticket,
+// ids (B, N) int32, vals (B, K, N) f32 -> out (B, p_pad, K) f32, in
+// chunks of `chunk` entries, which must be the block's 1024; 1 <= B <=
+// 65535. Where N > chunk, partial holds B * ceil(N / chunk) * p_pad * K
+// f32 of scratch and ticket B ints that are 0 (and are 0 again when the
+// kernel ends); both may be null otherwise. One launch per call.
+extern "C" int quatro_segment_sums(const int* ids, const float* vals, int bsz, int n,
+                                   int k, int p_pad, int chunk, float* partial, int* ticket,
                                    float* out, cudaStream_t stream) {
-  if (chunk != quatro::kSegThreads || n < 0) return (int)cudaErrorInvalidValue;
+  if (chunk != quatro::kSegThreads || n < 0 || bsz < 1 || bsz > 65535)
+    return (int)cudaErrorInvalidValue;
   const int chunks = n > chunk ? (n + chunk - 1) / chunk : 1;
   if (chunks > 1 && (partial == nullptr || ticket == nullptr))
     return (int)cudaErrorInvalidValue;
-  dim3 grid(chunks, (p_pad + quatro::kSegBins - 1) / quatro::kSegBins);
+  dim3 grid(chunks, (p_pad + quatro::kSegBins - 1) / quatro::kSegBins, bsz);
   quatro::segment_sums_kernel<<<grid, quatro::kSegThreads, 0, stream>>>(
       ids, vals, n, k, p_pad, chunks, partial, ticket, out);
   return (int)cudaGetLastError();

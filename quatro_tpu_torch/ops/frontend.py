@@ -481,8 +481,7 @@ def nearest_neighbors_plain(desc_a, desc_b, maskf_a, maskf_b, sq_a, sq_b):
 
 
 def _nn_inputs(desc_a, desc_b, mask_a, mask_b):
-    """Checks shared by the NN wrappers; returns (device, maskf_a, maskf_b,
-    sq_a, sq_b)."""
+    """Checks shared by the NN wrappers; returns the device."""
     bsz, na, dim = desc_a.shape
     nb = desc_b.shape[1]
     check("desc_a", desc_a, (bsz, na, dim))
@@ -492,24 +491,45 @@ def _nn_inputs(desc_a, desc_b, mask_a, mask_b):
     dev = same_device(desc_a, desc_b, mask_a, mask_b)
     if dev.type == "cuda" and dim != FPFH_DIM:
         raise ValueError(f"the kernel takes {FPFH_DIM}-D descriptors")
-    return (dev, mask_a.to(torch.float32), mask_b.to(torch.float32),
-            (desc_a * desc_a).sum(-1), (desc_b * desc_b).sum(-1))
+    return dev
+
+
+def neighbor_operands(desc_a: torch.Tensor, desc_b: torch.Tensor,
+                      mask_a: torch.Tensor, mask_b: torch.Tensor):
+    """The NN kernels' operands of the search of A in B and of B in A,
+    formed once for both: two tuples (maskf_a, maskf_b, |a|^2, |b|^2,
+    limits) and (maskf_b, maskf_a, |b|^2, |a|^2, limits'), the active
+    limits (``nn_active_limits``) on the card, None on the CPU (the plain
+    versions find their own)."""
+    maskf_a, maskf_b = mask_a.to(torch.float32), mask_b.to(torch.float32)
+    sq_a, sq_b = (desc_a * desc_a).sum(-1), (desc_b * desc_b).sum(-1)
+    lim_ab = lim_ba = None
+    if desc_a.device.type == "cuda":
+        lim_a, lim_b = active_limit(mask_a), active_limit(mask_b)
+        lim_ab = torch.stack([lim_a, lim_b], 1).contiguous()
+        lim_ba = torch.stack([lim_b, lim_a], 1).contiguous()
+    return ((maskf_a, maskf_b, sq_a, sq_b, lim_ab),
+            (maskf_b, maskf_a, sq_b, sq_a, lim_ba))
 
 
 def nearest_neighbors(desc_a: torch.Tensor, desc_b: torch.Tensor,
-                      mask_a: torch.Tensor, mask_b: torch.Tensor):
+                      mask_a: torch.Tensor, mask_b: torch.Tensor,
+                      operands=None, fill: bool = True):
     """Nearest neighbour of each A row in B: (idx, d2), each (B, Na)
     (int32 index, f32 squared distance), the first minimum on ties. desc
     (B, N, 33) f32, masks (B, N) bool. Invalid rows, and rows with no
-    valid column, get index 0 / f32 max. Replaces
+    valid column, get index 0 / f32 max (with ``fill`` False the
+    kernel's own outputs there). ``operands``: this search's tuple of
+    ``neighbor_operands`` where the caller formed them. Replaces
     pallas_frontend.py::nearest_neighbors_pallas (csrc/nn1.cu, which
     skips rows and columns past ``nn_active_limits`` and splits the
     columns into NN1_SPLIT-wide work items, one launch per call); equals
     the first slot of ``nearest_neighbors2``."""
     bsz, na = desc_a.shape[:2]
     nb = desc_b.shape[1]
-    dev, maskf_a, maskf_b, sq_a, sq_b = _nn_inputs(desc_a, desc_b, mask_a,
-                                                   mask_b)
+    dev = _nn_inputs(desc_a, desc_b, mask_a, mask_b)
+    maskf_a, maskf_b, sq_a, sq_b, limits = (
+        operands or neighbor_operands(desc_a, desc_b, mask_a, mask_b)[0])
     if dev.type != "cuda":
         idx, d2 = nearest_neighbors_plain(desc_a, desc_b, maskf_a, maskf_b,
                                           sq_a, sq_b)
@@ -522,41 +542,45 @@ def nearest_neighbors(desc_a: torch.Tensor, desc_b: torch.Tensor,
             tiles = bsz * -(-na // NN1_ROWS)
             ticket, partial = stream_scratch(
                 dev, stream, tiles, 2 * tiles * -(-nb // NN1_SPLIT) * NN1_ROWS)
-        launch("nn1", desc_a, desc_b, sq_a, sq_b, maskf_a, maskf_b,
-               nn_active_limits(mask_a, mask_b), bsz, na, nb, NN1_SPLIT,
-               partial, ticket, idx, d2, stream=stream)
+        launch("nn1", desc_a, desc_b, sq_a, sq_b, maskf_a, maskf_b, limits,
+               bsz, na, nb, NN1_SPLIT, partial, ticket, idx, d2,
+               stream=stream)
         LAUNCHES["nearest_neighbors"] += 1
+    if not fill:
+        return idx, d2
     empty = ~mask_a | (d2 >= FLT_MAX)
     return torch.where(empty, 0, idx), torch.where(empty, FLT_MAX, d2)
 
 
 def nearest_neighbors2(desc_a: torch.Tensor, desc_b: torch.Tensor,
-                       mask_a: torch.Tensor, mask_b: torch.Tensor):
+                       mask_a: torch.Tensor, mask_b: torch.Tensor,
+                       operands=None, fill: bool = True):
     """Top-2 neighbours of each A row in B: (i1, d1, i2, d2), each (B, Na)
     (int32 indices, f32 squared distances). desc (B, N, 33) f32, masks
     (B, N) bool. Invalid rows, and slots with no valid column, get index
-    0 / f32 max. Replaces
+    0 / f32 max (with ``fill`` False the kernel's own outputs there);
+    ``operands`` as for ``nearest_neighbors``. Replaces
     pallas_frontend.py::nearest_neighbors2_pallas (csrc/nn2.cu), which
     skips rows and columns past ``nn_active_limits`` and equals the plain
     version bit for bit given the same |a|^2 and |b|^2."""
     bsz, na = desc_a.shape[:2]
     nb = desc_b.shape[1]
-    chunk = _nn_chunk(nb)
-    dev, maskf_a, maskf_b, sq_a, sq_b = _nn_inputs(desc_a, desc_b, mask_a,
-                                                   mask_b)
+    dev = _nn_inputs(desc_a, desc_b, mask_a, mask_b)
+    maskf_a, maskf_b, sq_a, sq_b, limits = (
+        operands or neighbor_operands(desc_a, desc_b, mask_a, mask_b)[0])
     if dev.type != "cuda":
-        i1, d1, i2, d2 = nearest_neighbors2_plain(desc_a, desc_b, maskf_a,
-                                                  maskf_b, sq_a, sq_b)
+        out = nearest_neighbors2_plain(desc_a, desc_b, maskf_a, maskf_b,
+                                       sq_a, sq_b)
     else:
         i1 = torch.empty((bsz, na), dtype=torch.int32, device=dev)
         i2 = torch.empty_like(i1)
         d1 = torch.empty((bsz, na), dtype=torch.float32, device=dev)
         d2 = torch.empty_like(d1)
-        launch("nn2", desc_a, desc_b, sq_a, sq_b, maskf_a, maskf_b,
-               nn_active_limits(mask_a, mask_b), bsz, na, nb, chunk, i1, d1,
-               i2, d2)
+        launch("nn2", desc_a, desc_b, sq_a, sq_b, maskf_a, maskf_b, limits,
+               bsz, na, nb, _nn_chunk(nb), i1, d1, i2, d2)
         LAUNCHES["nearest_neighbors2"] += 1
-    return _fill_empty(i1, d1, i2, d2, mask_a)
+        out = (i1, d1, i2, d2)
+    return _fill_empty(*out, mask_a) if fill else out
 
 
 def nn_active_limits(mask_a: torch.Tensor,

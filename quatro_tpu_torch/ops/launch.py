@@ -21,7 +21,8 @@ LAUNCHES = {"moment_sums": 0, "spfh": 0, "fpfh": 0, "nearest_neighbors": 0,
             "czm_points": 0, "seed_heights": 0, "plane_fit": 0,
             "kcore_search": 0, "grow_cliques": 0, "swap_cliques": 0,
             "distinct_cliques": 0, "radius_knn": 0, "neighbor_normals": 0,
-            "icp_correspond": 0, "icp_update": 0}
+            "icp_correspond": 0, "icp_update": 0, "match_candidates": 0,
+            "tuple_compact": 0}
 
 
 def reset_launches() -> None:
@@ -67,9 +68,11 @@ def launch(name: str, *args, stream: int | None = None) -> None:
 # Scratch of the kernels whose last block merges the others' partials (B2,
 # B6), per (device, stream): int32 tickets that are 0 and that every kernel
 # leaves at 0, and f32 words for the partials, grown when a call needs
-# more. Kernels on one stream run one after the other, so they can share
-# it; two on different streams could run at once and would corrupt each
-# other's tickets and partials, so each stream has its own.
+# more and kept for the process (B2 at the vote's B = 64: 64 tickets and
+# 12.6 MB, its pairs merged apart; B6 at path B: 2.1 MB). Kernels on one
+# stream run one after the other, so they can share it; two on different
+# streams could run at once and would corrupt each other's tickets and
+# partials, so each stream has its own.
 _SCRATCH: dict = {}
 
 

@@ -24,8 +24,9 @@ CPU copies and nothing of (points x groups) size is ever built.
   multiple of 8192, and there it takes its einsum too. Here it is a public
   op of its own.
 
-B8-B12 take a leading batch axis (the pipeline runs source and target as
-one batch of two); B2 takes one segment problem.
+Every kernel takes a leading batch axis: B8-B12 the pipeline's source and
+target as one batch of two, B2 the vote's pairs (its one-row form is the
+pose graph's J^T apply).
 """
 
 from __future__ import annotations
@@ -47,50 +48,65 @@ _MOMENTS = 10
 
 def segment_sums_plain(ids: torch.Tensor, vals: torch.Tensor, p_pad: int,
                        chunk: int) -> torch.Tensor:
-    """(p_pad, K) f32 in the kernels' order: per chunk of ``chunk``
-    consecutive entries, each bin adds its entries' values in index order
-    starting from 0; then the chunks' sums are added in chunk order. The
-    chunk sums come from one 1-D ``index_add_`` into zeroed rows, one row
-    per (chunk, channel) with a dump bin for ids outside [0, p_pad): on
-    the CPU ``index_add_`` adds in index order, so the result does not
-    depend on torch's thread count, where a matrix product's order
-    follows the BLAS blocking."""
-    k, n = vals.shape
+    """(B, p_pad, K) f32 for ids (B, N) and vals (B, K, N), or (p_pad, K)
+    for ids (N,) and vals (K, N), in the kernel's order: per row and chunk
+    of ``chunk`` consecutive entries, each bin adds its entries' values in
+    index order starting from 0; then each row's chunk sums are added in
+    chunk order, so a row's sums are those of a call on that row alone.
+    The chunk sums come from one 1-D ``index_add_`` into zeroed rows, one
+    row per (row, chunk, channel) with a dump bin for ids outside [0,
+    p_pad): on the CPU ``index_add_`` adds in index order, so the result
+    does not depend on torch's thread count, where a matrix product's
+    order follows the BLAS blocking."""
+    if ids.dim() == 1:
+        return segment_sums_plain(ids[None], vals[None], p_pad, chunk)[0]
+    bsz, k, n = vals.shape
     nch = -(-n // chunk)
+    dev = ids.device
     key = torch.where((ids >= 0) & (ids < p_pad), ids, p_pad).long()
-    row = (torch.arange(n, device=ids.device) // chunk)[None, :] * k \
-        + torch.arange(k, device=ids.device)[:, None]
-    part = vals.new_zeros(nch * k * (p_pad + 1)).index_add_(
-        0, (row * (p_pad + 1) + key[None, :]).reshape(-1),
-        vals.reshape(-1)).reshape(nch, k, p_pad + 1)
-    out = vals.new_zeros((k, p_pad + 1))
+    row = ((torch.arange(bsz, device=dev)[:, None, None] * nch
+            + (torch.arange(n, device=dev) // chunk)[None, None, :]) * k
+           + torch.arange(k, device=dev)[None, :, None])
+    part = vals.new_zeros(bsz * nch * k * (p_pad + 1)).index_add_(
+        0, (row * (p_pad + 1) + key[:, None, :]).reshape(-1),
+        vals.reshape(-1)).reshape(bsz, nch, k, p_pad + 1)
+    out = vals.new_zeros((bsz, k, p_pad + 1))
     for c in range(nch):
-        out = out + part[c]
-    return out[:, :p_pad].T.contiguous()
+        out = out + part[:, c]
+    return out[..., :p_pad].transpose(1, 2).contiguous()
 
 
 def segment_sums(ids: torch.Tensor, vals: torch.Tensor,
                  p_pad: int) -> torch.Tensor:
-    """out[p, k] = sum over i with ids[i] == p of vals[k, i]; ids (N,)
-    int32, vals (K, N) f32, any N, K and p_pad; ids outside [0, p_pad)
-    are dropped. Returns (p_pad, K) f32. Replaces
-    segment_matmul.py::segment_sums (csrc/segment_sums.cu, one launch per
-    call); on the card the sums repeat bit for bit from run to run."""
-    k, n = vals.shape
-    check("ids", ids, (n,), torch.int32)
-    check("vals", vals, (k, n))
+    """out[b, p, k] = sum over i with ids[b, i] == p of vals[b, k, i];
+    ids (B, N) int32, vals (B, K, N) f32, any B, N, K and p_pad; ids
+    outside [0, p_pad) are dropped. Returns (B, p_pad, K) f32, row b
+    bit for bit the call on row b alone. ids (N,) and vals (K, N) are
+    the one-row view and return (p_pad, K). Replaces
+    segment_matmul.py::segment_sums with the pair axis jax.vmap gives it
+    (csrc/segment_sums.cu, one launch per call); on the card the sums
+    repeat bit for bit from run to run."""
+    if ids.dim() == 1:
+        k, n = vals.shape
+        check("ids", ids, (n,), torch.int32)
+        check("vals", vals, (k, n))
+        return segment_sums(ids[None], vals[None], p_pad)[0]
+    bsz, k, n = vals.shape
+    check("ids", ids, (bsz, n), torch.int32)
+    check("vals", vals, (bsz, k, n))
     dev = same_device(ids, vals)
     if dev.type != "cuda":
         return segment_sums_plain(ids, vals, p_pad, SEG_CHUNK)
-    out = torch.empty((p_pad, k), dtype=torch.float32, device=dev)
-    if p_pad == 0 or k == 0:
+    out = torch.empty((bsz, p_pad, k), dtype=torch.float32, device=dev)
+    if bsz == 0 or p_pad == 0 or k == 0:
         return out
     stream = torch.cuda.current_stream(dev).cuda_stream
     partial = ticket = 0
     if n > SEG_CHUNK:
-        ticket, partial = stream_scratch(dev, stream, 1,
-                                         -(-n // SEG_CHUNK) * p_pad * k)
-    launch("segment_sums", ids, vals, n, k, p_pad, SEG_CHUNK, partial,
+        # the rows' tickets and partials: B x chunks x p_pad x K words
+        ticket, partial = stream_scratch(dev, stream, bsz,
+                                         bsz * -(-n // SEG_CHUNK) * p_pad * k)
+    launch("segment_sums", ids, vals, bsz, n, k, p_pad, SEG_CHUNK, partial,
            ticket, out, stream=stream)
     LAUNCHES["segment_sums"] += 1
     return out

@@ -29,7 +29,7 @@ import math
 
 import torch
 
-from quatro_tpu_torch.ops.segment import SEG_CHUNK, segment_sums
+from quatro_tpu_torch.ops.segment import segment_sums
 from quatro_tpu_torch.solver.clique import _top_k_indices, top_distinct_cliques
 from quatro_tpu_torch.utils import fused
 from quatro_tpu_torch.utils.batch import drop_axis, gather_rows
@@ -83,25 +83,9 @@ def yaw_vote_entries(src, tgt, mask, adj, num_anchors: int = 64,
 def pair_segment_sums(ids: torch.Tensor, vals: torch.Tensor,
                       num_bins: int) -> torch.Tensor:
     """Each pair's histogram of (B, E) ids in [0, num_bins) and (B, K, E)
-    values, as ONE B2 call: (B, num_bins, K). Pair b's ids are offset by
-    b * num_bins (p_pad = B * num_bins) and its entries start on a
-    SEG_CHUNK boundary (padded with id -1, which B2 drops), so every bin
-    adds its entries in the per-pair call's order: bit for bit
-    ``segment_sums(ids[b], vals[b], num_bins)``."""
-    bsz, e = ids.shape
-    k = vals.shape[-2]
-    ep = -(-e // SEG_CHUNK) * SEG_CHUNK
-    off = torch.arange(bsz, dtype=torch.int32, device=ids.device)[:, None]
-    flat_ids = torch.where((ids >= 0) & (ids < num_bins),
-                           ids + off * num_bins, -1)
-    flat_vals = vals
-    if ep != e:
-        flat_ids = torch.nn.functional.pad(flat_ids, (0, ep - e), value=-1)
-        flat_vals = torch.nn.functional.pad(vals, (0, ep - e))
-    hist = segment_sums(flat_ids.reshape(-1).contiguous(),
-                        flat_vals.transpose(0, 1).reshape(k, -1).contiguous(),
-                        bsz * num_bins)
-    return hist.reshape(bsz, num_bins, k)
+    values, as ONE call of B2 with its pair axis: (B, num_bins, K), row b
+    bit for bit ``segment_sums(ids[b], vals[b], num_bins)``."""
+    return segment_sums(ids.contiguous(), vals.contiguous(), num_bins)
 
 
 def yaw_vote(src, tgt, mask, adj, num_anchors: int = 64,

@@ -1,4 +1,4 @@
-"""The thirty CUDA kernels against their plain PyTorch versions, on the card,
+"""The thirty-two CUDA kernels against their plain PyTorch versions, on the card,
 and the loop-closing path's device code (pose graph, Scan Context).
 
 Every test here is marked ``gpu`` and skips without a CUDA device. The
@@ -567,7 +567,8 @@ def test_recommended_runs_all_six_kernels(recommended):
                         "kcore_search": 1, "grow_cliques": 1,
                         "swap_cliques": 1, "distinct_cliques": 2,
                         "radius_knn": 0, "neighbor_normals": 0,
-                        "icp_correspond": 0, "icp_update": 0}
+                        "icp_correspond": 0, "icp_update": 0,
+                        "match_candidates": 1, "tuple_compact": 1}
     assert bool(res.solution.valid)
     assert res.hypotheses.rotation.shape[0] == 6
     for name in ("valid", "rotation", "translation", "max_clique_mask",
@@ -756,7 +757,8 @@ def test_batched_pipeline_launches_do_not_depend_on_batch(dev):
                    "grow_cliques": 1, "swap_cliques": 1,
                    "distinct_cliques": 2, "radius_knn": 1,
                    "neighbor_normals": 1, "icp_correspond": 13,
-                   "icp_update": 12}
+                   "icp_update": 12, "match_candidates": 1,
+                   "tuple_compact": 1}
 
 
 def test_plain_graph_refused_on_the_card(dev, recommended):
@@ -950,7 +952,7 @@ def test_register_scan_pair_runs_all_ten_kernels(dev):
         "seed_heights": 1, "plane_fit": 3, "kcore_search": 1,
         "grow_cliques": 1, "swap_cliques": 1, "distinct_cliques": 2,
         "radius_knn": 0, "neighbor_normals": 0, "icp_correspond": 0,
-        "icp_update": 0}
+        "icp_update": 0, "match_candidates": 1, "tuple_compact": 1}
     assert bool(res.solution.valid)
 
 
@@ -2558,3 +2560,157 @@ def test_refine_icp_runs_the_icp_kernels(dev, icp_card, yaw_only,
         ref = run()
     assert not any(launch.LAUNCHES[k] for k in counts)
     assert all(_bits(g, e) for g, e in zip(got, ref))
+
+
+# ------------------------------------ the matcher's kernels, B2's pair axis --
+
+def _seg_pair_case(dev, bsz, n, seed):
+    from torch_match_cases import segment_case
+    ids, vals = segment_case(seed, bsz, n, 3, 256,
+                             dead=(bsz - 1,) if bsz > 1 else ())
+    return torch.from_numpy(ids).to(dev), torch.from_numpy(vals).to(dev)
+
+
+# the vote's shape at B = 1 and 64, rows past one chunk that end inside
+# one, and the pose graph's N (one chunk: no partials) at a pair axis
+@pytest.mark.parametrize("bsz,n", [(1, 65536), (3, 2 * 8192 + 5), (5, 38),
+                                   (64, 65536)])
+def test_segment_sums_pair_axis_kernel(dev, bsz, n):
+    """B2 with its pair axis: one launch a call, bit for bit across two
+    launches, its plain version on CPU copies and each row's own one-row
+    call (a dead row all zeros), every ticket back at 0."""
+    ids, vals = _seg_pair_case(dev, bsz, n, bsz + n)
+    before = tf.LAUNCHES["segment_sums"]
+    got = segment.segment_sums(ids, vals, 256)
+    again = segment.segment_sums(ids, vals, 256)
+    assert tf.LAUNCHES["segment_sums"] == before + 2
+    assert got.shape == (bsz, 256, 3) and torch.equal(got, again)
+    assert torch.equal(got.cpu(), segment.segment_sums_plain(
+        ids.cpu(), vals.cpu(), 256, segment.SEG_CHUNK))
+    for b in range(bsz):
+        assert torch.equal(got[b], segment.segment_sums(ids[b], vals[b], 256))
+    if bsz > 1:
+        assert not got[-1].any()
+    for ticket, _ in launch._SCRATCH.values():
+        assert int(ticket.abs().sum()) == 0
+
+
+def test_vote_histograms_one_pair_axis_call(dev):
+    """``pair_segment_sums`` is one B2 call with the pair axis, no id
+    offsets: bit for bit the former flat route (ids offset by b * bins,
+    each pair padded to a chunk boundary, one problem of B * bins)."""
+    ids, vals = _seg_pair_case(dev, 8, 65536 - 100, 8)
+    before = tf.LAUNCHES["segment_sums"]
+    got = vote.pair_segment_sums(ids, vals, 256)
+    assert tf.LAUNCHES["segment_sums"] == before + 1
+    e = ids.shape[1]
+    ep = -(-e // segment.SEG_CHUNK) * segment.SEG_CHUNK
+    off = torch.arange(8, dtype=torch.int32, device=dev)[:, None] * 256
+    flat = torch.where((ids >= 0) & (ids < 256), ids + off, -1)
+    flat = torch.nn.functional.pad(flat, (0, ep - e), value=-1)
+    fv = torch.nn.functional.pad(vals, (0, ep - e))
+    ref = segment.segment_sums(flat.reshape(-1).contiguous(),
+                               fv.transpose(0, 1).reshape(3, -1).contiguous(),
+                               8 * 256).reshape(8, 256, 3)
+    assert torch.equal(got, ref)
+
+
+def _neighbors_on(dev, mode, bsz=3, na=700, nb=650, seed=0):
+    from quatro_tpu_torch.ops import match_kernels as mk
+    from torch_match_cases import neighbor_case
+    case = neighbor_case(seed, bsz, na, nb, mutual=(400, 20, 0)[:bsz],
+                         second=mode == mk.FALLBACK)
+    return [None if x is None else torch.from_numpy(x).to(dev)
+            for x in case]
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2],
+                         ids=["fallback", "crosscheck", "union"])
+@pytest.mark.parametrize("size", ["small", "full"])
+def test_match_candidates_kernel(dev, mode, size):
+    """The candidate keys and counts on the card bit for bit their plain
+    version there, under each branch (the fallback's pairs: one with its
+    mutual pairs, one starving, one with none), at 700 x 650 and at the
+    main path's 8192 x 8192; one launch a call."""
+    from quatro_tpu_torch.ops import match_kernels as mk
+    shape = dict(small=dict(), full=dict(na=8192, nb=8192))[size]
+    t = _neighbors_on(dev, mode, seed=mode, **shape)
+    before = tf.LAUNCHES["match_candidates"]
+    got = mk.match_candidates(*t, mode, 64)
+    assert tf.LAUNCHES["match_candidates"] == before + 1
+    ref = mk.match_candidates_plain(*t, mode, 64)
+    assert all(_bits(g, r) for g, r in zip(got, ref))
+    assert int(got[1].min()) >= 0
+
+
+def _tuple_on(dev, case, n_cand_min=0):
+    from torch_match_cases import TUPLE_CASES, tuple_case
+    tt, cap, ncorr, share, use_tuple, min_keep = TUPLE_CASES[case]
+    n_cand = max(tt, 2 * max(ncorr), n_cand_min)
+    keys, nc, src, tgt = tuple_case(len(case), 2, n_cand, 900, 800, ncorr,
+                                    share)
+    return ([torch.from_numpy(x).to(dev) for x in (keys, nc, src, tgt)],
+            (tt, cap, use_tuple, 0.95, 100, 0, min_keep))
+
+
+@pytest.mark.parametrize("case", ["ncorr_below_tt", "collapse",
+                                  "tt_below_capacity", "no_tuple_test"])
+def test_tuple_compact_kernel(dev, case):
+    """The tuple test and compaction on the card bit for bit their plain
+    version there (the card's a / scale: the product with the f32
+    reciprocal), under each of the shared cases; one launch a call."""
+    from quatro_tpu_torch.ops import match_kernels as mk
+    args, kw = _tuple_on(dev, case)
+    before = tf.LAUNCHES["tuple_compact"]
+    got = mk.tuple_compact(*args, *kw)
+    assert tf.LAUNCHES["tuple_compact"] == before + 1
+    ref = mk.tuple_compact_plain(*args, *kw)
+    assert all(_bits(g, r) for g, r in zip(got, ref))
+
+
+def test_tuple_compact_kernel_workspace(dev):
+    """A prefix of 8192 candidates (237 KB a pair: past the block's shared
+    memory, so the pair's slice of a device workspace) and 64 pairs of the
+    main path's shape (tt 2048 of 32768 keys) against the plain version
+    on the card."""
+    from quatro_tpu_torch.ops import match_kernels as mk
+    from torch_match_cases import tuple_case
+    assert mk.tuple_workspace(8192) > mk.TUPLE_SMEM_MAX
+    for bsz, n_cand, tt, ncorr in ((2, 16384, 8192, (8000, 3000)),
+                                   (64, 32768, 2048, [1900] * 32 + [700] * 32)):
+        keys, nc, src, tgt = tuple_case(tt, bsz, n_cand, 8192, 8192, ncorr,
+                                        [0.3] * bsz)
+        args = [torch.from_numpy(x).to(dev) for x in (keys, nc, src, tgt)]
+        got = mk.tuple_compact(*args, tt, 1024)
+        ref = mk.tuple_compact_plain(*args, tt, 1024)
+        assert all(_bits(g, r) for g, r in zip(got, ref)), (bsz, tt)
+
+
+@pytest.mark.parametrize("branch", ["fallback", "crosscheck", "union"])
+def test_match_features_kernels_equal_plain_route(dev, scans, branch,
+                                                  monkeypatch):
+    """``match_features`` on the card's own descriptors of the level_a
+    pair and of the pair with its target cut to 40 valid voxels (which
+    starves under the fallback), as one batch: the two kernels once each,
+    every output bit for bit the plain route on the card (the wrappers
+    swapped for their plain versions)."""
+    from quatro_tpu_torch.ops import match_kernels as mk
+    from quatro_tpu_torch.ops import matching
+    kw = dict(fallback=dict(crosscheck_min_matches=64),
+              crosscheck=dict(crosscheck_min_matches=0),
+              union=dict(use_crosscheck=False))[branch]
+    vox, desc, dmask, _ = extract_features(*scans, CFG, device=dev)
+    starved = dmask[1] & (torch.cumsum(dmask[1].int(), 0) <= 40)
+    args = (torch.stack([vox.points[0]] * 2), torch.stack([vox.points[1]] * 2),
+            torch.stack([desc[0]] * 2), torch.stack([desc[1]] * 2),
+            torch.stack([dmask[0]] * 2), torch.stack([dmask[1], starved]))
+    tf.reset_launches()
+    got = matching.match_features(*args, capacity=1024, device=dev, **kw)
+    assert (tf.LAUNCHES["match_candidates"], tf.LAUNCHES["tuple_compact"]) \
+        == (1, 1)
+    monkeypatch.setattr(matching, "match_candidates",
+                        mk.match_candidates_plain)
+    monkeypatch.setattr(matching, "tuple_compact", mk.tuple_compact_plain)
+    ref = matching.match_features(*args, capacity=1024, device=dev, **kw)
+    assert all(_bits(g, r) for g, r in zip(got, ref))
+    assert int(got.mask[0].sum()) >= 10

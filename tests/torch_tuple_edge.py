@@ -39,20 +39,23 @@ import chip_smoke  # noqa: E402
 def run_port(device: str):
     import torch
 
-    from quatro_tpu_torch.ops import matching
+    from quatro_tpu_torch.ops import match_kernels, matching
     from quatro_tpu_torch.pipeline import register_scan_pair
 
     if device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     seen = []
-    keep = matching.tuple_test_keep
+    keep = match_kernels.tuple_test_keep
 
     def recorder(*args, **kwargs):
         out = keep(*args, **kwargs)
         seen.append((int(args[2].sum()), int(out.sum())))
         return out
 
-    matching.tuple_test_keep = recorder
+    match_kernels.tuple_test_keep = recorder
+    # the survivors are counted in the compaction's plain route, which the
+    # kernel (csrc/tuple_test.cu) equals bit for bit on the card
+    matching.tuple_compact = match_kernels.tuple_compact_plain
     pairs, _, cfgs = chip_smoke.full_width_case()
     where = (torch.cuda.get_device_name(0) if device == "cuda" else
              f"the CPU, {torch.get_num_threads()} torch threads")
@@ -112,6 +115,7 @@ def _jax_attribution(pair, cfg, seen):
     from quatro_tpu.pipeline import preprocess, register_features
     from quatro_tpu.types import PointBatch
     from quatro_tpu_torch.ops import dense_features as tdf
+    from quatro_tpu_torch.ops import match_kernels as tmk
     from quatro_tpu_torch.ops import matching as tm
     from quatro_tpu_torch.ops import voxel as tvox
 
@@ -138,14 +142,14 @@ def _jax_attribution(pair, cfg, seen):
                                  dmask[1], **match_kw).mask
 
     port_seen = []
-    keep = tm.tuple_test_keep
+    keep = tmk.tuple_test_keep
 
     def recorder(*args, **kwargs):
         out = keep(*args, **kwargs)
         port_seen.append((int(args[2].sum()), int(out.sum())))
         return out
 
-    tm.tuple_test_keep = recorder
+    tmk.tuple_test_keep = recorder
 
     def port_match(vox, vmask):
         nrm = tdf.dense_normals(vox, vmask, f.normal_radius)
