@@ -7,17 +7,20 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions, and the float32 precision flags (TF32 off everywhere);
-2. build: the thirty kernels from quatro_tpu_torch/csrc (the twelve
-   of the JAX package's Pallas calls, the exact clique search, the
-   Kabsch rotation, the range-image labelling, the overlaps' hit
+2. build: the thirty-five kernels from quatro_tpu_torch/csrc (the
+   twelve of the JAX package's Pallas calls, the exact clique search,
+   the Kabsch rotation, the range-image labelling, the overlaps' hit
    counts, the range image's point keys and owners, edge masks and
    component stats, Patchwork's CZM points, seed heights and plane
    fits, the clique stage's k-core search, growth, swaps and
-   distinct greedy, and ICP's neighbour lists, normals, correspondences
-   and updates), one nvcc per source (twenty-five: the seed heights
-   and plane fits share csrc/plane_fit.cu, the clique stage's four
-   csrc/cliques.cu, ICP's correspondences and updates csrc/icp.cu), all
-   started together; build time and ptxas register and spill summary;
+   distinct greedy, ICP's neighbour lists, normals, correspondences
+   and updates, the matcher's candidates and tuple test, and the voxel
+   grid's keys, selection and centroids), one nvcc per source
+   (twenty-eight: the seed heights and plane fits share
+   csrc/plane_fit.cu, the clique stage's four csrc/cliques.cu, ICP's
+   correspondences and updates csrc/icp.cu, the voxel grid's three
+   csrc/voxel.cu), all started together; build time and ptxas register
+   and spill summary;
 3. path A, the main path (Quatro++ coarse to fine): ``register_scan_pair``
    on the raw seed-11 HDL-64E synthetic pair (the pair of
    tests/test_pipeline.py, capacity 131072) tilted as tests/test_ground.py
@@ -40,7 +43,9 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    normals, correspondences and updates (the target's lists and normals
    once, a correspondence and an update a pass of the 12 in the loop's
    CUDA graph, counted at its replays, and the correspondences once more
-   at the returned pose) and 1 (the labelling: one
+   at the returned pose), 2/2/2 for the voxel grid's keys, selection and
+   centroids (the features' grid and ICP's raw-scan grid; 1 each on the
+   paths without ICP) and 1 (the labelling: one
    launch a ``label_components`` call, each image to its own exit; every
    path's launch counts hold it so, and its logs give the most rounds an
    image ran, ``launch_counts``). Per-stage times from CUDA events after
@@ -196,6 +201,12 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    ``torch.cdist`` + ``topk`` (lists) and ``cdist`` + ``argmin``
    (correspondences), their bound the operations of the distances to
    the valid columns and the bytes in and out once (``icp_kernel_rows``);
+   the voxel grid's three kernels on path A's two calls (the features'
+   grid, its row, and ICP's raw-scan grid, ``raw_scans`` in its row),
+   each bit for bit its plain version on the card and across two
+   launches, their library columns the two ``torch.sort``s the
+   selection replaces and ``torch.cumsum`` of the centroids' fraction
+   rows, their bound the bytes in and out once (``voxel_kernel_rows``);
    each with its row (device ms
    of every event of the wrapper's call, the sort's too, and of the
    port's kernels alone; bound: the inputs read and outputs written once,
@@ -255,7 +266,8 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    version on the card with its device, call and plain ms and bound
    (``b64`` in their rows), Patchwork's three kernels likewise on the 128
    clouds' ``estimate_ground`` call (``patchwork_cases``, ``b64``), the
-   clique stage's four on the 64 pairs' calls (``clique_rows_b64``), B2
+   clique stage's four on the 64 pairs' calls (``clique_rows_b64``), the
+   voxel grid's three on the 128 clouds' call (``voxel_rows_b64``), B2
    on the vote's call with its bound and ``index_add_`` on the same ids
    and values (``b2_row_b64``, ``b64`` in B2's row),
    segment_cloud with the kernels against the
@@ -438,6 +450,12 @@ REPLACES = {
     # the compaction's sort
     "match_candidates": "quatro_tpu/ops/matching.py:230",
     "tuple_compact": "quatro_tpu/ops/matching.py:165",
+    # no pl.pallas_call: voxel_downsample's XLA fusions around its two
+    # lax.sorts (the keys and fractions, the runs and the occupancy
+    # ranking, the cumsum and the centroids)
+    "voxel_keys": "quatro_tpu/ops/voxel.py:113",
+    "voxel_select": "quatro_tpu/ops/voxel.py:151",
+    "voxel_centroids": "quatro_tpu/ops/voxel.py:196",
 }
 SOURCES = {
     "moment_sums": "quatro_tpu_torch/csrc/moment_sums.cu",
@@ -470,6 +488,8 @@ SOURCES = {
                     "quatro_tpu_torch/csrc/icp.cu"),
     "match_candidates": "quatro_tpu_torch/csrc/match_candidates.cu",
     "tuple_compact": "quatro_tpu_torch/csrc/tuple_test.cu",
+    **dict.fromkeys(("voxel_keys", "voxel_select", "voxel_centroids"),
+                    "quatro_tpu_torch/csrc/voxel.cu"),
 }
 # label_sweep: one launch a label_components call (the whole labelling);
 # range_image, edge_masks, component_stats: one wrapper call a
@@ -479,7 +499,9 @@ SOURCES = {
 # once for the K clique hypotheses and once for the vote's; ICP's lists
 # and normals once (the target's raw-scan voxels), its correspondences once
 # a pass and once at the returned pose, its update once a pass; the
-# matcher's candidates and tuple test once a matcher call
+# matcher's candidates and tuple test once a matcher call; the voxel
+# grid's three kernels once a grid (the features' and, with ICP, the
+# raw scans')
 ICP_PASSES = 12           # IcpConfig.iterations
 MAIN_LAUNCHES = {"moment_sums": 1, "spfh": 1, "fpfh": 1,
                  "nearest_neighbors": 0, "nearest_neighbors2": 2,
@@ -493,7 +515,8 @@ MAIN_LAUNCHES = {"moment_sums": 1, "spfh": 1, "fpfh": 1,
                  "grow_cliques": 1, "swap_cliques": 1, "distinct_cliques": 2,
                  "radius_knn": 1, "neighbor_normals": 1,
                  "icp_correspond": ICP_PASSES + 1, "icp_update": ICP_PASSES,
-                 "match_candidates": 1, "tuple_compact": 1}
+                 "match_candidates": 1, "tuple_compact": 1,
+                 "voxel_keys": 2, "voxel_select": 2, "voxel_centroids": 2}
 PROJECTION_KERNELS = ("range_image", "edge_masks", "component_stats")
 PATCHWORK_KERNELS = ("czm_points", "seed_heights", "plane_fit")
 CLIQUE_KERNELS = ("kcore_search", "grow_cliques", "swap_cliques",
@@ -501,6 +524,7 @@ CLIQUE_KERNELS = ("kcore_search", "grow_cliques", "swap_cliques",
 ICP_KERNELS = ("radius_knn", "neighbor_normals", "icp_correspond",
                "icp_update")
 MATCH_KERNELS = ("match_candidates", "tuple_compact")
+VOXEL_KERNELS = ("voxel_keys", "voxel_select", "voxel_centroids")
 # the wrappers' names in the modules that call them (recorded there)
 ICP_CALLERS = {"radius_knn": ("pipeline", "radius_neighbors"),
                "neighbor_normals": ("pipeline", "estimate_normals"),
@@ -522,6 +546,15 @@ OPS_TRIPLE = 22           # per live triple of the tuple test: its first
 # side's two lengths (3 sub, 3 mul, 2 add, a root each), two products and
 # two compares, which every triple needs before its gate can fail
 MATCH_STARVED = 40        # valid target keypoints of the starving pair
+OPS_VOXEL_POINT = 45      # per point of the keys: three (difference,
+# product, floor, two compares, difference, product, two clamps, the
+# truncation) and the Morton interleave's shifts, ors and masks
+OPS_SELECT_POS = 3        # per prefix position: the key compares and the
+# scan's add
+OPS_FRACTION_POS = 12     # per prefix position: three (conversion, add,
+# scale, running sum)
+OPS_CENTROID_SLOT = 30    # per chosen slot: three (two carries, the
+# difference, quotient, sum, product, sum) and the de-interleave
 # the clique kernels also held against their plain versions on
 # tests/torch_clique_cases.py's graphs (edge cases) and at N = 2048, whose
 # packed rows exceed a block's shared memory (read through L2)
@@ -532,7 +565,8 @@ CLIQUE_EDGE_CASES = ("n1", "n33", "n100", "mask_off", "edgeless", "complete",
 # exact fit (no fori trip)
 PATCHWORK_VARIANT = dict(using_global_elevation=True, num_iter=1)
 # PipelineConfig.recommended() without ICP (the earlier raw path, path E)
-RECOMMENDED_LAUNCHES = dict(MAIN_LAUNCHES, **dict.fromkeys(ICP_KERNELS, 0))
+RECOMMENDED_LAUNCHES = dict(MAIN_LAUNCHES, **dict.fromkeys(ICP_KERNELS, 0),
+                            **dict.fromkeys(VOXEL_KERNELS, 1))
 PATH_B_LAUNCHES = dict(RECOMMENDED_LAUNCHES, nearest_neighbors=2,
                        nearest_neighbors2=0, segment_sums=0, overlap_hits=0,
                        distinct_cliques=0)
@@ -721,24 +755,34 @@ def _pad_tensor():
     return _PAD["t"]
 
 
-def pad_key():
+def pad_key(tries=3):
     """The profiler's name of the marker launch (a one-element int16
     fill, which no path launches), learnt once from a profiled run of 64
-    of them: the device events around and between measured calls."""
+    of them (profiled again, up to ``tries`` runs, where a run saw no
+    device event): the device events around and between measured
+    calls."""
     from torch.profiler import ProfilerActivity, profile
 
-    if "key" not in _PAD:
+    for _ in range(tries):
+        if "key" in _PAD:
+            break
         t = _pad_tensor()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(64):
                 t.fill_(7)
             torch.cuda.synchronize()
-        seen = [(e.count, e.key) for e in prof.key_averages()
+        events = prof.key_averages()
+        seen = [(e.count, e.key) for e in events
                 if e.device_type == torch.autograd.DeviceType.CUDA
                 and not e.is_user_annotation]
-        check(seen, "profile: the marker fills left no device event")
-        _PAD["key"] = max(seen)[1]
+        if seen:
+            _PAD["key"] = max(seen)[1]
+        else:
+            log(f"profile: the marker fills left no device event (events "
+                f"{[(e.key[:40], str(e.device_type)) for e in events][:8]});"
+                " profiling again")
+    check("key" in _PAD, "profile: the marker fills left no device event")
     return _PAD["key"]
 
 
@@ -1503,7 +1547,8 @@ def sequence_launches(frames, calls):
     registration call (one per edge batch) the matcher's top-2 NN twice,
     the graph, the clique stage's kernels, the vote's segment sums, the
     overlaps, ICP's passes (ICP's lists and normals once a frame) and the
-    matcher's two kernels, and per pose-graph solve one segment sum per J^T apply (gn x (cg + 1))."""
+    matcher's two kernels, and per pose-graph solve one segment sum per J^T apply (gn x (cg + 1)); the voxel grid's kernels twice a frame (the
+    features' grid and ICP's raw-scan grid)."""
     gn, cg = PG_ITERS
     return dict(MAIN_LAUNCHES, moment_sums=frames, spfh=frames, fpfh=frames,
                 nearest_neighbors2=2 * calls,
@@ -1519,7 +1564,8 @@ def sequence_launches(frames, calls):
                 neighbor_normals=frames,
                 icp_correspond=(ICP_PASSES + 1) * calls,
                 icp_update=ICP_PASSES * calls,
-                **dict.fromkeys(MATCH_KERNELS, calls))
+                **dict.fromkeys(MATCH_KERNELS, calls),
+                **dict.fromkeys(VOXEL_KERNELS, 2 * frames))
 
 
 def _spread(ms):
@@ -2038,9 +2084,9 @@ def phase_pair_axis(card, pairs, gts, cfg_a, bench):
                     recorded(verify, "overlap_hits", []) as hit_calls, \
                     recorded(pipeline, "estimate_ground", []) as pw_calls, \
                     recorded(vote, "segment_sums", []) as b2_calls:
-                (_, match_calls), clique_calls = clique_run(
-                    lambda: match_run(
-                        lambda: register_scan_pair(*batches[0], cfg)))
+                ((_, match_calls), clique_calls), voxel_calls = voxel_run(
+                    lambda: clique_run(lambda: match_run(
+                        lambda: register_scan_pair(*batches[0], cfg))))
             stage_rows = stage_kernel_rows_b64(
                 (seg_calls[0][0], seg_calls[0][1]), hit_calls[0][0],
                 f"path P, B = {bsz}")
@@ -2052,8 +2098,10 @@ def phase_pair_axis(card, pairs, gts, cfg_a, bench):
                                                     f"path P, B = {bsz}")
             stage_rows.update(match_rows_b64(match_calls,
                                              f"path P, B = {bsz}"))
+            stage_rows.update(voxel_rows_b64(voxel_calls,
+                                             f"path P, B = {bsz}"))
             del (seg_calls, hit_calls, pw_calls, clique_calls, b2_calls,
-                 match_calls)
+                 match_calls, voxel_calls)
             by_kernel = {}
             busy = stage_device_busy(lambda timer: register_scan_pair(
                 *batches[1], cfg, timer=timer), by_kernel=by_kernel)
@@ -2540,7 +2588,10 @@ MAIN_KERNEL = {"moment_sums": "quatro::moment_sums_kernel",
                "icp_correspond": "quatro::icp::icp_correspond_kernel",
                "icp_update": "quatro::icp::icp_update_kernel",
                "match_candidates": "quatro::mc::match_candidates_kernel",
-               "tuple_compact": "quatro::tup::tuple_compact_kernel"}
+               "tuple_compact": "quatro::tup::tuple_compact_kernel",
+               "voxel_keys": "quatro::vox::voxel_keys_kernel",
+               "voxel_select": "quatro::vox::voxel_select_kernel",
+               "voxel_centroids": "quatro::vox::voxel_centroids_kernel"}
 
 
 def culled_pairs(pts, mask, radius):
@@ -2569,7 +2620,7 @@ def radius_pair_bytes(mask, per_row, per_valid_row):
 
 def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b,
                   jt_call, launches_s, exact, overlap_args, clique_recs,
-                  icp_recs, match_recs, match_recs_b):
+                  icp_recs, match_recs, match_recs_b, voxel_recs):
     """Every kernel against its plain version: B1-B5 and B7-B12 on the
     main path's tensors, with the main path's launch counts (B12's 0: no
     path launches it); B6 on path B's, with path B's; B2 also on path S's
@@ -2578,8 +2629,9 @@ def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b,
     the labelling kernel on path A's labelling call (``calls``), the
     overlap on path A's arbitration call (``overlap_args``), the clique
     stage's four kernels on path A's calls (``clique_recs``), ICP's four
-    on path A's calls (``icp_recs``) and the matcher's two on path A's and
-    path B's calls (``match_recs``, ``match_recs_b``)."""
+    on path A's calls (``icp_recs``), the matcher's two on path A's and
+    path B's calls (``match_recs``, ``match_recs_b``) and the voxel
+    grid's three on path A's two grids (``voxel_recs``)."""
     from quatro_tpu_torch.ops import frontend as fe
     from quatro_tpu_torch.ops.fpfh import normalize_blocks
 
@@ -2844,6 +2896,7 @@ def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b,
     icp_kernel_rows(icp_recs, main_launches, row)
     match_kernel_rows(match_recs, main_launches, row, match_recs_b,
                       match_recs_b["match_features"][0])
+    voxel_kernel_rows(voxel_recs, main_launches, row)
     segment_routes_equal(calls["segment_cloud"][0], "path A")
     for preset in LABEL_PRESETS:
         segment_routes_equal(preset_segment_args(preset), preset)
@@ -2856,7 +2909,7 @@ def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b,
         if r.get("bf16_device_ms_uncaptured", 0.0) is None]
     check(not missing, "kernel phase: no profiled run saw every call of "
           f"{missing}")
-    log("kernel phase: device ms of all thirty-two kernels "
+    log("kernel phase: device ms of all thirty-five kernels "
         "(torch.profiler): "
         + json.dumps({r["name"]: round(r["device_ms"], 6) for r in rows}))
     return rows
@@ -4500,6 +4553,197 @@ def match_rows_b64(recs, label):
     return out
 
 
+# ---------------------------------------------------------- voxel grid --
+
+def voxel_run(fn):
+    """fn() with the voxel grid's three wrappers recorded where
+    ops/voxel.py's ``voxel_downsample`` calls them: (fn's result,
+    {kernel: [(arguments cloned, keyword arguments, result)]})."""
+    from quatro_tpu_torch.ops import voxel
+
+    with contextlib.ExitStack() as stack:
+        recs = {k: stack.enter_context(recorded(voxel, k, []))
+                for k in VOXEL_KERNELS}
+        out = fn()
+    torch.cuda.synchronize()
+    return out, recs
+
+
+def capture_voxel(pair, cfg):
+    """The voxel grid's wrapper calls of one more path A run
+    (``voxel_run``): two of each kernel, the features' grid and then
+    ICP's raw-scan grid."""
+    from quatro_tpu_torch.pipeline import register_scan_pair
+
+    _, recs = voxel_run(lambda: register_scan_pair(*pair, cfg))
+    counts = {k: len(v) for k, v in recs.items()}
+    check(counts == {k: MAIN_LAUNCHES[k] for k in VOXEL_KERNELS},
+          f"path A: voxel grid wrapper calls {counts}")
+    return recs
+
+
+def voxel_fns(name, args, kwargs):
+    """The wrapper's and the plain version's call on recorded operands,
+    each returning a tuple of tensors."""
+    from quatro_tpu_torch.ops import voxel
+
+    wrapper, plain = getattr(voxel, name), getattr(voxel, f"{name}_plain")
+    return ((lambda: _as_tuple(wrapper(*args, **kwargs))),
+            (lambda: _as_tuple(plain(*args, **kwargs))))
+
+
+def voxel_shape(name, args):
+    """(clouds, points a cloud, active prefix) of a recorded call."""
+    if name == "voxel_keys":
+        return args[1].shape[0], args[1].shape[1], args[1].shape[1]
+    return args[0].shape[0], args[0].shape[1], args[1 if name ==
+                                                    "voxel_select" else 7]
+
+
+def voxel_calls_equal(recs, label):
+    """Each recorded call of the voxel grid's three wrappers again: the
+    wrapper once more and its plain version on the card on the same
+    operands, every output bit for bit the recorded call's. Returns
+    {name: calls}."""
+    counts = {}
+    for name in VOXEL_KERNELS:
+        check(recs.get(name), f"{label}: no {name} call recorded")
+        for k, (args, kwargs, out) in enumerate(recs[name]):
+            k_fn, p_fn = voxel_fns(name, args, kwargs)
+            ref = _as_tuple(out)
+            for what, other in (("a second launch", k_fn()),
+                                ("its plain version on the card", p_fn())):
+                check(len(other) == len(ref) and all(
+                    exact_bits(a, b) for a, b in zip(ref, other)),
+                    f"{name} ({label}, call {k}): differs from {what}")
+        counts[name] = len(recs[name])
+    shapes = [voxel_shape("voxel_select", a) for a, _, _ in
+              recs["voxel_select"]]
+    chosen = [[int(v) for v in (out[1] > 0).sum(-1).tolist()[:4]]
+              for _, _, out in recs["voxel_select"]]
+    log(f"voxel_keys, voxel_select, voxel_centroids ({label}): calls "
+        f"{json.dumps(counts)} at (clouds, points, active prefix) "
+        f"{shapes}, voxels chosen (first clouds) {chosen}; each equal "
+        "across launches and to its plain version on the card, bit for bit")
+    return counts
+
+
+def voxel_work(name, args):
+    """(operations, bytes) of one voxel grid wrapper call on this run's
+    data: the keys read the points and the mask and write the key, the
+    payload and the corner; the selection reads the prefix's keys and
+    writes three words a slot; the centroids read the prefix's keys, the
+    order and payload of its valid points, the corner and three words a
+    slot, and write 13 bytes a slot."""
+    from quatro_tpu_torch.ops.voxel import SENTINEL
+
+    if name == "voxel_keys":
+        clouds, n = args[1].shape
+        return (float(clouds * n * OPS_VOXEL_POINT),
+                float(clouds * n * (12 + 1 + 4 + 8) + clouds * 12))
+    if name == "voxel_select":
+        key_s, n, cap = args[:3]
+        clouds = key_s.shape[0]
+        return (float(clouds * n * OPS_SELECT_POS),
+                float(clouds * (n * 4 + cap * 12)))
+    key_s, counts, n = args[0], args[5], args[7]
+    clouds, cap = counts.shape
+    valid = int((key_s[:, :n] != SENTINEL).sum())
+    chosen = int((counts > 0).sum())
+    return (float(clouds * n * OPS_FRACTION_POS
+                  + chosen * OPS_CENTROID_SLOT),
+            float(clouds * n * 4 + valid * 16 + clouds * (12 + cap * 25)))
+
+
+def voxel_library(name, args):
+    """One PyTorch call computing the same function, where there is one:
+    the selection's two ``torch.sort``s it replaces (the int32 rank keys,
+    then the chosen positions), the centroids' ``torch.cumsum`` of the
+    fraction rows (the prefix in another order); (fn, label), else (None,
+    None)."""
+    from quatro_tpu_torch.ops import voxel
+
+    if name == "voxel_select":
+        key_s, n, cap = args[:3]
+        rank = voxel.rank_keys_plain(*voxel.run_lengths_plain(
+            key_s[:, :n])).to(torch.int32)
+        k = min(cap, n)
+
+        def lib():
+            top = torch.sort(rank, dim=-1).values[:, :k]
+            return torch.sort(top & ((1 << 17) - 1), dim=-1).values
+        return lib, "torch.sort of the rank keys + torch.sort of the chosen"
+    if name == "voxel_centroids":
+        frac = voxel.sorted_fractions(args[0], args[1], args[2], args[7])
+        return (lambda: torch.cumsum(frac, -1),
+                "torch.cumsum of the fraction rows")
+    return None, None
+
+
+def voxel_row_fields(name, args, kwargs):
+    """(k_fn, p_fn, work, lib_fn, lib_label, prefix, extra) of one
+    recorded call: the keys' row times every device event of its call
+    (the corner's where and amin too), with the kernel's own beside it."""
+    k_fn, p_fn = voxel_fns(name, args, kwargs)
+    lib_fn, lib_label = voxel_library(name, args)
+    extra = {"shape": str(voxel_shape(name, args)), "library": lib_label,
+             "registers": kernel_registers("voxel")}
+    prefix = "quatro::"
+    if name == "voxel_keys":
+        prefix = ""
+        extra["kernel_device_ms"] = device_ms_per_call(
+            k_fn, "quatro::", main=(MAIN_KERNEL[name], 1))
+    return k_fn, p_fn, voxel_work(name, args), lib_fn, lib_label, prefix, \
+        extra
+
+
+def voxel_kernel_rows(recs, main_launches, row):
+    """The voxel grid's three kernels on path A's calls
+    (``capture_voxel``): each bit for bit its plain version on the card
+    and across two launches (``voxel_calls_equal``); its row on the
+    features' grid, with the raw-scan grid's numbers in ``raw_scans``."""
+    voxel_calls_equal(recs, "path A")
+    keep = ("shape", "device_ms", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_device_ms", "kernel_device_ms")
+    for name in VOXEL_KERNELS:
+        rows = []
+        for which, (a, kw, _) in zip(("path A raw scans", None),
+                                     reversed(recs[name])):
+            k_fn, p_fn, work, lib_fn, _, prefix, extra = voxel_row_fields(
+                name, a, kw)
+            if which is None:
+                extra["raw_scans"] = {k: rows[0][k] for k in keep
+                                      if k in rows[0]}
+            rows.append(row(name, 0.0, k_fn, p_fn, *work, lib_fn,
+                            launches=main_launches[name], label=which,
+                            extra=extra, prefix=prefix))
+
+
+def voxel_rows_b64(recs, label):
+    """The voxel grid's three kernels at path P's B = 64 call (one grid of
+    128 clouds), on its recorded operands: bit for bit their plain
+    versions on the card (``voxel_calls_equal``), with device ms, call
+    ms, plain ms, bound and the library column."""
+    voxel_calls_equal(recs, label)
+    out = {}
+    for name in VOXEL_KERNELS:
+        a, kw, _ = recs[name][0]
+        k_fn, p_fn, work, lib_fn, lib_label, prefix, extra = \
+            voxel_row_fields(name, a, kw)
+        b_ms, by = bound(*work)
+        out[name] = dict(extra, **{
+            "device_ms": device_ms_per_call(
+                k_fn, prefix, main=(MAIN_KERNEL[name], 1)),
+            "ms": cuda_ms(k_fn), "plain_ms": cuda_ms(p_fn, 5),
+            "bound_ms": b_ms, "bound_by": by,
+            "library_ms": cuda_ms(lib_fn) if lib_fn else None,
+            "library_device_ms": (device_ms_per_call(lib_fn, tries=10)
+                                  if lib_fn else None)})
+    log(f"voxel_keys / voxel_select / voxel_centroids ({label}): "
+        + json.dumps(out))
+    return out
+
+
 def b2_row_b64(args, label):
     """B2 with its pair axis at the vote's shape of one B = 64 call (its
     recorded operands, ids (B, E), vals (B, 3, E)): bit for bit its plain
@@ -4923,6 +5167,7 @@ def main() -> int:
         return path_m_rank(*sys.argv[2:])
     card = phase_device()
     phase_build()
+    log(f"profile: the marker launch is {pad_key()!r}")
     record_label_rounds()
     from quatro_tpu_torch.pipeline import register_features, register_scan_pair
     from quatro_tpu_torch.utils import loops
@@ -4951,6 +5196,7 @@ def main() -> int:
     clique_recs = capture_cliques(pairs["tilted"], cfgs["A"])
     icp_recs = capture_icp(pairs["tilted"], cfgs["A"])
     match_recs = capture_matching(pairs["tilted"], cfgs["A"], "path A")
+    voxel_recs = capture_voxel(pairs["tilted"], cfgs["A"])
     mark = graphs_of("path A", mark)
     t0 = time.perf_counter()
     bench = (*bench_case(), time.perf_counter() - t0)
@@ -4992,8 +5238,9 @@ def main() -> int:
     rows = phase_kernels(res_a, cfgs["A"], launches_a, calls, res_b,
                          cfgs["B"], launches_b, jt_call, launches_s, exact,
                          overlap_args, clique_recs, icp_recs, match_recs,
-                         match_recs_b)
-    del calls, overlap_args, clique_recs, icp_recs, match_recs, match_recs_b
+                         match_recs_b, voxel_recs)
+    del (calls, overlap_args, clique_recs, icp_recs, match_recs, match_recs_b,
+         voxel_recs)
     mark = graphs_of("profile and kernels", mark)
     # last: its large batches and profiles leave the profiler missing
     # more events in the runs after them

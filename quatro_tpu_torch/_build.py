@@ -90,6 +90,7 @@ SIGNATURES = {
     "tuple_test": ("quatro_tuple_compact",
                    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                     _I, _F, _F, _I, _P, _P, _P, _P, _P, _P]),
+    "voxel": ("quatro_voxel_keys", [_P, _P, _P, _I, _I, _F, _P, _P, _P]),
 }
 
 # Further C functions of a kernel's library: name -> (source, symbol,
@@ -98,7 +99,8 @@ SIGNATURES = {
 # layout it picks for a batch; the range image's, its owner kernel (after
 # the sort); the plane fit's, the seed heights' kernel; the cliques', the
 # graph's packing, the growth, the swaps, the distinct greedy and the
-# shared memory each kernel takes; ICP's, the update kernel.
+# shared memory each kernel takes; ICP's, the update kernel; the voxel
+# grid's, the selection and the centroids.
 EXTRA = {"sqrt_rn_check": ("consistency_graph", "quatro_sqrt_rn_check",
                            [_P, _P]),
          "label_layout": ("label_sweep", "quatro_label_layout",
@@ -122,7 +124,12 @@ EXTRA = {"sqrt_rn_check": ("consistency_graph", "quatro_sqrt_rn_check",
                          [_I, _I, _I, _I, _P]),
          "icp_update": ("icp", "quatro_icp_update",
                         [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P, _P, _P,
-                         _P])}
+                         _P]),
+         "voxel_select": ("voxel", "quatro_voxel_select",
+                          [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
+         "voxel_centroids": ("voxel", "quatro_voxel_centroids",
+                             [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _I, _F, _P, _P, _P, _P, _P, _P])}
 
 _loaded: dict = {}
 build_log: dict = {}    # name -> {"seconds": s, "ptxas": text}; last build

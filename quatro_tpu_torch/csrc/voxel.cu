@@ -1,0 +1,455 @@
+// The voxel grid: per-point Morton keys and fractions, the run lengths and
+// the occupancy cut, and the centroids, three kernels around the one
+// stable sort of the int32 keys.
+//
+// The counterpart of quatro_tpu/ops/voxel.py::voxel_downsample (one
+// jax.jit whose elementwise work XLA fuses around two lax.sorts: the keys
+// and fractions :113-148, the run lengths and the occupancy ranking
+// :151-194, the cumsum and the centroid arithmetic :196-228; no Pallas
+// kernel there), bit for bit quatro_tpu_torch/ops/voxel.py's voxel_keys_plain,
+// voxel_select_plain and voxel_centroids_plain.
+//
+// keys: points (C, N, 3) f32, mask (C, N) bool and each cloud's corner
+//   minb (C, 3) f32 (torch's amin over the valid points) -> key (C, N)
+//   int32, the 30-bit Morton key of the point's cell or 2^31 - 1 where the
+//   point is masked or outside the 1024^3 grid, and payload (C, N, 2)
+//   int32, ((qx << 15) + qy, qz), the corner-relative fractions quantised
+//   to 15 bits (0 where the key is the sentinel). v = (p - minb) * inv,
+//   cell = floor(v), f = v - cell, each rounded once as torch rounds them
+//   (no contraction); q = trunc(clamp(f * 2^15, 0, 2^15 - 1)).
+// select: the sorted keys (their first n, the active prefix) -> for each
+//   cloud the run starts (the valid positions whose key differs from the
+//   previous one) and lengths (to the next start, or to n: the last run
+//   takes the sentinels after it, as the JAX package counts it); the
+//   top-k runs (k = min(capacity, n)) by count clamped to 16383,
+//   descending, ties toward the lower position, in position order ->
+//   starts_top, counts_top (unclamped) and key_top (the run's key) (C,
+//   capacity) int32; slots no run takes get 0, 0 and the cloud's first
+//   sorted key.
+// centroids: the fractions gathered through the sort's order, f = (q +
+//   0.5) * 2^-15 (0 at a sentinel), their prefix sum in XLA:CPU's blocked
+//   order (utils/scan.py::prefix_sum: running sums inside blocks of 16,
+//   the block totals summed so recursively, each block's exclusive carry
+//   added) taken at each chosen run's two boundaries, and minb + (k +
+//   sum / count) * leaf with torch's four roundings -> out (C, capacity,
+//   3) f32 (0 where no run) and out_mask (C, capacity) bool.
+//
+// Bound on the card: bytes. At path P's B = 64 (128 clouds of 131072
+// points, an active prefix of 32768, 8192 slots) the keys read 13 bytes a
+// point and write 12 (419 MB), the selection reads the 4-byte keys of the
+// prefix and writes 12 bytes a slot (29 MB), the centroids read the keys,
+// the order and the payload of the prefix and the three slot words and
+// write 13 bytes a slot (101 MB): 0.16 ms at 3.35 TB/s in all.
+// Design:
+// - keys: one thread a point, every cloud in one launch; the arithmetic in
+//   registers (the plain version's ~110 elementwise launches in one pass).
+// - select: one block of 1024 threads a cloud (its runs depend on the
+//   whole prefix). It compacts the run starts in position order by block
+//   scans into global scratch (n + 1 words a cloud, L2-resident), and
+//   replaces the JAX package's two sorts (the rank key's and the chosen
+//   positions') by a counting selection: a 2^14-bin histogram of the
+//   clamped counts in shared memory, the threshold count from a block scan
+//   of the bins (highest first), then one pass over the runs in position
+//   order that keeps those above the threshold and the first ones at it.
+//   The same integers as the sorts, since the rank key orders by count
+//   and then by position.
+// - centroids: one thread a block of 16 sorted positions, every cloud in
+//   one launch: it gathers the payload through the order, writes the
+//   block's running sums (level 0) and its total; the last block of a
+//   cloud to finish (an integer ticket after a fence, set back to 0 by
+//   that block) sums the totals level by level in the same blocked order,
+//   then computes every slot from two level-0 running sums and two
+//   carries. The prefix is never formed at all n positions.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace quatro {
+namespace vox {
+
+constexpr int kGrid = 1 << 10;               // cells per axis
+constexpr int kFBits = 15;                   // fraction bits
+constexpr int kCBits = 14;                   // clamped count bits
+constexpr int kCMax = (1 << kCBits) - 1;
+constexpr int kSentinel = 0x7fffffff;
+constexpr int kScanBlock = 16;               // XLA:CPU's prefix-sum block
+constexpr int kKeysThreads = 256;
+constexpr int kSelectThreads = 1024;
+constexpr int kSelectItems = 4;              // positions a thread per tile
+constexpr int kBinsPerThread = (1 << kCBits) / kSelectThreads;
+constexpr int kCentroidThreads = 256;
+constexpr int kMaxLevels = 8;                // enough for any int n
+
+__device__ __forceinline__ unsigned part1by2(unsigned v) {
+  v &= 0x3ffu;
+  v = (v | (v << 16)) & 0xff0000ffu;
+  v = (v | (v << 8)) & 0x0300f00fu;
+  v = (v | (v << 4)) & 0x030c30c3u;
+  v = (v | (v << 2)) & 0x09249249u;
+  return v;
+}
+
+__device__ __forceinline__ unsigned compact1by2(unsigned v) {
+  v &= 0x09249249u;
+  v = (v | (v >> 2)) & 0x030c30c3u;
+  v = (v | (v >> 4)) & 0x0300f00fu;
+  v = (v | (v >> 8)) & 0xff0000ffu;
+  v = (v | (v >> 16)) & 0x3ffu;
+  return v;
+}
+
+__global__ void __launch_bounds__(kKeysThreads)
+voxel_keys_kernel(const float* __restrict__ points, const bool* __restrict__ mask,
+                  const float* __restrict__ minb, int n, float inv, int* __restrict__ key,
+                  int2* __restrict__ payload) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t c = blockIdx.y;
+  if (e >= n) return;
+  const size_t i = c * n + e;
+  float v[3], cell[3];
+  bool in_grid = mask[i];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    v[d] = __fmul_rn(__fsub_rn(points[3 * i + d], minb[3 * c + d]), inv);
+    cell[d] = floorf(v[d]);
+    in_grid = in_grid && cell[d] >= 0.0f && cell[d] < (float)kGrid;
+  }
+  if (!in_grid) {
+    key[i] = kSentinel;
+    payload[i] = make_int2(0, 0);
+    return;
+  }
+  int q[3];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    const float f = __fmul_rn(__fsub_rn(v[d], cell[d]), (float)(1 << kFBits));
+    q[d] = __float2int_rz(fminf(fmaxf(f, 0.0f), (float)((1 << kFBits) - 1)));
+  }
+  key[i] = (int)(part1by2((unsigned)cell[0]) + (part1by2((unsigned)cell[1]) << 1) +
+                 (part1by2((unsigned)cell[2]) << 2));
+  payload[i] = make_int2((q[0] << kFBits) + q[1], q[2]);
+}
+
+// Exclusive scan of one int a thread over the block (a multiple of 32
+// threads, at most 1024); *total gets the block's sum. warp_sums: 32 ints
+// of shared memory, free again when it returns.
+__device__ int block_exclusive_scan(int v, int* warp_sums, int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) warp_sums[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < warps ? warp_sums[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w += y;
+    }
+    warp_sums[lane] = w;
+  }
+  __syncthreads();
+  const int before = (warp > 0 ? warp_sums[warp - 1] : 0) + x - v;
+  *total = warp_sums[warps - 1];
+  __syncthreads();
+  return before;
+}
+
+__global__ void __launch_bounds__(kSelectThreads)
+voxel_select_kernel(const int* __restrict__ key_s, int stride, int n, int capacity, int k,
+                    int* __restrict__ run_start, int* __restrict__ starts_top,
+                    int* __restrict__ counts_top, int* __restrict__ key_top) {
+  extern __shared__ int hist[];                 // 2^14 clamped-count bins
+  __shared__ int warp_sums[32];
+  __shared__ int cut[2];                        // threshold count, runs taken at it
+  const size_t c = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int* keys = key_s + c * stride;
+  int* starts = run_start + c * (size_t)(n + 1);
+  const size_t slots = c * (size_t)capacity;
+
+  // 1. the run starts, compacted in position order
+  int runs = 0;
+  for (int base = 0; base < n; base += kSelectThreads * kSelectItems) {
+    const int i0 = base + tid * kSelectItems;
+    int prev = (i0 > 0 && i0 <= n) ? keys[i0 - 1] : kSentinel;
+    int flags = 0, count = 0;
+#pragma unroll
+    for (int t = 0; t < kSelectItems; ++t) {
+      const int i = i0 + t;
+      if (i < n) {
+        const int kv = keys[i];
+        if (kv != kSentinel && (i == 0 || kv != prev)) {
+          flags |= 1 << t;
+          ++count;
+        }
+        prev = kv;
+      }
+    }
+    int total;
+    int at = runs + block_exclusive_scan(count, warp_sums, &total);
+#pragma unroll
+    for (int t = 0; t < kSelectItems; ++t)
+      if (flags >> t & 1) starts[at++] = i0 + t;
+    runs += total;
+  }
+  if (tid == 0) starts[runs] = n;
+  __syncthreads();
+
+  // 2. where the capacity binds, the threshold count: the largest T with
+  // at least k runs of clamped count >= T, and how many runs at T to take
+  int threshold = 0, need = 0;                  // else every run
+  if (runs > k) {
+    for (int b = tid; b < (1 << kCBits); b += kSelectThreads) hist[b] = 0;
+    __syncthreads();
+    for (int j = tid; j < runs; j += kSelectThreads)
+      atomicAdd(&hist[min(starts[j + 1] - starts[j], kCMax)], 1);
+    __syncthreads();
+    const int top = kCMax - tid * kBinsPerThread;  // this thread's highest bin
+    int sum = 0;
+#pragma unroll
+    for (int b = 0; b < kBinsPerThread; ++b) sum += hist[top - b];
+    int total;
+    const int above = block_exclusive_scan(sum, warp_sums, &total);
+    if (above < k && above + sum >= k) {
+      int s = above;
+      for (int b = 0; b < kBinsPerThread; ++b) {
+        const int h = hist[top - b];
+        if (s + h >= k) {
+          cut[0] = top - b;
+          cut[1] = k - s;
+          break;
+        }
+        s += h;
+      }
+    }
+    __syncthreads();
+    threshold = cut[0];
+    need = cut[1];
+  }
+
+  // 3. the chosen runs in position order: every run above the threshold
+  // and the first `need` at it
+  int ties = 0, chosen = 0;
+  for (int base = 0; base < runs; base += kSelectThreads) {
+    const int j = base + tid;
+    int start = 0, len = 0;
+    if (j < runs) {
+      start = starts[j];
+      len = starts[j + 1] - start;
+    }
+    const int clamped = min(len, kCMax);
+    const bool tie = j < runs && clamped == threshold;
+    int tie_total, sel_total;
+    const int tie_rank = ties + block_exclusive_scan(tie ? 1 : 0, warp_sums, &tie_total);
+    const bool sel = j < runs && (clamped > threshold || (tie && tie_rank < need));
+    const int slot = chosen + block_exclusive_scan(sel ? 1 : 0, warp_sums, &sel_total);
+    if (sel) {
+      starts_top[slots + slot] = start;
+      counts_top[slots + slot] = len;
+      key_top[slots + slot] = keys[start];
+    }
+    ties += tie_total;
+    chosen += sel_total;
+  }
+  const int first = keys[0];
+  for (int slot = chosen + tid; slot < capacity; slot += kSelectThreads) {
+    starts_top[slots + slot] = 0;
+    counts_top[slots + slot] = 0;
+    key_top[slots + slot] = first;
+  }
+}
+
+struct CentroidParams {
+  int n;          // the active prefix
+  int stride;     // N, the row length of key_s, order and payload
+  int capacity;
+  int m1;         // ceil(n / 16): level-0 blocks, the length of level 1
+  int words;      // the level words of one (cloud, axis): m1 + m2 + ...
+  float leaf;
+};
+
+// The level-0 prefix at position i of a (cloud, axis): its block's running
+// sum and, past the first block, the previous block's carry (a length of
+// at most 16 is one sequential run, with no carry added).
+__device__ __forceinline__ float prefix_at(const float* inner0, const float* level1, int n,
+                                           int i) {
+  const float within = __ldcg(inner0 + i);
+  if (n <= kScanBlock) return within;
+  const int r = i / kScanBlock;
+  return __fadd_rn(within, r > 0 ? level1[r - 1] : 0.0f);
+}
+
+__global__ void __launch_bounds__(kCentroidThreads)
+voxel_centroids_kernel(const int* __restrict__ key_s, const long long* __restrict__ order,
+                       const int2* __restrict__ payload, const float* __restrict__ minb,
+                       const int* __restrict__ starts_top, const int* __restrict__ counts_top,
+                       const int* __restrict__ key_top, CentroidParams p,
+                       float* __restrict__ inner0, float* __restrict__ levels,
+                       int* __restrict__ ticket, float* __restrict__ out,
+                       bool* __restrict__ out_mask) {
+  __shared__ bool last;
+  const size_t c = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int n = p.n;
+  float* in0 = inner0 + c * 3 * (size_t)n;
+  float* lv = levels + c * 3 * (size_t)p.words;
+
+  // level 0: a block of 16 sorted positions a thread
+  const int r = blockIdx.x * blockDim.x + tid;
+  if (r < p.m1) {
+    const size_t row = c * (size_t)p.stride;
+    float s[3] = {0.0f, 0.0f, 0.0f};
+    const int end = min(n, (r + 1) * kScanBlock);
+    for (int i = r * kScanBlock; i < end; ++i) {
+      float f[3] = {0.0f, 0.0f, 0.0f};
+      if (key_s[row + i] != kSentinel) {
+        const int2 q = payload[row + order[row + i]];
+        f[0] = __fmul_rn((float)(q.x >> kFBits) + 0.5f, 1.0f / (1 << kFBits));
+        f[1] = __fmul_rn((float)(q.x & ((1 << kFBits) - 1)) + 0.5f, 1.0f / (1 << kFBits));
+        f[2] = __fmul_rn((float)q.y + 0.5f, 1.0f / (1 << kFBits));
+      }
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        s[d] = i == r * kScanBlock ? f[d] : __fadd_rn(s[d], f[d]);
+        in0[d * (size_t)n + i] = s[d];
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < 3; ++d) lv[d * (size_t)p.words + r] = s[d];
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(ticket + c, 1) == (int)gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  if (tid == 0) ticket[c] = 0;
+  __threadfence();
+
+  // levels 1, 2, ...: running sums inside blocks of 16 in place, each
+  // block's total into the next level, until a level of at most 16
+  int offs[kMaxLevels], lens[kMaxLevels];
+  int top = 0, off = 0, m = p.m1;
+  for (;;) {
+    offs[top] = off;
+    lens[top] = m;
+    if (m <= kScanBlock) break;
+    const int next = (m + kScanBlock - 1) / kScanBlock;
+    for (int task = tid; task < 3 * next; task += blockDim.x) {
+      float* a = lv + (task / next) * (size_t)p.words + off;
+      const int b = task % next;
+      const int stop = min(m, (b + 1) * kScanBlock);
+      float s = __ldcg(a + b * kScanBlock);
+      for (int i = b * kScanBlock + 1; i < stop; ++i) {
+        s = __fadd_rn(s, __ldcg(a + i));
+        a[i] = s;
+      }
+      a[m + b] = s;
+    }
+    __syncthreads();
+    off += m;
+    m = next;
+    ++top;
+  }
+  // the top level: one sequential run
+  if (tid < 3) {
+    float* a = lv + tid * (size_t)p.words + offs[top];
+    float s = __ldcg(a);
+    for (int i = 1; i < lens[top]; ++i) {
+      s = __fadd_rn(s, __ldcg(a + i));
+      a[i] = s;
+    }
+  }
+  __syncthreads();
+  // down again: each block of a level gets its exclusive carry
+  for (int l = top - 1; l >= 0; --l) {
+    const int len = lens[l];
+    for (int task = tid; task < 3 * len; task += blockDim.x) {
+      float* a = lv + (task / len) * (size_t)p.words + offs[l];
+      const int i = task % len;
+      const int b = i / kScanBlock;
+      a[i] = __fadd_rn(__ldcg(a + i), b > 0 ? __ldcg(a + lens[l] + b - 1) : 0.0f);
+    }
+    __syncthreads();
+  }
+
+  // the slots: each chosen run's sums from its two boundaries
+  const size_t slots = c * (size_t)p.capacity;
+  for (int j = tid; j < p.capacity; j += blockDim.x) {
+    const int count = __ldcg(counts_top + slots + j);
+    float o[3] = {0.0f, 0.0f, 0.0f};
+    if (count > 0) {
+      const int start = __ldcg(starts_top + slots + j);
+      const unsigned kk = (unsigned)__ldcg(key_top + slots + j);
+      const float cells[3] = {(float)compact1by2(kk), (float)compact1by2(kk >> 1),
+                              (float)compact1by2(kk >> 2)};
+      const float cnt = (float)count;
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        const float* a0 = in0 + d * (size_t)n;
+        const float* a1 = lv + d * (size_t)p.words;
+        const float hi = prefix_at(a0, a1, n, start + count - 1);
+        const float lo = start > 0 ? prefix_at(a0, a1, n, start - 1) : 0.0f;
+        const float mean = __fdiv_rn(__fsub_rn(hi, lo), cnt);
+        o[d] = __fadd_rn(minb[3 * c + d], __fmul_rn(__fadd_rn(cells[d], mean), p.leaf));
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < 3; ++d) out[3 * (slots + j) + d] = o[d];
+    out_mask[slots + j] = count > 0;
+  }
+}
+
+}  // namespace vox
+}  // namespace quatro
+
+extern "C" int quatro_voxel_keys(const float* points, const bool* mask, const float* minb,
+                                 int clouds, int n, float inv, int* key, int2* payload,
+                                 cudaStream_t stream) {
+  using namespace quatro::vox;
+  if (clouds <= 0 || n <= 0) return (int)cudaGetLastError();
+  dim3 grid((n + kKeysThreads - 1) / kKeysThreads, clouds);
+  voxel_keys_kernel<<<grid, kKeysThreads, 0, stream>>>(points, mask, minb, n, inv, key, payload);
+  return (int)cudaGetLastError();
+}
+
+// run_start: clouds * (n + 1) int32 words of scratch.
+extern "C" int quatro_voxel_select(const int* key_s, int clouds, int stride, int n,
+                                   int capacity, int* run_start, int* starts_top,
+                                   int* counts_top, int* key_top, cudaStream_t stream) {
+  using namespace quatro::vox;
+  if (clouds <= 0 || n <= 0) return (int)cudaGetLastError();
+  const int smem = (1 << kCBits) * (int)sizeof(int);
+  const int rc = (int)cudaFuncSetAttribute(voxel_select_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc != 0) return rc;
+  const int k = capacity < n ? capacity : n;
+  voxel_select_kernel<<<clouds, kSelectThreads, smem, stream>>>(
+      key_s, stride, n, capacity, k, run_start, starts_top, counts_top, key_top);
+  return (int)cudaGetLastError();
+}
+
+// inner0: clouds * 3 * n f32 words of scratch; levels: clouds * 3 * words
+// (m1 + m2 + ... down to a level of at most 16); ticket: clouds ints that
+// are 0, and that the kernel leaves at 0.
+extern "C" int quatro_voxel_centroids(const int* key_s, const long long* order,
+                                      const int2* payload, const float* minb,
+                                      const int* starts_top, const int* counts_top,
+                                      const int* key_top, int clouds, int stride, int n,
+                                      int capacity, int words, float leaf, float* inner0,
+                                      float* levels, int* ticket, float* out, bool* out_mask,
+                                      cudaStream_t stream) {
+  using namespace quatro::vox;
+  if (clouds <= 0 || n <= 0) return (int)cudaGetLastError();
+  const int m1 = (n + kScanBlock - 1) / kScanBlock;
+  const CentroidParams p{n, stride, capacity, m1, words, leaf};
+  dim3 grid((m1 + kCentroidThreads - 1) / kCentroidThreads, clouds);
+  voxel_centroids_kernel<<<grid, kCentroidThreads, 0, stream>>>(
+      key_s, order, payload, minb, starts_top, counts_top, key_top, p, inner0, levels, ticket,
+      out, out_mask);
+  return (int)cudaGetLastError();
+}

@@ -1,4 +1,4 @@
-"""The thirty-two CUDA kernels against their plain PyTorch versions, on the card,
+"""The thirty-five CUDA kernels against their plain PyTorch versions, on the card,
 and the loop-closing path's device code (pose graph, Scan Context).
 
 Every test here is marked ``gpu`` and skips without a CUDA device. The
@@ -36,6 +36,8 @@ from torch_clique_cases import (GRAPHS, clique_stage_calls, distinct_case,
                                 graph_case, miss_one_batch,
                                 plain_clique_route, wide_graphs)
 from torch_czm_cases import CZM_CONFIGS, czm_specials
+from torch_voxel_cases import CASES as VOXEL_CASES
+from torch_voxel_cases import VOXEL, voxel_case
 
 pytestmark = pytest.mark.gpu
 
@@ -568,7 +570,9 @@ def test_recommended_runs_all_six_kernels(recommended):
                         "swap_cliques": 1, "distinct_cliques": 2,
                         "radius_knn": 0, "neighbor_normals": 0,
                         "icp_correspond": 0, "icp_update": 0,
-                        "match_candidates": 1, "tuple_compact": 1}
+                        "match_candidates": 1, "tuple_compact": 1,
+                        "voxel_keys": 1, "voxel_select": 1,
+                        "voxel_centroids": 1}
     assert bool(res.solution.valid)
     assert res.hypotheses.rotation.shape[0] == 6
     for name in ("valid", "rotation", "translation", "max_clique_mask",
@@ -758,7 +762,8 @@ def test_batched_pipeline_launches_do_not_depend_on_batch(dev):
                    "distinct_cliques": 2, "radius_knn": 1,
                    "neighbor_normals": 1, "icp_correspond": 13,
                    "icp_update": 12, "match_candidates": 1,
-                   "tuple_compact": 1}
+                   "tuple_compact": 1, "voxel_keys": 2, "voxel_select": 2,
+                   "voxel_centroids": 2}
 
 
 def test_plain_graph_refused_on_the_card(dev, recommended):
@@ -952,7 +957,8 @@ def test_register_scan_pair_runs_all_ten_kernels(dev):
         "seed_heights": 1, "plane_fit": 3, "kcore_search": 1,
         "grow_cliques": 1, "swap_cliques": 1, "distinct_cliques": 2,
         "radius_knn": 0, "neighbor_normals": 0, "icp_correspond": 0,
-        "icp_update": 0, "match_candidates": 1, "tuple_compact": 1}
+        "icp_update": 0, "match_candidates": 1, "tuple_compact": 1,
+        "voxel_keys": 1, "voxel_select": 1, "voxel_centroids": 1}
     assert bool(res.solution.valid)
 
 
@@ -2714,3 +2720,115 @@ def test_match_features_kernels_equal_plain_route(dev, scans, branch,
     ref = matching.match_features(*args, capacity=1024, device=dev, **kw)
     assert all(_bits(g, r) for g, r in zip(got, ref))
     assert int(got.mask[0].sum()) >= 10
+
+
+# ----------------------------------------------------------- voxel grid --
+
+# tests/torch_voxel_cases.py's clouds, and "raw": three of them padded to
+# 131072 points (the raw scans' prefix, five prefix levels) at 8192 voxels
+VOXEL_ROUTE_CASES = VOXEL_CASES + ("raw",)
+
+
+def _voxel_case(dev, name):
+    """(points, mask, capacity, active prefix n) on ``dev``."""
+    if name == "raw":
+        clouds = [voxel_case(c) for c in ("no_active_cap", "dense_voxel",
+                                          "ties")]
+        pts = torch.zeros(3, 1 << 17, 3)
+        mask = torch.zeros(3, 1 << 17, dtype=torch.bool)
+        for c, (p, m, _, _) in enumerate(clouds):
+            pts[c, 5000:5000 + p.shape[1]] = torch.from_numpy(p[0])
+            mask[c, 5000:5000 + p.shape[1]] = torch.from_numpy(m[0])
+        return pts.to(dev), mask.to(dev), 8192, 1 << 17
+    pts, mask, cap, act = voxel_case(name)
+    n = pts.shape[1] if act is None else min(act, pts.shape[1])
+    return (torch.from_numpy(pts).to(dev), torch.from_numpy(mask).to(dev),
+            cap, n)
+
+
+def _voxel_sorted(pts, mask):
+    from quatro_tpu_torch.ops import voxel
+    minb, key, payload = voxel.voxel_keys_plain(pts, mask, VOXEL)
+    key_s, order = torch.sort(key, dim=-1, stable=True)
+    return minb, key_s, order, payload
+
+
+@pytest.mark.parametrize("case", VOXEL_ROUTE_CASES)
+def test_voxel_keys_kernel(dev, case):
+    """The keys kernel: one launch, every output bit for bit its plain
+    version on the card and on CPU copies."""
+    from quatro_tpu_torch.ops import voxel
+    pts, mask, _, _ = _voxel_case(dev, case)
+    before = launch.LAUNCHES["voxel_keys"]
+    got = voxel.voxel_keys(pts, mask, VOXEL)
+    torch.cuda.synchronize()
+    assert launch.LAUNCHES["voxel_keys"] == before + 1
+    ref = voxel.voxel_keys_plain(pts, mask, VOXEL)
+    cpu = voxel.voxel_keys_plain(pts.cpu(), mask.cpu(), VOXEL)
+    for what, g, r, h in zip(("corner", "key", "payload"), got, ref, cpu):
+        assert _bits(g, r), what
+        assert _bits(g.cpu(), h), what
+
+
+@pytest.mark.parametrize("case", VOXEL_ROUTE_CASES)
+def test_voxel_select_kernel(dev, case):
+    """The selection kernel (a block a cloud, the counting selection) on
+    the plain sorted keys: one launch, starts, counts and keys bit for bit
+    its plain version (the two sorts) on the card and on CPU copies."""
+    from quatro_tpu_torch.ops import voxel
+    pts, mask, cap, n = _voxel_case(dev, case)
+    _, key_s, _, _ = _voxel_sorted(pts, mask)
+    before = launch.LAUNCHES["voxel_select"]
+    got = voxel.voxel_select(key_s, n, cap)
+    torch.cuda.synchronize()
+    assert launch.LAUNCHES["voxel_select"] == before + 1
+    ref = voxel.voxel_select_plain(key_s, n, cap)
+    cpu = voxel.voxel_select_plain(key_s.cpu(), n, cap)
+    for what, g, r, h in zip(("starts", "counts", "keys"), got, ref, cpu):
+        assert _bits(g, r), what
+        assert _bits(g.cpu(), h), what
+
+
+@pytest.mark.parametrize("case", VOXEL_ROUTE_CASES)
+def test_voxel_centroids_kernel(dev, case):
+    """The centroid kernel on the plain route's chosen runs: one launch,
+    centroids and mask bit for bit its plain version on the card and on
+    CPU copies, and across two launches (its tickets back at 0)."""
+    from quatro_tpu_torch.ops import voxel
+    pts, mask, cap, n = _voxel_case(dev, case)
+    minb, key_s, order, payload = _voxel_sorted(pts, mask)
+    sel = voxel.voxel_select_plain(key_s, n, cap)
+    args = (key_s, order, payload, minb, *sel, n, VOXEL)
+    before = launch.LAUNCHES["voxel_centroids"]
+    got = voxel.voxel_centroids(*args)
+    again = voxel.voxel_centroids(*args)
+    torch.cuda.synchronize()
+    assert launch.LAUNCHES["voxel_centroids"] == before + 2
+    ref = voxel.voxel_centroids_plain(*args)
+    cpu = voxel.voxel_centroids_plain(*(a.cpu() if torch.is_tensor(a) else a
+                                        for a in args))
+    for what, g, a, r, h in zip(("centroids", "mask"), got, again, ref, cpu):
+        assert _bits(g, a), what
+        assert _bits(g, r), what
+        assert _bits(g.cpu(), h), what
+
+
+@pytest.mark.parametrize("case", VOXEL_ROUTE_CASES)
+def test_voxel_downsample_runs_the_voxel_kernels(dev, case):
+    """``voxel_downsample`` on the card: one launch of each of the three
+    kernels, its output bit for bit the plain route on CPU copies, and
+    each cloud of the batch its own call."""
+    pts, mask, cap, n = _voxel_case(dev, case)
+    act = n if n < pts.shape[1] else None
+    launch.reset_launches()
+    out, out_mask = voxel_downsample(pts, mask, VOXEL, cap, active_cap=act)
+    torch.cuda.synchronize()
+    assert {k: launch.LAUNCHES[k] for k in ("voxel_keys", "voxel_select",
+                                            "voxel_centroids")} \
+        == dict.fromkeys(("voxel_keys", "voxel_select", "voxel_centroids"),
+                         1)
+    ref = voxel_downsample(pts.cpu(), mask.cpu(), VOXEL, cap, active_cap=act)
+    assert _bits(out.cpu(), ref[0]) and _bits(out_mask.cpu(), ref[1])
+    for c in range(pts.shape[0]):
+        one = voxel_downsample(pts[c], mask[c], VOXEL, cap, active_cap=act)
+        assert _bits(out[c], one[0]) and _bits(out_mask[c], one[1])

@@ -21,8 +21,10 @@ device events between marker fills at the stage ends), every stage's
 device time and device launches by kernel (the largest first), each
 stage's device ms and launch count, with the labelling's kernels', the
 overlap's kernels' and the port's own kernels' in the projection, in
-Patchwork, in the cliques, in ICP, in matching and in the vote
-(``quatro::``) sums, the device's busy
+Patchwork, in the voxel grid, in the cliques, in ICP, in matching and in
+the vote (``quatro::``) sums, for ``A`` the ``icp`` stage's device busy
+ms by sub-step (raw voxels, lists, normals, passes, final; its split by
+kernel on the lines before, ``chip_smoke.icp_substeps``), the device's busy
 total and idle share, the peak memory and the labelling loop's counters
 (rounds, flag reads, replays; empty where the labelling is one kernel
 launch) of the timed call. With ``--cc-chunks`` both cases run once for
@@ -120,6 +122,9 @@ def main() -> int:
                              for k, (n, ms) in kernels.items()),
                             key=lambda r: -r[2])
                  for st, kernels in by_kernel.items()}
+        icp_busy = (cs.icp_substeps(pair, cfg, f"{name} icp sub-steps "
+                                    f"({tree.name})")
+                    if name == "A" else None)
         wall = sorted(walls)[1]
         total = None if busy is None else sum(busy.values())
         print(json.dumps({
@@ -137,6 +142,9 @@ def main() -> int:
             "patchwork_own_kernels_ms": round(sum(
                 r[2] for r in split.get("patchwork", [])
                 if "quatro::" in r[0]), 4),
+            "voxel_own_kernels_ms": round(sum(
+                r[2] for r in split.get("voxel", [])
+                if "quatro::" in r[0]), 4),
             "cliques_own_kernels_ms": round(sum(
                 r[2] for r in split.get("cliques", [])
                 if "quatro::" in r[0]), 4),
@@ -149,6 +157,7 @@ def main() -> int:
             "vote_own_kernels_ms": round(sum(
                 r[2] for r in split.get("vote", [])
                 if "quatro::" in r[0]), 4),
+            "icp_substeps_busy_ms": icp_busy,
             "stage_device_ms": {st: round(sum(r[2] for r in rows), 4)
                                 for st, rows in split.items()},
             "stage_launches": {st: sum(r[1] for r in rows)
