@@ -7,20 +7,21 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions, and the float32 precision flags (TF32 off everywhere);
-2. build: the thirty-five kernels from quatro_tpu_torch/csrc (the
+2. build: the thirty-eight kernels from quatro_tpu_torch/csrc (the
    twelve of the JAX package's Pallas calls, the exact clique search,
    the Kabsch rotation, the range-image labelling, the overlaps' hit
    counts, the range image's point keys and owners, edge masks and
    component stats, Patchwork's CZM points, seed heights and plane
    fits, the clique stage's k-core search, growth, swaps and
    distinct greedy, ICP's neighbour lists, normals, correspondences
-   and updates, the matcher's candidates and tuple test, and the voxel
-   grid's keys, selection and centroids), one nvcc per source
-   (twenty-eight: the seed heights and plane fits share
-   csrc/plane_fit.cu, the clique stage's four csrc/cliques.cu, ICP's
-   correspondences and updates csrc/icp.cu, the voxel grid's three
-   csrc/voxel.cu), all started together; build time and ptxas register
-   and spill summary;
+   and updates, the matcher's candidates and tuple test, the voxel
+   grid's keys, selection and centroids, and the polish's chain TIMs, yaw
+   GNC and COTE), one nvcc per source (twenty-nine: the seed heights and
+   plane fits share csrc/plane_fit.cu, the clique stage's four
+   csrc/cliques.cu, ICP's correspondences and updates csrc/icp.cu, the
+   voxel grid's three csrc/voxel.cu, the polish's three csrc/polish.cu),
+   all started together; build time and ptxas register and spill
+   summary;
 3. path A, the main path (Quatro++ coarse to fine): ``register_scan_pair``
    on the raw seed-11 HDL-64E synthetic pair (the pair of
    tests/test_pipeline.py, capacity 131072) tilted as tests/test_ground.py
@@ -45,7 +46,8 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    CUDA graph, counted at its replays, and the correspondences once more
    at the returned pose), 2/2/2 for the voxel grid's keys, selection and
    centroids (the features' grid and ICP's raw-scan grid; 1 each on the
-   paths without ICP) and 1 (the labelling: one
+   paths without ICP), 1/1/1 for the polish's chain, yaw GNC and COTE
+   (one solve of the 4 + 2 hypothesis rows) and 1 (the labelling: one
    launch a ``label_components`` call, each image to its own exit; every
    path's launch counts hold it so, and its logs give the most rounds an
    image ran, ``launch_counts``). Per-stage times from CUDA events after
@@ -53,7 +55,8 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    ("leveling" and "icp" among them); ground, non-ground and segment points
    per cloud; the hypotheses and the winner; the pair latency over five
    more runs. Then its device loops (utils/loops.py; Patchwork's bf16
-   plane fits, the GNC, the overlaps' blocks and ICP's passes; the clique
+   plane fits, the overlaps' blocks and ICP's passes; no yaw GNC loop,
+   whose kernel is the card's route; the clique
    stage's loops, the k-core search, the growth, the swaps and the
    distinct greedy, run on the card only on their plain route since its
    four kernels, csrc/cliques.cu) on its own tensors, each recorded in one more
@@ -75,7 +78,9 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    3-D FGR, the TLS scale, exact clique): each valid and within 0.01 rad
    / 0.1 m of path B's own pose, the scale within 0.02 of 1, the exact
    search one kernel launch (0 in every other mode), the Kabsch kernel
-   launched in the SO(3) modes (TEASER, the 3-D FGR) and in no other;
+   launched in the SO(3) modes (TEASER, the 3-D FGR) and in no other,
+   the polish's chain and COTE kernels once, its yaw GNC once but in the
+   SO(3) modes;
    each mode's time,
    GNC iterations and device loops; for the exact search its completion,
    restriction and steps, and the host search (Python-int bitsets) timed
@@ -207,6 +212,15 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    launches, their library columns the two ``torch.sort``s the
    selection replaces and ``torch.cumsum`` of the centroids' fraction
    rows, their bound the bytes in and out once (``voxel_kernel_rows``);
+   the polish's three kernels on path A's solve, in path B's TEASER, FGR
+   and 3-D FGR solves and on tests/torch_polish_cases.py's rows (junk and
+   empty rows, an IMU prior, iteration bounds, noise-free inliers, COTE's
+   ties at one value and at -0.0 / +0.0 with NaN and inf), each bit for
+   bit its plain version on the card (the yaw GNC's its loop), their
+   rows with COTE's library column ``torch.sort(stable=True)`` of the
+   same events, the GNC's and COTE's bound marked as not applying (each
+   row a chain of rounds, sorts and scans in one block;
+   ``polish_kernel_rows``);
    each with its row (device ms
    of every event of the wrapper's call, the sort's too, and of the
    port's kernels alone; bound: the inputs read and outputs written once,
@@ -267,7 +281,8 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    (``b64`` in their rows), Patchwork's three kernels likewise on the 128
    clouds' ``estimate_ground`` call (``patchwork_cases``, ``b64``), the
    clique stage's four on the 64 pairs' calls (``clique_rows_b64``), the
-   voxel grid's three on the 128 clouds' call (``voxel_rows_b64``), B2
+   voxel grid's three on the 128 clouds' call (``voxel_rows_b64``), the
+   polish's three on the 384 hypothesis rows (``polish_rows_b64``), B2
    on the vote's call with its bound and ``index_add_`` on the same ids
    and values (``b2_row_b64``, ``b64`` in B2's row),
    segment_cloud with the kernels against the
@@ -456,6 +471,12 @@ REPLACES = {
     "voxel_keys": "quatro_tpu/ops/voxel.py:113",
     "voxel_select": "quatro_tpu/ops/voxel.py:151",
     "voxel_centroids": "quatro_tpu/ops/voxel.py:196",
+    # no pl.pallas_call: _solve_from_inliers' chain order and TIMs, the
+    # GNC's lax.while_loop and COTE's lax.sort and cumsums with the
+    # composition around them (XLA fusions in one jax.jit)
+    "polish_chain": "quatro_tpu/solver/quatro.py:56",
+    "gnc_yaw": "quatro_tpu/solver/rotation.py:80",
+    "polish_cote": "quatro_tpu/solver/translation.py:31",
 }
 SOURCES = {
     "moment_sums": "quatro_tpu_torch/csrc/moment_sums.cu",
@@ -490,6 +511,8 @@ SOURCES = {
     "tuple_compact": "quatro_tpu_torch/csrc/tuple_test.cu",
     **dict.fromkeys(("voxel_keys", "voxel_select", "voxel_centroids"),
                     "quatro_tpu_torch/csrc/voxel.cu"),
+    **dict.fromkeys(("polish_chain", "gnc_yaw", "polish_cote"),
+                    "quatro_tpu_torch/csrc/polish.cu"),
 }
 # label_sweep: one launch a label_components call (the whole labelling);
 # range_image, edge_masks, component_stats: one wrapper call a
@@ -501,7 +524,8 @@ SOURCES = {
 # a pass and once at the returned pose, its update once a pass; the
 # matcher's candidates and tuple test once a matcher call; the voxel
 # grid's three kernels once a grid (the features' and, with ICP, the
-# raw scans')
+# raw scans'); the polish's three once a solve (the yaw GNC none in the
+# SO(3) modes)
 ICP_PASSES = 12           # IcpConfig.iterations
 MAIN_LAUNCHES = {"moment_sums": 1, "spfh": 1, "fpfh": 1,
                  "nearest_neighbors": 0, "nearest_neighbors2": 2,
@@ -516,7 +540,8 @@ MAIN_LAUNCHES = {"moment_sums": 1, "spfh": 1, "fpfh": 1,
                  "radius_knn": 1, "neighbor_normals": 1,
                  "icp_correspond": ICP_PASSES + 1, "icp_update": ICP_PASSES,
                  "match_candidates": 1, "tuple_compact": 1,
-                 "voxel_keys": 2, "voxel_select": 2, "voxel_centroids": 2}
+                 "voxel_keys": 2, "voxel_select": 2, "voxel_centroids": 2,
+                 "polish_chain": 1, "gnc_yaw": 1, "polish_cote": 1}
 PROJECTION_KERNELS = ("range_image", "edge_masks", "component_stats")
 PATCHWORK_KERNELS = ("czm_points", "seed_heights", "plane_fit")
 CLIQUE_KERNELS = ("kcore_search", "grow_cliques", "swap_cliques",
@@ -525,6 +550,14 @@ ICP_KERNELS = ("radius_knn", "neighbor_normals", "icp_correspond",
                "icp_update")
 MATCH_KERNELS = ("match_candidates", "tuple_compact")
 VOXEL_KERNELS = ("voxel_keys", "voxel_select", "voxel_centroids")
+POLISH_KERNELS = ("polish_chain", "gnc_yaw", "polish_cote")
+# the polish's wrappers in the modules that call them (recorded there)
+POLISH_CALLERS = {"polish_chain": "solver.quatro",
+                  "gnc_yaw": "solver.rotation",
+                  "polish_cote": "solver.quatro"}
+# the yaw GNC's device loops, which run on the card only on its plain
+# route since its kernel
+YAW_LOOPS = ("gnc_tls", "fgr_gm")
 # the wrappers' names in the modules that call them (recorded there)
 ICP_CALLERS = {"radius_knn": ("pipeline", "radius_neighbors"),
                "neighbor_normals": ("pipeline", "estimate_normals"),
@@ -555,6 +588,12 @@ OPS_FRACTION_POS = 12     # per prefix position: three (conversion, add,
 # scale, running sum)
 OPS_CENTROID_SLOT = 30    # per chosen slot: three (two carries, the
 # difference, quotient, sum, product, sum) and the de-interleave
+OPS_CHAIN_POS = 20        # per (row, position): the scan's adds, two
+# gathers' differences and products, the quotient, the prior's 15
+OPS_GNC_POINT = 30        # per (row, point, GNC round): the residual (4
+# products, 4 sums, 2 squares), the weight (~8), three tree inputs and adds
+OPS_COTE_EVENT = 20       # per (row, axis, event): the key, the three
+# series and their prefix, the cost (9) and the argmin's compare
 # the clique kernels also held against their plain versions on
 # tests/torch_clique_cases.py's graphs (edge cases) and at N = 2048, whose
 # packed rows exceed a block's shared memory (read through L2)
@@ -1103,10 +1142,14 @@ def phase_loops(card, label, fn):
     before the graphs), all four bit for bit. Prints per loop its calls,
     and per call its rounds, flag reads, captures and replays on the
     graph route and at chunk 1, with both routes' ms (host wall ending in
-    a synchronise). Returns fn's result."""
+    a synchronise). No yaw GNC loop may run (its kernel is the card's
+    route). Returns fn's result."""
     from quatro_tpu_torch.utils import loops
     out, calls = record_loops(fn)
     check(calls, f"{label}: no device loop ran")
+    yaw = sorted({args[0] for _, args, _ in calls} & set(YAW_LOOPS))
+    check(not yaw, f"{label}: the yaw GNC ran its device loop {yaw} (its "
+          "kernel is the card's route)")
     table = {}
     for kind, args, kwargs in calls:
         name = args[0]
@@ -1264,7 +1307,9 @@ def phase_solver_modes(res, cfg, card, corr8):
     kernel launch and every other mode none. Logs each mode's time (host
     wall, after a warm-up), GNC iterations and device loops; for "exact"
     the search's completion, restriction and steps and the host search's
-    time in this run; for TEASER and the 3-D FGR their GNC loop
+    time in this run; the polish's chain and COTE kernels once each, its
+    yaw GNC kernel once outside the SO(3) modes; for TEASER and the 3-D
+    FGR their GNC loop
     captured and replayed, bit-equal to ``eager_loops()`` with equal
     launches, and the uncaptured torch.linalg.svd route's time. The exact
     kernel against its plain version (``exact_routes``) at B = 1,
@@ -1311,6 +1356,8 @@ def phase_solver_modes(res, cfg, card, corr8):
               "search launches")
         check((launches["kabsch"] > 0) == (name in SO3_MODES),
               f"solver mode {name}: {launches['kabsch']} Kabsch launches")
+        check(polish_launches(launches, name in SO3_MODES),
+              f"solver mode {name}: polish launches {launches}")
         if name in SO3_MODES:
             gnc = counters.get(SO3_MODES[name], {})
             check(gnc.get("captures", 0) >= 1 and gnc.get("replays", 0) >= 1,
@@ -1406,6 +1453,9 @@ def solver_modes_batched(corr8, cfg, card):
         check((launches["kabsch"] > 0) == (name in SO3_MODES),
               f"solver mode {name} at B = {bsz}: {launches['kabsch']} "
               "Kabsch launches")
+        check(polish_launches(launches, name in SO3_MODES),
+              f"solver mode {name} at B = {bsz}: polish launches "
+              f"{launches}")
         singles_ms = 0.0
         for b in range(bsz):
             one, one_ms = _synced_ms(lambda: register_correspondences(
@@ -1547,8 +1597,10 @@ def sequence_launches(frames, calls):
     registration call (one per edge batch) the matcher's top-2 NN twice,
     the graph, the clique stage's kernels, the vote's segment sums, the
     overlaps, ICP's passes (ICP's lists and normals once a frame) and the
-    matcher's two kernels, and per pose-graph solve one segment sum per J^T apply (gn x (cg + 1)); the voxel grid's kernels twice a frame (the
-    features' grid and ICP's raw-scan grid)."""
+    matcher's two kernels and the polish's three, and per pose-graph
+    solve one segment sum per J^T apply (gn x (cg + 1)); the voxel grid's
+    kernels twice a frame (the features' grid and ICP's raw-scan
+    grid)."""
     gn, cg = PG_ITERS
     return dict(MAIN_LAUNCHES, moment_sums=frames, spfh=frames, fpfh=frames,
                 nearest_neighbors2=2 * calls,
@@ -1565,7 +1617,8 @@ def sequence_launches(frames, calls):
                 icp_correspond=(ICP_PASSES + 1) * calls,
                 icp_update=ICP_PASSES * calls,
                 **dict.fromkeys(MATCH_KERNELS, calls),
-                **dict.fromkeys(VOXEL_KERNELS, 2 * frames))
+                **dict.fromkeys(VOXEL_KERNELS, 2 * frames),
+                **dict.fromkeys(POLISH_KERNELS, calls))
 
 
 def _spread(ms):
@@ -2084,9 +2137,10 @@ def phase_pair_axis(card, pairs, gts, cfg_a, bench):
                     recorded(verify, "overlap_hits", []) as hit_calls, \
                     recorded(pipeline, "estimate_ground", []) as pw_calls, \
                     recorded(vote, "segment_sums", []) as b2_calls:
-                ((_, match_calls), clique_calls), voxel_calls = voxel_run(
-                    lambda: clique_run(lambda: match_run(
-                        lambda: register_scan_pair(*batches[0], cfg))))
+                (((_, match_calls), clique_calls), voxel_calls), \
+                    polish_calls = polish_run(lambda: voxel_run(
+                        lambda: clique_run(lambda: match_run(
+                            lambda: register_scan_pair(*batches[0], cfg)))))
             stage_rows = stage_kernel_rows_b64(
                 (seg_calls[0][0], seg_calls[0][1]), hit_calls[0][0],
                 f"path P, B = {bsz}")
@@ -2100,8 +2154,10 @@ def phase_pair_axis(card, pairs, gts, cfg_a, bench):
                                              f"path P, B = {bsz}"))
             stage_rows.update(voxel_rows_b64(voxel_calls,
                                              f"path P, B = {bsz}"))
+            stage_rows.update(polish_rows_b64(polish_calls,
+                                              f"path P, B = {bsz}"))
             del (seg_calls, hit_calls, pw_calls, clique_calls, b2_calls,
-                 match_calls, voxel_calls)
+                 match_calls, voxel_calls, polish_calls)
             by_kernel = {}
             busy = stage_device_busy(lambda timer: register_scan_pair(
                 *batches[1], cfg, timer=timer), by_kernel=by_kernel)
@@ -2591,7 +2647,10 @@ MAIN_KERNEL = {"moment_sums": "quatro::moment_sums_kernel",
                "tuple_compact": "quatro::tup::tuple_compact_kernel",
                "voxel_keys": "quatro::vox::voxel_keys_kernel",
                "voxel_select": "quatro::vox::voxel_select_kernel",
-               "voxel_centroids": "quatro::vox::voxel_centroids_kernel"}
+               "voxel_centroids": "quatro::vox::voxel_centroids_kernel",
+               "polish_chain": "quatro::pol::polish_chain_kernel",
+               "gnc_yaw": "quatro::pol::gnc_yaw_kernel",
+               "polish_cote": "quatro::pol::polish_cote_kernel"}
 
 
 def culled_pairs(pts, mask, radius):
@@ -2620,7 +2679,8 @@ def radius_pair_bytes(mask, per_row, per_valid_row):
 
 def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b,
                   jt_call, launches_s, exact, overlap_args, clique_recs,
-                  icp_recs, match_recs, match_recs_b, voxel_recs):
+                  icp_recs, match_recs, match_recs_b, voxel_recs,
+                  polish_recs):
     """Every kernel against its plain version: B1-B5 and B7-B12 on the
     main path's tensors, with the main path's launch counts (B12's 0: no
     path launches it); B6 on path B's, with path B's; B2 also on path S's
@@ -2630,8 +2690,9 @@ def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b,
     overlap on path A's arbitration call (``overlap_args``), the clique
     stage's four kernels on path A's calls (``clique_recs``), ICP's four
     on path A's calls (``icp_recs``), the matcher's two on path A's and
-    path B's calls (``match_recs``, ``match_recs_b``) and the voxel
-    grid's three on path A's two grids (``voxel_recs``)."""
+    path B's calls (``match_recs``, ``match_recs_b``), the voxel
+    grid's three on path A's two grids (``voxel_recs``) and the polish's
+    three on path A's solve (``polish_recs``)."""
     from quatro_tpu_torch.ops import frontend as fe
     from quatro_tpu_torch.ops.fpfh import normalize_blocks
 
@@ -2897,6 +2958,7 @@ def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b,
     match_kernel_rows(match_recs, main_launches, row, match_recs_b,
                       match_recs_b["match_features"][0])
     voxel_kernel_rows(voxel_recs, main_launches, row)
+    polish_kernel_rows(polish_recs, main_launches, row, res_b, cfg_b)
     segment_routes_equal(calls["segment_cloud"][0], "path A")
     for preset in LABEL_PRESETS:
         segment_routes_equal(preset_segment_args(preset), preset)
@@ -2909,7 +2971,7 @@ def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b,
         if r.get("bf16_device_ms_uncaptured", 0.0) is None]
     check(not missing, "kernel phase: no profiled run saw every call of "
           f"{missing}")
-    log("kernel phase: device ms of all thirty-five kernels "
+    log("kernel phase: device ms of all thirty-eight kernels "
         "(torch.profiler): "
         + json.dumps({r["name"]: round(r["device_ms"], 6) for r in rows}))
     return rows
@@ -4744,6 +4806,287 @@ def voxel_rows_b64(recs, label):
     return out
 
 
+# --------------------------------------------------------------- polish --
+
+def polish_launches(launches, so3):
+    """A solve's launches hold the polish's: the chain and COTE kernels
+    once, the yaw GNC kernel once (none in the SO(3) modes)."""
+    return (launches["polish_chain"] == 1 and launches["polish_cote"] == 1
+            and launches["gnc_yaw"] == (0 if so3 else 1))
+
+
+def polish_run(fn):
+    """fn() with the polish's three wrappers recorded where the solver
+    calls them (``POLISH_CALLERS``): (fn's result, {kernel: [(arguments
+    cloned, keyword arguments, result)]})."""
+    import importlib
+
+    with contextlib.ExitStack() as stack:
+        recs = {k: stack.enter_context(recorded(importlib.import_module(
+            f"quatro_tpu_torch.{mod}"), k, []))
+            for k, mod in POLISH_CALLERS.items()}
+        out = fn()
+    torch.cuda.synchronize()
+    return out, recs
+
+
+def capture_polish(pair, cfg):
+    """The polish's wrapper calls of one more path A run (``polish_run``):
+    one of each, on the 4 + 2 hypothesis rows."""
+    from quatro_tpu_torch.pipeline import register_scan_pair
+
+    _, recs = polish_run(lambda: register_scan_pair(*pair, cfg))
+    counts = {k: len(v) for k, v in recs.items()}
+    check(counts == {k: MAIN_LAUNCHES[k] for k in POLISH_KERNELS},
+          f"path A: polish wrapper calls {counts}")
+    return recs
+
+
+def polish_fns(name, args, kwargs):
+    """The wrapper's and the plain version's call on recorded operands,
+    each returning a tuple of tensors (the yaw GNC's plain version is
+    solver/rotation.gnc_rotation_2d_plain, its ``while_chunks`` loop, on
+    the CUDA-graph route)."""
+    from quatro_tpu_torch.ops import polish
+    from quatro_tpu_torch.solver import rotation
+
+    wrapper = getattr(polish, name)
+    plain = (rotation.gnc_rotation_2d_plain if name == "gnc_yaw"
+             else getattr(polish, f"{name}_plain"))
+    return ((lambda: _as_tuple(wrapper(*args, **kwargs))),
+            (lambda: _as_tuple(plain(*args, **kwargs))))
+
+
+def polish_calls_equal(recs, label):
+    """Each recorded call of the polish's wrappers again: the wrapper once
+    more and its plain version on the card (the GNC's loop uncaptured) on
+    the same operands, every output bit for bit the recorded call's.
+    Returns {name: calls}."""
+    from quatro_tpu_torch.utils import loops
+
+    counts = {}
+    for name in POLISH_KERNELS:
+        for k, (args, kwargs, out) in enumerate(recs.get(name, [])):
+            k_fn, p_fn = polish_fns(name, args, kwargs)
+            ref = _as_tuple(out)
+            with loops.eager_loops():
+                plain = p_fn()
+            for what, other in (("a second launch", k_fn()),
+                                ("its plain version on the card", plain)):
+                check(len(other) == len(ref) and all(
+                    exact_bits(a, b) for a, b in zip(ref, other)),
+                    f"{name} ({label}, call {k}): differs from {what}")
+        counts[name] = len(recs.get(name, []))
+    log(f"polish_chain, gnc_yaw, polish_cote ({label}): calls "
+        f"{json.dumps(counts)}, each equal across launches and to its "
+        "plain version on the card, bit for bit")
+    return counts
+
+
+def _polish_cases():
+    """tests/torch_polish_cases.py (the hypothesis rows the polish's
+    kernels are held on, the route the kernels replace)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    import torch_polish_cases
+    return torch_polish_cases
+
+
+def polish_cases():
+    """The polish on tests/torch_polish_cases.py's rows on the card (three
+    pairs, one junk, six rows each: the true inliers, a few outliers more,
+    every slot, three slots, none, one; N = 500 and 1024; FGR, the
+    iteration bounds 0, 1 and 3, an IMU prior a pair and one for all,
+    COTE on the rotation inliers, a scale, TEASER, noise-free inliers, a
+    NaN correspondence in two pairs): every field bit for bit the plain
+    route (``plain_polish_route``, the GNC's loop uncaptured; NaN at the
+    same places); and COTE on given points tied at one value and
+    at -0.0 / +0.0, with NaN and inf values, against its plain version."""
+    from quatro_tpu_torch.device import resolve_device
+    from quatro_tpu_torch.ops import polish
+    from quatro_tpu_torch.utils import loops
+
+    pc = _polish_cases()
+    dev = resolve_device()
+    iters = {}
+    for name in pc.CASES:
+        case = pc.polish_case(name)
+        got = pc.solve_case(case, dev)
+        with pc.plain_polish_route(), loops.eager_loops():
+            ref = pc.solve_case(case, dev)
+        for g, r in zip(pc.solution_fields(got), pc.solution_fields(ref)):
+            check(pc.same_bits(g, r), f"polish case {name}: the kernels "
+                  "differ from the plain route on the card")
+        iters[name] = int(got.gnc_iterations.max())
+    src, dst, mask = (a.to(dev) for a in pc.cote_tie_case())
+    odd = dst.clone()
+    odd[0, 3, 1] = float("nan")
+    odd[2, 5, 0] = float("inf")
+    for d in (dst, odd):
+        for nb in (0.0, 0.3):
+            for median in (True, False):
+                got = polish.cote_translation(src, d, mask, nb, 1.0, median)
+                ref = polish.cote_translation_plain(src, d, mask, nb, 1.0,
+                                                    median)
+                check(same_bits(got[0], ref[0])
+                      and exact_bits(got[1], ref[1]),
+                      f"COTE on given points (noise bound {nb}, median "
+                      f"{median}) differs from its plain version")
+    log("polish cases (tests/torch_polish_cases.py; most GNC iterations a "
+        f"case {json.dumps(iters)}) and COTE's ties: the kernels equal the "
+        "plain route on the card, bit for bit")
+
+
+def polish_mode_calls(res_b, cfg_b):
+    """The polish's kernels in path B's TEASER, FGR and 3-D FGR solves
+    (the chain and COTE kernels after the SO(3) GNC; FGR's yaw GNC), each
+    call bit for bit its plain version on the card."""
+    import dataclasses
+
+    from quatro_tpu_torch.solver.quatro import register_correspondences
+
+    corr = res_b.correspondences
+    for mode in ("TEASER", "FGR", "TEASER FGR"):
+        sc = dataclasses.replace(cfg_b.solver, **SOLVER_MODES[mode])
+        _, recs = polish_run(lambda: register_correspondences(
+            corr.src_xyz, corr.tgt_xyz, corr.mask, sc))
+        counts = {k: len(v) for k, v in recs.items()}
+        check(counts == {"polish_chain": 1, "polish_cote": 1,
+                         "gnc_yaw": int(mode not in SO3_MODES)},
+              f"path B {mode}: polish wrapper calls {counts}")
+        polish_calls_equal(recs, f"path B {mode}")
+
+
+def polish_shape(name, args):
+    """(rows, points) of a recorded call."""
+    mask = args[6] if name == "polish_cote" else args[2]
+    return str((int(mask[..., 0].numel()), int(mask.shape[-1])))
+
+
+def polish_work(name, args, out):
+    """(operations, bytes) of one polish wrapper call on this run's data:
+    the chain reads both clouds, the selection, scale and prior and writes
+    the order, successor, chain mask, m and both TIMs; the GNC reads the
+    TIMs' xy, the mask and the noise bound and writes the rotation,
+    weights, inliers, iterations and cost (its operations: the rounds this
+    call's rows ran); COTE reads both clouds, the scale, the GNC's
+    rotation and inliers, the prior, the order, m and valid and writes the
+    rotation, translation, final mask and count (its operations: the
+    function's, not the kernel's bitonic networks, on this call's
+    selections of c points a row: per axis a sort of the 2c events, c
+    log2 2c compares, their series and cost, and the median's sort of at
+    most c candidates)."""
+    if name == "polish_chain":
+        src, _, clique = args[:3]
+        rows, n = clique[..., 0].numel(), clique.shape[-1]
+        return (float(rows * n * OPS_CHAIN_POS),
+                float(2 * src.numel() * 4 + rows * (n + 4) + args[4].numel()
+                      * 4 + rows * (n * (8 + 8 + 1 + 24) + 8)))
+    if name == "gnc_yaw":
+        mask = args[2]
+        rows, n = mask[..., 0].numel(), mask.shape[-1]
+        rounds = int(out[3].sum())
+        return (float(rounds * n * OPS_GNC_POINT),
+                float(rows * (n * (8 + 8 + 1) + 4)
+                      + rows * (16 + n * 5 + 8)))
+    src, order, rot = args[0], args[6], args[3]
+    rows, n = order[..., 0].numel(), order.shape[-1]
+    num_rot = out[3].to(torch.int64)
+    sel = (torch.where(num_rot > 0, num_rot, args[7]) if args[12]
+           else args[7]).double().flatten()
+    events = 2 * sel
+    ops = 3 * float((events * torch.log2(events.clamp(min=1))
+                     + events * OPS_COTE_EVENT
+                     + sel * torch.log2(sel.clamp(min=1))).sum())
+    return (ops,
+            float(2 * src.numel() * 4 + args[4].numel() * 4
+                  + rows * (4 + rot[0, 0].numel() * 4 + n + n * 8 + 8 + 1)
+                  + rows * (36 + 12 + n + 4)))
+
+
+def polish_library(name, args, kwargs):
+    """COTE's library call: torch.sort(stable=True) of the same 2N events
+    a (row, axis), formed from the plain route's COTE operands of this
+    call; (fn, label), else (None, None)."""
+    from quatro_tpu_torch.ops import polish
+
+    if name != "polish_cote":
+        return None, None
+    with recorded(polish, "cote_translation_plain", []) as calls:
+        polish.polish_cote_plain(*args, **kwargs)
+    (src, dst, mask, nb, cbar2, _), _, _ = calls[0]
+    n = mask.shape[-1]
+    beta = polish._cote_beta(nb, cbar2)
+    x = (dst - src).transpose(-1, -2).reshape(-1, n)
+    m = mask[..., None, :].expand(*mask.shape[:-1], 3, n).reshape(-1, n)
+    values = torch.where(torch.cat([m, m], -1),
+                         torch.cat([x - beta, x + beta], -1),
+                         torch.finfo(torch.float32).max).contiguous()
+    return ((lambda: torch.sort(values, dim=-1, stable=True)),
+            f"torch.sort(stable=True) of {tuple(values.shape)} events")
+
+
+def polish_row_fields(name, args, kwargs, out):
+    """(k_fn, p_fn, work, lib_fn, extra) of one recorded call. The GNC's
+    and COTE's bound does not apply (``bound_applies`` false): each row is
+    a chain of dependent rounds, sorts and scans in one block."""
+    k_fn, p_fn = polish_fns(name, args, kwargs)
+    lib_fn, lib_label = polish_library(name, args, kwargs)
+    extra = {"shape": polish_shape(name, args), "library": lib_label,
+             "registers": kernel_registers("polish"),
+             "bound_applies": name == "polish_chain"}
+    if name == "gnc_yaw":
+        extra["iterations"] = out[3].flatten().tolist()
+    return k_fn, p_fn, polish_work(name, args, out), lib_fn, extra
+
+
+def polish_kernel_rows(recs, main_launches, row, res_b, cfg_b):
+    """The polish's three kernels on path A's solve (``capture_polish``):
+    each bit for bit its plain version on the card and across two
+    launches (``polish_calls_equal``), in path B's TEASER and FGR modes
+    (``polish_mode_calls``) and on tests/torch_polish_cases.py's rows
+    (``polish_cases``); their rows on path A's call, COTE's library column
+    the stable sort of its events."""
+    polish_calls_equal(recs, "path A")
+    polish_mode_calls(res_b, cfg_b)
+    polish_cases()
+    for name in POLISH_KERNELS:
+        a, kw, out = recs[name][0]
+        k_fn, p_fn, work, lib_fn, extra = polish_row_fields(name, a, kw,
+                                                            out)
+        row(name, 0.0, k_fn, p_fn, *work, lib_fn,
+            launches=main_launches[name], extra=extra)
+
+
+def polish_rows_b64(recs, label):
+    """The polish's three kernels at path P's B = 64 call (384 hypothesis
+    rows), on its recorded operands: bit for bit their plain versions on
+    the card (``polish_calls_equal``), with device ms, call ms, plain ms,
+    bound and COTE's library sort."""
+    polish_calls_equal(recs, label)
+    out = {}
+    for name in POLISH_KERNELS:
+        a, kw, res = recs[name][0]
+        k_fn, p_fn, work, lib_fn, extra = polish_row_fields(name, a, kw,
+                                                            res)
+        b_ms, by = bound(*work)
+        out[name] = dict(extra, **{
+            "device_ms": device_ms_per_call(
+                k_fn, "quatro::", main=(MAIN_KERNEL[name], 1)),
+            "ms": cuda_ms(k_fn), "plain_ms": cuda_ms(p_fn, 5),
+            "bound_ms": b_ms, "bound_by": by,
+            "library_ms": cuda_ms(lib_fn) if lib_fn else None,
+            "library_device_ms": (device_ms_per_call(lib_fn, tries=10)
+                                  if lib_fn else None)})
+        if name == "gnc_yaw":
+            out[name]["iterations"] = {
+                "max": max(extra["iterations"]),
+                "mean": round(float(np.mean(extra["iterations"])), 3)}
+    log(f"polish_chain / gnc_yaw / polish_cote ({label}): "
+        + json.dumps(out))
+    return out
+
+
 def b2_row_b64(args, label):
     """B2 with its pair axis at the vote's shape of one B = 64 call (its
     recorded operands, ids (B, E), vals (B, 3, E)): bit for bit its plain
@@ -5197,6 +5540,7 @@ def main() -> int:
     icp_recs = capture_icp(pairs["tilted"], cfgs["A"])
     match_recs = capture_matching(pairs["tilted"], cfgs["A"], "path A")
     voxel_recs = capture_voxel(pairs["tilted"], cfgs["A"])
+    polish_recs = capture_polish(pairs["tilted"], cfgs["A"])
     mark = graphs_of("path A", mark)
     t0 = time.perf_counter()
     bench = (*bench_case(), time.perf_counter() - t0)
@@ -5238,9 +5582,9 @@ def main() -> int:
     rows = phase_kernels(res_a, cfgs["A"], launches_a, calls, res_b,
                          cfgs["B"], launches_b, jt_call, launches_s, exact,
                          overlap_args, clique_recs, icp_recs, match_recs,
-                         match_recs_b, voxel_recs)
+                         match_recs_b, voxel_recs, polish_recs)
     del (calls, overlap_args, clique_recs, icp_recs, match_recs, match_recs_b,
-         voxel_recs)
+         voxel_recs, polish_recs)
     mark = graphs_of("profile and kernels", mark)
     # last: its large batches and profiles leave the profiler missing
     # more events in the runs after them

@@ -91,6 +91,9 @@ SIGNATURES = {
                    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                     _I, _F, _F, _I, _P, _P, _P, _P, _P, _P]),
     "voxel": ("quatro_voxel_keys", [_P, _P, _P, _I, _I, _F, _P, _P, _P]),
+    "polish": ("quatro_polish_chain",
+               [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                _P, _P]),
 }
 
 # Further C functions of a kernel's library: name -> (source, symbol,
@@ -100,7 +103,8 @@ SIGNATURES = {
 # the sort); the plane fit's, the seed heights' kernel; the cliques', the
 # graph's packing, the growth, the swaps, the distinct greedy and the
 # shared memory each kernel takes; ICP's, the update kernel; the voxel
-# grid's, the selection and the centroids.
+# grid's, the selection and the centroids; the polish's, the yaw GNC and
+# COTE (the polish's, and on given points).
 EXTRA = {"sqrt_rn_check": ("consistency_graph", "quatro_sqrt_rn_check",
                            [_P, _P]),
          "label_layout": ("label_sweep", "quatro_label_layout",
@@ -129,7 +133,15 @@ EXTRA = {"sqrt_rn_check": ("consistency_graph", "quatro_sqrt_rn_check",
                           [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
          "voxel_centroids": ("voxel", "quatro_voxel_centroids",
                              [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                              _I, _F, _P, _P, _P, _P, _P, _P])}
+                              _I, _F, _P, _P, _P, _P, _P, _P]),
+         "gnc_yaw": ("polish", "quatro_gnc_yaw",
+                     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _F, _I,
+                      _F, _P, _P, _P, _P, _P, _P]),
+         "polish_cote": ("polish", "quatro_polish_cote",
+                         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _I, _F, _I, _I, _P, _P, _P, _P, _P, _P, _P]),
+         "cote": ("polish", "quatro_cote",
+                  [_P, _P, _P, _I, _I, _F, _I, _P, _P, _P, _P, _P])}
 
 _loaded: dict = {}
 build_log: dict = {}    # name -> {"seconds": s, "ptxas": text}; last build

@@ -63,6 +63,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "scan.cuh"
+
 namespace quatro {
 namespace vox {
 
@@ -71,13 +73,12 @@ constexpr int kFBits = 15;                   // fraction bits
 constexpr int kCBits = 14;                   // clamped count bits
 constexpr int kCMax = (1 << kCBits) - 1;
 constexpr int kSentinel = 0x7fffffff;
-constexpr int kScanBlock = 16;               // XLA:CPU's prefix-sum block
+using scan::kScanBlock;
 constexpr int kKeysThreads = 256;
 constexpr int kSelectThreads = 1024;
 constexpr int kSelectItems = 4;              // positions a thread per tile
 constexpr int kBinsPerThread = (1 << kCBits) / kSelectThreads;
 constexpr int kCentroidThreads = 256;
-constexpr int kMaxLevels = 8;                // enough for any int n
 
 __device__ __forceinline__ unsigned part1by2(unsigned v) {
   v &= 0x3ffu;
@@ -129,36 +130,6 @@ voxel_keys_kernel(const float* __restrict__ points, const bool* __restrict__ mas
   payload[i] = make_int2((q[0] << kFBits) + q[1], q[2]);
 }
 
-// Exclusive scan of one int a thread over the block (a multiple of 32
-// threads, at most 1024); *total gets the block's sum. warp_sums: 32 ints
-// of shared memory, free again when it returns.
-__device__ int block_exclusive_scan(int v, int* warp_sums, int* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int warps = blockDim.x >> 5;
-  int x = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) warp_sums[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < warps ? warp_sums[lane] : 0;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, w, o);
-      if (lane >= o) w += y;
-    }
-    warp_sums[lane] = w;
-  }
-  __syncthreads();
-  const int before = (warp > 0 ? warp_sums[warp - 1] : 0) + x - v;
-  *total = warp_sums[warps - 1];
-  __syncthreads();
-  return before;
-}
-
 __global__ void __launch_bounds__(kSelectThreads)
 voxel_select_kernel(const int* __restrict__ key_s, int stride, int n, int capacity, int k,
                     int* __restrict__ run_start, int* __restrict__ starts_top,
@@ -191,7 +162,7 @@ voxel_select_kernel(const int* __restrict__ key_s, int stride, int n, int capaci
       }
     }
     int total;
-    int at = runs + block_exclusive_scan(count, warp_sums, &total);
+    int at = runs + scan::block_exclusive_scan(count, warp_sums, &total);
 #pragma unroll
     for (int t = 0; t < kSelectItems; ++t)
       if (flags >> t & 1) starts[at++] = i0 + t;
@@ -214,7 +185,7 @@ voxel_select_kernel(const int* __restrict__ key_s, int stride, int n, int capaci
 #pragma unroll
     for (int b = 0; b < kBinsPerThread; ++b) sum += hist[top - b];
     int total;
-    const int above = block_exclusive_scan(sum, warp_sums, &total);
+    const int above = scan::block_exclusive_scan(sum, warp_sums, &total);
     if (above < k && above + sum >= k) {
       int s = above;
       for (int b = 0; b < kBinsPerThread; ++b) {
@@ -245,9 +216,9 @@ voxel_select_kernel(const int* __restrict__ key_s, int stride, int n, int capaci
     const int clamped = min(len, kCMax);
     const bool tie = j < runs && clamped == threshold;
     int tie_total, sel_total;
-    const int tie_rank = ties + block_exclusive_scan(tie ? 1 : 0, warp_sums, &tie_total);
+    const int tie_rank = ties + scan::block_exclusive_scan(tie ? 1 : 0, warp_sums, &tie_total);
     const bool sel = j < runs && (clamped > threshold || (tie && tie_rank < need));
-    const int slot = chosen + block_exclusive_scan(sel ? 1 : 0, warp_sums, &sel_total);
+    const int slot = chosen + scan::block_exclusive_scan(sel ? 1 : 0, warp_sums, &sel_total);
     if (sel) {
       starts_top[slots + slot] = start;
       counts_top[slots + slot] = len;
@@ -272,17 +243,6 @@ struct CentroidParams {
   int words;      // the level words of one (cloud, axis): m1 + m2 + ...
   float leaf;
 };
-
-// The level-0 prefix at position i of a (cloud, axis): its block's running
-// sum and, past the first block, the previous block's carry (a length of
-// at most 16 is one sequential run, with no carry added).
-__device__ __forceinline__ float prefix_at(const float* inner0, const float* level1, int n,
-                                           int i) {
-  const float within = __ldcg(inner0 + i);
-  if (n <= kScanBlock) return within;
-  const int r = i / kScanBlock;
-  return __fadd_rn(within, r > 0 ? level1[r - 1] : 0.0f);
-}
 
 __global__ void __launch_bounds__(kCentroidThreads)
 voxel_centroids_kernel(const int* __restrict__ key_s, const long long* __restrict__ order,
@@ -330,52 +290,8 @@ voxel_centroids_kernel(const int* __restrict__ key_s, const long long* __restric
   if (tid == 0) ticket[c] = 0;
   __threadfence();
 
-  // levels 1, 2, ...: running sums inside blocks of 16 in place, each
-  // block's total into the next level, until a level of at most 16
-  int offs[kMaxLevels], lens[kMaxLevels];
-  int top = 0, off = 0, m = p.m1;
-  for (;;) {
-    offs[top] = off;
-    lens[top] = m;
-    if (m <= kScanBlock) break;
-    const int next = (m + kScanBlock - 1) / kScanBlock;
-    for (int task = tid; task < 3 * next; task += blockDim.x) {
-      float* a = lv + (task / next) * (size_t)p.words + off;
-      const int b = task % next;
-      const int stop = min(m, (b + 1) * kScanBlock);
-      float s = __ldcg(a + b * kScanBlock);
-      for (int i = b * kScanBlock + 1; i < stop; ++i) {
-        s = __fadd_rn(s, __ldcg(a + i));
-        a[i] = s;
-      }
-      a[m + b] = s;
-    }
-    __syncthreads();
-    off += m;
-    m = next;
-    ++top;
-  }
-  // the top level: one sequential run
-  if (tid < 3) {
-    float* a = lv + tid * (size_t)p.words + offs[top];
-    float s = __ldcg(a);
-    for (int i = 1; i < lens[top]; ++i) {
-      s = __fadd_rn(s, __ldcg(a + i));
-      a[i] = s;
-    }
-  }
-  __syncthreads();
-  // down again: each block of a level gets its exclusive carry
-  for (int l = top - 1; l >= 0; --l) {
-    const int len = lens[l];
-    for (int task = tid; task < 3 * len; task += blockDim.x) {
-      float* a = lv + (task / len) * (size_t)p.words + offs[l];
-      const int i = task % len;
-      const int b = i / kScanBlock;
-      a[i] = __fadd_rn(__ldcg(a + i), b > 0 ? __ldcg(a + lens[l] + b - 1) : 0.0f);
-    }
-    __syncthreads();
-  }
+  // levels 1, 2, ...: the block totals' prefix in the blocked order
+  scan::scan_levels(lv, p.words, 3, p.m1, [](const float* a) { return __ldcg(a); });
 
   // the slots: each chosen run's sums from its two boundaries
   const size_t slots = c * (size_t)p.capacity;
@@ -392,8 +308,10 @@ voxel_centroids_kernel(const int* __restrict__ key_s, const long long* __restric
       for (int d = 0; d < 3; ++d) {
         const float* a0 = in0 + d * (size_t)n;
         const float* a1 = lv + d * (size_t)p.words;
-        const float hi = prefix_at(a0, a1, n, start + count - 1);
-        const float lo = start > 0 ? prefix_at(a0, a1, n, start - 1) : 0.0f;
+        const int last = start + count - 1;
+        const float hi = scan::prefix_at(__ldcg(a0 + last), a1, n, last);
+        const float lo =
+            start > 0 ? scan::prefix_at(__ldcg(a0 + start - 1), a1, n, start - 1) : 0.0f;
         const float mean = __fdiv_rn(__fsub_rn(hi, lo), cnt);
         o[d] = __fadd_rn(minb[3 * c + d], __fmul_rn(__fadd_rn(cells[d], mean), p.leaf));
       }

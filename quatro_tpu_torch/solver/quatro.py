@@ -24,14 +24,13 @@ import torch
 
 from quatro_tpu_torch.config import SolverConfig
 from quatro_tpu_torch.device import resolve_device, to_tensor
+from quatro_tpu_torch.ops.polish import polish_chain, polish_cote
 from quatro_tpu_torch.solver import clique as clique_mod
 from quatro_tpu_torch.solver import rotation as rot_mod
-from quatro_tpu_torch.solver import translation as trans_mod
 from quatro_tpu_torch.solver.scale import (solve_scale_tls,
                                            tim_consistency_graph)
 from quatro_tpu_torch.types import RegistrationSolution
-from quatro_tpu_torch.utils.batch import drop_axis, gather_rows
-from quatro_tpu_torch.utils.se3 import rotate_points
+from quatro_tpu_torch.utils.batch import drop_axis
 
 
 def _noop(stage: str) -> None:
@@ -53,46 +52,31 @@ def _consistency_inputs(src, tgt, mask, config: SolverConfig):
     return scale, adj
 
 
-def _chain_order(inlier_mask: torch.Tensor):
-    """Sorted clique indices + cyclic successor with static shapes
-    (include/quatro.hpp:806,828-843), per row of (..., N) masks:
-    positions 0..m-1 hold the clique indices ascending; leaf(i) =
-    clique[(i+1) % m]."""
-    n = inlier_mask.shape[-1]
-    iota = torch.arange(n, device=inlier_mask.device)
-    order = torch.sort(torch.where(inlier_mask, iota, n + iota), dim=-1,
-                       stable=True).indices
-    m = inlier_mask.sum(-1)
-    nxt = torch.where(iota + 1 < m[..., None], iota + 1, 0)
-    return order, order.gather(-1, nxt), iota < m[..., None], m
-
-
 def _solve_from_inliers(src, tgt, clique_mask, valid, scale,
                         config: SolverConfig, prior_ryrx, has_prior):
     """Chain TIMs -> GNC rotation -> COTE translation given selected
     inlier sets (include/quatro.hpp:817-936): src, tgt (B, N, 3), one
     selection per row of clique_mask (B, ..., N) (hypotheses of a pair
     share its points), valid and scale of the rows' shape, prior_ryrx
-    (3, 3) or one per pair (B, 3, 3). Every row is solved on its own."""
-    dtype, dev = src.dtype, src.device
-    n = src.shape[-2]
+    (3, 3) or one per pair (B, 3, 3). Every row is solved on its own: on
+    the card three kernels for all rows (ops/polish.py: ``polish_chain``,
+    ``gnc_yaw`` or the SO(3) GNC, ``polish_cote``)."""
     rows = clique_mask.shape[:-1]
-    lead = (src.shape[0],) + (1,) * (clique_mask.dim() - 2)
+    b = src.shape[0]
 
-    def per_row(x):                               # (B, N, 3) -> rows
-        return x.reshape(*lead, n, 3).expand(*rows, n, 3)
+    def pair_rows(x):                     # rows (B, ...) -> (B, H, ...)
+        return x.reshape(b, -1, *x.shape[len(rows):])
 
-    src_r, tgt_r = per_row(src), per_row(tgt)
-    if prior_ryrx.dim() == 3:
-        prior_ryrx = prior_ryrx.reshape(*lead, 3, 3)
-    order, leaf, chain_mask, m = _chain_order(clique_mask)
-    chainf = chain_mask.to(dtype)[..., None]
-    src_tims = (gather_rows(src_r, leaf) - gather_rows(src_r, order)) * chainf
-    dst_tims = ((gather_rows(tgt_r, leaf) - gather_rows(tgt_r, order))
-                * chainf / scale[..., None, None])
-    if has_prior:
-        # level the source with the IMU roll/pitch before the yaw solve
-        src_tims = rotate_points(src_tims, prior_ryrx)
+    def row_shape(x):                     # (B, H, ...) -> rows
+        return x.reshape(*rows, *x.shape[2:])
+
+    scale_h = pair_rows(scale).contiguous()
+    prior = prior_ryrx.contiguous()
+    order, _, chain_mask, m, src_tims, dst_tims = polish_chain(
+        src, tgt, pair_rows(clique_mask).contiguous(), scale_h, prior,
+        has_prior)
+    chain_mask, src_tims, dst_tims = (row_shape(x) for x in
+                                      (chain_mask, src_tims, dst_tims))
 
     # the reference rescales the rotation noise bound by 2/scale
     # (include/quatro.hpp:846-852): rotation_noise_bound_scale; one f32
@@ -106,50 +90,27 @@ def _solve_from_inliers(src, tgt, clique_mask, valid, scale,
         gnc = rot_mod.gnc_rotation_2d(
             src_tims[..., :2], dst_tims[..., :2], chain_mask, *gnc_args,
             algorithm=config.rotation_estimation_algorithm)
-        rotation = torch.eye(3, dtype=dtype, device=dev).repeat(*rows, 1, 1)
-        rotation[..., :2, :2] = gnc.rotation
     else:                                 # full SO(3) (TEASER mode)
         gnc = rot_mod.gnc_rotation_3d(
             src_tims, dst_tims, chain_mask, *gnc_args,
             algorithm=config.rotation_estimation_algorithm)
-        rotation = gnc.rotation
-    rotation = rotate_points(rotation, prior_ryrx.transpose(-1, -2))  # R RyRx
 
-    # rotation-inlier chaining (include/quatro.hpp:860-874)
-    iota = torch.arange(n, device=dev)
-    prev = torch.where(iota == 0, torch.clamp(m - 1, min=0)[..., None],
-                       iota - 1)
-    rot_inliers = (gnc.inlier_mask & gnc.inlier_mask.gather(-1, prev)
-                   & chain_mask)
-    num_rot_inliers = rot_inliers.sum(-1).to(torch.int32)
-
-    # COTE translation (include/quatro.hpp:879-911)
-    if config.using_rot_inliers_when_estimating_cote:
-        sel_mask = torch.where((num_rot_inliers > 0)[..., None], rot_inliers,
-                               chain_mask)
-    else:
-        sel_mask = chain_mask
-    pos_order = torch.sort(torch.where(sel_mask, iota, n + iota), dim=-1,
-                           stable=True).indices
-    cote_mask = iota < sel_mask.sum(-1, keepdim=True)
-    sel_idx = order.gather(-1, pos_order)
-    cote = trans_mod.solve_translation(
-        rotate_points(scale[..., None, None] * gather_rows(src_r, sel_idx),
-                      rotation), gather_rows(tgt_r, sel_idx),
-        cote_mask, config.noise_bound * config.cote_noise_bound_coeff,
-        config.cbar2, use_median=(config.cote_mode == "median"))
-
-    final_mask = torch.zeros_like(clique_mask).scatter(
-        -1, sel_idx, cote.inlier_mask & cote_mask)
-    eye = torch.eye(3, dtype=dtype, device=dev)
+    # R RyRx, rotation-inlier chaining, COTE (include/quatro.hpp:860-911)
+    rotation, translation, final_mask, num_rot_inliers = polish_cote(
+        src, tgt, scale_h, pair_rows(gnc.rotation).contiguous(), prior,
+        pair_rows(gnc.inlier_mask).contiguous(), order, m,
+        pair_rows(valid).contiguous(),
+        config.noise_bound * config.cote_noise_bound_coeff, config.cbar2,
+        config.cote_mode == "median",
+        config.using_rot_inliers_when_estimating_cote)
     return RegistrationSolution(
         valid=valid,
         scale=scale,
-        rotation=torch.where(valid[..., None, None], rotation, eye),
-        translation=torch.where(valid[..., None], cote.translation, 0.0),
+        rotation=row_shape(rotation),
+        translation=row_shape(translation),
         max_clique_mask=clique_mask,
-        final_inlier_mask=final_mask & valid[..., None],
-        num_rotation_inliers=num_rot_inliers,
+        final_inlier_mask=row_shape(final_mask),
+        num_rotation_inliers=row_shape(num_rot_inliers),
         gnc_iterations=gnc.iterations,
         gnc_cost=gnc.cost,
     )

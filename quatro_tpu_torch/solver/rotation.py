@@ -10,10 +10,13 @@ variant (TEASER mode) solves a weighted Kabsch problem per iteration
 one kernel launch on the card). Two robust losses: GNC-TLS (the
 reference's default) and the graduated Geman-McClure of its FGR option.
 Every function takes leading axes (pairs, hypotheses). The loops keep
-the JAX package's bound and exit test per row; they are device loops
-(utils/loops.py) that read one flag back per GNC_CHUNK iterations,
-whatever the number of rows, and on the card replay CUDA graphs, the
-SO(3) ones too.
+the JAX package's bound and exit test per row. On the card the yaw GNC is
+one kernel launch for all rows (ops/polish.gnc_yaw, each row to its own
+exit); its plain version, the CPU's route, is the loop below over the yaw
+parametrisation (``_YAW``), and ``gnc_rotation_2d`` chooses by device.
+The loops are device loops (utils/loops.py) that read one flag back per
+GNC_CHUNK iterations, whatever the number of rows, and on the card
+replay CUDA graphs (the SO(3) GNC's, and the yaw's plain route).
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ from typing import NamedTuple
 import torch
 
 from quatro_tpu_torch.ops import kabsch
+from quatro_tpu_torch.ops.launch import same_device
+from quatro_tpu_torch.ops.polish import gnc_yaw
 from quatro_tpu_torch.utils import fused, loops
 from quatro_tpu_torch.utils.fused import pairwise_sum
 from quatro_tpu_torch.utils.se3 import rotate_points
@@ -268,7 +273,29 @@ def gnc_rotation_2d(src_xy: torch.Tensor, dst_xy: torch.Tensor,
     (reference: Quatro::solveForRotation2D, include/quatro.hpp:430-572),
     src_xy, dst_xy (..., N, 2), mask (..., N), noise_bound a scalar or
     one per row. algorithm: "GNC_TLS" (the reference's default) or
-    "FGR"."""
+    "FGR". For CUDA tensors one launch of the GNC kernel
+    (ops/polish.gnc_yaw); for others its plain version,
+    ``gnc_rotation_2d_plain``."""
+    tensors = [src_xy, dst_xy, mask] + ([noise_bound]
+                                        if torch.is_tensor(noise_bound)
+                                        else [])
+    if same_device(*tensors).type == "cuda":
+        return GncResult(*gnc_yaw(src_xy, dst_xy, mask, noise_bound,
+                                  gnc_factor, max_iterations, cost_threshold,
+                                  algorithm))
+    return gnc_rotation_2d_plain(src_xy, dst_xy, mask, noise_bound,
+                                 gnc_factor, max_iterations, cost_threshold,
+                                 algorithm)
+
+
+def gnc_rotation_2d_plain(src_xy: torch.Tensor, dst_xy: torch.Tensor,
+                          mask: torch.Tensor, noise_bound,
+                          gnc_factor: float = 1.4, max_iterations: int = 50,
+                          cost_threshold: float = 0.00011,
+                          algorithm: str = "GNC_TLS") -> GncResult:
+    """``gnc_rotation_2d`` in torch operations on any device: the yaw
+    kernel's plain version, ``_loop(algorithm)`` over ``_YAW`` (a
+    ``while_chunks`` device loop)."""
     theta, weights, inliers, iters, cost = _loop(algorithm)(
         src_xy, dst_xy, mask, noise_bound, gnc_factor, max_iterations,
         cost_threshold, *_YAW)

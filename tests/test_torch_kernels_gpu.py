@@ -1,4 +1,4 @@
-"""The thirty-five CUDA kernels against their plain PyTorch versions, on the card,
+"""The thirty-eight CUDA kernels against their plain PyTorch versions, on the card,
 and the loop-closing path's device code (pose graph, Scan Context).
 
 Every test here is marked ``gpu`` and skips without a CUDA device. The
@@ -36,6 +36,10 @@ from torch_clique_cases import (GRAPHS, clique_stage_calls, distinct_case,
                                 graph_case, miss_one_batch,
                                 plain_clique_route, wide_graphs)
 from torch_czm_cases import CZM_CONFIGS, czm_specials
+from torch_polish_cases import CASES as POLISH_CASES
+from torch_polish_cases import (cote_tie_case, plain_polish_route,
+                                polish_case, solution_fields, solve_case)
+from torch_polish_cases import same_bits as _nan_bits
 from torch_voxel_cases import CASES as VOXEL_CASES
 from torch_voxel_cases import VOXEL, voxel_case
 
@@ -572,7 +576,8 @@ def test_recommended_runs_all_six_kernels(recommended):
                         "icp_correspond": 0, "icp_update": 0,
                         "match_candidates": 1, "tuple_compact": 1,
                         "voxel_keys": 1, "voxel_select": 1,
-                        "voxel_centroids": 1}
+                        "voxel_centroids": 1, "polish_chain": 1,
+                        "gnc_yaw": 1, "polish_cote": 1}
     assert bool(res.solution.valid)
     assert res.hypotheses.rotation.shape[0] == 6
     for name in ("valid", "rotation", "translation", "max_clique_mask",
@@ -763,7 +768,8 @@ def test_batched_pipeline_launches_do_not_depend_on_batch(dev):
                    "neighbor_normals": 1, "icp_correspond": 13,
                    "icp_update": 12, "match_candidates": 1,
                    "tuple_compact": 1, "voxel_keys": 2, "voxel_select": 2,
-                   "voxel_centroids": 2}
+                   "voxel_centroids": 2, "polish_chain": 1, "gnc_yaw": 1,
+                   "polish_cote": 1}
 
 
 def test_plain_graph_refused_on_the_card(dev, recommended):
@@ -958,7 +964,8 @@ def test_register_scan_pair_runs_all_ten_kernels(dev):
         "grow_cliques": 1, "swap_cliques": 1, "distinct_cliques": 2,
         "radius_knn": 0, "neighbor_normals": 0, "icp_correspond": 0,
         "icp_update": 0, "match_candidates": 1, "tuple_compact": 1,
-        "voxel_keys": 1, "voxel_select": 1, "voxel_centroids": 1}
+        "voxel_keys": 1, "voxel_select": 1, "voxel_centroids": 1,
+        "polish_chain": 1, "gnc_yaw": 1, "polish_cote": 1}
     assert bool(res.solution.valid)
 
 
@@ -1155,6 +1162,33 @@ def _flat(out):
                                                for t in _flat(o)]
 
 
+def _yaw_routes(fn, name):
+    """fn (the yaw GNC) on the kernel route: no device loop runs, the GNC
+    kernel launches once; its bits equal the plain route's (the
+    ``while_chunks`` loop ``name``) on the CUDA-graph route (twice:
+    capture, then replays) and eager, and the plain route still captures
+    and replays."""
+    from quatro_tpu_torch.utils import loops
+    loops.reset_loops()
+    launch.reset_launches()
+    got = _flat(fn())
+    torch.cuda.synchronize()
+    assert not loops.LOOPS, dict(loops.LOOPS)
+    assert launch.LAUNCHES["gnc_yaw"] == 1, dict(launch.LAUNCHES)
+    loops.reset_loops()
+    for route in ("graph", "graph_again", "eager"):
+        mode = (loops.eager_loops() if route == "eager"
+                else contextlib.nullcontext())
+        with plain_polish_route(), mode:
+            ref = _flat(fn())
+        assert len(got) == len(ref)
+        for g, r in zip(got, ref):
+            assert _bits(g, r), route
+    assert loops.LOOPS[name]["captures"] >= 1
+    assert loops.LOOPS[name]["replays"] >= 1
+
+
+YAW_LOOPS = {"gnc_tls": "gnc_tls", "fgr_gm": "fgr_gm"}
 # the GNC loop that each SO(3) case must capture and replay
 SO3_LOOP = {"gnc_tls_3d": "gnc_tls", "fgr_gm_3d": "fgr_gm",
             "teaser": "gnc_tls", "teaser_fgr": "fgr_gm"}
@@ -1167,15 +1201,19 @@ def test_device_loops_graph_equals_eager_on_the_card(dev, case):
     """A loop's CUDA-graph route (first call: its first chunk uncaptured,
     then the capture; second call: replays only) gives the bits of
     ``eager_loops()``, and the same kernel launches in ``LAUNCHES``. The
-    SO(3) GNC (TEASER, the 3-D FGR) captures and replays like the yaw
-    loop. The clique stage's loops run on the card only on its plain
-    route since its kernels (csrc/cliques.cu): there the kernel route is
-    held against the plain route, graph and eager (``_clique_routes``)."""
+    SO(3) GNC (TEASER, the 3-D FGR) captures and replays. The clique
+    stage's loops and the yaw GNC run on the card only on their plain
+    routes since their kernels (csrc/cliques.cu, csrc/polish.cu): there
+    the kernel route is held against the plain route, graph and eager
+    (``_clique_routes``, ``_yaw_routes``)."""
     from quatro_tpu_torch.utils import loops
     fn = _loop_cases(dev)[case]
     loops.clear_graphs()
     if case in ("cliques", "top_distinct"):
         _clique_routes(fn)
+        return
+    if case in YAW_LOOPS:
+        _yaw_routes(fn, YAW_LOOPS[case])
         return
     launch.reset_launches()
     with loops.eager_loops():
@@ -1321,7 +1359,8 @@ def test_voxel_grid_batched_on_the_card(dev):
 def test_device_loops_copy_out_on_the_card(dev):
     """Two replays of one graph with other inputs: the first result's
     tensors are left as they were (they are copies of the static
-    buffers, not the buffers)."""
+    buffers, not the buffers). The yaw GNC's plain route (its loop; the
+    card's route is its kernel, which gives the same bits)."""
     from quatro_tpu_torch.solver import rotation
     from quatro_tpu_torch.utils import loops
     g = torch.Generator().manual_seed(3)
@@ -1333,18 +1372,22 @@ def test_device_loops_copy_out_on_the_card(dev):
     mask = torch.ones(6, 256, dtype=torch.bool, device=dev)
     loops.clear_graphs()
     loops.reset_loops()
-    rotation.gnc_rotation_2d(src, dst, mask, 0.1)        # captures
-    first = rotation.gnc_rotation_2d(src, dst, mask, 0.1)
-    kept = [t.clone() for t in first]
-    second = rotation.gnc_rotation_2d(dst, src, mask, 0.1)
-    assert loops.LOOPS["gnc_tls"]["replays"] >= 2
-    for a, b in zip(first, kept):
-        assert torch.equal(a, b)
-    assert not torch.equal(first.rotation, second.rotation)
-    with loops.eager_loops():
-        ref = rotation.gnc_rotation_2d(src, dst, mask, 0.1)
+    with plain_polish_route():
+        rotation.gnc_rotation_2d(src, dst, mask, 0.1)        # captures
+        first = rotation.gnc_rotation_2d(src, dst, mask, 0.1)
+        kept = [t.clone() for t in first]
+        second = rotation.gnc_rotation_2d(dst, src, mask, 0.1)
+        assert loops.LOOPS["gnc_tls"]["replays"] >= 2
+        for a, b in zip(first, kept):
+            assert torch.equal(a, b)
+        assert not torch.equal(first.rotation, second.rotation)
+        with loops.eager_loops():
+            ref = rotation.gnc_rotation_2d(src, dst, mask, 0.1)
     for a, b in zip(first, ref):
         assert torch.equal(a, b)
+    kernel = rotation.gnc_rotation_2d(src, dst, mask, 0.1)
+    for a, b in zip(first, kernel):
+        assert _bits(a, b)
 
 
 def _exact_restrictions(cap, max_steps):
@@ -2832,3 +2875,222 @@ def test_voxel_downsample_runs_the_voxel_kernels(dev, case):
     for c in range(pts.shape[0]):
         one = voxel_downsample(pts[c], mask[c], VOXEL, cap, active_cap=act)
         assert _bits(out[c], one[0]) and _bits(out_mask[c], one[1])
+
+
+# ------------------------------------------------------------ the polish --
+
+def _polish_pieces(case, dev):
+    """A case's tensors on the card and its chain (the kernel's), the
+    GNC's operands and the yaw GNC's result (the kernel's)."""
+    from quatro_tpu_torch.ops import polish
+    from quatro_tpu_torch.solver import rotation
+    t = {k: (v.to(dev) if torch.is_tensor(v) else v) for k, v in
+         case.items()}
+    cfg = t["config"]
+    chain = polish.polish_chain(t["src"], t["tgt"], t["clique"], t["scale"],
+                                t["prior"], t["has_prior"])
+    nb = torch.full_like(t["scale"], cfg.noise_bound
+                         * cfg.rotation_noise_bound_scale) / t["scale"]
+    gnc_args = (chain[4][..., :2], chain[5][..., :2], chain[2], nb,
+                cfg.rotation_gnc_factor, cfg.rotation_max_iterations,
+                cfg.rotation_cost_threshold,
+                cfg.rotation_estimation_algorithm)
+    return t, chain, gnc_args, rotation.gnc_rotation_2d(*gnc_args)
+
+
+@pytest.mark.parametrize("case", list(POLISH_CASES))
+def test_polish_chain_kernel(dev, case):
+    """The chain kernel: one launch, order, leaf, chain mask, m and both
+    TIMs bit for bit its plain version on the card, and the order and
+    masks on CPU copies."""
+    from quatro_tpu_torch.ops import polish
+    c = polish_case(case)
+    args = [c[k].to(dev) for k in ("src", "tgt", "clique", "scale",
+                                   "prior")] + [c["has_prior"]]
+    before = launch.LAUNCHES["polish_chain"]
+    got = polish.polish_chain(*args)
+    torch.cuda.synchronize()
+    assert launch.LAUNCHES["polish_chain"] == before + 1
+    ref = polish.polish_chain_plain(*args)
+    cpu = polish.polish_chain_plain(*[a.cpu() if torch.is_tensor(a) else a
+                                      for a in args])
+    for what, g, r, h in zip(("order", "leaf", "chain", "m", "src_tims",
+                              "dst_tims"), got, ref, cpu):
+        assert _nan_bits(g, r), what
+        if g.dtype != torch.float32:
+            assert _bits(g.cpu(), h), what
+
+
+@pytest.mark.parametrize("case", list(POLISH_CASES))
+def test_gnc_yaw_kernel(dev, case):
+    """The yaw GNC kernel on the case's TIMs (their xy views): one
+    launch, every field bit for bit its plain version (the loop) on the
+    card, under both losses."""
+    from quatro_tpu_torch.ops import polish
+    from quatro_tpu_torch.solver import rotation
+    from quatro_tpu_torch.utils import loops
+    _, _, gnc_args, _ = _polish_pieces(polish_case(case), dev)
+    for algo in ("GNC_TLS", "FGR"):
+        args = gnc_args[:-1] + (algo,)
+        before = launch.LAUNCHES["gnc_yaw"]
+        got = polish.gnc_yaw(*args)
+        torch.cuda.synchronize()
+        assert launch.LAUNCHES["gnc_yaw"] == before + 1
+        with loops.eager_loops():
+            ref = rotation.gnc_rotation_2d_plain(*args)
+        for what, g, r in zip(ref._fields, got, ref):
+            assert _nan_bits(g, r), (algo, what)
+
+
+@pytest.mark.parametrize("case", list(POLISH_CASES))
+def test_polish_cote_kernel(dev, case):
+    """The COTE kernel on the case's GNC result: one launch, rotation,
+    translation, final mask and the rotation inliers' count bit for bit
+    its plain version on the card, across two launches (its tickets back
+    at 0), and under the other COTE mode and selection."""
+    from quatro_tpu_torch.ops import polish
+    t, chain, _, gnc = _polish_pieces(polish_case(case), dev)
+    cfg = t["config"]
+    for median, rot_inl in ((cfg.cote_mode == "median",
+                             cfg.using_rot_inliers_when_estimating_cote),
+                            (cfg.cote_mode != "median", True)):
+        args = (t["src"], t["tgt"], t["scale"], gnc.rotation, t["prior"],
+                gnc.inlier_mask, chain[0], chain[3], t["valid"],
+                cfg.noise_bound * cfg.cote_noise_bound_coeff, cfg.cbar2,
+                median, rot_inl)
+        before = launch.LAUNCHES["polish_cote"]
+        got = polish.polish_cote(*args)
+        again = polish.polish_cote(*args)
+        torch.cuda.synchronize()
+        assert launch.LAUNCHES["polish_cote"] == before + 2
+        ref = polish.polish_cote_plain(*args)
+        for what, g, a, r in zip(("rotation", "translation", "final_mask",
+                                  "num_rot"), got, again, ref):
+            assert _nan_bits(g, a), what
+            assert _nan_bits(g, r), (median, rot_inl, what)
+
+
+def test_polish_cote_kernel_so3(dev):
+    """The COTE kernel on a 3 x 3 GNC rotation (TEASER mode's) with a
+    prior a pair: bit for bit its plain version on the card."""
+    from quatro_tpu_torch.ops import polish
+    t, chain, _, gnc = _polish_pieces(polish_case("prior"), dev)
+    rot3 = torch.eye(3, device=dev).repeat(*gnc.rotation.shape[:2], 1, 1)
+    rot3[..., :2, :2] = gnc.rotation
+    rot3 = rot3 @ torch.linalg.matrix_exp(torch.tensor(
+        [[0.0, 0.0, 0.02], [0.0, 0.0, -0.01], [-0.02, 0.01, 0.0]],
+        device=dev))
+    args = (t["src"], t["tgt"], t["scale"], rot3.contiguous(), t["prior"],
+            gnc.inlier_mask, chain[0], chain[3], t["valid"], 0.3, 1.0, True,
+            False)
+    got = polish.polish_cote(*args)
+    ref = polish.polish_cote_plain(*args)
+    for g, r in zip(got, ref):
+        assert _bits(g, r)
+
+
+@pytest.mark.parametrize("nb", [0.0, 0.3])
+@pytest.mark.parametrize("median", [True, False])
+def test_cote_translation_kernel(dev, nb, median):
+    """COTE on given points (solve_translation on the card): one launch,
+    translation and inliers bit for bit its plain version on the card, on
+    values tied at one value and at -0.0 / +0.0, a masked row and NaN /
+    inf values."""
+    from quatro_tpu_torch.ops import polish
+    src, dst, mask = (a.to(dev) for a in cote_tie_case())
+    odd = dst.clone()
+    odd[0, 3, 1] = float("nan")
+    odd[2, 5, 0] = float("inf")
+    odd[3, 0, 2] = float("-nan")
+    for d in (dst, odd):
+        before = launch.LAUNCHES["polish_cote"]
+        got = polish.cote_translation(src, d, mask, nb, 1.0, median)
+        torch.cuda.synchronize()
+        assert launch.LAUNCHES["polish_cote"] == before + 1
+        ref = polish.cote_translation_plain(src, d, mask, nb, 1.0, median)
+        assert _bits(got[0], ref[0]), got[0]
+        assert _bits(got[1], ref[1])
+
+
+def test_card_sort_order_of_signed_zeros_and_nans(dev):
+    """torch.sort on the card, the order csrc/polish.cu's keys assume: a
+    stable sort (the plain COTE's event sort) at 16 to 8192 values, and an
+    unstable one past 32 (the median's), ties -0.0 and +0.0 in index order
+    as the CPU does, puts a NaN with the sign bit first and one without
+    last (the CPU puts both last); an unstable sort of at most 32 values
+    puts both last."""
+    nan_n = torch.tensor([-4194304], dtype=torch.int32).view(torch.float32)
+    for n in (16, 32, 64, 2048, 8192):
+        v = torch.zeros(n)
+        v[::3] = -0.0
+        v[1::7] = 1.0
+        want = torch.sort(v, stable=True).indices
+        v[2], v[5] = float("nan"), nan_n
+        v = v.to(dev)
+        for stable in (True, False):
+            if not stable and n <= 32:
+                order = torch.sort(v).indices.cpu()
+                assert {int(order[-1]), int(order[-2])} == {2, 5}, n
+                continue
+            order = torch.sort(v, stable=stable).indices.cpu()
+            assert int(order[0]) == 5 and int(order[-1]) == 2, (n, stable)
+            rest = order[1:-1]
+            assert torch.equal(rest, want[(want != 2) & (want != 5)]), \
+                (n, stable)
+
+
+@pytest.mark.parametrize("case", list(POLISH_CASES))
+def test_polish_kernels_solve_on_the_card(dev, case):
+    """``_solve_from_inliers`` on the card: the chain and COTE kernels once
+    each, the yaw GNC kernel once (none in TEASER mode), no yaw loop; every
+    field bit for bit the plain route on the card (``plain_polish_route``,
+    its GNC the loop)."""
+    from quatro_tpu_torch.utils import loops
+    c = polish_case(case)
+    loops.reset_loops()
+    launch.reset_launches()
+    got = solution_fields(solve_case(c, dev))
+    torch.cuda.synchronize()
+    teaser = c["config"].reg_name == "TEASER"
+    assert {k: launch.LAUNCHES[k] for k in ("polish_chain", "gnc_yaw",
+                                            "polish_cote")} == {
+        "polish_chain": 1, "gnc_yaw": 0 if teaser else 1, "polish_cote": 1}
+    assert not {"gnc_tls", "fgr_gm"} & set(loops.LOOPS) or teaser
+    with plain_polish_route(), loops.eager_loops():
+        ref = solution_fields(solve_case(c, dev))
+    for g, r in zip(got, ref):
+        assert _nan_bits(g, r)
+
+
+def test_polish_kernels_at_their_limit(dev):
+    """4096 points a row run (COTE's 8192 events in shared memory), bit
+    for bit the plain route; 4097 raise ValueError."""
+    from quatro_tpu_torch.ops import polish
+    rng = np.random.default_rng(4096)
+    src = torch.from_numpy(rng.uniform(-30, 30, (1, 4097, 3)).astype(
+        np.float32)).to(dev)
+    tgt = src + 0.05 * torch.randn_like(src)
+    mask = torch.ones(1, 2, 4097, dtype=torch.bool, device=dev)
+    mask[0, 1, ::2] = False
+    scale = torch.ones(1, 2, device=dev)
+    eye = torch.eye(3, device=dev)
+    with pytest.raises(ValueError):
+        polish.polish_chain(src, tgt, mask, scale, eye, False)
+    s, t_, m = (src[:, :4096].contiguous(), tgt[:, :4096].contiguous(),
+                mask[..., :4096].contiguous())
+    got = polish.polish_chain(s, t_, m, scale, eye, False)
+    ref = polish.polish_chain_plain(s, t_, m, scale, eye, False)
+    assert all(_bits(g, r) for g, r in zip(got, ref))
+    args = (got[4][..., :2], got[5][..., :2], got[2], 0.6)
+    from quatro_tpu_torch.solver import rotation
+    from quatro_tpu_torch.utils import loops
+    gnc = rotation.GncResult(*polish.gnc_yaw(*args))
+    with loops.eager_loops():
+        gref = rotation.gnc_rotation_2d_plain(*args, 1.4, 50, 0.00011,
+                                              "GNC_TLS")
+    assert all(_bits(g, r) for g, r in zip(gnc, gref))
+    valid = torch.ones(1, 2, dtype=torch.bool, device=dev)
+    cargs = (s, t_, scale, gnc.rotation, eye, gnc.inlier_mask, got[0],
+             got[3], valid, 0.3, 1.0, True, False)
+    assert all(_bits(g, r) for g, r in zip(polish.polish_cote(*cargs),
+                                            polish.polish_cote_plain(*cargs)))

@@ -21,10 +21,11 @@ device events between marker fills at the stage ends), every stage's
 device time and device launches by kernel (the largest first), each
 stage's device ms and launch count, with the labelling's kernels', the
 overlap's kernels' and the port's own kernels' in the projection, in
-Patchwork, in the voxel grid, in the cliques, in ICP, in matching and in
-the vote (``quatro::``) sums, for ``A`` the ``icp`` stage's device busy
-ms by sub-step (raw voxels, lists, normals, passes, final; its split by
-kernel on the lines before, ``chip_smoke.icp_substeps``), the device's busy
+Patchwork, in the voxel grid, in the cliques, in ICP, in matching, in
+the vote and in the polish (``quatro::``) sums, for ``A`` the ``icp``
+stage's device busy ms by sub-step (raw voxels, lists, normals, passes,
+final; its split by kernel on the lines before,
+``chip_smoke.icp_substeps``), the device's busy
 total and idle share, the peak memory and the labelling loop's counters
 (rounds, flag reads, replays; empty where the labelling is one kernel
 launch) of the timed call. With ``--cc-chunks`` both cases run once for
@@ -156,6 +157,9 @@ def main() -> int:
                 if "quatro::" in r[0]), 4),
             "vote_own_kernels_ms": round(sum(
                 r[2] for r in split.get("vote", [])
+                if "quatro::" in r[0]), 4),
+            "polish_own_kernels_ms": round(sum(
+                r[2] for r in split.get("polish", [])
                 if "quatro::" in r[0]), 4),
             "icp_substeps_busy_ms": icp_busy,
             "stage_device_ms": {st: round(sum(r[2] for r in rows), 4)
