@@ -7,7 +7,7 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions, and the float32 precision flags (TF32 off everywhere);
-2. build: the thirty-eight kernels from quatro_tpu_torch/csrc (the
+2. build: the forty-two kernels from quatro_tpu_torch/csrc (the
    twelve of the JAX package's Pallas calls, the exact clique search,
    the Kabsch rotation, the range-image labelling, the overlaps' hit
    counts, the range image's point keys and owners, edge masks and
@@ -15,11 +15,13 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    fits, the clique stage's k-core search, growth, swaps and
    distinct greedy, ICP's neighbour lists, normals, correspondences
    and updates, the matcher's candidates and tuple test, the voxel
-   grid's keys, selection and centroids, and the polish's chain TIMs, yaw
-   GNC and COTE), one nvcc per source (twenty-nine: the seed heights and
-   plane fits share csrc/plane_fit.cu, the clique stage's four
-   csrc/cliques.cu, ICP's correspondences and updates csrc/icp.cu, the
-   voxel grid's three csrc/voxel.cu, the polish's three csrc/polish.cu),
+   grid's keys, selection and centroids, the polish's chain TIMs, yaw
+   GNC and COTE, the front end's moment normals, the ground leveling, and
+   the vote's entries and translation), one nvcc per source (thirty-two:
+   the seed heights and plane fits share csrc/plane_fit.cu, the clique
+   stage's four csrc/cliques.cu, ICP's correspondences and updates
+   csrc/icp.cu, the voxel grid's three csrc/voxel.cu, the polish's three
+   csrc/polish.cu, the vote's two csrc/vote.cu),
    all started together; build time and ptxas register and spill
    summary;
 3. path A, the main path (Quatro++ coarse to fine): ``register_scan_pair``
@@ -47,7 +49,10 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    at the returned pose), 2/2/2 for the voxel grid's keys, selection and
    centroids (the features' grid and ICP's raw-scan grid; 1 each on the
    paths without ICP), 1/1/1 for the polish's chain, yaw GNC and COTE
-   (one solve of the 4 + 2 hypothesis rows) and 1 (the labelling: one
+   (one solve of the 4 + 2 hypothesis rows), 1/1/1/1 for the moment
+   normals (both clouds), the leveling (both clouds, the pair's gate in
+   the kernel), the vote's entries and its translation (B2 between them;
+   0 on the paths without leveling or vote) and 1 (the labelling: one
    launch a ``label_components`` call, each image to its own exit; every
    path's launch counts hold it so, and its logs give the most rounds an
    image ran, ``launch_counts``). Per-stage times from CUDA events after
@@ -106,7 +111,9 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
 6. path S, loop closing: ``run_sequence`` over the 12 scans of
    ``make_synthetic_sequence(num_poses=12, seed=1, radius=6.0)`` (HDL-64E,
    capacity 131072) under path A's configuration, with Scan Context
-   supplying the loop candidates (ground truth only for the ATE). Gates,
+   supplying the loop candidates (ground truth only for the ATE);
+   every frame's leveling and normals and every registration call's vote
+   bit for bit their plain versions on the card. Gates,
    the JAX package's own for this run (tests/test_scancontext.py:87-98):
    a loop found (more than 11 edges), >= 60 % of the edges valid, ATE
    after the closure < 1 m and <= ATE before + 0.15 m, every pose finite;
@@ -220,7 +227,18 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    rows with COTE's library column ``torch.sort(stable=True)`` of the
    same events, the GNC's and COTE's bound marked as not applying (each
    row a chain of rounds, sorts and scans in one block;
-   ``polish_kernel_rows``);
+   ``polish_kernel_rows``); the moment normals', the leveling's and the
+   vote's four kernels on path A's calls, each bit for bit its plain
+   version on the card and across two launches, and against the plain
+   route (``plain_vote_level_route``) on tests/torch_vote_level_cases.py's
+   inputs (a pair with no valid correspondence, degree ties across the
+   64th anchor, translations past the grid, N = 500 and 1024, one and two
+   yaw modes, path A's own correspondences at two yaw modes; clouds with
+   no ground point, fewer than min_points, a wall and a bowl, N = 131072
+   and 131071; planted moment counts 2, 1 and 0), their rows with the
+   translation's library column ``torch.sort(stable=True)`` of the same
+   2N keys a (pair, mode), its bound marked as not applying
+   (``vote_level_kernel_rows``);
    each with its row (device ms
    of every event of the wrapper's call, the sort's too, and of the
    port's kernels alone; bound: the inputs read and outputs written once,
@@ -282,7 +300,9 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    clouds' ``estimate_ground`` call (``patchwork_cases``, ``b64``), the
    clique stage's four on the 64 pairs' calls (``clique_rows_b64``), the
    voxel grid's three on the 128 clouds' call (``voxel_rows_b64``), the
-   polish's three on the 384 hypothesis rows (``polish_rows_b64``), B2
+   polish's three on the 384 hypothesis rows (``polish_rows_b64``), the
+   moment normals and leveling on the 128 clouds and the vote's two on
+   the 64 pairs (``vote_level_rows_b64``), B2
    on the vote's call with its bound and ``index_add_`` on the same ids
    and values (``b2_row_b64``, ``b64`` in B2's row),
    segment_cloud with the kernels against the
@@ -477,6 +497,13 @@ REPLACES = {
     "polish_chain": "quatro_tpu/solver/quatro.py:56",
     "gnc_yaw": "quatro_tpu/solver/rotation.py:80",
     "polish_cote": "quatro_tpu/solver/translation.py:31",
+    # no pl.pallas_call: normals_from_moments' XLA fusions after B3,
+    # align_ground's jax.jit (the plane fit, gates and leveling rotation),
+    # the vote's XLA fusions around B2 and its two lax.sorts
+    "moment_normals": "quatro_tpu/ops/pallas_frontend.py:321",
+    "ground_fit": "quatro_tpu/solver/ground.py:60",
+    "vote_entries": "quatro_tpu/solver/vote.py:75",
+    "vote_translation": "quatro_tpu/solver/vote.py:142",
 }
 SOURCES = {
     "moment_sums": "quatro_tpu_torch/csrc/moment_sums.cu",
@@ -513,6 +540,10 @@ SOURCES = {
                     "quatro_tpu_torch/csrc/voxel.cu"),
     **dict.fromkeys(("polish_chain", "gnc_yaw", "polish_cote"),
                     "quatro_tpu_torch/csrc/polish.cu"),
+    "moment_normals": "quatro_tpu_torch/csrc/moment_normals.cu",
+    "ground_fit": "quatro_tpu_torch/csrc/ground.cu",
+    **dict.fromkeys(("vote_entries", "vote_translation"),
+                    "quatro_tpu_torch/csrc/vote.cu"),
 }
 # label_sweep: one launch a label_components call (the whole labelling);
 # range_image, edge_masks, component_stats: one wrapper call a
@@ -525,7 +556,9 @@ SOURCES = {
 # matcher's candidates and tuple test once a matcher call; the voxel
 # grid's three kernels once a grid (the features' and, with ICP, the
 # raw scans'); the polish's three once a solve (the yaw GNC none in the
-# SO(3) modes)
+# SO(3) modes); the moment normals once a front end (both clouds), the
+# leveling once a pair (both clouds) or a frame, the vote's entries and
+# translation once a solve with vote hypotheses
 ICP_PASSES = 12           # IcpConfig.iterations
 MAIN_LAUNCHES = {"moment_sums": 1, "spfh": 1, "fpfh": 1,
                  "nearest_neighbors": 0, "nearest_neighbors2": 2,
@@ -541,7 +574,9 @@ MAIN_LAUNCHES = {"moment_sums": 1, "spfh": 1, "fpfh": 1,
                  "icp_correspond": ICP_PASSES + 1, "icp_update": ICP_PASSES,
                  "match_candidates": 1, "tuple_compact": 1,
                  "voxel_keys": 2, "voxel_select": 2, "voxel_centroids": 2,
-                 "polish_chain": 1, "gnc_yaw": 1, "polish_cote": 1}
+                 "polish_chain": 1, "gnc_yaw": 1, "polish_cote": 1,
+                 "moment_normals": 1, "ground_fit": 1, "vote_entries": 1,
+                 "vote_translation": 1}
 PROJECTION_KERNELS = ("range_image", "edge_masks", "component_stats")
 PATCHWORK_KERNELS = ("czm_points", "seed_heights", "plane_fit")
 CLIQUE_KERNELS = ("kcore_search", "grow_cliques", "swap_cliques",
@@ -555,6 +590,23 @@ POLISH_KERNELS = ("polish_chain", "gnc_yaw", "polish_cote")
 POLISH_CALLERS = {"polish_chain": "solver.quatro",
                   "gnc_yaw": "solver.rotation",
                   "polish_cote": "solver.quatro"}
+VOTE_LEVEL_KERNELS = ("moment_normals", "ground_fit", "vote_entries",
+                      "vote_translation")
+VOTE_KERNELS = ("vote_entries", "vote_translation")
+# the four wrappers in the modules that call them (recorded there)
+VOTE_LEVEL_CALLERS = {"moment_normals": "ops.frontend",
+                      "ground_fit": "solver.ground",
+                      "vote_entries": "solver.vote",
+                      "vote_translation": "solver.vote"}
+OPS_GROUND_POINT = 24     # per point and pass: the centroid's 3 products
+# and 3 tree adds; the scatter's 3 differences, 3 products, 6 products and
+# 6 tree adds
+OPS_GROUND_CLOUD = 300    # per cloud: 9 quotients, the eigenpair ~110, the
+# gates, the norm and the rotation's 27 products and 36 sums
+OPS_VOTE_ENTRY = 60       # per (anchor, point): 4 differences, cross and
+# dot (6), atan2f ~25, two squares' sums and roots, two quotients, the bin
+OPS_VOTE_KEY = 40         # per (pair, mode, point): the rotation (9), t (6)
+# and two grids' keys (2 x 12)
 # the yaw GNC's device loops, which run on the card only on its plain
 # route since its kernel
 YAW_LOOPS = ("gnc_tls", "fgr_gm")
@@ -605,17 +657,17 @@ CLIQUE_EDGE_CASES = ("n1", "n33", "n100", "mask_off", "edgeless", "complete",
 PATCHWORK_VARIANT = dict(using_global_elevation=True, num_iter=1)
 # PipelineConfig.recommended() without ICP (the earlier raw path, path E)
 RECOMMENDED_LAUNCHES = dict(MAIN_LAUNCHES, **dict.fromkeys(ICP_KERNELS, 0),
-                            **dict.fromkeys(VOXEL_KERNELS, 1))
+                            **dict.fromkeys(VOXEL_KERNELS, 1), ground_fit=0)
 PATH_B_LAUNCHES = dict(RECOMMENDED_LAUNCHES, nearest_neighbors=2,
                        nearest_neighbors2=0, segment_sums=0, overlap_hits=0,
-                       distinct_cliques=0)
+                       distinct_cliques=0, **dict.fromkeys(VOTE_KERNELS, 0))
 FEATURES_LAUNCHES = dict(RECOMMENDED_LAUNCHES, cross_histogram=0,
                          fit_iteration_moments=0, classify_points=0,
                          image_lookup=0, label_sweep=0,
                          **dict.fromkeys(PROJECTION_KERNELS, 0),
                          **dict.fromkeys(PATCHWORK_KERNELS, 0))
 SINGLE_LAUNCHES = dict(FEATURES_LAUNCHES, segment_sums=0, overlap_hits=0,
-                       distinct_cliques=0)
+                       distinct_cliques=0, **dict.fromkeys(VOTE_KERNELS, 0))
 # the labelling kernel against its plain route on images of other presets
 # (ray-cast pairs, all three neighbour modes, and a cap of LABEL_CAP
 # rounds that stops images before their exits)
@@ -1600,7 +1652,8 @@ def sequence_launches(frames, calls):
     matcher's two kernels and the polish's three, and per pose-graph
     solve one segment sum per J^T apply (gn x (cg + 1)); the voxel grid's
     kernels twice a frame (the features' grid and ICP's raw-scan
-    grid)."""
+    grid); the moment normals and the leveling once a frame, the vote's
+    entries and translation once a registration call."""
     gn, cg = PG_ITERS
     return dict(MAIN_LAUNCHES, moment_sums=frames, spfh=frames, fpfh=frames,
                 nearest_neighbors2=2 * calls,
@@ -1618,7 +1671,9 @@ def sequence_launches(frames, calls):
                 icp_update=ICP_PASSES * calls,
                 **dict.fromkeys(MATCH_KERNELS, calls),
                 **dict.fromkeys(VOXEL_KERNELS, 2 * frames),
-                **dict.fromkeys(POLISH_KERNELS, calls))
+                **dict.fromkeys(POLISH_KERNELS, calls),
+                moment_normals=frames, ground_fit=frames,
+                **dict.fromkeys(VOTE_KERNELS, calls))
 
 
 def _spread(ms):
@@ -1679,15 +1734,18 @@ def phase_sequence(cfg, card):
         # checks below
         with recorded(projection, "label_sweeps", []) as lab_calls, \
                 recorded(pipeline, "estimate_ground", []) as pw_calls:
-            res, wall_ms = _synced_ms(lambda: sequence.run_sequence(
-                scans, cfg, gt_poses=gt, use_place_recognition=True,
-                batch_size=SEQ_BATCH, gn_iters=gn, cg_iters=cg))
+            (res, wall_ms), vl_calls = vote_level_run(
+                lambda: _synced_ms(lambda: sequence.run_sequence(
+                    scans, cfg, gt_poses=gt, use_place_recognition=True,
+                    batch_size=SEQ_BATCH, gn_iters=gn, cg_iters=cg)))
     finally:
         sequence.optimize_pose_graph = solve
     launches = launch_counts(rounds0)
     labelling_calls_equal(lab_calls, "path S")
     patchwork_calls_equal(pw_calls, "path S")
-    del lab_calls, pw_calls
+    vote_level_calls_equal(vl_calls, "path S (every frame's leveling and "
+                           "normals, every registration call's vote)")
+    del lab_calls, pw_calls, vl_calls
     m = len(scans)
     edges = list(zip(res.edges_i.tolist(), res.edges_j.tolist()))
     calls = -(-len(edges) // SEQ_BATCH)
@@ -2137,10 +2195,12 @@ def phase_pair_axis(card, pairs, gts, cfg_a, bench):
                     recorded(verify, "overlap_hits", []) as hit_calls, \
                     recorded(pipeline, "estimate_ground", []) as pw_calls, \
                     recorded(vote, "segment_sums", []) as b2_calls:
-                (((_, match_calls), clique_calls), voxel_calls), \
-                    polish_calls = polish_run(lambda: voxel_run(
+                ((((_, match_calls), clique_calls), voxel_calls),
+                 polish_calls), vl_calls = vote_level_run(
+                    lambda: polish_run(lambda: voxel_run(
                         lambda: clique_run(lambda: match_run(
-                            lambda: register_scan_pair(*batches[0], cfg)))))
+                            lambda: register_scan_pair(*batches[0],
+                                                       cfg))))))
             stage_rows = stage_kernel_rows_b64(
                 (seg_calls[0][0], seg_calls[0][1]), hit_calls[0][0],
                 f"path P, B = {bsz}")
@@ -2156,8 +2216,12 @@ def phase_pair_axis(card, pairs, gts, cfg_a, bench):
                                              f"path P, B = {bsz}"))
             stage_rows.update(polish_rows_b64(polish_calls,
                                               f"path P, B = {bsz}"))
+            vl_calls["ground_fit"] = vl_calls["ground_fit"] or [
+                ground_call_b64(pw_calls[0])]
+            stage_rows.update(vote_level_rows_b64(vl_calls,
+                                                  f"path P, B = {bsz}"))
             del (seg_calls, hit_calls, pw_calls, clique_calls, b2_calls,
-                 match_calls, voxel_calls, polish_calls)
+                 match_calls, voxel_calls, polish_calls, vl_calls)
             by_kernel = {}
             busy = stage_device_busy(lambda timer: register_scan_pair(
                 *batches[1], cfg, timer=timer), by_kernel=by_kernel)
@@ -2650,7 +2714,11 @@ MAIN_KERNEL = {"moment_sums": "quatro::moment_sums_kernel",
                "voxel_centroids": "quatro::vox::voxel_centroids_kernel",
                "polish_chain": "quatro::pol::polish_chain_kernel",
                "gnc_yaw": "quatro::pol::gnc_yaw_kernel",
-               "polish_cote": "quatro::pol::polish_cote_kernel"}
+               "polish_cote": "quatro::pol::polish_cote_kernel",
+               "moment_normals": "quatro::mnrm::moment_normals_kernel",
+               "ground_fit": "quatro::gnd::ground_fit_kernel",
+               "vote_entries": "quatro::vote::vote_entries_kernel",
+               "vote_translation": "quatro::vote::vote_translation_kernel"}
 
 
 def culled_pairs(pts, mask, radius):
@@ -2680,7 +2748,7 @@ def radius_pair_bytes(mask, per_row, per_valid_row):
 def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b,
                   jt_call, launches_s, exact, overlap_args, clique_recs,
                   icp_recs, match_recs, match_recs_b, voxel_recs,
-                  polish_recs):
+                  polish_recs, vote_level_recs):
     """Every kernel against its plain version: B1-B5 and B7-B12 on the
     main path's tensors, with the main path's launch counts (B12's 0: no
     path launches it); B6 on path B's, with path B's; B2 also on path S's
@@ -2692,7 +2760,9 @@ def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b,
     on path A's calls (``icp_recs``), the matcher's two on path A's and
     path B's calls (``match_recs``, ``match_recs_b``), the voxel
     grid's three on path A's two grids (``voxel_recs``) and the polish's
-    three on path A's solve (``polish_recs``)."""
+    three on path A's solve (``polish_recs``), the moment normals', the
+    leveling's and the vote's four on path A's calls
+    (``vote_level_recs``)."""
     from quatro_tpu_torch.ops import frontend as fe
     from quatro_tpu_torch.ops.fpfh import normalize_blocks
 
@@ -2959,6 +3029,7 @@ def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b,
                       match_recs_b["match_features"][0])
     voxel_kernel_rows(voxel_recs, main_launches, row)
     polish_kernel_rows(polish_recs, main_launches, row, res_b, cfg_b)
+    vote_level_kernel_rows(vote_level_recs, main_launches, row)
     segment_routes_equal(calls["segment_cloud"][0], "path A")
     for preset in LABEL_PRESETS:
         segment_routes_equal(preset_segment_args(preset), preset)
@@ -2971,7 +3042,7 @@ def phase_kernels(res, cfg, main_launches, calls, res_b, cfg_b, launches_b,
         if r.get("bf16_device_ms_uncaptured", 0.0) is None]
     check(not missing, "kernel phase: no profiled run saw every call of "
           f"{missing}")
-    log("kernel phase: device ms of all thirty-eight kernels "
+    log("kernel phase: device ms of all forty-two kernels "
         "(torch.profiler): "
         + json.dumps({r["name"]: round(r["device_ms"], 6) for r in rows}))
     return rows
@@ -5087,6 +5158,298 @@ def polish_rows_b64(recs, label):
     return out
 
 
+# ------------------------------------- the vote, the leveling, the normals
+
+def _vote_level_cases():
+    """tests/torch_vote_level_cases.py (the inputs the vote's, the
+    leveling's and the moment normals' kernels are held on, the route the
+    kernels replace)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    import torch_vote_level_cases
+    return torch_vote_level_cases
+
+
+def vote_level_run(fn):
+    """fn() with the four wrappers recorded where their callers call them
+    (``VOTE_LEVEL_CALLERS``): (fn's result, {kernel: [(arguments cloned,
+    keyword arguments, result)]})."""
+    import importlib
+
+    with contextlib.ExitStack() as stack:
+        recs = {k: stack.enter_context(recorded(importlib.import_module(
+            f"quatro_tpu_torch.{mod}"), k, []))
+            for k, mod in VOTE_LEVEL_CALLERS.items()}
+        out = fn()
+    torch.cuda.synchronize()
+    return out, recs
+
+
+def capture_vote_level(pair, cfg):
+    """The four wrappers' calls of one more path A run
+    (``vote_level_run``): one of each (the features' normals of both
+    clouds, both clouds' leveling, the vote's entries and translation)."""
+    from quatro_tpu_torch.pipeline import register_scan_pair
+
+    _, recs = vote_level_run(lambda: register_scan_pair(*pair, cfg))
+    counts = {k: len(v) for k, v in recs.items()}
+    check(counts == {k: MAIN_LAUNCHES[k] for k in VOTE_LEVEL_KERNELS},
+          f"path A: vote / leveling / normals wrapper calls {counts}")
+    return recs
+
+
+def vote_level_fns(name, args, kwargs):
+    """The wrapper's and the plain version's call on recorded operands,
+    each returning a tuple of tensors."""
+    from quatro_tpu_torch.ops import ground, normals, vote
+
+    mod = {"moment_normals": normals, "ground_fit": ground}.get(name, vote)
+    wrapper = getattr(mod, name)
+    plain = (normals.normals_from_moments if name == "moment_normals"
+             else getattr(mod, f"{name}_plain"))
+
+    def tup(out):
+        return tuple(t for t in _as_tuple(out) if t is not None)
+
+    return ((lambda: tup(wrapper(*args, **kwargs))),
+            (lambda: tup(plain(*args, **kwargs))))
+
+
+def vote_level_calls_equal(recs, label):
+    """Each recorded call of the four wrappers again: the wrapper once
+    more and its plain version on the card on the same operands, every
+    output bit for bit the recorded call's (NaN where NaN,
+    tests/torch_polish_cases.py's ``same_bits``). Returns {name:
+    calls}."""
+    same = _polish_cases().same_bits
+    counts = {}
+    for name in VOTE_LEVEL_KERNELS:
+        for k, (args, kwargs, out) in enumerate(recs.get(name, [])):
+            k_fn, p_fn = vote_level_fns(name, args, kwargs)
+            ref = tuple(t for t in _as_tuple(out) if t is not None)
+            for what, other in (("a second launch", k_fn()),
+                                ("its plain version on the card", p_fn())):
+                check(len(other) == len(ref) and all(
+                    same(a, b) for a, b in zip(ref, other)),
+                    f"{name} ({label}, call {k}): differs from {what}")
+        counts[name] = len(recs.get(name, []))
+    log(f"moment_normals, ground_fit, vote_entries, vote_translation "
+        f"({label}): calls {json.dumps(counts)}, each equal across launches "
+        "and to its plain version on the card, bit for bit")
+    return counts
+
+
+def vote_level_cases(recs):
+    """The four kernels against the plain route on the card
+    (``plain_vote_level_route``), bit for bit: the vote on
+    tests/torch_vote_level_cases.py's pairs (the aliased fixture, three
+    pairs with a junk one, a pair with no valid correspondence beside a
+    normal one, degree ties across the 64th anchor, translations past the
+    grid and at its corner, N = 500 and 1024) at one and two yaw modes,
+    and on path A's own correspondences at two yaw modes; the leveling on
+    pairs where one cloud has no ground point, fewer than min_points, a
+    wall (tilt gate) or a bowl (flatness gate), at N = 3000, 5001, 700,
+    131072 and 131071, each cloud alone too; the normals on planted
+    moments with counts 2, 1 and 0."""
+    from quatro_tpu_torch.device import resolve_device
+    from quatro_tpu_torch.ops import normals
+    from quatro_tpu_torch.solver import ground, vote
+
+    vc = _vote_level_cases()
+    same = _polish_cases().same_bits
+    dev = resolve_device()
+
+    def both(fn):
+        got = fn()
+        with vc.plain_vote_level_route():
+            ref = fn()
+        return all(same(a, b) for a, b in zip(_as_tuple(got),
+                                              _as_tuple(ref)))
+
+    sizes = {}
+    for name in vc.VOTE_CASES:
+        c = {k: (v.to(dev) if torch.is_tensor(v) else v)
+             for k, v in vc.vote_case(name).items()}
+        args = (c["src"], c["tgt"], c["mask"], c["adj"], c["scale"],
+                c["num_hyps"], c["bin_m"])
+        for modes in (1, 2):
+            check(both(lambda: vote.vote_hypotheses(
+                *args, num_yaw_modes=modes)),
+                f"vote case {name} ({modes} yaw modes): the kernels differ "
+                "from the plain route on the card")
+        sizes[name] = vote.vote_hypotheses(*args)[1].tolist()
+    _, _, src, tgt, mask, scale, _, num_hyps, bin_m = recs[
+        "vote_translation"][0][0][:9]
+    adj = recs["vote_entries"][0][0][3]
+    check(both(lambda: vote.vote_hypotheses(src, tgt, mask, adj, scale,
+                                            num_hyps, bin_m,
+                                            num_yaw_modes=2)),
+          "path A's vote at two yaw modes: the kernels differ from the "
+          "plain route on the card")
+    pairs = dict(vc.ground_pairs())
+    big = vc.big_ground_pair()
+    pairs.update({f"n{n}": v for n, v in big.items()})
+    valid = {}
+    for name, (s, sg, t, tg) in pairs.items():
+        s, sg, t, tg = (x.to(dev) for x in (s, sg, t, tg))
+        check(both(lambda: ground.align_ground(s, sg, t, tg,
+                                               vc.GROUND_CONFIG)),
+              f"leveling pair {name}: the kernel differs from the plain "
+              "route on the card")
+        for p, m in ((s, sg), (t, tg)):
+            check(both(lambda: ground.frame_leveling(p, m,
+                                                     vc.GROUND_CONFIG)),
+                  f"leveling cloud of {name}: the kernel differs from the "
+                  "plain route on the card")
+        valid[name] = ground.align_ground(s, sg, t, tg,
+                                          vc.GROUND_CONFIG).valid.tolist()
+    check(valid["gates"] == [True, False, False, False, False],
+          f"leveling gates: pairs valid {valid['gates']}")
+    p, m, mom = (x.to(dev) for x in vc.normals_case())
+    got = normals.moment_normals(p, m, mom)
+    ref = normals.normals_from_moments(p, m, mom)
+    check(all(same(a, b) for a, b in zip(got, ref)),
+          "moment normals on planted counts differ from the plain version")
+    log("vote / leveling / normals cases (tests/torch_vote_level_cases.py; "
+        f"vote sizes {json.dumps(sizes)}, pairs valid {json.dumps(valid)}): "
+        "the kernels equal the plain route on the card, bit for bit")
+
+
+def ground_call_b64(pw_call):
+    """A leveling call at path P's B = 64, whose configuration levels
+    nothing: ``ground_fit`` on the 64 pairs' raw clouds with their ground
+    masks from the call's recorded Patchwork (``estimate_ground``'s
+    operands and result), as align_ground makes it. Returns it as a
+    recorded call (arguments, keyword arguments, result)."""
+    from quatro_tpu_torch.config import GroundAlignmentConfig
+    from quatro_tpu_torch.ops import ground
+
+    (pts, msk, _), _, res = pw_call
+    g = res.ground & msk
+    half = pts.shape[0] // 2
+    args = (pts[:half].contiguous(), g[:half].contiguous(),
+            GroundAlignmentConfig(enabled=True))
+    kwargs = {"other": (pts[half:].contiguous(), g[half:].contiguous())}
+    return args, kwargs, ground.ground_fit(*args, **kwargs)
+
+
+def vote_level_shape(name, args):
+    """A recorded call's shape, for its row."""
+    if name == "moment_normals":
+        return f"points {tuple(args[0].shape)}, moments {tuple(args[2].shape)}"
+    if name == "ground_fit":
+        return f"clouds {tuple(args[0].shape)} x 2 sets"
+    if name == "vote_entries":
+        return f"graph {tuple(args[3].shape)}"
+    return f"pairs {tuple(args[4].shape)}, modes {args[6]}"
+
+
+def vote_level_work(name, args, kwargs, out):
+    """(operations, bytes) of one wrapper call on this run's data: each
+    input read once, each output written once."""
+    if name == "moment_normals":
+        pts = args[0]
+        pn = pts[..., 0].numel()
+        return (float(pn * OPS_NORMAL_POINT),
+                float(pn * (12 + 1 + 4 * args[2].shape[-1] + 12 + 4 + 1)))
+    if name == "ground_fit":
+        sets = [(args[0], args[1])] + ([tuple(kwargs["other"])]
+                                       if kwargs.get("other") else [])
+        pts = sum(int(p[..., 0].numel()) for p, _ in sets)
+        clouds = sum(int(p[..., 0, 0].numel()) for p, _ in sets)
+        return (float(pts * OPS_GROUND_POINT + clouds * OPS_GROUND_CLOUD),
+                float(pts * 13 + clouds * (36 + 4 + 1)))
+    if name == "vote_entries":
+        mask, adj = args[2], args[3]
+        bsz, n = mask.shape
+        entries = int(out[0].numel())
+        return (float(bsz * n * n * 2 + entries * OPS_VOTE_ENTRY),
+                float(adj.numel() + bsz * n * 25 + entries * 16))
+    hist, mask, modes = args[0], args[4], args[6]
+    bsz, n = mask.shape
+    read = (hist if hist is not None else args[1]).numel() * 4
+    cand = out[1].shape[2]
+    m2 = 2 * n
+    rows = bsz * modes
+    sort = m2 * math.log2(max(m2, 2))
+    return (float(rows * (n * OPS_VOTE_KEY + 2 * sort + 3 * m2
+                          + cand * n * 9)),
+            float(read + bsz * n * 29 + rows * (cand * n + 4)))
+
+
+def vote_level_library(name, args, kwargs, out):
+    """vote_translation's library call: torch.sort(stable=True) of the same
+    2N keys a (pair, yaw mode), formed by the plain route at the call's
+    own yaws; (fn, label), else (None, None)."""
+    from quatro_tpu_torch.ops import vote
+
+    if name != "vote_translation":
+        return None, None
+    src, tgt, mask, scale = args[2:6]
+    bin_m = args[8]
+    yaws = out[0]
+    keys = torch.cat([vote.translation_keys_plain(
+        src, tgt, mask, yaws[:, r], scale, bin_m)[1]
+        for r in range(yaws.shape[1])]).contiguous()
+    return ((lambda: torch.sort(keys, dim=-1, stable=True)),
+            f"torch.sort(stable=True) of {tuple(keys.shape)} int64 keys")
+
+
+def vote_level_row_fields(name, args, kwargs, out):
+    """(k_fn, p_fn, work, lib_fn, extra) of one recorded call. The
+    translation's bound does not apply (``bound_applies`` false): each
+    (pair, mode) is a chain of two bitonic sorts and a blocked scan in one
+    block."""
+    k_fn, p_fn = vote_level_fns(name, args, kwargs)
+    lib_fn, lib_label = vote_level_library(name, args, kwargs, out)
+    source = SOURCES[name].split("/")[-1][:-3]
+    extra = {"shape": vote_level_shape(name, args),
+             "library": lib_label or "none",
+             "registers": kernel_registers(source),
+             "bound_applies": name != "vote_translation"}
+    return k_fn, p_fn, vote_level_work(name, args, kwargs, out), lib_fn, extra
+
+
+def vote_level_kernel_rows(recs, main_launches, row):
+    """The four kernels on path A's calls (``capture_vote_level``): each bit
+    for bit its plain version on the card and across two launches
+    (``vote_level_calls_equal``), and on the cases (``vote_level_cases``);
+    their rows on path A's call."""
+    vote_level_calls_equal(recs, "path A")
+    vote_level_cases(recs)
+    for name in VOTE_LEVEL_KERNELS:
+        a, kw, out = recs[name][0]
+        k_fn, p_fn, work, lib_fn, extra = vote_level_row_fields(name, a, kw,
+                                                                out)
+        row(name, 0.0, k_fn, p_fn, *work, lib_fn,
+            launches=main_launches[name], extra=extra)
+
+
+def vote_level_rows_b64(recs, label):
+    """The four kernels at path P's B = 64 call (128 clouds' normals and
+    leveling, 64 pairs' vote), on its recorded operands: bit for bit their
+    plain versions on the card (``vote_level_calls_equal``), with device
+    ms, call ms, plain ms, bound and the translation's library sort."""
+    vote_level_calls_equal(recs, label)
+    out = {}
+    for name in VOTE_LEVEL_KERNELS:
+        a, kw, res = recs[name][0]
+        k_fn, p_fn, work, lib_fn, extra = vote_level_row_fields(name, a, kw,
+                                                                res)
+        b_ms, by = bound(*work)
+        out[name] = dict(extra, **{
+            "device_ms": device_ms_per_call(
+                k_fn, "quatro::", main=(MAIN_KERNEL[name], 1)),
+            "ms": cuda_ms(k_fn), "plain_ms": cuda_ms(p_fn, 5),
+            "bound_ms": b_ms, "bound_by": by,
+            "library_ms": cuda_ms(lib_fn) if lib_fn else None,
+            "library_device_ms": (device_ms_per_call(lib_fn, tries=10)
+                                  if lib_fn else None)})
+    log(f"moment_normals / ground_fit / vote_entries / vote_translation "
+        f"({label}): " + json.dumps(out))
+    return out
+
+
 def b2_row_b64(args, label):
     """B2 with its pair axis at the vote's shape of one B = 64 call (its
     recorded operands, ids (B, E), vals (B, 3, E)): bit for bit its plain
@@ -5541,6 +5904,7 @@ def main() -> int:
     match_recs = capture_matching(pairs["tilted"], cfgs["A"], "path A")
     voxel_recs = capture_voxel(pairs["tilted"], cfgs["A"])
     polish_recs = capture_polish(pairs["tilted"], cfgs["A"])
+    vote_level_recs = capture_vote_level(pairs["tilted"], cfgs["A"])
     mark = graphs_of("path A", mark)
     t0 = time.perf_counter()
     bench = (*bench_case(), time.perf_counter() - t0)
@@ -5582,9 +5946,10 @@ def main() -> int:
     rows = phase_kernels(res_a, cfgs["A"], launches_a, calls, res_b,
                          cfgs["B"], launches_b, jt_call, launches_s, exact,
                          overlap_args, clique_recs, icp_recs, match_recs,
-                         match_recs_b, voxel_recs, polish_recs)
+                         match_recs_b, voxel_recs, polish_recs,
+                         vote_level_recs)
     del (calls, overlap_args, clique_recs, icp_recs, match_recs, match_recs_b,
-         voxel_recs, polish_recs)
+         voxel_recs, polish_recs, vote_level_recs)
     mark = graphs_of("profile and kernels", mark)
     # last: its large batches and profiles leave the profiler missing
     # more events in the runs after them

@@ -94,6 +94,13 @@ SIGNATURES = {
     "polish": ("quatro_polish_chain",
                [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                 _P, _P]),
+    "moment_normals": ("quatro_moment_normals",
+                       [_P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _P, _P, _P]),
+    "ground": ("quatro_ground_fit",
+               [_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _F, _F, _P, _P, _P,
+                _P, _P]),
+    "vote": ("quatro_vote_entries",
+             [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _I, _P, _P, _P]),
 }
 
 # Further C functions of a kernel's library: name -> (source, symbol,
@@ -104,7 +111,8 @@ SIGNATURES = {
 # graph's packing, the growth, the swaps, the distinct greedy and the
 # shared memory each kernel takes; ICP's, the update kernel; the voxel
 # grid's, the selection and the centroids; the polish's, the yaw GNC and
-# COTE (the polish's, and on given points).
+# COTE (the polish's, and on given points); the vote's, the yaw modes and
+# the translation vote's candidates after B2.
 EXTRA = {"sqrt_rn_check": ("consistency_graph", "quatro_sqrt_rn_check",
                            [_P, _P]),
          "label_layout": ("label_sweep", "quatro_label_layout",
@@ -141,7 +149,10 @@ EXTRA = {"sqrt_rn_check": ("consistency_graph", "quatro_sqrt_rn_check",
                          [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _I, _F, _I, _I, _P, _P, _P, _P, _P, _P, _P]),
          "cote": ("polish", "quatro_cote",
-                  [_P, _P, _P, _I, _I, _F, _I, _P, _P, _P, _P, _P])}
+                  [_P, _P, _P, _I, _I, _F, _I, _P, _P, _P, _P, _P]),
+         "vote_translation": ("vote", "quatro_vote_translation",
+                              [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _F, _F, _I, _P, _P, _P])}
 
 _loaded: dict = {}
 build_log: dict = {}    # name -> {"seconds": s, "ptxas": text}; last build

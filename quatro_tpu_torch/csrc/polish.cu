@@ -62,6 +62,8 @@
 #include <stdint.h>
 
 #include "scan.cuh"
+#include "sort.cuh"
+#include "tree.cuh"
 
 namespace quatro {
 namespace pol {
@@ -70,6 +72,11 @@ constexpr int kMaxPoints = 4096;
 constexpr int kChainThreads = 256;
 constexpr int kCoteThreads = 1024;
 constexpr float kFltMax = 3.40282346638528859812e+38f;
+
+using sort::bitonic_sort;
+using sort::kBitonicSortMax;
+using sort::ordered_bits;
+using tree::tree_sum;
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
@@ -172,58 +179,6 @@ struct GncParams {
   int max_iter;
   float threshold;
 };
-
-// NV pairwise sums (utils/fused.pairwise_sum) of the T * NPT values v[j][k]
-// at points t + k * T (zero past N); every thread gets them in out[]. The
-// tree's levels are x[i] + x[i + half] from half = `half` down to 1: those
-// at or above T inside a thread, then through shared memory down to 32
-// entries, then warp shuffles.
-template <int T, int NPT, int NV>
-__device__ __forceinline__ void tree_sum(float (&v)[NV][NPT], int half, float* sm,
-                                         float* out) {
-  const int t = threadIdx.x;
-  __syncthreads();                          // sm and out free again
-#pragma unroll
-  for (int h = NPT / 2; h >= 1; h >>= 1) {
-    if (h * T <= half) {
-#pragma unroll
-      for (int k = 0; k < h; ++k)
-#pragma unroll
-        for (int j = 0; j < NV; ++j) v[j][k] = add(v[j][k], v[j][k + h]);
-    }
-  }
-  if (half >= T) half = T / 2;
-  if (half >= 32) {
-    if (t < 2 * half) {
-#pragma unroll
-      for (int j = 0; j < NV; ++j) sm[j * T + t] = v[j][0];
-    }
-    __syncthreads();
-    for (; half >= 32; half >>= 1) {
-      if (t < half) {
-#pragma unroll
-        for (int j = 0; j < NV; ++j) sm[j * T + t] = add(sm[j * T + t], sm[j * T + t + half]);
-      }
-      if (half > 32) __syncthreads();
-    }
-    if (t < 32) {
-#pragma unroll
-      for (int j = 0; j < NV; ++j) v[j][0] = sm[j * T + t];
-    }
-  }
-  if (t < 32) {
-    for (; half >= 1; half >>= 1) {
-#pragma unroll
-      for (int j = 0; j < NV; ++j)
-        v[j][0] = add(v[j][0], __shfl_down_sync(0xffffffffu, v[j][0], half));
-    }
-    if (t == 0) {
-#pragma unroll
-      for (int j = 0; j < NV; ++j) out[j] = v[j][0];
-    }
-  }
-  __syncthreads();
-}
 
 // torch.amax's maximum (NaN propagates) of the points' values; every
 // thread gets it.
@@ -452,40 +407,6 @@ struct CoteParams {
   int pe, pn;        // 2N and N padded to powers of two (the sorts)
   int words;         // the prefix's level words of one series
 };
-
-// torch.sort's key of a float on the card (torch 2.11): a stable sort,
-// and an unstable one past 32 values a row, is a cub radix sort on the
-// order-preserving bits, -0.0 ranked as +0.0, a NaN with the sign bit first
-// and one without last; an unstable sort of at most 32 values is a bitonic
-// sort on torch's less-than, under which every NaN is the largest
-// (nan_last; its -0.0 and +0.0 come in no set order).
-__device__ __forceinline__ unsigned ordered_bits(float v, bool nan_last) {
-  if (nan_last && isnan(v)) return 0xffffffffu;
-  unsigned u = __float_as_uint(v);
-  if (u == 0x80000000u) u = 0u;
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-constexpr int kBitonicSortMax = 32;          // torch's small unstable sort
-
-// Ascending bitonic sort of the p (a power of two) keys in shared memory
-// by the whole block.
-__device__ void bitonic_sort(unsigned long long* k, int p) {
-  for (int size = 2; size <= p; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int q = threadIdx.x; q < p / 2; q += blockDim.x) {
-        const int i = 2 * q - (q & (stride - 1));
-        const int j = i + stride;
-        const unsigned long long a = k[i], b = k[j];
-        if ((a > b) == ((i & size) == 0)) {
-          k[i] = b;
-          k[j] = a;
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
 
 // torch.argmin's order on the card: NaN is the least, ties to the lower
 // index

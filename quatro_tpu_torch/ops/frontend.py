@@ -29,7 +29,7 @@ from quatro_tpu_torch.ops.fpfh import (FPFH_DIM, NUM_BINS, _bin_index,
 from quatro_tpu_torch.ops.launch import (LAUNCHES, active_limit,  # noqa: F401
                                          check, launch, reset_launches,
                                          same_device, stream_scratch)
-from quatro_tpu_torch.ops.normals import Normals, normals_from_moments
+from quatro_tpu_torch.ops.normals import Normals, moment_normals
 
 FLT_MAX = torch.finfo(torch.float32).max
 NN_CHUNK = 2048          # column chunk of the top-2 tie rule
@@ -175,9 +175,10 @@ def moment_sums_launch(points: torch.Tensor, maskf: torch.Tensor,
 def frontend_normals(points: torch.Tensor, mask: torch.Tensor,
                      radius: float) -> Normals:
     """PCA normals over true radius neighbourhoods from the moment kernel;
-    points (B, V, 3), mask (B, V) bool."""
+    points (B, V, 3), mask (B, V) bool. On the card two launches: B3 and
+    the normals' kernel (``ops/normals.moment_normals``)."""
     mom = moment_sums(points, mask.to(points.dtype).contiguous(), radius)
-    return normals_from_moments(points, mask, mom)
+    return moment_normals(points, mask, mom)
 
 
 # ----------------------------------------------------------------- B4 ----

@@ -24,7 +24,8 @@ LAUNCHES = {"moment_sums": 0, "spfh": 0, "fpfh": 0, "nearest_neighbors": 0,
             "icp_correspond": 0, "icp_update": 0, "match_candidates": 0,
             "tuple_compact": 0, "voxel_keys": 0, "voxel_select": 0,
             "voxel_centroids": 0, "polish_chain": 0, "gnc_yaw": 0,
-            "polish_cote": 0}
+            "polish_cote": 0, "moment_normals": 0, "ground_fit": 0,
+            "vote_entries": 0, "vote_translation": 0}
 
 
 def reset_launches() -> None:

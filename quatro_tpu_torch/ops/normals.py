@@ -5,8 +5,10 @@ PyTorch counterpart of ``quatro_tpu/ops/normals.py`` (the reference's
 eigenvector of the smallest eigenvalue of its neighbourhood covariance,
 oriented toward the viewpoint. The 3x3 problem is solved in closed form
 (trigonometric eigenvalues + cross-product eigenvector), elementwise over
-all points, from moment sums (the front end) or from K-capped neighbour
-lists (``estimate_normals``, the ICP target's normals: csrc/
+all points, from moment sums (the front end: ``moment_normals``, csrc/
+moment_normals.cu on the card after B3, ``normals_from_moments`` on the
+CPU and for the dense front end) or from K-capped neighbour lists
+(``estimate_normals``, the ICP target's normals: csrc/
 neighbor_normals.cu on the card, ``estimate_normals_plain`` on the CPU).
 """
 
@@ -109,6 +111,35 @@ def normals_from_moments(points: torch.Tensor, mask: torch.Tensor,
     normal = torch.stack([n1 * sign * ok, n2 * sign * ok, n3 * sign * ok],
                          dim=-1)
     curvature = torch.where(valid, curvature, torch.zeros_like(curvature))
+    return Normals(normal, curvature, valid)
+
+
+def moment_normals(points: torch.Tensor, mask: torch.Tensor,
+                   mom: torch.Tensor,
+                   viewpoint=(0.0, 0.0, 0.0)) -> Normals:
+    """``normals_from_moments`` of a batch: points (B, V, 3), mask (B, V)
+    bool, B3's moments (B, V, >= 10). For CUDA tensors one launch of
+    csrc/moment_normals.cu (a thread a point: the covariance by
+    ``fused.fma``'s route, the eigenpair of csrc/eig_sym3.cuh, the
+    curvature, the viewpoint flip and the masks), bit for bit
+    ``normals_from_moments``, which runs for CPU tensors."""
+    if same_device(points, mask, mom).type != "cuda":
+        return normals_from_moments(points, mask, mom, viewpoint)
+    bsz, v = mask.shape
+    check("points", points, (bsz, v, 3))
+    check("mask", mask, (bsz, v), torch.bool)
+    width = mom.shape[-1]
+    if width < 10:
+        raise ValueError(f"moment_normals: {width} moments a point, not 10")
+    check("mom", mom, (bsz, v, width))
+    dev = points.device
+    normal = torch.empty((bsz, v, 3), dtype=torch.float32, device=dev)
+    curvature = torch.empty((bsz, v), dtype=torch.float32, device=dev)
+    valid = torch.empty((bsz, v), dtype=torch.bool, device=dev)
+    if bsz and v:
+        launch("moment_normals", points, mask, mom, bsz, v, width,
+               *(fused.f32(c) for c in viewpoint), normal, curvature, valid)
+        LAUNCHES["moment_normals"] += 1
     return Normals(normal, curvature, valid)
 
 

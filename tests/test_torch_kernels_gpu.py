@@ -1,4 +1,4 @@
-"""The thirty-eight CUDA kernels against their plain PyTorch versions, on the card,
+"""The forty-two CUDA kernels against their plain PyTorch versions, on the card,
 and the loop-closing path's device code (pose graph, Scan Context).
 
 Every test here is marked ``gpu`` and skips without a CUDA device. The
@@ -40,6 +40,11 @@ from torch_polish_cases import CASES as POLISH_CASES
 from torch_polish_cases import (cote_tie_case, plain_polish_route,
                                 polish_case, solution_fields, solve_case)
 from torch_polish_cases import same_bits as _nan_bits
+from torch_vote_level_cases import GROUND_CONFIG
+from torch_vote_level_cases import VOTE_CASES as VOTE_LEVEL_CASES
+from torch_vote_level_cases import (big_ground_pair, ground_pairs,
+                                    normals_case, plain_vote_level_route)
+from torch_vote_level_cases import vote_case as vote_level_case
 from torch_voxel_cases import CASES as VOXEL_CASES
 from torch_voxel_cases import VOXEL, voxel_case
 
@@ -577,7 +582,9 @@ def test_recommended_runs_all_six_kernels(recommended):
                         "match_candidates": 1, "tuple_compact": 1,
                         "voxel_keys": 1, "voxel_select": 1,
                         "voxel_centroids": 1, "polish_chain": 1,
-                        "gnc_yaw": 1, "polish_cote": 1}
+                        "gnc_yaw": 1, "polish_cote": 1,
+                        "moment_normals": 1, "ground_fit": 0,
+                        "vote_entries": 1, "vote_translation": 1}
     assert bool(res.solution.valid)
     assert res.hypotheses.rotation.shape[0] == 6
     for name in ("valid", "rotation", "translation", "max_clique_mask",
@@ -769,7 +776,8 @@ def test_batched_pipeline_launches_do_not_depend_on_batch(dev):
                    "icp_update": 12, "match_candidates": 1,
                    "tuple_compact": 1, "voxel_keys": 2, "voxel_select": 2,
                    "voxel_centroids": 2, "polish_chain": 1, "gnc_yaw": 1,
-                   "polish_cote": 1}
+                   "polish_cote": 1, "moment_normals": 1, "ground_fit": 1,
+                   "vote_entries": 1, "vote_translation": 1}
 
 
 def test_plain_graph_refused_on_the_card(dev, recommended):
@@ -965,7 +973,9 @@ def test_register_scan_pair_runs_all_ten_kernels(dev):
         "radius_knn": 0, "neighbor_normals": 0, "icp_correspond": 0,
         "icp_update": 0, "match_candidates": 1, "tuple_compact": 1,
         "voxel_keys": 1, "voxel_select": 1, "voxel_centroids": 1,
-        "polish_chain": 1, "gnc_yaw": 1, "polish_cote": 1}
+        "polish_chain": 1, "gnc_yaw": 1, "polish_cote": 1,
+        "moment_normals": 1, "ground_fit": 0, "vote_entries": 1,
+        "vote_translation": 1}
     assert bool(res.solution.valid)
 
 
@@ -3094,3 +3104,175 @@ def test_polish_kernels_at_their_limit(dev):
              got[3], valid, 0.3, 1.0, True, False)
     assert all(_bits(g, r) for g, r in zip(polish.polish_cote(*cargs),
                                             polish.polish_cote_plain(*cargs)))
+
+
+# ------------------------------------- the vote, the leveling, the normals
+
+def _vote_card(name, dev):
+    c = vote_level_case(name)
+    return {k: (v.to(dev) if torch.is_tensor(v) else v) for k, v in c.items()}
+
+
+@pytest.mark.parametrize("case", VOTE_LEVEL_CASES)
+def test_vote_entries_kernel(dev, case):
+    """The entries kernel: one launch, ids and values bit for bit its plain
+    version on the card (the anchors' degree ties, masked rows, N = 500's
+    byte reads of the graph, the junk and empty pairs)."""
+    from quatro_tpu_torch.ops import vote as ov
+    c = _vote_card(case, dev)
+    args = (c["src"], c["tgt"], c["mask"], c["adj"])
+    before = launch.LAUNCHES["vote_entries"]
+    got = ov.vote_entries(*args)
+    torch.cuda.synchronize()
+    assert launch.LAUNCHES["vote_entries"] == before + 1
+    ref = ov.vote_entries_plain(*args)
+    for g, r in zip(got, ref):
+        assert _nan_bits(g, r)
+
+
+@pytest.mark.parametrize("modes", [1, 2, 3])
+@pytest.mark.parametrize("case", VOTE_LEVEL_CASES)
+def test_vote_translation_kernel(dev, case, modes):
+    """The translation kernel from B2's histograms and from given yaws:
+    one launch, the yaws and candidate masks bit for bit its plain version
+    on the card; the yaws alone (``want_masks`` False) too."""
+    from quatro_tpu_torch.ops import vote as ov
+    c = _vote_card(case, dev)
+    ids, vals = ov.vote_entries(c["src"], c["tgt"], c["mask"], c["adj"])
+    hist = vote.pair_segment_sums(ids, vals, 256)
+    rest = (c["src"], c["tgt"], c["mask"], c["scale"], modes, c["num_hyps"],
+            c["bin_m"])
+    before = launch.LAUNCHES["vote_translation"]
+    got = ov.vote_translation(hist, None, *rest)
+    torch.cuda.synchronize()
+    assert launch.LAUNCHES["vote_translation"] == before + 1
+    ref = ov.vote_translation_plain(hist, None, *rest)
+    assert _nan_bits(got[0], ref[0]) and _bits(got[1], ref[1])
+    yaw_only = ov.vote_translation(hist, None, *rest, want_masks=False)
+    assert yaw_only[1] is None and _nan_bits(yaw_only[0], ref[0])
+    given = ov.vote_translation(None, ref[0].contiguous(), *rest)
+    assert _bits(given[1], ref[1])
+
+
+@pytest.mark.parametrize("modes", [1, 2])
+@pytest.mark.parametrize("case", VOTE_LEVEL_CASES)
+def test_vote_hypotheses_kernels_equal_plain_route(dev, case, modes):
+    """solver/vote.py's vote_hypotheses, yaw_vote and
+    translation_vote_masks with the kernels against the plain route on
+    the card, bit for bit; the vote's launches: entries, B2, translation
+    once each, the distinct greedy once a yaw mode past the first and
+    once more."""
+    c = _vote_card(case, dev)
+    args = (c["src"], c["tgt"], c["mask"], c["adj"], c["scale"],
+            c["num_hyps"], c["bin_m"])
+    launch.reset_launches()
+    got = vote.vote_hypotheses(*args, num_yaw_modes=modes)
+    torch.cuda.synchronize()
+    counts = {k: launch.LAUNCHES[k] for k in (
+        "vote_entries", "segment_sums", "vote_translation",
+        "distinct_cliques")}
+    assert counts == {"vote_entries": 1, "segment_sums": 1,
+                      "vote_translation": 1,
+                      "distinct_cliques": 1 if modes == 1 else 2}, counts
+    yaw = vote.yaw_vote(*args[:4], num_modes=modes)
+    tmask = vote.translation_vote_masks(*args[:3], yaw if modes == 1
+                                        else yaw[:, 0], *args[4:])
+    with plain_vote_level_route():
+        ref = vote.vote_hypotheses(*args, num_yaw_modes=modes)
+        ref_yaw = vote.yaw_vote(*args[:4], num_modes=modes)
+        ref_t = vote.translation_vote_masks(*args[:3], ref_yaw if modes == 1
+                                            else ref_yaw[:, 0], *args[4:])
+    assert all(_nan_bits(g, r) for g, r in zip(got, ref))
+    assert _nan_bits(yaw, ref_yaw)
+    assert all(_nan_bits(g, r) for g, r in zip(tmask, ref_t))
+
+
+def test_vote_kernels_at_their_limits(dev):
+    """Past N = 4096 the entries and past 2048 the translation masks raise
+    ValueError on the card; one pair without an axis runs."""
+    from quatro_tpu_torch.ops import vote as ov
+    n = 4097
+    z = torch.zeros((1, n, 3), device=dev)
+    m = torch.ones((1, n), dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="4096"):
+        ov.vote_entries(z, z, m, torch.zeros((1, n, n), dtype=torch.bool,
+                                             device=dev))
+    with pytest.raises(ValueError, match="2048"):
+        ov.vote_translation(None, torch.zeros((1, 1), device=dev),
+                            z[:, :2049], z[:, :2049], m[:, :2049],
+                            torch.ones(1, device=dev))
+    c = _vote_card("aliased", dev)
+    one = vote.vote_hypotheses(c["src"][0], c["tgt"][0], c["mask"][0],
+                               c["adj"][0], torch.tensor(1.0, device=dev), 3,
+                               0.75)
+    with plain_vote_level_route():
+        ref = vote.vote_hypotheses(c["src"][0], c["tgt"][0], c["mask"][0],
+                                   c["adj"][0], torch.tensor(1.0, device=dev),
+                                   3, 0.75)
+    assert all(_nan_bits(g, r) for g, r in zip(one, ref))
+
+
+@pytest.mark.parametrize("case", list(ground_pairs()) + ["big", "big_odd"])
+def test_ground_fit_kernel(dev, case):
+    """The leveling kernel on pairs (align_ground: every gate failing on
+    one side, N = 3000, 5001, 700, 131072 and 131071) and on single
+    clouds (frame_leveling): one launch, level, height and ok bit for bit
+    its plain version on the card, the tickets back at 0."""
+    from quatro_tpu_torch.ops import ground as og
+    from quatro_tpu_torch.solver import ground as sground
+    if case.startswith("big"):
+        big = big_ground_pair()
+        s, sg, t, tg = big[max(big) if case == "big" else min(big)]
+    else:
+        s, sg, t, tg = ground_pairs()[case]
+    s, sg, t, tg = (x.to(dev) for x in (s, sg, t, tg))
+    before = launch.LAUNCHES["ground_fit"]
+    got = og.ground_fit(s, sg, GROUND_CONFIG, other=(t, tg))
+    torch.cuda.synchronize()
+    assert launch.LAUNCHES["ground_fit"] == before + 1
+    ref = og.ground_fit_plain(s, sg, GROUND_CONFIG, other=(t, tg))
+    assert all(_nan_bits(g, r) for g, r in zip(got, ref))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    assert int(launch.stream_scratch(dev, stream, 1, 0)[0].abs().sum()) == 0
+    for p, m in ((s, sg), (t, tg)):
+        single = sground.frame_leveling(p, m, GROUND_CONFIG)
+        with plain_vote_level_route():
+            plain = sground.frame_leveling(p, m, GROUND_CONFIG)
+        assert all(_nan_bits(g, r) for g, r in zip(single, plain))
+
+
+def test_align_ground_kernel_equals_plain_route(dev):
+    """solver/ground.align_ground on the card against the plain route, a
+    batch of five pairs and one pair without an axis."""
+    from quatro_tpu_torch.solver import ground as sground
+    s, sg, t, tg = (x.to(dev) for x in ground_pairs()["gates"])
+    for args in ((s, sg, t, tg), (s[0], sg[0], t[0], tg[0])):
+        got = sground.align_ground(*args, GROUND_CONFIG)
+        with plain_vote_level_route():
+            ref = sground.align_ground(*args, GROUND_CONFIG)
+        assert all(_nan_bits(g, r) for g, r in zip(got, ref))
+    assert got.valid.shape == ()
+
+
+def test_moment_normals_kernel(dev, cloud):
+    """The normals' kernel on planted moments (counts 2, 1 and 0, masked
+    rows) and on B3's moments of the voxelised VLP-16 pair: one launch,
+    normals, curvature and valid bit for bit its plain version on the
+    card; frontend_normals launches B3 and it once each."""
+    from quatro_tpu_torch.ops import normals as on
+    pts, mask, mom = (x.to(dev) for x in normals_case())
+    before = launch.LAUNCHES["moment_normals"]
+    got = on.moment_normals(pts, mask, mom)
+    torch.cuda.synchronize()
+    assert launch.LAUNCHES["moment_normals"] == before + 1
+    ref = on.normals_from_moments(pts, mask, mom)
+    assert all(_nan_bits(g, r) for g, r in zip(got, ref))
+    vp, vm = cloud
+    launch.reset_launches()
+    n = tf.frontend_normals(vp, vm, CFG.fpfh.normal_radius)
+    torch.cuda.synchronize()
+    assert launch.LAUNCHES["moment_sums"] == 1
+    assert launch.LAUNCHES["moment_normals"] == 1
+    with plain_vote_level_route():
+        ref = tf.frontend_normals(vp, vm, CFG.fpfh.normal_radius)
+    assert all(_nan_bits(g, r) for g, r in zip(n, ref))

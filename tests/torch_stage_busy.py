@@ -21,8 +21,9 @@ device events between marker fills at the stage ends), every stage's
 device time and device launches by kernel (the largest first), each
 stage's device ms and launch count, with the labelling's kernels', the
 overlap's kernels' and the port's own kernels' in the projection, in
-Patchwork, in the voxel grid, in the cliques, in ICP, in matching, in
-the vote and in the polish (``quatro::``) sums, for ``A`` the ``icp``
+Patchwork, in the leveling, in the voxel grid, in the normals, in the
+cliques, in ICP, in matching, in the vote and in the polish
+(``quatro::``) sums, for ``A`` the ``icp``
 stage's device busy ms by sub-step (raw voxels, lists, normals, passes,
 final; its split by kernel on the lines before,
 ``chip_smoke.icp_substeps``), the device's busy
@@ -142,6 +143,12 @@ def main() -> int:
                 if "quatro::" in r[0]), 4),
             "patchwork_own_kernels_ms": round(sum(
                 r[2] for r in split.get("patchwork", [])
+                if "quatro::" in r[0]), 4),
+            "leveling_own_kernels_ms": round(sum(
+                r[2] for r in split.get("leveling", [])
+                if "quatro::" in r[0]), 4),
+            "normals_own_kernels_ms": round(sum(
+                r[2] for r in split.get("normals", [])
                 if "quatro::" in r[0]), 4),
             "voxel_own_kernels_ms": round(sum(
                 r[2] for r in split.get("voxel", [])
