@@ -72,7 +72,17 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    must read no flag, a ``while_chunks`` loop at most ceil(rounds /
    chunk) + 1 (``phase_loops``; path P's B = 8 call, path S's extraction
    and registration and its pose graph, and path M's pose graph
-   likewise);
+   likewise). Then path L (``phase_path_l``): ``register_scan_pair`` on
+   the same tilted pair at sizes the JAX package takes and the kernels'
+   first designs refused (``L_SIZES``: 16384 voxels, 8192
+   correspondences, 96-neighbour normals, cliques to 8192, ICP 16384
+   source rows; 4 clique hypotheses, no vote), ground alignment and ICP
+   on: its first run must take the wide route of the polish's three
+   wrappers, ICP's update, lists and normals and the growth
+   (``ops.launch.SIZE_ROUTES``), its pose path A's gate or else the
+   golden-spec band (5 deg / 2 m, logged as such); its stages' ms and
+   device busy, its latency over three runs, its wrappers' calls
+   recorded for the kernel phase;
 4. path B, the reference matcher: ``register_scan_pair`` on the untilted
    raw pair under ``PipelineConfig(max_voxels=8192)`` with
    ``crosscheck_min_matches=0`` (crosscheck and tuple test with no
@@ -269,7 +279,16 @@ Phases, each of which raises (and so exits non-zero) when a check fails:
    that an exact culling keeps (``culled_pairs``), and their bytes the
    mask and the outputs of every row but the points, normals and SPFH
    rows of the valid rows only (``radius_pair_bytes``): the kernels read
-   no other;
+   no other. Then the wide routes (``limit_kernel_rows``): each bit for
+   bit its plain version at its first size past the former limit and at
+   path L's call, with a "<kernel> (wide)" row: the polish at path L's N
+   = 8192 (and 4097), ICP's update at 16384 rows (and 8193), the lists
+   and normals at K = 96 (and 65, 257), the growth at N = 8192 (and a
+   complete graph of 4352, max_size 4353, and one of 20000, its arrays
+   in a global workspace), the CZM at nine zones on path A's clouds (and
+   Patchwork's whole estimate_ground there against the plain CZM-stage
+   route), B8 at five channels (on CPU copies), the leveling at 2^18 + 1
+   points a cloud; a row's launches are path L's;
 10. path P, the pair axis, after the kernels (its large batches and
    profiles leave the profiler missing more events in the runs after
    them): (a)
@@ -344,6 +363,7 @@ printing any result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import json
 import math
@@ -5863,6 +5883,343 @@ def path_m_rank(rank, world, store, data, out):
     return 0
 
 
+# ---------------------------------------------------------------- path L --
+
+# path L: register_scan_pair at sizes the JAX package takes and the first
+# kernel designs refused on the card (ROADMAP C 29). max_voxels is 16384,
+# not recommended()'s 8192: ICP's source is the raw scan's voxels, so
+# max_source_points = 16384 sets ICP's rows only with that many voxels.
+L_SIZES = dict(max_voxels=16384, max_correspondences=8192,
+               max_neighbors_normal=96, max_clique_size=8192,
+               max_source_points=16384)
+# the wrappers whose wide routes path L must take (rows 1-3 and 7 of C 29)
+L_ROUTES = ("polish_chain", "gnc_yaw", "polish_cote", "icp_update",
+            "radius_knn", "neighbor_normals", "grow_cliques")
+L_REPEATS = 3
+L_GATE = (0.01, 0.05)                     # path A's gate (rad, m)
+GOLDEN_BAND = (math.radians(5.0), 2.0)    # tests/golden_specs.py's
+
+
+def _limit_cases():
+    """tests/torch_limit_cases.py (the inputs past the former limits)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    import torch_limit_cases
+    return torch_limit_cases
+
+
+def path_l_config():
+    """``recommended()`` at path L's sizes, ground alignment and ICP on,
+    no vote hypotheses (the JAX package's translation vote stops at 2048
+    correspondences)."""
+    from quatro_tpu_torch.config import (FPFHConfig, GroundAlignmentConfig,
+                                         IcpConfig, PipelineConfig,
+                                         SolverConfig)
+    s = L_SIZES
+    return PipelineConfig.recommended(
+        max_voxels=s["max_voxels"],
+        solver=SolverConfig(num_hypotheses=4, num_vote_hypotheses=0,
+                            max_clique_size=s["max_clique_size"]),
+        fpfh=FPFHConfig(max_correspondences=s["max_correspondences"],
+                        max_neighbors_normal=s["max_neighbors_normal"]),
+        ground_alignment=GroundAlignmentConfig(enabled=True),
+        icp=IcpConfig(enabled=True,
+                      max_source_points=s["max_source_points"]))
+
+
+def phase_path_l(pair, gt):
+    """Path L: ``register_scan_pair`` on path A's tilted pair at path L's
+    sizes. The first run (the warm-up, which captures the device loops at
+    the new widths) must take the wide route of each wrapper in
+    ``L_ROUTES`` and no first-design route of them; the counted run gives
+    the launches; the pose must lie within path A's gate or, failing
+    that, the golden-spec band (logged as such); each stage's ms (CUDA
+    events) and device busy (torch.profiler), the pair latency over
+    ``L_REPEATS`` runs, and one more run with the polish's, ICP's and the
+    clique stage's wrappers recorded for the kernel rows. Returns a dict
+    of the run's numbers and records."""
+    from quatro_tpu_torch.ops import launch
+    from quatro_tpu_torch.pipeline import register_scan_pair
+
+    cfg = path_l_config()
+    name = "path L (sizes past the first kernel designs' limits)"
+    launch.reset_launches()
+    t0 = time.perf_counter()
+    register_scan_pair(*pair, cfg)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    routes = {k: dict(launch.SIZE_ROUTES[k]) for k in L_ROUTES}
+    log(f"{name}: first run {first_s:.3f} s (loop captures at the new "
+        f"widths); routes by wrapper {json.dumps(routes)}")
+    missing = [k for k in L_ROUTES
+               if routes[k]["past"] < 1 or routes[k]["within"]]
+    check(not missing, f"{name}: wrappers off their wide route: {missing}")
+
+    launch.reset_launches()
+    rounds0 = label_rounds()
+    timer = StageTimer()
+    t0 = time.perf_counter()
+    res = register_scan_pair(*pair, cfg, timer=timer)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = launch_counts(rounds0)
+    stages = timer.split_ms()
+    sol = res.solution
+    rerr, terr = pose_errors(sol, gt)
+    n_corr = int(res.correspondences.mask.sum())
+    occupied = [int(v.mask.sum()) for v in (res.src_voxels, res.tgt_voxels)]
+    log(f"{name}: {json.dumps(L_SIZES)}, 4 clique hypotheses, no vote; "
+        f"valid {bool(sol.valid)}  voxels {occupied[0]} / {occupied[1]}  "
+        f"correspondences {n_corr}  rotation error {rerr:.6f} rad  "
+        f"translation error {terr:.6f} m  host wall {wall_ms:.3f} ms")
+    log(f"{name} launches: {json.dumps(launches)}")
+    if res.icp is not None:
+        log(f"{name} icp: converged {bool(res.icp.converged)}  inliers "
+            f"{int(res.icp.num_inliers)}  rmse {float(res.icp.rmse):.6f} m")
+    check(bool(sol.valid), f"{name}: solution not valid")
+    check(bool(torch.isfinite(sol.transform()).all()),
+          f"{name}: non-finite pose")
+    in_gate = rerr < L_GATE[0] and terr < L_GATE[1]
+    in_band = rerr < GOLDEN_BAND[0] and terr < GOLDEN_BAND[1]
+    check(in_gate or in_band, f"{name}: pose error {rerr} rad / {terr} m "
+          "outside the golden-spec band")
+    log(f"{name}: the pose is within "
+        + ("path A's gate (0.01 rad / 0.05 m)" if in_gate else
+           "the golden-spec band (5 deg / 2 m) but outside path A's gate")
+        + " of the tilted ground truth")
+    busy = stage_device_busy(lambda timer: register_scan_pair(
+        *pair, cfg, timer=timer))
+    log(f"{name} stages (ms, CUDA events of the counted run; device busy "
+        "from torch.profiler in one more run, between marker fills): "
+        + json.dumps({k: {"ms": round(v, 3), "device_busy_ms":
+                          None if busy is None else busy.get(k)}
+                      for k, v in stages.items()}))
+    walls = []
+    for _ in range(L_REPEATS):
+        t0 = time.perf_counter()
+        register_scan_pair(*pair, cfg)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    walls.sort()
+    log(f"{name} pair latency over {L_REPEATS} runs (ms, host wall): "
+        f"min {walls[0]:.3f}  median {walls[len(walls) // 2]:.3f}  "
+        f"max {walls[-1]:.3f}")
+    (((_, icp_recs), clique_recs), polish_recs) = polish_run(
+        lambda: clique_run(lambda: icp_run(
+            lambda: register_scan_pair(*pair, cfg))))
+    return {"launches": launches, "routes": routes, "cfg": cfg,
+            "recs": {"polish": polish_recs, "icp": icp_recs,
+                     "cliques": clique_recs}}
+
+
+def limit_kernel_rows(lrun, pair_a, cfg_a):
+    """Every wide route on the card: bit for bit its plain version (on
+    the card; B8 on CPU copies, as its first route is held) at its first
+    size past the former limit and at path L's recorded call, with its
+    route counted past the limit; a row "<kernel> (wide)" in the kernel
+    table at path L's call (the polish at N = 8192, ICP's update at 16384
+    rows, the lists and normals at K = 96, the growth at N = 8192) or at
+    a size past the limit (the CZM at nine zones on path A's clouds, B8
+    at five channels, the leveling at 2^18 + 1 points), its launches path
+    L's wide launches (0 for the three path L does not reach); the other
+    sizes logged with a label (the polish at 4097, the update at 8193
+    rows, the lists at K = 65 and 257, the growth at N = 4352 and 20000
+    on complete graphs). Patchwork's whole estimate_ground at nine zones
+    against the plain CZM-stage route. Returns the rows."""
+    from quatro_tpu_torch.ops import czm, launch, segment
+    from quatro_tpu_torch.ops import cliques as tcl
+    from quatro_tpu_torch.ops import ground as og
+    from quatro_tpu_torch.ops.neighbors import NeighborLists
+    from quatro_tpu_torch.preprocessing import patchwork
+    from quatro_tpu_torch.device import resolve_device
+    from quatro_tpu_torch.utils import loops
+
+    lc = _limit_cases()
+    dev = resolve_device()
+    rows = []
+
+    def uncaptured(fn):
+        """fn under ``eager_loops()``: the growth's plain route on a graph
+        of N vertices would keep its (N, N) f32 operand in a captured
+        loop's static buffers for the rest of the run."""
+        def run():
+            with loops.eager_loops():
+                return fn()
+        return run
+
+    def equal(name, k_fn, p_fn, label, cpu=False):
+        launch.reset_launches()
+        got = _as_tuple(k_fn())
+        torch.cuda.synchronize()
+        past = launch.SIZE_ROUTES[name]["past"]
+        ref = _as_tuple(p_fn())
+        if cpu:
+            got = tuple(t.cpu() for t in got)
+        check(past >= 1, f"{name} ({label}): the wide route did not run")
+        check(len(got) == len(ref) and all(
+            same_bits(a, b) for a, b in zip(got, ref)),
+            f"{name} ({label}): the wide route differs from its plain "
+            "version")
+
+    def wide(name, k_fn, p_fn, work, lib_fn, extra, label=None, cpu_fn=None):
+        equal(name, k_fn, cpu_fn or p_fn, label or "the row's call",
+              cpu=cpu_fn is not None)
+        b_ms, by = bound(*work)
+        r = {"name": f"{name} (wide)", "route": "cuda",
+             "source": SOURCES[name], "replaces": REPLACES[name],
+             "launches": (lrun["launches"][name] if name in L_ROUTES
+                          else 0),
+             "max_abs_err": 0.0, "ms": cuda_ms(k_fn),
+             "plain_ms": cuda_ms(p_fn, 3), "bound_ms": b_ms,
+             "bound_by": by,
+             "library_ms": cuda_ms(lib_fn) if lib_fn else None,
+             "device_ms": device_ms_per_call(k_fn, "quatro::")}
+        r.update(extra)
+        log(f"{name} (wide{', ' + label if label else ''}): "
+            + json.dumps(r))
+        if label is None:
+            rows.append(r)
+
+    recs = lrun["recs"]
+    # the polish at path L's solve (N = 8192), and at 4097 on the test rows
+    for name in POLISH_KERNELS:
+        a, kw, out = recs["polish"][name][0]
+        k_fn, p_fn, work, lib_fn, extra = polish_row_fields(name, a, kw, out)
+        wide(name, k_fn, p_fn, work, lib_fn, extra)
+    pc = _polish_cases()
+    for opts in ({}, dict(rotation_estimation_algorithm="FGR",
+                          cote_mode="weighted_mean")):
+        case = lc.polish_case(lc.POLISH_N, opts)
+        launch.reset_launches()
+        got = pc.solve_case(case, dev)
+        torch.cuda.synchronize()
+        routes = {k: launch.SIZE_ROUTES[k]["past"] for k in POLISH_KERNELS}
+        with pc.plain_polish_route(), loops.eager_loops():
+            ref = pc.solve_case(case, dev)
+        check(routes == dict.fromkeys(POLISH_KERNELS, 1) and all(
+            pc.same_bits(g, r) for g, r in zip(pc.solution_fields(got),
+                                                pc.solution_fields(ref))),
+            f"the polish at N = {lc.POLISH_N} ({opts}): routes {routes}, "
+            "or the wide route differs from the plain route")
+    log(f"the polish at N = {lc.POLISH_N} (GNC-TLS; FGR with the weighted "
+        "mean), six rows: the wide routes equal the plain route on the "
+        "card, bit for bit")
+
+    # ICP: the update at path L's 16384 rows and at 8193; the lists and
+    # normals at K = 96 (path L), 65 and 257
+    a, kw, _ = recs["icp"]["icp_update"][0]
+    k_fn, p_fn = icp_fns("icp_update", a, kw)
+    wide("icp_update", k_fn, p_fn, icp_work("icp_update", a), None,
+         {"shape": str(icp_shape("icp_update", a))})
+    cut = (a[0][:, :lc.ICP_ROWS].contiguous(),
+           a[1][:, :lc.ICP_ROWS].contiguous(), *a[2:])
+    k_fn, p_fn = icp_fns("icp_update", cut, kw)
+    wide("icp_update", k_fn, p_fn, icp_work("icp_update", cut), None,
+         {"shape": str(icp_shape("icp_update", cut))},
+         label=f"{lc.ICP_ROWS} rows")
+    a, kw, _ = recs["icp"]["radius_knn"][0]
+    for k in (96, 65, 257):
+        args = (*a[:3], k, *a[4:])
+        k_fn, p_fn = icp_fns("radius_knn", args, kw)
+        lib_fn, lib_label = icp_library("radius_knn", args)
+        wide("radius_knn", k_fn, p_fn, icp_work("radius_knn", args), lib_fn,
+             {"shape": str(icp_shape("radius_knn", args)) + f", K {k}",
+              "library": lib_label},
+             label=None if k == 96 else f"K = {k}")
+        lists = NeighborLists(*k_fn())
+        nargs = (a[0], lists)
+        k_fn, p_fn = icp_fns("neighbor_normals", nargs, {})
+        wide("neighbor_normals", k_fn, p_fn,
+             icp_work("neighbor_normals", nargs), None,
+             {"shape": str(icp_shape("neighbor_normals", nargs))},
+             label=None if k == 96 else f"K = {k}")
+
+    # the growth at path L's N = 8192, and on a complete graph of 4352
+    a, kw, _ = recs["cliques"]["grow_cliques"][0]
+    k_fn, p_fn = clique_fns("grow_cliques", a, kw)
+    p_fn = uncaptured(p_fn)
+    lib_fn, lib_label = clique_library("grow_cliques", a, kw)
+    wide("grow_cliques", k_fn, p_fn, clique_work("grow_cliques", a, kw),
+         lib_fn, {"shape": str(tuple(a[0].shape)), "library": lib_label})
+    n = 4352
+    adj, scores, mask = (t.to(dev) for t in lc.complete_graph(n))
+    _, _, _, packed = tcl.kcore_search(adj, mask)
+    args = (adj, scores, mask, 1, n + 1, 8, 16, packed)
+    k_fn, p_fn = clique_fns("grow_cliques", args, {})
+    p_fn = uncaptured(p_fn)
+    wide("grow_cliques", k_fn, p_fn, clique_work("grow_cliques", args, {}),
+         None, {"shape": str(tuple(adj.shape))},
+         label=f"complete graph of {n}, max_size {n + 1}")
+    check(bool(k_fn()[0].all()), "the growth on a complete graph left "
+          "vertices out")
+    n = lc.GROW_WIDE_N
+    adj, scores, mask = (t.to(dev) for t in lc.complete_graph(n))
+    _, _, _, packed = tcl.kcore_search(adj, mask)
+    args = (adj, scores, mask, 1, n + 1, 8, 16, packed)
+    k_fn, p_fn = clique_fns("grow_cliques", args, {})
+    p_fn = uncaptured(p_fn)
+    wide("grow_cliques", k_fn, p_fn, clique_work("grow_cliques", args, {}),
+         None, {"shape": str(tuple(adj.shape))},
+         label=f"complete graph of {n}: its arrays in a global workspace")
+
+    # the CZM at nine zones on path A's clouds, and Patchwork at them
+    pts = torch.stack([p.points for p in pair_a]).to(dev).contiguous()
+    msk = torch.stack([p.mask for p in pair_a]).to(dev).contiguous()
+    cfg9 = dataclasses.replace(cfg_a.patchwork, **lc.NINE_ZONES)
+    args = (pts, msk, cfg9)
+    k_fn, p_fn = patchwork_fns("czm_points", args, {})
+    wide("czm_points", k_fn, p_fn, patchwork_work("czm_points", args, {}),
+         None, {"shape": str(tuple(pts.shape)) + ", 9 zones"})
+    launch.reset_launches()
+    got = patchwork.estimate_ground(pts, msk, cfg9)
+    torch.cuda.synchronize()
+    pw_launches = {k: launch.LAUNCHES[k] for k in PATCHWORK_KERNELS}
+    with sweep_route(True):
+        ref = patchwork.estimate_ground(pts, msk, cfg9)
+    check(all(same_bits(g, r) for g, r in zip(got, ref)),
+          "Patchwork at nine zones: the kernels differ from the plain "
+          "CZM-stage route")
+    log(f"Patchwork at nine zones ({cfg9.num_patches} patches) on path A's "
+        f"clouds: every field equal to the plain CZM-stage route on the "
+        f"card; launches {json.dumps(pw_launches)}; ground points "
+        f"{got.ground.sum(-1).tolist()}")
+
+    # B8 at five channels (path A's clouds' ids, the two weights and three
+    # channels), bit for bit on CPU copies; its library call index_add_
+    pid, zb, chan, weights, _ = czm.czm_points(pts, msk, cfg_a.patchwork)
+    w5 = torch.cat([weights, chan[:, :3]], 1).contiguous()
+    a_pad, b_pad = czm._pad128(cfg_a.patchwork.num_patches + 1), czm.Z_BINS
+    bsz, k, nn = w5.shape
+    key = torch.where((pid < a_pad) & (pid >= 0) & (zb >= 0) & (zb < b_pad),
+                      pid.long() * b_pad + zb, a_pad * b_pad)
+    flat = (key + torch.arange(bsz, device=dev)[:, None]
+            * (a_pad * b_pad + 1)).flatten()
+    w_flat = w5.transpose(0, 1).reshape(k, -1)
+    out = torch.zeros(k, bsz * (a_pad * b_pad + 1), device=dev)
+    cpu_args = (pid.cpu(), zb.cpu(), w5.cpu(), a_pad, b_pad)
+    wide("cross_histogram",
+         lambda: segment.cross_histogram(pid, zb, w5, a_pad, b_pad),
+         lambda: segment.cross_histogram_plain(pid, zb, w5, a_pad, b_pad),
+         (float(bsz * k * nn), float(bsz * nn * (8 + 4 * k)
+                                     + bsz * k * a_pad * b_pad * 4)),
+         lambda: out.index_add_(1, flat, w_flat),
+         {"shape": f"({bsz}, {k}, {nn}) into {a_pad} x {b_pad}",
+          "library": "one index_add_ into the bins of both clouds"},
+         cpu_fn=lambda: segment.cross_histogram_plain(*cpu_args))
+
+    # the leveling at 2^18 + 1 points, a pair with its reversed copy
+    gp, gm = (t.to(dev)[None] for t in lc.ground_cloud())
+    other = (gp.flip(1).contiguous(), gm.flip(1).contiguous())
+    gcfg = cfg_a.ground_alignment
+    args = (gp, gm, gcfg)
+    kw = {"other": other}
+    wide("ground_fit", lambda: og.ground_fit(*args, **kw),
+         lambda: og.ground_fit_plain(*args, **kw),
+         vote_level_work("ground_fit", args, kw, None), None,
+         {"shape": f"2 clouds of {gp.shape[1]} points, paired"})
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5907,6 +6264,10 @@ def main() -> int:
     vote_level_recs = capture_vote_level(pairs["tilted"], cfgs["A"])
     mark = graphs_of("path A", mark)
     t0 = time.perf_counter()
+    lrun = phase_path_l(pairs["tilted"], gts["tilted"])
+    log(f"path L: {time.perf_counter() - t0:.1f} s")
+    mark = graphs_of("path L", mark)
+    t0 = time.perf_counter()
     bench = (*bench_case(), time.perf_counter() - t0)
     res_b, launches_b, _, _ = phase_pipeline(
         register_scan_pair, pairs["raw"], gts["raw"], cfgs["B"],
@@ -5950,6 +6311,10 @@ def main() -> int:
                          vote_level_recs)
     del (calls, overlap_args, clique_recs, icp_recs, match_recs, match_recs_b,
          voxel_recs, polish_recs, vote_level_recs)
+    t0 = time.perf_counter()
+    rows += limit_kernel_rows(lrun, pairs["tilted"], cfgs["A"])
+    log(f"the wide routes' kernel rows: {time.perf_counter() - t0:.1f} s")
+    del lrun
     mark = graphs_of("profile and kernels", mark)
     # last: its large batches and profiles leave the profiler missing
     # more events in the runs after them
@@ -5977,7 +6342,8 @@ def main() -> int:
             r["b64"] = stage_rows[r["name"]]
             r["launches_b8_call"] = launches8[r["name"]]
             r["label_rounds_b8_call"] = launches8["label_rounds"]
-        r["launches_path_m"] = launches_m[r["name"]]
+        r["launches_path_m"] = (0 if r["name"].endswith("(wide)")
+                                else launches_m[r["name"]])
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -77,7 +77,8 @@ SIGNATURES = {
                   [_P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _I, _F, _P, _P,
                    _P, _P]),
     "cliques": ("quatro_kcore_search", [_P, _P, _I, _I, _I, _P, _P, _P, _P]),
-    "knn": ("quatro_radius_knn", [_P, _P, _I, _I, _I, _F, _P, _P, _P, _P]),
+    "knn": ("quatro_radius_knn", [_P, _P, _I, _I, _I, _F, _P, _P, _P, _P, _I,
+                                  _P]),
     "neighbor_normals": ("quatro_neighbor_normals",
                          [_P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _P, _P,
                           _P]),
@@ -93,7 +94,7 @@ SIGNATURES = {
     "voxel": ("quatro_voxel_keys", [_P, _P, _P, _I, _I, _F, _P, _P, _P]),
     "polish": ("quatro_polish_chain",
                [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
-                _P, _P]),
+                _P, _P, _P]),
     "moment_normals": ("quatro_moment_normals",
                        [_P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _P, _P, _P]),
     "ground": ("quatro_ground_fit",
@@ -126,7 +127,7 @@ EXTRA = {"sqrt_rn_check": ("consistency_graph", "quatro_sqrt_rn_check",
                          [_P, _I, _I, _P, _P, _P]),
          "grow_cliques": ("cliques", "quatro_grow_cliques",
                           [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                           _I, _P, _P, _P]),
+                           _I, _P, _P, _P, _P]),
          "swap_cliques": ("cliques", "quatro_swap_cliques",
                           [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P]),
          "distinct_cliques": ("cliques", "quatro_distinct_cliques",
@@ -144,12 +145,13 @@ EXTRA = {"sqrt_rn_check": ("consistency_graph", "quatro_sqrt_rn_check",
                               _I, _F, _P, _P, _P, _P, _P, _P]),
          "gnc_yaw": ("polish", "quatro_gnc_yaw",
                      [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _F, _I,
-                      _F, _P, _P, _P, _P, _P, _P]),
+                      _F, _P, _P, _P, _P, _P, _P, _P]),
          "polish_cote": ("polish", "quatro_polish_cote",
                          [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                          _I, _F, _I, _I, _P, _P, _P, _P, _P, _P, _P]),
+                          _I, _F, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
+                          _P]),
          "cote": ("polish", "quatro_cote",
-                  [_P, _P, _P, _I, _I, _F, _I, _P, _P, _P, _P, _P]),
+                  [_P, _P, _P, _I, _I, _F, _I, _P, _P, _P, _P, _P, _I, _P]),
          "vote_translation": ("vote", "quatro_vote_translation",
                               [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _F, _F, _I, _P, _P, _P])}

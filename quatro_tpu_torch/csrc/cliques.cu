@@ -34,7 +34,10 @@
 // lanes reading 32 rows at one word hit 32 banks), the block stages them
 // there; else it reads them from device memory through L2 (use_smem 0):
 // the same bits either way. quatro_clique_smem reports both sizes and the
-// card's limit.
+// card's limit. The growth's own arrays (each warp's candidate and clique
+// bits, the scores) pass a block's shared memory near N = 18600: there they
+// sit in a global workspace of the wrapper's (grow_kernel<true>), so every
+// N that the JAX package takes runs.
 //
 // Bound on the card: the bool adjacency read once by the pack (N^2 bytes a
 // pair) dominates the bytes; the loops after it are dependent chains of
@@ -348,16 +351,21 @@ __device__ __forceinline__ void save_seed(uint32_t* rec, int w, const uint32_t* 
 // candidates are gone); with two_phase, the survivors seeds of most
 // candidates left (stable descending) on to max_size - 1 rounds in all.
 // Writes every seed's clique as (num_seeds, N) bytes.
+// G: the arrays past the staged rows (the mask's bits, the scores, the
+// seeds, each warp's candidate and clique bits) in `work`, `work_words` a
+// pair of global memory, where they exceed a block's shared memory (N past
+// ~18600); the rows are then read through L2
+template <bool G>
 __global__ void __launch_bounds__(kThreads)
 grow_kernel(const uint32_t* __restrict__ rows_g, const uint32_t* __restrict__ cols_g,
             const float* __restrict__ scores_g, const unsigned char* __restrict__ mask_g,
             const float* __restrict__ tiebreak, int n, int num_seeds, int max_size, int phase1,
             int survivors, int two_phase, int use_smem, uint32_t* scratch,
-            unsigned char* __restrict__ out) {
+            unsigned char* __restrict__ out, uint32_t* work, long long work_words) {
   extern __shared__ uint32_t sm[];
   const int b = blockIdx.x, w = words_of(n);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  uint32_t* p = sm + (use_smem ? n * smem_stride(w) : 0);
+  uint32_t* p = G ? work + (size_t)b * work_words : sm + (use_smem ? n * smem_stride(w) : 0);
   uint32_t* maskb = p;
   float* sc = reinterpret_cast<float*>(maskb + w);
   int* seeds = reinterpret_cast<int*>(sc + n);
@@ -772,15 +780,23 @@ extern "C" int quatro_grow_cliques(const unsigned* rows, const unsigned* cols,
                                    const float* tiebreak, int batch, int n, int num_seeds,
                                    int max_size, int phase1_rounds, int survivors,
                                    int two_phase, int use_smem, unsigned* scratch,
-                                   unsigned char* out, cudaStream_t stream) {
+                                   unsigned char* out, unsigned* work, cudaStream_t stream) {
   if (batch <= 0 || n <= 0 || num_seeds <= 0 || num_seeds > n || survivors > num_seeds)
     return (int)cudaErrorInvalidValue;
+  if (work != nullptr) {    // base_smem(1, ...) bytes a pair of global memory
+    if (use_smem) return (int)cudaErrorInvalidValue;
+    grow_kernel<true><<<batch, kThreads, 0, stream>>>(
+        rows, cols, scores, mask, tiebreak, n, num_seeds, max_size, phase1_rounds, survivors,
+        two_phase, 0, scratch, out, work, base_smem(1, n, num_seeds, 0) / 4);
+    return (int)cudaGetLastError();
+  }
   const long long bytes = smem_bytes(1, n, num_seeds, 0, use_smem);
-  int err = set_smem(grow_kernel, bytes);
+  int err = set_smem(grow_kernel<false>, bytes);
   if (err) return err;
-  grow_kernel<<<batch, kThreads, bytes, stream>>>(rows, cols, scores, mask, tiebreak, n,
-                                                  num_seeds, max_size, phase1_rounds,
-                                                  survivors, two_phase, use_smem, scratch, out);
+  grow_kernel<false><<<batch, kThreads, bytes, stream>>>(rows, cols, scores, mask, tiebreak, n,
+                                                         num_seeds, max_size, phase1_rounds,
+                                                         survivors, two_phase, use_smem,
+                                                         scratch, out, nullptr, 0);
   return (int)cudaGetLastError();
 }
 

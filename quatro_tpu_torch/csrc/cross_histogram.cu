@@ -20,7 +20,10 @@
 // 3.35 TB/s; the 0.5 M additions are nothing.
 // Design. A block takes one chunk and 32 rows a of the histogram, which it
 // holds in shared memory (32 x K x b_pad floats, 32 KB on the main path),
-// with 256 threads. Its rows are interleaved, a = rb + 16 i for block rb
+// with 256 threads. A histogram of more than 4 channels or more than 176 KB
+// of rows (the JAX kernel takes any) is launched in tiles of at most 4
+// channels and the columns that fit, each writing its part of the partials
+// (the per-bin order is the same), then summed as one. Its rows are interleaved, a = rb + 16 i for block rb
 // of 16, so that neighbouring patches, whose points come in runs one after the
 // other, fall to different blocks; warp w owns rows 4w..4w+3, and lane l of it the bins
 // (4w + i, c) with (c + 8 i) % 32 == l. Per tile of 1024 points:
@@ -85,11 +88,18 @@ __device__ __forceinline__ int packed(unsigned long long x, int g) {
   return (int)((x >> (8 * g)) & 0xFFull);
 }
 
-template <int K>   // weight channels
+// A tile of the histogram past the first route's size: channels g0 ..
+// g0 + K - 1 of k_total, columns c0 .. c0 + b_pad - 1 of b_full, written
+// into the whole histogram's partials.
+struct HistTile {
+  int k_total, g0, b_full, c0;
+};
+
+template <int K, bool T>   // weight channels; T: a tile of a larger histogram
 __global__ void __launch_bounds__(kHistThreads)
 hist_partials_kernel(const int* __restrict__ ids_a, const int* __restrict__ ids_b,
                      const float* __restrict__ w, int n, int a_pad, int b_pad,
-                     int chunk, int chunks, float* __restrict__ partial) {
+                     int chunk, int chunks, float* __restrict__ partial, HistTile tile) {
   extern __shared__ float hist[];           // [kHistRows][K][b_pad]
   __shared__ __align__(16) int lent[kHistList];   // the kept points' entries
   __shared__ __align__(16) float lw[K][kHistList];
@@ -109,7 +119,7 @@ hist_partials_kernel(const int* __restrict__ ids_a, const int* __restrict__ ids_
   for (int i = tid; i < kHistRows * row; i += kHistThreads) hist[i] = 0.f;
   const int* ia = ids_a + (size_t)b * n;
   const int* ib = ids_b + (size_t)b * n;
-  const float* wb = w + (size_t)b * K * n;
+  const float* wb = T ? w + ((size_t)b * tile.k_total + tile.g0) * n : w + (size_t)b * K * n;
   // this lane's register copy of one of its bins (its entry, or -1)
   int cur = -1;
   float acc[K] = {};
@@ -125,7 +135,9 @@ hist_partials_kernel(const int* __restrict__ ids_a, const int* __restrict__ ids_
       const int p = p0 + j;
       const bool in = p < e1;
       const int a = in ? ia[p] : -1;
-      const int cb = in ? ib[p] : -1;
+      // a tile's columns from c0 (unsigned: a column below c0 wraps past
+      // b_pad)
+      const int cb = in ? (T ? (int)((unsigned)ib[p] - (unsigned)tile.c0) : ib[p]) : -1;
       const bool keep = (unsigned)a < (unsigned)a_pad && a % nrb == rb &&
                         (unsigned)cb < (unsigned)b_pad;
       const int ra = a / nrb;
@@ -283,38 +295,92 @@ hist_partials_kernel(const int* __restrict__ ids_a, const int* __restrict__ ids_
   }
   __syncthreads();
   // 3. partial[b][c][g][a][cb], each row written by the whole block
-  float* out = partial + ((size_t)b * chunks + c) * K * a_pad * b_pad;
-  for (int i = tid; i < rows * row; i += kHistThreads) {
-    const int rr = i / row;
-    const int g = (i % row) / b_pad;
-    const int col = i % b_pad;
-    out[((size_t)g * a_pad + rb + nrb * rr) * b_pad + col] = hist[i];
+  if constexpr (T) {
+    float* out = partial + ((size_t)b * chunks + c) * tile.k_total * a_pad * tile.b_full;
+    for (int i = tid; i < rows * row; i += kHistThreads) {
+      const int rr = i / row;
+      const int g = (i % row) / b_pad;
+      const int col = i % b_pad;
+      out[((size_t)(tile.g0 + g) * a_pad + rb + nrb * rr) * tile.b_full + tile.c0 + col] =
+          hist[i];
+    }
+  } else {
+    float* out = partial + ((size_t)b * chunks + c) * K * a_pad * b_pad;
+    for (int i = tid; i < rows * row; i += kHistThreads) {
+      const int rr = i / row;
+      const int g = (i % row) / b_pad;
+      const int col = i % b_pad;
+      out[((size_t)g * a_pad + rb + nrb * rr) * b_pad + col] = hist[i];
+    }
   }
 }
 
-template <int K>
+template <int K, bool T = false>
 int launch_hist(const int* ids_a, const int* ids_b, const float* w, int n, int a_pad,
                 int b_pad, int chunk, int chunks, float* partial, dim3 grid, int smem,
-                cudaStream_t stream) {
-  int rc = (int)cudaFuncSetAttribute(hist_partials_kernel<K>,
+                cudaStream_t stream, HistTile tile = {}) {
+  int rc = (int)cudaFuncSetAttribute(hist_partials_kernel<K, T>,
                                      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (rc != 0) return rc;
-  hist_partials_kernel<K><<<grid, kHistThreads, smem, stream>>>(
-      ids_a, ids_b, w, n, a_pad, b_pad, chunk, chunks, partial);
+  hist_partials_kernel<K, T><<<grid, kHistThreads, smem, stream>>>(
+      ids_a, ids_b, w, n, a_pad, b_pad, chunk, chunks, partial, tile);
   return (int)cudaGetLastError();
+}
+
+constexpr int kHistSmemMax = 176 * 1024;   // a block's histogram rows
+
+// Past K = kHistMaxK channels or kHistSmemMax bytes of rows: the histogram
+// in tiles of at most kHistMaxK channels and as many columns as fit, each
+// a launch of the same kernel writing its part of every chunk's partial, so
+// that every bin adds its points in the same order; one chunk sum after.
+inline int launch_tiles(const int* ids_a, const int* ids_b, const float* w, int n, int k,
+                        int a_pad, int b_pad, int chunk, int chunks, float* partial, int bsz,
+                        cudaStream_t stream) {
+  for (int g0 = 0; g0 < k; g0 += kHistMaxK) {
+    const int kg = k - g0 < kHistMaxK ? k - g0 : kHistMaxK;
+    int bt = kHistSmemMax / (kHistRows * kg * 4);    // columns a tile: a bin key
+    if (bt > 65536 / kHistRows) bt = 65536 / kHistRows;   // in 16 bits
+    if (bt > b_pad) bt = b_pad;
+    for (int c0 = 0; c0 < b_pad; c0 += bt) {
+      const int width = b_pad - c0 < bt ? b_pad - c0 : bt;
+      const HistTile tile{k, g0, b_pad, c0};
+      const int smem = kHistRows * kg * width * (int)sizeof(float);
+      const dim3 grid(chunks, (a_pad + kHistRows - 1) / kHistRows, bsz);
+      int rc;
+      switch (kg) {
+        case 1: rc = launch_hist<1, true>(ids_a, ids_b, w, n, a_pad, width, chunk, chunks,
+                                          partial, grid, smem, stream, tile); break;
+        case 2: rc = launch_hist<2, true>(ids_a, ids_b, w, n, a_pad, width, chunk, chunks,
+                                          partial, grid, smem, stream, tile); break;
+        case 3: rc = launch_hist<3, true>(ids_a, ids_b, w, n, a_pad, width, chunk, chunks,
+                                          partial, grid, smem, stream, tile); break;
+        default: rc = launch_hist<4, true>(ids_a, ids_b, w, n, a_pad, width, chunk, chunks,
+                                           partial, grid, smem, stream, tile);
+      }
+      if (rc != 0) return rc;
+    }
+  }
+  return 0;
 }
 
 }  // namespace quatro
 
 // ids_a, ids_b (B, N) int32, w (B, K, N) f32, partial (B, ceil(N / chunk),
-// K, a_pad, b_pad) f32 scratch -> out (B, K, a_pad, b_pad) f32. K <= 4.
+// K, a_pad, b_pad) f32 scratch -> out (B, K, a_pad, b_pad) f32. K <= 4 and
+// 32 K b_pad floats within kHistSmemMax: one launch; else the tiles.
 extern "C" int quatro_cross_histogram(const int* ids_a, const int* ids_b, const float* w,
                                       int bsz, int n, int k, int a_pad, int b_pad,
                                       int chunk, float* partial, float* out,
                                       cudaStream_t stream) {
-  if (k < 1 || k > quatro::kHistMaxK || b_pad * quatro::kHistRows > 65536)
-    return (int)cudaErrorInvalidValue;   // K channels; a bin key in 16 bits
+  if (k < 1 || b_pad < 1) return (int)cudaErrorInvalidValue;
   const int chunks = (n + chunk - 1) / chunk;
+  if (k > quatro::kHistMaxK ||
+      (long long)quatro::kHistRows * k * b_pad * 4 > quatro::kHistSmemMax) {
+    const int rc = quatro::launch_tiles(ids_a, ids_b, w, n, k, a_pad, b_pad, chunk, chunks,
+                                        partial, bsz, stream);
+    if (rc != 0) return rc;
+    return quatro::launch_chunk_sum<8>(partial, bsz, chunks, k * a_pad * b_pad, out, stream);
+  }
   const int smem = quatro::kHistRows * k * b_pad * (int)sizeof(float);
   const dim3 grid(chunks, (a_pad + quatro::kHistRows - 1) / quatro::kHistRows, bsz);
   int rc = 0;

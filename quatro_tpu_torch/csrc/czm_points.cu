@@ -35,7 +35,9 @@
 // points) the two passes read 13 + 13 bytes a point and write 36; 1.04 GB,
 // 0.31 ms at 3.35 TB/s. Design: the arithmetic of the plain version's ~110
 // elementwise launches in registers, one pass; the zone table in the
-// kernel's parameters; no atomics, so the outputs repeat bit for bit.
+// kernel's parameters (up to kMaxZones zones; a larger one, which a
+// Patchwork YAML may give, is read from two small device arrays by the
+// same code); no atomics, so the outputs repeat bit for bit.
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -55,6 +57,15 @@ struct ZoneTable {
   float edge[kMaxZones];      // zone k + 1 starts at r >= edge[k], k < nz - 1
   float min_rng[kMaxZones], ring_sz[kMaxZones], sect_sz[kMaxZones];
   int nrings[kMaxZones], nsect[kMaxZones], offs[kMaxZones];
+};
+
+// The zone table past kMaxZones zones: the same fields as device arrays
+// (zone_f (4, nz) and zone_i (3, nz) rows of the wrapper's), read in the
+// same order by the same code
+struct ZoneRef {
+  int nz;
+  const float *edge, *min_rng, *ring_sz, *sect_sz;
+  const int *nrings, *nsect, *offs;
 };
 
 struct CzmParams {
@@ -116,8 +127,9 @@ czm_zrange_kernel(const float* __restrict__ points, const bool* __restrict__ mas
   }
 }
 
+template <class Zones>
 __global__ void __launch_bounds__(kCzmThreads)
-czm_points_kernel(const float* __restrict__ points, const bool* __restrict__ mask, ZoneTable zt,
+czm_points_kernel(const float* __restrict__ points, const bool* __restrict__ mask, Zones zt,
                   CzmParams p, const float* __restrict__ centers,
                   const float* __restrict__ zpart, int* __restrict__ pid_out,
                   int* __restrict__ zb_out, float* __restrict__ chan,
@@ -201,7 +213,19 @@ extern "C" int quatro_czm_points(const float* points, const bool* mask, int bsz,
                                  float* zpart, int* pid, int* zb, float* chan, float* weights,
                                  int* b0, cudaStream_t stream) {
   using namespace quatro;
-  if (nz < 1 || nz > kMaxZones) return (int)cudaErrorInvalidValue;
+  if (nz < 1) return (int)cudaErrorInvalidValue;
+  const int chunks = (n + chunk - 1) / chunk;
+  const CzmParams p{n, p_cnt, chunk, chunks, min_r, max_r, keep_z, two_pi, margin};
+  const dim3 grid((n + kCzmThreads - 1) / kCzmThreads, bsz);
+  if (nz > kMaxZones) {
+    // zone_f, zone_i on the device (the wide route)
+    const ZoneRef zr{nz,         zone_f,         zone_f + nz, zone_f + 2 * nz, zone_f + 3 * nz,
+                     zone_i,     zone_i + nz,    zone_i + 2 * nz};
+    czm_zrange_kernel<<<dim3(chunks, bsz), kCzmThreads, 0, stream>>>(points, mask, p, zpart);
+    czm_points_kernel<<<grid, kCzmThreads, 0, stream>>>(points, mask, zr, p, centers, zpart, pid,
+                                                        zb, chan, weights, b0);
+    return (int)cudaGetLastError();
+  }
   // zone_f (host, 4 x nz): zone edges (bounds[1:]), min ranges, ring and
   // sector sizes; zone_i (host, 3 x nz): ring and sector counts, offsets
   ZoneTable zt{};
@@ -215,10 +239,8 @@ extern "C" int quatro_czm_points(const float* points, const bool* mask, int bsz,
     zt.nsect[k] = zone_i[nz + k];
     zt.offs[k] = zone_i[2 * nz + k];
   }
-  const int chunks = (n + chunk - 1) / chunk;
-  const CzmParams p{n, p_cnt, chunk, chunks, min_r, max_r, keep_z, two_pi, margin};
   czm_zrange_kernel<<<dim3(chunks, bsz), kCzmThreads, 0, stream>>>(points, mask, p, zpart);
-  czm_points_kernel<<<dim3((n + kCzmThreads - 1) / kCzmThreads, bsz), kCzmThreads, 0, stream>>>(
-      points, mask, zt, p, centers, zpart, pid, zb, chan, weights, b0);
+  czm_points_kernel<<<grid, kCzmThreads, 0, stream>>>(points, mask, zt, p, centers, zpart, pid,
+                                                      zb, chan, weights, b0);
   return (int)cudaGetLastError();
 }

@@ -36,7 +36,9 @@
 // Thread t of CTA r holds the strided set {g, g + S, g + 2S, ...} of the
 // cloud's points, g = 8 t + r, S = 8192; it folds the tree's levels at or
 // above S over them itself (a recursion on the even and odd members,
-// which is the halving pairing of pairwise_sum); the levels from S / 2
+// which is the halving pairing of pairwise_sum; past 32 members a thread,
+// a cloud of more than 2^18 points, tree.cuh's strided_fold, the same
+// pairing for any count); the levels from S / 2
 // down to 8 pair positions of one CTA (tree.cuh: shared memory, then
 // shuffles); the last three pair CTA r with CTA r + h, added by every CTA
 // from the partials in distributed shared memory in that order. The
@@ -64,7 +66,7 @@ namespace cg = cooperative_groups;
 constexpr int kCluster = 8;                  // CTAs a cloud (portable size)
 constexpr int kThreads = 1024;
 constexpr int kSpan = kCluster * kThreads;   // strided sets a cloud
-constexpr int kMaxLevels = 5;    // points a set: up to 2^5 (N <= 2^18, the wrapper checks)
+constexpr int kMaxLevels = 5;    // points a set in registers: up to 2^5 (N <= 2^18)
 constexpr float kSignEps = 0x1.197998p-40f;   // f32(1e-12)
 constexpr float kNormEps = 0x1.197998p-40f;   // f32(1e-12)
 constexpr float kOneCEps = 0x1.0c6f7ap-20f;   // f32(1e-6)
@@ -114,6 +116,17 @@ __device__ __forceinline__ void fold(const Leaf& leaf, int levels, int g, float 
   }
 }
 
+// fold, or past kMaxLevels levels (W: more than 2^18 points a cloud)
+// tree.cuh's strided_fold: the same halving pairing for any count
+template <bool W, int NV, class Leaf>
+__device__ __forceinline__ void fold_set(const Leaf& leaf, int levels, int g, float (&out)[NV]) {
+  if constexpr (W) {
+    tree::strided_fold<NV>([&](int k, float (&x)[NV]) { leaf(g + k * kSpan, x); }, levels, out);
+  } else {
+    fold<NV>(leaf, levels, g, out);
+  }
+}
+
 // The tree's levels below kCluster across the cluster: CTA r's partial is
 // the value at position r (CTA r holds the positions r + kCluster t), so
 // the halves 4, 2, 1 (those under `top`, the first half of the tree
@@ -150,6 +163,7 @@ __device__ __forceinline__ float tsign(float x) {
   return (float)((0.0f < x) - (x < 0.0f));
 }
 
+template <bool W>
 __global__ void __launch_bounds__(kThreads)
 ground_fit_kernel(GroundParams g, int* __restrict__ tickets, float* __restrict__ level,
                   float* __restrict__ height, bool* __restrict__ ok_out) {
@@ -185,7 +199,7 @@ ground_fit_kernel(GroundParams g, int* __restrict__ tickets, float* __restrict__
   {
     float v[3][1];
     float o[3];
-    fold<3>(
+    fold_set<W, 3>(
         [&](int i, float (&x)[3]) {
           if (i < n) {
             const float w = cl.m[i] ? 1.0f : 0.0f;
@@ -211,7 +225,7 @@ ground_fit_kernel(GroundParams g, int* __restrict__ tickets, float* __restrict__
   {
     float v[6][1];
     float o[6];
-    fold<6>(
+    fold_set<W, 6>(
         [&](int i, float (&x)[6]) {
           if (i < n) {
             const float w = cl.m[i] ? 1.0f : 0.0f;
@@ -320,7 +334,11 @@ extern "C" int quatro_ground_fit(const float* pa, const bool* ma, int ca, int na
   attr.val.clusterDim.z = 1;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, ground_fit_kernel, g, tickets, level, height, ok);
+  // a cloud of more than 2^18 points: the wide route
+  const bool wide = (na > (kSpan << kMaxLevels)) || (cb > 0 && nb > (kSpan << kMaxLevels));
+  const cudaError_t err =
+      wide ? cudaLaunchKernelEx(&cfg, ground_fit_kernel<true>, g, tickets, level, height, ok)
+           : cudaLaunchKernelEx(&cfg, ground_fit_kernel<false>, g, tickets, level, height, ok);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

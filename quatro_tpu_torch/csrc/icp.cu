@@ -24,9 +24,11 @@
 // update: rows, ok, rot, trans, step, dof (6,) -> rot, trans, step + 1. A
 //   block of 1024 threads a pair: the 36 entries of h = sum a^T (a w) and
 //   the 6 of g = sum (a w) r over the K rows padded with +0 to a power of
-//   two P <= 8192, summed in fused.pairwise_sum's tree (each of H = min(P /
-//   2, 1024) threads folds its P / H leaves t, t + H, ... in registers,
-//   then halves in shared memory, 42 x H floats), the ok rows counted; then
+//   two P, summed in fused.pairwise_sum's tree (each of H = min(P / 2,
+//   1024) threads folds its P / H leaves t, t + H, ... in registers, up to
+//   8 of them (P <= 8192; the wide route's instance 16, P <= 16384), past
+//   that by tree.cuh's strided_fold, the same pairing for any K; then
+//   halves in shared memory, 42 x H floats), the ok rows counted; then
 //   one thread: the DoF mask, the trace by the same tree, the damping,
 //   _solve_spd's Gauss-Jordan, the min_correspondences gate, exp_so3 with
 //   its series below 1e-4 rad, dr @ R and dr @ t + dt.
@@ -44,6 +46,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tree.cuh"
+
 namespace quatro {
 namespace icp {
 
@@ -54,6 +58,7 @@ constexpr int kRow = 8;              // [p x n, n, w, r]
 constexpr int kSums = 42;            // 36 of h, 6 of g
 constexpr int kUpdThreads = 1024;
 constexpr int kMaxFold = 8;          // leaves a thread: P <= 8192
+constexpr int kWideFold = 16;        // the wide route's in registers: P <= 16384
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kFltMax = 3.40282346638528859812e+38f;
 constexpr uint64_t kEmpty = ~0ull;
@@ -198,6 +203,10 @@ __device__ __forceinline__ void load_row(const float* __restrict__ rw, int ks, i
   }
 }
 
+// F: the leaves a thread folds in registers (kMaxFold; the wide route
+// kWideFold, K <= 16384); a larger fold goes through tree::strided_fold
+// (the same halving pairing, any fold)
+template <int F>
 __global__ void __launch_bounds__(kUpdThreads)
 icp_update_kernel(const float* __restrict__ rows, const bool* __restrict__ ok, const float* rot,
                   const float* trans, const long long* step, const float* __restrict__ dof,
@@ -228,23 +237,39 @@ icp_update_kernel(const float* __restrict__ rows, const bool* __restrict__ ok, c
       const float y = leaf(xa, q);
       sums[q * hw + tid] = (fold == 2) ? fadd(y, leaf(xb, q)) : y;
     }
-  } else if (tid < hw) {
+  } else if (tid < hw && fold <= F) {
     for (int q = 0; q < kSums; ++q) {
-      float y[kMaxFold];
+      float y[F];
 #pragma unroll
-      for (int m = 0; m < kMaxFold; ++m) {
+      for (int m = 0; m < F; ++m) {
         float x[kRow];
         load_row(rw, ks, m < fold ? tid + hw * m : ks, x);
         y[m] = leaf(x, q);
       }
 #pragma unroll
-      for (int len = kMaxFold; len >= 2; len >>= 1) {
+      for (int len = F; len >= 2; len >>= 1) {
         if (len > fold) continue;
 #pragma unroll
-        for (int i = 0; i < kMaxFold / 2; ++i)
+        for (int i = 0; i < F / 2; ++i)
           if (i < len / 2) y[i] = fadd(y[i], y[i + len / 2]);
       }
       sums[q * hw + tid] = y[0];
+    }
+  } else if (tid < hw) {
+    if constexpr (F > kMaxFold) {
+      int levels = 0;
+      while ((1 << levels) < fold) ++levels;
+      for (int q = 0; q < kSums; ++q) {
+        float y[1];
+        tree::strided_fold<1>(
+            [&](int m, float (&v)[1]) {
+              float x[kRow];
+              load_row(rw, ks, tid + hw * m, x);
+              v[0] = leaf(x, q);
+            },
+            levels, y);
+        sums[q * hw + tid] = y[0];
+      }
     }
   }
   // then halves in shared memory: entry (q, i) of level 2^lg adds i + 2^lg
@@ -357,7 +382,7 @@ extern "C" int quatro_icp_correspond(const float* src, const bool* smask, const 
 }
 
 // rows (B, K, 8), ok (B, K), rot, trans, step (1,) int64, dof (6,) ->
-// rot, trans, step + 1; 1 <= K <= 8192
+// rot, trans, step + 1; K >= 1 (past 8192 rows the wide route)
 extern "C" int quatro_icp_update(const float* rows, const bool* ok, const float* rot,
                                  const float* trans, const long long* step, const float* dof,
                                  int bsz, int ks, float damping, int min_corr, float* rot_out,
@@ -369,14 +394,19 @@ extern "C" int quatro_icp_update(const float* rows, const bool* ok, const float*
   const size_t smem = sizeof(float) * kSums * hw;
   static bool attr = false;
   if (!attr) {
-    const int rc = (int)cudaFuncSetAttribute(icp_update_kernel,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             (int)(sizeof(float) * kSums * kUpdThreads));
+    const int bytes = (int)(sizeof(float) * kSums * kUpdThreads);
+    int rc = (int)cudaFuncSetAttribute(icp_update_kernel<kMaxFold>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (rc == 0)
+      rc = (int)cudaFuncSetAttribute(icp_update_kernel<kWideFold>,
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (rc) return rc;
     attr = true;
   }
-  icp_update_kernel<<<bsz, kUpdThreads, smem, stream>>>(rows, ok, rot, trans, step, dof, ks, p2,
-                                                        hw, damping, min_corr, rot_out,
-                                                        trans_out, step_out);
+  // more than kMaxFold leaves a thread (K > 8192 rows): the wide route
+  auto kernel =
+      p2 / hw > kMaxFold ? icp_update_kernel<kWideFold> : icp_update_kernel<kMaxFold>;
+  kernel<<<bsz, kUpdThreads, smem, stream>>>(rows, ok, rot, trans, step, dof, ks, p2, hw,
+                                             damping, min_corr, rot_out, trans_out, step_out);
   return (int)cudaGetLastError();
 }

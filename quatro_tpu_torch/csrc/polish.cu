@@ -57,6 +57,14 @@
 //   sorted bitonically in shared memory, a thread a block of 16 events for
 //   the prefix and the costs, a block argmin; the row's last block (an
 //   integer ticket after a fence) ANDs the axes and scatters the mask.
+// - rows of more than kMaxPoints points (the JAX package takes any width):
+//   the chain and COTE keep the same code with their buffers in a global
+//   workspace of the wrapper's (the chain's order, n ints a row; COTE's
+//   events, values, levels and selection, cote_bytes a (row, axis)), so the
+//   same sort and scans give the same bits; the GNC runs
+//   gnc_yaw_wide_kernel, 1024 threads a row folding 2^L points each
+//   through tree.cuh's strided_fold (the register kernel's tree, any L),
+//   the weights in global memory.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -71,6 +79,7 @@ namespace pol {
 constexpr int kMaxPoints = 4096;
 constexpr int kChainThreads = 256;
 constexpr int kCoteThreads = 1024;
+constexpr int kWideThreads = 1024;     // the GNC past kMaxPoints
 constexpr float kFltMax = 3.40282346638528859812e+38f;
 
 using sort::bitonic_sort;
@@ -103,16 +112,21 @@ struct ChainParams {
   int has_prior;
 };
 
+// G: the order staged in `work` (n ints a row, global memory) past
+// kMaxPoints points a row; else in shared memory
+template <bool G>
 __global__ void __launch_bounds__(kChainThreads)
 polish_chain_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
                     const bool* __restrict__ clique_mask, const float* __restrict__ scale,
                     const float* __restrict__ prior, ChainParams p,
                     long long* __restrict__ order, long long* __restrict__ leaf,
                     bool* __restrict__ chain_mask, long long* __restrict__ m_out,
-                    float* __restrict__ src_tims, float* __restrict__ dst_tims) {
-  __shared__ int ord[kMaxPoints];
+                    float* __restrict__ src_tims, float* __restrict__ dst_tims,
+                    int* __restrict__ work) {
+  __shared__ int ord_s[G ? 1 : kMaxPoints];
   __shared__ int warp_sums[32];
   const size_t r = blockIdx.x;
+  int* ord = G ? work + r * p.n : ord_s;
   const int n = p.n, tid = threadIdx.x;
   const size_t pair = r / p.hyps;
   const bool* mask = clique_mask + r * n;
@@ -393,6 +407,200 @@ gnc_yaw_kernel(const float* __restrict__ src, const float* __restrict__ dst,
   }
 }
 
+// The GNC of rows wider than the register kernel's 4096 points: the same
+// rounds, each point's values recomputed from the inputs where the
+// register kernel keeps them (the same operations, so the same bits), the
+// weights kept in `weights` and the next round's in `wnext` (rows x n
+// floats each; a thread reads and writes only its own points). A thread
+// folds its 2^levels points t + k * T (+0 past the row) in the tree's
+// pairing (tree::strided_fold), then tree_sum takes the levels below T.
+template <int T>
+__global__ void __launch_bounds__(T)
+gnc_yaw_wide_kernel(const float* __restrict__ src, const float* __restrict__ dst,
+                    const bool* __restrict__ mask, const float* __restrict__ nb_rows,
+                    GncParams p, int levels, float* __restrict__ rotation,
+                    float* __restrict__ weights, float* __restrict__ wnext,
+                    bool* __restrict__ inliers, int* __restrict__ iters_out,
+                    float* __restrict__ cost_out) {
+  __shared__ float sm[3 * T];
+  __shared__ float red[3];
+  const int tid = threadIdx.x;
+  const size_t r = blockIdx.x;
+  const int n = p.n;
+  const bool fgr = p.algo == 1;
+  const int members = 1 << levels;
+  float* w = weights + r * n;
+  float* wn = wnext + r * n;
+  const bool* mrow = mask + r * n;
+
+  struct Pt {
+    float sx, sy, dx, dy, mf, sdot, scr;
+  };
+  auto point = [&](int i) {
+    Pt q;
+    q.sx = src[r * p.src_rs + (size_t)i * p.src_ps];
+    q.sy = src[r * p.src_rs + (size_t)i * p.src_ps + 1];
+    q.dx = dst[r * p.dst_rs + (size_t)i * p.dst_ps];
+    q.dy = dst[r * p.dst_rs + (size_t)i * p.dst_ps + 1];
+    q.mf = mrow[i] ? 1.0f : 0.0f;
+    q.sdot = add(add(0.0f, mul(q.sx, q.dx)), mul(q.sy, q.dy));
+    q.scr = sub(mul(q.sx, q.dy), mul(q.sy, q.dx));
+    return q;
+  };
+  for (int k = 0; k < members; ++k) {
+    const int i = tid + k * T;
+    if (i < n) w[i] = mrow[i] ? 1.0f : 0.0f;
+  }
+  const float nb = nb_rows != nullptr ? nb_rows[r] : p.nb;
+  const float nb2 = mul(nb, nb);
+  const float nb_sq = fgr ? clamp_min(nb2, 1e-16f) : (nb2 < 1e-16f ? 1e-2f : nb2);
+
+  auto residual = [&](const Pt& q, float c, float s, float ns) {
+    const float d0 = sub(q.dx, add(mul(q.sx, c), mul(q.sy, ns)));
+    const float d1 = sub(q.dy, add(mul(q.sx, s), mul(q.sy, c)));
+    return mul(add(add(0.0f, mul(d0, d0)), mul(d1, d1)), q.mf);
+  };
+  // the Procrustes angle at the weights w * mf
+  auto solve = [&]() {
+    float o[2];
+    tree::strided_fold<2>(
+        [&](int k, float (&x)[2]) {
+          const int i = tid + k * T;
+          x[0] = x[1] = 0.0f;
+          if (i < n) {
+            const Pt q = point(i);
+            const float we = mul(w[i], q.mf);
+            x[0] = mul(we, q.sdot);
+            x[1] = mul(we, q.scr);
+          }
+        },
+        levels, o);
+    float v[2][1] = {{o[0]}, {o[1]}};
+    tree_sum<T, 1, 2>(v, p.half, sm, red);
+    return atan2f(red[1], red[0]);
+  };
+  // one round at theta and mu: the next weights into wn, and in one tree
+  // the cost c and the next round's dot and cross (gnc_yaw_kernel's
+  // round_sums)
+  float c = 0.0f, nd = 0.0f, nc = 0.0f;
+  auto round_sums = [&](float theta, float mu) {
+    const float cs = cosf(theta), sn = sinf(theta), ns = -sn;
+    const float me = mul(mu, nb_sq);
+    const float mu1 = add(mu, 1.0f);
+    const float th1 = mul(dvd(mu1, mu), nb_sq);
+    const float th2 = mul(dvd(mu, mu1), nb_sq);
+    const float num = mul(mul(nb_sq, mu), mu1);
+    float o[3];
+    tree::strided_fold<3>(
+        [&](int k, float (&x)[3]) {
+          const int i = tid + k * T;
+          x[0] = x[1] = x[2] = 0.0f;
+          if (i >= n) return;
+          const Pt q = point(i);
+          const float res = residual(q, cs, sn, ns);
+          float wk;
+          if (fgr) {
+            const float qq = dvd(me, add(res, me));
+            wk = mul(mul(qq, qq), q.mf);
+            x[0] = mul(wk, res);
+          } else {
+            const float mid = sub(__fsqrt_rn(dvd(num, clamp_min(res, 1e-30f))), mu);
+            wk = mul(res >= th1 ? 0.0f : (res <= th2 ? 1.0f : mid), q.mf);
+            x[0] = mul(w[i], res);
+          }
+          wn[i] = wk;
+          const float we = mul(wk, q.mf);
+          x[1] = mul(we, q.sdot);
+          x[2] = mul(we, q.scr);
+        },
+        levels, o);
+    float v[3][1] = {{o[0]}, {o[1]}, {o[2]}};
+    tree_sum<T, 1, 3>(v, p.half, sm, red);
+    c = red[0];
+    nd = red[1];
+    nc = red[2];
+  };
+  auto take = [&]() {
+    for (int k = 0; k < members; ++k) {
+      const int i = tid + k * T;
+      if (i < n) w[i] = wn[i];
+    }
+  };
+
+  float theta, cost = INFINITY, prev = INFINITY;
+  int iters = 0;
+  if (p.max_iter <= 0) {
+    theta = solve();
+  } else {
+    theta = solve();
+    // the largest residual at theta (block_amax's order inside a thread)
+    float top[1] = {-INFINITY};
+    {
+      const float cs = cosf(theta), sn = sinf(theta), ns = -sn;
+      for (int k = 0; k < members; ++k) {
+        const int i = tid + k * T;
+        if (i >= n) continue;
+        const float y = residual(point(i), cs, sn, ns);
+        if (isnan(y) || y > top[0]) top[0] = y;
+      }
+    }
+    const float mx = block_amax<T, 1>(top, T, sm);
+    float mu = fgr ? clamp_min(dvd(mx, nb_sq), 1.0f)
+                   : dvd(1.0f, sub(dvd(mul(2.0f, mx), nb_sq), 1.0f));
+    round_sums(theta, mu);
+    iters = 1;
+    bool live;
+    if (fgr) {
+      const bool done = mu <= 1.0f && fabsf(sub(c, prev)) < p.threshold;
+      take();
+      mu = clamp_min(mul(mu, p.factor), 1.0f);
+      prev = c;
+      live = !done;
+    } else {
+      cost = c;
+      const bool step = !(mu <= 0.0f);
+      if (step) take();
+      const bool converged = fabsf(sub(c, prev)) < p.threshold;
+      if (step) {
+        mu = mul(mu, p.factor);
+        prev = c;
+      }
+      live = step && !converged;
+    }
+    for (int it = 1; live && it < p.max_iter; ++it) {
+      theta = atan2f(nc, nd);
+      round_sums(theta, mu);
+      ++iters;
+      bool done;
+      if (fgr) {
+        done = mu <= 1.0f && fabsf(sub(c, prev)) < p.threshold;
+        mu = clamp_min(mul(mu, p.factor), 1.0f);
+      } else {
+        cost = c;
+        done = fabsf(sub(c, prev)) < p.threshold;
+        mu = mul(mu, p.factor);
+      }
+      take();
+      prev = c;
+      live = !done;
+    }
+    if (fgr) cost = prev;
+  }
+  if (tid == 0) {
+    const float cs = cosf(theta), sn = sinf(theta);
+    rotation[4 * r + 0] = cs;
+    rotation[4 * r + 1] = -sn;
+    rotation[4 * r + 2] = sn;
+    rotation[4 * r + 3] = cs;
+    iters_out[r] = iters;
+    cost_out[r] = cost;
+  }
+  for (int k = 0; k < members; ++k) {
+    const int i = tid + k * T;
+    if (i < n) inliers[r * n + i] = w[i] >= 0.4f && mrow[i];
+  }
+}
+
 // ------------------------------------------------------------------- COTE
 
 struct CoteParams {
@@ -472,9 +680,16 @@ struct CoteOutputs {
   int* num_rot;           // (R,)
 };
 
+// G: the events, candidates, values, prefix levels, selection and mask
+// of each (row, axis) in its `block_words` 64-bit words of `work` (global
+// memory) past kMaxPoints points a row; else in shared memory
+template <bool G>
 __global__ void __launch_bounds__(kCoteThreads)
-polish_cote_kernel(CoteInputs in, CoteParams p, CoteOutputs out) {
-  extern __shared__ unsigned long long keys[];   // pe event keys, then pn
+polish_cote_kernel(CoteInputs in, CoteParams p, CoteOutputs out,
+                   unsigned long long* __restrict__ work, long long block_words) {
+  extern __shared__ unsigned long long smem_keys[];   // pe event keys, then pn
+  unsigned long long* keys =
+      G ? work + ((size_t)blockIdx.x * 3 + blockIdx.y) * block_words : smem_keys;
   __shared__ float rot[9];
   __shared__ int warp_sums[32];
   __shared__ ArgMin arg[33];
@@ -710,16 +925,33 @@ inline int level_words(int n) {
   }
 }
 
+// the bytes of one (row, axis)'s buffers: pe + pn keys, x, the levels,
+// sel, msk (the wrapper's cote_block_words gives them in 64-bit words)
+inline long long cote_bytes(int n) {
+  return (long long)(pow2_at_least(2 * n) + pow2_at_least(n)) * 8 +
+         (long long)(n + 3 * level_words(2 * n) + n) * 4 + n;
+}
+
+// work: null within kMaxPoints points a row (shared memory), else rows x 3
+// blocks of work_words 64-bit words each
 inline int cote_launch(const CoteInputs& in, CoteParams p, const CoteOutputs& out, int rows,
-                       cudaStream_t stream) {
+                       unsigned long long* work, int work_words, cudaStream_t stream) {
   p.pe = pow2_at_least(2 * p.n);
   p.pn = pow2_at_least(p.n);
   p.words = level_words(2 * p.n);
+  if (p.n > kMaxPoints) {
+    if (work == nullptr || (long long)work_words * 8 < cote_bytes(p.n))
+      return (int)cudaErrorInvalidValue;
+    polish_cote_kernel<true><<<dim3(rows, 3), kCoteThreads, 0, stream>>>(in, p, out, work,
+                                                                         work_words);
+    return (int)cudaGetLastError();
+  }
   const int smem = (p.pe + p.pn) * 8 + (p.n + 3 * p.words + p.n) * 4 + p.n;
-  const int rc = (int)cudaFuncSetAttribute(polish_cote_kernel,
+  const int rc = (int)cudaFuncSetAttribute(polish_cote_kernel<false>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (rc != 0) return rc;
-  polish_cote_kernel<<<dim3(rows, 3), kCoteThreads, smem, stream>>>(in, p, out);
+  polish_cote_kernel<false><<<dim3(rows, 3), kCoteThreads, smem, stream>>>(in, p, out, nullptr,
+                                                                          0);
   return (int)cudaGetLastError();
 }
 
@@ -741,13 +973,21 @@ extern "C" int quatro_polish_chain(const float* src, const float* tgt, const boo
                                    const float* scale, const float* prior, int pairs, int hyps,
                                    int n, int prior_stride, int has_prior, long long* order,
                                    long long* leaf, bool* chain_mask, long long* m,
-                                   float* src_tims, float* dst_tims, cudaStream_t stream) {
+                                   float* src_tims, float* dst_tims, int* work,
+                                   cudaStream_t stream) {
   using namespace quatro::pol;
   if (pairs <= 0 || hyps <= 0 || n <= 0) return (int)cudaGetLastError();
-  if (n > kMaxPoints) return (int)cudaErrorInvalidValue;
   const ChainParams p{hyps, n, prior_stride, has_prior};
-  polish_chain_kernel<<<pairs * hyps, kChainThreads, 0, stream>>>(
-      src, tgt, clique_mask, scale, prior, p, order, leaf, chain_mask, m, src_tims, dst_tims);
+  if (n > kMaxPoints) {
+    if (work == nullptr) return (int)cudaErrorInvalidValue;
+    polish_chain_kernel<true><<<pairs * hyps, kChainThreads, 0, stream>>>(
+        src, tgt, clique_mask, scale, prior, p, order, leaf, chain_mask, m, src_tims, dst_tims,
+        work);
+  } else {
+    polish_chain_kernel<false><<<pairs * hyps, kChainThreads, 0, stream>>>(
+        src, tgt, clique_mask, scale, prior, p, order, leaf, chain_mask, m, src_tims, dst_tims,
+        nullptr);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -757,13 +997,21 @@ extern "C" int quatro_gnc_yaw(const float* src, const float* dst, const bool* ma
                               const float* nb_rows, int rows, int n, int src_rs, int src_ps,
                               int dst_rs, int dst_ps, float nb, int algo, float factor,
                               int max_iter, float threshold, float* rotation, float* weights,
-                              bool* inliers, int* iters, float* cost, cudaStream_t stream) {
+                              bool* inliers, int* iters, float* cost, float* work,
+                              cudaStream_t stream) {
   using namespace quatro::pol;
   if (rows <= 0 || n <= 0) return (int)cudaGetLastError();
-  if (n > kMaxPoints) return (int)cudaErrorInvalidValue;
   const int pow2 = pow2_at_least(n);
   const GncParams p{n, pow2 / 2, src_rs, src_ps, dst_rs, dst_ps, nb, algo, factor,
                     max_iter, threshold};
+  if (n > kMaxPoints) {     // work: rows x n floats, the next round's weights
+    if (work == nullptr) return (int)cudaErrorInvalidValue;
+    int levels = 0;
+    while ((kWideThreads << levels) < pow2) ++levels;
+    gnc_yaw_wide_kernel<kWideThreads><<<rows, kWideThreads, 0, stream>>>(
+        src, dst, mask, nb_rows, p, levels, rotation, weights, work, inliers, iters, cost);
+    return (int)cudaGetLastError();
+  }
   if (pow2 <= 256)
     return gnc_launch<256, 1>(src, dst, mask, nb_rows, p, rows, rotation, weights, inliers,
                               iters, cost, stream);
@@ -789,27 +1037,27 @@ extern "C" int quatro_polish_cote(const float* src, const float* tgt, const floa
                                   int n, int rdim, int prior_stride, float beta, int median,
                                   int rot_inliers, int* ticket, float* est, float* rotation,
                                   float* translation, bool* final_mask, int* num_rot,
+                                  unsigned long long* work, int work_words,
                                   cudaStream_t stream) {
   using namespace quatro::pol;
   if (pairs <= 0 || hyps <= 0 || n <= 0) return (int)cudaGetLastError();
-  if (n > kMaxPoints) return (int)cudaErrorInvalidValue;
   const CoteInputs in{src, tgt, scale, gnc_rot, prior, gnc_inl, order, m, valid, nullptr};
   const CoteOutputs out{ticket, est, rotation, translation, final_mask, num_rot};
   const CoteParams p{hyps, n, rdim, prior_stride, beta, median, rot_inliers, 1, 0, 0, 0};
-  return cote_launch(in, p, out, pairs * hyps, stream);
+  return cote_launch(in, p, out, pairs * hyps, work, work_words, stream);
 }
 
 // COTE on given points (solver/translation.solve_translation): src, dst
 // (rows, n, 3), mask (rows, n) -> translation (rows, 3), inliers (rows, n).
 extern "C" int quatro_cote(const float* src, const float* dst, const bool* mask, int rows, int n,
                            float beta, int median, int* ticket, float* est,
-                           float* translation, bool* inliers, cudaStream_t stream) {
+                           float* translation, bool* inliers, unsigned long long* work,
+                           int work_words, cudaStream_t stream) {
   using namespace quatro::pol;
   if (rows <= 0 || n <= 0) return (int)cudaGetLastError();
-  if (n > kMaxPoints) return (int)cudaErrorInvalidValue;
   const CoteInputs in{src, dst, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                       mask};
   const CoteOutputs out{ticket, est, nullptr, translation, inliers, nullptr};
   const CoteParams p{1, n, 3, 0, beta, median, 0, 0, 0, 0, 0};
-  return cote_launch(in, p, out, rows, stream);
+  return cote_launch(in, p, out, rows, work, work_words, stream);
 }

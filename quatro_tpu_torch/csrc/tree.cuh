@@ -68,5 +68,36 @@ __device__ __forceinline__ void tree_sum(float (&v)[NV][NPT], int half, float* s
   __syncthreads();
 }
 
+// The NV pairwise sums of one thread's strided set of 2^levels members
+// (member k at point t + k * T, say): the halving tree x[k] + x[k + half]
+// level by level, for any count, as the register folds above give it for a
+// fixed one. The tree adds its leaves in bit-reversed order of k pairwise,
+// so a stack of partials (the binary counter of pairwise summation) takes
+// them one at a time: leaf(k, out) gives member k's values (+0 past the
+// row). The wide routes use it where a thread's members do not fit in
+// registers: the polish's yaw GNC, ICP's update and the leveling past their
+// register folds, the neighbour normals past two slots a lane.
+template <int NV, class Leaf>
+__device__ __forceinline__ void strided_fold(const Leaf& leaf, int levels, float (&out)[NV]) {
+  float stk[32][NV];
+  int top = 0;
+  const unsigned count = 1u << levels;
+  for (unsigned j = 0; j < count; ++j) {
+    const int k = levels ? (int)(__brev(j) >> (32 - levels)) : 0;
+    float cur[NV];
+    leaf(k, cur);
+    for (unsigned b = j; b & 1u; b >>= 1) {
+      --top;
+#pragma unroll
+      for (int v = 0; v < NV; ++v) cur[v] = __fadd_rn(stk[top][v], cur[v]);
+    }
+#pragma unroll
+    for (int v = 0; v < NV; ++v) stk[top][v] = cur[v];
+    ++top;
+  }
+#pragma unroll
+  for (int v = 0; v < NV; ++v) out[v] = stk[0][v];
+}
+
 }  // namespace tree
 }  // namespace quatro

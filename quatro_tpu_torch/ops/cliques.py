@@ -24,10 +24,10 @@ current stream and counts the call in ``LAUNCHES``; for CPU tensors it runs
 its plain version (``*_plain``, the torch device loops of utils/loops.py
 that ran on the card before the kernels). There is no fallback between the
 two, and the kernels equal their plain versions on the card bit for bit:
-every degree is an exact count, and the f32 tests are taken on the same f32
-values (the growth's early completion while a candidate set holds at most
-GROW_EXACT vertices, where its f32 sums are exact: ``grow_cliques`` refuses
-the rest).
+every degree is an exact count, the f32 tests are taken on the same f32
+values, and the growth's early completion on exact counts in both (the
+JAX package's f32 sums equal them while a candidate set holds at most
+GROW_EXACT vertices, and round past it).
 
 The graph is packed once a solve: ``kcore_search`` packs it (its first
 kernel, counted with it) and hands the bits on; the growth and the swaps on
@@ -44,15 +44,17 @@ from typing import NamedTuple
 
 import torch
 
-from quatro_tpu_torch.ops.launch import LAUNCHES, check, launch, same_device
+from quatro_tpu_torch.ops.launch import (LAUNCHES, check, launch, same_device,
+                                         size_route)
 from quatro_tpu_torch.utils import fused, loops
 
 KCORE_CHUNK = 8         # peel rounds per flag read (plain version)
 GROW_CHUNK = 8          # growth rounds per flag read (plain version)
 TOP_CHUNK = 32          # rows of the distinct greedy per graph (plain)
 SWAP_CAND = 128         # the swap's k_cand: miss-one vertices it pairs
-# the largest candidate set whose early-completion test the plain route
-# takes on exact f32 sums (csz^2 <= 2^24)
+# the largest candidate set whose early-completion test the JAX package
+# takes on exact f32 sums (csz^2 <= 2^24); the port's counts are exact at
+# any size
 GROW_EXACT = 4096
 KIND = {"kcore_search": 0, "grow_cliques": 1, "swap_cliques": 2,
         "distinct_cliques": 3}
@@ -116,7 +118,8 @@ def clique_layout(kind: int, n: int, s: int, k: int, device_index: int):
     """(staged, bytes, limit) of a kernel of csrc/cliques.cu: whether its
     packed rows fit in a block's shared memory, the dynamic shared bytes it
     then takes, and the card's limit. ValueError where even the kernel's
-    other shared arrays exceed it. Needs the card."""
+    other shared arrays exceed it, but for the growth, whose wrapper then
+    hands it a global workspace of those bytes a pair. Needs the card."""
     from quatro_tpu_torch import _build
     info = torch.zeros(3, dtype=torch.int32)
     with torch.cuda.device(device_index):
@@ -124,7 +127,7 @@ def clique_layout(kind: int, n: int, s: int, k: int, device_index: int):
     if rc != 0:
         raise RuntimeError(f"clique_smem: CUDA error {rc}")
     staged, bare, limit = info.tolist()
-    if bare > limit:
+    if bare > limit and kind != KIND["grow_cliques"]:
         raise ValueError(
             f"clique kernel {kind} at N = {n}, S = {s}: {bare} bytes of "
             f"shared memory a block without the rows, over the limit "
@@ -254,11 +257,14 @@ def _grow_round(consts, state, max_size: int, n: int):
     clique, cand = state
     deg = _count_mm(cand, adj_f) * cand
     # early completion: a candidate set that is itself a clique is
-    # absorbed whole (never past max_size)
+    # absorbed whole (never past max_size). The test is taken on exact
+    # counts (f64 holds them), as the kernel takes it: the JAX package's
+    # f32 sums are exact up to GROW_EXACT candidates and round past it.
     csz = cand.sum(-1)
-    esum = deg.sum(-1)
+    esum = deg.to(torch.float64).sum(-1)
+    csz64 = csz.to(torch.float64)
     room = clique.sum(-1) + csz <= float(max_size)
-    whole = ((esum == csz * (csz - 1.0)) & (csz > 0) & room
+    whole = ((esum == csz64 * (csz64 - 1.0)) & (csz > 0) & room
              ).to(torch.float32)[..., None]
     clique = clique + cand * whole
     cand = cand * (1.0 - whole)
@@ -334,21 +340,15 @@ def grow_cliques(adj: torch.Tensor, seed_scores: torch.Tensor,
     CUDA tensors one launch of csrc/cliques.cu's growth kernel on
     ``packed`` (``kcore_search``'s bits of adj), each pair and seed to its
     own exit, bit for bit ``grow_cliques_plain``, which runs for CPU
-    tensors. On the card a candidate set above GROW_EXACT vertices can
-    reach the early-completion test only where N > GROW_EXACT and max_size
-    > GROW_EXACT + 1; there the plain route's f32 sums round in the order
-    of its reduction, so the kernel refuses such a call (ValueError)."""
+    tensors. Both take the early-completion test on exact counts; a
+    candidate set above GROW_EXACT vertices reaches it only where N >
+    GROW_EXACT and max_size > GROW_EXACT + 1, where the JAX package's f32
+    sums round (such calls count as "past" in ``SIZE_ROUTES``)."""
     bsz, n = _check_graph(adj, mask)
     check("seed_scores", seed_scores, (bsz, n))
     if same_device(adj, seed_scores, mask).type != "cuda":
         return grow_cliques_plain(adj, seed_scores, mask, num_seeds,
                                   max_size, phase1_rounds, survivors)
-    if n > GROW_EXACT and max_size > GROW_EXACT + 1:
-        raise ValueError(
-            f"grow_cliques at N = {n}, max_size = {max_size}: the early "
-            f"completion equals the plain route only while a candidate set "
-            f"that fits holds at most {GROW_EXACT} vertices (N or max_size "
-            f"- 1 at most {GROW_EXACT})")
     dev = adj.device
     s = max(min(num_seeds, n), 0)
     out = torch.empty((bsz, s, n), dtype=torch.bool, device=dev)
@@ -358,11 +358,20 @@ def grow_cliques(adj: torch.Tensor, seed_scores: torch.Tensor,
     packed = _check_packed(adj, packed)
     scratch = torch.empty(bsz * s * (2 * (-(-n // 32)) + 5),
                           dtype=torch.int32, device=dev)
+    use_smem = _route("grow_cliques", n, s, dev=dev)
+    _, bare, limit = clique_layout(KIND["grow_cliques"], n, s, 0,
+                                   dev.index or 0)
+    # past ~18600 vertices the growth's own arrays exceed a block's shared
+    # memory: they go to a global workspace (the kernel's wide route)
+    work = (torch.empty(bsz * bare // 4, dtype=torch.int32, device=dev)
+            if bare > limit else 0)
     launch("grow_cliques", packed.rows, packed.cols, seed_scores, mask,
            _tiebreak(n, dev), bsz, n, s, int(max_size), int(phase1_rounds),
            max(int(survivors), 0) if two_phase else 0, int(two_phase),
-           _route("grow_cliques", n, s, dev=dev), scratch, out)
+           use_smem, scratch, out, work)
     LAUNCHES["grow_cliques"] += 1
+    size_route("grow_cliques", bare > limit or (
+        n > GROW_EXACT and max_size > GROW_EXACT + 1))
     return out
 
 

@@ -40,12 +40,13 @@ import numpy as np
 import torch
 
 from quatro_tpu_torch.config import PatchworkConfig
-from quatro_tpu_torch.ops.launch import LAUNCHES, check, launch, same_device
+from quatro_tpu_torch.ops.launch import (LAUNCHES, check, launch, same_device,
+                                         size_route)
 from quatro_tpu_torch.ops.normals import smallest_eigenpair_sym3
 from quatro_tpu_torch.utils import fused
 
 Z_BINS = 128            # seed-stage z bins per patch
-MAX_ZONES = 8           # zones the point kernel's table holds
+MAX_ZONES = 8           # zones the point kernel's parameter table holds
 ZRANGE_CHUNK = 4096     # points per z-range partial of czm_points
 _PLANE_OUT = 6          # n1, n2, n3, th_dist_d, surface_var, elevation
 
@@ -264,9 +265,10 @@ def czm_points(points: torch.Tensor, mask: torch.Tensor,
     stage's z-bin; chan (B, 5, N) f32 [x, y, z, x - centre x, y - centre
     y], zero where the id is P; weights (B, 2, N) f32, B8's [1, z] where
     the id is below P; b0 (B,) int32, each cloud's margin bin). For CUDA
-    tensors the z-range and point kernels of csrc/czm_points.cu (at most
-    MAX_ZONES zones), bit for bit ``czm_points_plain``, which runs for CPU
-    tensors."""
+    tensors the z-range and point kernels of csrc/czm_points.cu (the zone
+    table in the kernel's parameters up to MAX_ZONES zones, else copied to
+    the card: the wide route, counted in ``SIZE_ROUTES``), bit for bit
+    ``czm_points_plain``, which runs for CPU tensors."""
     if points.dim() != 3 or points.shape[-1] != 3:
         raise ValueError(f"points: expected (B, N, 3), got "
                          f"{tuple(points.shape)}")
@@ -275,9 +277,6 @@ def czm_points(points: torch.Tensor, mask: torch.Tensor,
     check("mask", mask, (bsz, n), torch.bool)
     if same_device(points, mask).type != "cuda":
         return czm_points_plain(points, mask, cfg)
-    if cfg.num_zones > MAX_ZONES:
-        raise ValueError(f"czm_points kernel: {cfg.num_zones} zones, at most "
-                         f"{MAX_ZONES}")
     dev = points.device
     pid, zb = (torch.empty((bsz, n), dtype=torch.int32, device=dev)
                for _ in range(2))
@@ -289,12 +288,16 @@ def czm_points(points: torch.Tensor, mask: torch.Tensor,
     chunks = -(-n // ZRANGE_CHUNK)
     zpart = torch.empty((bsz, chunks, 2), dtype=torch.float32, device=dev)
     zone_f, zone_i = _zone_args(cfg)
+    past = cfg.num_zones > MAX_ZONES
+    if past:        # the table as device arrays: the kernel's wide route
+        zone_f, zone_i = zone_f.to(dev), zone_i.to(dev)
     launch("czm_points", points, mask, bsz, n, ZRANGE_CHUNK, zone_f, zone_i,
            cfg.num_zones, cfg.num_patches, fused.f32(cfg.min_r),
            fused.f32(cfg.max_r), fused.f32(-1.8 * cfg.sensor_height),
            fused.f32(2 * math.pi), fused.f32(_margin(cfg)),
            point_centers(cfg, dev), zpart, pid, zb, chan, weights, b0)
     LAUNCHES["czm_points"] += 1
+    size_route("czm_points", past)
     return pid, zb, chan, weights, b0
 
 

@@ -39,12 +39,14 @@ from typing import NamedTuple
 import torch
 
 from quatro_tpu_torch.ops.launch import (LAUNCHES, check, launch, same_device,
-                                         stream_scratch)
+                                         size_route, stream_scratch)
 from quatro_tpu_torch.ops.normals import smallest_eigenvector_3x3
 from quatro_tpu_torch.utils.fused import f32, fma, pairwise_sum, sqrt
 from quatro_tpu_torch.utils.se3 import rotate_points
 
-GROUND_MAX_POINTS = 1 << 18     # 2^5 points a thread of a cloud's 8192
+# points a cloud of the kernel's register fold (2^5 points a thread of a
+# cloud's 8192); larger clouds take its wide route (tree.cuh's strided fold)
+GROUND_MAX_POINTS = 1 << 18
 
 
 class GroundPlane(NamedTuple):
@@ -147,7 +149,8 @@ def ground_fit(points, mask, config, other=None):
     then the targets) the i-th clouds of the two sets are a pair that
     levels only where both fits pass, ok the pair's, and the C clouds are
     both sets'. For CUDA tensors one launch of csrc/ground.cu (a cluster
-    a cloud; N <= 2^18, else ValueError), bit for bit
+    a cloud; past GROUND_MAX_POINTS points its wide route, counted in
+    ``SIZE_ROUTES``), bit for bit
     ``ground_fit_plain``, which runs for CPU tensors."""
     sets = [(points, mask)] + ([tuple(other)] if other is not None else [])
     if same_device(*(t for s in sets for t in s)).type != "cuda":
@@ -158,9 +161,6 @@ def ground_fit(points, mask, config, other=None):
     shapes = []
     for p, m in sets:
         c, n = p[..., 0, 0].numel(), p.shape[-2]
-        if n > GROUND_MAX_POINTS:
-            raise ValueError(f"ground_fit: N = {n} > {GROUND_MAX_POINTS} "
-                             "points a cloud on the card")
         check("points", p, (*p.shape[:-2], n, 3))
         check("mask", m, (*p.shape[:-2], n), torch.bool)
         shapes.append((c, n))
@@ -179,4 +179,5 @@ def ground_fit(points, mask, config, other=None):
                min_points, min_cos, max_flat, tickets, level, height, ok,
                stream=stream)
         LAUNCHES["ground_fit"] += 1
+        size_route("ground_fit", max(na, nb) > GROUND_MAX_POINTS)
     return level, height, ok

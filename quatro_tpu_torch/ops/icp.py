@@ -32,7 +32,8 @@ from __future__ import annotations
 
 import torch
 
-from quatro_tpu_torch.ops.launch import LAUNCHES, check, launch, same_device
+from quatro_tpu_torch.ops.launch import (LAUNCHES, check, launch, same_device,
+                                         size_route)
 from quatro_tpu_torch.ops.neighbors import ordered_sq_dists, sq_norms
 from quatro_tpu_torch.utils.batch import gather_rows
 from quatro_tpu_torch.utils.fused import f32, pairwise_sum
@@ -40,7 +41,9 @@ from quatro_tpu_torch.utils.se3 import exp_so3, rotate_points
 
 _FLT_MAX = torch.finfo(torch.float32).max
 ROW_WIDTH = 8          # [p x n (3), n (3), w, r] a source row
-UPDATE_MAX_ROWS = 8192  # the update kernel's register fold: 8 leaves a thread
+# rows of the update kernel's register fold (8 leaves a thread); more take
+# its wide route, the same tree by tree.cuh's strided fold
+UPDATE_MAX_ROWS = 8192
 
 
 def _solve_spd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -160,15 +163,12 @@ def icp_update(rows, ok, rot, trans, step, dof, damping: float,
     damping (trace h + 1), the step left out where fewer than
     ``min_corr`` rows are ok; returns (exp(dw) R, exp(dw) t + dt, step +
     1). For CUDA tensors one launch of csrc/icp.cu's update kernel (a
-    block a pair, K <= ``UPDATE_MAX_ROWS``); for CPU tensors
-    ``icp_update_plain``."""
+    block a pair; past ``UPDATE_MAX_ROWS`` rows its wide route, counted in
+    ``SIZE_ROUTES``); for CPU tensors ``icp_update_plain``."""
     if same_device(rows, ok, rot, trans, step, dof).type != "cuda":
         return icp_update_plain(rows, ok, rot, trans, step, dof, damping,
                                 min_corr)
     bsz, ks = ok.shape
-    if ks > UPDATE_MAX_ROWS:
-        raise ValueError(f"icp_update: {ks} rows > {UPDATE_MAX_ROWS} on "
-                         "the card")
     check("rows", rows, (bsz, ks, ROW_WIDTH))
     check("ok", ok, (bsz, ks), torch.bool)
     check("rot", rot, (bsz, 3, 3))
@@ -184,6 +184,7 @@ def icp_update(rows, ok, rot, trans, step, dof, damping: float,
         launch("icp_update", rows, ok, rot, trans, step, dof, bsz, ks,
                f32(damping), int(min_corr), rot_out, trans_out, step_out)
         LAUNCHES["icp_update"] += 1
+        size_route("icp_update", ks > UPDATE_MAX_ROWS)
     else:
         step_out.copy_(step + 1)
     return rot_out, trans_out, step_out

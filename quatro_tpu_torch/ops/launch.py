@@ -28,9 +28,27 @@ LAUNCHES = {"moment_sums": 0, "spfh": 0, "fpfh": 0, "nearest_neighbors": 0,
             "vote_entries": 0, "vote_translation": 0}
 
 
+# The wrappers whose kernels have a second route past the size their first
+# design takes (shared memory, a register fold, slots a lane, a parameter
+# table) count each launching call by route: "within" that size, or "past"
+# it. No size that the JAX package takes is refused; a run shows which route
+# ran. reset_launches sets these to 0 too.
+SIZE_ROUTES = {name: {"within": 0, "past": 0} for name in (
+    "polish_chain", "gnc_yaw", "polish_cote", "icp_update", "radius_knn",
+    "neighbor_normals", "czm_points", "cross_histogram", "ground_fit",
+    "grow_cliques")}
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for counts in SIZE_ROUTES.values():
+        counts["within"] = counts["past"] = 0
+
+
+def size_route(name: str, past: bool) -> None:
+    """Count a launching call of wrapper ``name`` on its route."""
+    SIZE_ROUTES[name]["past" if past else "within"] += 1
 
 
 def check(name, t, shape, dtype=torch.float32):

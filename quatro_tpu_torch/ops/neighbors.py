@@ -20,12 +20,16 @@ from typing import NamedTuple
 
 import torch
 
-from quatro_tpu_torch.ops.launch import LAUNCHES, check, launch, same_device
+from quatro_tpu_torch.ops.launch import (LAUNCHES, check, launch, same_device,
+                                         size_route)
 from quatro_tpu_torch.utils.fused import f32, fma
 
 _FLT_MAX = torch.finfo(torch.float32).max
 _TILE_ENTRIES = 1 << 25     # distances a tile of a batch holds at most
-KNN_MAX_K = 64              # the kernel's list: two slots a lane
+KNN_MAX_K = 64              # the kernel's first list: two slots a lane
+KNN_SLOTS_MAX_K = 256       # its wide lists: four or eight slots a lane
+_KNN_SORT_SMEM = 200 * 1024  # the block route's keys in shared memory
+_KNN_SORT_WORK = 1 << 28     # bytes of its global workspace at most
 
 
 class NeighborLists(NamedTuple):
@@ -108,17 +112,16 @@ def radius_neighbors(points: torch.Tensor, mask: torch.Tensor, radius: float,
     (B, N, 3), (B, N): the K least keys (d2 bits, column) of each row over
     all columns, masked columns at the f32 maximum (so a row with fewer
     than K valid columns fills with masked ones in index order), self
-    first. For CUDA tensors one launch of csrc/knn.cu's kernel (K <=
-    ``KNN_MAX_K``); for CPU tensors ``radius_neighbors_plain`` (``tile``
-    is its row tile)."""
+    first. For CUDA tensors one launch of csrc/knn.cu (a warp a row with
+    two slots a lane up to ``KNN_MAX_K``, past it the wide routes counted
+    in ``SIZE_ROUTES``: four or eight slots a lane up to
+    ``KNN_SLOTS_MAX_K``, then a block a row sorting the row's keys); for
+    CPU tensors ``radius_neighbors_plain`` (``tile`` is its row tile)."""
     n = points.shape[-2]
     if not 1 <= k <= n:
         raise ValueError(f"radius_neighbors: k = {k} of {n} points")
     if same_device(points, mask).type != "cuda":
         return radius_neighbors_plain(points, mask, radius, k, tile)
-    if k > KNN_MAX_K:
-        raise ValueError(f"radius_neighbors: k = {k} > {KNN_MAX_K} on the "
-                         "card")
     lead = points.shape[:-2]
     bsz = points[..., 0, 0].numel()
     check("points", points, (*lead, n, 3))
@@ -128,7 +131,24 @@ def radius_neighbors(points: torch.Tensor, mask: torch.Tensor, radius: float,
     valid = torch.empty((*lead, n, k), dtype=torch.bool, device=dev)
     d2 = torch.empty((*lead, n, k), dtype=torch.float32, device=dev)
     if bsz:
+        work, blocks = knn_sort_plan(bsz * n, n, k, dev)
         launch("knn", points, mask, bsz, n, k, f32(radius * radius), idx,
-               valid, d2)
+               valid, d2, work, blocks)
         LAUNCHES["radius_knn"] += 1
+        size_route("radius_knn", k > KNN_MAX_K)
     return NeighborLists(idx, valid, d2)
+
+
+def knn_sort_plan(rows: int, n: int, k: int, dev):
+    """(workspace or 0, blocks) of csrc/knn.cu's block route (K >
+    ``KNN_SLOTS_MAX_K``): a row's keys padded to a power of two in shared
+    memory where they fit (no workspace), else a global workspace of
+    at most ``_KNN_SORT_WORK`` bytes, a block's keys each; (0, 0) for the
+    warp routes."""
+    if k <= KNN_SLOTS_MAX_K:
+        return 0, 0
+    pn = 1 << max(n - 1, 0).bit_length()
+    if pn * 8 <= _KNN_SORT_SMEM:
+        return 0, min(rows, 1024)
+    blocks = max(1, min(rows, _KNN_SORT_WORK // (pn * 8)))
+    return torch.empty(blocks * pn, dtype=torch.int64, device=dev), blocks

@@ -19,7 +19,8 @@ from typing import NamedTuple
 
 import torch
 
-from quatro_tpu_torch.ops.launch import LAUNCHES, check, launch, same_device
+from quatro_tpu_torch.ops.launch import (LAUNCHES, check, launch, same_device,
+                                         size_route)
 from quatro_tpu_torch.utils import fused
 
 
@@ -197,13 +198,12 @@ def estimate_normals(points: torch.Tensor, nbrs,
     lists (B, N, K). The covariance is centred on the neighbourhood mean,
     as the JAX package's estimate_normals. For CUDA tensors one launch of
     csrc/neighbor_normals.cu (a warp a point, the eigenpair of
-    csrc/eig_sym3.cuh; K <= 64), bit for bit ``estimate_normals_plain``,
+    csrc/eig_sym3.cuh; past 64 slots its wide route, counted in
+    ``SIZE_ROUTES``), bit for bit ``estimate_normals_plain``,
     which runs for CPU tensors."""
     if same_device(points, nbrs.idx, nbrs.valid).type != "cuda":
         return estimate_normals_plain(points, nbrs, viewpoint)
     lead, (n, k) = points.shape[:-2], nbrs.idx.shape[-2:]
-    if k > 64:
-        raise ValueError(f"estimate_normals: K = {k} > 64 on the card")
     check("points", points, (*lead, n, 3))
     check("idx", nbrs.idx, (*lead, n, k), torch.int32)
     check("valid", nbrs.valid, (*lead, n, k), torch.bool)
@@ -216,4 +216,5 @@ def estimate_normals(points: torch.Tensor, nbrs,
         launch("neighbor_normals", points, nbrs.idx, nbrs.valid, bsz, n, k,
                *(fused.f32(v) for v in viewpoint), normal, curvature, valid)
         LAUNCHES["neighbor_normals"] += 1
+        size_route("neighbor_normals", k > 64)
     return Normals(normal, curvature, valid)

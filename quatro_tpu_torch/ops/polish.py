@@ -30,9 +30,12 @@ hypothesis rows, with no device loop and no host read:
   ``cote_translation`` is the same kernel on given points
   (``solver/translation.solve_translation``).
 
-For CUDA tensors a wrapper checks its inputs (ValueError past the
-kernels' limit of ``MAX_POINTS`` points a row), launches on the current
-stream and counts the launch in ``LAUNCHES``; for CPU tensors
+For CUDA tensors a wrapper checks its inputs, launches on the current
+stream and counts the launch in ``LAUNCHES`` and its route in
+``SIZE_ROUTES``: rows of more than ``MAX_POINTS`` points take the kernels'
+wide route (the chain's order and COTE's events in a global workspace,
+the GNC's points recomputed from global memory and folded by
+``tree.cuh``'s strided fold), bit for bit the same; for CPU tensors
 ``polish_chain``, ``polish_cote`` and ``cote_translation`` run their plain
 versions (``*_plain``: the torch code of the polish before the kernels,
 split at the same seams). ``gnc_yaw`` takes CUDA tensors only: the yaw's
@@ -52,20 +55,49 @@ import numpy as np
 import torch
 
 from quatro_tpu_torch.ops.launch import (LAUNCHES, check, launch, same_device,
-                                         stream_scratch)
+                                         size_route, stream_scratch)
 from quatro_tpu_torch.utils import fused
 from quatro_tpu_torch.utils.batch import gather_rows
 from quatro_tpu_torch.utils.scan import prefix_sum
 from quatro_tpu_torch.utils.se3 import rotate_points
 
-MAX_POINTS = 4096       # points a row: COTE's 8192 events in shared memory
+# points a row of the kernels' first route (COTE's 8192 events in shared
+# memory, the GNC's points in registers); wider rows take the wide route
+MAX_POINTS = 4096
 _ALGORITHMS = {"GNC_TLS": 0, "FGR": 1}
 
 
 def _check_points(n: int) -> None:
-    if not 1 <= n <= MAX_POINTS:
-        raise ValueError(f"the polish kernels take 1 to {MAX_POINTS} points "
-                         f"a row, got {n}")
+    if n < 1:
+        raise ValueError(f"the polish kernels take rows of at least 1 point, "
+                         f"got {n}")
+
+
+def _pow2(v: int) -> int:
+    return 1 << max(v - 1, 0).bit_length()
+
+
+def cote_block_words(n: int) -> int:
+    """64-bit words of COTE's global workspace for one (row, axis) of a
+    row of n > MAX_POINTS points: the 2N events and N candidates, padded to
+    powers of two, as keys; the values, the prefix's levels (three series)
+    and the selection as 32-bit words; the mask as bytes
+    (csrc/polish.cu::cote_bytes)."""
+    from quatro_tpu_torch.ops.voxel import level_words
+    nbytes = ((_pow2(2 * n) + _pow2(n)) * 8
+              + (2 * n + 3 * level_words(2 * n)) * 4 + n)
+    return -(-nbytes // 8)
+
+
+def _cote_work(rows: int, n: int, dev):
+    """(workspace, words a block) for COTE's (row, axis) blocks: a global
+    one past MAX_POINTS points a row, else none (shared memory)."""
+    past = n > MAX_POINTS
+    size_route("polish_cote", past)
+    if not past:
+        return 0, 0
+    words = cote_block_words(n)
+    return torch.empty(rows * 3 * words, dtype=torch.int64, device=dev), words
 
 
 def _prior_rows(prior: torch.Tensor, b: int) -> torch.Tensor:
@@ -145,10 +177,14 @@ def polish_chain(src, tgt, clique_mask, scale, prior, has_prior: bool):
     src_tims = torch.empty((b, h, n, 3), dtype=torch.float32, device=dev)
     dst_tims = torch.empty_like(src_tims)
     if b * h:
+        past = n > MAX_POINTS
+        work = (torch.empty((b * h, n), dtype=torch.int32, device=dev)
+                if past else 0)
         launch("polish", src, tgt, clique_mask, scale, prior, b, h, n,
                9 if prior.dim() == 3 else 0, int(bool(has_prior)), order,
-               leaf, chain_mask, m, src_tims, dst_tims)
+               leaf, chain_mask, m, src_tims, dst_tims, work)
         LAUNCHES["polish_chain"] += 1
+        size_route("polish_chain", past)
     return order, leaf, chain_mask, m, src_tims, dst_tims
 
 
@@ -208,13 +244,17 @@ def gnc_yaw(src_xy, dst_xy, mask, noise_bound, gnc_factor: float = 1.4,
     iters = torch.empty(lead, dtype=torch.int32, device=dev)
     cost = torch.empty(lead, dtype=torch.float32, device=dev)
     if rows:
+        past = n > MAX_POINTS
+        work = (torch.empty(lead + (n,), dtype=torch.float32, device=dev)
+                if past else 0)
         launch("gnc_yaw", src_v, dst_v, mask,
                nb_rows if nb_rows is not None else 0, rows, n, src_rs,
                src_ps, dst_rs, dst_ps, nb, _ALGORITHMS[algorithm],
                gnc_factor if algorithm == "GNC_TLS" else fused.recip(gnc_factor),
                int(max_iterations), float(cost_threshold),
-               rotation, weights, inliers, iters, cost)
+               rotation, weights, inliers, iters, cost, work)
         LAUNCHES["gnc_yaw"] += 1
+        size_route("gnc_yaw", past)
     return rotation, weights, inliers, iters, cost
 
 
@@ -322,9 +362,11 @@ def cote_translation(src, dst, mask, noise_bound: float, cbar2: float = 1.0,
     if rows:
         stream = torch.cuda.current_stream(dev).cuda_stream
         tickets, partials = stream_scratch(dev, stream, rows, 3 * rows)
+        work, words = _cote_work(rows, n, dev)
         launch("cote", src, dst, mask, rows, n,
                _cote_beta(noise_bound, cbar2), int(bool(use_median)),
-               tickets, partials, translation, inliers, stream=stream)
+               tickets, partials, translation, inliers, work, words,
+               stream=stream)
         LAUNCHES["polish_cote"] += 1
     return translation, inliers
 
@@ -426,11 +468,12 @@ def polish_cote(src, tgt, scale, gnc_rotation, prior, gnc_inliers, order, m,
     if rows:
         stream = torch.cuda.current_stream(dev).cuda_stream
         tickets, partials = stream_scratch(dev, stream, rows, 3 * rows)
+        work, words = _cote_work(rows, n, dev)
         launch("polish_cote", src, tgt, scale, gnc_rotation, prior,
                gnc_inliers, order, m, valid, b, h, n, d,
                9 if prior.dim() == 3 else 0, _cote_beta(noise_bound, cbar2),
                int(bool(use_median)), int(bool(use_rot_inliers)), tickets,
-               partials, rotation, translation, final_mask, num_rot,
-               stream=stream)
+               partials, rotation, translation, final_mask, num_rot, work,
+               words, stream=stream)
         LAUNCHES["polish_cote"] += 1
     return rotation, translation, final_mask, num_rot

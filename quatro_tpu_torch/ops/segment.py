@@ -34,13 +34,14 @@ from __future__ import annotations
 import torch
 
 from quatro_tpu_torch.ops.launch import (LAUNCHES, active_limit, check,
-                                         launch, same_device, stream_scratch)
+                                         launch, same_device, size_route,
+                                         stream_scratch)
 
 SEG_CHUNK = 1024        # entries per block of B2 (its block size)
 HIST_CHUNK = 8192       # points per partial histogram of B8
 FIT_CHUNK = 1024        # points per partial moment table of B9
 HIST_ROWS = 32          # histogram rows per block of B8 (shared memory)
-_HIST_MAX_K = 4         # weight channels B8 stages
+_HIST_MAX_K = 4         # weight channels a B8 block stages
 _SMEM_BYTES = 200 * 1024
 _HIST_SMEM_BYTES = 176 * 1024   # B8's histogram rows; its lists take 42 KB
 _MOMENTS = 10
@@ -139,8 +140,10 @@ def cross_histogram(ids_a: torch.Tensor, ids_b: torch.Tensor,
                     b_pad: int) -> torch.Tensor:
     """Weighted 2-D histogram: out[b, k, a, c] = sum over i with
     ids_a[b, i] == a and ids_b[b, i] == c of weights[b, k, i]; ids (B, N)
-    int32, weights (B, K, N) f32 (K <= 4), any N; ids out of range are
-    dropped. Replaces segment_matmul.py::cross_histogram
+    int32, weights (B, K, N) f32, any N, K and bins; ids out of range are
+    dropped. Past 4 channels or ``_HIST_SMEM_BYTES`` of a block's rows the
+    kernel runs in tiles of channels and columns (its wide route, counted
+    in ``SIZE_ROUTES``). Replaces segment_matmul.py::cross_histogram
     (csrc/cross_histogram.cu). The TPU kernel rounds the weights to bf16 on
     the MXU; this one adds in f32, in ``cross_histogram_plain``'s order, so
     it repeats bit for bit and equals the plain version on CPU copies bit
@@ -151,10 +154,6 @@ def cross_histogram(ids_a: torch.Tensor, ids_b: torch.Tensor,
     check("weights", weights, (bsz, k, n))
     if same_device(ids_a, ids_b, weights).type != "cuda":
         return cross_histogram_plain(ids_a, ids_b, weights, a_pad, b_pad)
-    if k > _HIST_MAX_K or HIST_ROWS * k * b_pad * 4 > _HIST_SMEM_BYTES:
-        raise ValueError(f"cross_histogram kernel: K = {k} (at most "
-                         f"{_HIST_MAX_K}) and b_pad = {b_pad} exceed its "
-                         "shared memory")
     chunks = -(-n // HIST_CHUNK)
     partial = torch.empty((bsz, chunks, k, a_pad, b_pad),
                           dtype=torch.float32, device=weights.device)
@@ -163,6 +162,8 @@ def cross_histogram(ids_a: torch.Tensor, ids_b: torch.Tensor,
     launch("cross_histogram", ids_a, ids_b, weights, bsz, n, k, a_pad, b_pad,
            HIST_CHUNK, partial, out)
     LAUNCHES["cross_histogram"] += 1
+    size_route("cross_histogram",
+               k > _HIST_MAX_K or HIST_ROWS * k * b_pad * 4 > _HIST_SMEM_BYTES)
     return out
 
 
