@@ -2695,7 +2695,10 @@ WRAPPER_KERNELS = {"moment_sums": ("quatro::moment_sums_kernel",),
                    "czm_points": ("quatro::czm_zrange_kernel",
                                   "quatro::czm_points_kernel"),
                    "kcore_search": ("quatro::clq::clique_pack_kernel",
-                                    "quatro::clq::kcore_kernel")}
+                                    "quatro::clq::kcore_kernel"),
+                   "grow_cliques": ("quatro::clq::grow_seeds_kernel",
+                                    "quatro::clq::grow_phase1_kernel",
+                                    "quatro::clq::grow_phase2_kernel")}
 # the kernel each wrapper launches once per call, by the profiler's name:
 # a profiled run counts only if it saw this kernel once per call
 MAIN_KERNEL = {"moment_sums": "quatro::moment_sums_kernel",
@@ -2720,7 +2723,7 @@ MAIN_KERNEL = {"moment_sums": "quatro::moment_sums_kernel",
                "seed_heights": "quatro::seed_heights_kernel",
                "plane_fit": "quatro::plane_fit_kernel",
                "kcore_search": "quatro::clq::kcore_kernel",
-               "grow_cliques": "quatro::clq::grow_kernel",
+               "grow_cliques": "quatro::clq::grow_phase1_kernel",
                "swap_cliques": "quatro::clq::swap_kernel",
                "distinct_cliques": "quatro::clq::distinct_kernel",
                "radius_knn": "quatro::knn::radius_knn_kernel",
@@ -4169,7 +4172,7 @@ def clique_work(name, args, kwargs):
     kernels read once and the outputs they write once. The k-core search
     packs the (B, N, N) bool graph (N^2 B bytes read) and writes its bits,
     rows and columns (B, N, ceil(N / 32)) int32 each; the growth reads
-    both (its symmetry test and its column counts), the swaps the rows,
+    both (its column counts and its rows' updates), the swaps the rows,
     and neither reads the bool graph. The operations are left at 0: the
     kernels' popcount rounds are dependent chains, bound by their latency
     and by one block a pair, which neither rate sees."""
@@ -4263,7 +4266,15 @@ def clique_rows_b64(recs, label):
                          k_fn, "quatro::", main=(MAIN_KERNEL[name], 1)),
                      "ms": cuda_ms(k_fn), "plain_ms": cuda_ms(p_fn, 5),
                      "bound_ms": b_ms, "bound_by": by,
-                     "library_ms": cuda_ms(lib_fn), "library": lib_label}
+                     "library_ms": cuda_ms(lib_fn),
+                     "library_device_ms": device_ms_per_call(lib_fn,
+                                                             tries=10),
+                     "library": lib_label,
+                     "device_ms_by_kernel": {
+                         e.key.split("(")[0].replace("void ", ""): round(
+                             e.self_device_time_total / e.count * k / 1e3,
+                             6)
+                         for e, k in _device_hits(k_fn, "quatro::", 10)}}
     log(f"kcore_search / grow_cliques / swap_cliques / distinct_cliques "
         f"({label}): " + json.dumps(out)
         + "; each equal to its plain version on the card")
@@ -4422,12 +4433,25 @@ def icp_library(name, args):
 def icp_blocks(name, args):
     """The blocks one launch runs (csrc/knn.cu: 16 rows a block of 512
     threads; csrc/neighbor_normals.cu: 8 points a block of 256;
-    csrc/icp.cu: 8 source rows a block of 256, the update a block of 1024
-    a pair) and the SMs they can spread over (at most 132)."""
+    csrc/icp.cu: the correspondences a block of 128 a tile of 512 source
+    rows and a slice of the targets, about four blocks an SM and no slice
+    under 128 or over 1024 targets (quatro_icp_correspond's rule), the
+    update a block
+    of 1024 a pair) and the SMs they can spread over."""
     bsz, rows, _ = icp_shape(name, args)
-    per = {"radius_knn": 16, "neighbor_normals": 8, "icp_correspond": 8}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if name == "icp_correspond":
+        v = args[4].shape[-2]
+        tiles = -(-rows // 512)
+        splits = max(-(-v // 1024),
+                     min(-(-4 * sms // (bsz * tiles)), -(-v // 128)))
+        splits = -(-v // -(-v // splits))
+        blocks = bsz * tiles * splits
+        return {"blocks": blocks, "target_slices": splits,
+                "sms": min(blocks, sms)}
+    per = {"radius_knn": 16, "neighbor_normals": 8}
     blocks = bsz * (-(-rows // per[name]) if name in per else 1)
-    return {"blocks": blocks, "sms": min(blocks, 132)}
+    return {"blocks": blocks, "sms": min(blocks, sms)}
 
 
 def icp_kernel_rows(recs, main_launches, row):
@@ -6019,13 +6043,16 @@ def limit_kernel_rows(lrun, pair_a, cfg_a):
     route counted past the limit; a row "<kernel> (wide)" in the kernel
     table at path L's call (the polish at N = 8192, ICP's update at 16384
     rows, the lists and normals at K = 96, the growth at N = 8192) or at
-    a size past the limit (the CZM at nine zones on path A's clouds, B8
-    at five channels, the leveling at 2^18 + 1 points), its launches path
-    L's wide launches (0 for the three path L does not reach); the other
-    sizes logged with a label (the polish at 4097, the update at 8193
-    rows, the lists at K = 65 and 257, the growth at N = 4352 and 20000
-    on complete graphs). Patchwork's whole estimate_ground at nine zones
-    against the plain CZM-stage route. Returns the rows."""
+    a size past the limit (the labelling of two 1 x 131071 images, the
+    CZM at nine zones on path A's clouds, B8 at five channels, the
+    leveling at 2^18 + 1 points), its launches path L's wide launches (0
+    for the four path L does not reach); the other sizes logged with a
+    label (the polish at 4097, the update at 8193 rows, the lists at K =
+    65 and 257, the growth at N = 4352 and 20000 on complete graphs, the
+    labelling at 4 x 32767 and 11 x 11915; ICP's correspondences at path
+    L's shape, which take no wide route). Patchwork's whole
+    estimate_ground at nine zones against the plain CZM-stage route. Each
+    row with a library call has its device time too. Returns the rows."""
     from quatro_tpu_torch.ops import czm, launch, segment
     from quatro_tpu_torch.ops import cliques as tcl
     from quatro_tpu_torch.ops import ground as og
@@ -6073,7 +6100,9 @@ def limit_kernel_rows(lrun, pair_a, cfg_a):
              "plain_ms": cuda_ms(p_fn, 3), "bound_ms": b_ms,
              "bound_by": by,
              "library_ms": cuda_ms(lib_fn) if lib_fn else None,
-             "device_ms": device_ms_per_call(k_fn, "quatro::")}
+             "device_ms": device_ms_per_call(k_fn, "quatro::"),
+             "library_device_ms": (device_ms_per_call(lib_fn, tries=10)
+                                   if lib_fn else None)}
         r.update(extra)
         log(f"{name} (wide{', ' + label if label else ''}): "
             + json.dumps(r))
@@ -6117,6 +6146,22 @@ def limit_kernel_rows(lrun, pair_a, cfg_a):
     wide("icp_update", k_fn, p_fn, icp_work("icp_update", cut), None,
          {"shape": str(icp_shape("icp_update", cut))},
          label=f"{lc.ICP_ROWS} rows")
+    # the correspondences at path L's shape (no wide route: the same
+    # kernel), bit for bit its plain version, logged with its times
+    a, kw, _ = recs["icp"]["icp_correspond"][0]
+    k_fn, p_fn = icp_fns("icp_correspond", a, kw)
+    check(all(exact_bits(g, r) for g, r in zip(k_fn(), p_fn())),
+          "icp_correspond (path L): differs from its plain version")
+    b_ms, by = bound(*icp_work("icp_correspond", a))
+    lib_fn, lib_label = icp_library("icp_correspond", a)
+    log("icp_correspond (path L, one pass): " + json.dumps({
+        "shape": str(icp_shape("icp_correspond", a)),
+        "launches": lrun["launches"]["icp_correspond"],
+        "device_ms": device_ms_per_call(k_fn, "quatro::"),
+        "ms": cuda_ms(k_fn), "plain_ms": cuda_ms(p_fn, 3), "bound_ms": b_ms,
+        "bound_by": by, "library_ms": cuda_ms(lib_fn),
+        "library_device_ms": device_ms_per_call(lib_fn, tries=10),
+        "library": lib_label, **icp_blocks("icp_correspond", a)}))
     a, kw, _ = recs["icp"]["radius_knn"][0]
     for k in (96, 65, 257):
         args = (*a[:3], k, *a[4:])
@@ -6160,7 +6205,32 @@ def limit_kernel_rows(lrun, pair_a, cfg_a):
     p_fn = uncaptured(p_fn)
     wide("grow_cliques", k_fn, p_fn, clique_work("grow_cliques", args, {}),
          None, {"shape": str(tuple(adj.shape))},
-         label=f"complete graph of {n}: its arrays in a global workspace")
+         label=f"complete graph of {n}, past the first design's shared "
+         "memory")
+
+    # the labelling of the narrow wide images no cluster holds (the global
+    # route): the row at 1 x 131071, the others logged
+    from quatro_tpu_torch.ops.labels import (label_layout, label_sweeps,
+                                             label_sweeps_plain)
+    for rows_, cols_ in lc.NARROW_IMAGES:
+        labels, valid, masks, *rest = lc.narrow_labelling(rows_, cols_)
+        largs = (labels.to(dev), valid.to(dev), [m.to(dev) for m in masks],
+                 *rest)
+
+        def k_fn(largs=largs):
+            return label_sweeps(*largs)
+
+        def p_fn(largs=largs):
+            with loops.eager_loops():
+                return label_sweeps_plain(*largs)
+
+        first = (rows_, cols_) == lc.NARROW_IMAGES[0]
+        wide("label_sweep", k_fn, p_fn, (0.0, labelling_bytes(largs)), None,
+             {"shape": str(tuple(labels.shape)),
+              "sweeps": [list(x) for x in rest[0]],
+              "label_rounds": k_fn()[1].tolist(),
+              **label_layout(*labels.shape)},
+             label=None if first else f"{rows_} x {cols_}")
 
     # the CZM at nine zones on path A's clouds, and Patchwork at them
     pts = torch.stack([p.points for p in pair_a]).to(dev).contiguous()

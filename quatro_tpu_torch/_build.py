@@ -57,7 +57,8 @@ SIGNATURES = {
                      [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P]),
     "kabsch": ("quatro_kabsch", [_P, _P, _P, _I, _I, _P, _P]),
     "label_sweep": ("quatro_label_sweep",
-                    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P]),
+                    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                     _P]),
     "overlap_hits": ("quatro_overlap_hits",
                      [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                       _I, _I, _P, _P, _P, _P, _P, _P, _P, _P]),
@@ -84,7 +85,7 @@ SIGNATURES = {
                           _P]),
     "icp": ("quatro_icp_correspond",
             [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P,
-             _P]),
+             _P, _P]),
     "match_candidates": ("quatro_match_candidates",
                          [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                           _I, _I, _P, _P, _P]),
@@ -127,7 +128,7 @@ EXTRA = {"sqrt_rn_check": ("consistency_graph", "quatro_sqrt_rn_check",
                          [_P, _I, _I, _P, _P, _P]),
          "grow_cliques": ("cliques", "quatro_grow_cliques",
                           [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                           _I, _P, _P, _P, _P]),
+                           _P, _P, _P]),
          "swap_cliques": ("cliques", "quatro_swap_cliques",
                           [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P]),
          "distinct_cliques": ("cliques", "quatro_distinct_cliques",

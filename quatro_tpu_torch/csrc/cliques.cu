@@ -7,7 +7,7 @@
 //   kcore_kernel     max_kcore, its peel (:43-62) inside the binary search
 //                    (:65-99), and _count_mm(adj, mask), the seed scores'
 //                    degree term (:396, :471);
-//   grow_kernel      grow_greedy_cliques (:102-193), both phases;
+//   grow_*_kernel    grow_greedy_cliques (:102-193), both phases;
 //   swap_kernel      improve_top_cliques (:273-285) over
 //                    improve_cliques_1swap (:196-270);
 //   distinct_kernel  top_distinct_cliques (:400-450).
@@ -25,25 +25,23 @@
 // into rows[b][i][w] (bit t: adj[i][32 w + t]) and cols[b][j][w] (bit t:
 // adj[32 w + t][j]), W = ceil(N / 32) words a row, 128 KB a pair at N =
 // 1024. The growth counts a candidate's degree down a column (cand @ adj);
-// every other count is along a row. A block whose rows equal its columns
-// (a symmetric graph, the consistency graph's case) takes the columns from
-// its rows.
+// every other count is along a row.
 //
-// Layout: one block of 1024 threads a pair. Where the packed rows fit in
-// the block's shared memory (at a row stride of W | 1 words, so that 32
-// lanes reading 32 rows at one word hit 32 banks), the block stages them
-// there; else it reads them from device memory through L2 (use_smem 0):
-// the same bits either way. quatro_clique_smem reports both sizes and the
-// card's limit. The growth's own arrays (each warp's candidate and clique
-// bits, the scores) pass a block's shared memory near N = 18600: there they
-// sit in a global workspace of the wrapper's (grow_kernel<true>), so every
-// N that the JAX package takes runs.
+// Layout: the k-core search, the swaps and the distinct greedy take one
+// block of 1024 threads a pair. Where the packed rows fit in the block's
+// shared memory (at a row stride of W | 1 words, so that 32 lanes reading
+// 32 rows at one word hit 32 banks), the block stages them there; else it
+// reads them from device memory through L2 (use_smem 0): the same bits
+// either way. quatro_clique_smem reports both sizes and the card's limit.
+// The growth takes a block a (pair, seed) over three launches and reads
+// the packed rows and columns through L1 / L2 at any N (see its section
+// below).
 //
 // Bound on the card: the bool adjacency read once by the pack (N^2 bytes a
 // pair) dominates the bytes; the loops after it are dependent chains of
-// rounds (a peel round, a growth round, a swap round) inside one block, so
-// at path A one SM of 132 works. Spreading a pair over a cluster is later
-// work.
+// rounds (a peel round, a growth round, a swap round). The k-core search
+// and the swaps run one block a pair, so at path A one SM of 132 works
+// there; the growth's 128 seeds take 128 SMs.
 #include <climits>
 #include <cmath>
 #include <cstdint>
@@ -89,14 +87,6 @@ __device__ __forceinline__ int block_max(int v, int* red) {
 
 __device__ __forceinline__ bool bit_of(const uint32_t* words, int i) {
   return (words[i >> 5] >> (i & 31)) & 1u;
-}
-
-// torch.sort's descending order of f32 keys: NaN first, then by value;
-// equal keys (-0 and +0 alike) keep their index order
-__device__ __forceinline__ bool before_desc(float a, int ia, float b, int ib) {
-  const bool na = isnan(a), nb = isnan(b);
-  if (na || nb) return na && (!nb || ia < ib);
-  return a > b || (a == b && ia < ib);
 }
 
 // The packed rows at their stride: staged into shared memory (use_smem),
@@ -225,6 +215,39 @@ kcore_kernel(const uint32_t* __restrict__ rows_g, const unsigned char* __restric
 
 // ------------------------------------------------------------------ growth --
 
+// The growth in three launches, spread over the card:
+//   grow_seeds_kernel   the seeds: a block a pair selects the num_seeds
+//                       best masked scores (a radix selection) and ranks
+//                       them among themselves;
+//   grow_phase1_kernel  a block of 256 or 128 threads a (pair, seed): the rounds
+//                       up to phase 1's limit (or all of them in one
+//                       phase), its state saved to the scratch;
+//   grow_phase2_kernel  a block a (pair, seed): the seed's rank among the
+//                       candidates left (stable descending, an O(S) count
+//                       of its own), the survivors' rounds on to max_size -
+//                       1, every seed's clique written.
+// A round splits its candidates over the block's warps, a warp a word of
+// the candidate bits and a lane a candidate j: the lane counts |cand &
+// column j| over the W words, 16 bytes a load (4 bytes where W is no
+// multiple of 4), the loads independent of each other. The packed columns
+// are read through L1 and L2, not staged: a round reads only its
+// candidates' columns, and at N = 1024 a pair's 128 KB of columns stay in
+// L1 across the rounds; the candidate and clique bits (2 W words) sit in
+// shared
+// memory at any N, so no global workspace is needed. The argmax is reduced
+// in (score, lower index) order, and the edge sum is an exact 64-bit count,
+// so the reduction's order changes no bit. The columns are always the pack
+// kernel's, so no symmetry test runs.
+// threads a seed's block: 256, or 128 where the batch's seeds outnumber
+// four blocks an SM (more blocks an SM; on an NVIDIA H100 80GB HBM3 at
+// 700 W, tests/torch_stage_busy.py: 64 pairs' 8192 seeds took 0.43 ms at
+// 256 threads and 0.31 at 128, one pair's 128 seeds 0.059 and 0.074)
+constexpr int kGrowThreads = 256;
+constexpr int kGrowThreadsMany = 128;
+constexpr int kGrowWarps = kGrowThreads / 32;
+constexpr int kSeedThreads = 1024;           // threads a pair's seed selection
+constexpr int kSeedInts = 6;                 // v, csize, rounds, sigma, kappa, promise
+
 // A seed's growth state beside its bitsets: its vertex v, the f32 sum of
 // its clique csize, its rounds, and v's own entries of the plain version's
 // f32 candidate and clique vectors, sigma and kappa. Off v both vectors
@@ -235,42 +258,203 @@ struct Seed {
   int v, csize, rounds, sigma, kappa;
 };
 
-// One seed's rounds, by one warp, from its candidate set cand and clique
-// clq (W words each, the warp's own), while rounds < limit and its
-// candidate sum |cand| + sigma is positive (past that no round changes its
-// clique). A round, as _grow_round: raw_j = |cand & column j| + sigma
-// adj[v][j], deg_j = raw_j for j in cand and sigma raw_v for v; a candidate
-// set that is a clique (sum deg == csz (csz - 1)) with room under max_size
-// is absorbed whole; else, below max_size, the first j of largest deg_j +
-// tiebreak_j among the positive candidates joins and every candidate entry
-// is multiplied by adj[j][.] and by 1 - its clique entry; at max_size the
-// candidates empty.
-__device__ void grow_seed(const uint32_t* R, int rs, const uint32_t* C, int cs,
-                          const float* __restrict__ tiebreak, int n, int w, int max_size,
-                          int limit, uint32_t* cand, uint32_t* clq, Seed& st) {
-  const int lane = threadIdx.x & 31;
-  const uint32_t* rv = R + (size_t)st.v * rs;
+// A seed score's place in torch.sort(descending=True, stable=True) order
+// as an unsigned key, larger first: NaN first, -0.0 tied with +0.0.
+__device__ __forceinline__ uint32_t desc_key(float f) {
+  if (isnan(f)) return 0xffffffffu;
+  if (f == 0.0f) f = 0.0f;
+  const uint32_t b = __float_as_uint(f);
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
+// Per pair (a block of kSeedThreads): seeds[rank] = i for the num_seeds
+// vertices of least rank, the rank of i the count of vertices before it (a
+// larger key, or an equal key at a lower index) among the scores, -inf off
+// the mask. The num_seeds-th largest key by a radix selection (four passes
+// of 8 bits, a shared histogram each), the vertices above it and the first
+// of those equal to it (a block scan in index order) into `list` as (key,
+// ~index), and each one's rank among them by a count: O(N) passes and
+// O(num_seeds^2) compares, not O(N^2).
+__device__ __forceinline__ uint32_t score_key(const float* scores, const unsigned char* mask,
+                                              int j) {
+  return desc_key(mask[j] ? scores[j] : -INFINITY);
+}
+
+__global__ void __launch_bounds__(kSeedThreads)
+grow_seeds_kernel(const float* __restrict__ scores_g, const unsigned char* __restrict__ mask_g,
+                  int n, int num_seeds, unsigned long long* __restrict__ list_g,
+                  int* __restrict__ seeds) {
+  __shared__ int hist[256];
+  __shared__ int warp_tot[kSeedThreads / 32];
+  __shared__ int digit_s, above_s, count_s;
+  const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float* scores = scores_g + (size_t)b * n;
+  const unsigned char* mask = mask_g + (size_t)b * n;
+  unsigned long long* list = list_g + (size_t)b * num_seeds;
+  // the num_seeds-th largest key, 8 bits at a time from the top; `want`
+  // its place among the keys that share the bits decided so far
+  uint32_t prefix = 0u, pmask = 0u;
+  int want = num_seeds;
+  for (int shift = 24; shift >= 0; shift -= 8) {
+    for (int t = tid; t < 256; t += kSeedThreads) hist[t] = 0;
+    __syncthreads();
+    for (int i = tid; i < n; i += kSeedThreads) {
+      const uint32_t k = score_key(scores, mask, i);
+      if ((k & pmask) == prefix) atomicAdd(&hist[(k >> shift) & 255u], 1);
+    }
+    __syncthreads();
+    if (warp == 0) {           // lane l: digits 255 - 8 l ... 248 - 8 l
+      int c[8], tot = 0;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) tot += c[q] = hist[255 - 8 * lane - q];
+      int incl = tot;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(kFull, incl, o);
+        if (lane >= o) incl += y;
+      }
+      int run = incl - tot;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        if (run < want && want <= run + c[q]) {
+          digit_s = 255 - 8 * lane - q;
+          above_s = run;
+        }
+        run += c[q];
+      }
+    }
+    __syncthreads();
+    want -= above_s;
+    prefix |= (uint32_t)digit_s << shift;
+    pmask |= 255u << shift;
+    __syncthreads();           // digit_s, above_s read before the next pass
+  }
+  // the keys above prefix, and the first `want` equal to it in index order
+  if (tid == 0) count_s = 0;
+  int taken = 0;               // equal keys before this chunk
+  for (int base = 0; base < n; base += kSeedThreads) {
+    const int i = base + tid;
+    const uint32_t k = i < n ? score_key(scores, mask, i) : 0u;
+    const bool eq = i < n && k == prefix;
+    const unsigned bal = __ballot_sync(kFull, eq);
+    if (lane == 0) warp_tot[warp] = __popc(bal);
+    __syncthreads();
+    int before = taken + __popc(bal & ((1u << lane) - 1u));
+    int chunk = 0;
+#pragma unroll
+    for (int q = 0; q < kSeedThreads / 32; ++q) {
+      before += q < warp ? warp_tot[q] : 0;
+      chunk += warp_tot[q];
+    }
+    if (i < n && (k > prefix || (eq && before < want)))
+      list[atomicAdd(&count_s, 1)] = ((unsigned long long)k << 32) | (0xffffffffu - (uint32_t)i);
+    taken += chunk;
+    __syncthreads();           // warp_tot read before the next chunk
+  }
+  __syncthreads();
+  for (int e = tid; e < num_seeds; e += kSeedThreads) {
+    const unsigned long long me = list[e];
+    int rank = 0;
+    for (int f = 0; f < num_seeds; ++f) rank += list[f] > me;
+    seeds[(size_t)b * num_seeds + rank] = (int)(0xffffffffu - (uint32_t)me);
+  }
+}
+
+// |column & cand| over W words by one lane (V4: 16 bytes a load)
+template <bool V4>
+__device__ __forceinline__ int col_count(const uint32_t* __restrict__ col, const uint32_t* cand,
+                                         int w) {
+  int d = 0;
+  if (V4) {
+    const uint4* c4 = reinterpret_cast<const uint4*>(col);
+    const uint4* m4 = reinterpret_cast<const uint4*>(cand);
+#pragma unroll 8
+    for (int k = 0; k < (w >> 2); ++k) {
+      const uint4 a = __ldg(c4 + k), m = m4[k];
+      d += __popc(a.x & m.x) + __popc(a.y & m.y) + __popc(a.z & m.z) + __popc(a.w & m.w);
+    }
+  } else {
+#pragma unroll 4
+    for (int k = 0; k < w; ++k) d += __popc(__ldg(col + k) & cand[k]);
+  }
+  return d;
+}
+
+// (score, vertex) b after a: the larger score, the lower vertex on a tie
+__device__ __forceinline__ bool better(float sb, int jb, float sa, int ja) {
+  return sb > sa || (sb == sa && jb < ja);
+}
+
+struct GrowShared {
+  long long esum[kGrowWarps];
+  float best[kGrowWarps];
+  int bj[kGrowWarps];
+  int cnt[kGrowWarps];
+};
+
+// |cand| over the block, every thread given the sum
+__device__ int block_popc(const uint32_t* cand, int w, GrowShared& red) {
+  int c = 0;
+  for (int k = threadIdx.x; k < w; k += blockDim.x) c += __popc(cand[k]);
+  c = warp_sum(c);
+  if ((threadIdx.x & 31) == 0) red.cnt[threadIdx.x >> 5] = c;
+  __syncthreads();
+  int t = 0;
+  for (int k = 0; k < (int)(blockDim.x >> 5); ++k) t += red.cnt[k];
+  __syncthreads();
+  return t;
+}
+
+// One seed's rounds by the whole block, from its candidate set cand and
+// clique clq (W words each, in shared memory), while rounds < limit and
+// its candidate sum |cand| + sigma is positive (past that no round changes
+// its clique). A round, as _grow_round: raw_j = |cand & column j| + sigma
+// adj[v][j], deg_j = raw_j for j in cand and sigma raw_v for v; a
+// candidate set that is a clique (sum deg == csz (csz - 1)) with room
+// under max_size is absorbed whole; else, below max_size, the first j of
+// largest deg_j + tiebreak_j among the positive candidates joins and every
+// candidate entry is multiplied by adj[j][.] and by 1 - its clique entry;
+// at max_size the candidates empty. Returns the candidate sum at the end.
+// R, C: the pair's packed rows and columns (W words a row).
+template <bool V4>
+__device__ int grow_rounds(const uint32_t* __restrict__ R, const uint32_t* __restrict__ C,
+                           const float* __restrict__ tiebreak, int n, int w, int max_size,
+                           int limit, uint32_t* cand, uint32_t* clq, Seed& st, GrowShared& red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const uint32_t* rv = R + (size_t)st.v * w;
   const int vself = (int)bit_of(rv, st.v);
-  while (st.rounds < limit) {
-    int csz = 0;
-    for (int k = lane; k < w; k += 32) csz += __popc(cand[k]);
-    csz = warp_sum(csz) + st.sigma;
-    if (csz <= 0) break;
+  int csz = block_popc(cand, w, red) + st.sigma;
+  while (st.rounds < limit && csz > 0) {
     long long esum = 0;
     float best = -INFINITY;
     int bj = n;
-    for (int wd = 0; wd < w; ++wd) {
-      const uint32_t cw = cand[wd];
-      if (cw == 0u || !((cw >> lane) & 1u)) continue;
+    // the candidates, a warp a word (strided), a lane a set bit: the lane
+    // counts its column over all W words, 16 bytes a load where W is a
+    // multiple of 4, its loads independent of each other
+    for (int wd = warp; wd < w; wd += (int)(blockDim.x >> 5)) {
+      const uint32_t bits = cand[wd];
+      if (!((bits >> lane) & 1u)) continue;
       const int j = 32 * wd + lane;
-      const uint32_t* cj = C + (size_t)j * cs;
-      int d = st.sigma * (int)bit_of(rv, j);
-      for (int k = 0; k < w; ++k) d += __popc(cj[k] & cand[k]);
+      const int d = st.sigma * (int)bit_of(rv, j) + col_count<V4>(C + (size_t)j * w, cand, w);
       esum += d;
       const float score = __fadd_rn((float)d, tiebreak[j]);
-      if (score > best) {                    // j rises: a lane keeps its first
+      if (better(score, j, best, bj)) {
         best = score;
         bj = j;
+      }
+    }
+    if (st.sigma != 0 && warp == 0) {        // v's own candidate entry
+      const uint32_t* cv = C + (size_t)st.v * w;
+      int dv = 0;
+      for (int k = lane; k < w; k += 32) dv += __popc(__ldg(cv + k) & cand[k]);
+      const int deg_v = st.sigma * (warp_sum(dv) + st.sigma * vself);
+      if (lane == 0) {
+        esum += deg_v;
+        const float score = __fadd_rn((float)deg_v, tiebreak[st.v]);
+        if (st.sigma > 0 && better(score, st.v, best, bj)) {
+          best = score;
+          bj = st.v;
+        }
       }
     }
     esum = warp_sum_ll(esum);
@@ -278,25 +462,30 @@ __device__ void grow_seed(const uint32_t* R, int rs, const uint32_t* C, int cs,
     for (int o = 16; o > 0; o >>= 1) {
       const float ob = __shfl_xor_sync(kFull, best, o);
       const int oj = __shfl_xor_sync(kFull, bj, o);
-      if (ob > best || (ob == best && oj < bj)) {
+      if (better(ob, oj, best, bj)) {
         best = ob;
         bj = oj;
       }
     }
-    if (st.sigma != 0) {                     // v's own candidate entry
-      const uint32_t* cv = C + (size_t)st.v * cs;
-      int dv = 0;
-      for (int k = lane; k < w; k += 32) dv += __popc(cv[k] & cand[k]);
-      const int deg_v = st.sigma * (warp_sum(dv) + st.sigma * vself);
-      esum += deg_v;
-      const float score = __fadd_rn((float)deg_v, tiebreak[st.v]);
-      if (st.sigma > 0 && (score > best || (score == best && st.v < bj))) {
-        best = score;
-        bj = st.v;
+    if (lane == 0) {
+      red.esum[warp] = esum;
+      red.best[warp] = best;
+      red.bj[warp] = bj;
+    }
+    __syncthreads();
+    esum = red.esum[0];
+    best = red.best[0];
+    bj = red.bj[0];
+    for (int k = 1; k < (int)(blockDim.x >> 5); ++k) {
+      esum += red.esum[k];
+      if (better(red.best[k], red.bj[k], best, bj)) {
+        best = red.best[k];
+        bj = red.bj[k];
       }
     }
+    int c = 0;
     if (esum == (long long)csz * (csz - 1) && (long long)st.csize + csz <= max_size) {
-      for (int k = lane; k < w; k += 32) {
+      for (int k = threadIdx.x; k < w; k += blockDim.x) {
         clq[k] |= cand[k];
         cand[k] = 0u;
       }
@@ -305,152 +494,142 @@ __device__ void grow_seed(const uint32_t* R, int rs, const uint32_t* C, int cs,
       st.sigma = 0;
     } else if (st.csize < max_size) {
       const bool self = bj == st.v;
-      const uint32_t* rp = R + (size_t)bj * rs;
-      for (int k = lane; k < w; k += 32) {
+      const uint32_t* rp = R + (size_t)bj * w;
+      for (int k = threadIdx.x; k < w; k += blockDim.x) {
         const uint32_t q = clq[k] | (!self && k == (bj >> 5) ? 1u << (bj & 31) : 0u);
+        const uint32_t nc = cand[k] & __ldg(rp + k) & ~q;
         clq[k] = q;
-        cand[k] = cand[k] & rp[k] & ~q;
+        cand[k] = nc;
+        c += __popc(nc);
       }
       st.csize += 1;
       st.kappa += self;
       st.sigma *= (int)bit_of(rp, st.v) * (1 - st.kappa);
     } else {
-      for (int k = lane; k < w; k += 32) cand[k] = 0u;
+      for (int k = threadIdx.x; k < w; k += blockDim.x) cand[k] = 0u;
       st.sigma = 0;
     }
-    __syncwarp();
+    c = warp_sum(c);
+    if (lane == 0) red.cnt[warp] = c;
+    __syncthreads();
+    csz = st.sigma;
+    for (int k = 0; k < (int)(blockDim.x >> 5); ++k) csz += red.cnt[k];
     ++st.rounds;
   }
+  return csz;
 }
 
-constexpr int kSeedInts = 5;                 // a Seed's ints in the scratch
-
-// A seed's state in the scratch: cand, clq (W words each), then the Seed.
-__device__ __forceinline__ void save_seed(uint32_t* rec, int w, const uint32_t* cand,
-                                          const uint32_t* clq, const Seed& st) {
-  const int lane = threadIdx.x & 31;
-  for (int k = lane; k < w; k += 32) {
+// A seed's record in the scratch: cand, clq (W words each), then the Seed
+// and its candidate sum.
+__device__ void save_seed(uint32_t* rec, int w, const uint32_t* cand, const uint32_t* clq,
+                          const Seed& st, int promise) {
+  for (int k = threadIdx.x; k < w; k += blockDim.x) {
     rec[k] = cand[k];
     rec[w + k] = clq[k];
   }
-  if (lane == 0) {
+  if (threadIdx.x == 0) {
     int* t = reinterpret_cast<int*>(rec + 2 * w);
     t[0] = st.v;
     t[1] = st.csize;
     t[2] = st.rounds;
     t[3] = st.sigma;
     t[4] = st.kappa;
+    t[5] = promise;
   }
-  __syncwarp();
 }
 
-// Per pair: the num_seeds largest masked seed scores (stable descending,
-// -inf off the mask) as seeds, each with its clique {seed} and candidates
-// row(seed) & mask; every seed's rounds up to phase 1's limit (a warp a
-// seed: the seeds of a pair are independent, each a fixed point once its
-// candidates are gone); with two_phase, the survivors seeds of most
-// candidates left (stable descending) on to max_size - 1 rounds in all.
-// Writes every seed's clique as (num_seeds, N) bytes.
-// G: the arrays past the staged rows (the mask's bits, the scores, the
-// seeds, each warp's candidate and clique bits) in `work`, `work_words` a
-// pair of global memory, where they exceed a block's shared memory (N past
-// ~18600); the rows are then read through L2
-template <bool G>
-__global__ void __launch_bounds__(kThreads)
-grow_kernel(const uint32_t* __restrict__ rows_g, const uint32_t* __restrict__ cols_g,
-            const float* __restrict__ scores_g, const unsigned char* __restrict__ mask_g,
-            const float* __restrict__ tiebreak, int n, int num_seeds, int max_size, int phase1,
-            int survivors, int two_phase, int use_smem, uint32_t* scratch,
-            unsigned char* __restrict__ out, uint32_t* work, long long work_words) {
-  extern __shared__ uint32_t sm[];
-  const int b = blockIdx.x, w = words_of(n);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  uint32_t* p = G ? work + (size_t)b * work_words : sm + (use_smem ? n * smem_stride(w) : 0);
-  uint32_t* maskb = p;
-  float* sc = reinterpret_cast<float*>(maskb + w);
-  int* seeds = reinterpret_cast<int*>(sc + n);
-  int* promise = seeds + num_seeds;
-  int* keep = promise + num_seeds;
-  uint32_t* cand = reinterpret_cast<uint32_t*>(keep + num_seeds) + warp * 2 * w;
-  uint32_t* clq = cand + w;
-  const uint32_t* rows = rows_g + (size_t)b * n * w;
-  const uint32_t* cols = cols_g + (size_t)b * n * w;
-  const uint32_t* R = stage_rows(rows, n, w, sm, use_smem);
-  const int rs = use_smem ? smem_stride(w) : w;
-  const unsigned char* mask = mask_g + (size_t)b * n;
-  const float* scores = scores_g + (size_t)b * n;
-  for (int wd = warp; wd < w; wd += kWarps) {
-    const int i = 32 * wd + lane;
-    const uint32_t word = __ballot_sync(kFull, i < n && mask[i] != 0);
-    if (lane == 0) maskb[wd] = word;
-  }
-  for (int i = threadIdx.x; i < n; i += kThreads) sc[i] = mask[i] ? scores[i] : -INFINITY;
-  int asym = 0;
-  for (int k = threadIdx.x; k < n * w; k += kThreads) asym |= rows[k] != cols[k];
-  const bool sym = !__syncthreads_or(asym);
-  const uint32_t* C = sym ? R : cols;
-  const int cs = sym ? rs : w;
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    const float si = sc[i];
-    int rank = 0;
-    for (int j = 0; j < n; ++j) rank += before_desc(sc[j], j, si, i);
-    if (rank < num_seeds) seeds[rank] = i;
-  }
-  __syncthreads();
+// A seed's clique as N bytes: the clique bits, and v where kappa > 0.
+__device__ void write_clique(unsigned char* __restrict__ o, int n, const uint32_t* clq, int v,
+                             int kappa) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    o[i] = (unsigned char)(i == v ? kappa > 0 : bit_of(clq, i));
+}
 
-  const int rec_words = 2 * w + kSeedInts;
-  uint32_t* scr = scratch + (size_t)b * num_seeds * rec_words;
-  for (int s = warp; s < num_seeds; s += kWarps) {
-    const int v = seeds[s];
-    const uint32_t* rv = R + (size_t)v * rs;
-    for (int k = lane; k < w; k += 32) {
-      cand[k] = rv[k] & maskb[k] & (k == (v >> 5) ? ~(1u << (v & 31)) : kFull);
-      clq[k] = 0u;
+// Block (s, b): seed s of pair b from its row and the mask; its rounds up
+// to phase 1's limit (with two_phase; else max_size - 1 and its clique
+// written); its record saved.
+template <bool V4>
+__global__ void __launch_bounds__(kGrowThreads)
+grow_phase1_kernel(const uint32_t* __restrict__ rows_g, const uint32_t* __restrict__ cols_g,
+                   const unsigned char* __restrict__ mask_g, const float* __restrict__ tiebreak,
+                   const int* __restrict__ seeds, int n, int num_seeds, int max_size, int phase1,
+                   int two_phase, uint32_t* __restrict__ scratch, unsigned char* __restrict__ out) {
+  // cand and clq, W words each, 16-byte aligned
+  extern __shared__ __align__(16) uint32_t gsm[];
+  __shared__ GrowShared red;
+  const int s = blockIdx.x, b = blockIdx.y, w = words_of(n);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint32_t* cand = gsm;
+  uint32_t* clq = cand + ((w + 3) & ~3);
+  const uint32_t* R = rows_g + (size_t)b * n * w;
+  const uint32_t* C = cols_g + (size_t)b * n * w;
+  const unsigned char* mask = mask_g + (size_t)b * n;
+  const int v = seeds[(size_t)b * num_seeds + s];
+  const uint32_t* rv = R + (size_t)v * w;
+  for (int wd = warp; wd < w; wd += (int)(blockDim.x >> 5)) {
+    const int i = 32 * wd + lane;
+    const uint32_t mw = __ballot_sync(kFull, i < n && mask[i] != 0);
+    if (lane == 0) {
+      cand[wd] = __ldg(rv + wd) & mw & (wd == (v >> 5) ? ~(1u << (v & 31)) : kFull);
+      clq[wd] = 0u;
     }
-    __syncwarp();
-    Seed st = {v, 1, 0, (int)(bit_of(rv, v) && bit_of(maskb, v)), 1};
-    grow_seed(R, rs, C, cs, tiebreak, n, w, max_size, two_phase ? phase1 : max_size - 1,
-              cand, clq, st);
-    save_seed(scr + (size_t)s * rec_words, w, cand, clq, st);
   }
   __syncthreads();
+  Seed st = {v, 1, 0, (int)(bit_of(rv, v) && mask[v] != 0), 1};
+  const int left = grow_rounds<V4>(R, C, tiebreak, n, w, max_size,
+                                   two_phase ? phase1 : max_size - 1, cand, clq, st, red);
   if (two_phase) {
-    // the candidates left: |cand| + sigma
-    for (int s = threadIdx.x; s < num_seeds; s += kThreads) {
-      const uint32_t* rec = scr + (size_t)s * rec_words;
-      int c = reinterpret_cast<const int*>(rec + 2 * w)[3];
-      for (int k = 0; k < w; ++k) c += __popc(rec[k]);
-      promise[s] = c;
-    }
-    __syncthreads();
-    for (int s = threadIdx.x; s < num_seeds; s += kThreads) {
-      const int ps = promise[s];
-      int rank = 0;
-      for (int t = 0; t < num_seeds; ++t) rank += promise[t] > ps || (promise[t] == ps && t < s);
-      if (rank < survivors) keep[rank] = s;
-    }
-    __syncthreads();
-    for (int q = warp; q < survivors; q += kWarps) {
-      uint32_t* rec = scr + (size_t)keep[q] * rec_words;
-      for (int k = lane; k < w; k += 32) {
-        cand[k] = rec[k];
-        clq[k] = rec[w + k];
-      }
-      const int* t = reinterpret_cast<const int*>(rec + 2 * w);
-      Seed st = {t[0], t[1], t[2], t[3], t[4]};
-      __syncwarp();
-      grow_seed(R, rs, C, cs, tiebreak, n, w, max_size, max_size - 1, cand, clq, st);
-      save_seed(rec, w, cand, clq, st);
-    }
-    __syncthreads();
+    const int rec_words = 2 * w + kSeedInts;
+    save_seed(scratch + ((size_t)b * num_seeds + s) * rec_words, w, cand, clq, st, left);
+  } else {
+    write_clique(out + ((size_t)b * num_seeds + s) * n, n, clq, st.v, st.kappa);
   }
-  unsigned char* o = out + (size_t)b * num_seeds * n;
-  for (int idx = threadIdx.x; idx < num_seeds * n; idx += kThreads) {
-    const int s = idx / n, i = idx - s * n;
-    const uint32_t* rec = scr + (size_t)s * rec_words;
-    const int* t = reinterpret_cast<const int*>(rec + 2 * w);
-    o[idx] = (unsigned char)(i == t[0] ? t[4] > 0 : bit_of(rec + w, i));
+}
+
+// Block (s, b): seed s's rank among the pair's seeds by the candidates
+// left (stable descending); a survivor (rank < survivors) runs on to
+// max_size - 1 rounds; every seed's clique written.
+template <bool V4>
+__global__ void __launch_bounds__(kGrowThreads)
+grow_phase2_kernel(const uint32_t* __restrict__ rows_g, const uint32_t* __restrict__ cols_g,
+                   const float* __restrict__ tiebreak, int n, int num_seeds, int max_size,
+                   int survivors, const uint32_t* __restrict__ scratch,
+                   unsigned char* __restrict__ out) {
+  extern __shared__ __align__(16) uint32_t gsm[];
+  __shared__ GrowShared red;
+  const int s = blockIdx.x, b = blockIdx.y, w = words_of(n);
+  const int rec_words = 2 * w + kSeedInts;
+  const uint32_t* recs = scratch + (size_t)b * num_seeds * rec_words;
+  const uint32_t* rec = recs + (size_t)s * rec_words;
+  const int* t = reinterpret_cast<const int*>(rec + 2 * w);
+  const int ps = t[5];
+  int before = 0;
+  for (int q = threadIdx.x; q < num_seeds; q += blockDim.x) {
+    const int pq = reinterpret_cast<const int*>(recs + (size_t)q * rec_words + 2 * w)[5];
+    before += pq > ps || (pq == ps && q < s);
   }
+  before = warp_sum(before);
+  if ((threadIdx.x & 31) == 0) red.cnt[threadIdx.x >> 5] = before;
+  __syncthreads();
+  int rank = 0;
+  for (int k = 0; k < (int)(blockDim.x >> 5); ++k) rank += red.cnt[k];
+  __syncthreads();
+  unsigned char* o = out + ((size_t)b * num_seeds + s) * n;
+  if (rank >= survivors) {
+    write_clique(o, n, rec + w, t[0], t[4]);
+    return;
+  }
+  uint32_t* cand = gsm;
+  uint32_t* clq = cand + ((w + 3) & ~3);
+  for (int k = threadIdx.x; k < w; k += blockDim.x) {
+    cand[k] = rec[k];
+    clq[k] = rec[w + k];
+  }
+  Seed st = {t[0], t[1], t[2], t[3], t[4]};
+  __syncthreads();
+  grow_rounds<V4>(rows_g + (size_t)b * n * w, cols_g + (size_t)b * n * w, tiebreak, n, w,
+                  max_size, max_size - 1, cand, clq, st, red);
+  write_clique(o, n, clq, st.v, st.kappa);
 }
 
 // -------------------------------------------------------------------- swap --
@@ -705,7 +884,7 @@ inline long long base_smem(int kind, int n, int s, int k) {
   const long long w = words_of(n);
   switch (kind) {
     case 0: return 4 * (3 * w);
-    case 1: return 4 * (w + n + 3LL * s + (long long)kWarps * 2 * w);
+    case 1: return 4 * 2 * ((w + 3) & ~3LL);
     case 2: return 4 * (4 * w + n + kSwapCand + 2LL * s);
     default: return 4 * (2LL * s + k);
   }
@@ -774,29 +953,61 @@ extern "C" int quatro_kcore_search(const unsigned* rows, const unsigned char* ma
 }
 
 // rows, cols (B, N, W); scores (B, N) f32; mask (B, N) bool; tiebreak (N,)
-// f32; scratch B * num_seeds * (2 W + 5) uint32; out (B, num_seeds, N) bool.
+// f32; scratch B * num_seeds * (2 W + 9) + 1 uint32 (the seeds' records,
+// the seeds, the selection's keys at an even word); out (B, num_seeds, N)
+// bool. survivors 0 without two_phase. Two launches, or three with
+// two_phase.
 extern "C" int quatro_grow_cliques(const unsigned* rows, const unsigned* cols,
                                    const float* scores, const unsigned char* mask,
                                    const float* tiebreak, int batch, int n, int num_seeds,
                                    int max_size, int phase1_rounds, int survivors,
-                                   int two_phase, int use_smem, unsigned* scratch,
-                                   unsigned char* out, unsigned* work, cudaStream_t stream) {
-  if (batch <= 0 || n <= 0 || num_seeds <= 0 || num_seeds > n || survivors > num_seeds)
+                                   int two_phase, unsigned* scratch, unsigned char* out,
+                                   cudaStream_t stream) {
+  if (batch <= 0 || n <= 0 || num_seeds <= 0 || num_seeds > n || survivors > num_seeds ||
+      survivors < 0 || batch > 65535)
     return (int)cudaErrorInvalidValue;
-  if (work != nullptr) {    // base_smem(1, ...) bytes a pair of global memory
-    if (use_smem) return (int)cudaErrorInvalidValue;
-    grow_kernel<true><<<batch, kThreads, 0, stream>>>(
-        rows, cols, scores, mask, tiebreak, n, num_seeds, max_size, phase1_rounds, survivors,
-        two_phase, 0, scratch, out, work, base_smem(1, n, num_seeds, 0) / 4);
-    return (int)cudaGetLastError();
+  const long long w = words_of(n);
+  const long long bytes = base_smem(1, n, num_seeds, 0);
+  const bool v4 = (w & 3) == 0;
+  static int sms[64] = {0};
+  int dev = 0;
+  int err0 = (int)cudaGetDevice(&dev);
+  if (err0) return err0;
+  if (dev < 64 && sms[dev] == 0) {
+    err0 = (int)cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err0) return err0;
   }
-  const long long bytes = smem_bytes(1, n, num_seeds, 0, use_smem);
-  int err = set_smem(grow_kernel<false>, bytes);
+  const int sm = dev < 64 ? sms[dev] : 132;
+  const int threads = (long long)batch * num_seeds > 4LL * sm ? kGrowThreadsMany : kGrowThreads;
+  int err = v4 ? set_smem(grow_phase1_kernel<true>, bytes)
+               : set_smem(grow_phase1_kernel<false>, bytes);
+  if (!err && two_phase)
+    err = v4 ? set_smem(grow_phase2_kernel<true>, bytes) : set_smem(grow_phase2_kernel<false>, bytes);
   if (err) return err;
-  grow_kernel<false><<<batch, kThreads, bytes, stream>>>(rows, cols, scores, mask, tiebreak, n,
-                                                         num_seeds, max_size, phase1_rounds,
-                                                         survivors, two_phase, use_smem,
-                                                         scratch, out, nullptr, 0);
+  const size_t seeds_at = (size_t)batch * num_seeds * (2 * w + kSeedInts);
+  int* seeds = reinterpret_cast<int*>(scratch + seeds_at);
+  unsigned long long* list = reinterpret_cast<unsigned long long*>(
+      scratch + ((seeds_at + (size_t)batch * num_seeds + 1) & ~(size_t)1));
+  grow_seeds_kernel<<<batch, kSeedThreads, 0, stream>>>(scores, mask, n, num_seeds, list, seeds);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  const dim3 grid((unsigned)num_seeds, (unsigned)batch);
+  if (v4)
+    grow_phase1_kernel<true><<<grid, threads, bytes, stream>>>(
+        rows, cols, mask, tiebreak, seeds, n, num_seeds, max_size, phase1_rounds, two_phase,
+        scratch, out);
+  else
+    grow_phase1_kernel<false><<<grid, threads, bytes, stream>>>(
+        rows, cols, mask, tiebreak, seeds, n, num_seeds, max_size, phase1_rounds, two_phase,
+        scratch, out);
+  err = (int)cudaGetLastError();
+  if (err || !two_phase) return err;
+  if (v4)
+    grow_phase2_kernel<true><<<grid, threads, bytes, stream>>>(
+        rows, cols, tiebreak, n, num_seeds, max_size, survivors, scratch, out);
+  else
+    grow_phase2_kernel<false><<<grid, threads, bytes, stream>>>(
+        rows, cols, tiebreak, n, num_seeds, max_size, survivors, scratch, out);
   return (int)cudaGetLastError();
 }
 

@@ -64,8 +64,15 @@
 // - Layout: CTAs of 1024 threads in clusters of 16 (non-portable) or 8,
 //   whichever the resident clusters (cudaOccupancyMaxActiveClusters) and
 //   the batch finish in the fewest waves per CTA of a cluster;
-//   quatro_label_layout reports the choice, or that no cluster holds the
-//   image.
+//   quatro_label_layout reports the choice.
+// - The global route (label_sweeps_kernel<true>): an image of 1-11 rows
+//   can be wider than the shared memory of a cluster of at most that many
+//   CTAs holds (1 x 131071 takes 1.3 MB). There the same code keeps each
+//   CTA's two label buffers, edge bits and valid bytes in a slab of a
+//   global workspace that the wrapper allocates, and a walk reads another
+//   CTA's slab through L2 (ld.global.cg) after the cluster.sync() that
+//   ends each sweep; the flag still goes through DSMEM. No sensor has so
+//   few rows, so this route is for coverage, not speed.
 #include <climits>
 
 #include <cooperative_groups.h>
@@ -125,8 +132,10 @@ __device__ __forceinline__ ChunkMap shfl_down(ChunkMap f, int off) {
 // 32), made odd, positions a lane: each lane's chunk as a ChunkMap,
 // composed by a suffix scan of shuffles; the value at position 0 closes
 // the cycle. From src into dst. Returns whether it lowered a valid
-// pixel's label. Positions in int: a CTA's shared memory holds a row of
-// at most 23142 columns, so k dc < 2^31.
+// pixel's label. The rows are the CTA's own (shared memory, or its slab
+// of the global workspace), written by its own threads. A cycle's start
+// position k dc is taken in 64 bits (the global route's rows reach 131071
+// columns).
 __device__ int row_scan(const int* src, int* dst, const unsigned char* bits,
                         const unsigned char* vld, int nrow, int cols, int dcw, int period,
                         long long reach, int steps, int npix, int s) {
@@ -148,7 +157,7 @@ __device__ int row_scan(const int* src, int* dst, const unsigned char* bits,
     const unsigned char* vrow = vld + r * cols;
     // the chunk's map; an empty chunk is the identity
     ChunkMap h = {INT_MAX, 0, 0};
-    int col = (q + k0 * dcw) % cols;
+    int col = (int)((q + (long long)k0 * dcw) % cols);
     for (int k = k0; k < k1; ++k) {
       h.v = min(h.v, lrow[col]);
       if (!((brow[col] >> s) & 1)) {
@@ -174,7 +183,7 @@ __device__ int row_scan(const int* src, int* dst, const unsigned char* bits,
     if (lane == 31) nx = {INT_MAX, 0, 0};
     int cv = nx.c ? nx.v : min(nx.v, p0.v);
     int cd = nx.c ? nx.d : nx.d + p0.d;
-    if (k1 > k0) col = (q + (k1 - 1) * dcw) % cols;
+    if (k1 > k0) col = (int)((q + (long long)(k1 - 1) * dcw) % cols);
     for (int k = k1 - 1; k >= k0; --k) {
       const int l = lrow[col];
       int o;
@@ -200,10 +209,29 @@ __device__ int row_scan(const int* src, int* dst, const unsigned char* bits,
   return changed;
 }
 
+// Bytes of one CTA's slab of the global route's workspace: two int32
+// label buffers, the edge bits and the valid bytes of span pixels, padded
+// to 16 bytes.
+__host__ __device__ __forceinline__ size_t slab_bytes(int span) {
+  return ((size_t)kPixelBytes * span + 15) & ~(size_t)15;
+}
+
+// A label or edge byte that another CTA of the cluster wrote in an earlier
+// sweep: through DSMEM (G false), or from its slab through L2, past this
+// SM's L1 (G true).
+template <bool G, typename T>
+__device__ __forceinline__ T peer(const T* p) {
+  if (G) return __ldcg(p);
+  return *p;
+}
+
+// G: the image in a global workspace (`work`, slab_bytes(rpc * cols) a
+// CTA, the cluster's slabs of an image side by side), not in shared memory
+template <bool G>
 __global__ void __launch_bounds__(kThreads, 1)
 label_sweeps_kernel(const int* __restrict__ labels, const unsigned char* __restrict__ valid,
                     Sweeps sw, int rows, int cols, int rpc, int npix, int max_iters,
-                    int* __restrict__ out, int* __restrict__ rounds_out) {
+                    int* __restrict__ out, int* __restrict__ rounds_out, unsigned char* work) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int flag[2];
   __shared__ int* rlab[2][kMaxCluster];
@@ -214,8 +242,10 @@ label_sweeps_kernel(const int* __restrict__ labels, const unsigned char* __restr
   const int rank = (int)cluster.block_rank();
   const int img = blockIdx.x / cs;
   const int span = rpc * cols;
+  unsigned char* const slab0 = G ? work + (size_t)img * cs * slab_bytes(span) : smem;
+  unsigned char* const mine_slab = G ? slab0 + (size_t)rank * slab_bytes(span) : smem;
   int* buf[2];
-  buf[0] = reinterpret_cast<int*>(smem);
+  buf[0] = reinterpret_cast<int*>(mine_slab);
   buf[1] = buf[0] + span;
   unsigned char* bits = reinterpret_cast<unsigned char*>(buf[1] + span);
   unsigned char* vld = bits + span;
@@ -234,9 +264,16 @@ label_sweeps_kernel(const int* __restrict__ labels, const unsigned char* __restr
   }
   if (threadIdx.x < cs) {
     const int r = threadIdx.x;
-    rlab[0][r] = r == rank ? buf[0] : cluster.map_shared_rank(buf[0], r);
-    rlab[1][r] = r == rank ? buf[1] : cluster.map_shared_rank(buf[1], r);
-    rbits[r] = r == rank ? bits : cluster.map_shared_rank(bits, r);
+    if (G) {
+      int* b0 = reinterpret_cast<int*>(slab0 + (size_t)r * slab_bytes(span));
+      rlab[0][r] = b0;
+      rlab[1][r] = b0 + span;
+      rbits[r] = reinterpret_cast<const unsigned char*>(b0 + 2 * span);
+    } else {
+      rlab[0][r] = r == rank ? buf[0] : cluster.map_shared_rank(buf[0], r);
+      rlab[1][r] = r == rank ? buf[1] : cluster.map_shared_rank(buf[1], r);
+      rbits[r] = r == rank ? bits : cluster.map_shared_rank(bits, r);
+    }
   }
   cluster.sync();
 
@@ -284,9 +321,9 @@ label_sweeps_kernel(const int* __restrict__ labels, const unsigned char* __restr
               if (c >= cols) c -= cols;
               owner = r / rpc;
               off = (r - owner * rpc) * cols + c;
-              v = min(v, src[owner][off]);
+              v = min(v, peer<G>(src[owner] + off));
               ++m;
-            } while (m < limit && ((rbits[owner][off] >> s) & 1));
+            } while (m < limit && ((peer<G>(rbits[owner] + off) >> s) & 1));
           }
           // a chain that broke after m edges: the doubling's broken gates
           if (steps >= 2 && m < limit && m <= reach - 2) v = min(v, npix);
@@ -352,64 +389,64 @@ __host__ cudaLaunchConfig_t make_config(int bsz, int cs, size_t smem, cudaStream
 
 // The kernel's attributes for a layout: its shared memory, and clusters
 // past 8 CTAs allowed.
+template <bool G>
 __host__ cudaError_t set_attributes(int cs, size_t smem) {
-  cudaError_t err = cudaFuncSetAttribute(label_sweeps_kernel,
+  cudaError_t err = cudaFuncSetAttribute(label_sweeps_kernel<G>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess || cs <= 8) return err;
-  return cudaFuncSetAttribute(label_sweeps_kernel,
+  return cudaFuncSetAttribute(label_sweeps_kernel<G>,
                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
 }
 
+template <bool G>
 __host__ int resident_clusters(int bsz, int cs, size_t smem) {
-  if (set_attributes(cs, smem) != cudaSuccess) {
+  if (set_attributes<G>(cs, smem) != cudaSuccess) {
     cudaGetLastError();
     return 0;
   }
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg = make_config(bsz, cs, smem, nullptr, &attr);
   int resident = 0;
-  if (cudaOccupancyMaxActiveClusters(&resident, label_sweeps_kernel, &cfg) != cudaSuccess) {
+  if (cudaOccupancyMaxActiveClusters(&resident, label_sweeps_kernel<G>, &cfg) != cudaSuccess) {
     cudaGetLastError();
     return 0;
   }
   return resident;
 }
 
+constexpr int kInfo = 5;
+
 // The layout for bsz images of rows x cols: of clusters of 16 and 8 CTAs
 // (at most the row count, and 4, 2, 1 below that), those whose CTAs'
 // shared memory fits and of which at least one cluster can be resident
 // (cudaOccupancyMaxActiveClusters), the one with the fewest waves of
 // clusters per CTA of a cluster, ceil(bsz / resident) / cs (the larger
-// cluster on a tie). info: {cluster size, dynamic shared bytes a CTA,
-// resident clusters, the limit of dynamic shared bytes a CTA}; where none
-// fits, cudaErrorInvalidConfiguration and info {the largest cluster
-// tried, the shared bytes a CTA of it would need, 0, the limit}.
+// cluster on a tie). Where none fits (an image of few rows and many
+// columns), the global route: a cluster of the largest of 8, 4, 2, 1 CTAs
+// within the row count, each CTA's rows in a slab of a global workspace.
+// info: {cluster size, bytes a CTA (its dynamic shared memory, or its
+// slab of the workspace), resident clusters, the limit of dynamic shared
+// bytes a CTA, the route (0 shared, 1 global)}.
 __host__ int choose_layout(int bsz, int rows, int cols, int* info) {
   // the last answer, per device: a call at the same shape asks nothing
   static int seen[4] = {-1, 0, 0, 0};
-  static int seen_info[4];
+  static int seen_info[kInfo];
   int device = 0;
   cudaError_t derr = cudaGetDevice(&device);
   if (derr != cudaSuccess) return (int)derr;
   if (seen[0] == device && seen[1] == bsz && seen[2] == rows && seen[3] == cols) {
-    for (int k = 0; k < 4; ++k) info[k] = seen_info[k];
+    for (int k = 0; k < kInfo; ++k) info[k] = seen_info[k];
     return 0;
   }
   int best = 0;
   double best_cost = 0.0;
-  int tried = 0;
+  info[3] = kDynSmemLimit;
+  info[4] = 0;
   for (int cs = kMaxCluster; cs >= 1; cs /= 2) {
     if (cs > rows && cs > 1) continue;
     const size_t smem = smem_bytes(rows, cols, cs);
-    if (tried == 0) {
-      tried = cs;
-      info[0] = cs;
-      info[1] = (int)(smem < (size_t)INT_MAX ? smem : (size_t)INT_MAX);
-      info[2] = 0;
-      info[3] = kDynSmemLimit;
-    }
     if (smem > (size_t)kDynSmemLimit) continue;
-    const int resident = resident_clusters(bsz, cs, smem);
+    const int resident = resident_clusters<false>(bsz, cs, smem);
     if (resident >= 1) {
       const double cost = (double)((bsz + resident - 1) / resident) / cs;
       if (best == 0 || cost < best_cost) {
@@ -423,23 +460,35 @@ __host__ int choose_layout(int bsz, int rows, int cols, int* info) {
     // the layouts only get smaller from here; 16 and 8 cover the presets
     if (cs <= 8 && best != 0) break;
   }
-  if (best == 0) return (int)cudaErrorInvalidConfiguration;
+  if (best == 0) {
+    int cs = 8;
+    while (cs > rows && cs > 1) cs /= 2;
+    const int rpc = (rows + cs - 1) / cs;
+    const size_t slab = slab_bytes(rpc * cols);
+    const int resident = resident_clusters<true>(bsz, cs, 0);
+    if (resident < 1 || slab > (size_t)INT_MAX) return (int)cudaErrorInvalidConfiguration;
+    info[0] = cs;
+    info[1] = (int)slab;
+    info[2] = resident;
+    info[4] = 1;
+  }
   seen[0] = device;
   seen[1] = bsz;
   seen[2] = rows;
   seen[3] = cols;
-  for (int k = 0; k < 4; ++k) seen_info[k] = info[k];
+  for (int k = 0; k < kInfo; ++k) seen_info[k] = info[k];
   return 0;
 }
 
 }  // namespace quatro
 
 // The layout quatro_label_sweep takes for bsz images of rows x cols: info
-// (host int[4]) = {cluster size, dynamic shared bytes a CTA, resident
-// clusters, the limit of dynamic shared bytes a CTA}. Returns
-// cudaErrorInvalidConfiguration where no layout fits, with info {the
-// largest cluster tried, the shared bytes a CTA of it would need, 0, the
-// limit}; another CUDA error where the card cannot be asked.
+// (host int[5]) = {cluster size, bytes a CTA (dynamic shared memory, or
+// its slab of the global route's workspace), resident clusters, the limit
+// of dynamic shared bytes a CTA, the route (0 shared memory, 1 a global
+// workspace of bsz x cluster x slab bytes)}. Returns
+// cudaErrorInvalidConfiguration where not even the global route can be
+// resident; another CUDA error where the card cannot be asked.
 extern "C" int quatro_label_layout(int bsz, int rows, int cols, int* info) {
   using namespace quatro;
   if (bsz <= 0 || rows <= 0 || cols <= 0) return (int)cudaErrorInvalidValue;
@@ -448,12 +497,14 @@ extern "C" int quatro_label_layout(int bsz, int rows, int cols, int* info) {
 
 // labels, valid (B, R, C); edge_ptrs (host, nsweeps device pointers of
 // (B, R, C) bool masks); sched (host, nsweeps x (dr, dc, steps)); out
-// (B, R, C) int32, rounds (B,) int32. One launch, in the layout
-// quatro_label_layout reports.
+// (B, R, C) int32, rounds (B,) int32; work: the global route's workspace
+// (B x cluster x slab bytes, 16-byte aligned; unread on the shared route).
+// One launch, in the layout quatro_label_layout reports.
 extern "C" int quatro_label_sweep(const int* labels, const unsigned char* valid,
                                   const long long* edge_ptrs, const int* sched, int nsweeps,
                                   int bsz, int rows, int cols, int npix, int max_iters,
-                                  int* out, int* rounds, cudaStream_t stream) {
+                                  int* out, int* rounds, unsigned char* work,
+                                  cudaStream_t stream) {
   using namespace quatro;
   if (bsz <= 0 || rows <= 0 || cols <= 0) return 0;
   if (nsweeps < 1 || nsweeps > kMaxSweeps || max_iters < 0) return (int)cudaErrorInvalidValue;
@@ -474,17 +525,24 @@ extern "C" int quatro_label_sweep(const int* labels, const unsigned char* valid,
     sw.limit[s] = reach < period ? reach : period;
     sw.period[s] = (int)period;
   }
-  int info[4];
+  int info[kInfo];
   cudaError_t e = (cudaError_t)choose_layout(bsz, rows, cols, info);
   if (e != cudaSuccess) return (int)e;
   const int cs = info[0];
-  const size_t smem = (size_t)info[1];
-  e = set_attributes(cs, smem);
+  const bool global = info[4] != 0;
+  if (global && work == nullptr) return (int)cudaErrorInvalidValue;
+  const size_t smem = global ? 0 : (size_t)info[1];
+  e = global ? set_attributes<true>(cs, smem) : set_attributes<false>(cs, smem);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg = make_config(bsz, cs, smem, stream, &attr);
-  e = cudaLaunchKernelEx(&cfg, label_sweeps_kernel, labels, valid, sw, rows, cols,
-                         (rows + cs - 1) / cs, npix, max_iters, out, rounds);
+  const int rpc = (rows + cs - 1) / cs;
+  if (global)
+    e = cudaLaunchKernelEx(&cfg, label_sweeps_kernel<true>, labels, valid, sw, rows, cols, rpc,
+                           npix, max_iters, out, rounds, work);
+  else
+    e = cudaLaunchKernelEx(&cfg, label_sweeps_kernel<false>, labels, valid, sw, rows, cols, rpc,
+                           npix, max_iters, out, rounds, (unsigned char*)nullptr);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

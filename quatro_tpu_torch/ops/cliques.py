@@ -11,14 +11,19 @@ for every pair of a batch, behind a wrapper in ``ops/czm.py``'s style:
   k-core kernel: the whole binary search over k of each pair, each probe
   peeling from the best core to its fixed point, and the degrees over the
   mask that the seed scores take;
-- ``grow_cliques``: the two-phase greedy growth of every seed (a warp a
-  seed), each seed to its own exit;
+- ``grow_cliques``: the two-phase greedy growth of every seed, in three
+  launches (the seeds selected, a block a pair; a block a (pair, seed)
+  for phase 1; a block a (pair, seed) for phase 2, the survivors growing
+  on), each seed to its own exit;
 - ``swap_cliques``: the 1-swap rounds of the ``top`` largest cliques;
 - ``distinct_cliques``: the stable sort by size, the greedy over the rows
   and the picks, for the K hypotheses and the vote's calls.
 
-A block of 1024 threads takes one pair; its packed rows sit in shared
-memory where they fit (``clique_layout``), else it reads them through L2.
+The k-core search, the swaps and the distinct greedy take a block of 1024
+threads a pair; its packed rows sit in shared memory where they fit
+(``clique_layout``), else it reads them through L2. The growth reads them
+through L1 / L2 at any N (``ROUTES["grow_cliques"]`` counts every call
+"global").
 For CUDA tensors a wrapper checks its inputs (ValueError), launches on the
 current stream and counts the call in ``LAUNCHES``; for CPU tensors it runs
 its plain version (``*_plain``, the torch device loops of utils/loops.py
@@ -118,8 +123,7 @@ def clique_layout(kind: int, n: int, s: int, k: int, device_index: int):
     """(staged, bytes, limit) of a kernel of csrc/cliques.cu: whether its
     packed rows fit in a block's shared memory, the dynamic shared bytes it
     then takes, and the card's limit. ValueError where even the kernel's
-    other shared arrays exceed it, but for the growth, whose wrapper then
-    hands it a global workspace of those bytes a pair. Needs the card."""
+    other shared arrays exceed it. Needs the card."""
     from quatro_tpu_torch import _build
     info = torch.zeros(3, dtype=torch.int32)
     with torch.cuda.device(device_index):
@@ -127,7 +131,7 @@ def clique_layout(kind: int, n: int, s: int, k: int, device_index: int):
     if rc != 0:
         raise RuntimeError(f"clique_smem: CUDA error {rc}")
     staged, bare, limit = info.tolist()
-    if bare > limit and kind != KIND["grow_cliques"]:
+    if bare > limit:
         raise ValueError(
             f"clique kernel {kind} at N = {n}, S = {s}: {bare} bytes of "
             f"shared memory a block without the rows, over the limit "
@@ -337,9 +341,10 @@ def grow_cliques(adj: torch.Tensor, seed_scores: torch.Tensor,
     all seeds phase1_rounds rounds and then the survivors of most
     candidates on (one phase where num_seeds <= survivors or phase1_rounds
     >= max_size), at most max_size - 1 rounds and max_size vertices. For
-    CUDA tensors one launch of csrc/cliques.cu's growth kernel on
-    ``packed`` (``kcore_search``'s bits of adj), each pair and seed to its
-    own exit, bit for bit ``grow_cliques_plain``, which runs for CPU
+    CUDA tensors csrc/cliques.cu's growth on ``packed`` (``kcore_search``'s
+    bits of adj): the seeds' selection, then a block a (pair, seed) for each
+    phase (two launches in one phase, three in two), each pair and seed to
+    its own exit, bit for bit ``grow_cliques_plain``, which runs for CPU
     tensors. Both take the early-completion test on exact counts; a
     candidate set above GROW_EXACT vertices reaches it only where N >
     GROW_EXACT and max_size > GROW_EXACT + 1, where the JAX package's f32
@@ -356,22 +361,17 @@ def grow_cliques(adj: torch.Tensor, seed_scores: torch.Tensor,
         return out
     two_phase = not (s <= survivors or phase1_rounds >= max_size)
     packed = _check_packed(adj, packed)
-    scratch = torch.empty(bsz * s * (2 * (-(-n // 32)) + 5),
+    # each seed's record (candidate and clique bits, its state), the
+    # seeds, the seed selection's 64-bit keys
+    scratch = torch.empty(bsz * s * (2 * (-(-n // 32)) + 9) + 1,
                           dtype=torch.int32, device=dev)
-    use_smem = _route("grow_cliques", n, s, dev=dev)
-    _, bare, limit = clique_layout(KIND["grow_cliques"], n, s, 0,
-                                   dev.index or 0)
-    # past ~18600 vertices the growth's own arrays exceed a block's shared
-    # memory: they go to a global workspace (the kernel's wide route)
-    work = (torch.empty(bsz * bare // 4, dtype=torch.int32, device=dev)
-            if bare > limit else 0)
     launch("grow_cliques", packed.rows, packed.cols, seed_scores, mask,
            _tiebreak(n, dev), bsz, n, s, int(max_size), int(phase1_rounds),
            max(int(survivors), 0) if two_phase else 0, int(two_phase),
-           use_smem, scratch, out, work)
+           scratch, out)
     LAUNCHES["grow_cliques"] += 1
-    size_route("grow_cliques", bare > limit or (
-        n > GROW_EXACT and max_size > GROW_EXACT + 1))
+    ROUTES["grow_cliques"]["global"] += 1
+    size_route("grow_cliques", n > GROW_EXACT and max_size > GROW_EXACT + 1)
     return out
 
 

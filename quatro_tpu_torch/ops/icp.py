@@ -6,12 +6,15 @@ there). The port runs each pass as two launches, both captured in the
 ``fori`` device loop's CUDA graph (``solver/icp.py``):
 
 - ``icp_correspond``: every source row of every pair at the current pose
-  (csrc/icp.cu, a warp a row, the targets staged through shared memory):
-  p = R s + t, the first target of least squared distance
-  (``ordered_sq_dists``' arithmetic), the gate read on the device at the
-  loop's step, and per row what the update takes, ``[p x n, n, w, r]``
-  (w the Huber weight of the residual r, 0 where the row is not matched)
-  and whether it matched. No (K, V) distance matrix is written.
+  (csrc/icp.cu: a CTA a tile of 512 rows, four a thread, and a slice of
+  the targets staged once for the tile; an f32 screen with a stated error
+  bound leaves the exact distance to the few targets that can win; the
+  slices' keys merged by a 64-bit integer atomic, the tile's last CTA
+  writing its rows): p = R s + t, the first target of least squared
+  distance (``ordered_sq_dists``' arithmetic), the gate read on the device
+  at the loop's step, and per row what the update takes, ``[p x n, n, w,
+  r]`` (w the Huber weight of the residual r, 0 where the row is not
+  matched) and whether it matched. No (K, V) distance matrix is written.
 - ``icp_update``: per pair (a block a pair) the 6 x 6 normal equations and
   gradient summed over the rows in ``fused.pairwise_sum``'s tree, the
   yaw-only DoF mask, the damping, ``_solve_spd``'s Gauss-Jordan, the
@@ -44,6 +47,24 @@ ROW_WIDTH = 8          # [p x n (3), n (3), w, r] a source row
 # rows of the update kernel's register fold (8 leaves a thread); more take
 # its wide route, the same tree by tree.cuh's strided fold
 UPDATE_MAX_ROWS = 8192
+CORR_TILE = 512        # source rows a CTA of the correspondence kernel
+# the correspondence kernel's keys and tickets, zero between launches, per
+# (device, stream, words): kept for the process, since a captured ICP loop
+# holds the pointer it was captured with
+_CORR_SCRATCH: dict = {}
+
+
+def _corr_scratch(dev: torch.device, bsz: int, ks: int) -> torch.Tensor:
+    """B K int64 keys, then B ceil(K / CORR_TILE) int32 tickets, zeroed
+    once; the kernel leaves them zero."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    words = 2 * bsz * ks + bsz * -(-ks // CORR_TILE)
+    key = (dev.index, stream, words)
+    buf = _CORR_SCRATCH.get(key)
+    if buf is None:
+        buf = _CORR_SCRATCH[key] = torch.zeros(words, dtype=torch.int32,
+                                               device=dev)
+    return buf
 
 
 def _solve_spd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -100,8 +121,9 @@ def icp_correspond(src, smask, rot, trans, tgt, tgt_ok, normals, gates,
     source row (p = R s + t, n the normal of its first nearest valid
     target, r = n . (p - q), w = ok * Huber(r)) and ok (B, K) bool:
     matched within the gate. A row with every target masked matches
-    target 0 and is not ok. For CUDA tensors one launch of csrc/icp.cu;
-    for CPU tensors ``icp_correspond_plain``."""
+    target 0 and is not ok; a NaN distance is the least (torch.argmin's).
+    For CUDA tensors one launch of csrc/icp.cu (V >= 1); for CPU tensors
+    ``icp_correspond_plain``."""
     if same_device(src, smask, rot, trans, tgt, tgt_ok, normals, gates,
                    step).type != "cuda":
         return icp_correspond_plain(src, smask, rot, trans, tgt, tgt_ok,
@@ -120,8 +142,11 @@ def icp_correspond(src, smask, rot, trans, tgt, tgt_ok, normals, gates,
                        device=src.device)
     ok = torch.empty((bsz, ks), dtype=torch.bool, device=src.device)
     if bsz and ks:
+        if v == 0:
+            raise ValueError("icp_correspond: no targets")
         launch("icp", src, smask, rot, trans, tgt, tgt_ok, normals, gates,
-               step, bsz, ks, v, f32(huber_delta), rows, ok)
+               step, bsz, ks, v, f32(huber_delta), rows, ok,
+               _corr_scratch(src.device, bsz, ks))
         LAUNCHES["icp_correspond"] += 1
     return rows, ok
 

@@ -7,7 +7,9 @@ min-label sweeps (the ``lax.while_loop`` at
 there). ``label_sweeps`` runs that whole loop for a batch of images: one
 launch of ``csrc/label_sweep.cu`` for CUDA tensors (one thread-block
 cluster an image, every round and sweep in its distributed shared
-memory, each image to its own exit), counted in ``LAUNCHES
+memory, each image to its own exit; an image of few rows wider than a
+cluster's shared memory holds in a global workspace instead, its route
+counted "past" in ``SIZE_ROUTES["label_sweep"]``), counted in ``LAUNCHES
 ["label_sweep"]``; for CPU tensors ``label_sweeps_plain``, a
 ``while_chunks`` device loop of rounds of ``label_sweep_plain`` (the JAX
 package's roll-doubling in torch operations). There is no fallback
@@ -18,7 +20,8 @@ from __future__ import annotations
 
 import torch
 
-from quatro_tpu_torch.ops.launch import LAUNCHES, check, launch, same_device
+from quatro_tpu_torch.ops.launch import (LAUNCHES, check, launch, same_device,
+                                         size_route)
 from quatro_tpu_torch.utils import loops
 
 MAX_SWEEPS = 8                  # edge masks a round (8Neighbor, 4CrossNeighbor)
@@ -106,9 +109,9 @@ def label_sweeps(labels: torch.Tensor, valid: torch.Tensor, masks, sweeps,
     and one (B, R, C) bool edge mask per sweep of ``sweeps`` (at most
     MAX_SWEEPS), all contiguous. One launch of csrc/label_sweep.cu for
     CUDA tensors, every image to its own exit, bit for bit
-    ``label_sweeps_plain``, or ValueError where no cluster's shared memory
-    holds an image (``label_layout``); that plain version for CPU
-    tensors."""
+    ``label_sweeps_plain`` (an image that no cluster's shared memory holds
+    runs in a global workspace: ``label_layout``'s "image_in" is
+    "global"); that plain version for CPU tensors."""
     if labels.dim() != 3:
         raise ValueError(f"labels: expected (B, R, C), got "
                          f"{tuple(labels.shape)}")
@@ -134,31 +137,39 @@ def label_sweeps(labels: torch.Tensor, valid: torch.Tensor, masks, sweeps,
     rounds = torch.empty(bsz, dtype=torch.int32, device=labels.device)
     if labels.numel() == 0:
         return out, rounds.zero_()
-    label_layout(bsz, rows, cols)       # ValueError where no cluster fits
+    lay = label_layout(bsz, rows, cols)
+    wide = lay["image_in"] == "global"
+    work = (torch.empty(bsz * lay["cluster"] * lay["cta_bytes"],
+                        dtype=torch.uint8, device=labels.device)
+            if wide else 0)
     ptrs = torch.tensor([e.data_ptr() for e in masks], dtype=torch.int64)
     sched = torch.tensor(sweeps, dtype=torch.int32)
     launch("label_sweep", labels, valid, ptrs, sched, len(sweeps), bsz,
-           rows, cols, int(npix), int(max_iters), out, rounds)
+           rows, cols, int(npix), int(max_iters), out, rounds, work)
     LAUNCHES["label_sweep"] += 1
+    size_route("label_sweep", wide)
     return out, rounds
 
 
 def label_layout(bsz: int, rows: int, cols: int) -> dict:
     """The kernel's layout for ``bsz`` images of rows x cols on the
-    current card, as csrc/label_sweep.cu chooses it: cluster size, dynamic
-    shared bytes a CTA, resident clusters (cudaOccupancyMaxActiveClusters)
-    and the limit of shared bytes a CTA. ValueError where no cluster
-    holds such an image. Needs the card."""
+    current card, as csrc/label_sweep.cu chooses it: cluster size, where
+    the image lives ("image_in": "shared", the cluster's shared memory, or
+    "global", a workspace of ``cta_bytes`` a CTA, for an image of few rows
+    wider than a cluster's shared memory holds), the bytes a CTA takes
+    there (``smem_bytes`` 0 on the global route), resident clusters
+    (cudaOccupancyMaxActiveClusters) and the limit of shared bytes a CTA.
+    Needs the card."""
     from quatro_tpu_torch import _build
-    info = torch.zeros(4, dtype=torch.int32)
+    info = torch.zeros(5, dtype=torch.int32)
     rc = _build.load("label_layout")(bsz, rows, cols, info.data_ptr())
-    cluster, smem, resident, limit = info.tolist()
+    cluster, cta_bytes, resident, limit, wide = info.tolist()
     if rc == _NO_LAYOUT:
         raise ValueError(
-            f"a {rows} x {cols} image fits no cluster of the labelling "
-            f"kernel: a cluster of {cluster} CTAs needs {smem} bytes of "
-            f"shared memory a CTA, against a limit of {limit}")
+            f"a {rows} x {cols} image fits no resident cluster of the "
+            f"labelling kernel")
     if rc != 0:
         raise RuntimeError(f"label_layout: CUDA error {rc}")
-    return {"cluster": cluster, "smem_bytes": smem,
+    return {"cluster": cluster, "image_in": "global" if wide else "shared",
+            "cta_bytes": cta_bytes, "smem_bytes": 0 if wide else cta_bytes,
             "resident_clusters": resident, "smem_limit": limit}

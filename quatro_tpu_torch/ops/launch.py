@@ -36,7 +36,7 @@ LAUNCHES = {"moment_sums": 0, "spfh": 0, "fpfh": 0, "nearest_neighbors": 0,
 SIZE_ROUTES = {name: {"within": 0, "past": 0} for name in (
     "polish_chain", "gnc_yaw", "polish_cote", "icp_update", "radius_knn",
     "neighbor_normals", "czm_points", "cross_histogram", "ground_fit",
-    "grow_cliques")}
+    "grow_cliques", "label_sweep")}
 
 
 def reset_launches() -> None:

@@ -1627,16 +1627,28 @@ def test_label_sweep_kernel_row_cycles(dev, offset):
 
 
 def test_label_sweep_kernel_refuses_oversized(dev):
-    """An image that no cluster's shared memory holds raises ValueError
-    naming the limit; the largest preset's fits."""
-    from quatro_tpu_torch.ops.labels import label_layout, label_sweeps
-    labels = torch.zeros(1, 16, 30000, dtype=torch.int32, device=dev)
-    valid = torch.ones_like(labels, dtype=torch.bool)
-    with pytest.raises(ValueError, match="limit"):
-        label_sweeps(labels, valid, [valid], [(0, 1, 3)], 4, 16 * 30000)
+    """An image that no cluster's shared memory holds (16 x 30000) runs in
+    a global workspace, bit for bit the plain route on the card, counted
+    "past"; the largest preset's fits a cluster's shared memory."""
+    from quatro_tpu_torch.ops.labels import (label_layout, label_sweeps,
+                                             label_sweeps_plain)
+    from quatro_tpu_torch.utils import loops
+    labels, edges, npix = _sweep_images(1, 16, 30000, 16)
+    valid = edges.roll(3, dims=-1).contiguous()
+    args = (labels.to(dev), valid.to(dev), [edges.to(dev)], [(0, 1, 16)],
+            4, npix)
+    assert label_layout(1, 16, 30000)["image_in"] == "global"
+    launch.reset_launches()
+    got = label_sweeps(*args)
+    torch.cuda.synchronize()
+    assert launch.SIZE_ROUTES["label_sweep"] == {"within": 0, "past": 1}
+    with loops.eager_loops():
+        ref = label_sweeps_plain(*args)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
     for bsz in (2, 128):
         lay = label_layout(bsz, 64, 1800)
         assert lay["cluster"] in (8, 16) and lay["resident_clusters"] >= 1
+        assert lay["image_in"] == "shared"
         print(bsz, lay)
 
 
@@ -2198,16 +2210,26 @@ def test_czm_kernels(dev, lidar, case):
 
 
 def test_czm_points_refuses_too_many_zones(dev):
+    """One zone past the parameter table (MAX_ZONES + 1): the zone table
+    copied to the card (the wide route, counted "past"), every output bit
+    for bit the plain version on the card; MAX_ZONES itself stays on the
+    first route."""
     from quatro_tpu_torch.ops import czm
-    cfg = PipelineConfig().patchwork
-    k = czm.MAX_ZONES + 1
-    cfg = dataclasses.replace(
-        cfg, num_zones=k, num_sectors_each_zone=(8,) * k,
-        num_rings_each_zone=(1,) * k,
-        min_ranges_each_zone=tuple(2.7 + 8.0 * i for i in range(k)))
-    pts, mask = _raw_pair("VLP-16", n=4096)
-    with pytest.raises(ValueError, match="zones"):
-        czm.czm_points(pts.to(dev), mask.to(dev), cfg)
+    pts, mask = (t.to(dev) for t in _raw_pair("VLP-16", n=4096))
+    for k, past in ((czm.MAX_ZONES, 0), (czm.MAX_ZONES + 1, 1)):
+        cfg = dataclasses.replace(
+            PipelineConfig().patchwork, num_zones=k,
+            num_sectors_each_zone=(8,) * k, num_rings_each_zone=(1,) * k,
+            min_ranges_each_zone=tuple(2.7 + 8.0 * i for i in range(k)))
+        launch.reset_launches()
+        got = czm.czm_points(pts, mask, cfg)
+        torch.cuda.synchronize()
+        assert launch.SIZE_ROUTES["czm_points"] == {"within": 1 - past,
+                                                    "past": past}
+        ref = czm.czm_points_plain(pts, mask, cfg)
+        for name, g, r in zip(("pid", "zb", "chan", "weights", "b0"), got,
+                              ref):
+            assert _same_bits(g, r), (k, name)
 
 
 def test_plane_fit_kernel_in_a_cuda_graph(dev):
@@ -2332,8 +2354,11 @@ def test_clique_kernels(dev, name):
                 assert g.dtype == want.dtype and g.shape == want.shape
                 assert torch.equal(g.cpu(), want.cpu()), (call, k)
     staged = "global" if n > 1024 else "shared"
-    for k in ("kcore_search", "grow_cliques", "swap_cliques"):
+    for k in ("kcore_search", "swap_cliques"):
         assert tcl.ROUTES[k][staged] == launch.LAUNCHES[k], (k, tcl.ROUTES)
+    # the growth reads its packed rows through L1 / L2 at every N
+    assert tcl.ROUTES["grow_cliques"]["global"] == launch.LAUNCHES[
+        "grow_cliques"], tcl.ROUTES
     print(name, {k: v.sum().item() for k, v in zip(
         ("k", "core"), got["kcore_search"][:2])},
         "largest", int(got["swap"][0].sum(-1).max()), dict(tcl.ROUTES))
@@ -2417,23 +2442,116 @@ def test_select_inliers_runs_the_clique_kernels(dev, mode):
 
 def test_grow_cliques_at_the_exact_sum_limit(dev):
     """The growth's early completion at the edge of the range where the
-    plain route's f32 sums are exact (ops.cliques.GROW_EXACT): on a
+    JAX package's f32 sums are exact (ops.cliques.GROW_EXACT): on a
     complete graph of GROW_EXACT + 1 vertices with max_size GROW_EXACT +
     1, every seed absorbs its GROW_EXACT candidates whole, bit for bit the
-    plain version on the card; a max_size one larger is refused
-    (ValueError), as the plain route would test it on rounded sums."""
+    plain version on the card, on the first route; with a max_size one
+    larger, past that range, the same cliques on both (each counts
+    exactly), the call counted "past" in SIZE_ROUTES."""
     from quatro_tpu_torch.ops import cliques as tcl
+    from quatro_tpu_torch.utils import loops
     n = tcl.GROW_EXACT + 1
     adj = ~torch.eye(n, dtype=torch.bool, device=dev)[None]
     mask = torch.ones((1, n), dtype=torch.bool, device=dev)
     _, core, deg, packed = tcl.kcore_search(adj, mask)
     scores = core.to(torch.float32) * 1e6 + deg
-    got = tcl.grow_cliques(adj, scores, mask, 16, n, 8, 16, packed)
-    ref = tcl.grow_cliques_plain(adj, scores, mask, 16, n, 8, 16)
-    assert torch.equal(got, ref)
-    assert bool(got.all())
-    with pytest.raises(ValueError):
-        tcl.grow_cliques(adj, scores, mask, 16, n + 1, 8, 16, packed)
+    for max_size, past in ((n, 0), (n + 1, 1)):
+        launch.reset_launches()
+        got = tcl.grow_cliques(adj, scores, mask, 16, max_size, 8, 16, packed)
+        torch.cuda.synchronize()
+        assert launch.SIZE_ROUTES["grow_cliques"] == {
+            "within": 1 - past, "past": past}
+        with loops.eager_loops():
+            ref = tcl.grow_cliques_plain(adj, scores, mask, 16, max_size, 8,
+                                         16)
+        assert torch.equal(got, ref), max_size
+        assert bool(got.all())
+
+
+def _grow_case(name, dev):
+    """A graph for the growth's card tests: (adj, scores, mask, kwargs of
+    grow_cliques). Random graphs with a planted clique, at N not a multiple
+    of 32 (the scalar word loads below N = 97), 1024 and 8192; tied and
+    NaN scores with self loops; an asymmetric graph; S past N; survivors
+    at S (one phase); an all-False mask; B = 3; a tight max_size; B = 9 x
+    128 seeds, past four blocks an SM (the 128-thread blocks)."""
+    n, bsz, p, seed = {"n33": (33, 1, 0.4, 1), "n100": (100, 2, 0.3, 2),
+                       "n1000": (1000, 1, 0.05, 3),
+                       "n1024_b3": (1024, 3, 0.05, 4),
+                       "n8192": (8192, 1, 0.004, 5),
+                       "ties_nan_loops": (300, 2, 0.1, 6),
+                       "asymmetric": (300, 2, 0.1, 7),
+                       "seeds_past_n": (40, 2, 0.3, 8),
+                       "survivors_at_s": (500, 1, 0.05, 9),
+                       "all_false_mask": (200, 2, 0.1, 10),
+                       "max_size_5": (600, 1, 0.05, 11),
+                       "b9_many_seeds": (512, 9, 0.08, 12)}[name]
+    rng = np.random.default_rng(seed)
+    adj = rng.random((bsz, n, n)) < p
+    for b in range(bsz):
+        idx = rng.choice(n, min(n, max(4, n // 16)), replace=False)
+        adj[b][np.ix_(idx, idx)] = True
+    if name != "asymmetric":
+        adj = adj | adj.transpose(0, 2, 1)
+    diag = np.arange(n)
+    adj[:, diag, diag] = (rng.random((bsz, n)) < 0.3
+                          if name == "ties_nan_loops" else False)
+    mask = rng.random((bsz, n)) < 0.9
+    if name == "all_false_mask":
+        mask[:] = False
+    deg = (adj & mask[:, None, :]).sum(-1).astype(np.float32)
+    scores = deg + rng.random((bsz, n)).astype(np.float32)
+    if name == "ties_nan_loops":
+        scores = np.floor(deg / 4).astype(np.float32)
+        scores[:, ::7] = np.nan
+        scores[:, 1::11] = -0.0
+        scores[:, 2::11] = 0.0
+    kw = dict(num_seeds=128, max_size=512, phase1_rounds=8, survivors=16)
+    if name == "seeds_past_n":
+        kw["num_seeds"] = 64
+    if name == "survivors_at_s":
+        kw.update(num_seeds=16, survivors=16)
+    if name == "max_size_5":
+        kw.update(max_size=5, phase1_rounds=2)
+    if name == "n100":
+        kw.update(phase1_rounds=1, survivors=3)
+    t = (torch.from_numpy(a).to(dev).contiguous()
+         for a in (adj, scores, mask))
+    return (*t, kw)
+
+
+GROW_CASES = ["n33", "n100", "n1000", "n1024_b3", "n8192", "ties_nan_loops",
+              "asymmetric", "seeds_past_n", "survivors_at_s",
+              "all_false_mask", "max_size_5", "b9_many_seeds"]
+
+
+@pytest.mark.parametrize("name", GROW_CASES)
+def test_grow_cliques_redesign(dev, name):
+    """The growth's three launches (the seeds' ranks, a block a (pair,
+    seed) for each phase) bit for bit its plain version on the card (and
+    on CPU copies up to N = 1024) at the shapes where the layout has edges;
+    one counted call, read through L2."""
+    from quatro_tpu_torch.ops import cliques as tcl
+    from quatro_tpu_torch.utils import loops
+    adj, scores, mask, kw = _grow_case(name, dev)
+    _, _, _, packed = tcl.kcore_search(adj, mask)
+    tcl.reset_routes()
+    launch.reset_launches()
+    got = tcl.grow_cliques(adj, scores, mask, packed=packed, **kw)
+    again = tcl.grow_cliques(adj, scores, mask, packed=packed, **kw)
+    torch.cuda.synchronize()
+    assert launch.LAUNCHES["grow_cliques"] == 2
+    assert tcl.ROUTES["grow_cliques"]["global"] == 2
+    assert torch.equal(got, again)
+    with loops.eager_loops():
+        ref = tcl.grow_cliques_plain(adj, scores, mask, **kw)
+    assert got.shape == ref.shape and torch.equal(got, ref), name
+    if adj.shape[-1] <= 1024:
+        cpu = tcl.grow_cliques_plain(adj.cpu(), scores.cpu(), mask.cpu(),
+                                     **kw)
+        assert torch.equal(got.cpu(), cpu), name
+    print(name, tuple(got.shape), "largest",
+          int(got.sum(-1).max()) if got.numel() else 0)
 
 
 # ------------------------------------------------------------------ ICP --
@@ -2537,6 +2655,98 @@ def test_icp_correspond_kernel(dev, icp_card, case):
         assert all(_bits(g, e) for g, e in zip(got, ref)), s
     if case == "all_masked":
         assert not bool(got[1][1].any())
+
+
+def _corr_case(name, dev):
+    """``icp_correspond``'s arguments (but the step) for the redesigned
+    kernel's edges: K and V off the tiles (512 rows a CTA, slices of 128 or
+    more targets, 1024 staged at a time), all of a pair's targets masked,
+    duplicated targets (equal distances: the lower index wins; the
+    screen's near ties), NaN and inf points, coordinates past the screen's
+    limit and tiny ones, B = 3, 16384 rows."""
+    bsz, ks, v, seed = {"k1000_v1000": (1, 1000, 1000, 1),
+                        "k2049_v8191_b3": (3, 2049, 8191, 2),
+                        "k1_v1": (2, 1, 1, 3),
+                        "all_masked": (2, 700, 3000, 4),
+                        "duplicates": (2, 1500, 4096, 5),
+                        "nan_inf": (2, 1100, 2500, 6),
+                        "huge_tiny": (2, 600, 1300, 7),
+                        "k16384": (1, 16384, 16384, 8)}[name]
+    rng = np.random.default_rng(seed)
+    src = rng.uniform(-30, 30, (bsz, ks, 3)).astype(np.float32)
+    tgt = rng.uniform(-30, 30, (bsz, v, 3)).astype(np.float32)
+    smask = rng.random((bsz, ks)) < 0.95
+    tgt_ok = rng.random((bsz, v)) < 0.9
+    nrm = rng.normal(size=(bsz, v, 3)).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    ang = rng.uniform(-0.05, 0.05, (bsz, 3))
+    rot = np.stack([Rz @ Ry @ Rx for Rx, Ry, Rz in (
+        (np.array([[1, 0, 0], [0, np.cos(a), -np.sin(a)],
+                   [0, np.sin(a), np.cos(a)]]),
+         np.array([[np.cos(b), 0, np.sin(b)], [0, 1, 0],
+                   [-np.sin(b), 0, np.cos(b)]]),
+         np.array([[np.cos(c), -np.sin(c), 0], [np.sin(c), np.cos(c), 0],
+                   [0, 0, 1]])) for a, b, c in ang)]).astype(np.float32)
+    trans = rng.uniform(-0.5, 0.5, (bsz, 3)).astype(np.float32)
+    if name == "all_masked":
+        tgt_ok[1] = False
+    if name == "duplicates":
+        half = v // 2
+        tgt[:, half:2 * half] = tgt[:, :half]
+        tgt_ok[:, half:2 * half] = tgt_ok[:, :half]
+        tgt[:, 3::97] = tgt[:, 1::97][:, :tgt[:, 3::97].shape[1]]
+    if name == "nan_inf":
+        src[0, ::50] = np.nan
+        src[1, 7, 1] = np.inf
+        tgt[0, 5::300] = np.nan
+        tgt[1, 9] = [np.inf, 0.0, 0.0]
+        tgt_ok[1, 9] = True
+    if name == "huge_tiny":
+        src[0, :300] *= np.float32(2.0 ** 62)
+        tgt[0, :700] *= np.float32(2.0 ** 62)
+        src[1] *= np.float32(1e-21)
+        tgt[1] *= np.float32(1e-21)
+    gates = np.array([3.0, 1.0, 0.25, 1e30], np.float32)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                 for a in (src, smask, rot, trans, tgt, tgt_ok, nrm, gates))
+
+
+CORR_CASES = ["k1000_v1000", "k2049_v8191_b3", "k1_v1", "all_masked",
+              "duplicates", "nan_inf", "huge_tiny", "k16384"]
+
+
+@pytest.mark.parametrize("name", CORR_CASES)
+def test_icp_correspond_redesign(dev, name):
+    """The redesigned correspondences (a CTA a 512-row tile and a slice of
+    the targets, the f32 screen, the slices' keys merged by a 64-bit
+    atomic, the tile's last CTA writing the rows) bit for bit the plain
+    version on the card at every gate, one launch a call; the scratch back
+    at zero after each call."""
+    from quatro_tpu_torch.ops import icp as ticp
+    args = _corr_case(name, dev)
+    huber = 0.1
+    outs = []
+    for s in range(len(args[-1])):
+        step = torch.tensor([s], device=dev)
+        launch.reset_launches()
+        got = ticp.icp_correspond(*args, step, huber)
+        again = ticp.icp_correspond(*args, step, huber)
+        torch.cuda.synchronize()
+        assert launch.LAUNCHES["icp_correspond"] == 2
+        ref = ticp.icp_correspond_plain(*args, step, huber)
+        assert all(_bits(g, e) for g, e in zip(got, ref)), (name, s)
+        assert all(_bits(g, e) for g, e in zip(got, again)), (name, s)
+        outs.append(got)
+    assert all(int(b.abs().sum()) == 0
+               for b in ticp._CORR_SCRATCH.values())
+    if name == "all_masked":
+        # at a finite gate no row of the masked pair is ok (the last gate,
+        # 1e30, squares to inf, past the masked distance f32 max); every
+        # row took target 0, its normal
+        assert not bool(outs[0][1][1].any())
+        assert bool(outs[-1][1][1][args[1][1]].all())
+        assert torch.equal(outs[0][0][1, :, 3:6],
+                           args[6][1, :1].expand(outs[0][0].shape[1], 3))
 
 
 @pytest.mark.parametrize("rows_kept", [2048, 1200, 1, 5000])
@@ -3073,9 +3283,12 @@ def test_polish_kernels_solve_on_the_card(dev, case):
 
 
 def test_polish_kernels_at_their_limit(dev):
-    """4096 points a row run (COTE's 8192 events in shared memory), bit
-    for bit the plain route; 4097 raise ValueError."""
+    """4096 points a row (COTE's 8192 events in shared memory) on the first
+    routes and 4097 on the wide ones (counted "past"): the chain, the yaw
+    GNC and COTE each bit for bit its plain version."""
     from quatro_tpu_torch.ops import polish
+    from quatro_tpu_torch.solver import rotation
+    from quatro_tpu_torch.utils import loops
     rng = np.random.default_rng(4096)
     src = torch.from_numpy(rng.uniform(-30, 30, (1, 4097, 3)).astype(
         np.float32)).to(dev)
@@ -3084,26 +3297,29 @@ def test_polish_kernels_at_their_limit(dev):
     mask[0, 1, ::2] = False
     scale = torch.ones(1, 2, device=dev)
     eye = torch.eye(3, device=dev)
-    with pytest.raises(ValueError):
-        polish.polish_chain(src, tgt, mask, scale, eye, False)
-    s, t_, m = (src[:, :4096].contiguous(), tgt[:, :4096].contiguous(),
-                mask[..., :4096].contiguous())
-    got = polish.polish_chain(s, t_, m, scale, eye, False)
-    ref = polish.polish_chain_plain(s, t_, m, scale, eye, False)
-    assert all(_bits(g, r) for g, r in zip(got, ref))
-    args = (got[4][..., :2], got[5][..., :2], got[2], 0.6)
-    from quatro_tpu_torch.solver import rotation
-    from quatro_tpu_torch.utils import loops
-    gnc = rotation.GncResult(*polish.gnc_yaw(*args))
-    with loops.eager_loops():
-        gref = rotation.gnc_rotation_2d_plain(*args, 1.4, 50, 0.00011,
-                                              "GNC_TLS")
-    assert all(_bits(g, r) for g, r in zip(gnc, gref))
     valid = torch.ones(1, 2, dtype=torch.bool, device=dev)
-    cargs = (s, t_, scale, gnc.rotation, eye, gnc.inlier_mask, got[0],
-             got[3], valid, 0.3, 1.0, True, False)
-    assert all(_bits(g, r) for g, r in zip(polish.polish_cote(*cargs),
-                                            polish.polish_cote_plain(*cargs)))
+    for n, past in ((4096, 0), (4097, 1)):
+        s, t_, m = (src[:, :n].contiguous(), tgt[:, :n].contiguous(),
+                    mask[..., :n].contiguous())
+        launch.reset_launches()
+        got = polish.polish_chain(s, t_, m, scale, eye, False)
+        ref = polish.polish_chain_plain(s, t_, m, scale, eye, False)
+        assert all(_bits(g, r) for g, r in zip(got, ref)), n
+        args = (got[4][..., :2], got[5][..., :2], got[2], 0.6)
+        gnc = rotation.GncResult(*polish.gnc_yaw(*args))
+        with loops.eager_loops():
+            gref = rotation.gnc_rotation_2d_plain(*args, 1.4, 50, 0.00011,
+                                                  "GNC_TLS")
+        assert all(_bits(g, r) for g, r in zip(gnc, gref)), n
+        cargs = (s, t_, scale, gnc.rotation, eye, gnc.inlier_mask, got[0],
+                 got[3], valid, 0.3, 1.0, True, False)
+        assert all(_bits(g, r) for g, r in zip(
+            polish.polish_cote(*cargs), polish.polish_cote_plain(*cargs))), n
+        torch.cuda.synchronize()
+        assert {k: launch.SIZE_ROUTES[k] for k in (
+            "polish_chain", "gnc_yaw", "polish_cote")} == dict.fromkeys(
+            ("polish_chain", "gnc_yaw", "polish_cote"),
+            {"within": 1 - past, "past": past}), n
 
 
 # ------------------------------------- the vote, the leveling, the normals

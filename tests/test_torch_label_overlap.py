@@ -241,6 +241,44 @@ def _wall_scene(seed, lidar):
     return rimg, valid
 
 
+def _narrow_scene(rows, cols, seed):
+    """A range image of few rows and many columns: runs of equal range
+    (walls) broken at random columns, some rows' runs joined, invalid
+    gaps."""
+    rng = np.random.default_rng(seed)
+    rimg = np.full((rows, cols), np.inf, np.float32)
+    valid = np.zeros((rows, cols), bool)
+    starts = np.sort(rng.choice(cols, 400, replace=False))
+    for k, (c0, c1) in enumerate(zip(starts[:-1], starts[1:])):
+        r0 = rng.integers(0, rows)
+        r1 = min(rows, r0 + rng.integers(1, 4))
+        rimg[r0:r1, c0:c1 - rng.integers(0, 3)] = 5.0 + 0.01 * (k % 7)
+        valid[r0:r1, c0:c1] = np.isfinite(rimg[r0:r1, c0:c1])
+    return rimg, valid
+
+
+@pytest.mark.parametrize("rows,cols", [(4, 32767), (11, 11915)])
+def test_label_components_matches_jax_on_narrow_wide_images(rows, cols):
+    """label_components on images of few rows and many columns (those the
+    card labels in a global workspace): labels, feasibility and pixel
+    feasibility exactly the JAX package's under 4CrossNeighbor."""
+    lidar_j = dataclasses.replace(jcfg.LidarConfig(), n_scan=rows,
+                                  horizon_scan=cols, ang_res_x=360.0 / cols,
+                                  ang_res_y=2.0, ground_scan_ind=0)
+    lidar_t = dataclasses.replace(qt.LidarConfig(), n_scan=rows,
+                                  horizon_scan=cols, ang_res_x=360.0 / cols,
+                                  ang_res_y=2.0, ground_scan_ind=0)
+    cfg_j, cfg_t = jcfg.ProjectionConfig(), tcfg.ProjectionConfig()
+    rimg, valid = _narrow_scene(rows, cols, rows)
+    got = tpr.label_components(_t(rimg[None]), _t(valid[None]), lidar_t,
+                               cfg_t)
+    ref = jax.jit(lambda r, v: jpr.label_components(r, v, lidar_j, cfg_j))(
+        jnp.asarray(rimg), jnp.asarray(valid))
+    for g, want in zip(got, ref):
+        np.testing.assert_array_equal(g[0].numpy(), np.asarray(want))
+    assert len(np.unique(np.asarray(ref[0])[valid])) > 50
+
+
 @pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("lidar", ["Ouster-OS1-64", "HDL-32E"])
 def test_label_components_matches_jax_at_other_widths(lidar, mode):

@@ -228,9 +228,10 @@ def test_grow_cliques_past_the_exact_limit(dev, n, missing):
     """The growth at N past 4096 with max_size N + 1: a complete graph
     (every seed absorbs its candidates whole), the graph whose f32 test
     absorbs a non-clique in the JAX package (the port's exact counts grow
-    it vertex by vertex), and a complete graph of 20000 vertices (the
-    growth's own arrays in a global workspace): the kernel bit for bit
-    the plain route on the card, and a clique."""
+    it vertex by vertex), and a complete graph of 20000 vertices (past the
+    first design's shared memory; the redesign's bits sit in shared memory
+    at any N): the kernel bit for bit the plain route on the card, and a
+    clique."""
     adj, scores, mask = (t.to(dev) for t in lc.complete_graph(n, missing))
     _, core, deg, packed = tcl.kcore_search(adj, mask)
     with routes() as r:
@@ -264,7 +265,8 @@ def _layout_fits(rows, cols):
     """The labelling kernel's fit rule (csrc/label_sweep.cu::choose_layout)
     on the host: a cluster of the largest power of two up to 16 CTAs and
     at most the row count holds ceil(rows / cluster) rows a CTA at 10
-    bytes a pixel within 226 KB."""
+    bytes a pixel within 226 KB; an image that fits none takes the global
+    route."""
     cs = 16
     while cs > rows and cs > 1:
         cs //= 2
@@ -273,22 +275,45 @@ def _layout_fits(rows, cols):
 
 def test_label_layout_over_the_references_images(dev):
     """Every image of at most 2^17 - 1 pixels that the JAX projection
-    takes, at each row count from 1 to 128 at its widest: the named shapes
-    (64 x 2047, 128 x 1023, 16 x 8191) and every image of 12 or more rows
-    fit a cluster; narrower ones of more than ~23k pixels a row do not
-    (the host rule says which, and label_layout agrees on each)."""
+    takes, at each row count from 1 to 128 at its widest, has a layout:
+    the named shapes (64 x 2047, 128 x 1023, 16 x 8191) and every image of
+    12 or more rows in a cluster's shared memory; narrower ones of more
+    than ~23k pixels a row in the global workspace (the host rule says
+    which, and label_layout agrees on each)."""
     from quatro_tpu_torch.ops.labels import label_layout
     top = (1 << 17) - 1
     for rows, cols in ((64, 2047), (128, 1023), (16, 8191)):
-        label_layout(1, rows, cols)
-    refused = []
+        assert label_layout(1, rows, cols)["image_in"] == "shared"
+    wide = []
     for rows in range(1, 129):
         cols = top // rows
-        try:
-            label_layout(1, rows, cols)
-            fits = True
-        except ValueError:
-            fits = False
-            refused.append(rows)
-        assert fits == _layout_fits(rows, cols), (rows, cols)
-    assert all(r < 12 for r in refused), refused
+        lay = label_layout(1, rows, cols)
+        assert lay["resident_clusters"] >= 1
+        assert (lay["image_in"] == "shared") == _layout_fits(rows, cols), (
+            rows, cols, lay)
+        if lay["image_in"] == "global":
+            wide.append(rows)
+            assert lay["cluster"] <= min(8, rows)
+    assert wide and all(r < 12 for r in wide), wide
+
+
+@pytest.mark.parametrize("mode", ["4CrossNeighbor", "8Neighbor"])
+@pytest.mark.parametrize("rows,cols", lc.NARROW_IMAGES)
+def test_label_sweeps_narrow_wide_images(dev, rows, cols, mode):
+    """The labelling of the narrow wide images the JAX projection takes and
+    no cluster's shared memory holds (1 x 131071, 4 x 32767, 11 x 11915),
+    under the projection's sweep schedule: the global route, counted
+    "past", labels and rounds bit for bit the plain route on the card."""
+    from quatro_tpu_torch.ops.labels import (label_layout, label_sweeps,
+                                             label_sweeps_plain)
+    labels, valid, masks, *rest = lc.narrow_labelling(rows, cols, mode)
+    args = (labels.to(dev), valid.to(dev), [m.to(dev) for m in masks],
+            *rest)
+    assert label_layout(2, rows, cols)["image_in"] == "global"
+    with routes() as r:
+        got = label_sweeps(*args)
+    assert r["label_sweep"] == {"within": 0, "past": 1}
+    with loops.eager_loops():
+        ref = label_sweeps_plain(*args)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    print(rows, cols, mode, "rounds", got[1].tolist())

@@ -13,7 +13,10 @@ card (tests/test_torch_limits_gpu.py, chip_smoke.py). Imports no JAX.
 - the growth: N = 4097 with max_size 4098 on a complete graph, the graph
   on which the JAX package's f32 test absorbs a non-clique, and (on the
   card) a complete graph of 20000 vertices, past the shared memory of the
-  growth's own arrays.
+  first design's arrays;
+- the labelling: images of 1-11 rows wider than a cluster's shared memory
+  holds (1 x 131071, 4 x 32767, 11 x 11915), on the card in a global
+  workspace.
 """
 
 import dataclasses
@@ -30,8 +33,10 @@ ICP_ROWS = 8193
 LIST_WIDTHS_PAST = (65, 96)
 GROUND_N = (1 << 18) + 1
 GROW_N = 4097
-# past ~18600 vertices the growth's own arrays leave shared memory
+# past ~18600 vertices the first design's arrays left shared memory
 GROW_WIDE_N = 20000
+# images of few rows that no cluster's shared memory holds
+NARROW_IMAGES = ((1, 131071), (4, 32767), (11, 11915))
 # zones past the point kernel's parameter table of 8
 NINE_ZONES = dict(num_zones=9,
                   num_sectors_each_zone=(16, 24, 32, 40, 48, 54, 48, 40, 32),
@@ -122,3 +127,28 @@ def complete_graph(n: int, missing=()):
 # that same number, so the f32 test absorbs a set that is no clique.
 ROUNDING_N = 6144
 ROUNDING_MISSING = ((1, 2),)
+
+
+def narrow_labelling(rows: int, cols: int, mode: str = "4CrossNeighbor",
+                     bsz: int = 2, seed: int = 0):
+    """``label_sweeps``' arguments for bsz random rows x cols images under
+    the projection's sweep schedule of ``mode``: (labels, valid, masks,
+    sweeps, max_iters, npix) on the CPU; 80 % of the pixels valid, each
+    labelled by its flat index (npix where invalid), each sweep's edges 97
+    % of the valid pixels, none across the row boundary for dr != 0."""
+    from quatro_tpu_torch.config import ProjectionConfig
+    from quatro_tpu_torch.preprocessing.projection import sweep_schedule
+    cfg = dataclasses.replace(ProjectionConfig(), neighbor_mode=mode)
+    sched = sweep_schedule(rows, cols, cfg)
+    rng = np.random.default_rng(seed + rows)
+    npix = rows * cols
+    valid = rng.random((bsz, rows, cols)) < 0.8
+    labels = np.where(valid, np.arange(npix).reshape(rows, cols), npix)
+    masks = []
+    for dr, _, _ in sched:
+        e = (rng.random((bsz, rows, cols)) < 0.97) & valid
+        if dr != 0:
+            e[:, rows - 1 if dr > 0 else 0] = False
+        masks.append(torch.from_numpy(e))
+    return (torch.from_numpy(labels.astype(np.int32)),
+            torch.from_numpy(valid), masks, sched, cfg.max_cc_iters, npix)
