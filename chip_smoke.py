@@ -2642,6 +2642,29 @@ def device_ms_per_launch(fn, kernel, reps=10):
         e.count for e, _ in hits)
 
 
+def device_busy_per_call(fn, reps=20):
+    """Device time of one call of ``fn``: every device event of ``reps``
+    calls between marker fills (theirs left out), summed and divided by
+    ``reps``; for a library call whose kernels vary in number from call to
+    call, where ``device_ms_per_call`` finds no run that saw every call.
+    None where the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    key = pad_key()
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pad_launches()
+        for _ in range(reps):
+            fn()
+        pad_launches()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.is_user_annotation and e.key != key)
+    return total / reps / 1e3 if total > 0 else None
+
+
 def device_ms_per_call(fn, prefix="", reps=10, main=None, tries=5):
     """Mean device time of one call of ``fn``: each device event (kernel,
     copy, fill) it runs whose name holds ``prefix`` ("quatro::" for the
@@ -2677,8 +2700,9 @@ FORMER_DEVICE_MS = {"nearest_neighbors2": 1.757077,
                     "nearest_neighbors": 0.169200, "table_lookup": 0.004800}
 # the kernels of each redesigned wrapper, by the profiler's names, for its
 # device time per launch in path A's profile (chunk_sum_kernel<9> is B9's
-# second pass, <8> B8's). The tile pre-pass that B3 launches and B4
-# launches for itself and B5 is listed on its own, as
+# second pass, <8> B8's; the lists' pre-pass and the centroids' levels
+# kernel are their wrappers' own). The tile pre-pass that
+# B3 launches and B4 launches for itself and B5 is listed on its own, as
 # quatro::tile_bounds_kernel, two launches per pair.
 WRAPPER_KERNELS = {"moment_sums": ("quatro::moment_sums_kernel",),
                    "spfh": ("quatro::spfh_kernel",),
@@ -2698,7 +2722,11 @@ WRAPPER_KERNELS = {"moment_sums": ("quatro::moment_sums_kernel",),
                                     "quatro::clq::kcore_kernel"),
                    "grow_cliques": ("quatro::clq::grow_seeds_kernel",
                                     "quatro::clq::grow_phase1_kernel",
-                                    "quatro::clq::grow_phase2_kernel")}
+                                    "quatro::clq::grow_phase2_kernel"),
+                   "radius_knn": ("quatro::knn::knn_prep_kernel",
+                                  "quatro::knn::radius_knn_kernel"),
+                   "voxel_centroids": ("quatro::vox::voxel_levels_kernel",
+                                       "quatro::vox::voxel_centroids_kernel")}
 # the kernel each wrapper launches once per call, by the profiler's name:
 # a profiled run counts only if it saw this kernel once per call
 MAIN_KERNEL = {"moment_sums": "quatro::moment_sums_kernel",
@@ -4267,8 +4295,9 @@ def clique_rows_b64(recs, label):
                      "ms": cuda_ms(k_fn), "plain_ms": cuda_ms(p_fn, 5),
                      "bound_ms": b_ms, "bound_by": by,
                      "library_ms": cuda_ms(lib_fn),
-                     "library_device_ms": device_ms_per_call(lib_fn,
-                                                             tries=10),
+                     "library_device_ms": (
+                         device_ms_per_call(lib_fn, tries=10)
+                         or device_busy_per_call(lib_fn)),
                      "library": lib_label,
                      "device_ms_by_kernel": {
                          e.key.split("(")[0].replace("void ", ""): round(
@@ -4379,14 +4408,15 @@ def icp_shape(name, args):
 def icp_work(name, args):
     """(operations, bytes) of one ICP wrapper call on this run's data: the
     inputs read once, the outputs written once, and the distances the
-    valid columns (targets) need, for every row."""
+    valid columns (targets) need, for every row (for the lists, the
+    columns within the final lists' reach: ``knn_pairs_in_reach``)."""
     from quatro_tpu_torch.ops.icp import ROW_WIDTH
 
     if name == "radius_knn":
         pts, mask, _, k = args[:4]
         bsz, n = mask.shape
-        pairs = float(n * mask.sum())
-        return pairs * OPS_KNN_PAIR, float(bsz * n * (12 + 1 + 9 * k))
+        return (knn_pairs_in_reach(pts, mask, k) * OPS_KNN_PAIR,
+                float(bsz * n * (12 + 1 + 9 * k)))
     if name == "neighbor_normals":
         bsz, n, k = args[1].idx.shape
         return (float(bsz * n * (k * OPS_NORMAL_SLOT + OPS_NORMAL_POINT)),
@@ -4401,6 +4431,21 @@ def icp_work(name, args):
     bsz, ks = args[1].shape
     return (float(bsz * (ks * OPS_UPDATE_ROW + OPS_UPDATE_PAIR)),
             float(bsz * ks * (4 * ROW_WIDTH + 1) + bsz * 96 + 40))
+
+
+def knn_pairs_in_reach(pts, mask, k):
+    """Valid (row, column) pairs, summed over the clouds, in the column
+    tiles that the final lists do not cull (``knn_tiles_culled`` at each
+    row's K-th d2 of ``radius_neighbors_plain``): no column of a culled
+    tile can enter a list, so these are the distances the inputs need."""
+    from quatro_tpu_torch.ops import neighbors as nb
+
+    kth = nb.radius_neighbors_plain(pts, mask, 0.0, k).dist2[..., k - 1]
+    reach = ~nb.knn_tiles_culled(pts, mask, kth)
+    pad = -mask.shape[-1] % nb.KNN_TILE
+    cnt = torch.nn.functional.pad(mask.double(), (0, pad)).reshape(
+        *mask.shape[:-1], -1, nb.KNN_TILE).sum(-1)
+    return float(torch.einsum("bnt,bt->", reach.double(), cnt))
 
 
 def icp_library(name, args):
@@ -4431,8 +4476,9 @@ def icp_library(name, args):
 
 
 def icp_blocks(name, args):
-    """The blocks one launch runs (csrc/knn.cu: 16 rows a block of 512
-    threads; csrc/neighbor_normals.cu: 8 points a block of 256;
+    """The blocks one launch runs (csrc/knn.cu: 8 rows a block of 256
+    threads, one a warp, after a pre-pass of a block a super tile of 256
+    columns; csrc/neighbor_normals.cu: 8 points a block of 256;
     csrc/icp.cu: the correspondences a block of 128 a tile of 512 source
     rows and a slice of the targets, about four blocks an SM and no slice
     under 128 or over 1024 targets (quatro_icp_correspond's rule), the
@@ -4449,9 +4495,29 @@ def icp_blocks(name, args):
         blocks = bsz * tiles * splits
         return {"blocks": blocks, "target_slices": splits,
                 "sms": min(blocks, sms)}
-    per = {"radius_knn": 16, "neighbor_normals": 8}
+    per = {"radius_knn": 8, "neighbor_normals": 8}
     blocks = bsz * (-(-rows // per[name]) if name in per else 1)
     return {"blocks": blocks, "sms": min(blocks, sms)}
+
+
+def knn_culling(args, label):
+    """The lists kernel's tile culling on a recorded ``radius_knn`` call:
+    the (row, column tile) pairs it screened (its ``stats`` count) of all
+    rows x tiles, and the share culled; logged, and returned for the
+    kernel's row."""
+    from quatro_tpu_torch.ops.neighbors import KNN_TILE, radius_neighbors
+
+    pts, mask, radius, k = args[:4]
+    stats = torch.zeros(1, dtype=torch.int64, device=pts.device)
+    radius_neighbors(pts, mask, radius, k, stats=stats)
+    bsz, n = mask.shape
+    pairs = bsz * n * -(-n // KNN_TILE)
+    out = {"tile_pairs": pairs, "tile_pairs_screened": int(stats),
+           "tiles_culled_share": round(1.0 - int(stats) / pairs, 6)}
+    log(f"radius_knn ({label}, K = {k}, {bsz} x {n} rows): screened "
+        f"{out['tile_pairs_screened']} of {pairs} (row, column tile) pairs, "
+        f"culled share {out['tiles_culled_share']}")
+    return out
 
 
 def icp_kernel_rows(recs, main_launches, row):
@@ -4471,6 +4537,8 @@ def icp_kernel_rows(recs, main_launches, row):
                                                [:-3]),
                  "library": lib_label, "calls_path_a": len(recs[name]),
                  **icp_blocks(name, a)}
+        if name == "radius_knn":
+            extra.update(knn_culling(a, "path A"))
         row(name, 0.0, k_fn, p_fn, *icp_work(name, a), lib_fn,
             launches=main_launches[name], extra=extra)
 
@@ -6167,10 +6235,13 @@ def limit_kernel_rows(lrun, pair_a, cfg_a):
         args = (*a[:3], k, *a[4:])
         k_fn, p_fn = icp_fns("radius_knn", args, kw)
         lib_fn, lib_label = icp_library("radius_knn", args)
+        extra = {"shape": str(icp_shape("radius_knn", args)) + f", K {k}",
+                 "library": lib_label}
+        if k <= 256:
+            extra.update(icp_blocks("radius_knn", args))
+            extra.update(knn_culling(args, "path L"))
         wide("radius_knn", k_fn, p_fn, icp_work("radius_knn", args), lib_fn,
-             {"shape": str(icp_shape("radius_knn", args)) + f", K {k}",
-              "library": lib_label},
-             label=None if k == 96 else f"K = {k}")
+             extra, label=None if k == 96 else f"K = {k}")
         lists = NeighborLists(*k_fn())
         nargs = (a[0], lists)
         k_fn, p_fn = icp_fns("neighbor_normals", nargs, {})

@@ -79,7 +79,7 @@ SIGNATURES = {
                    _P, _P]),
     "cliques": ("quatro_kcore_search", [_P, _P, _I, _I, _I, _P, _P, _P, _P]),
     "knn": ("quatro_radius_knn", [_P, _P, _I, _I, _I, _F, _P, _P, _P, _P, _I,
-                                  _P]),
+                                  _P, _P, _P, _P]),
     "neighbor_normals": ("quatro_neighbor_normals",
                          [_P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _P, _P,
                           _P]),

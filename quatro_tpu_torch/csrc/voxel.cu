@@ -53,13 +53,27 @@
 //   order that keeps those above the threshold and the first ones at it.
 //   The same integers as the sorts, since the rank key orders by count
 //   and then by position.
-// - centroids: one thread a block of 16 sorted positions, every cloud in
-//   one launch: it gathers the payload through the order, writes the
-//   block's running sums (level 0) and its total; the last block of a
-//   cloud to finish (an integer ticket after a fence, set back to 0 by
-//   that block) sums the totals level by level in the same blocked order,
-//   then computes every slot from two level-0 running sums and two
-//   carries. The prefix is never formed at all n positions.
+// - centroids, two launches, every cloud in each, no state between calls:
+//   - voxel_levels_kernel, a CTA of 128 threads a span of 2048 positions
+//     (level 0 and level 1 of the blocked order): the CTA reads the span's
+//     keys and order coalesced, 16 rounds of 128 consecutive positions,
+//     all issued before the payload's 16 gathers through them, and stages
+//     the payload in shared memory (a row of 17 words a block of 16,
+//     against bank conflicts), with a boundary flag
+//     where a run ends (the last prefix position, or a run start after
+//     it); then a thread runs a block of 16 in order, writing its running
+//     sums (float4) only at the run ends, the positions a slot reads;
+//     then 8 threads run the span's 8 blocks of 16 level-0 totals, writing
+//     level 1's running sums (float4) and each block's total (level 2);
+//   - voxel_centroids_kernel, a CTA of 256 slots of a cloud: it completes
+//     the cloud's level 2 and above in shared memory (scan.cuh's
+//     scan_levels over the level-2 totals, at most 546 words an axis at
+//     a prefix of 2^17), then each slot's prefix at its two run ends from
+//     two level-0 and two level-1 running sums and its level-2 carries,
+//     each carry added as scan_levels adds it, and the centroid.
+//   The level-0 positions are read once and coalesced, the prefix is never
+//   written at every position, and the levels and slots spread over many
+//   CTAs.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -78,7 +92,6 @@ constexpr int kKeysThreads = 256;
 constexpr int kSelectThreads = 1024;
 constexpr int kSelectItems = 4;              // positions a thread per tile
 constexpr int kBinsPerThread = (1 << kCBits) / kSelectThreads;
-constexpr int kCentroidThreads = 256;
 
 __device__ __forceinline__ unsigned part1by2(unsigned v) {
   v &= 0x3ffu;
@@ -240,86 +253,157 @@ struct CentroidParams {
   int stride;     // N, the row length of key_s, order and payload
   int capacity;
   int m1;         // ceil(n / 16): level-0 blocks, the length of level 1
-  int words;      // the level words of one (cloud, axis): m1 + m2 + ...
+  int m2;         // ceil(m1 / 16): level-1 blocks, the length of level 2
+  int words2;     // level 2's words of one axis: m2 and the levels above it
   float leaf;
 };
 
-__global__ void __launch_bounds__(kCentroidThreads)
-voxel_centroids_kernel(const int* __restrict__ key_s, const long long* __restrict__ order,
-                       const int2* __restrict__ payload, const float* __restrict__ minb,
-                       const int* __restrict__ starts_top, const int* __restrict__ counts_top,
-                       const int* __restrict__ key_top, CentroidParams p,
-                       float* __restrict__ inner0, float* __restrict__ levels,
-                       int* __restrict__ ticket, float* __restrict__ out,
-                       bool* __restrict__ out_mask) {
-  __shared__ bool last;
+constexpr int kLevelThreads = 128;                    // a block of 16 positions a thread
+constexpr int kSpan = kLevelThreads * kScanBlock;     // 2048 positions a CTA
+constexpr int kSpanL1 = kLevelThreads / kScanBlock;   // 8 level-1 blocks a CTA
+constexpr int kSlotThreads = 256;
+constexpr int kEndBit = (int)0x80000000;              // a staged position ends a run
+
+// grid (ceil(n / 2048), C). w0 (C, n) float4: the level-0 running sums at
+// the run ends (elsewhere unwritten); w1 (C, m1) float4: level 1's running
+// sums inside its blocks of 16; l2 (C, 3, m2): level 2, each level-1
+// block's total.
+__global__ void __launch_bounds__(kLevelThreads)
+voxel_levels_kernel(const int* __restrict__ key_s, const long long* __restrict__ order,
+                    const int2* __restrict__ payload, CentroidParams p, float4* __restrict__ w0,
+                    float4* __restrict__ w1, float* __restrict__ l2) {
+  __shared__ int2 stage[kLevelThreads][kScanBlock + 1];
+  __shared__ float4 tot[kLevelThreads];
   const size_t c = blockIdx.y;
   const int tid = threadIdx.x;
   const int n = p.n;
-  float* in0 = inner0 + c * 3 * (size_t)n;
-  float* lv = levels + c * 3 * (size_t)p.words;
-
-  // level 0: a block of 16 sorted positions a thread
-  const int r = blockIdx.x * blockDim.x + tid;
+  const int base = blockIdx.x * kSpan;
+  const size_t row = c * (size_t)p.stride;
+  // the span, coalesced: (q x, q y) packed and q z, x = -1 at a sentinel or
+  // past n, kEndBit in y where a run ends
+  int kv[kScanBlock], nx[kScanBlock];
+  long long at[kScanBlock];
+#pragma unroll
+  for (int j = 0; j < kScanBlock; ++j) {
+    const int i = base + j * kLevelThreads + tid;
+    kv[j] = i < n ? key_s[row + i] : kSentinel;
+    nx[j] = i + 1 < n ? key_s[row + i + 1] : kSentinel;
+    at[j] = i < n ? order[row + i] : 0;
+  }
+#pragma unroll
+  for (int j = 0; j < kScanBlock; ++j) {
+    const int q = j * kLevelThreads + tid;
+    const int i = base + q;
+    int2 e = make_int2(-1, 0);
+    if (kv[j] != kSentinel) e = payload[row + at[j]];
+    if (i == n - 1 || (i < n && nx[j] != kSentinel && nx[j] != kv[j])) e.y |= kEndBit;
+    stage[q / kScanBlock][q % kScanBlock] = e;
+  }
+  __syncthreads();
+  // level 0: this thread's block of 16 in order
+  const int r = blockIdx.x * kLevelThreads + tid;
+  float s[3] = {0.0f, 0.0f, 0.0f};
   if (r < p.m1) {
-    const size_t row = c * (size_t)p.stride;
-    float s[3] = {0.0f, 0.0f, 0.0f};
-    const int end = min(n, (r + 1) * kScanBlock);
-    for (int i = r * kScanBlock; i < end; ++i) {
+    float4* out = w0 + c * (size_t)n;
+    for (int k = 0; k < kScanBlock; ++k) {
+      const int i = r * kScanBlock + k;
+      if (i >= n) break;
+      const int2 e = stage[tid][k];
       float f[3] = {0.0f, 0.0f, 0.0f};
-      if (key_s[row + i] != kSentinel) {
-        const int2 q = payload[row + order[row + i]];
-        f[0] = __fmul_rn((float)(q.x >> kFBits) + 0.5f, 1.0f / (1 << kFBits));
-        f[1] = __fmul_rn((float)(q.x & ((1 << kFBits) - 1)) + 0.5f, 1.0f / (1 << kFBits));
-        f[2] = __fmul_rn((float)q.y + 0.5f, 1.0f / (1 << kFBits));
+      if (e.x >= 0) {
+        f[0] = __fmul_rn((float)(e.x >> kFBits) + 0.5f, 1.0f / (1 << kFBits));
+        f[1] = __fmul_rn((float)(e.x & ((1 << kFBits) - 1)) + 0.5f, 1.0f / (1 << kFBits));
+        f[2] = __fmul_rn((float)(e.y & ((1 << kFBits) - 1)) + 0.5f, 1.0f / (1 << kFBits));
       }
 #pragma unroll
-      for (int d = 0; d < 3; ++d) {
-        s[d] = i == r * kScanBlock ? f[d] : __fadd_rn(s[d], f[d]);
-        in0[d * (size_t)n + i] = s[d];
-      }
+      for (int d = 0; d < 3; ++d) s[d] = k == 0 ? f[d] : __fadd_rn(s[d], f[d]);
+      if (e.y & kEndBit) out[i] = make_float4(s[0], s[1], s[2], 0.0f);
     }
-#pragma unroll
-    for (int d = 0; d < 3; ++d) lv[d * (size_t)p.words + r] = s[d];
   }
-  __threadfence();
+  tot[tid] = make_float4(s[0], s[1], s[2], 0.0f);
   __syncthreads();
-  if (tid == 0) last = atomicAdd(ticket + c, 1) == (int)gridDim.x - 1;
-  __syncthreads();
-  if (!last) return;
-  if (tid == 0) ticket[c] = 0;
-  __threadfence();
-
-  // levels 1, 2, ...: the block totals' prefix in the blocked order
-  scan::scan_levels(lv, p.words, 3, p.m1, [](const float* a) { return __ldcg(a); });
-
-  // the slots: each chosen run's sums from its two boundaries
-  const size_t slots = c * (size_t)p.capacity;
-  for (int j = tid; j < p.capacity; j += blockDim.x) {
-    const int count = __ldcg(counts_top + slots + j);
-    float o[3] = {0.0f, 0.0f, 0.0f};
-    if (count > 0) {
-      const int start = __ldcg(starts_top + slots + j);
-      const unsigned kk = (unsigned)__ldcg(key_top + slots + j);
-      const float cells[3] = {(float)compact1by2(kk), (float)compact1by2(kk >> 1),
-                              (float)compact1by2(kk >> 2)};
-      const float cnt = (float)count;
-#pragma unroll
-      for (int d = 0; d < 3; ++d) {
-        const float* a0 = in0 + d * (size_t)n;
-        const float* a1 = lv + d * (size_t)p.words;
-        const int last = start + count - 1;
-        const float hi = scan::prefix_at(__ldcg(a0 + last), a1, n, last);
-        const float lo =
-            start > 0 ? scan::prefix_at(__ldcg(a0 + start - 1), a1, n, start - 1) : 0.0f;
-        const float mean = __fdiv_rn(__fsub_rn(hi, lo), cnt);
-        o[d] = __fadd_rn(minb[3 * c + d], __fmul_rn(__fadd_rn(cells[d], mean), p.leaf));
+  // level 1: running sums inside each block of 16 totals, its total to level 2
+  if (tid < kSpanL1) {
+    const int g = blockIdx.x * kSpanL1 + tid;
+    const int r0 = g * kScanBlock;
+    if (r0 < p.m1) {
+      float t[3] = {0.0f, 0.0f, 0.0f};
+      for (int k = 0; k < kScanBlock && r0 + k < p.m1; ++k) {
+        const float4 v = tot[tid * kScanBlock + k];
+        t[0] = k == 0 ? v.x : __fadd_rn(t[0], v.x);
+        t[1] = k == 0 ? v.y : __fadd_rn(t[1], v.y);
+        t[2] = k == 0 ? v.z : __fadd_rn(t[2], v.z);
+        w1[c * (size_t)p.m1 + r0 + k] = make_float4(t[0], t[1], t[2], 0.0f);
       }
-    }
 #pragma unroll
-    for (int d = 0; d < 3; ++d) out[3 * (slots + j) + d] = o[d];
-    out_mask[slots + j] = count > 0;
+      for (int d = 0; d < 3; ++d) l2[(c * 3 + d) * (size_t)p.m2 + g] = t[d];
+    }
   }
+}
+
+// The prefix at position i of axis d: its level-0 running sum plus the
+// level-1 prefix of the block before (0.0 in the first block; none where
+// the prefix is at most 16 long), the level-1 prefix likewise from its
+// running sum and level 2's (lv: level 2's prefix of the axis); each
+// carry added as scan.cuh's scan_levels and prefix_at add it.
+__device__ __forceinline__ float prefix_of(const float4* __restrict__ w0,
+                                           const float4* __restrict__ w1, const float* lv,
+                                           int n, int m1, int i, int d) {
+  const float4 a = __ldg(w0 + i);
+  const float within = d == 0 ? a.x : (d == 1 ? a.y : a.z);
+  if (n <= kScanBlock) return within;
+  const int r = i / kScanBlock;
+  float carry = 0.0f;
+  if (r > 0) {
+    const float4 v = __ldg(w1 + (r - 1));
+    const float w = d == 0 ? v.x : (d == 1 ? v.y : v.z);
+    const int g = (r - 1) / kScanBlock;
+    carry = m1 <= kScanBlock ? w : __fadd_rn(w, g > 0 ? lv[g - 1] : 0.0f);
+  }
+  return __fadd_rn(within, carry);
+}
+
+// grid (ceil(capacity / 256), C); dynamic shared memory: 3 * words2 f32.
+__global__ void __launch_bounds__(kSlotThreads)
+voxel_centroids_kernel(const float* __restrict__ minb, const int* __restrict__ starts_top,
+                       const int* __restrict__ counts_top, const int* __restrict__ key_top,
+                       CentroidParams p, const float4* __restrict__ w0,
+                       const float4* __restrict__ w1, const float* __restrict__ l2,
+                       float* __restrict__ out, bool* __restrict__ out_mask) {
+  extern __shared__ float lv[];
+  const size_t c = blockIdx.y;
+  const int tid = threadIdx.x;
+  // level 2 and above: level 2's prefix in the blocked order
+  for (int i = tid; i < 3 * p.m2; i += kSlotThreads)
+    lv[(i / p.m2) * p.words2 + i % p.m2] = l2[c * 3 * (size_t)p.m2 + i];
+  __syncthreads();
+  scan::scan_levels(lv, p.words2, 3, p.m2, [](const float* a) { return *a; });
+  const int j = blockIdx.x * kSlotThreads + tid;
+  if (j >= p.capacity) return;
+  const size_t slot = c * (size_t)p.capacity + j;
+  const int count = counts_top[slot];
+  float o[3] = {0.0f, 0.0f, 0.0f};
+  if (count > 0) {
+    const int start = starts_top[slot];
+    const unsigned kk = (unsigned)key_top[slot];
+    const float cells[3] = {(float)compact1by2(kk), (float)compact1by2(kk >> 1),
+                            (float)compact1by2(kk >> 2)};
+    const float cnt = (float)count;
+    const float4* a0 = w0 + c * (size_t)p.n;
+    const float4* a1 = w1 + c * (size_t)p.m1;
+    const int last = start + count - 1;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      const float* l = lv + d * p.words2;
+      const float hi = prefix_of(a0, a1, l, p.n, p.m1, last, d);
+      const float lo = start > 0 ? prefix_of(a0, a1, l, p.n, p.m1, start - 1, d) : 0.0f;
+      const float mean = __fdiv_rn(__fsub_rn(hi, lo), cnt);
+      o[d] = __fadd_rn(minb[3 * c + d], __fmul_rn(__fadd_rn(cells[d], mean), p.leaf));
+    }
+  }
+#pragma unroll
+  for (int d = 0; d < 3; ++d) out[3 * slot + d] = o[d];
+  out_mask[slot] = count > 0;
 }
 
 }  // namespace vox
@@ -351,23 +435,36 @@ extern "C" int quatro_voxel_select(const int* key_s, int clouds, int stride, int
   return (int)cudaGetLastError();
 }
 
-// inner0: clouds * 3 * n f32 words of scratch; levels: clouds * 3 * words
-// (m1 + m2 + ... down to a level of at most 16); ticket: clouds ints that
-// are 0, and that the kernel leaves at 0.
+// w0: clouds * n float4 of scratch (only run ends written), w1: clouds *
+// m1 float4, l2: clouds * 3 * m2 f32, m1 = ceil(n / 16), m2 = ceil(m1 /
+// 16); words2: m2 and the levels above it (scan.cuh's scan_levels), whose
+// 3 * words2 f32 the slots kernel holds in shared memory.
 extern "C" int quatro_voxel_centroids(const int* key_s, const long long* order,
                                       const int2* payload, const float* minb,
                                       const int* starts_top, const int* counts_top,
                                       const int* key_top, int clouds, int stride, int n,
-                                      int capacity, int words, float leaf, float* inner0,
-                                      float* levels, int* ticket, float* out, bool* out_mask,
+                                      int capacity, int words2, float leaf, float* w0,
+                                      float* w1, float* l2, float* out, bool* out_mask,
                                       cudaStream_t stream) {
   using namespace quatro::vox;
   if (clouds <= 0 || n <= 0) return (int)cudaGetLastError();
   const int m1 = (n + kScanBlock - 1) / kScanBlock;
-  const CentroidParams p{n, stride, capacity, m1, words, leaf};
-  dim3 grid((m1 + kCentroidThreads - 1) / kCentroidThreads, clouds);
-  voxel_centroids_kernel<<<grid, kCentroidThreads, 0, stream>>>(
-      key_s, order, payload, minb, starts_top, counts_top, key_top, p, inner0, levels, ticket,
-      out, out_mask);
+  const int m2 = (m1 + kScanBlock - 1) / kScanBlock;
+  const CentroidParams p{n, stride, capacity, m1, m2, words2, leaf};
+  dim3 lgrid((n + kSpan - 1) / kSpan, clouds);
+  voxel_levels_kernel<<<lgrid, kLevelThreads, 0, stream>>>(
+      key_s, order, payload, p, reinterpret_cast<float4*>(w0), reinterpret_cast<float4*>(w1), l2);
+  int rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  const int smem = 3 * words2 * (int)sizeof(float);
+  if (smem > 48 * 1024) {
+    rc = (int)cudaFuncSetAttribute(voxel_centroids_kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (rc) return rc;
+  }
+  dim3 sgrid((capacity + kSlotThreads - 1) / kSlotThreads, clouds);
+  voxel_centroids_kernel<<<sgrid, kSlotThreads, smem, stream>>>(
+      minb, starts_top, counts_top, key_top, p, reinterpret_cast<const float4*>(w0),
+      reinterpret_cast<const float4*>(w1), l2, out, out_mask);
   return (int)cudaGetLastError();
 }

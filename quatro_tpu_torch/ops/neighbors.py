@@ -3,14 +3,17 @@ search (``quatro_tpu/ops/neighbors.py``): a brute-force distance matrix in
 place of the reference's kd-tree radius queries
 (src/teaser_utils/fpfh.cc:58-72).
 
-``radius_neighbors`` launches csrc/knn.cu for CUDA tensors (one launch for
-a batch of clouds, counted in ``LAUNCHES["radius_knn"]``) and runs
-``radius_neighbors_plain`` for CPU tensors; there is no fallback between
-the two, and they agree bit for bit on the card. Both take their distances
-in one stated arithmetic (``sq_norms``, ``ordered_sq_dists``): the JAX
-package's compiled program forms |a|^2 and the Gram product's three terms
-as fused multiply-adds (XLA's reduction and dot on the CPU), and on the
-VLP-16 test pair every row's neighbour list then equals its own.
+``radius_neighbors`` launches csrc/knn.cu for CUDA tensors (one call for
+a batch of clouds, counted in ``LAUNCHES["radius_knn"]``: up to K = 256
+a pre-pass and the list kernel, past it one block route)
+and runs ``radius_neighbors_plain`` for CPU tensors; there is no fallback
+between the two, and they agree bit for bit on the card. Both take their
+distances in one stated arithmetic (``sq_norms``, ``ordered_sq_dists``):
+the JAX package's compiled program forms |a|^2 and the Gram product's
+three terms as fused multiply-adds (XLA's reduction and dot on the CPU),
+and on the VLP-16 test pair every row's neighbour list then equals its
+own. The kernel screens pairs in f32 and skips column tiles by their
+boxes; ``knn_tiles_culled`` mirrors that predicate in torch.
 ``pairwise_sq_dists`` keeps the matrix product for the matcher.
 """
 
@@ -26,8 +29,13 @@ from quatro_tpu_torch.utils.fused import f32, fma
 
 _FLT_MAX = torch.finfo(torch.float32).max
 _TILE_ENTRIES = 1 << 25     # distances a tile of a batch holds at most
-KNN_MAX_K = 64              # the kernel's first list: two slots a lane
-KNN_SLOTS_MAX_K = 256       # its wide lists: four or eight slots a lane
+KNN_MAX_K = 64              # SIZE_ROUTES' split only: past it, over two
+# slots a lane (one kernel template serves every K to KNN_SLOTS_MAX_K)
+KNN_SLOTS_MAX_K = 256       # the warp route's widest: eight slots a lane
+KNN_TILE = 32               # columns a tile of the kernel's culling
+KNN_SUPER = 8               # tiles a super tile
+_SAFE_NORM = 2.0 ** 120     # the screen's norm limit (csrc/knn.cu)
+_SLACK = 2.0 ** -20
 _KNN_SORT_SMEM = 200 * 1024  # the block route's keys in shared memory
 _KNN_SORT_WORK = 1 << 28     # bytes of its global workspace at most
 
@@ -106,17 +114,21 @@ def radius_neighbors_plain(points: torch.Tensor, mask: torch.Tensor,
 
 
 def radius_neighbors(points: torch.Tensor, mask: torch.Tensor, radius: float,
-                     k: int, tile: int = 512) -> NeighborLists:
+                     k: int, tile: int = 512,
+                     stats: torch.Tensor | None = None) -> NeighborLists:
     """The K nearest neighbours within ``radius`` of every point, against
     the cloud itself; points (N, 3), mask (N,), or a batch of clouds
     (B, N, 3), (B, N): the K least keys (d2 bits, column) of each row over
     all columns, masked columns at the f32 maximum (so a row with fewer
     than K valid columns fills with masked ones in index order), self
-    first. For CUDA tensors one launch of csrc/knn.cu (a warp a row with
-    two slots a lane up to ``KNN_MAX_K``, past it the wide routes counted
-    in ``SIZE_ROUTES``: four or eight slots a lane up to
-    ``KNN_SLOTS_MAX_K``, then a block a row sorting the row's keys); for
-    CPU tensors ``radius_neighbors_plain`` (``tile`` is its row tile)."""
+    first. For CUDA tensors one call of csrc/knn.cu: up to
+    ``KNN_SLOTS_MAX_K`` the pre-pass (the columns, the tiles' bounds) and
+    the list kernel (a warp a row, ceil(K / 32) slots a lane; calls past
+    ``KNN_MAX_K`` counted "past" in ``SIZE_ROUTES``), then a block a row
+    sorting the row's keys; ``stats`` (a CUDA int64 tensor of
+    one element), where given, gets the (row, column tile) pairs the list
+    kernel screened. For CPU tensors ``radius_neighbors_plain`` (``tile``
+    is its row tile)."""
     n = points.shape[-2]
     if not 1 <= k <= n:
         raise ValueError(f"radius_neighbors: k = {k} of {n} points")
@@ -127,16 +139,75 @@ def radius_neighbors(points: torch.Tensor, mask: torch.Tensor, radius: float,
     check("points", points, (*lead, n, 3))
     check("mask", mask, (*lead, n), torch.bool)
     dev = points.device
+    if stats is not None:
+        check("stats", stats, (1,), torch.int64)
+        same_device(points, stats)
     idx = torch.empty((*lead, n, k), dtype=torch.int32, device=dev)
     valid = torch.empty((*lead, n, k), dtype=torch.bool, device=dev)
     d2 = torch.empty((*lead, n, k), dtype=torch.float32, device=dev)
     if bsz:
         work, blocks = knn_sort_plan(bsz * n, n, k, dev)
+        cols = bounds = 0
+        if k <= KNN_SLOTS_MAX_K:
+            tiles = -(-n // KNN_TILE)
+            cols = torch.empty((bsz, n, 4), dtype=torch.float32, device=dev)
+            bounds = torch.empty((bsz, tiles + -(-tiles // KNN_SUPER), 8),
+                                 dtype=torch.float32, device=dev)
         launch("knn", points, mask, bsz, n, k, f32(radius * radius), idx,
-               valid, d2, work, blocks)
+               valid, d2, work, blocks, cols, bounds,
+               0 if stats is None else stats)
         LAUNCHES["radius_knn"] += 1
         size_route("radius_knn", k > KNN_MAX_K)
     return NeighborLists(idx, valid, d2)
+
+
+def knn_tile_bounds(points: torch.Tensor, mask: torch.Tensor):
+    """csrc/knn.cu's pre-pass in torch: for (..., N, 3) points and (..., N)
+    masks, each tile of ``KNN_TILE`` columns' box of its valid points (lo
+    +inf and hi -inf where none is), the largest ``sq_norms`` among them
+    (0 where none) and whether one is unsafe (a norm past 2^120, an inf or
+    a NaN): (lo (..., T, 3), hi (..., T, 3), qmax (..., T), unsafe (...,
+    T))."""
+    n = points.shape[-2]
+    pad = -n % KNN_TILE
+    tiles = (n + pad) // KNN_TILE
+    m = torch.nn.functional.pad(mask, (0, pad)).reshape(
+        *mask.shape[:-1], tiles, KNN_TILE)
+    p = torch.nn.functional.pad(points, (0, 0, 0, pad)).reshape(
+        *points.shape[:-2], tiles, KNN_TILE, 3)
+    inf = torch.tensor(float("inf"), device=points.device)
+    lo = torch.where(m[..., None], p, inf).amin(-2)
+    hi = torch.where(m[..., None], p, -inf).amax(-2)
+    sq = sq_norms(p)
+    qmax = torch.where(m & ~sq.isnan(), sq, 0.0).amax(-1)
+    unsafe = (m & ~(sq <= _SAFE_NORM)).any(-1)
+    return lo, hi, qmax, unsafe
+
+
+def knn_tiles_culled(points: torch.Tensor, mask: torch.Tensor,
+                     kth_d2: torch.Tensor) -> torch.Tensor:
+    """csrc/knn.cu's culling predicate in torch: (..., N, T) bool, True
+    where row i may skip column tile t once the d2 of its list's K-th key
+    is ``kth_d2[..., i]``. The row and the tile are safe (no norm past
+    2^120, no inf or NaN), the K-th d2 is below the f32 maximum, and the
+    gap2 from the row's point to the tile's box, sq3 of max(0, lo - p,
+    p - hi) per axis, is above the screen's threshold (dK + 2^-20 (|p|^2
+    + the tile's largest |q|^2)) (1 + 2^-20) + 2^-100, each operation
+    rounded to f32 as the kernel rounds it."""
+    lo, hi, qmax, unsafe = knn_tile_bounds(points, mask)
+    p = points[..., :, None, :]
+    g = torch.clamp(torch.maximum(lo[..., None, :, :] - p,
+                                  p - hi[..., None, :, :]), min=0.0)
+    gap2 = (g[..., 0] * g[..., 0] + g[..., 1] * g[..., 1]) \
+        + g[..., 2] * g[..., 2]
+    sqp = sq_norms(points)
+    one = torch.ones((), dtype=torch.float32, device=points.device)
+    thr = ((kth_d2[..., None] + (_SLACK * one) * (sqp[..., None]
+                                                  + qmax[..., None, :]))
+           * ((1.0 + _SLACK) * one)) + (2.0 ** -100) * one
+    safe_row = (sqp <= _SAFE_NORM)[..., None]
+    return (safe_row & ~unsafe[..., None, :]
+            & (kth_d2 < _FLT_MAX)[..., None] & (gap2 > thr))
 
 
 def knn_sort_plan(rows: int, n: int, k: int, dev):

@@ -26,8 +26,10 @@ its sentinel is int32's max):
 - ``voxel_select``: a block a cloud, from the sorted keys to the chosen
   runs' starts, counts and keys by a counting selection (the JAX
   package's two sorts of rank keys give the same integers);
-- ``voxel_centroids``: the payload gathered through the sort's order, the
-  blocked prefix at the run boundaries only, and the centroids.
+- ``voxel_centroids``: two launches, the payload gathered through the
+  sort's order and the blocked prefix's lower levels by spans of 2048
+  positions (the level-0 running sums written at the run ends only),
+  then the upper levels and the centroids by tiles of 256 slots.
 
 For CUDA tensors a wrapper checks its inputs (ValueError), launches and
 counts the call in ``LAUNCHES``; for CPU tensors it runs its plain version
@@ -40,8 +42,7 @@ from __future__ import annotations
 
 import torch
 
-from quatro_tpu_torch.ops.launch import (LAUNCHES, check, launch, same_device,
-                                         stream_scratch)
+from quatro_tpu_torch.ops.launch import LAUNCHES, check, launch, same_device
 from quatro_tpu_torch.utils import fused
 from quatro_tpu_torch.utils.scan import BLOCK, prefix_at
 
@@ -53,6 +54,7 @@ _FSCALE = float(1 << _FBITS)
 _CBITS = 14                      # clamped occupancy bits in the rank key
 _PBITS = 17                      # position bits in the rank key
 SENTINEL = (1 << 31) - 1         # int32 max: invalid entries sort last
+_CENTROID_SMEM = 200 * 1024      # the centroid slots' level sums in shared memory
 
 
 def _part1by2(v: torch.Tensor) -> torch.Tensor:
@@ -324,9 +326,12 @@ def voxel_centroids(key_s, order, payload, minb, starts_top, counts_top,
     outputs of ``voxel_select`` and the active prefix ``n``; all
     contiguous. Each run's fraction sum is the difference of the
     prefix sum (in ``utils.scan.prefix_sum``'s order) at its two
-    boundaries. For CUDA tensors one launch of csrc/voxel.cu's centroid
-    kernel, bit for bit ``voxel_centroids_plain``, which runs for CPU
-    tensors."""
+    boundaries, so ``starts_top`` and ``counts_top`` must be runs of the
+    sorted keys, as ``voxel_select`` gives them. For CUDA tensors
+    csrc/voxel.cu's levels and centroid kernels (one call; no state kept
+    between calls), bit for bit ``voxel_centroids_plain``, which runs for
+    CPU tensors; an active prefix past about 4.1 million points (level
+    sums past 200 KB of shared memory) raises ValueError."""
     if key_s.dim() != 2:
         raise ValueError(f"key_s: expected (C, N), got {tuple(key_s.shape)}")
     clouds, stride = key_s.shape
@@ -349,15 +354,19 @@ def voxel_centroids(key_s, order, payload, minb, starts_top, counts_top,
     out_mask = torch.empty((clouds, capacity), dtype=torch.bool, device=dev)
     if clouds == 0:
         return out, out_mask
-    words = level_words(n)
-    inner0 = torch.empty((clouds, 3, n), dtype=torch.float32, device=dev)
-    levels = torch.empty((clouds, 3, words), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    tickets, _ = stream_scratch(dev, stream, clouds, 0)
+    m1 = -(-n // BLOCK)
+    m2 = -(-m1 // BLOCK)
+    words2 = m2 + (level_words(m2) if m2 > BLOCK else 0)
+    if 3 * words2 * 4 > _CENTROID_SMEM:
+        raise ValueError(f"voxel_centroids: an active prefix of {n} points "
+                         f"takes {3 * words2 * 4} bytes of level sums, past "
+                         f"the slots kernel's {_CENTROID_SMEM}")
+    w0 = torch.empty((clouds, n, 4), dtype=torch.float32, device=dev)
+    w1 = torch.empty((clouds, m1, 4), dtype=torch.float32, device=dev)
+    l2 = torch.empty((clouds, 3, m2), dtype=torch.float32, device=dev)
     launch("voxel_centroids", key_s, order, payload, minb, starts_top,
-           counts_top, key_top, clouds, stride, n, capacity, words,
-           fused.f32(voxel_size), inner0, levels, tickets, out, out_mask,
-           stream=stream)
+           counts_top, key_top, clouds, stride, n, capacity, words2,
+           fused.f32(voxel_size), w0, w1, l2, out, out_mask)
     LAUNCHES["voxel_centroids"] += 1
     return out, out_mask
 

@@ -22,7 +22,13 @@ Tolerances, and what was measured on these inputs:
   (measured: 3.4e-9 rad / 2.4e-7 m), inliers and rmse at the start pose
   (two iterations with the update gated off) equal and within 1e-5
   relative;
-- a batch of two: each row bit-equal to its own call.
+- a batch of two: each row bit-equal to its own call;
+- the lists kernel's culling (``knn_tiles_culled``, csrc/knn.cu): on the
+  clouds above and tests/torch_icp_cases.py's edge cases, no (row, column
+  tile) pair that the predicate skips at the final lists' K-th key holds
+  a key of ``radius_neighbors_plain``'s list, and no column that the f32
+  screen rules out has a key below the K-th (exact: a predicate, no
+  tolerance).
 """
 
 import math
@@ -41,6 +47,7 @@ from quatro_tpu.utils.se3 import rotate_points as jax_rotate
 
 import quatro_tpu_torch.config as tcfg
 from quatro_tpu_torch.ops import icp as ticp
+from quatro_tpu_torch.ops import neighbors as tnb
 from quatro_tpu_torch.ops.neighbors import (NeighborLists,
                                             radius_neighbors,
                                             radius_neighbors_plain)
@@ -49,8 +56,9 @@ from quatro_tpu_torch.ops.normals import (estimate_normals,
 from quatro_tpu_torch.solver.icp import refine_icp
 from quatro_tpu_torch.utils.se3 import rotation_geodesic_error
 
-from torch_icp_cases import (FEW_VALID, LIST_WIDTHS, correspond_args,
-                             dof_of, icp_clouds, list_masks)
+from torch_icp_cases import (FEW_VALID, LIST_EDGE_CASES, LIST_WIDTHS,
+                             correspond_args, dof_of, icp_clouds,
+                             list_edge_case, list_masks)
 
 
 @pytest.fixture(autouse=True)
@@ -146,6 +154,58 @@ def test_radius_neighbors_refuses_more_neighbours_than_points():
     pts = torch.zeros(5, 3)
     with pytest.raises(ValueError):
         radius_neighbors(pts, torch.ones(5, dtype=torch.bool), 1.0, 6)
+
+
+def _screen_passes(points, mask, kth_d2):
+    """(B, N, N) bool: the columns that csrc/knn.cu's f32 screen keeps for
+    each row at the K-th d2 ``kth_d2``: every column of an unsafe row or
+    tile (``knn_tile_bounds``), else a = sq3(p - q) <= thr, the culling
+    predicate's threshold with the column's tile maximum."""
+    lo, hi, qmax, unsafe = tnb.knn_tile_bounds(points, mask)
+    n = points.shape[-2]
+    tile = torch.arange(n) // tnb.KNN_TILE
+    d = points[..., :, None, :] - points[..., None, :, :]
+    a = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
+    sqp = tnb.sq_norms(points)
+    one = torch.ones(())
+    thr = ((kth_d2[..., None] + (tnb._SLACK * one) * (
+        sqp[..., None] + qmax[..., tile][..., None, :]))
+        * ((1.0 + tnb._SLACK) * one)) + (2.0 ** -100) * one
+    thr = torch.where((kth_d2 < tnb._FLT_MAX)[..., None], thr, float("inf"))
+    open_ = ~(sqp <= tnb._SAFE_NORM)[..., None] | unsafe[..., tile][..., None, :]
+    return open_ | (a <= thr)
+
+
+_CULL_CASES = ("as_is", "few_valid", *LIST_EDGE_CASES)
+
+
+@pytest.mark.parametrize("k", [48, 96])
+@pytest.mark.parametrize("case", _CULL_CASES)
+def test_radius_knn_culling_keeps_every_listed_key(clouds, case, k):
+    """csrc/knn.cu skips a (row, column tile) pair once gap2 from the row
+    to the tile's box is above the screen's threshold at the row's K-th
+    key, and screens out a column once a = |p - q|^2 in f32 is above it:
+    at the final lists' K-th key (the smallest any run reaches) neither
+    may drop a key of ``radius_neighbors_plain``'s lists. The ICP clouds
+    (Morton order) must cull most tiles, or the check says nothing."""
+    if case in ("as_is", "few_valid"):
+        vox, vmask, _, _ = clouds
+        pts, mask = vox, list_masks(vmask)[case]
+    else:
+        pts, mask = list_edge_case(case)
+    lists = radius_neighbors_plain(pts, mask, 0.5, k)
+    kth = lists.dist2[..., k - 1]
+    culled = tnb.knn_tiles_culled(pts, mask, kth)
+    assert culled.shape == (*mask.shape, -(-mask.shape[-1] // tnb.KNN_TILE))
+    listed = culled.gather(-1, lists.idx.long() // tnb.KNN_TILE)
+    assert not listed.any()
+    passes = _screen_passes(pts, mask, kth)
+    listed_valid = mask.gather(-1, lists.idx.long().flatten(-2)).view_as(
+        lists.idx)
+    assert passes.gather(-1, lists.idx.long())[listed_valid].all()
+    if case == "as_is":
+        assert culled.float().mean() > 0.5
+        assert not passes.all()
 
 
 # --------------------------------------------------------------- normals --

@@ -36,6 +36,7 @@ from torch_clique_cases import (GRAPHS, clique_stage_calls, distinct_case,
                                 graph_case, miss_one_batch,
                                 plain_clique_route, wide_graphs)
 from torch_czm_cases import CZM_CONFIGS, czm_specials
+from torch_icp_cases import LIST_EDGE_CASES, list_edge_case
 from torch_polish_cases import CASES as POLISH_CASES
 from torch_polish_cases import (cote_tie_case, plain_polish_route,
                                 polish_case, solution_fields, solve_case)
@@ -2580,7 +2581,7 @@ def icp_card(dev):
     return vox, vmask, gt, cfg, estimate_normals_plain(vox[1], nbrs)
 
 
-@pytest.mark.parametrize("k", [48, 1, 32, 33, 64])
+@pytest.mark.parametrize("k", [48, 1, 32, 33, 64, 65, 96, 128, 256])
 @pytest.mark.parametrize("case", ["as_is", "few_valid", "all_masked"])
 def test_radius_knn_kernel(dev, icp_card, case, k):
     """csrc/knn.cu on a batch of two clouds, one launch, every output bit
@@ -2601,20 +2602,71 @@ def test_radius_knn_kernel(dev, icp_card, case, k):
 
 
 def test_radius_knn_kernel_odd_shapes(dev):
-    """Clouds whose sizes are no multiple of a block's rows or of a staged
-    chunk (N = 5, 517, 1500), points on a coarse grid (equal distances:
-    the lower index wins), K up to N."""
+    """Clouds whose sizes are no multiple of a block's rows, of a column
+    tile or of a super tile (N = 5, 517, 1500, and 16384, path L's size),
+    points on a coarse grid in random order (equal distances: the lower
+    index wins; culling rarely applies), B = 3, K up to N across every
+    slot count of the warp route (1 to 8 slots a lane)."""
     from quatro_tpu_torch.ops.neighbors import (radius_neighbors,
                                                 radius_neighbors_plain)
     rng = np.random.default_rng(23)
-    for n in (5, 517, 1500):
+    for n in (5, 517, 1500, 16384):
         pts = torch.from_numpy(rng.integers(-4, 5, (3, n, 3)).astype(
             np.float32) * 0.25).to(dev)
         mask = torch.from_numpy(rng.random((3, n)) < 0.8).to(dev)
-        for k in sorted({1, min(n, 48), min(n, 64)}):
+        for k in sorted({min(n, k) for k in (1, 32, 33, 48, 64, 65, 96,
+                                             128, 129, 160, 192, 224,
+                                             256)}):
             got = radius_neighbors(pts, mask, 0.6, k)
             ref = radius_neighbors_plain(pts, mask, 0.6, k)
             assert all(_bits(g, e) for g, e in zip(got, ref)), (n, k)
+
+
+@pytest.mark.parametrize("k", [1, 33, 48, 96, 256])
+@pytest.mark.parametrize("case", LIST_EDGE_CASES)
+def test_radius_knn_redesign_edges(dev, case, k):
+    """The lists' f32 screen and tile culling at their edges
+    (tests/torch_icp_cases.py::list_edge_case, B = 3): a cloud in random
+    order and at 1e6 scale, duplicated points and a coarse grid, NaN and
+    inf points (valid and masked), coordinates past 2^60 and norms near
+    and past 2^120, coordinates near 1e-21; one launch, every output bit
+    for bit the plain version on the card, and a second launch the same
+    bits."""
+    from quatro_tpu_torch.ops.neighbors import (radius_neighbors,
+                                                radius_neighbors_plain)
+    pts, mask = list_edge_case(case, dev)
+    launch.reset_launches()
+    got = radius_neighbors(pts, mask, 0.5, k)
+    assert launch.LAUNCHES["radius_knn"] == 1
+    ref = radius_neighbors_plain(pts, mask, 0.5, k)
+    assert all(_bits(g, e) for g, e in zip(got, ref))
+    again = radius_neighbors(pts, mask, 0.5, k)
+    assert all(_bits(g, e) for g, e in zip(got, again))
+
+
+def test_radius_knn_culls_tiles(dev, icp_card):
+    """On ICP's voxels (Morton order) at K = 48 the kernel screens fewer
+    than half of the (row, column tile) pairs, its count (``stats``) is the
+    same in two launches, and the lists are the same with and without
+    the count; on a shuffled cloud it screens nearly all of them."""
+    from quatro_tpu_torch.ops.neighbors import KNN_TILE, radius_neighbors
+    from torch_icp_cases import list_edge_case
+    vox, vmask, _, cfg, _ = icp_card
+    r = cfg.fpfh.normal_radius
+    counts = []
+    for _ in range(2):
+        stats = torch.zeros(1, dtype=torch.int64, device=dev)
+        got = radius_neighbors(vox, vmask, r, 48, stats=stats)
+        counts.append(int(stats))
+    n = vox.shape[1]
+    pairs = vox.shape[0] * n * -(-n // KNN_TILE)
+    assert counts[0] == counts[1] and 0 < counts[0] < pairs // 2
+    assert all(_bits(g, e) for g, e in zip(got, radius_neighbors(
+        vox, vmask, r, 48)))
+    pts, mask = list_edge_case("random_order", dev)
+    stats = torch.zeros(1, dtype=torch.int64, device=dev)
+    radius_neighbors(pts[2:], mask[2:], r, 48, stats=stats)
+    assert int(stats) > 0.9 * n * -(-n // KNN_TILE)
 
 
 @pytest.mark.parametrize("k", [48, 1, 16, 33, 64])
@@ -3074,6 +3126,72 @@ def test_voxel_centroids_kernel(dev, case):
         assert _bits(g, a), what
         assert _bits(g, r), what
         assert _bits(g.cpu(), h), what
+
+
+def _centroids_hold(pts, mask, cap, n):
+    """The centroid kernel on the plain route's chosen runs at active
+    prefix n: one call, centroids and mask bit for bit its plain version
+    on the card and on CPU copies, and a second call in a row the same."""
+    from quatro_tpu_torch.ops import voxel
+    minb, key_s, order, payload = _voxel_sorted(pts, mask)
+    sel = voxel.voxel_select_plain(key_s, n, cap)
+    args = (key_s, order, payload, minb, *sel, n, VOXEL)
+    before = launch.LAUNCHES["voxel_centroids"]
+    got = voxel.voxel_centroids(*args)
+    again = voxel.voxel_centroids(*args)
+    torch.cuda.synchronize()
+    assert launch.LAUNCHES["voxel_centroids"] == before + 2
+    ref = voxel.voxel_centroids_plain(*args)
+    cpu = voxel.voxel_centroids_plain(*(a.cpu() if torch.is_tensor(a) else a
+                                        for a in args))
+    for what, g, a, r, h in zip(("centroids", "mask"), got, again, ref, cpu):
+        assert _bits(g, a), what
+        assert _bits(g, r), what
+        assert _bits(g.cpu(), h), what
+    return sel
+
+
+def _long_runs_cloud(dev, clouds=1):
+    """32768 points in about ten voxels (a few land in a neighbouring
+    cell), 20000 in the first (a count past 16383), in random order: runs
+    of 1400-20000 sorted positions across the levels kernel's spans of
+    2048."""
+    rng = np.random.default_rng(31)
+    sizes = [20000] + [1419] * 8 + [32768 - 20000 - 8 * 1419]
+    cells = np.arange(10)[:, None] * np.array([3, 1, 2]) + 1
+    xyz = np.concatenate([(c + 0.3) * VOXEL + rng.uniform(0.0, 0.12, (k, 3))
+                          for c, k in zip(cells, sizes)])
+    xyz = np.stack([xyz[rng.permutation(len(xyz))] for _ in range(clouds)])
+    pts = torch.from_numpy(xyz.astype(np.float32)).to(dev)
+    return pts, torch.ones(pts.shape[:2], dtype=torch.bool, device=dev)
+
+
+@pytest.mark.parametrize("n", [1, 16, 17, 2047, 2048, 2049, 4097, 32768])
+def test_voxel_centroids_redesign_edges(dev, n):
+    """The two centroid kernels at the edges of their layout: an active
+    prefix of one point, of one block of 16 (one sequential run, no
+    carry) and one past it, a span of 2048 positions and one either side,
+    runs across spans and a count past 16383, more slots (64) than runs;
+    bit for bit the plain version, two calls in a row alike."""
+    pts, mask = _long_runs_cloud(dev)
+    sel = _centroids_hold(pts, mask, 64, n)
+    assert int((sel[1] > 0).sum()) < 64
+    if n == 32768:
+        assert int(sel[1].max()) == 20000
+
+
+def test_voxel_centroids_128_clouds(dev):
+    """128 clouds in one call (path P's B = 64 grid): the VLP-16 scan's
+    random subsets of 8192 points and one all-masked cloud at an active
+    prefix of 4096, 1024 slots, bit for bit the plain version."""
+    rng = np.random.default_rng(32)
+    scan, valid, _, _ = voxel_case("no_active_cap")
+    scan = scan[0][valid[0]]
+    pts = torch.from_numpy(np.stack([
+        scan[rng.permutation(len(scan))[:8192]] for _ in range(128)])).to(dev)
+    mask = torch.from_numpy(rng.random((128, 8192)) < 0.95).to(dev)
+    mask[77] = False
+    _centroids_hold(pts, mask, 1024, 4096)
 
 
 @pytest.mark.parametrize("case", VOXEL_ROUTE_CASES)

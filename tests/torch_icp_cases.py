@@ -27,6 +27,8 @@ FEW_VALID = 20          # a cloud with fewer valid points than a list holds
 # the list widths the kernels are held at besides the configured 48: one
 # slot, a lane's slots exactly, one past them, the kernel's most
 LIST_WIDTHS = (1, 32, 33, 64)
+# the neighbour lists' edge cases (list_edge_case), three clouds each
+LIST_EDGE_CASES = ("random_order", "duplicates", "specials", "huge", "tiny")
 
 
 @functools.lru_cache(maxsize=None)
@@ -62,6 +64,69 @@ def list_masks(vmask):
     none = vmask.clone()
     none[1] = False
     return {"as_is": vmask, "few_valid": few, "all_masked": none}
+
+
+def list_edge_case(name, device="cpu"):
+    """(points (3, V, 3), mask (3, V)) on ``device``: three clouds made
+    from the target's voxels (V = 2048), for the lists' f32 screen and
+    tile culling (csrc/knn.cu):
+    - "random_order": the voxels shuffled, the same scaled by 1e6 (large
+      coordinates), and points uniform in a 40 m cube (no spatial order:
+      culling rarely applies);
+    - "duplicates": each voxel twice in a row, a coarse grid of spacing
+      0.25 m, and one point repeated (ties: the lower index wins);
+    - "specials": NaN and inf coordinates on valid and masked points, a
+      row of NaN, and a cloud whose valid points are all inf or NaN;
+    - "huge": a few points past 2^60 among the voxels, the voxels scaled
+      by 2^50 (norms near the screen's 2^120 limit), and by 2^62 (past it);
+    - "tiny": the voxels scaled by 1e-21 (squares below the normal range),
+      by 1e-19, and mixed with points at 1e-21.
+    Masks: the voxels' own, with a tenth of the points masked at random."""
+    vox, vmask = (t.numpy() for t in icp_clouds()[:2])
+    rng = np.random.default_rng(40 + LIST_EDGE_CASES.index(name))
+    base, bmask = vox[1].astype(np.float32), vmask[1]
+    v = base.shape[0]
+    with np.errstate(all="ignore"):
+        if name == "random_order":
+            perm = rng.permutation(v)
+            clouds = [base[perm], base[perm] * np.float32(1e6),
+                      rng.uniform(-20.0, 20.0, (v, 3))]
+        elif name == "duplicates":
+            clouds = [np.repeat(base[: v // 2], 2, 0),
+                      rng.integers(-4, 5, (v, 3)) * 0.25,
+                      np.broadcast_to(base[7], (v, 3))]
+        elif name == "specials":
+            a = base.copy()
+            a[rng.choice(v, 40, replace=False)] = np.nan
+            a[rng.choice(v, 40, replace=False), rng.integers(0, 3, 40)] = \
+                np.inf
+            a[rng.choice(v, 10, replace=False), 2] = -np.inf
+            b = base.copy()
+            b[100] = np.nan
+            c = np.full((v, 3), np.inf, np.float32)
+            c[::3] = np.nan
+            clouds = [a, b, c]
+        elif name == "huge":
+            a = base.copy()
+            a[rng.choice(v, 30, replace=False)] = rng.uniform(
+                2.0 ** 60, 2.0 ** 61, (30, 3))
+            clouds = [a, base * np.float32(2.0 ** 50),
+                      base * np.float32(2.0 ** 62)]
+        elif name == "tiny":
+            a = base.copy()
+            a[rng.choice(v, 200, replace=False)] = rng.uniform(
+                -1e-21, 1e-21, (200, 3))
+            clouds = [base * np.float32(1e-21), base * np.float32(1e-19), a]
+        else:
+            raise KeyError(name)
+    pts = np.stack([np.asarray(c, np.float32) for c in clouds])
+    mask = np.stack([bmask] * 3) & (rng.random((3, v)) >= 0.1)
+    if name == "duplicates":
+        mask[1:] = rng.random((2, v)) >= 0.1
+    if name == "specials":
+        mask[2] = True
+    return (torch.from_numpy(pts).to(device),
+            torch.from_numpy(mask).to(device))
 
 
 def init_poses(gt, device="cpu"):
